@@ -1,0 +1,94 @@
+"""Intra-partition solver: the paper's "Dijkstra within each node" as
+iterated frontier-masked relaxation to a local fixpoint.
+
+Port of the reference's ``core/local_solver.py`` (``bellman`` and
+``pallas``). Every function takes the ``sim`` backend's stacked state:
+dist/active ``[P, K, block]``, the Trishla mask ``pruned_loc [P, e_loc]``.
+Each (shard, query) row iterates on its own, as the reference's vmapped
+``while_loop`` lanes do.
+
+- ``bellman``: each step relaxes the local edges whose source improved in
+  the previous step (gather + scatter-min), until no row has a frontier.
+- ``pallas``: the dst-tiled relax kernel run as a fused multi-sweep
+  fixpoint (``kernels/relax``), re-invoked from a host loop on the
+  residual frontier until every shard's frontier is empty.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import phases
+from repro_torch.kernels.common import INF, scatter_min_drop, take_fill
+from repro_torch.kernels.relax import (fixpoint_operands,
+                                       relax_dst_tiled_fixpoint_batch)
+
+
+class LocalResult(NamedTuple):
+    dist: torch.Tensor         # [P, K, block] f32
+    relaxations: torch.Tensor  # [P, K] int32 edge relaxations performed
+
+
+def _sweep(dist, frontier, loc_src, loc_dst, w):
+    """One masked relaxation sweep over every row. Returns (dist',
+    new_frontier, n_relax [P, K])."""
+    src = loc_src[:, None, :]
+    src_ok = take_fill(frontier, src, False)
+    d_src = take_fill(dist, src, INF)
+    cand = torch.where(src_ok, d_src + w[:, None, :], INF)
+    new = scatter_min_drop(dist, loc_dst[:, None, :], cand)
+    n_relax = (src_ok & (w[:, None, :] < INF)).sum(-1, dtype=torch.int32)
+    return new, new < dist, n_relax
+
+
+@phases.register("local_solver", "bellman")
+def local_fixpoint_bellman(dist, active, sh, pruned_loc, *,
+                           max_iters: int, sweeps: int) -> LocalResult:
+    """Relax frontier edges until no local change. A row whose step budget
+    ``max_iters`` is spent stops with its frontier, as the reference's
+    lane does."""
+    w = torch.where(pruned_loc, INF, sh.loc_w)
+    it = torch.zeros(active.shape[:2], dtype=torch.int32, device=dist.device)
+    nrel = torch.zeros_like(it)
+    frontier = active
+    while True:
+        run = frontier.any(-1) & (it < max_iters)          # [P, K]
+        if not bool(run.any()):
+            break
+        new, new_front, n = _sweep(dist, frontier & run[..., None],
+                                   sh.loc_src, sh.loc_dst, w)
+        dist = new
+        frontier = torch.where(run[..., None], new_front, frontier)
+        nrel += n
+        it += run.to(torch.int32)
+    return LocalResult(dist=dist, relaxations=nrel)
+
+
+@phases.register("local_solver", "pallas")
+def local_fixpoint_pallas(dist, active, sh, pruned_loc, *, max_iters: int,
+                          sweeps: int) -> LocalResult:
+    """Fused kernel fixpoint over the dst-tiled layout ``sh.rx_*``: up to
+    ``sweeps`` sweeps per launch, relaunched while any shard has a residual
+    frontier. A shard stops once its frontier is empty or it has run
+    ``max_iters`` sweeps (the reference's per-shard loop condition); a
+    stopped shard gets an empty frontier in later launches, which makes
+    its kernel rows no-ops."""
+    block = dist.shape[-1]
+    src_t, w_t, dstrel_t, eid_t = sh.relax_layout
+    d, front, pruned_t = fixpoint_operands(dist, active, pruned_loc, eid_t,
+                                           src_t.shape[1] * sh.rx_vb)
+    P, K = d.shape[:2]
+    nrel = torch.zeros((P, K), dtype=torch.int32, device=d.device)
+    it = torch.zeros((P,), dtype=torch.int32, device=d.device)
+    while True:
+        run = (front > 0).flatten(1).any(-1) & (it < max_iters)   # [P]
+        if not bool(run.any()):
+            break
+        d, resid, n = relax_dst_tiled_fixpoint_batch(
+            d, front * run[:, None, None], src_t, w_t, dstrel_t, pruned_t,
+            vb=sh.rx_vb, n_sweeps=sweeps)
+        front = torch.where(run[:, None, None], resid, front)
+        nrel += n
+        it += sweeps * run.to(torch.int32)
+    return LocalResult(dist=d[..., :block], relaxations=nrel)

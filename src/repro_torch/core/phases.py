@@ -1,0 +1,71 @@
+"""Backend registry for the SP-Async round pipeline.
+
+Maps ``(phase, backend_name) -> implementation`` so ``SsspConfig``
+validates every backend name eagerly and the round is built by resolution.
+The phases and config keys are the reference's (``core/phases.py``), so one
+config dict drives both packages:
+
+  ============== ======================= ==================================
+  phase          config key              backends ported in this package
+  ============== ======================= ==================================
+  round          ``cfg.round``           staged
+  local_solver   ``cfg.local_solver``    bellman | pallas
+  send           ``cfg.send_backend``    xla | pallas
+  exchange       ``cfg.exchange``        bucket
+  merge          ``cfg.merge_backend``   xla | pallas
+  toka           ``cfg.toka``            toka0
+  warm_init      ``cfg.warm_start``      none
+  ============== ======================= ==================================
+
+``pallas`` selects the hand-written CUDA kernel (its plain PyTorch version
+on CPU tensors); ``xla`` selects plain PyTorch ops. The reference's other
+backends are known here and raise ``NotImplementedError`` naming the
+ROADMAP item that ports them; unknown names raise ``ValueError``.
+"""
+from __future__ import annotations
+
+_REGISTRY: dict[str, dict[str, object]] = {}
+
+# reference backends not ported yet -> the ROADMAP item that ports them
+NOT_PORTED: dict[tuple[str, str], str] = {
+    ("round", "fused"): "Queue 1 item 5 (fused round)",
+    ("local_solver", "delta"): "Queue 1 item 6 (rest of the engine)",
+    ("toka", "toka1"): "Queue 1 item 6 (rest of the engine)",
+    ("toka", "toka2"): "Queue 1 item 7 (termination breadth)",
+    ("toka", "toka3"): "Queue 1 item 7 (termination breadth)",
+    ("warm_init", "landmark"): "Queue 1 item 6 (rest of the engine)",
+    **{("exchange", ex): "Queue 1 item 7 (exchange breadth)"
+       for ex in ("pmin", "a2a_dense", "async", "async_bucket",
+                  "async_ppermute")},
+}
+
+
+def register(phase: str, name: str):
+    """Decorator: register ``obj`` as backend ``name`` of ``phase``."""
+
+    def deco(obj):
+        _REGISTRY.setdefault(phase, {})[name] = obj
+        return obj
+
+    return deco
+
+
+def resolve(phase: str, name: str):
+    """Look up a backend. A reference backend this package has not ported
+    raises ``NotImplementedError``; an unknown name raises ``ValueError``
+    listing the valid options."""
+    impls = _REGISTRY.get(phase, {})
+    if name in impls:
+        return impls[name]
+    if (phase, name) in NOT_PORTED:
+        raise NotImplementedError(
+            f"{phase} backend {name!r} is not ported yet: ROADMAP "
+            f"{NOT_PORTED[phase, name]}")
+    raise ValueError(
+        f"unknown {phase} backend {name!r}; valid: {sorted(impls)}")
+
+
+def validate(phase: str, name: str) -> str:
+    """``resolve`` for its side effect only; returns ``name`` unchanged."""
+    resolve(phase, name)
+    return name

@@ -1,0 +1,325 @@
+"""SP-Async round (paper Algorithm 2) on the single-device ``sim`` backend,
+batched over a query axis.
+
+Port of the staged round of the reference's ``core/sssp.py``. All P shards
+are stacked on one device (the reference's ``sim`` backend, which on one
+GPU is the production path): per-shard state is ``[P, K, ...]`` and the
+exchange is a transpose. One round:
+
+  1. *Local phase*: every shard with a live frontier in any query runs its
+     local solver to a fixpoint; idle shards evaluate a chunk of Trishla
+     triangle candidates instead (only they advance their cursor).
+  2. *Send phase*: cut-edge candidates are min-reduced per message slot,
+     masked against ``last_sent``, and routed into the bucketed
+     ``[P, K, P, C]`` payload.
+  3. *Exchange*: ``SimComm.exchange_bucket``, a transpose of the shard axes.
+  4. *Merge phase*: incoming messages scatter-min into ``dist``; improved
+     vertices form the next frontier.
+  5. *toka0*: a query is done once no shard has a frontier for it.
+
+Phase backends resolve through ``core/phases.py`` from the reference's
+config names: ``xla`` is plain PyTorch ops, ``pallas`` the hand-written
+CUDA kernel (its plain PyTorch version on CPU tensors).
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.core import phases, trishla
+from repro_torch.core import local_solver  # noqa: F401  (registers the solvers)
+from repro_torch.core.shards import SsspShards
+from repro_torch.kernels.common import INF, scatter_min_drop, take_fill
+from repro_torch.kernels.merge import merge_scatter
+from repro_torch.kernels.send import send_pack, send_payload_bucket
+
+
+@dataclasses.dataclass(frozen=True)
+class SsspConfig:
+    """The reference's config fields and values. Values this package has
+    not ported raise ``NotImplementedError`` naming their ROADMAP item;
+    ``pallas_interpret`` is accepted and has no effect."""
+    exchange: str = "bucket"
+    toka: str = "toka0"
+    async_lag: int = 1
+    local_solver: str = "bellman"   # bellman | pallas
+    send_backend: str = "xla"       # xla | pallas
+    merge_backend: str = "xla"      # xla | pallas
+    round: str = "staged"
+    warm_start: str = "none"
+    delta: float = 4.0
+    local_iters: int = 10_000
+    pallas_sweeps: int = 8          # relaxation sweeps per relax launch
+    pallas_interpret: bool = True
+    prune_online: bool = True       # Trishla in the idle branch
+    prune_offline_passes: int = 0   # vectorized Trishla before the solve
+    tri_chunk: int = 256
+    max_rounds: int = 100_000
+    faults: Any = None
+    toka3_safety: float = 2.0
+
+    def __post_init__(self):
+        phases.validate("exchange", self.exchange)
+        phases.validate("toka", self.toka)
+        phases.validate("local_solver", self.local_solver)
+        phases.validate("send", self.send_backend)
+        phases.validate("merge", self.merge_backend)
+        phases.validate("round", self.round)
+        phases.validate("warm_init", self.warm_start)
+        if self.faults is not None:
+            raise NotImplementedError(
+                "fault injection is not ported yet: ROADMAP Queue 1 item 7")
+        if self.async_lag != 1:
+            raise ValueError("async_lag only applies to the deferred "
+                             "exchanges, which are not ported yet")
+        if self.pallas_sweeps < 1:
+            raise ValueError("pallas_sweeps must be >= 1")
+
+
+class SsspStats(NamedTuple):
+    rounds: Any              # outer rounds until the LAST query converged
+    relaxations: Any         # total edge relaxations (TEPS numerator)
+    msgs_sent: Any
+    msgs_recv: Any
+    pruned_edges: Any
+    q_rounds: Any = None       # [K] rounds each query was live
+    q_relaxations: Any = None  # [K] edge relaxations per query
+    q_converged: Any = None    # [K] certified-converged mask
+    stale_merges: Any = None   # 0: no deferred exchange or faults here
+    resends: Any = None        # 0: no anti-entropy here
+    n_dispatches: Any = None   # data-plane dispatches (rounds x 4)
+    overlap_rounds: Any = None  # 0: synchronous exchange
+    bytes_moved: Any = None    # logical payload bytes on the wire
+
+
+class _Carry(NamedTuple):
+    dist: torch.Tensor         # [P, K, block]
+    active: torch.Tensor       # [P, K, block] bool frontier
+    pruned: torch.Tensor       # [P, e_loc + e_cut] bool (query-invariant)
+    tri_cursor: torch.Tensor   # [P] int32
+    last_sent: torch.Tensor    # [P, K, S]
+    done: torch.Tensor         # [P, K] bool converged-query mask
+    rounds: int
+    q_rounds: torch.Tensor     # [P, K] int32
+    relaxations: torch.Tensor  # [P, K] int32
+    msgs_sent: torch.Tensor    # [P, K] int32
+    msgs_recv: torch.Tensor    # [P, K] int32
+    comm_bytes: torch.Tensor   # scalar int32
+
+
+# --------------------------------------------------------------------------
+# phases (stacked over shards)
+# --------------------------------------------------------------------------
+
+def _phase_local(sh: SsspShards, dist, active, pruned, cursor, cfg):
+    """Busy shards (a frontier in any query) solve; idle shards run a
+    Trishla chunk instead, the branches of the reference's ``lax.cond``.
+    Returns (dist, pruned, cursor, relaxations [P, K])."""
+    solve = phases.resolve("local_solver", cfg.local_solver)
+    res = solve(dist, active, sh, pruned[:, :sh.e_loc],
+                max_iters=cfg.local_iters, sweeps=cfg.pallas_sweeps)
+    if not cfg.prune_online:
+        return res.dist, pruned, cursor, res.relaxations
+    # an idle shard has no frontier, so its solve above was a no-op
+    idle = ~active.flatten(1).any(-1)                       # [P]
+    w_all = torch.cat([sh.loc_w, sh.cut_w], dim=1)
+    new_pruned, new_cursor, _ = trishla.prune_chunk(
+        w_all, pruned, cursor, sh.tri_uj, sh.tri_ui, sh.tri_ij, sh.tri_valid,
+        cfg.tri_chunk)
+    return (res.dist, torch.where(idle[:, None], new_pruned, pruned),
+            torch.where(idle, new_cursor, cursor), res.relaxations)
+
+
+def _bucket_payload(sh: SsspShards, send_val):
+    """Masked slot values [P, K, S] -> bucketed payload [P, K, P, C] by a
+    scatter-min at the static (slot_owner, slot_pos) positions."""
+    P, K, _ = send_val.shape
+    C = sh.bucket_cap
+    flat = (sh.slot_owner.long() * C + sh.slot_pos.long())[:, None, :]
+    payload = torch.full((P, K, P * C), INF, device=send_val.device)
+    payload.scatter_reduce_(-1, flat.expand(P, K, -1), send_val, "amin")
+    return payload.reshape(P, K, P, C)
+
+
+@phases.register("send", "xla")
+def _phase_send_xla(sh: SsspShards, dist, pruned, last_sent):
+    """Per-slot segment-min of the cut-edge candidates + improvement
+    masking. Returns (payload [P, K, P, C], last_sent' [P, K, S], sends
+    [P, K])."""
+    S = sh.n_slots
+    w_cut = torch.where(pruned[:, sh.e_loc:], INF, sh.cut_w)      # [P, e_cut]
+    cand = take_fill(dist, sh.cut_src[:, None, :], INF) + w_cut[:, None, :]
+    slot_val = scatter_min_drop(
+        torch.full((*dist.shape[:2], S), INF, device=dist.device),
+        sh.cut_seg[:, None, :], cand)       # empty slots stay +inf
+    improved = sh.slot_valid[:, None, :] & (slot_val < last_sent)
+    send_val = torch.where(improved, slot_val, INF)
+    new_last = torch.where(improved, slot_val, last_sent)
+    sends = improved.sum(-1, dtype=torch.int32)
+    return _bucket_payload(sh, send_val), new_last, sends
+
+
+@phases.register("send", "pallas")
+def _phase_send_pallas(sh: SsspShards, dist, pruned, last_sent):
+    """Slot-tiled send kernel over ``sh.tx_*``: segment-min, masking and
+    counts in one launch; the payload scatter is the static gather through
+    ``tx_payload_slot``."""
+    src_t, w_t, segrel_t, eid_t = sh.send_layout
+    P = eid_t.shape[0]
+    pruned_t = take_fill(pruned[:, sh.e_loc:].to(torch.int32),
+                         eid_t.reshape(P, -1), 0).reshape(eid_t.shape)
+    send_val, new_last, sends = send_pack(
+        dist, last_sent, sh.slot_valid, src_t, w_t, segrel_t, pruned_t,
+        sb=sh.tx_sb)
+    return send_payload_bucket(send_val, sh.tx_payload_slot), new_last, sends
+
+
+@phases.register("merge", "xla")
+def _phase_merge_xla(sh: SsspShards, dist, incoming):
+    """Scatter-min of the incoming [P, K, P, C] messages through
+    ``recv_idx`` (sentinel ``block`` dropped). Returns (dist', new_active,
+    recvs [P, K])."""
+    P, K = dist.shape[:2]
+    flat_val = incoming.reshape(P, K, -1)
+    new = scatter_min_drop(dist, sh.recv_idx.reshape(P, 1, -1), flat_val)
+    recvs = torch.isfinite(flat_val).sum(-1, dtype=torch.int32)
+    return new, new < dist, recvs
+
+
+@phases.register("merge", "pallas")
+def _phase_merge_pallas(sh: SsspShards, dist, incoming):
+    """Msg-tiled merge kernel over ``sh.mx_*``: scatter-min, next frontier
+    and receive counts in one launch."""
+    P, K = dist.shape[:2]
+    mx_pos, mx_dstrel, mx_valid = sh.merge_layout
+    return merge_scatter(dist, incoming.reshape(P, K, -1), mx_pos, mx_dstrel,
+                         mx_valid, vb=sh.mx_vb)
+
+
+def _mask_payload(payload):
+    """Mask unused (query, destination) payload columns to +inf and price
+    the transfer: 4 B x column width x columns carrying a finite value."""
+    used = torch.isfinite(payload).any(-1)
+    nbytes = 4 * payload.shape[-1] * used.sum(dtype=torch.int32)
+    return torch.where(used[..., None], payload, INF), nbytes
+
+
+class SimComm:
+    """Exchange and reductions on shard-stacked [P, ...] arrays."""
+
+    @staticmethod
+    def exchange_bucket(payload):
+        """[P_src, K, P_dst, C] -> [P_dst, K, P_src, C]."""
+        return payload.transpose(0, 2)
+
+    @staticmethod
+    def all_all(flag):
+        """AND over the shard axis, broadcast back to every shard."""
+        return flag.all(0, keepdim=True).expand_as(flag)
+
+
+phases.register("exchange", "bucket")(SimComm.exchange_bucket)
+phases.register("round", "staged")("staged")
+phases.register("warm_init", "none")("none")
+
+
+@phases.register("toka", "toka0")
+def _toka0_stage(comm: SimComm, new_active):
+    """[P, K] done mask: no shard has a live frontier for the query."""
+    return comm.all_all(~new_active.any(-1))
+
+
+# --------------------------------------------------------------------------
+# round, init and certificate
+# --------------------------------------------------------------------------
+
+def make_round(sh: SsspShards, cfg: SsspConfig):
+    """Returns round(carry) -> carry for the staged pipeline."""
+    comm = SimComm()
+    send_f = phases.resolve("send", cfg.send_backend)
+    exchange_f = phases.resolve("exchange", cfg.exchange)
+    merge_f = phases.resolve("merge", cfg.merge_backend)
+    toka_f = phases.resolve("toka", cfg.toka)
+    local_f = partial(_phase_local, cfg=cfg)
+
+    def round_fn(carry: _Carry) -> _Carry:
+        # finished queries stop relaxing and sending while stragglers run
+        act = carry.active & ~carry.done[..., None]
+        dist, pruned, cursor, nrel = local_f(sh, carry.dist, act,
+                                             carry.pruned, carry.tri_cursor)
+        payload, last_sent, sends = send_f(sh, dist, pruned, carry.last_sent)
+        payload, nbytes = _mask_payload(payload)
+        dist, new_active, recvs = merge_f(sh, dist, exchange_f(payload))
+        done = toka_f(comm, new_active)
+        return _Carry(
+            dist=dist, active=new_active, pruned=pruned, tri_cursor=cursor,
+            last_sent=last_sent,
+            done=carry.done | done, rounds=carry.rounds + 1,
+            q_rounds=carry.q_rounds + (~carry.done).to(torch.int32),
+            relaxations=carry.relaxations + nrel,
+            msgs_sent=carry.msgs_sent + sends,
+            msgs_recv=carry.msgs_recv + recvs,
+            comm_bytes=carry.comm_bytes + nbytes)
+
+    return round_fn
+
+
+def init_carry(sh: SsspShards, sources, cfg: SsspConfig,
+               q_valid=None) -> _Carry:
+    """Stacked start state for K sources [K] int32. ``q_valid`` masks padded
+    bucket rows: an invalid query starts with no frontier and done=True, so
+    it never relaxes, sends or counts."""
+    dev = sh.device
+    sources = torch.as_tensor(sources, dtype=torch.int32, device=dev)
+    nq = sources.shape[0]
+    q_valid = (torch.ones(nq, dtype=torch.bool, device=dev) if q_valid is None
+               else torch.as_tensor(q_valid, dtype=torch.bool, device=dev))
+    P, block = sh.n_parts, sh.block
+    owner, local = (sources // block).long(), (sources % block).long()
+    qi = torch.arange(nq, device=dev)
+    dist = torch.full((P, nq, block), INF, device=dev)
+    dist[owner, qi, local] = torch.where(q_valid, 0.0, INF)
+    active = torch.zeros((P, nq, block), dtype=torch.bool, device=dev)
+    active[owner, qi, local] = q_valid
+    if cfg.prune_offline_passes > 0:
+        pruned = trishla.prune_offline(sh.loc_w, sh.cut_w, sh.tri_uj,
+                                       sh.tri_ui, sh.tri_ij, sh.tri_valid,
+                                       cfg.prune_offline_passes)
+    else:
+        pruned = torch.zeros((P, sh.e_loc + sh.e_cut), dtype=torch.bool,
+                             device=dev)
+    zero = torch.zeros((P, nq), dtype=torch.int32, device=dev)
+    return _Carry(
+        dist=dist, active=active, pruned=pruned,
+        tri_cursor=torch.zeros((P,), dtype=torch.int32, device=dev),
+        last_sent=torch.full((P, nq, sh.n_slots), INF, device=dev),
+        done=(~q_valid)[None, :].expand(P, nq).clone(),
+        rounds=0, q_rounds=zero, relaxations=zero, msgs_sent=zero,
+        msgs_recv=zero,
+        comm_bytes=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def certificate_improved_sim(sh: SsspShards, dist):
+    """Fixpoint certificate over the stacked state: one unmasked relaxation
+    of EVERY edge (local and cut, ignoring frontiers, ``last_sent`` and
+    Trishla pruning). ``dist`` [P, K, block] -> improved [K] bool (True =
+    NOT at the fixpoint)."""
+    P, K, block = dist.shape
+    cand = take_fill(dist, sh.loc_src[:, None, :], INF) + sh.loc_w[:, None, :]
+    new = scatter_min_drop(dist, sh.loc_dst[:, None, :], cand)
+    d_cut = take_fill(dist, sh.cut_src[:, None, :], INF) + sh.cut_w[:, None, :]
+    slot_val = scatter_min_drop(
+        torch.full((P, K, sh.n_slots), INF, device=dist.device),
+        sh.cut_seg[:, None, :], d_cut)
+    slot_val = torch.where(sh.slot_valid[:, None, :], slot_val, INF)
+    # dense [P_src, K, P_owner, block] rows addressed by (owner, dst_local),
+    # then the per-owner min over senders
+    flat = (sh.slot_owner.long() * block + sh.slot_dstl.long())[:, None, :]
+    dense = torch.full((P, K, P * block), INF, device=dist.device)
+    dense.scatter_reduce_(-1, flat.expand(P, K, -1), slot_val, "amin")
+    incoming = dense.reshape(P, K, P, block).amin(0).transpose(0, 1)
+    merged = torch.minimum(new, incoming)
+    return (merged < dist).any(-1).any(0)

@@ -1,0 +1,9 @@
+from repro_torch.graph.structure import (Graph, csr_from_coo,
+                                        graph_from_arrays, graph_to_numpy)
+from repro_torch.graph.generators import (GENERATORS, SCALE_PRESETS,
+                                         assign_weights, get_generator,
+                                         preset_graph, random_graph,
+                                         register_generator, rmat_graph,
+                                         road_grid_graph)
+from repro_torch.graph.reference import (bellman_ford_reference,
+                                        dijkstra_reference)

@@ -1,0 +1,128 @@
+"""Graph generators (host-side numpy).
+
+The same numpy RNG calls as the reference package's ``graph/generators.py``,
+so equal seeds give equal CSR arrays:
+  - ``rmat_graph``: R-MAT (the generator behind ParMat), scale-free graphs.
+  - ``road_grid_graph``: 2-D grid with diagonal shortcuts, road-network-like.
+  - ``random_graph``: uniform random edges with an optional spanning chain.
+  - ``assign_weights``: U[1, 20) weights, the paper's setup.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.graph.structure import Graph, csr_from_coo
+
+
+def assign_weights(n_edges: int, rng: np.random.Generator,
+                   low: float = 1.0, high: float = 20.0) -> np.ndarray:
+    """Paper §IV.A: pseudo-random weights uniform in [1, 20)."""
+    return rng.uniform(low, high, size=n_edges).astype(np.float32)
+
+
+def rmat_graph(scale: int, edge_factor: int = 16, seed: int = 0,
+               a: float = 0.57, b: float = 0.19, c: float = 0.19,
+               undirected: bool = True, e_pad: int | None = None) -> Graph:
+    """R-MAT generator (Graph500 parameters by default). n = 2**scale."""
+    rng = np.random.default_rng(seed)
+    n = 1 << scale
+    m = n * edge_factor
+    src = np.zeros(m, np.int64)
+    dst = np.zeros(m, np.int64)
+    for level in range(scale):
+        r = rng.random(m)
+        # quadrant probabilities a, b, c, d
+        go_right = (r >= a) & (r < a + b) | (r >= a + b + c)
+        go_down = r >= a + b
+        src |= (go_down.astype(np.int64) << (scale - 1 - level))
+        dst |= (go_right.astype(np.int64) << (scale - 1 - level))
+    # permute vertex ids to break degree locality
+    perm = rng.permutation(n)
+    src, dst = perm[src], perm[dst]
+    keep = src != dst  # drop self loops
+    src, dst = src[keep], dst[keep]
+    w = assign_weights(len(src), rng)
+    if undirected:
+        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+        w = np.concatenate([w, w])
+    return csr_from_coo(src, dst, w, n, e_pad=e_pad)
+
+
+def road_grid_graph(side: int, seed: int = 0, diag_prob: float = 0.1,
+                    e_pad: int | None = None) -> Graph:
+    """side×side grid, bidirectional edges, a few diagonals. Road-like."""
+    rng = np.random.default_rng(seed)
+    n = side * side
+    vid = np.arange(n).reshape(side, side)
+    right = vid[:, :-1].ravel()
+    down = vid[:-1, :].ravel()
+    diag = vid[:-1, :-1].ravel()
+    mask = rng.random(diag.shape[0]) < diag_prob
+    src = np.concatenate([right, down, diag[mask]])
+    dst = np.concatenate([right + 1, down + side, diag[mask] + side + 1])
+    w = assign_weights(len(src), rng)
+    src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+    w = np.concatenate([w, w])
+    return csr_from_coo(src, dst, w, n, e_pad=e_pad)
+
+
+def random_graph(n: int, m: int, seed: int = 0, undirected: bool = True,
+                 e_pad: int | None = None,
+                 ensure_connected_from: int | None = 0) -> Graph:
+    """Uniform random directed multigraph (deduped), optional spanning chain
+    starting at ``ensure_connected_from`` so every vertex is reachable."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, m)
+    dst = rng.integers(0, n, m)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    if ensure_connected_from is not None:
+        order = rng.permutation(n)
+        pos = int(np.where(order == ensure_connected_from)[0][0])
+        order = np.roll(order, -pos)  # chain starts at the source vertex
+        src = np.concatenate([src, order[:-1]])
+        dst = np.concatenate([dst, order[1:]])
+    w = assign_weights(len(src), rng)
+    if undirected:
+        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+        w = np.concatenate([w, w])
+    return csr_from_coo(src, dst, w, n, e_pad=e_pad)
+
+
+# ---- generator registry + Graph500-style scale presets --------------------
+
+GENERATORS: dict[str, object] = {}
+
+
+def register_generator(name: str):
+    """Decorator: register ``fn(**kwargs) -> Graph`` under ``name``."""
+    def deco(fn):
+        GENERATORS[name] = fn
+        return fn
+    return deco
+
+
+def get_generator(name: str):
+    if name not in GENERATORS:
+        raise KeyError(f"unknown generator {name!r}: have "
+                       f"{sorted(GENERATORS)}")
+    return GENERATORS[name]
+
+
+register_generator("rmat")(rmat_graph)
+register_generator("road_grid")(road_grid_graph)
+register_generator("random")(random_graph)
+
+# (generator, kwargs) pairs sized by DIRECTED edge count after undirected
+# doubling (~1e5 / 1e6 / 1e7); the same presets as the reference package.
+SCALE_PRESETS = {
+    "scale-1e5": ("rmat", dict(scale=13, edge_factor=8, seed=500)),
+    "scale-1e6": ("rmat", dict(scale=16, edge_factor=8, seed=600)),
+    "scale-1e7": ("rmat", dict(scale=19, edge_factor=10, seed=700)),
+}
+
+
+def preset_graph(name: str, **overrides) -> Graph:
+    """Materialize a ``SCALE_PRESETS`` workload."""
+    gen, kw = SCALE_PRESETS[name]
+    return get_generator(gen)(**{**kw, **overrides})

@@ -1,0 +1,127 @@
+"""Build and load the hand-written CUDA kernels, and count their launches.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface and loaded with ``ctypes``. The
+library is built on first use into ``_build/`` beside this file (listed in
+``.gitignore``), named by a hash of its sources, so an edited source is
+rebuilt and a stale library is never loaded. Nothing here runs at import:
+a CPU-only process imports this module without ``nvcc``.
+
+``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that its
+path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "_build"
+KERNELS = ("relax", "send", "merge")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the toolkit's
+    default install location."""
+    home = os.environ.get("CUDA_HOME")
+    if home:
+        return str(Path(home) / "bin" / "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start one nvcc for ``name`` (None when already built)."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> str:
+    if started is None:
+        return ""
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build(names=KERNELS) -> tuple[float, dict[str, str]]:
+    """Compile the named kernels, one nvcc each, all started together.
+    Returns (wall seconds, compiler log per kernel)."""
+    t0 = time.perf_counter()
+    started = {name: _start(name) for name in names}
+    logs = {name: _finish(name, s) for name, s in started.items()}
+    return time.perf_counter() - t0, logs
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built if missing), with
+    ``argtypes``/``restype`` set from ``signatures`` = {symbol: argtypes}.
+    Every entry point returns the ``cudaGetLastError`` code of its launch."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for symbol, argtypes in signatures.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, code: int) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if code != 0:
+        msg = lib.repro_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} "
+                           f"(error {code})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def signature(n_ptr: int, n_int: int) -> list:
+    """argtypes of an entry point: pointers, then ints, then the stream."""
+    return [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]

@@ -1,0 +1,3 @@
+from repro_torch.kernels.merge.merge import (merge_scatter_tiled,
+                                            merge_scatter_tiled_plain)
+from repro_torch.kernels.merge.ops import build_msg_tiled_layout, merge_scatter

@@ -1,0 +1,4 @@
+from repro_torch.kernels.relax.ops import (build_dst_tiled_layout,
+                                          fixpoint_operands)
+from repro_torch.kernels.relax.relax import (
+    relax_dst_tiled_fixpoint_batch, relax_dst_tiled_fixpoint_batch_plain)

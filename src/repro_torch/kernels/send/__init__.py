@@ -1,0 +1,3 @@
+from repro_torch.kernels.send.ops import (build_slot_tiled_layout, send_operands,
+                                         send_pack, send_payload_bucket)
+from repro_torch.kernels.send.send import send_pack_tiled, send_pack_tiled_plain

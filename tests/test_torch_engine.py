@@ -1,0 +1,175 @@
+"""The PyTorch port's engine against the JAX package's, end to end.
+
+Both packages solve identical shards (the JAX shards read out through
+``shards_from_arrays``) under one config dict; distances must be
+bit-identical and every counter and ``status`` equal, on the all-kernel
+staged config and the default config, for K in {1, 3} (3 rides a padded
+bucket of 4) and P in {1, 4, 8}. The tolerance is zero: both sides do the
+same single fp32 adds and exact mins in the same order.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import repro.core as jc  # noqa: E402
+import repro.graph as jg  # noqa: E402
+import repro_torch.core as tc  # noqa: E402
+import repro_torch.graph as tg  # noqa: E402
+
+ALL_KERNELS = dict(local_solver="pallas", send_backend="pallas",
+                   merge_backend="pallas", round="staged", exchange="bucket",
+                   toka="toka0")
+CONFIGS = {"all-kernel": ALL_KERNELS, "default": {}}
+COUNTERS = ("rounds", "relaxations", "msgs_sent", "msgs_recv",
+            "pruned_edges", "q_rounds", "q_relaxations", "q_converged",
+            "n_dispatches", "bytes_moved", "stale_merges", "resends")
+GRAPHS = {"rmat": ("rmat_graph", dict(scale=8, edge_factor=4, seed=1)),
+          "road": ("road_grid_graph", dict(side=10, seed=2))}
+
+
+def _live_sources(g, k, seed):
+    rng = np.random.default_rng(seed)
+    deg = np.diff(np.asarray(g.row_ptr))
+    return [int(s) for s in rng.choice(np.nonzero(deg)[0], k, replace=False)]
+
+
+@pytest.fixture(scope="module")
+def jax_graphs():
+    return {name: getattr(jg, fn)(**kw) for name, (fn, kw) in GRAPHS.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_shards(jax_graphs):
+    cache = {}
+
+    def get(name, P):
+        if (name, P) not in cache:
+            cache[name, P] = jc.build_shards(jax_graphs[name], P)
+        return cache[name, P]
+    return get
+
+
+def _port_shards(sj):
+    fields = {f.name: (None if getattr(sj, f.name) is None
+                       else np.asarray(getattr(sj, f.name)))
+              for f in dataclasses.fields(sj)
+              if f.metadata.get("static") is not True}
+    static = {f.name: getattr(sj, f.name) for f in dataclasses.fields(sj)
+              if f.metadata.get("static") is True}
+    return tc.shards_from_arrays(fields, **static)
+
+
+def assert_results_equal(rt, rj):
+    np.testing.assert_array_equal(rt.dist, np.asarray(rj.dist))
+    for f in COUNTERS:
+        np.testing.assert_array_equal(np.asarray(getattr(rt.stats, f)),
+                                      np.asarray(getattr(rj.stats, f)),
+                                      err_msg=f)
+    assert rt.status == rj.status
+    assert rt.bucket_k == rj.bucket_k
+
+
+@pytest.mark.parametrize("nq", [1, 3])
+@pytest.mark.parametrize("P", [1, 4, 8])
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_engine_matches_reference(jax_graphs, jax_shards, config, P, nq):
+    sj = jax_shards("rmat", P)
+    srcs = _live_sources(jax_graphs["rmat"], nq, seed=P)
+    rj = jc.SsspEngine.build(sj, jc.SsspConfig(**CONFIGS[config])).solve(srcs)
+    rt = tc.SsspEngine.build(_port_shards(sj),
+                             tc.SsspConfig(**CONFIGS[config]),
+                             device="cpu").solve(srcs)
+    assert rj.status == "converged"
+    assert_results_equal(rt, rj)
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_engine_matches_reference_on_road_grid(jax_graphs, jax_shards,
+                                               config):
+    sj = jax_shards("road", 4)
+    srcs = _live_sources(jax_graphs["road"], 3, seed=9)
+    cfg = dict(CONFIGS[config], pallas_sweeps=2, tri_chunk=16)
+    rj = jc.SsspEngine.build(sj, jc.SsspConfig(**cfg)).solve(srcs)
+    rt = tc.SsspEngine.build(_port_shards(sj), tc.SsspConfig(**cfg),
+                             device="cpu").solve(srcs)
+    assert_results_equal(rt, rj)
+
+
+def test_own_build_solves_like_dijkstra():
+    g = tg.rmat_graph(scale=9, edge_factor=4, seed=5)
+    srcs = _live_sources(g, 3, seed=1)
+    eng = tc.SsspEngine.build(g, tc.SsspConfig(**ALL_KERNELS), n_parts=4,
+                              device="cpu")
+    res = eng.solve(srcs)
+    assert res.status == "converged" and res.q_converged.all()
+    for i, s in enumerate(srcs):
+        np.testing.assert_allclose(res.dist[i], tg.dijkstra_reference(g, s),
+                                   rtol=1e-5, atol=1e-4)
+    # a padded bucket gives the bit-identical answer of the exact batch
+    exact = eng.solve(srcs, bucket=False)
+    assert (res.bucket_k, exact.bucket_k) == (4, 3)
+    np.testing.assert_array_equal(res.dist, exact.dist)
+    np.testing.assert_array_equal(res.q_relaxations, exact.q_relaxations)
+
+
+def test_max_rounds_status():
+    g = tg.road_grid_graph(10, seed=2)
+    eng = tc.SsspEngine.build(g, tc.SsspConfig(max_rounds=2), n_parts=4,
+                              device="cpu")
+    res = eng.solve([0])
+    assert res.status == "max_rounds" and int(res.stats.rounds) == 2
+
+
+def test_offline_pruning_matches_reference(jax_graphs, jax_shards):
+    sj = jax_shards("rmat", 4)
+    srcs = _live_sources(jax_graphs["rmat"], 2, seed=3)
+    cfg = dict(ALL_KERNELS, prune_offline_passes=2, prune_online=False)
+    rj = jc.SsspEngine.build(sj, jc.SsspConfig(**cfg)).solve(srcs)
+    rt = tc.SsspEngine.build(_port_shards(sj), tc.SsspConfig(**cfg),
+                             device="cpu").solve(srcs)
+    assert_results_equal(rt, rj)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("round", "fused"), ("exchange", "pmin"), ("exchange", "async"),
+    ("toka", "toka1"), ("toka", "toka3"), ("local_solver", "delta"),
+    ("warm_start", "landmark"), ("faults", object())])
+def test_config_values_not_ported_raise(field, value):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tc.SsspConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field", ["round", "exchange", "toka",
+                                   "local_solver", "send_backend",
+                                   "merge_backend", "warm_start"])
+def test_config_rejects_unknown_names(field):
+    with pytest.raises(ValueError, match="valid"):
+        tc.SsspConfig(**{field: "nope"})
+
+
+def test_config_accepts_interpret_flag():
+    assert tc.SsspConfig(pallas_interpret=False, **ALL_KERNELS)
+
+
+def test_engine_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    g = tg.road_grid_graph(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tc.SsspEngine.build(g, n_parts=2)
+
+
+def test_engine_rejects_bad_requests():
+    g = tg.road_grid_graph(4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tc.SsspEngine.build(g, backend="shmap", n_parts=2, device="cpu")
+    eng = tc.SsspEngine.build(g, n_parts=2, device="cpu")
+    with pytest.raises(ValueError, match="out of range"):
+        eng.solve([16])
+    assert tc.bucket_k(3) == 4 and tc.bucket_k(4) == 4
+    with pytest.raises(ValueError):
+        tc.bucket_k(0)

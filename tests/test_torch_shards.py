@@ -1,0 +1,108 @@
+"""Shards of the PyTorch port against the JAX package: every ``SsspShards``
+field equal (values, dtype, shape) with triangles enumerated, the
+arrays-in constructor, layout bytes and the input checks."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import repro.core as jc  # noqa: E402
+import repro.graph as jg  # noqa: E402
+import repro_torch.core as tc  # noqa: E402
+import repro_torch.graph as tg  # noqa: E402
+
+GRAPHS = {
+    "rmat": ("rmat_graph", dict(scale=8, edge_factor=4, seed=1)),
+    "road": ("road_grid_graph", dict(side=12, seed=2)),
+    "random": ("random_graph", dict(n=200, m=600, seed=3)),
+}
+
+
+def _graphs(name):
+    fn, kw = GRAPHS[name]
+    return getattr(jg, fn)(**kw), getattr(tg, fn)(**kw)
+
+
+def jax_fields(sh):
+    """A JAX ``SsspShards`` read out as numpy (None fields kept)."""
+    return {f.name: (None if getattr(sh, f.name) is None
+                     else np.asarray(getattr(sh, f.name)))
+            for f in dataclasses.fields(sh)
+            if f.metadata.get("static") is not True}
+
+
+def jax_static(sh):
+    return {f.name: getattr(sh, f.name) for f in dataclasses.fields(sh)
+            if f.metadata.get("static") is True}
+
+
+def assert_shards_equal(st, sj):
+    ref = {k: v for k, v in jax_fields(sj).items() if v is not None}
+    got = {k: v.numpy() for k, v in st.arrays().items()}
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    for k, v in jax_static(sj).items():
+        assert getattr(st, k) == v, k
+
+
+@pytest.mark.parametrize("P", [1, 4, 8])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_shards_match_reference(name, P):
+    gj, gt = _graphs(name)
+    sj, st = jc.build_shards(gj, P), tc.build_shards(gt, P)
+    assert bool(np.asarray(sj.tri_valid).any())   # triangles enumerated
+    assert_shards_equal(st, sj)
+    assert st.layout_bytes() == sj.layout_bytes()
+
+
+def test_shards_from_arrays_equals_own_build():
+    gj, gt = _graphs("rmat")
+    sj = jc.build_shards(gj, 4, max_triangles_per_part=50)
+    st = tc.shards_from_arrays(jax_fields(sj), **jax_static(sj))
+    own = tc.build_shards(gt, 4, max_triangles_per_part=50)
+    for k, v in own.arrays().items():
+        assert torch.equal(getattr(st, k), v), k
+    assert_shards_equal(st, sj)
+
+
+def test_shard_tile_sizes_match_reference():
+    gj, gt = _graphs("road")
+    kw = dict(relax_vb=32, relax_eb=64, send_sb=16, send_eb=32, merge_vb=32,
+              merge_eb=64, enumerate_triangles=False)
+    assert_shards_equal(tc.build_shards(gt, 3, **kw),
+                        jc.build_shards(gj, 3, **kw))
+
+
+def test_shards_move_between_devices():
+    _, gt = _graphs("random")
+    st = tc.build_shards(gt, 2, enumerate_triangles=False)
+    back = st.to("cpu")
+    assert back.device == torch.device("cpu")
+    assert all(torch.equal(a, back.arrays()[k]) for k, a in st.arrays().items())
+
+
+@pytest.mark.parametrize("bad", [np.nan, -1.0, np.inf])
+def test_rejects_bad_weights(bad):
+    w = np.array([1.0, bad, 2.0], np.float32)
+    g = tg.csr_from_coo(np.array([0, 1, 2]), np.array([1, 2, 0]), w, 3)
+    with pytest.raises(ValueError, match="invalid edge weights"):
+        tc.build_shards(g, 2)
+
+
+def test_rejects_out_of_range_endpoints():
+    g = tg.graph_from_arrays([0, 1], [1, 7], [1.0, 1.0], [0, 1, 2, 2], 3, 2)
+    with pytest.raises(ValueError, match="out-of-range"):
+        tc.build_shards(g, 2)
+
+
+def test_ragged_layout_not_ported():
+    _, gt = _graphs("random")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tc.build_shards(gt, 2, layout="ragged")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tc.shards_from_arrays({}, layout="ragged")
