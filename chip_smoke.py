@@ -6,21 +6,33 @@
 Run from the root of a checkout; it needs one CUDA device and ``nvcc``.
 Phases, each of which exits non-zero on a mismatch:
 
-  build   compile the three CUDA kernels (relax, send, merge) from
-          src/repro_torch/kernels/csrc, one nvcc each, in parallel;
-  kernel  hold each kernel against its plain PyTorch version on the card,
-          bit-equal, on the real layouts of the scale-1e6 graph at
-          mid-solve state, and time kernel, plain version and bound;
-  parity  solve rmat scale 11 (Trishla on, P=8, K=4) with the all-kernel
-          config on the card and on the CPU: distances and every counter
-          equal;
-  scale   the main path: SsspEngine.solve on preset "scale-1e6" (65,536
-          vertices, 955,492 directed edges; P=8) with K=16 and K=1, every
-          query certified converged, 4 sources checked against Dijkstra,
-          every kernel launched.
+  build    compile the CUDA kernel sources (relax, send, merge; each holds
+           a dense kernel and its ragged sibling) from
+           src/repro_torch/kernels/csrc, one nvcc each, in parallel;
+  kernel   hold each dense kernel against its plain PyTorch version on the
+           card, bit-equal, on the real layouts of the scale-1e6 graph at
+           mid-solve state, and time kernel, plain version and bound;
+  parity   solve rmat scale 11 (Trishla on, P=8, K=4) with the all-kernel
+           config on the card and on the CPU: distances and every counter
+           equal;
+  scale    the dense path: SsspEngine.solve on preset "scale-1e6" (65,536
+           vertices, 955,492 directed edges; P=8) with K=16 and K=1, every
+           query certified converged, 4 sources checked against Dijkstra,
+           every dense kernel launched; profile of the K=16 solve;
+  ragged   stream-build scale-1e6 ragged (build_shards_stream) and dense
+           (build_shards over csr_from_coo of the same chunks) and solve
+           both with K=16: distances and every counter equal;
+  kernel7  the main path's state: stream-build preset "scale-1e7" (524,288
+           vertices, 9,879,136 directed edges; P=8, ragged, EB 512, VB 128)
+           and hold each ragged kernel against its plain version, bit-equal,
+           at the state after round 2 of the K=16 solve; time them;
+  main     the slice's main path: SsspEngine.solve on the scale-1e7 ragged
+           shards with K=16 and K=1, every query certified converged, 2
+           sources checked against scipy's Dijkstra, the ragged kernels
+           launched and the dense ones not; profile of the K=16 solve.
 
 The line before last is the JSON kernel table; the last line is
-``{"ok": true, "device": {...}}``. Build logs go to chiprun_out/.
+``{"ok": true, "device": {...}}``. Build logs and traces go to chiprun_out/.
 """
 from __future__ import annotations
 
@@ -39,6 +51,16 @@ ALL_KERNELS = dict(local_solver="pallas", send_backend="pallas",
 RTOL, ATOL = 1e-5, 1e-4        # the reference CLI's Dijkstra tolerance
 COUNTERS = ("rounds", "relaxations", "msgs_sent", "msgs_recv",
             "pruned_edges", "q_rounds", "q_relaxations", "q_converged")
+CSRC = "src/repro_torch/kernels/csrc"
+TPU = "src/repro/kernels"
+SOURCES = {                    # kernel -> (CUDA source, TPU kernel replaced)
+    "relax": (f"{CSRC}/relax.cu", f"{TPU}/relax/relax.py:337"),
+    "send": (f"{CSRC}/send.cu", f"{TPU}/send/send.py:103"),
+    "merge": (f"{CSRC}/merge.cu", f"{TPU}/merge/merge.py:90"),
+    "relax_ragged": (f"{CSRC}/relax.cu", f"{TPU}/relax/relax.py:456"),
+    "send_ragged": (f"{CSRC}/send.cu", f"{TPU}/send/send.py:187"),
+    "merge_ragged": (f"{CSRC}/merge.cu", f"{TPU}/merge/merge.py:165"),
+}
 
 
 def fail(msg: str):
@@ -62,6 +84,20 @@ def timed(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def once(torch, fn):
+    """(result, ms) of one call, timed with CUDA events: for the plain
+    versions, Python loops over hundreds of chunks, timed on the call that
+    the comparison uses."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def nbytes(*tensors) -> int:
@@ -88,9 +124,23 @@ def compare(torch, name, got, want):
     return err
 
 
-def profile_solve(torch, eng, sources, trace_path: Path):
-    """Where the time of one K=16 solve goes: device time by kernel name and
-    the device's idle share of the solve window, read from a torch.profiler
+def same_results(a, b, what: str):
+    """Fail unless two QueryResults agree in distances, every counter and
+    status."""
+    import numpy as np
+    if not np.array_equal(a.dist, b.dist):
+        fail(f"{what}: distances differ")
+    for f in COUNTERS + ("n_dispatches", "bytes_moved"):
+        x, y = getattr(a.stats, f), getattr(b.stats, f)
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            fail(f"{what}: {f} differs ({x} vs {y})")
+    if a.status != b.status:
+        fail(f"{what}: status {a.status} vs {b.status}")
+
+
+def profile_solve(torch, eng, sources, trace_path: Path, label: str):
+    """Where the time of one solve goes: device time by kernel name and the
+    device's idle share of the solve window, read from a torch.profiler
     trace (kernel events inside the ``solve`` annotation)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
@@ -110,24 +160,42 @@ def profile_solve(torch, eng, sources, trace_path: Path):
         by_name[name] = by_name.get(name, 0.0) + (f - s)
         busy += max(0.0, f - max(s, end))
         end = max(end, f)
-    say(f"profile: K=16 solve window {win['dur'] / 1e3:.3f} ms, device busy "
-        f"{busy / 1e3:.3f} ms, idle share {1 - busy / win['dur']:.3f}, "
+    say(f"profile {label}: solve window {win['dur'] / 1e3:.3f} ms, device "
+        f"busy {busy / 1e3:.3f} ms, idle share {1 - busy / win['dur']:.3f}, "
         f"{len(kernels)} kernels")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        say(f"  {us / 1e3:9.3f} ms  {name[:90]}")
+        n = sum(1 for k in kernels if k[2] == name)
+        say(f"  {us / 1e3:9.3f} ms  {n:5d}x  {name[:90]}")
 
 
-def main():
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        fail("src/repro_torch not found: run from the root of a checkout")
-    sys.path.insert(0, str(ROOT / "src"))
-    import numpy as np
-    import torch
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false")
-    from repro_torch.core import SsspConfig, SsspEngine, build_shards
-    from repro_torch.graph import dijkstra_reference, preset_graph, rmat_graph
-    from repro_torch.kernels import build
+def live_sources(np, rng, g, k):
+    deg = np.diff(g.row_ptr.numpy())
+    return [int(s) for s in rng.choice(np.nonzero(deg)[0], k, replace=False)]
+
+
+def concat_graph(np, chunks, n):
+    """The CSR graph (min-deduplicated, as the stream build dedups) of a
+    list of edge chunks."""
+    from repro_torch.graph import csr_from_coo
+    return csr_from_coo(*(np.concatenate([c[i] for c in chunks])
+                          for i in range(3)), n)
+
+
+def scipy_dijkstra(np, g, sources):
+    """Host Dijkstra in float64 over the graph's CSR (scipy's heap, since
+    a Python heap takes tens of seconds a source at ten million edges)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+    e = g.n_edges
+    m = csr_matrix((g.weight[:e].numpy().astype(np.float64),
+                    g.dst[:e].numpy(), g.row_ptr.numpy()),
+                   shape=(g.n_vertices, g.n_vertices))
+    return dijkstra(m, directed=True, indices=list(sources))
+
+
+def dense_kernel_phase(torch, eng, sources, cfg):
+    """Dense kernels 1, 3, 5 at the state after round 2 of a solve: each
+    bit-equal to its plain version, then timed beside its bound."""
     from repro_torch.kernels.common import pad_last, take_fill
     from repro_torch.kernels.merge import (merge_scatter_tiled,
                                            merge_scatter_tiled_plain)
@@ -137,44 +205,7 @@ def main():
     from repro_torch.kernels.send import (send_operands, send_pack_tiled,
                                           send_pack_tiled_plain,
                                           send_payload_bucket)
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    say(f"card: {card}")
-    say(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # ---- build ---------------------------------------------------------
-    build_s, logs = build.build()
-    say(f"build: {build_s:.1f} s for {', '.join(build.KERNELS)}")
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke_build.log").write_text(
-        "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
-
-    # ---- the scale graph and its shards ---------------------------------
-    t0 = time.perf_counter()
-    g = preset_graph("scale-1e6")
-    sh = build_shards(g, 8, enumerate_triangles=False)
-    lb = sh.layout_bytes()
-    say(f"scale-1e6: {g.n_vertices} vertices, {g.n_edges} edges, P=8, "
-        f"block {sh.block}, S {sh.n_slots}; rx {tuple(sh.rx_src.shape)} "
-        f"tx {tuple(sh.tx_src.shape)} mx {tuple(sh.mx_pos.shape)} "
-        f"recv_idx {tuple(sh.recv_idx.shape)}; layouts {lb['total_bytes']} B;"
-        f" host build {time.perf_counter() - t0:.1f} s")
-    cfg = SsspConfig(**ALL_KERNELS)
-    eng = SsspEngine.build(sh, cfg)
     dsh = eng.shards
-    rng = np.random.default_rng(0)
-    deg = np.diff(g.row_ptr.numpy())
-    sources = [int(s) for s in rng.choice(np.nonzero(deg)[0], 16,
-                                           replace=False)]
-
-    # ---- kernel phase: mid-solve state of the K=16 solve -----------------
     carry = eng.start(sources)
     for _ in range(2):
         carry = eng.round_fn(carry)
@@ -241,12 +272,156 @@ def main():
         torch, lambda: merge_scatter_tiled_plain(*m_args, vb=dsh.mx_vb), 2)
     rows["merge"]["bound"] = bound(nbytes(*m_args, *m_out),
                                    len(sources) * int(m_valid.sum()))
-    # the same scatter-min as one PyTorch call, as a yardstick only
-    ext = pad_last(m_args[0][..., :dsh.block], dsh.block + 1, float("inf"))
+    rows["merge"]["library_ms"] = merge_library_ms(
+        torch, dsh, m_args[0], incoming, len(sources))
+    return rows
+
+
+def merge_library_ms(torch, dsh, dist_pad, incoming, k):
+    """The merge's scatter-min as one PyTorch call, as a yardstick only."""
+    from repro_torch.kernels.common import pad_last
+    P = dsh.n_parts
+    ext = pad_last(dist_pad[..., :dsh.block], dsh.block + 1, float("inf"))
     ridx = dsh.recv_idx.reshape(P, 1, -1).long().clamp(max=dsh.block)
-    ridx = ridx.expand(P, len(sources), -1).contiguous()
-    rows["merge"]["library_ms"] = timed(
-        torch, lambda: ext.scatter_reduce_(-1, ridx, incoming, "amin"), 50)
+    ridx = ridx.expand(P, k, -1).contiguous()
+    return timed(torch, lambda: ext.scatter_reduce_(-1, ridx, incoming,
+                                                    "amin"), 50)
+
+
+def ragged_kernel_phase(torch, eng, sources, cfg):
+    """Ragged kernels 2, 4, 6 at the state after round 2 of the main path's
+    K=16 solve: each bit-equal to its plain version (timed on that one
+    call), then timed beside its bound and, for merge, the library call."""
+    from repro_torch.kernels.common import pad_last, take_fill
+    from repro_torch.kernels.merge import (merge_scatter_ragged,
+                                           merge_scatter_ragged_plain)
+    from repro_torch.kernels.relax import (
+        fixpoint_operands, relax_dst_ragged_fixpoint_batch,
+        relax_dst_ragged_fixpoint_batch_plain)
+    from repro_torch.kernels.send import (send_operands, send_pack_ragged,
+                                          send_pack_ragged_plain,
+                                          send_payload_bucket)
+    dsh = eng.shards
+    P, K = dsh.n_parts, len(sources)
+    carry = eng.start(sources)
+    for _ in range(2):
+        carry = eng.round_fn(carry)
+    act = carry.active & ~carry.done[..., None]
+    src_r, w_r, rel_r, eid_r, ct_r = dsh.relax_layout
+    bp = -(-dsh.block // dsh.rx_vb) * dsh.rx_vb
+    r_in = fixpoint_operands(carry.dist, act, carry.pruned[:, :dsh.e_loc],
+                             eid_r, bp)
+    r_args = (*r_in[:2], ct_r, src_r, w_r, rel_r, r_in[2])
+    r_kw = dict(vb=dsh.rx_vb, n_sweeps=cfg.pallas_sweeps)
+    if not bool((r_in[1] > 0).any()):
+        fail("ragged kernel phase: the mid-solve frontier is empty")
+    r_out = relax_dst_ragged_fixpoint_batch(*r_args, **r_kw)
+    r_ref, r_plain = once(torch, lambda: relax_dst_ragged_fixpoint_batch_plain(
+        *r_args, **r_kw))
+    rows = {"relax_ragged": dict(err=compare(torch, "relax_ragged", r_out,
+                                             r_ref), plain_ms=r_plain)}
+
+    dist = r_out[0][..., :dsh.block]
+    tsrc, tw, tseg, teid, tct = dsh.send_layout
+    pruned_t = take_fill(carry.pruned[:, dsh.e_loc:].to(torch.int32),
+                         teid.reshape(P, -1), 0).reshape(teid.shape)
+    s_args = (*send_operands(dist, carry.last_sent, dsh.slot_valid,
+                             dsh.n_stiles, dsh.tx_sb),
+              tct, tsrc, tw, tseg, pruned_t)
+    s_kw = dict(sb=dsh.tx_sb, bounds=dsh.send_bounds)
+    s_out = send_pack_ragged(*s_args, **s_kw)
+    s_ref, s_plain = once(torch, lambda: send_pack_ragged_plain(
+        *s_args, sb=dsh.tx_sb))
+    rows["send_ragged"] = dict(err=compare(torch, "send_ragged", s_out,
+                                           s_ref), plain_ms=s_plain)
+
+    payload = send_payload_bucket(s_out[0][..., :dsh.n_slots],
+                                  dsh.tx_payload_slot)
+    incoming = payload.transpose(0, 2).reshape(P, K, -1).contiguous()
+    m_pos, m_rel, m_valid, m_ct = dsh.merge_layout
+    m_args = (pad_last(dist, -(-dsh.block // dsh.mx_vb) * dsh.mx_vb,
+                       float("inf")), incoming, m_ct, m_pos, m_rel, m_valid)
+    m_kw = dict(vb=dsh.mx_vb, bounds=dsh.merge_bounds)
+    m_out = merge_scatter_ragged(*m_args, **m_kw)
+    m_ref, m_plain = once(torch, lambda: merge_scatter_ragged_plain(
+        *m_args, vb=dsh.mx_vb))
+    rows["merge_ragged"] = dict(err=compare(torch, "merge_ragged", m_out,
+                                            m_ref), plain_ms=m_plain)
+    say(f"ragged kernel phase: relax, send, merge bit-equal to their plain "
+        f"versions (relax frontier {int((r_in[1] > 0).sum())} vertices, "
+        f"{int(r_out[2].sum())} relaxations; {int(s_out[2].sum())} sends; "
+        f"{int(m_out[2].sum())} receives)")
+
+    rows["relax_ragged"]["ms"] = timed(
+        torch, lambda: relax_dst_ragged_fixpoint_batch(*r_args, **r_kw), 10)
+    rows["relax_ragged"]["bound"] = bound(
+        nbytes(*r_args, *r_out), 2 * int(r_out[2].sum()))
+    rows["relax_ragged"]["library_ms"] = None
+    rows["send_ragged"]["ms"] = timed(
+        torch, lambda: send_pack_ragged(*s_args, **s_kw), 50)
+    live_cut = int((torch.isfinite(tw) & (pruned_t == 0)).sum())
+    rows["send_ragged"]["bound"] = bound(
+        nbytes(*s_args, dsh.send_bounds, *s_out), 2 * K * live_cut)
+    rows["send_ragged"]["library_ms"] = None
+    rows["merge_ragged"]["ms"] = timed(
+        torch, lambda: merge_scatter_ragged(*m_args, **m_kw), 50)
+    rows["merge_ragged"]["bound"] = bound(
+        nbytes(*m_args, dsh.merge_bounds, *m_out), K * int(m_valid.sum()))
+    rows["merge_ragged"]["library_ms"] = merge_library_ms(
+        torch, dsh, m_args[0], incoming, K)
+    return rows
+
+
+def main():
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail("src/repro_torch not found: run from the root of a checkout")
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    from repro_torch.core import (SsspConfig, SsspEngine, build_shards,
+                                  build_shards_stream)
+    from repro_torch.graph import (dijkstra_reference, preset_edge_stream,
+                                   preset_graph, rmat_graph)
+    from repro_torch.kernels import build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    say(f"card: {card}")
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # ---- build ---------------------------------------------------------
+    build_s, logs = build.build()
+    say(f"build: {build_s:.1f} s for {', '.join(build.KERNELS)}")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_build.log").write_text(
+        "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+
+    # ---- the scale-1e6 graph and its dense shards -----------------------
+    t0 = time.perf_counter()
+    g = preset_graph("scale-1e6")
+    sh = build_shards(g, 8, enumerate_triangles=False)
+    lb = sh.layout_bytes()
+    say(f"scale-1e6: {g.n_vertices} vertices, {g.n_edges} edges, P=8, "
+        f"block {sh.block}, S {sh.n_slots}; rx {tuple(sh.rx_src.shape)} "
+        f"tx {tuple(sh.tx_src.shape)} mx {tuple(sh.mx_pos.shape)} "
+        f"recv_idx {tuple(sh.recv_idx.shape)}; layouts {lb['total_bytes']} B;"
+        f" host build {time.perf_counter() - t0:.1f} s")
+    cfg = SsspConfig(**ALL_KERNELS)
+    eng = SsspEngine.build(sh, cfg)
+    rng = np.random.default_rng(0)
+    sources = live_sources(np, rng, g, 16)
+
+    # ---- kernel phase: dense kernels at mid-solve state ------------------
+    rows = dense_kernel_phase(torch, eng, sources, cfg)
     for name, r in rows.items():
         say(f"  {name}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.2f} ms "
             f"plain, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
@@ -254,31 +429,25 @@ def main():
     # ---- parity phase: card vs CPU through the port ----------------------
     gp = rmat_graph(scale=11)
     shp = build_shards(gp, 8)
-    degp = np.diff(gp.row_ptr.numpy())
-    srcp = [int(s) for s in rng.choice(np.nonzero(degp)[0], 4, replace=False)]
+    srcp = live_sources(np, rng, gp, 4)
     on_gpu = SsspEngine.build(shp, cfg).solve(srcp)
     on_cpu = SsspEngine.build(shp, cfg, device="cpu").solve(srcp)
-    if not np.array_equal(on_gpu.dist, on_cpu.dist):
-        fail("parity: card distances differ from the CPU run")
-    for f in COUNTERS:
-        a, b = getattr(on_gpu.stats, f), getattr(on_cpu.stats, f)
-        if not np.array_equal(np.asarray(a), np.asarray(b)):
-            fail(f"parity: {f} differs (card {a}, CPU {b})")
-    if on_gpu.status != on_cpu.status or on_gpu.status != "converged":
-        fail(f"parity: status card {on_gpu.status}, CPU {on_cpu.status}")
+    same_results(on_gpu, on_cpu, "parity (card vs CPU)")
+    if on_gpu.status != "converged":
+        fail(f"parity: status {on_gpu.status}")
     say(f"parity phase: rmat scale 11 ({gp.n_edges} edges, "
         f"{int(shp.tri_valid.sum())} triangles), P=8 K=4: card == CPU, "
         f"rounds {int(on_gpu.stats.rounds)}, q_relaxations "
         f"{on_gpu.q_relaxations.tolist()}, pruned "
         f"{int(on_gpu.stats.pruned_edges)}")
 
-    # ---- scale phase: the main path --------------------------------------
+    # ---- scale phase: the dense path -------------------------------------
     eng.solve(sources[:1])          # warm-up: allocator, library loads
     torch.cuda.synchronize()
     build.reset_launches()
     res = eng.solve(sources)
     torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
+    launches = {k: build.LAUNCHES[k] for k in build.KERNELS}
     res1 = eng.solve(sources[:1])
     for name, r in (("K=16", res), ("K=1", res1)):
         if r.status != "converged" or not r.q_converged.all():
@@ -296,19 +465,113 @@ def main():
     if not np.array_equal(res1.dist[0], res.dist[0]):
         fail("scale: the K=1 solve differs from row 0 of the K=16 solve")
     if min(launches.values()) < 1:
-        fail(f"scale: a kernel was not launched on the main path {launches}")
+        fail(f"scale: a dense kernel was not launched {launches}")
     say(f"scale phase: 16 queries converged, 4 match Dijkstra; launches "
         f"per K=16 solve {launches}")
-    profile_solve(torch, eng, sources, out_dir / "chip_smoke_trace.json")
+    profile_solve(torch, eng, sources, out_dir / "chip_smoke_trace.json",
+                  "scale-1e6 dense K=16")
+    del eng, sh, res, res1
 
-    sources_of = {"relax": ("src/repro_torch/kernels/csrc/relax.cu",
-                            "src/repro/kernels/relax/relax.py:337"),
-                  "send": ("src/repro_torch/kernels/csrc/send.cu",
-                           "src/repro/kernels/send/send.py:103"),
-                  "merge": ("src/repro_torch/kernels/csrc/merge.cu",
-                            "src/repro/kernels/merge/merge.py:90")}
-    table = [{"name": name, "route": "cuda", "source": sources_of[name][0],
-              "replaces": sources_of[name][1], "launches": launches[name],
+    # ---- ragged vs dense at scale-1e6, from one stream --------------------
+    n6, stream6 = preset_edge_stream("scale-1e6")
+    chunks6 = list(stream6)
+    t0 = time.perf_counter()
+    rag6 = build_shards_stream(chunks6, n6, 8)
+    t_rag = time.perf_counter() - t0
+    g6 = concat_graph(np, chunks6, n6)
+    den6 = build_shards(g6, 8, enumerate_triangles=False)
+    src6 = live_sources(np, rng, g6, 16)
+    results = {}
+    for name, shards in (("ragged", rag6), ("dense", den6)):
+        build.reset_launches()
+        results[name] = SsspEngine.build(shards, cfg).solve(src6)
+        fam = [k for k in build.LAUNCHES if k.endswith("_ragged")
+               == (name == "ragged")]
+        if min(build.LAUNCHES[k] for k in fam) < 1 or sum(
+                build.LAUNCHES.values()) != sum(build.LAUNCHES[k]
+                                                for k in fam):
+            fail(f"ragged vs dense: the {name} solve ran the wrong kernels "
+                 f"{build.LAUNCHES}")
+    same_results(results["ragged"], results["dense"],
+                 "ragged vs dense (scale-1e6 stream)")
+    rr = results["ragged"]
+    if rr.status != "converged":
+        fail(f"ragged vs dense: status {rr.status}")
+    lr, ld = rag6.layout_bytes(), den6.layout_bytes()
+    say(f"ragged phase: scale-1e6 stream ({g6.n_edges} edges), ragged "
+        f"stream build {t_rag:.1f} s, rx {tuple(rag6.rx_src.shape)} vs dense "
+        f"{tuple(den6.rx_src.shape)}, layouts {lr['total_bytes']} B vs "
+        f"{ld['total_bytes']} B; K=16 ragged == dense: rounds "
+        f"{int(rr.stats.rounds)}, relaxations {int(rr.stats.relaxations)}, "
+        f"wall {rr.wall_s:.3f} s ragged, {results['dense'].wall_s:.3f} s "
+        f"dense")
+    del rag6, den6, results, rr, chunks6, g6
+
+    # ---- scale-1e7: stream build, ragged kernels, the main path -----------
+    t0 = time.perf_counter()
+    n7, stream7 = preset_edge_stream("scale-1e7")
+    chunks7 = list(stream7)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sh7 = build_shards_stream(chunks7, n7, 8)
+    t_build = time.perf_counter() - t0
+    g7 = concat_graph(np, chunks7, n7)
+    del chunks7
+    lb7 = sh7.layout_bytes()
+    say(f"scale-1e7: {n7} vertices, {g7.n_edges} edges, P=8, block "
+        f"{sh7.block}, S {sh7.n_slots}; rx {tuple(sh7.rx_src.shape)} tx "
+        f"{tuple(sh7.tx_src.shape)} mx {tuple(sh7.mx_pos.shape)} recv_idx "
+        f"{tuple(sh7.recv_idx.shape)}; host: stream {t_gen:.1f} s, "
+        f"build_shards_stream {t_build:.1f} s; layouts {lb7['total_bytes']} B "
+        f"ragged vs {lb7['dense_bytes']} B dense, "
+        f"{lb7['bytes_per_edge']:.2f} B/edge (ideal "
+        f"{lb7['ideal_bytes_per_edge']:.0f})")
+    eng7 = SsspEngine.build(sh7, cfg)
+    src7 = live_sources(np, rng, g7, 16)
+    rows.update(ragged_kernel_phase(torch, eng7, src7, cfg))
+    for name in ("relax_ragged", "send_ragged", "merge_ragged"):
+        r = rows[name]
+        say(f"  {name}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.2f} ms "
+            f"plain, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})"
+            + (f", library {r['library_ms']:.4f} ms" if r["library_ms"]
+               else ""))
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    res = eng7.solve(src7)
+    torch.cuda.synchronize()
+    launches.update({k: v for k, v in build.LAUNCHES.items()
+                     if k.endswith("_ragged")})
+    dense_in_main = {k: build.LAUNCHES[k] for k in build.KERNELS}
+    res1 = eng7.solve(src7[:1])
+    for name, r in (("K=16", res), ("K=1", res1)):
+        if r.status != "converged" or not r.q_converged.all():
+            fail(f"main {name}: status {r.status}")
+        if not np.isfinite(r.dist).any() or r.dist.shape[1] != n7:
+            fail(f"main {name}: bad distances {r.dist.shape}")
+        mteps = int(r.stats.relaxations) / r.wall_s / 1e6
+        say(f"main path {name}: {r.wall_s:.3f} s wall, "
+            f"{int(r.stats.rounds)} rounds, {int(r.stats.relaxations)} "
+            f"relaxations, {mteps:.1f} MTEPS")
+    if not np.array_equal(res1.dist[0], res.dist[0]):
+        fail("main: the K=1 solve differs from row 0 of the K=16 solve")
+    t0 = time.perf_counter()
+    ref = scipy_dijkstra(np, g7, src7[:2])
+    for i in range(2):
+        if not np.allclose(res.dist[i], ref[i], rtol=RTOL, atol=ATOL):
+            fail(f"main: source {src7[i]} disagrees with Dijkstra")
+    ragged = {k: launches[f"{k}_ragged"] for k in build.KERNELS}
+    if min(ragged.values()) < 1 or max(dense_in_main.values()) > 0:
+        fail(f"main: launches ragged {ragged}, dense {dense_in_main}")
+    say(f"main path: 16 queries converged, 2 match scipy Dijkstra "
+        f"({time.perf_counter() - t0:.1f} s); launches per K=16 solve "
+        f"ragged {ragged}, dense {dense_in_main}")
+    profile_solve(torch, eng7, src7, out_dir / "chip_smoke_trace_1e7.json",
+                  "scale-1e7 ragged K=16")
+    say(f"total: {time.perf_counter() - t_start:.1f} s after the card query")
+
+    table = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
+              "replaces": SOURCES[name][1], "launches": launches[name],
               "max_abs_err": r["err"], "ms": r["ms"],
               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
               "bound_by": r["bound"][1], "library_ms": r["library_ms"]}

@@ -9,9 +9,10 @@ Each (shard, query) row iterates on its own, as the reference's vmapped
 
 - ``bellman``: each step relaxes the local edges whose source improved in
   the previous step (gather + scatter-min), until no row has a frontier.
-- ``pallas``: the dst-tiled relax kernel run as a fused multi-sweep
-  fixpoint (``kernels/relax``), re-invoked from a host loop on the
-  residual frontier until every shard's frontier is empty.
+- ``pallas``: the dst-tiled relax kernel (dense or ragged, by the shards'
+  layout) run as a fused multi-sweep fixpoint (``kernels/relax``),
+  re-invoked from a host loop on the residual frontier until every shard's
+  frontier is empty.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 from repro_torch.core import phases
 from repro_torch.kernels.common import INF, scatter_min_drop, take_fill
 from repro_torch.kernels.relax import (fixpoint_operands,
+                                       relax_dst_ragged_fixpoint_batch,
                                        relax_dst_tiled_fixpoint_batch)
 
 
@@ -73,11 +75,19 @@ def local_fixpoint_pallas(dist, active, sh, pruned_loc, *, max_iters: int,
     frontier. A shard stops once its frontier is empty or it has run
     ``max_iters`` sweeps (the reference's per-shard loop condition); a
     stopped shard gets an empty frontier in later launches, which makes
-    its kernel rows no-ops."""
+    its kernel rows no-ops. A ragged layout (a 5-tuple, with the chunk->
+    tile map) takes the ragged kernel."""
     block = dist.shape[-1]
-    src_t, w_t, dstrel_t, eid_t = sh.relax_layout
+    lay = sh.relax_layout
+    src_t, w_t, dstrel_t, eid_t = lay[:4]
+    if len(lay) == 5:                     # ragged: + chunk->tile map
+        relax, lead = relax_dst_ragged_fixpoint_batch, lay[4:]
+        block_pad = -(-block // sh.rx_vb) * sh.rx_vb
+    else:
+        relax, lead = relax_dst_tiled_fixpoint_batch, ()
+        block_pad = src_t.shape[1] * sh.rx_vb
     d, front, pruned_t = fixpoint_operands(dist, active, pruned_loc, eid_t,
-                                           src_t.shape[1] * sh.rx_vb)
+                                           block_pad)
     P, K = d.shape[:2]
     nrel = torch.zeros((P, K), dtype=torch.int32, device=d.device)
     it = torch.zeros((P,), dtype=torch.int32, device=d.device)
@@ -85,9 +95,9 @@ def local_fixpoint_pallas(dist, active, sh, pruned_loc, *, max_iters: int,
         run = (front > 0).flatten(1).any(-1) & (it < max_iters)   # [P]
         if not bool(run.any()):
             break
-        d, resid, n = relax_dst_tiled_fixpoint_batch(
-            d, front * run[:, None, None], src_t, w_t, dstrel_t, pruned_t,
-            vb=sh.rx_vb, n_sweeps=sweeps)
+        d, resid, n = relax(
+            d, front * run[:, None, None], *lead, src_t, w_t, dstrel_t,
+            pruned_t, vb=sh.rx_vb, n_sweeps=sweeps)
         front = torch.where(run[:, None, None], resid, front)
         nrel += n
         it += sweeps * run.to(torch.int32)

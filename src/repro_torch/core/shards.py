@@ -1,4 +1,4 @@
-"""Host-side shard preprocessing for SP-Async (dense tile layouts).
+"""Host-side shard preprocessing for SP-Async (dense and ragged layouts).
 
 Port of the reference's ``core/shards.py``. Each partition's edges split
 into LOCAL (dst owned by the same shard) and CUT (dst owned elsewhere)
@@ -14,23 +14,39 @@ Three tile layouts ride in the shards, each grouping items by destination
 tile: ``rx_*`` (local edges by vertex tile, for the relax kernel),
 ``tx_*`` (cut edges by message-slot tile, plus the ``tx_payload_slot``
 payload inverse, for the send kernel) and ``mx_*`` (receive positions by
-vertex tile, for the merge kernel). This slice builds the dense form:
-``[P, n_tiles, n_chunks, EB]`` with ``n_chunks`` the max over tiles and
-shards. Every array is a host int32/float32/bool torch tensor, stacked
+vertex tile, for the merge kernel). Each comes in two shapes, chosen by
+``layout=``:
+
+- ``"dense"``: ``[P, n_tiles, n_chunks, EB]`` with ``n_chunks`` the max
+  over tiles and shards, so every tile is padded to the worst case;
+- ``"ragged"``: CSR-chunked flat rows ``[P, total_chunks, EB]`` plus a
+  chunk->tile map ``*_ctile [P, total_chunks]`` (non-decreasing; sentinel
+  ``n_tiles`` on the padding chunks that stack the shards). Memory follows
+  ``sum_t ceil(count_t / EB)``; the chunk contents are the dense ones.
+
+``build_shards`` partitions a materialized ``Graph``;
+``build_shards_stream`` consumes an iterator of edge chunks with per-part
+accumulators, so a 10M-edge graph never becomes one dense intermediate.
+Every array is a host int32/float32/bool torch tensor, stacked
 ``[P, ...]``; ``SsspShards.to(device)`` moves them.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.core.partition import partition_1d
 from repro_torch.graph.structure import Graph
-from repro_torch.kernels.merge.ops import build_msg_tiled_layout
-from repro_torch.kernels.relax.ops import build_dst_tiled_layout
-from repro_torch.kernels.send.ops import build_slot_tiled_layout
+from repro_torch.kernels.common import chunk_bounds
+from repro_torch.kernels.merge.ops import (build_msg_ragged_layout,
+                                           build_msg_tiled_layout)
+from repro_torch.kernels.relax.ops import (build_dst_ragged_layout,
+                                           build_dst_tiled_layout)
+from repro_torch.kernels.send.ops import (build_slot_ragged_layout,
+                                          build_slot_tiled_layout)
 
 _STATIC = ("n_vertices", "n_parts", "block", "rx_vb", "rx_eb", "tx_sb",
            "tx_eb", "mx_vb", "mx_eb", "layout")
@@ -62,24 +78,30 @@ class SsspShards:
     tri_valid: torch.Tensor   # [P, T] bool
     inter_edges: torch.Tensor  # [P] int32 per-shard cut-edge counts
     # dst-tiled local edges (relax kernel); rx_eid maps a tiled slot back to
-    # its local edge id (sentinel e_loc) for the runtime Trishla mask
-    rx_src: torch.Tensor      # [P, n_vtiles, n_chunks, EB] int32
+    # its local edge id (sentinel e_loc) for the runtime Trishla mask.
+    # Dense [P, n_vtiles, n_chunks, EB]; ragged [P, total_chunks, EB].
+    rx_src: torch.Tensor      # int32
     rx_w: torch.Tensor        # f32
     rx_dstrel: torch.Tensor   # int32 in [0, rx_vb)
     rx_eid: torch.Tensor      # int32
     # slot-tiled cut edges (send kernel); tx_eid sentinel e_cut
-    tx_src: torch.Tensor      # [P, n_stiles, n_chunks, EB] int32
+    tx_src: torch.Tensor      # int32
     tx_w: torch.Tensor
     tx_segrel: torch.Tensor
     tx_eid: torch.Tensor
     tx_payload_slot: torch.Tensor  # [P, P, C] int32 slot feeding (dest, pos); S = none
     # msg-tiled receive routing (merge kernel): flat positions [0, P*C)
-    mx_pos: torch.Tensor      # [P, n_vtiles, n_chunks, EB] int32
+    mx_pos: torch.Tensor      # int32
     mx_dstrel: torch.Tensor
     mx_valid: torch.Tensor
     n_vertices: int
     n_parts: int
     block: int
+    # chunk->tile maps of the ragged layouts, [P, total_chunks] int32
+    # (sentinel n_tiles on padding chunks); None when dense
+    rx_ctile: torch.Tensor | None = None
+    tx_ctile: torch.Tensor | None = None
+    mx_ctile: torch.Tensor | None = None
     rx_vb: int = 128
     rx_eb: int = 512
     tx_sb: int = 128
@@ -109,66 +131,143 @@ class SsspShards:
         return self.loc_src.device
 
     @property
+    def n_stiles(self) -> int:
+        """Slot tiles of the send layout: ``ceil(S / tx_sb)``."""
+        return max(-(-self.n_slots // self.tx_sb), 1)
+
+    @property
     def relax_layout(self):
-        return (self.rx_src, self.rx_w, self.rx_dstrel, self.rx_eid)
+        """(src, w, dstrel, eid), plus the chunk->tile map when ragged: the
+        consumers dispatch the ragged kernel on the 5-tuple."""
+        base = (self.rx_src, self.rx_w, self.rx_dstrel, self.rx_eid)
+        return base if self.rx_ctile is None else base + (self.rx_ctile,)
 
     @property
     def send_layout(self):
-        return (self.tx_src, self.tx_w, self.tx_segrel, self.tx_eid)
+        """(src, w, segrel, eid), plus the chunk->tile map when ragged."""
+        base = (self.tx_src, self.tx_w, self.tx_segrel, self.tx_eid)
+        return base if self.tx_ctile is None else base + (self.tx_ctile,)
 
     @property
     def merge_layout(self):
-        return (self.mx_pos, self.mx_dstrel, self.mx_valid)
+        """(pos, dstrel, valid), plus the chunk->tile map when ragged (a
+        4-tuple)."""
+        base = (self.mx_pos, self.mx_dstrel, self.mx_valid)
+        return base if self.mx_ctile is None else base + (self.mx_ctile,)
+
+    @functools.cached_property
+    def send_bounds(self):
+        """[P, n_stiles + 1] int32 tile -> chunk ranges of the ragged send
+        layout (``chunk_bounds``), None when dense. Derived once per shards
+        object, so once per engine and device move, never per round."""
+        if self.tx_ctile is None:
+            return None
+        return chunk_bounds(self.tx_ctile, self.n_stiles)
+
+    @functools.cached_property
+    def merge_bounds(self):
+        """[P, n_vtiles + 1] int32 tile -> chunk ranges of the ragged merge
+        layout, None when dense; derived once, as ``send_bounds``."""
+        if self.mx_ctile is None:
+            return None
+        return chunk_bounds(self.mx_ctile, -(-self.block // self.mx_vb))
 
     def arrays(self) -> dict[str, torch.Tensor]:
-        """Every array field by name."""
+        """Every array field by name (the ctile maps only when ragged)."""
         return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
-                if f.name not in _STATIC}
+                if f.name not in _STATIC and getattr(self, f.name) is not None}
 
     def to(self, device) -> "SsspShards":
         return dataclasses.replace(
             self, **{k: v.to(device) for k, v in self.arrays().items()})
 
     def layout_bytes(self) -> dict:
-        """Measured memory of each tile-layout family vs the CSR ideal.
+        """Measured memory of each tile-layout family vs the CSR ideal and
+        the dense equivalent.
 
-        Per family: ``bytes`` (array storage), ``items`` (real edges /
-        messages it encodes), ``bytes_per_item``, ``ideal_bytes`` (4 B per
-        plane per item: 4 planes for the edge layouts, 3 for the msg
-        layout) and ``dense_bytes`` (equal to ``bytes``: these shards are
-        dense). ``bytes_per_edge`` divides the edge layouts by real edges."""
+        Per family: ``bytes`` (array storage, the ctile map included),
+        ``items`` (real edges / messages it encodes), ``bytes_per_item``,
+        ``ideal_bytes`` (4 B per plane per item: 4 planes for the edge
+        layouts, 3 for the msg layout) and ``dense_bytes`` (what the dense
+        layout costs for the same data; equal to ``bytes`` when dense).
+        ``bytes_per_edge`` divides the edge layouts by real edges."""
         loc_edges = int(torch.isfinite(self.loc_w).sum())
         cut_edges = int(torch.isfinite(self.cut_w).sum())
         msgs = int((self.recv_idx < self.block).sum())
         groups = {}
-        for name, arrays, items, planes in (
-                ("relax", self.relax_layout, loc_edges, 4),
-                ("send", self.send_layout, cut_edges, 4),
-                ("merge", self.merge_layout, msgs, 3)):
+        for name, arrays, items, planes, n_tiles, eb in (
+                ("relax", self.relax_layout, loc_edges, 4,
+                 max(-(-self.block // self.rx_vb), 1), self.rx_eb),
+                ("send", self.send_layout, cut_edges, 4, self.n_stiles,
+                 self.tx_eb),
+                ("merge", self.merge_layout, msgs, 3,
+                 max(-(-self.block // self.mx_vb), 1), self.mx_eb)):
             b = int(sum(a.numel() * a.element_size() for a in arrays))
-            groups[name] = {"bytes": b, "items": items,
-                            "bytes_per_item": b / max(items, 1),
-                            "ideal_bytes": items * planes * 4,
-                            "dense_bytes": b}
-        total = sum(g["bytes"] for g in groups.values())
+            ctile = arrays[planes] if len(arrays) > planes else None
+            groups[name] = {
+                "bytes": b, "items": items,
+                "bytes_per_item": b / max(items, 1),
+                "ideal_bytes": items * planes * 4,
+                "dense_bytes": (b if ctile is None else _dense_equivalent(
+                    ctile, n_tiles, eb, planes))}
         n_edges = loc_edges + cut_edges
-        return {"layout": self.layout, "groups": groups, "total_bytes": total,
-                "dense_bytes": total, "n_edges": n_edges,
+        return {"layout": self.layout, "groups": groups,
+                "total_bytes": sum(g["bytes"] for g in groups.values()),
+                "dense_bytes": sum(g["dense_bytes"] for g in groups.values()),
+                "n_edges": n_edges,
                 "bytes_per_edge": (groups["relax"]["bytes"]
                                    + groups["send"]["bytes"]) / max(n_edges, 1),
                 "ideal_bytes_per_edge": 16.0}
 
 
+def _dense_equivalent(ctile, n_tiles: int, eb: int, planes: int) -> int:
+    """Bytes of the dense layout that holds a ragged layout's chunks: every
+    tile of every shard padded to the most chunks any one tile has."""
+    ct = ctile.cpu().numpy()
+    max_chunks = 1
+    for row in ct:
+        real = row[row < n_tiles]
+        if real.size:
+            max_chunks = max(max_chunks,
+                             int(np.bincount(real, minlength=n_tiles).max()))
+    return int(ct.shape[0] * n_tiles * max_chunks * eb * planes * 4)
+
+
+def _check_ragged(sh: SsspShards) -> SsspShards:
+    """Raise unless ragged shards carry all three chunk->tile maps, each
+    within [0, n_tiles] and non-decreasing per shard, so each tile owns one
+    contiguous chunk range and the sentinel ``n_tiles`` sits only on
+    trailing padding chunks: the ragged send and merge kernels find a
+    tile's chunks by that range."""
+    for name, n_tiles in (("rx_ctile", -(-sh.block // sh.rx_vb)),
+                          ("tx_ctile", sh.n_stiles),
+                          ("mx_ctile", -(-sh.block // sh.mx_vb))):
+        ctile = getattr(sh, name)
+        if ctile is None:
+            raise ValueError(f"ragged shards need {name}")
+        ct = ctile.numpy()
+        if ct.min() < 0 or ct.max() > n_tiles or (np.diff(ct, axis=-1)
+                                                  < 0).any():
+            raise ValueError(f"{name}: a ragged chunk->tile map must be "
+                             f"non-decreasing within [0, {n_tiles}] per "
+                             "shard")
+    return sh
+
+
+def _check_layout(layout: str) -> None:
+    if layout not in ("dense", "ragged"):
+        raise ValueError(f"unknown layout {layout!r}: expected 'dense' or "
+                         "'ragged'")
+
+
 def shards_from_arrays(fields: dict, **static) -> SsspShards:
     """Shards from host arrays (e.g. another package's ``SsspShards`` read
     out as numpy), so both sides solve identical state. ``fields`` maps each
-    array field name to an array; entries that are None (layout families
-    this slice does not port, such as the ragged chunk maps) are ignored.
-    ``static`` gives the scalar fields (n_vertices, n_parts, block, ...)."""
-    if static.get("layout", "dense") != "dense":
-        raise NotImplementedError(
-            "ragged shards are not ported yet (ROADMAP Queue 2, kernels 2, "
-            "4 and 6)")
+    array field name to an array; entries that are None (such as the ctile
+    maps of dense shards) are left out. ``static`` gives the scalar fields
+    (n_vertices, n_parts, block, layout, ...)."""
+    layout = static.get("layout", "dense")
+    _check_layout(layout)
     known = {f.name for f in dataclasses.fields(SsspShards)}
     arrays = {}
     for name, a in fields.items():
@@ -180,7 +279,8 @@ def shards_from_arrays(fields: dict, **static) -> SsspShards:
         arrays[name] = torch.from_numpy(
             a.copy() if a.dtype == bool else a.astype(
                 np.float32 if a.dtype.kind == "f" else np.int32))
-    return SsspShards(**arrays, **static)
+    sh = SsspShards(**arrays, **static)
+    return _check_ragged(sh) if layout == "ragged" else sh
 
 
 def _check_weights(w, valid):
@@ -256,25 +356,29 @@ def _triangles(loc_src, loc_dst, cut_src, cut_seg, slot_owner, slot_dstl,
     return tri
 
 
-def _stack_tiled(per_shard, fills, sentinels, eb):
-    """Pad per-shard [n_tiles, n_chunks_p, EB] layouts to the max chunk
-    count and stack them to [P, n_tiles, n_chunks, EB]. ``sentinels[k]``
-    (own, common) restamps the k-th plane's per-shard padding value."""
-    n_tiles = per_shard[0][0].shape[0]
-    n_chunks = max(lay[0].shape[1] for lay in per_shard)
-    P = len(per_shard)
+def _stack(per_shard, fills, sentinels, axis: int):
+    """Pad per-shard layout planes to the most chunks any shard has (along
+    the chunk ``axis`` of the per-shard planes: 1 for dense
+    [n_tiles, n_chunks, EB], 0 for ragged [total_chunks, EB] and the
+    [total_chunks] ctile) and stack them [P, ...]. ``fills[k]`` pads plane
+    k (a float fill makes it float32, else int32); ``sentinels[k][p]`` =
+    (own, common) restamps shard p's own padding value in plane k."""
+    n = max(lay[0].shape[axis] for lay in per_shard)
     out = []
     for k, fill in enumerate(fills):
         dtype = np.float32 if isinstance(fill, float) else np.int64
-        arr = np.full((P, n_tiles, n_chunks, eb), fill, dtype)
+        planes = []
         for p, lay in enumerate(per_shard):
             plane = lay[k].numpy().astype(dtype)
             if k in sentinels:
                 own, common = sentinels[k][p]
                 plane[plane == own] = common
-            arr[p, :, :plane.shape[1]] = plane
-        out.append(torch.from_numpy(arr.astype(np.float32 if dtype == np.float32
-                                               else np.int32)))
+            width = [(0, 0)] * plane.ndim
+            width[axis] = (0, n - plane.shape[axis])
+            planes.append(np.pad(plane, width, constant_values=fill))
+        arr = np.stack(planes)
+        out.append(torch.from_numpy(
+            arr if dtype == np.float32 else arr.astype(np.int32)))
     return out
 
 
@@ -284,34 +388,105 @@ def build_shards(g: Graph, n_parts: int,
                  relax_eb: int = 512, send_sb: int = 128, send_eb: int = 512,
                  merge_vb: int = 128, merge_eb: int = 512,
                  layout: str = "dense") -> SsspShards:
-    """Partition + preprocess a ``Graph`` (see module doc)."""
-    if layout == "ragged":
-        raise NotImplementedError(
-            "layout='ragged' is not ported yet (ROADMAP Queue 2, kernels 2, "
-            "4 and 6)")
-    if layout != "dense":
-        raise ValueError(f"unknown layout {layout!r}: expected 'dense' or "
-                         "'ragged'")
+    """Partition + preprocess a materialized ``Graph`` (see module doc).
+    ``layout`` picks the tile-layout family: "dense" or "ragged"."""
+    _check_layout(layout)
     w_all = g.weight.numpy()
     v_all = g.valid.numpy()
     _check_weights(w_all, v_all)
     _check_endpoints(g.src.numpy(), g.dst.numpy(), v_all, g.n_vertices)
     pg = partition_1d(g, n_parts)
-    P, block, n = pg.n_parts, pg.block, pg.n_vertices
-
     src_l = pg.src_local.numpy().astype(np.int64)
     dst_o = pg.dst_owner.numpy().astype(np.int64)
     dst_l = pg.dst_local.numpy().astype(np.int64)
     w = pg.weight.numpy()
     valid = pg.valid.numpy()
+    parts = [(src_l[p][vm], dst_o[p][vm], dst_l[p][vm], w[p][vm])
+             for p, vm in enumerate(valid)]
+    return _assemble_shards(
+        parts, pg.n_vertices, pg.n_parts, pg.block,
+        max_triangles_per_part=max_triangles_per_part,
+        enumerate_triangles=enumerate_triangles, relax_vb=relax_vb,
+        relax_eb=relax_eb, send_sb=send_sb, send_eb=send_eb,
+        merge_vb=merge_vb, merge_eb=merge_eb, layout=layout)
 
+
+def build_shards_stream(edge_chunks, n_vertices: int, n_parts: int, *,
+                        dedup: bool = True,
+                        max_triangles_per_part: int | None = None,
+                        enumerate_triangles: bool = False,
+                        relax_vb: int = 128, relax_eb: int = 512,
+                        send_sb: int = 128, send_eb: int = 512,
+                        merge_vb: int = 128, merge_eb: int = 512,
+                        layout: str = "ragged") -> SsspShards:
+    """Streaming shard build from an iterator of ``(src, dst, w)`` edge
+    chunks instead of a materialized ``Graph``.
+
+    Each chunk is checked (weights and endpoints, the errors of
+    ``build_shards``) and routed to its owner part (``src // block``) at
+    once, so peak memory is one chunk plus the per-part edges: no global
+    sort and no ``[P, e_max]`` partition intermediate. Per part, edges are
+    then (src, dst)-sorted and min-weight deduplicated with exactly the
+    ``csr_from_coo`` recipe, so the shards equal ``build_shards(
+    csr_from_coo(...), ...)`` on the concatenated chunks, field for field.
+
+    ``enumerate_triangles`` defaults to False (Trishla's host enumeration
+    is superlinear) and ``layout`` to "ragged": this entry point is for
+    large graphs."""
+    _check_layout(layout)
+    block = max(-(-n_vertices // n_parts), 1)
+    acc = [([], [], []) for _ in range(n_parts)]
+    for src, dst, w in edge_chunks:
+        src = np.asarray(src, np.int64)
+        dst = np.asarray(dst, np.int64)
+        w = np.asarray(w, np.float32)
+        ok = np.ones(len(src), bool)
+        _check_weights(w, ok)
+        _check_endpoints(src, dst, ok, n_vertices)
+        owner = src // block
+        for p in np.unique(owner):
+            m = owner == p
+            for lst, a in zip(acc[p], (src, dst, w)):
+                lst.append(a[m])
+
+    parts = []
+    for p in range(n_parts):
+        src, dst, w = (np.concatenate(lst) if lst else np.zeros(0, dt)
+                       for lst, dt in zip(acc[p], (np.int64, np.int64,
+                                                   np.float32)))
+        acc[p] = None                       # free each part as it is done
+        # csr_from_coo's order: (src, dst) sort, then min-weight dedup by a
+        # (key, weight) sort keeping the first of each key
+        order = np.lexsort((dst, src))
+        src, dst, w = src[order], dst[order], w[order]
+        if dedup and len(src):
+            key = src * n_vertices + dst
+            o2 = np.lexsort((w, key))
+            key, src, dst, w = key[o2], src[o2], dst[o2], w[o2]
+            keep = np.ones(len(key), bool)
+            keep[1:] = key[1:] != key[:-1]
+            src, dst, w = src[keep], dst[keep], w[keep]
+        dst_o = dst // block
+        parts.append((src - p * block, dst_o, dst - dst_o * block, w))
+    return _assemble_shards(
+        parts, n_vertices, n_parts, block,
+        max_triangles_per_part=max_triangles_per_part,
+        enumerate_triangles=enumerate_triangles, relax_vb=relax_vb,
+        relax_eb=relax_eb, send_sb=send_sb, send_eb=send_eb,
+        merge_vb=merge_vb, merge_eb=merge_eb, layout=layout)
+
+
+def _assemble_shards(parts, n, P, block, *, max_triangles_per_part,
+                     enumerate_triangles, relax_vb, relax_eb, send_sb,
+                     send_eb, merge_vb, merge_eb, layout) -> SsspShards:
+    """Shared assembly of both builders: per-part valid edges ->
+    ``SsspShards``. ``parts[p]`` = (src_local, dst_owner, dst_local, w),
+    each the part's valid edges in (src, dst)-sorted order."""
     loc_src, loc_dst, loc_w = [], [], []
     cut_src, cut_w, cut_seg = [], [], []
     slot_owner, slot_dstl = [], []
     inter_edges = np.zeros(P, np.int64)
-    for p in range(P):
-        vm = valid[p]
-        p_src, p_do, p_dl, p_w = src_l[p][vm], dst_o[p][vm], dst_l[p][vm], w[p][vm]
+    for p, (p_src, p_do, p_dl, p_w) in enumerate(parts):
         cm = p_do != p
         lm = ~cm
         loc_src.append(p_src[lm])
@@ -371,23 +546,33 @@ def build_shards(g: Graph, n_parts: int,
             tri[:, p, :len(rows)] = np.asarray(rows, np.int64).T
             tri_valid[p, :len(rows)] = True
 
+    ragged = layout == "ragged"
+    # the dense layouts pad the chunk axis of [n_tiles, n_chunks, EB]; the
+    # ragged ones the flat chunk rows and the ctile map, with its sentinel
+    axis = 0 if ragged else 1
+
+    def with_ctile(fills, n_tiles):
+        return fills + (n_tiles,) if ragged else fills
+    n_vtiles = -(-block // relax_vb)
+
     # dst-tiled local edges (relax kernel); the builder's padding eid is the
     # shard's own edge count, restamped to the uniform sentinel e_loc
-    rx = _stack_tiled(
-        [build_dst_tiled_layout(loc_src[p], loc_dst[p], loc_w[p], block,
-                                vb=relax_vb, eb=relax_eb)
-         for p in range(P)],
-        fills=(-(-block // relax_vb) * relax_vb - 1, np.inf, 0, e_loc),
+    build_rx = build_dst_ragged_layout if ragged else build_dst_tiled_layout
+    rx = _stack(
+        [build_rx(loc_src[p], loc_dst[p], loc_w[p], block, vb=relax_vb,
+                  eb=relax_eb) for p in range(P)],
+        fills=with_ctile((n_vtiles * relax_vb - 1, np.inf, 0, e_loc), n_vtiles),
         sentinels={3: [(len(loc_src[p]), e_loc) for p in range(P)]},
-        eb=relax_eb)
+        axis=axis)
 
     # slot-tiled cut edges (send kernel); padding eid restamped to e_cut
-    tx = _stack_tiled(
-        [build_slot_tiled_layout(cut_src[p], cut_seg[p], cut_w[p], S,
-                                 sb=send_sb, eb=send_eb) for p in range(P)],
-        fills=(0, np.inf, 0, e_cut),
+    build_tx = build_slot_ragged_layout if ragged else build_slot_tiled_layout
+    tx = _stack(
+        [build_tx(cut_src[p], cut_seg[p], cut_w[p], S, sb=send_sb, eb=send_eb)
+         for p in range(P)],
+        fills=with_ctile((0, np.inf, 0, e_cut), -(-S // send_sb)),
         sentinels={3: [(len(cut_src[p]), e_cut) for p in range(P)]},
-        eb=send_eb)
+        axis=axis)
     # payload-position inverse: each (owner, pos) receives at most one slot
     tx_payload_slot = np.full((P, P, C), S, np.int64)
     for p in range(P):
@@ -395,15 +580,20 @@ def build_shards(g: Graph, n_parts: int,
             len(slot_owner[p]))
 
     # msg-tiled receive routing (merge kernel)
-    mx = _stack_tiled(
-        [build_msg_tiled_layout(recv_idx[q], block, vb=merge_vb, eb=merge_eb)
+    build_mx = build_msg_ragged_layout if ragged else build_msg_tiled_layout
+    mx = _stack(
+        [build_mx(recv_idx[q], block, vb=merge_vb, eb=merge_eb)
          for q in range(P)],
-        fills=(0, 0, 0), sentinels={}, eb=merge_eb)
+        fills=with_ctile((0, 0, 0), -(-block // merge_vb)), sentinels={},
+        axis=axis)
 
     def i32(a):
         return torch.from_numpy(np.asarray(a).astype(np.int32))
 
-    return SsspShards(
+    ctiles = {}
+    if ragged:
+        ctiles = dict(rx_ctile=rx[4], tx_ctile=tx[4], mx_ctile=mx[3])
+    sh = SsspShards(
         loc_src=i32(_pad2(loc_src, e_loc, block, np.int64)),
         loc_dst=i32(_pad2(loc_dst, e_loc, block, np.int64)),
         loc_w=torch.from_numpy(_pad2(loc_w, e_loc, np.inf, np.float32)),
@@ -422,7 +612,8 @@ def build_shards(g: Graph, n_parts: int,
         rx_src=rx[0], rx_w=rx[1], rx_dstrel=rx[2], rx_eid=rx[3],
         tx_src=tx[0], tx_w=tx[1], tx_segrel=tx[2], tx_eid=tx[3],
         tx_payload_slot=i32(tx_payload_slot),
-        mx_pos=mx[0], mx_dstrel=mx[1], mx_valid=mx[2],
+        mx_pos=mx[0], mx_dstrel=mx[1], mx_valid=mx[2], **ctiles,
         n_vertices=n, n_parts=P, block=block, rx_vb=relax_vb,
         rx_eb=relax_eb, tx_sb=send_sb, tx_eb=send_eb, mx_vb=merge_vb,
         mx_eb=merge_eb, layout=layout)
+    return _check_ragged(sh) if ragged else sh

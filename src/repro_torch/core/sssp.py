@@ -164,16 +164,19 @@ def _phase_send_xla(sh: SsspShards, dist, pruned, last_sent):
 
 @phases.register("send", "pallas")
 def _phase_send_pallas(sh: SsspShards, dist, pruned, last_sent):
-    """Slot-tiled send kernel over ``sh.tx_*``: segment-min, masking and
-    counts in one launch; the payload scatter is the static gather through
+    """Slot-tiled send kernel over ``sh.tx_*`` (dense, or ragged when the
+    layout carries its chunk->tile map): segment-min, masking and counts in
+    one launch; the payload scatter is the static gather through
     ``tx_payload_slot``."""
-    src_t, w_t, segrel_t, eid_t = sh.send_layout
+    lay = sh.send_layout
+    src_t, w_t, segrel_t, eid_t = lay[:4]
     P = eid_t.shape[0]
     pruned_t = take_fill(pruned[:, sh.e_loc:].to(torch.int32),
                          eid_t.reshape(P, -1), 0).reshape(eid_t.shape)
     send_val, new_last, sends = send_pack(
         dist, last_sent, sh.slot_valid, src_t, w_t, segrel_t, pruned_t,
-        sb=sh.tx_sb)
+        sb=sh.tx_sb, ctile=lay[4] if len(lay) == 5 else None,
+        bounds=sh.send_bounds)
     return send_payload_bucket(send_val, sh.tx_payload_slot), new_last, sends
 
 
@@ -191,12 +194,14 @@ def _phase_merge_xla(sh: SsspShards, dist, incoming):
 
 @phases.register("merge", "pallas")
 def _phase_merge_pallas(sh: SsspShards, dist, incoming):
-    """Msg-tiled merge kernel over ``sh.mx_*``: scatter-min, next frontier
-    and receive counts in one launch."""
+    """Msg-tiled merge kernel over ``sh.mx_*`` (dense, or ragged when the
+    layout carries its chunk->tile map): scatter-min, next frontier and
+    receive counts in one launch."""
     P, K = dist.shape[:2]
-    mx_pos, mx_dstrel, mx_valid = sh.merge_layout
-    return merge_scatter(dist, incoming.reshape(P, K, -1), mx_pos, mx_dstrel,
-                         mx_valid, vb=sh.mx_vb)
+    lay = sh.merge_layout
+    return merge_scatter(dist, incoming.reshape(P, K, -1), *lay[:3],
+                         vb=sh.mx_vb, ctile=lay[3] if len(lay) == 4 else None,
+                         bounds=sh.merge_bounds)
 
 
 def _mask_payload(payload):

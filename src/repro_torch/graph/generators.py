@@ -6,12 +6,15 @@ so equal seeds give equal CSR arrays:
   - ``road_grid_graph``: 2-D grid with diagonal shortcuts, road-network-like.
   - ``random_graph``: uniform random edges with an optional spanning chain.
   - ``assign_weights``: U[1, 20) weights, the paper's setup.
+  - ``rmat_edge_stream`` / ``preset_edge_stream``: R-MAT as a stream of
+    edge chunks for ``build_shards_stream``; ``edge_chunks_of`` streams a
+    materialized graph.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.graph.structure import Graph, csr_from_coo
+from repro_torch.graph.structure import Graph, csr_from_coo, graph_to_numpy
 
 
 def assign_weights(n_edges: int, rng: np.random.Generator,
@@ -123,6 +126,63 @@ SCALE_PRESETS = {
 
 
 def preset_graph(name: str, **overrides) -> Graph:
-    """Materialize a ``SCALE_PRESETS`` workload."""
+    """Materialize a ``SCALE_PRESETS`` workload (for 1e7 edges, prefer
+    ``preset_edge_stream`` + ``build_shards_stream``)."""
     gen, kw = SCALE_PRESETS[name]
     return get_generator(gen)(**{**kw, **overrides})
+
+
+def rmat_edge_stream(scale: int, edge_factor: int = 16, seed: int = 0,
+                     a: float = 0.57, b: float = 0.19, c: float = 0.19,
+                     undirected: bool = True, chunk_edges: int = 1 << 18):
+    """R-MAT as an iterator of ``(src, dst, w)`` numpy chunks, for graphs
+    too large to materialize as one COO block.
+
+    Each chunk draws from its own counter-keyed stream
+    ``default_rng((seed, 1 + i))``, so the edge set depends only on
+    (seed, chunk_edges), never on how far the consumer iterated. The vertex
+    permutation comes first, from ``default_rng((seed, 0))``. The streams
+    differ from ``rmat_graph``'s one sequential draw: the same seed gives
+    another graph."""
+    n = 1 << scale
+    m = n * edge_factor
+    perm = np.random.default_rng((seed, 0)).permutation(n)
+    for start in range(0, m, chunk_edges):
+        cm = min(chunk_edges, m - start)
+        rng = np.random.default_rng((seed, 1 + start // chunk_edges))
+        src = np.zeros(cm, np.int64)
+        dst = np.zeros(cm, np.int64)
+        for level in range(scale):
+            r = rng.random(cm)
+            go_right = (r >= a) & (r < a + b) | (r >= a + b + c)
+            go_down = r >= a + b
+            src |= (go_down.astype(np.int64) << (scale - 1 - level))
+            dst |= (go_right.astype(np.int64) << (scale - 1 - level))
+        src, dst = perm[src], perm[dst]
+        keep = src != dst
+        src, dst = src[keep], dst[keep]
+        w = assign_weights(len(src), rng)
+        if undirected:
+            src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+            w = np.concatenate([w, w])
+        if len(src):
+            yield src, dst, w
+
+
+def preset_edge_stream(name: str, chunk_edges: int = 1 << 18):
+    """Streaming form of a ``SCALE_PRESETS`` workload. Returns
+    ``(n_vertices, iterator_of_chunks)``."""
+    gen, kw = SCALE_PRESETS[name]
+    if gen != "rmat":
+        raise ValueError(f"preset {name!r} uses generator {gen!r}, which has "
+                         "no streaming form")
+    return 1 << kw["scale"], rmat_edge_stream(chunk_edges=chunk_edges, **kw)
+
+
+def edge_chunks_of(g: Graph, chunk_edges: int = 1 << 18):
+    """Chunk iterator over a materialized Graph's valid edges, so the
+    streaming shard build can be fed (and tested against) batch inputs."""
+    src, dst, w = graph_to_numpy(g)
+    for i in range(0, len(src), chunk_edges):
+        yield (src[i:i + chunk_edges], dst[i:i + chunk_edges],
+               w[i:i + chunk_edges])

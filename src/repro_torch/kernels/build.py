@@ -9,7 +9,9 @@ a CPU-only process imports this module without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-path went through the kernels.
+path went through the kernels. A source holds a dense kernel and its
+ragged sibling; their counters (``relax`` and ``relax_ragged``, ...) are
+kept apart, so a run also shows which layout family it used.
 """
 from __future__ import annotations
 
@@ -23,11 +25,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-KERNELS = ("relax", "send", "merge")
+KERNELS = ("relax", "send", "merge")          # one source, one library each
+COUNTERS = KERNELS + tuple(f"{k}_ragged" for k in KERNELS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES: dict[str, int] = {name: 0 for name in COUNTERS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

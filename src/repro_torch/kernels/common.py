@@ -46,6 +46,18 @@ def scatter_min_drop(x: torch.Tensor, idx: torch.Tensor,
     return ext[..., :n]
 
 
+def chunk_bounds(ctile: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """A ragged layout's chunk->tile map ``ctile`` [P, total_chunks]
+    (non-decreasing per shard, sentinel ``n_tiles`` on trailing padding
+    chunks) -> the tile -> chunk ranges [P, n_tiles + 1] int32: tile i of
+    shard p owns chunks ``[b[p, i], b[p, i + 1])``; padding chunks lie past
+    ``b[p, n_tiles]`` and belong to no tile."""
+    tiles = torch.arange(n_tiles + 1, dtype=ctile.dtype, device=ctile.device)
+    return torch.searchsorted(ctile.contiguous(),
+                              tiles.expand(ctile.shape[0], -1).contiguous(),
+                              out_int32=True)
+
+
 def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor):
     """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``."""
     for t in tensors:

@@ -20,7 +20,7 @@
 namespace repro {
 
 constexpr int kInfBits = 0x7f800000;   // +inf as an int
-constexpr int kThreads = 512;          // threads per block in all three kernels
+constexpr int kThreads = 512;          // threads per block in every kernel
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(kInfBits); }
 

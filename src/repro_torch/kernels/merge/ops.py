@@ -1,12 +1,33 @@
-"""Host-side msg-tiled layout builder and the solver-facing merge wrapper
-(the reference's ``kernels/merge/ops.py``)."""
+"""Host-side msg-tiled layout builders (dense and ragged) and the
+solver-facing merge wrapper (the reference's ``kernels/merge/ops.py``)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.common import INF, pad_last
-from repro_torch.kernels.merge.merge import merge_scatter_tiled
+from repro_torch.kernels.merge.merge import (merge_scatter_ragged,
+                                            merge_scatter_tiled)
+
+
+def _by_vertex_tile(recv_idx, block: int, vb: int):
+    """The flat positions that carry a message, stably sorted by their
+    destination. Returns (ridx, pos, n_vtiles, block_pad, counts, starts)."""
+    ridx = np.asarray(recv_idx, np.int64).reshape(-1)
+    pos = np.arange(ridx.shape[0], dtype=np.int64)
+    keep = ridx < block
+    ridx, pos = ridx[keep], pos[keep]
+    n_vtiles = max(-(-block // vb), 1)
+    order = np.argsort(ridx, kind="stable")
+    ridx, pos = ridx[order], pos[order]
+    counts = np.bincount(ridx // vb, minlength=n_vtiles)
+    starts = np.zeros(n_vtiles + 1, np.int64)
+    starts[1:] = np.cumsum(counts)
+    return ridx, pos, n_vtiles, n_vtiles * vb, counts, starts
+
+
+def _i32(a):
+    return torch.from_numpy(a.astype(np.int32))
 
 
 def build_msg_tiled_layout(recv_idx, block: int, *, vb: int = 128,
@@ -20,23 +41,13 @@ def build_msg_tiled_layout(recv_idx, block: int, *, vb: int = 128,
     [n_vtiles, n_chunks, EB] int32: ``pos_t`` indexes the flattened [P*C]
     incoming row, ``dstrel_t`` is the destination within its tile,
     ``valid_t`` masks padding."""
-    ridx = np.asarray(recv_idx, np.int64).reshape(-1)
-    pos = np.arange(ridx.shape[0], dtype=np.int64)
-    keep = ridx < block
-    ridx, pos = ridx[keep], pos[keep]
-
-    n_vtiles = max(-(-block // vb), 1)
-    block_pad = n_vtiles * vb
-    order = np.argsort(ridx, kind="stable")
-    ridx, pos = ridx[order], pos[order]
-    counts = np.bincount(ridx // vb, minlength=n_vtiles)
+    ridx, pos, n_vtiles, block_pad, counts, starts = _by_vertex_tile(
+        recv_idx, block, vb)
     n_chunks = max(int(-(-counts.max() // eb)) if counts.size else 1, 1)
 
     pos_t = np.zeros((n_vtiles, n_chunks * eb), np.int64)
     dstrel_t = np.zeros((n_vtiles, n_chunks * eb), np.int64)
     valid_t = np.zeros((n_vtiles, n_chunks * eb), np.int64)
-    starts = np.zeros(n_vtiles + 1, np.int64)
-    starts[1:] = np.cumsum(counts)
     for t in range(n_vtiles):
         lo, hi = starts[t], starts[t + 1]
         k = hi - lo
@@ -45,20 +56,58 @@ def build_msg_tiled_layout(recv_idx, block: int, *, vb: int = 128,
         valid_t[t, :k] = 1
 
     shape3 = (n_vtiles, n_chunks, eb)
+    return (_i32(pos_t.reshape(shape3)), _i32(dstrel_t.reshape(shape3)),
+            _i32(valid_t.reshape(shape3)), block_pad)
 
-    def i32(a):
-        return torch.from_numpy(a.reshape(shape3).astype(np.int32))
 
-    return i32(pos_t), i32(dstrel_t), i32(valid_t), block_pad
+def build_msg_ragged_layout(recv_idx, block: int, *, vb: int = 128,
+                            eb: int = 512):
+    """Ragged (CSR-chunked) msg routing layout: the static receive table ->
+    flat [total_chunks, EB] position rows plus the [total_chunks]
+    chunk->tile map (sentinel ``n_vtiles`` on an all-padding chunk, whose
+    valid plane is 0). The same stable sort and per-tile EB split as the
+    dense builder.
+
+    Returns (pos_r, dstrel_r, valid_r, ctile, block_pad)."""
+    ridx, pos, n_vtiles, block_pad, counts, starts = _by_vertex_tile(
+        recv_idx, block, vb)
+    total_chunks = max(int((-(-counts // eb)).sum()), 1)
+
+    pos_r = np.zeros((total_chunks, eb), np.int64)
+    dstrel_r = np.zeros((total_chunks, eb), np.int64)
+    valid_r = np.zeros((total_chunks, eb), np.int64)
+    ctile = np.full(total_chunks, n_vtiles, np.int64)
+    row = 0
+    for t in range(n_vtiles):
+        lo, hi = starts[t], starts[t + 1]
+        for off in range(lo, hi, eb):
+            k = min(eb, hi - off)
+            pos_r[row, :k] = pos[off:off + k]
+            dstrel_r[row, :k] = ridx[off:off + k] - t * vb
+            valid_r[row, :k] = 1
+            ctile[row] = t
+            row += 1
+    return (_i32(pos_r), _i32(dstrel_r), _i32(valid_r), _i32(ctile),
+            block_pad)
 
 
 def merge_scatter(dist, incoming_flat, pos_t, dstrel_t, valid_t, *,
-                  vb: int = 128):
+                  vb: int = 128, ctile=None, bounds=None):
     """Solver-facing wrapper: pads to the kernel's tile shapes, slices back.
-    dist [P, K, block]; incoming_flat [P, K, M]. Returns (new_dist
-    [P, K, block], new_active [P, K, block] bool, recvs [P, K])."""
+    dist [P, K, block]; incoming_flat [P, K, M]; the layout is dense
+    [P, n_vtiles, n_chunks, EB] or, with ``ctile`` [P, total_chunks] given,
+    ragged [P, total_chunks, EB] (``bounds``: its precomputed tile -> chunk
+    ranges). Returns (new_dist [P, K, block], new_active [P, K, block]
+    bool, recvs [P, K])."""
     block = dist.shape[-1]
-    new, front, recvs = merge_scatter_tiled(
-        pad_last(dist, pos_t.shape[1] * vb, INF), incoming_flat.contiguous(),
-        pos_t, dstrel_t, valid_t, vb=vb)
+    n_vtiles = pos_t.shape[1] if ctile is None else -(-block // vb)
+    d = pad_last(dist, n_vtiles * vb, INF)
+    incoming_flat = incoming_flat.contiguous()
+    if ctile is None:
+        new, front, recvs = merge_scatter_tiled(
+            d, incoming_flat, pos_t, dstrel_t, valid_t, vb=vb)
+    else:
+        new, front, recvs = merge_scatter_ragged(
+            d, incoming_flat, ctile, pos_t, dstrel_t, valid_t, vb=vb,
+            bounds=bounds)
     return new[..., :block], front[..., :block] > 0, recvs

@@ -1,11 +1,35 @@
-"""Host-side dst-tiled layout builder and the operand padding of the relax
-kernel (the reference's ``kernels/relax/ops.py``)."""
+"""Host-side dst-tiled layout builders (dense and ragged) and the operand
+padding of the relax kernels (the reference's ``kernels/relax/ops.py``)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.common import pad_last, take_fill
+
+
+def _by_dst_tile(src, dst, w, n_vertices: int, vb: int):
+    """The finite-weight edges, stably sorted by dst, with each one's
+    position in the original list. Returns (src, dst, w, eid, n_edges,
+    n_vtiles, block_pad, per-tile counts, per-tile starts)."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    w = np.asarray(w, np.float32)
+    n_edges = len(src)
+    eid = np.arange(n_edges, dtype=np.int64)
+    keep = np.isfinite(w)
+    src, dst, w, eid = src[keep], dst[keep], w[keep], eid[keep]
+    n_vtiles = max(-(-n_vertices // vb), 1)
+    order = np.argsort(dst, kind="stable")
+    src, dst, w, eid = src[order], dst[order], w[order], eid[order]
+    counts = np.bincount(dst // vb, minlength=n_vtiles)
+    starts = np.zeros(n_vtiles + 1, np.int64)
+    starts[1:] = np.cumsum(counts)
+    return src, dst, w, eid, n_edges, n_vtiles, n_vtiles * vb, counts, starts
+
+
+def _i32(a):
+    return torch.from_numpy(a.astype(np.int32))
 
 
 def build_dst_tiled_layout(src, dst, w, n_vertices: int, *, vb: int = 128,
@@ -18,27 +42,14 @@ def build_dst_tiled_layout(src, dst, w, n_vertices: int, *, vb: int = 128,
     (sentinel = len(src) for padding), so runtime per-edge state (the
     Trishla mask) gathers into tiled order. Returns (src_t, w_t, dstrel_t,
     eid_t) as int32/float32 torch tensors, and ``block_pad``."""
-    src = np.asarray(src, np.int64)
-    dst = np.asarray(dst, np.int64)
-    w = np.asarray(w, np.float32)
-    n_edges = len(src)
-    eid = np.arange(n_edges, dtype=np.int64)
-    keep = np.isfinite(w)
-    src, dst, w, eid = src[keep], dst[keep], w[keep], eid[keep]
-
-    n_vtiles = max(-(-n_vertices // vb), 1)
-    block_pad = n_vtiles * vb
-    order = np.argsort(dst, kind="stable")
-    src, dst, w, eid = src[order], dst[order], w[order], eid[order]
-    counts = np.bincount(dst // vb, minlength=n_vtiles)
+    (src, dst, w, eid, n_edges, n_vtiles, block_pad, counts,
+     starts) = _by_dst_tile(src, dst, w, n_vertices, vb)
     n_chunks = max(int(-(-counts.max() // eb)) if counts.size else 1, 1)
 
     src_t = np.full((n_vtiles, n_chunks * eb), block_pad - 1, np.int64)
     w_t = np.full((n_vtiles, n_chunks * eb), np.inf, np.float32)
     dstrel_t = np.zeros((n_vtiles, n_chunks * eb), np.int64)
     eid_t = np.full((n_vtiles, n_chunks * eb), n_edges, np.int64)
-    starts = np.zeros(n_vtiles + 1, np.int64)
-    starts[1:] = np.cumsum(counts)
     for t in range(n_vtiles):
         lo, hi = starts[t], starts[t + 1]
         k = hi - lo
@@ -48,19 +59,55 @@ def build_dst_tiled_layout(src, dst, w, n_vertices: int, *, vb: int = 128,
         eid_t[t, :k] = eid[lo:hi]
 
     shape3 = (n_vtiles, n_chunks, eb)
+    return (_i32(src_t.reshape(shape3)),
+            torch.from_numpy(w_t.reshape(shape3)),
+            _i32(dstrel_t.reshape(shape3)), _i32(eid_t.reshape(shape3)),
+            block_pad)
 
-    def i32(a):
-        return torch.from_numpy(a.reshape(shape3).astype(np.int32))
 
-    return (i32(src_t), torch.from_numpy(w_t.reshape(shape3)), i32(dstrel_t),
-            i32(eid_t), block_pad)
+def build_dst_ragged_layout(src, dst, w, n_vertices: int, *, vb: int = 128,
+                            eb: int = 512):
+    """CSR-chunked (ragged) dst layout: edges -> [total_chunks, EB] rows
+    plus the [total_chunks] chunk->tile map ``ctile``.
+
+    The same stable dst-sort and per-tile EB split as the dense builder, so
+    chunk contents are identical; only the padding chunks of under-full
+    tiles are dropped: ``total_chunks = sum_t ceil(count_t / EB)`` (at
+    least 1; an all-padding chunk carries the sentinel tile ``n_vtiles``).
+    ``ctile`` is non-decreasing, so each tile owns a contiguous chunk range.
+    Padding inside a partly filled chunk mirrors the dense builder. Returns
+    (src_r, w_r, dstrel_r, eid_r, ctile, block_pad)."""
+    (src, dst, w, eid, n_edges, n_vtiles, block_pad, counts,
+     starts) = _by_dst_tile(src, dst, w, n_vertices, vb)
+    total_chunks = max(int((-(-counts // eb)).sum()), 1)
+
+    src_r = np.full((total_chunks, eb), block_pad - 1, np.int64)
+    w_r = np.full((total_chunks, eb), np.inf, np.float32)
+    dstrel_r = np.zeros((total_chunks, eb), np.int64)
+    eid_r = np.full((total_chunks, eb), n_edges, np.int64)
+    ctile = np.full(total_chunks, n_vtiles, np.int64)
+    row = 0
+    for t in range(n_vtiles):
+        lo, hi = starts[t], starts[t + 1]
+        for off in range(lo, hi, eb):
+            k = min(eb, hi - off)
+            src_r[row, :k] = src[off:off + k]
+            w_r[row, :k] = w[off:off + k]
+            dstrel_r[row, :k] = dst[off:off + k] - t * vb
+            eid_r[row, :k] = eid[off:off + k]
+            ctile[row] = t
+            row += 1
+    return (_i32(src_r), torch.from_numpy(w_r), _i32(dstrel_r), _i32(eid_r),
+            _i32(ctile), block_pad)
 
 
 def fixpoint_operands(dist, active, pruned_loc, eid_t, block_pad: int):
     """Rows and mask in the kernel's form: dist/active [P, K, block] padded
     to ``block_pad`` (+inf / 0), and the runtime Trishla mask ``pruned_loc``
     [P, e_loc] gathered into tiled edge order through ``eid_t`` (padding
-    sentinel -> 0 = not pruned, so padding stays inert)."""
+    sentinel -> 0 = not pruned, so padding stays inert). ``eid_t`` is a
+    dense [P, n_vtiles, n_chunks, EB] or ragged [P, total_chunks, EB]
+    layout plane."""
     dist_pad = pad_last(dist, block_pad, float("inf"))
     front_pad = pad_last(active.float(), block_pad, 0.0)
     P = eid_t.shape[0]

@@ -1,13 +1,15 @@
-"""K-query local fixpoint over the dst-tiled local edges.
+"""K-query local fixpoint over the dst-tiled local edges, dense and ragged.
 
 Port of the reference's ``kernels/relax/relax.py:
-relax_dst_tiled_fixpoint_batch``. ``relax_dst_tiled_fixpoint_batch`` runs
-the CUDA kernel (``csrc/relax.cu``) on CUDA tensors and the plain PyTorch
-version on CPU tensors; ``relax_dst_tiled_fixpoint_batch_plain`` is the
-plain version, callable on either device.
+relax_dst_tiled_fixpoint_batch`` and ``relax_dst_ragged_fixpoint_batch``.
+Each wrapper runs the CUDA kernel (``csrc/relax.cu``) on CUDA tensors and
+its plain PyTorch version on CPU tensors; the ``*_plain`` functions are the
+plain versions, callable on either device.
 
 Shapes carry the ``sim`` backend's leading shard axis: rows are
-``[P, K, block_pad]`` and the layout ``[P, n_vtiles, n_chunks, EB]``.
+``[P, K, block_pad]``; the dense layout is ``[P, n_vtiles, n_chunks, EB]``,
+the ragged one ``[P, total_chunks, EB]`` with the chunk->tile map ``ctile``
+``[P, total_chunks]``.
 """
 from __future__ import annotations
 
@@ -18,15 +20,33 @@ from repro_torch.kernels.common import INF, check_cuda
 from repro_torch.kernels.tile_reduce import tile_min_batch
 
 
-def relax_dst_tiled_fixpoint_batch_plain(dist, front, src_t, w_t, dstrel_t,
-                                         pruned_t, *, vb: int, n_sweeps: int):
-    """Transliteration of the Pallas kernel's grid (sweep, vtile, chunk,
-    query), the query axis vectorized: per (shard, query) row, up to
-    ``n_sweeps`` frontier-chased Gauss–Seidel sweeps with a per-row
-    early-out. Returns (dist [P, K, bp], residual frontier [P, K, bp] f32
+def _relax_chunk(out, fcur, active, count, src_c, w_c, dstrel_c, pruned_c,
+                 tile_idx, *, vb: int):
+    """One Gauss–Seidel chunk step of every (shard, query) row, in place:
+    gather the frontier candidates of chunk ``src_c`` etc. ([P, EB]) from
+    the live rows, count them, and min them into the vertex tiles whose
+    lanes ``tile_idx`` [P, vb] name (the rows of inactive queries stay)."""
+    P, K, _ = out.shape
+    src = src_c.long()[:, None, :].expand(P, K, -1)
+    w = torch.where(pruned_c > 0, INF, w_c)[:, None, :]
+    f_src = torch.gather(fcur, -1, src) > 0
+    d_src = torch.gather(out, -1, src)            # live row: Gauss–Seidel
+    cand = torch.where(f_src, d_src + w, INF)
+    n = (f_src & (w < INF)).sum(-1, dtype=torch.int32)
+    count += torch.where(active, n, 0)
+    mins = tile_min_batch(cand, dstrel_c[:, None, :], width=vb)
+    idx = tile_idx[:, None, :].expand(P, K, vb)
+    cur = torch.gather(out, -1, idx)
+    out.scatter_(-1, idx, torch.where(active[..., None],
+                                      torch.minimum(cur, mins), cur))
+
+
+def _fixpoint_plain(dist, front, chunks, *, vb: int, n_sweeps: int):
+    """Up to ``n_sweeps`` frontier-chased sweeps over the chunk sequence
+    ``chunks()`` (yields the ``_relax_chunk`` operands), with the per-row
+    early-out at each sweep start. Returns (dist, residual frontier f32
     0/1, relaxations [P, K] int32)."""
-    P, K, bp = dist.shape
-    _, n_vtiles, n_chunks, eb = src_t.shape
+    P, K, _ = dist.shape
     out = dist.clone()
     prev = dist.clone()
     fcur = front.clone()
@@ -41,26 +61,60 @@ def relax_dst_tiled_fixpoint_batch_plain(dist, front, src_t, w_t, dstrel_t,
             active = active & (newf > 0).any(-1)
         if not bool(active.any()):
             break          # every row is done: later sweeps are no-ops
-        for i in range(n_vtiles):
-            tile = slice(i * vb, (i + 1) * vb)
-            for j in range(n_chunks):
-                src = src_t[:, i, j].long()[:, None, :].expand(P, K, eb)
-                w = torch.where(pruned_t[:, i, j] > 0, INF,
-                                w_t[:, i, j])[:, None, :]
-                f_src = torch.gather(fcur, -1, src) > 0
-                d_src = torch.gather(out, -1, src)    # live row: Gauss–Seidel
-                cand = torch.where(f_src, d_src + w, INF)
-                n = (f_src & (w < INF)).sum(-1, dtype=torch.int32)
-                count += torch.where(active, n, 0)
-                mins = tile_min_batch(cand, dstrel_t[:, i, j][:, None, :],
-                                      width=vb)
-                cur = out[..., tile]
-                out[..., tile] = torch.where(active[..., None],
-                                             torch.minimum(cur, mins), cur)
+        for chunk in chunks():
+            _relax_chunk(out, fcur, active, count, *chunk, vb=vb)
     return out, (out < prev).float(), count
 
 
-_SIGNATURES = {"relax_fixpoint_batch": build.signature(11, 8)}
+def relax_dst_tiled_fixpoint_batch_plain(dist, front, src_t, w_t, dstrel_t,
+                                         pruned_t, *, vb: int, n_sweeps: int):
+    """Transliteration of the Pallas kernel's grid (sweep, vtile, chunk,
+    query), the query axis vectorized: per (shard, query) row, up to
+    ``n_sweeps`` frontier-chased Gauss–Seidel sweeps with a per-row
+    early-out. Returns (dist [P, K, bp], residual frontier [P, K, bp] f32
+    0/1, relaxations [P, K] int32)."""
+    P = dist.shape[0]
+    _, n_vtiles, n_chunks, _ = src_t.shape
+    lanes = torch.arange(vb, device=dist.device)
+
+    def chunks():
+        for i in range(n_vtiles):
+            idx = (i * vb + lanes).expand(P, vb)
+            for j in range(n_chunks):
+                yield (src_t[:, i, j], w_t[:, i, j], dstrel_t[:, i, j],
+                       pruned_t[:, i, j], idx)
+    return _fixpoint_plain(dist, front, chunks, vb=vb, n_sweeps=n_sweeps)
+
+
+def relax_dst_ragged_fixpoint_batch_plain(dist, front, ctile, src_r, w_r,
+                                          dstrel_r, pruned_r, *, vb: int,
+                                          n_sweeps: int):
+    """Transliteration of the Pallas ragged grid (sweep, chunk, query), the
+    query axis vectorized: the same sweeps over each shard's flat chunk
+    rows, chunk c landing in tile ``min(ctile[p, c], n_vtiles - 1)`` (a
+    padding chunk is all +inf, so its step is a no-op). Same returns."""
+    bp = dist.shape[-1]
+    total_chunks = src_r.shape[1]
+    tiles = ctile.long().clamp(max=bp // vb - 1)           # [P, total_chunks]
+    lanes = torch.arange(vb, device=dist.device)
+
+    def chunks():
+        for c in range(total_chunks):
+            yield (src_r[:, c], w_r[:, c], dstrel_r[:, c], pruned_r[:, c],
+                   tiles[:, c, None] * vb + lanes)
+    return _fixpoint_plain(dist, front, chunks, vb=vb, n_sweeps=n_sweeps)
+
+
+_SIGNATURES = {"relax_fixpoint_batch": build.signature(11, 8),
+               "relax_ragged_fixpoint_batch": build.signature(12, 8)}
+
+
+def _outputs(dist):
+    """out, resid, nrel, and the scratch rows prev and fcur."""
+    P, K, _ = dist.shape
+    return (torch.empty_like(dist), torch.empty_like(dist),
+            torch.empty((P, K), dtype=torch.int32, device=dist.device),
+            torch.empty_like(dist), torch.empty_like(dist))
 
 
 def relax_dst_tiled_fixpoint_batch(dist, front, src_t, w_t, dstrel_t,
@@ -79,16 +133,40 @@ def relax_dst_tiled_fixpoint_batch(dist, front, src_t, w_t, dstrel_t,
     check_cuda("relax", torch.float32, dist, front, w_t)
     check_cuda("relax", torch.int32, src_t, dstrel_t, pruned_t)
     lib = build.load("relax", _SIGNATURES)
-    out = torch.empty_like(dist)
-    resid = torch.empty_like(dist)
-    nrel = torch.empty((P, K), dtype=torch.int32, device=dist.device)
-    prev = torch.empty_like(dist)          # scratch: previous-sweep rows
-    fcur = torch.empty_like(dist)          # scratch: current frontier rows
+    outs = _outputs(dist)
     stream = torch.cuda.current_stream(dist.device).cuda_stream
     code = lib.relax_fixpoint_batch(
-        *map(build.ptr, (dist, front, src_t, w_t, dstrel_t, pruned_t, out,
-                         resid, nrel, prev, fcur)),
+        *map(build.ptr, (dist, front, src_t, w_t, dstrel_t, pruned_t, *outs)),
         P, K, bp, n_vtiles, n_chunks, eb, vb, n_sweeps, stream)
     build.check(lib, "relax", code)
     build.count_launch("relax")
-    return out, resid, nrel
+    return outs[:3]
+
+
+def relax_dst_ragged_fixpoint_batch(dist, front, ctile, src_r, w_r, dstrel_r,
+                                    pruned_r, *, vb: int, n_sweeps: int):
+    """Same contract as the plain version. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (one CTA per (shard, query))."""
+    if not dist.is_cuda:
+        return relax_dst_ragged_fixpoint_batch_plain(
+            dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, vb=vb,
+            n_sweeps=n_sweeps)
+    P, K, bp = dist.shape
+    _, total_chunks, eb = src_r.shape
+    if bp % vb or front.shape != dist.shape or ctile.shape != (
+            P, total_chunks):
+        raise ValueError(f"relax_ragged: rows {tuple(dist.shape)} / ctile "
+                         f"{tuple(ctile.shape)} do not match tiles of {vb} "
+                         f"and {total_chunks} chunks")
+    check_cuda("relax_ragged", torch.float32, dist, front, w_r)
+    check_cuda("relax_ragged", torch.int32, ctile, src_r, dstrel_r, pruned_r)
+    lib = build.load("relax", _SIGNATURES)
+    outs = _outputs(dist)
+    stream = torch.cuda.current_stream(dist.device).cuda_stream
+    code = lib.relax_ragged_fixpoint_batch(
+        *map(build.ptr, (dist, front, ctile, src_r, w_r, dstrel_r, pruned_r,
+                         *outs)),
+        P, K, bp, bp // vb, total_chunks, eb, vb, n_sweeps, stream)
+    build.check(lib, "relax_ragged", code)
+    build.count_launch("relax_ragged")
+    return outs[:3]

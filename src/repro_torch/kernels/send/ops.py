@@ -1,13 +1,15 @@
-"""Host-side slot-tiled layout builder, the solver-facing send wrapper and
-the bucketed payload gather (the reference's ``kernels/send/ops.py``)."""
+"""Host-side slot-tiled layout builders (dense and ragged), the
+solver-facing send wrapper and the bucketed payload gather (the
+reference's ``kernels/send/ops.py``)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.common import INF, pad_last, take_fill
-from repro_torch.kernels.relax.ops import build_dst_tiled_layout
-from repro_torch.kernels.send.send import send_pack_tiled
+from repro_torch.kernels.relax.ops import (build_dst_ragged_layout,
+                                           build_dst_tiled_layout)
+from repro_torch.kernels.send.send import send_pack_ragged, send_pack_tiled
 
 LANE = 128   # the distance row is padded to a multiple of this, as in the reference
 
@@ -27,6 +29,19 @@ def build_slot_tiled_layout(cut_src, cut_seg, cut_w, n_slots: int, *,
     return src_t, w_t, segrel_t, eid_t, s_pad
 
 
+def build_slot_ragged_layout(cut_src, cut_seg, cut_w, n_slots: int, *,
+                             sb: int = 128, eb: int = 512):
+    """Ragged (CSR-chunked) slot layout: cut edges -> flat [total_chunks,
+    EB] rows plus the [total_chunks] chunk->tile map, with padding sources
+    restamped to 0 as in the dense form.
+
+    Returns (src_r, w_r, segrel_r, eid_r, ctile, S_pad)."""
+    src_r, w_r, segrel_r, eid_r, ctile, s_pad = build_dst_ragged_layout(
+        cut_src, cut_seg, cut_w, n_slots, vb=sb, eb=eb)
+    src_r = torch.where(eid_r == len(np.asarray(cut_src)), 0, src_r)
+    return src_r, w_r, segrel_r, eid_r, ctile, s_pad
+
+
 def send_operands(dist, last_sent, slot_valid, n_stiles: int, sb: int):
     """Rows in the kernel's form: dist [P, K, block] padded to a multiple of
     128 with +inf, last_sent [P, K, S] to S_pad with +inf, slot_valid
@@ -39,15 +54,23 @@ def send_operands(dist, last_sent, slot_valid, n_stiles: int, sb: int):
 
 
 def send_pack(dist, last_sent, slot_valid, src_t, w_t, segrel_t, pruned_t, *,
-              sb: int = 128):
+              sb: int = 128, ctile=None, bounds=None):
     """Solver-facing wrapper: pads to the kernel's tile shapes, slices back.
-    dist [P, K, block]; last_sent [P, K, S]; slot_valid [P, S] bool;
-    layout [P, n_stiles, n_chunks, EB] with pruned_t already in tiled order.
+    dist [P, K, block]; last_sent [P, K, S]; slot_valid [P, S] bool; the
+    layout is dense [P, n_stiles, n_chunks, EB] or, with ``ctile`` [P,
+    total_chunks] given, ragged [P, total_chunks, EB] (``bounds``: its
+    precomputed tile -> chunk ranges); pruned_t is already in layout order.
     Returns (send_val [P, K, S], new_last [P, K, S], sends [P, K])."""
     S = last_sent.shape[-1]
-    val, new_last, sends = send_pack_tiled(
-        *send_operands(dist, last_sent, slot_valid, src_t.shape[1], sb),
-        src_t, w_t, segrel_t, pruned_t, sb=sb)
+    # a ragged layout's rows no longer encode the tile count: ceil(S / sb)
+    n_stiles = src_t.shape[1] if ctile is None else max(-(-S // sb), 1)
+    ops = send_operands(dist, last_sent, slot_valid, n_stiles, sb)
+    if ctile is None:
+        val, new_last, sends = send_pack_tiled(
+            *ops, src_t, w_t, segrel_t, pruned_t, sb=sb)
+    else:
+        val, new_last, sends = send_pack_ragged(
+            *ops, ctile, src_t, w_t, segrel_t, pruned_t, sb=sb, bounds=bounds)
     return val[..., :S], new_last[..., :S], sends
 
 

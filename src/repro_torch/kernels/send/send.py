@@ -1,21 +1,41 @@
-"""Send-phase segment-min pack over the slot-tiled cut-edge layout.
+"""Send-phase segment-min pack over the slot-tiled cut-edge layout, dense
+and ragged.
 
-Port of the reference's ``kernels/send/send.py: send_pack_tiled``.
-``send_pack_tiled`` runs the CUDA kernel (``csrc/send.cu``) on CUDA tensors
-and the plain PyTorch version on CPU tensors; ``send_pack_tiled_plain`` is
-the plain version, callable on either device.
+Port of the reference's ``kernels/send/send.py: send_pack_tiled`` and
+``send_pack_ragged``. Each wrapper runs the CUDA kernel (``csrc/send.cu``)
+on CUDA tensors and its plain PyTorch version on CPU tensors; the
+``*_plain`` functions are the plain versions, callable on either device.
 
 Shapes carry the ``sim`` backend's leading shard axis: dist ``[P, K, bp]``,
-last_sent ``[P, K, S_pad]``, valid ``[P, S_pad]``, layout
-``[P, n_stiles, n_chunks, EB]``.
+last_sent ``[P, K, S_pad]``, valid ``[P, S_pad]``; the dense layout is
+``[P, n_stiles, n_chunks, EB]``, the ragged one ``[P, total_chunks, EB]``
+with the chunk->tile map ``ctile`` ``[P, total_chunks]``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import INF, check_cuda
+from repro_torch.kernels.common import INF, check_cuda, chunk_bounds
 from repro_torch.kernels.tile_reduce import tile_min_batch
+
+
+def _chunk_minima(dist, src_c, w_c, segrel_c, pruned_c, *, sb: int):
+    """Per-slot minima [P, K, sb] of one chunk's candidates dist[src] + w
+    (Trishla-pruned edges count as +inf), for every query."""
+    P, K, _ = dist.shape
+    src = src_c.long()[:, None, :].expand(P, K, -1)
+    w = torch.where(pruned_c > 0, INF, w_c)
+    cand = torch.gather(dist, -1, src) + w[:, None, :]
+    return tile_min_batch(cand, segrel_c[:, None, :], width=sb)
+
+
+def _finalize(acc, last, valid):
+    """Improvement mask against last_sent: (send value, +inf where not
+    improved; new last_sent; counts of improved slots [.., K] int32)."""
+    improved = (valid[:, None, :] > 0) & (acc < last)
+    return (torch.where(improved, acc, INF), torch.where(improved, acc, last),
+            improved.sum(-1, dtype=torch.int32))
 
 
 def send_pack_tiled_plain(dist, last, valid, src_t, w_t, segrel_t, pruned_t,
@@ -32,21 +52,44 @@ def send_pack_tiled_plain(dist, last, valid, src_t, w_t, segrel_t, pruned_t,
         tile = slice(i * sb, (i + 1) * sb)
         acc = torch.full((P, K, sb), INF, device=dist.device)
         for j in range(n_chunks):
-            src = src_t[:, i, j].long()[:, None, :].expand(P, K, eb)
-            w = torch.where(pruned_t[:, i, j] > 0, INF, w_t[:, i, j])
-            cand = torch.gather(dist, -1, src) + w[:, None, :]
-            acc = torch.minimum(acc, tile_min_batch(
-                cand, segrel_t[:, i, j][:, None, :], width=sb))
+            acc = torch.minimum(acc, _chunk_minima(
+                dist, src_t[:, i, j], w_t[:, i, j], segrel_t[:, i, j],
+                pruned_t[:, i, j], sb=sb))
         # tile i complete: improvement mask, last_sent update, counts
-        before = last[..., tile]
-        improved = (valid[:, None, tile] > 0) & (acc < before)
-        val[..., tile] = torch.where(improved, acc, INF)
-        new_last[..., tile] = torch.where(improved, acc, before)
-        sends += improved.sum(-1, dtype=torch.int32)
+        val[..., tile], new_last[..., tile], n = _finalize(
+            acc, last[..., tile], valid[:, tile])
+        sends += n
     return val, new_last, sends
 
 
-_SIGNATURES = {"send_pack_tiled": build.signature(10, 8)}
+def send_pack_ragged_plain(dist, last, valid, ctile, src_r, w_r, segrel_r,
+                           pruned_r, *, sb: int):
+    """Transliteration of the Pallas ragged grid (chunk,) with the whole
+    query batch per step: chunk c of shard p min-accumulates into slot
+    tile ``min(ctile[p, c], n_stiles - 1)``; init (+inf) and finalize run
+    once over the whole [K, S_pad] row, so a tile with no chunks finalizes
+    to +inf with no send. Same returns as the dense version."""
+    P, K, sp = last.shape
+    tiles = ctile.long().clamp(max=sp // sb - 1)            # [P, total_chunks]
+    lanes = torch.arange(sb, device=dist.device)
+    acc = torch.full_like(last, INF)
+    for c in range(src_r.shape[1]):
+        mins = _chunk_minima(dist, src_r[:, c], w_r[:, c], segrel_r[:, c],
+                             pruned_r[:, c], sb=sb)
+        idx = (tiles[:, c, None] * sb + lanes)[:, None, :].expand(P, K, sb)
+        acc.scatter_(-1, idx, torch.minimum(torch.gather(acc, -1, idx), mins))
+    return _finalize(acc, last, valid)
+
+
+_SIGNATURES = {"send_pack_tiled": build.signature(10, 8),
+               "send_pack_ragged": build.signature(11, 8)}
+
+
+def _outputs(last):
+    """val, new_last, and the zeroed sends [P, K]."""
+    return (torch.empty_like(last), torch.empty_like(last),
+            torch.zeros(last.shape[:2], dtype=torch.int32,
+                        device=last.device))
 
 
 def send_pack_tiled(dist, last, valid, src_t, w_t, segrel_t, pruned_t, *,
@@ -66,14 +109,50 @@ def send_pack_tiled(dist, last, valid, src_t, w_t, segrel_t, pruned_t, *,
     check_cuda("send", torch.float32, dist, last, w_t)
     check_cuda("send", torch.int32, valid, src_t, segrel_t, pruned_t)
     lib = build.load("send", _SIGNATURES)
-    val = torch.empty_like(last)
-    new_last = torch.empty_like(last)
-    sends = torch.zeros((P, K), dtype=torch.int32, device=dist.device)
+    outs = _outputs(last)
     stream = torch.cuda.current_stream(dist.device).cuda_stream
     code = lib.send_pack_tiled(
         *map(build.ptr, (dist, last, valid, src_t, w_t, segrel_t, pruned_t,
-                         val, new_last, sends)),
+                         *outs)),
         P, K, bp, sp, n_stiles, n_chunks, eb, sb, stream)
     build.check(lib, "send", code)
     build.count_launch("send")
-    return val, new_last, sends
+    return outs
+
+
+def send_pack_ragged(dist, last, valid, ctile, src_r, w_r, segrel_r,
+                     pruned_r, *, sb: int, bounds=None):
+    """Same contract as the plain version. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (one CTA per (shard, slot
+    tile), over the tile's chunk range). ``bounds`` [P, n_stiles + 1] are
+    the tile -> chunk ranges of ``ctile`` (``chunk_bounds``); callers that
+    launch often pass them precomputed."""
+    if not dist.is_cuda:
+        return send_pack_ragged_plain(dist, last, valid, ctile, src_r, w_r,
+                                      segrel_r, pruned_r, sb=sb)
+    P, K, bp = dist.shape
+    _, total_chunks, eb = src_r.shape
+    sp = last.shape[-1]
+    n_stiles = sp // sb
+    if bounds is None:
+        bounds = chunk_bounds(ctile, n_stiles)
+    if (last.shape != (P, K, sp) or sp % sb or valid.shape != (P, sp)
+            or ctile.shape != (P, total_chunks)
+            or bounds.shape != (P, n_stiles + 1)):
+        raise ValueError(f"send_ragged: slot rows {tuple(last.shape)} / "
+                         f"{tuple(valid.shape)}, ctile {tuple(ctile.shape)} "
+                         f"or bounds {tuple(bounds.shape)} do not match "
+                         f"tiles of {sb} and {total_chunks} chunks")
+    check_cuda("send_ragged", torch.float32, dist, last, w_r)
+    check_cuda("send_ragged", torch.int32, valid, bounds, src_r, segrel_r,
+               pruned_r)
+    lib = build.load("send", _SIGNATURES)
+    outs = _outputs(last)
+    stream = torch.cuda.current_stream(dist.device).cuda_stream
+    code = lib.send_pack_ragged(
+        *map(build.ptr, (dist, last, valid, bounds, src_r, w_r, segrel_r,
+                         pruned_r, *outs)),
+        P, K, bp, sp, n_stiles, total_chunks, eb, sb, stream)
+    build.check(lib, "send_ragged", code)
+    build.count_launch("send_ragged")
+    return outs

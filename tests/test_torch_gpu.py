@@ -18,14 +18,18 @@ import repro_torch.core as tc  # noqa: E402
 import repro_torch.graph as tg  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.common import pad_last  # noqa: E402
-from repro_torch.kernels.merge import (build_msg_tiled_layout,  # noqa: E402
-                                       merge_scatter_tiled,
-                                       merge_scatter_tiled_plain)
+from repro_torch.kernels.common import chunk_bounds  # noqa: E402
+from repro_torch.kernels.merge import (  # noqa: E402
+    build_msg_ragged_layout, build_msg_tiled_layout, merge_scatter_ragged,
+    merge_scatter_ragged_plain, merge_scatter_tiled,
+    merge_scatter_tiled_plain)
 from repro_torch.kernels.relax import (  # noqa: E402
-    fixpoint_operands, relax_dst_tiled_fixpoint_batch,
-    relax_dst_tiled_fixpoint_batch_plain)
-from repro_torch.kernels.send import (send_operands,  # noqa: E402
-                                      send_pack_tiled, send_pack_tiled_plain)
+    build_dst_ragged_layout, fixpoint_operands,
+    relax_dst_ragged_fixpoint_batch, relax_dst_ragged_fixpoint_batch_plain,
+    relax_dst_tiled_fixpoint_batch, relax_dst_tiled_fixpoint_batch_plain)
+from repro_torch.kernels.send import (  # noqa: E402
+    build_slot_ragged_layout, send_operands, send_pack_ragged,
+    send_pack_ragged_plain, send_pack_tiled, send_pack_tiled_plain)
 
 pytestmark = pytest.mark.gpu
 ALL_KERNELS = dict(local_solver="pallas", send_backend="pallas",
@@ -158,10 +162,142 @@ def test_engine_on_gpu_matches_cpu_and_launches_kernels(cuda, shards):
     eng = tc.SsspEngine.build(sh, cfg)               # cuda by default
     on_gpu = eng.solve(srcs)
     assert eng.device.type == "cuda"
-    assert min(build.LAUNCHES.values()) > 0
+    assert min(build.LAUNCHES[k] for k in build.KERNELS) > 0
     assert on_gpu.status == on_cpu.status == "converged"
     np.testing.assert_array_equal(on_gpu.dist, on_cpu.dist)
     for f in ("rounds", "relaxations", "msgs_sent", "msgs_recv",
               "pruned_edges", "q_rounds", "q_relaxations"):
         np.testing.assert_array_equal(np.asarray(getattr(on_gpu.stats, f)),
                                       np.asarray(getattr(on_cpu.stats, f)))
+
+
+# ---------------------------------------------------------------- ragged --
+
+VB, EB = 32, 64
+
+
+def _stack_ragged(lays, fills):
+    """Per-shard ragged planes padded to the longest shard with ``fills``
+    and stacked [P, ...], as the shard builders stack them."""
+    n = max(lay[0].shape[0] for lay in lays)
+    return [torch.stack([torch.nn.functional.pad(
+        lay[k], (0, 0) * (lay[k].dim() - 1) + (0, n - lay[k].shape[0]),
+        value=fill) for lay in lays]) for k, fill in enumerate(fills)]
+
+
+def _rows(rng, shape, p_inf):
+    a = rng.uniform(0, 50, shape).astype(np.float32)
+    a[rng.random(shape) < p_inf] = np.inf
+    return a
+
+
+@pytest.mark.parametrize("nq", [1, 3])
+def test_relax_ragged_kernel_matches_plain(cuda, nq):
+    """Two shards: the first leaves its last two vertex tiles without a
+    chunk, the second is short and stacks with sentinel padding chunks."""
+    rng = np.random.default_rng(nq)
+    n = 300
+    lays = []
+    for e, hi in ((900, n - 2 * VB - 10), (150, n)):
+        lays.append(build_dst_ragged_layout(
+            rng.integers(0, n, e), rng.integers(0, hi, e),
+            rng.uniform(1, 20, e).astype(np.float32), n, vb=VB, eb=EB))
+    bp = lays[0][5]
+    src, w, rel, eid, ctile = _stack_ragged(
+        lays, (bp - 1, float("inf"), 0, 900, bp // VB))
+    dist = _rows(rng, (2, nq, n), 0.3)
+    active = (rng.random(dist.shape) < 0.3) & np.isfinite(dist)
+    pruned = rng.random((2, 900)) < 0.2
+    d, f, p_t = fixpoint_operands(torch.from_numpy(dist),
+                                  torch.from_numpy(active),
+                                  torch.from_numpy(pruned), eid, bp)
+    args = [a.to(cuda) for a in (d, f, ctile, src, w, rel, p_t)]
+    n0 = build.LAUNCHES["relax_ragged"]
+    out = relax_dst_ragged_fixpoint_batch(*args, vb=VB, n_sweeps=6)
+    ref = relax_dst_ragged_fixpoint_batch_plain(*args, vb=VB, n_sweeps=6)
+    assert build.LAUNCHES["relax_ragged"] == n0 + 1
+    assert int(out[2].sum()) > 0
+    for got, want in zip(out, ref):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nq", [1, 3])
+def test_send_ragged_kernel_matches_plain(cuda, nq):
+    rng = np.random.default_rng(10 + nq)
+    n, s = 300, 200
+    lays = []
+    for e, hi in ((600, s - 2 * VB - 5), (90, s)):
+        lays.append(build_slot_ragged_layout(
+            rng.integers(0, n, e), np.sort(rng.integers(0, hi, e)),
+            rng.uniform(1, 20, e).astype(np.float32), s, sb=VB, eb=EB))
+    n_stiles = lays[0][5] // VB
+    src, w, seg, eid, ctile = _stack_ragged(
+        lays, (0, float("inf"), 0, 600, n_stiles))
+    pruned_t = torch.from_numpy((rng.random(eid.shape) < 0.2).astype(np.int32))
+    dist = torch.from_numpy(_rows(rng, (2, nq, n), 0.3))
+    last = torch.from_numpy(_rows(rng, (2, nq, s), 0.5))
+    valid = torch.from_numpy(rng.random((2, s)) < 0.9)
+    args = [a.to(cuda) for a in (
+        *send_operands(dist, last, valid, n_stiles, VB), ctile, src, w, seg,
+        pruned_t)]
+    bounds = chunk_bounds(args[3], n_stiles)
+    n0 = build.LAUNCHES["send_ragged"]
+    out = send_pack_ragged(*args, sb=VB, bounds=bounds)
+    again = send_pack_ragged(*args, sb=VB)          # bounds derived inside
+    ref = send_pack_ragged_plain(*args, sb=VB)
+    assert build.LAUNCHES["send_ragged"] == n0 + 2
+    assert int(out[2].sum()) > 0
+    for got, got2, want in zip(out, again, ref):
+        assert torch.equal(got, want) and torch.equal(got2, want)
+
+
+@pytest.mark.parametrize("nq", [1, 3])
+def test_merge_ragged_kernel_matches_plain(cuda, nq):
+    rng = np.random.default_rng(20 + nq)
+    block, Pn, C = 300, 4, 150
+    lays, incs = [], []
+    for hi, frac in ((block - 2 * VB - 3, 0.0), (block, 0.9)):
+        ridx = rng.integers(0, hi, (Pn, C))
+        ridx[rng.random(ridx.shape) < frac] = block
+        lays.append(build_msg_ragged_layout(ridx, block, vb=VB, eb=EB))
+        inc = _rows(rng, (nq, Pn * C), 0.4)
+        inc[:, ridx.reshape(-1) >= block] = np.inf
+        incs.append(inc)
+    bp = lays[0][4]
+    pos, rel, valid, ctile = _stack_ragged(lays, (0, 0, 0, bp // VB))
+    dist = pad_last(torch.from_numpy(_rows(rng, (2, nq, block), 0.3)), bp,
+                    float("inf"))
+    args = [a.to(cuda) for a in (dist, torch.from_numpy(np.stack(incs)),
+                                 ctile, pos, rel, valid)]
+    n0 = build.LAUNCHES["merge_ragged"]
+    out = merge_scatter_ragged(*args, vb=VB)
+    ref = merge_scatter_ragged_plain(*args, vb=VB)
+    assert build.LAUNCHES["merge_ragged"] == n0 + 1
+    assert int(out[2].sum()) > 0
+    for got, want in zip(out, ref):
+        assert torch.equal(got, want)
+
+
+def test_ragged_engine_on_gpu_matches_cpu(cuda):
+    """A stream-built ragged solve on the card equals its CPU solve and the
+    card's dense solve, and runs the ragged kernels only."""
+    g = tg.rmat_graph(scale=9, edge_factor=8, seed=2)
+    ragged = tc.build_shards_stream(tg.edge_chunks_of(g), g.n_vertices, 4)
+    dense = tc.build_shards(g, 4, enumerate_triangles=False)
+    rng = np.random.default_rng(3)
+    deg = np.diff(g.row_ptr.numpy())
+    srcs = [int(s) for s in rng.choice(np.nonzero(deg)[0], 3, replace=False)]
+    cfg = tc.SsspConfig(**ALL_KERNELS)
+    on_cpu = tc.SsspEngine.build(ragged, cfg, device="cpu").solve(srcs)
+    build.reset_launches()
+    on_gpu = tc.SsspEngine.build(ragged, cfg).solve(srcs)
+    assert min(build.LAUNCHES[f"{k}_ragged"] for k in build.KERNELS) > 0
+    assert max(build.LAUNCHES[k] for k in build.KERNELS) == 0
+    gpu_dense = tc.SsspEngine.build(dense, cfg).solve(srcs)
+    assert on_gpu.status == on_cpu.status == gpu_dense.status == "converged"
+    for other in (on_cpu, gpu_dense):
+        np.testing.assert_array_equal(on_gpu.dist, other.dist)
+        for f in ("rounds", "relaxations", "msgs_sent", "msgs_recv",
+                  "pruned_edges", "q_rounds", "q_relaxations"):
+            np.testing.assert_array_equal(np.asarray(getattr(on_gpu.stats, f)),
+                                          np.asarray(getattr(other.stats, f)))

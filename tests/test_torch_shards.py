@@ -12,6 +12,7 @@ torch.set_num_threads(1)
 import repro.core as jc  # noqa: E402
 import repro.graph as jg  # noqa: E402
 import repro_torch.core as tc  # noqa: E402
+import repro_torch.core.shards as shards_mod  # noqa: E402
 import repro_torch.graph as tg  # noqa: E402
 
 GRAPHS = {
@@ -101,8 +102,22 @@ def test_rejects_out_of_range_endpoints():
 
 
 def test_ragged_layout_not_ported():
+    """Both entry points take ``layout="ragged"`` (its parity with the JAX
+    package is in test_torch_ragged.py); an unknown layout name raises, and
+    ragged shards need their chunk->tile maps."""
     _, gt = _graphs("random")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.build_shards(gt, 2, layout="ragged")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.shards_from_arrays({}, layout="ragged")
+    sh = tc.build_shards(gt, 2, layout="ragged")
+    assert sh.layout == "ragged" and sh.rx_ctile is not None
+    back = tc.shards_from_arrays(
+        {k: v.numpy() for k, v in sh.arrays().items()},
+        **{k: getattr(sh, k) for k in shards_mod._STATIC})
+    assert all(torch.equal(v, getattr(back, k)) for k, v in sh.arrays().items())
+    with pytest.raises(ValueError, match="unknown layout"):
+        tc.build_shards(gt, 2, layout="csr")
+    with pytest.raises(ValueError, match="unknown layout"):
+        tc.shards_from_arrays({}, layout="csr")
+    fields = {k: v.numpy() for k, v in sh.arrays().items()
+              if k != "tx_ctile"}
+    with pytest.raises(ValueError, match="tx_ctile"):
+        tc.shards_from_arrays(fields, **{k: getattr(sh, k)
+                                         for k in shards_mod._STATIC})
