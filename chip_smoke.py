@@ -6,30 +6,43 @@
 Run from the root of a checkout; it needs one CUDA device and ``nvcc``.
 Phases, each of which exits non-zero on a mismatch:
 
-  build    compile the CUDA kernel sources (relax, send, merge; each holds
-           a dense kernel and its ragged sibling) from
+  build    compile the CUDA kernel sources (relax, send, merge, round; each
+           holds a dense kernel and its ragged sibling) from
            src/repro_torch/kernels/csrc, one nvcc each, in parallel;
   kernel   hold each dense kernel against its plain PyTorch version on the
            card, bit-equal, on the real layouts of the scale-1e6 graph at
-           mid-solve state, and time kernel, plain version and bound;
+           mid-solve state, and time kernel, plain version and bound; the
+           fused round kernel at the state after round 2 of a fused solve,
+           with bucket messages and again with a dense incoming row;
   parity   solve rmat scale 11 (Trishla on, P=8, K=4) with the all-kernel
-           config on the card and on the CPU: distances and every counter
-           equal;
+           staged config and with round="fused", each on the card and on
+           the CPU: distances and every counter equal; fused == staged but
+           for n_dispatches;
   scale    the dense path: SsspEngine.solve on preset "scale-1e6" (65,536
            vertices, 955,492 directed edges; P=8) with K=16 and K=1, every
            query certified converged, 4 sources checked against Dijkstra,
-           every dense kernel launched; profile of the K=16 solve;
+           every staged dense kernel launched; profile of the K=16 solve;
+           then the fused K=16 solve of the same sources (the dense fused
+           path): equal but for n_dispatches, one round launch a round;
+           its profile;
   ragged   stream-build scale-1e6 ragged (build_shards_stream) and dense
            (build_shards over csr_from_coo of the same chunks) and solve
            both with K=16: distances and every counter equal;
-  kernel7  the main path's state: stream-build preset "scale-1e7" (524,288
+  kern1e7  the main path's state: stream-build preset "scale-1e7" (524,288
            vertices, 9,879,136 directed edges; P=8, ragged, EB 512, VB 128)
            and hold each ragged kernel against its plain version, bit-equal,
-           at the state after round 2 of the K=16 solve; time them;
-  main     the slice's main path: SsspEngine.solve on the scale-1e7 ragged
+           at the state after round 2 of the K=16 solve (the ragged fused
+           round at round 2 of the fused solve); time them;
+  main     the staged main path: SsspEngine.solve on the scale-1e7 ragged
            shards with K=16 and K=1, every query certified converged, 2
            sources checked against scipy's Dijkstra, the ragged kernels
-           launched and the dense ones not; profile of the K=16 solve.
+           launched and the dense ones not;
+  fused    this slice's main path: the same solves with round="fused":
+           converged, equal to the staged solves in distances and every
+           counter but n_dispatches, round_ragged launched once a round,
+           merge_ragged never, relax/send_ragged only by rescued rounds,
+           no dense kernel; profiles of the staged and the fused K=16
+           solves.
 
 The line before last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Build logs and traces go to chiprun_out/.
@@ -60,7 +73,10 @@ SOURCES = {                    # kernel -> (CUDA source, TPU kernel replaced)
     "relax_ragged": (f"{CSRC}/relax.cu", f"{TPU}/relax/relax.py:456"),
     "send_ragged": (f"{CSRC}/send.cu", f"{TPU}/send/send.py:187"),
     "merge_ragged": (f"{CSRC}/merge.cu", f"{TPU}/merge/merge.py:165"),
+    "round": (f"{CSRC}/round.cu", f"{TPU}/round/round.py:219"),
+    "round_ragged": (f"{CSRC}/round.cu", f"{TPU}/round/round.py:457"),
 }
+STAGED = ("relax", "send", "merge")     # the staged round's kernels
 
 
 def fail(msg: str):
@@ -124,13 +140,15 @@ def compare(torch, name, got, want):
     return err
 
 
-def same_results(a, b, what: str):
-    """Fail unless two QueryResults agree in distances, every counter and
-    status."""
+def same_results(a, b, what: str, skip=()):
+    """Fail unless two QueryResults agree in distances, every counter but
+    those in ``skip``, and status."""
     import numpy as np
     if not np.array_equal(a.dist, b.dist):
         fail(f"{what}: distances differ")
     for f in COUNTERS + ("n_dispatches", "bytes_moved"):
+        if f in skip:
+            continue
         x, y = getattr(a.stats, f), getattr(b.stats, f)
         if not np.array_equal(np.asarray(x), np.asarray(y)):
             fail(f"{what}: {f} differs ({x} vs {y})")
@@ -372,6 +390,103 @@ def ragged_kernel_phase(torch, eng, sources, cfg):
     return rows
 
 
+def tensors(*items):
+    """The tensors among ``items``, tuples flattened and None dropped."""
+    out = []
+    for x in items:
+        if isinstance(x, tuple):
+            out += tensors(*x)
+        elif x is not None:
+            out.append(x)
+    return out
+
+
+def round_kernel_phase(torch, np, eng, sources, cfg, name):
+    """Kernel 7 (``name`` "round", dense layouts) or 8 ("round_ragged") at
+    the state after round 2 of ``eng``'s fused solve: bit-equal to its plain
+    version (all six outputs) with the delivered bucket messages, and again
+    with a dense [P, K, block] incoming row made from a numpy seed; each
+    plain version timed on the call the comparison used, the kernel with
+    CUDA events beside its bound."""
+    from repro_torch.kernels.round import (fused_round_operands,
+                                           fused_round_ragged,
+                                           fused_round_ragged_plain,
+                                           fused_round_tiled,
+                                           fused_round_tiled_plain)
+    kernel, plain = ((fused_round_ragged, fused_round_ragged_plain)
+                     if name == "round_ragged"
+                     else (fused_round_tiled, fused_round_tiled_plain))
+    dsh = eng.shards
+    P, K = dsh.n_parts, len(sources)
+    carry = eng.start(sources)
+    for _ in range(2):
+        carry = eng.round_fn(carry)
+    live = ~carry.done
+    bucket = carry.incoming.reshape(P, K, -1)
+    if not bool(torch.isfinite(bucket).any()):
+        fail(f"{name} kernel phase: no message was delivered in round 2")
+    rng = np.random.default_rng(7)
+    shape = tuple(carry.dist.shape)
+    dense_inc = torch.from_numpy(np.where(
+        rng.random(shape) < 0.01, rng.uniform(0, 20, shape),
+        np.inf).astype(np.float32)).to(carry.dist.device)
+    kw = dict(vb=dsh.rx_vb, sb=dsh.tx_sb, n_sweeps=cfg.pallas_sweeps)
+    row, errs = {}, []
+    for dense, incoming in ((False, bucket), (True, dense_inc)):
+        ops = fused_round_operands(
+            carry.dist, carry.active & live[..., None], live, incoming,
+            carry.last_sent, dsh.slot_valid, dsh.relax_layout,
+            dsh.send_layout, dsh.merge_layout, carry.pruned[:, :dsh.e_loc],
+            carry.pruned[:, dsh.e_loc:], vb=dsh.rx_vb, sb=dsh.tx_sb,
+            dense=dense)
+        out = kernel(*ops, dense=dense, **kw)
+        ref, plain_ms = once(torch, lambda: plain(*ops, dense=dense, **kw))
+        errs.append(compare(torch, name, out, ref))
+        ms = timed(torch, lambda: kernel(*ops, dense=dense, **kw), 5)
+        # operations: an add and a min per relaxation and per live cut edge
+        # and query, a min per delivered message (or row entry) and query
+        tx_w, tx_prn = ops[8][1], ops[8][3]
+        live_cut = int((torch.isfinite(tx_w) & (tx_prn == 0)).sum())
+        merges = (incoming[..., :dsh.block].numel() if dense
+                  else K * int(ops[6][2].sum()))
+        n_ops = 2 * int(out[4].sum()) + 2 * K * live_cut + merges
+        b = bound(nbytes(*tensors(*ops), *out), n_ops)
+        say(f"  {name} ({'dense' if dense else 'bucket'} incoming): "
+            f"{ms:.4f} ms kernel, {plain_ms:.2f} ms plain, bound {b[0]:.5f} "
+            f"ms ({b[1]}); {int(torch.isfinite(incoming).sum())} incoming "
+            f"values, {int(out[4].sum())} relaxations, "
+            f"{int(out[5].sum())} sends, "
+            f"residual rows {int((out[1] > 0).any(-1).sum())}")
+        if not dense:
+            row = dict(ms=ms, plain_ms=plain_ms, bound=b, library_ms=None)
+    row["err"] = max(errs)
+    return {name: row}
+
+
+def check_fused(res_f, res_s, launches, ragged: bool, what: str) -> int:
+    """Fail unless the fused solve ``res_f`` converged and equals the
+    staged solve ``res_s`` but for n_dispatches (2 vs 4 a round), and its
+    launches show the fused path: one fused round a round, no merge, relax
+    and send only for rescued rounds (one re-pack each), nothing of the
+    other layout family. Returns the rescued rounds."""
+    if res_f.status != "converged" or not res_f.q_converged.all():
+        fail(f"{what}: status {res_f.status}")
+    same_results(res_f, res_s, what, skip=("n_dispatches",))
+    rounds = int(res_f.stats.rounds)
+    if (int(res_f.stats.n_dispatches) != 2 * rounds
+            or int(res_s.stats.n_dispatches) != 4 * int(res_s.stats.rounds)):
+        fail(f"{what}: n_dispatches {res_f.stats.n_dispatches} fused, "
+             f"{res_s.stats.n_dispatches} staged")
+    sfx = "_ragged" if ragged else ""
+    rescued = launches["send" + sfx]
+    other = sum(v for k, v in launches.items() if k.endswith("_ragged")
+                != ragged)
+    if (launches["round" + sfx] != rounds or launches["merge" + sfx]
+            or launches["relax" + sfx] < rescued or other):
+        fail(f"{what}: launches {launches} for {rounds} rounds")
+    return rescued
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a checkout")
@@ -425,6 +540,9 @@ def main():
     for name, r in rows.items():
         say(f"  {name}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.2f} ms "
             f"plain, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    cfg_f = SsspConfig(round="fused")
+    eng_f = SsspEngine.build(eng.shards, cfg_f)
+    rows.update(round_kernel_phase(torch, np, eng_f, sources, cfg_f, "round"))
 
     # ---- parity phase: card vs CPU through the port ----------------------
     gp = rmat_graph(scale=11)
@@ -435,9 +553,18 @@ def main():
     same_results(on_gpu, on_cpu, "parity (card vs CPU)")
     if on_gpu.status != "converged":
         fail(f"parity: status {on_gpu.status}")
+    build.reset_launches()
+    fused_gpu = SsspEngine.build(shp, cfg_f).solve(srcp)
+    rescued = check_fused(fused_gpu, on_gpu, dict(build.LAUNCHES), False,
+                          "parity (fused vs staged, card)")
+    fused_cpu = SsspEngine.build(shp, cfg_f, device="cpu").solve(srcp)
+    same_results(fused_gpu, fused_cpu, "parity (fused, card vs CPU)")
     say(f"parity phase: rmat scale 11 ({gp.n_edges} edges, "
-        f"{int(shp.tri_valid.sum())} triangles), P=8 K=4: card == CPU, "
-        f"rounds {int(on_gpu.stats.rounds)}, q_relaxations "
+        f"{int(shp.tri_valid.sum())} triangles), P=8 K=4: card == CPU "
+        f"staged and fused, fused == staged but n_dispatches "
+        f"({int(fused_gpu.stats.n_dispatches)} vs "
+        f"{int(on_gpu.stats.n_dispatches)}), rounds "
+        f"{int(on_gpu.stats.rounds)}, rescued {rescued}, q_relaxations "
         f"{on_gpu.q_relaxations.tolist()}, pruned "
         f"{int(on_gpu.stats.pruned_edges)}")
 
@@ -447,7 +574,7 @@ def main():
     build.reset_launches()
     res = eng.solve(sources)
     torch.cuda.synchronize()
-    launches = {k: build.LAUNCHES[k] for k in build.KERNELS}
+    launches = {k: build.LAUNCHES[k] for k in STAGED}
     res1 = eng.solve(sources[:1])
     for name, r in (("K=16", res), ("K=1", res1)):
         if r.status != "converged" or not r.q_converged.all():
@@ -470,7 +597,19 @@ def main():
         f"per K=16 solve {launches}")
     profile_solve(torch, eng, sources, out_dir / "chip_smoke_trace.json",
                   "scale-1e6 dense K=16")
-    del eng, sh, res, res1
+    build.reset_launches()
+    res_f = eng_f.solve(sources)
+    torch.cuda.synchronize()
+    launches["round"] = build.LAUNCHES["round"]
+    rescued = check_fused(res_f, res, dict(build.LAUNCHES), False,
+                          "scale fused")
+    say(f"scale phase fused K=16: {res_f.wall_s:.3f} s wall, "
+        f"{int(res_f.stats.rounds)} rounds ({rescued} rescued), equal to "
+        f"staged but n_dispatches; launches {dict(build.LAUNCHES)}")
+    profile_solve(torch, eng_f, sources,
+                  out_dir / "chip_smoke_trace_fused.json",
+                  "scale-1e6 dense fused K=16")
+    del eng, eng_f, sh, res, res1, res_f
 
     # ---- ragged vs dense at scale-1e6, from one stream --------------------
     n6, stream6 = preset_edge_stream("scale-1e6")
@@ -485,8 +624,7 @@ def main():
     for name, shards in (("ragged", rag6), ("dense", den6)):
         build.reset_launches()
         results[name] = SsspEngine.build(shards, cfg).solve(src6)
-        fam = [k for k in build.LAUNCHES if k.endswith("_ragged")
-               == (name == "ragged")]
+        fam = [k + ("_ragged" if name == "ragged" else "") for k in STAGED]
         if min(build.LAUNCHES[k] for k in fam) < 1 or sum(
                 build.LAUNCHES.values()) != sum(build.LAUNCHES[k]
                                                 for k in fam):
@@ -540,9 +678,10 @@ def main():
     build.reset_launches()
     res = eng7.solve(src7)
     torch.cuda.synchronize()
-    launches.update({k: v for k, v in build.LAUNCHES.items()
-                     if k.endswith("_ragged")})
+    ragged_in_main = {k: v for k, v in build.LAUNCHES.items()
+                      if k.endswith("_ragged")}
     dense_in_main = {k: build.LAUNCHES[k] for k in build.KERNELS}
+    launches.update(ragged_in_main)
     res1 = eng7.solve(src7[:1])
     for name, r in (("K=16", res), ("K=1", res1)):
         if r.status != "converged" or not r.q_converged.all():
@@ -560,14 +699,42 @@ def main():
     for i in range(2):
         if not np.allclose(res.dist[i], ref[i], rtol=RTOL, atol=ATOL):
             fail(f"main: source {src7[i]} disagrees with Dijkstra")
-    ragged = {k: launches[f"{k}_ragged"] for k in build.KERNELS}
-    if min(ragged.values()) < 1 or max(dense_in_main.values()) > 0:
-        fail(f"main: launches ragged {ragged}, dense {dense_in_main}")
+    if (min(ragged_in_main[f"{k}_ragged"] for k in STAGED) < 1
+            or ragged_in_main["round_ragged"]
+            or max(dense_in_main.values()) > 0):
+        fail(f"main: launches ragged {ragged_in_main}, dense "
+             f"{dense_in_main}")
     say(f"main path: 16 queries converged, 2 match scipy Dijkstra "
         f"({time.perf_counter() - t0:.1f} s); launches per K=16 solve "
-        f"ragged {ragged}, dense {dense_in_main}")
+        f"ragged {ragged_in_main}, dense {dense_in_main}")
+
+    # ---- fused: round="fused" on the same shards and sources --------------
+    eng7f = SsspEngine.build(eng7.shards, cfg_f)
+    rows.update(round_kernel_phase(torch, np, eng7f, src7, cfg_f,
+                                   "round_ragged"))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    resf = eng7f.solve(src7)
+    torch.cuda.synchronize()
+    fused_launches = dict(build.LAUNCHES)
+    launches["round_ragged"] = fused_launches["round_ragged"]
+    rescued = check_fused(resf, res, fused_launches, True, "fused K=16")
+    build.reset_launches()
+    resf1 = eng7f.solve(src7[:1])
+    rescued1 = check_fused(resf1, res1, dict(build.LAUNCHES), True,
+                           "fused K=1")
+    for name, r, n in (("K=16", resf, rescued), ("K=1", resf1, rescued1)):
+        mteps = int(r.stats.relaxations) / r.wall_s / 1e6
+        say(f"fused path {name}: {r.wall_s:.3f} s wall, "
+            f"{int(r.stats.rounds)} rounds ({n} rescued), "
+            f"{int(r.stats.relaxations)} relaxations, {mteps:.1f} MTEPS")
+    say(f"fused path: 16 queries converged, equal to the staged solves but "
+        f"n_dispatches; launches per K=16 solve {fused_launches}")
     profile_solve(torch, eng7, src7, out_dir / "chip_smoke_trace_1e7.json",
-                  "scale-1e7 ragged K=16")
+                  "scale-1e7 ragged staged K=16")
+    profile_solve(torch, eng7f, src7,
+                  out_dir / "chip_smoke_trace_1e7_fused.json",
+                  "scale-1e7 ragged fused K=16")
     say(f"total: {time.perf_counter() - t_start:.1f} s after the card query")
 
     table = [{"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -4,5 +4,6 @@ from repro_torch.core.partition import inter_edge_counts, partition_1d
 from repro_torch.core.shards import (SsspShards, build_shards,
                                     build_shards_stream, shards_from_arrays)
 from repro_torch.core.sssp import (SimComm, SsspConfig, SsspStats,
-                                   certificate_improved_sim, init_carry,
-                                   make_round)
+                                   certificate_improved_sim,
+                                   dispatches_per_round, init_carry,
+                                   make_finalize, make_round)

@@ -23,10 +23,9 @@ import torch
 
 from repro_torch.core.shards import SsspShards, build_shards
 from repro_torch.core.sssp import (SsspConfig, SsspStats, _Carry,
-                                   certificate_improved_sim, init_carry,
-                                   make_round)
-
-DISPATCHES_PER_ROUND = 4   # staged: local solve, send, exchange, merge
+                                   certificate_improved_sim,
+                                   dispatches_per_round, init_carry,
+                                   make_finalize, make_round)
 
 
 def bucket_k(k: int) -> int:
@@ -90,7 +89,8 @@ def _device(device) -> torch.device:
 
 class SsspEngine:
     """One per-graph session on the ``sim`` backend: owns the shards (on
-    its device) and the resolved round."""
+    its device), the resolved round and, for the fused round, the exit-time
+    merge of the last delivered batch."""
 
     def __init__(self, shards: SsspShards, cfg: SsspConfig,
                  backend: str = "sim", *, device=None):
@@ -105,6 +105,7 @@ class SsspEngine:
         self.cfg = cfg
         self.backend = backend
         self.round_fn = make_round(self.shards, cfg)
+        self._finalize = make_finalize(self.shards, cfg)
 
     @classmethod
     def build(cls, graph_or_shards, cfg: SsspConfig | None = None,
@@ -155,7 +156,8 @@ class SsspEngine:
             if bool(carry.done.all()):          # one host sync per round
                 break
         done_k = carry.done[0, :k].cpu().numpy()
-        dist_pk = carry.dist
+        dist_pk = (carry.dist if self._finalize is None
+                   else self._finalize(carry))
         dist = dist_pk.transpose(0, 1).reshape(kb, -1)[:k, :self.n_vertices]
         stats = SsspStats(
             rounds=np.int32(carry.rounds),
@@ -167,7 +169,8 @@ class SsspEngine:
             q_relaxations=carry.relaxations.sum(0, dtype=torch.int32)[:k]
             .cpu().numpy(),
             stale_merges=np.int32(0), resends=np.int32(0),
-            n_dispatches=np.int32(carry.rounds * DISPATCHES_PER_ROUND),
+            n_dispatches=np.int32(
+                carry.rounds * dispatches_per_round(self.shards, self.cfg)),
             overlap_rounds=np.int32(0),
             bytes_moved=np.int32(int(carry.comm_bytes)))
         # the detector's word (done_k) is a claim; one extra unmasked relax

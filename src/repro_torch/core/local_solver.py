@@ -22,9 +22,7 @@ import torch
 
 from repro_torch.core import phases
 from repro_torch.kernels.common import INF, scatter_min_drop, take_fill
-from repro_torch.kernels.relax import (fixpoint_operands,
-                                       relax_dst_ragged_fixpoint_batch,
-                                       relax_dst_tiled_fixpoint_batch)
+from repro_torch.kernels.relax import fixpoint_operands, relax_to_fixpoint
 
 
 class LocalResult(NamedTuple):
@@ -72,33 +70,17 @@ def local_fixpoint_pallas(dist, active, sh, pruned_loc, *, max_iters: int,
                           sweeps: int) -> LocalResult:
     """Fused kernel fixpoint over the dst-tiled layout ``sh.rx_*``: up to
     ``sweeps`` sweeps per launch, relaunched while any shard has a residual
-    frontier. A shard stops once its frontier is empty or it has run
-    ``max_iters`` sweeps (the reference's per-shard loop condition); a
-    stopped shard gets an empty frontier in later launches, which makes
-    its kernel rows no-ops. A ragged layout (a 5-tuple, with the chunk->
-    tile map) takes the ragged kernel."""
+    frontier and sweeps left of its ``max_iters`` (``relax_to_fixpoint``).
+    A ragged layout (a 5-tuple, with the chunk->tile map) takes the ragged
+    kernel."""
     block = dist.shape[-1]
     lay = sh.relax_layout
-    src_t, w_t, dstrel_t, eid_t = lay[:4]
     if len(lay) == 5:                     # ragged: + chunk->tile map
-        relax, lead = relax_dst_ragged_fixpoint_batch, lay[4:]
         block_pad = -(-block // sh.rx_vb) * sh.rx_vb
     else:
-        relax, lead = relax_dst_tiled_fixpoint_batch, ()
-        block_pad = src_t.shape[1] * sh.rx_vb
-    d, front, pruned_t = fixpoint_operands(dist, active, pruned_loc, eid_t,
+        block_pad = lay[0].shape[1] * sh.rx_vb
+    d, front, pruned_t = fixpoint_operands(dist, active, pruned_loc, lay[3],
                                            block_pad)
-    P, K = d.shape[:2]
-    nrel = torch.zeros((P, K), dtype=torch.int32, device=d.device)
-    it = torch.zeros((P,), dtype=torch.int32, device=d.device)
-    while True:
-        run = (front > 0).flatten(1).any(-1) & (it < max_iters)   # [P]
-        if not bool(run.any()):
-            break
-        d, resid, n = relax(
-            d, front * run[:, None, None], *lead, src_t, w_t, dstrel_t,
-            pruned_t, vb=sh.rx_vb, n_sweeps=sweeps)
-        front = torch.where(run[:, None, None], resid, front)
-        nrel += n
-        it += sweeps * run.to(torch.int32)
+    d, nrel = relax_to_fixpoint(d, front, lay, pruned_t, vb=sh.rx_vb,
+                                n_sweeps=sweeps, max_iters=max_iters)
     return LocalResult(dist=d[..., :block], relaxations=nrel)

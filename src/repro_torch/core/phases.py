@@ -8,7 +8,7 @@ config dict drives both packages:
   ============== ======================= ==================================
   phase          config key              backends ported in this package
   ============== ======================= ==================================
-  round          ``cfg.round``           staged
+  round          ``cfg.round``           staged | fused
   local_solver   ``cfg.local_solver``    bellman | pallas
   send           ``cfg.send_backend``    xla | pallas
   exchange       ``cfg.exchange``        bucket
@@ -24,11 +24,12 @@ ROADMAP item that ports them; unknown names raise ``ValueError``.
 """
 from __future__ import annotations
 
+import warnings
+
 _REGISTRY: dict[str, dict[str, object]] = {}
 
 # reference backends not ported yet -> the ROADMAP item that ports them
 NOT_PORTED: dict[tuple[str, str], str] = {
-    ("round", "fused"): "Queue 1 item 5 (fused round)",
     ("local_solver", "delta"): "Queue 1 item 6 (rest of the engine)",
     ("toka", "toka1"): "Queue 1 item 6 (rest of the engine)",
     ("toka", "toka2"): "Queue 1 item 7 (termination breadth)",
@@ -69,3 +70,15 @@ def validate(phase: str, name: str) -> str:
     """``resolve`` for its side effect only; returns ``name`` unchanged."""
     resolve(phase, name)
     return name
+
+
+_WARNED: set[str] = set()
+
+
+def warn_once(key: str, message: str) -> None:
+    """A ``UserWarning`` once per process and ``key``: a kernel backend
+    silently degrading to plain ops would hide a performance cliff."""
+    if key in _WARNED:
+        return
+    _WARNED.add(key)
+    warnings.warn(message, UserWarning, stacklevel=3)

@@ -17,6 +17,14 @@ exchange is a transpose. One round:
      vertices form the next frontier.
   5. *toka0*: a query is done once no shard has a frontier for it.
 
+``round="fused"`` rotates that chain so the three tiled phases land in one
+kernel launch (``kernels/round``): round r merges the messages delivered in
+round r-1 (held un-merged in ``carry.incoming``), chases the frontier to
+the local fixpoint and packs the sends, then exchanges; receives and the
+termination view are accounted at delivery time, so every counter and
+detector sees the staged sequence. Two dispatches per round instead of
+four.
+
 Phase backends resolve through ``core/phases.py`` from the reference's
 config names: ``xla`` is plain PyTorch ops, ``pallas`` the hand-written
 CUDA kernel (its plain PyTorch version on CPU tensors).
@@ -34,6 +42,7 @@ from repro_torch.core import local_solver  # noqa: F401  (registers the solvers)
 from repro_torch.core.shards import SsspShards
 from repro_torch.kernels.common import INF, scatter_min_drop, take_fill
 from repro_torch.kernels.merge import merge_scatter
+from repro_torch.kernels.round import fused_round_pallas, fused_round_rescue
 from repro_torch.kernels.send import send_pack, send_payload_bucket
 
 
@@ -108,11 +117,28 @@ class _Carry(NamedTuple):
     msgs_sent: torch.Tensor    # [P, K] int32
     msgs_recv: torch.Tensor    # [P, K] int32
     comm_bytes: torch.Tensor   # scalar int32
+    incoming: torch.Tensor | None = None   # fused: [P, K, P, C] delivered,
+                                           # not yet merged
+    front_any: torch.Tensor | None = None  # fused: [P, K] a frontier bit
+                                           # next round
 
 
 # --------------------------------------------------------------------------
 # phases (stacked over shards)
 # --------------------------------------------------------------------------
+
+def _prune_idle(sh: SsspShards, idle, pruned, cursor, cfg):
+    """A Trishla chunk on the idle shards ([P] bool) only, the reference's
+    ``lax.cond``: only they advance their pruned mask and cursor."""
+    if not cfg.prune_online:
+        return pruned, cursor
+    w_all = torch.cat([sh.loc_w, sh.cut_w], dim=1)
+    new_pruned, new_cursor, _ = trishla.prune_chunk(
+        w_all, pruned, cursor, sh.tri_uj, sh.tri_ui, sh.tri_ij, sh.tri_valid,
+        cfg.tri_chunk)
+    return (torch.where(idle[:, None], new_pruned, pruned),
+            torch.where(idle, new_cursor, cursor))
+
 
 def _phase_local(sh: SsspShards, dist, active, pruned, cursor, cfg):
     """Busy shards (a frontier in any query) solve; idle shards run a
@@ -121,16 +147,10 @@ def _phase_local(sh: SsspShards, dist, active, pruned, cursor, cfg):
     solve = phases.resolve("local_solver", cfg.local_solver)
     res = solve(dist, active, sh, pruned[:, :sh.e_loc],
                 max_iters=cfg.local_iters, sweeps=cfg.pallas_sweeps)
-    if not cfg.prune_online:
-        return res.dist, pruned, cursor, res.relaxations
     # an idle shard has no frontier, so its solve above was a no-op
     idle = ~active.flatten(1).any(-1)                       # [P]
-    w_all = torch.cat([sh.loc_w, sh.cut_w], dim=1)
-    new_pruned, new_cursor, _ = trishla.prune_chunk(
-        w_all, pruned, cursor, sh.tri_uj, sh.tri_ui, sh.tri_ij, sh.tri_valid,
-        cfg.tri_chunk)
-    return (res.dist, torch.where(idle[:, None], new_pruned, pruned),
-            torch.where(idle, new_cursor, cursor), res.relaxations)
+    pruned, cursor = _prune_idle(sh, idle, pruned, cursor, cfg)
+    return res.dist, pruned, cursor, res.relaxations
 
 
 def _bucket_payload(sh: SsspShards, send_val):
@@ -228,6 +248,7 @@ class SimComm:
 
 phases.register("exchange", "bucket")(SimComm.exchange_bucket)
 phases.register("round", "staged")("staged")
+phases.register("round", "fused")("fused")
 phases.register("warm_init", "none")("none")
 
 
@@ -241,8 +262,129 @@ def _toka0_stage(comm: SimComm, new_active):
 # round, init and certificate
 # --------------------------------------------------------------------------
 
+def _round_mode(sh: SsspShards, cfg: SsspConfig) -> str:
+    """Resolved round pipeline. The reference degrades ``round="fused"`` to
+    the staged pipeline when the shards lack a tile layout; the port's
+    shards always carry all three, so the config's mode stands."""
+    return cfg.round
+
+
+def dispatches_per_round(sh: SsspShards, cfg: SsspConfig) -> int:
+    """Data-plane dispatches per round: the staged pipeline launches 4
+    (local solve, send pack, exchange, merge scatter); the fused round 2
+    (the fused kernel, exchange)."""
+    return 2 if _round_mode(sh, cfg) == "fused" else 4
+
+
+def _phase_fused(sh: SsspShards, dist, front_in, live, incoming, last_sent,
+                 pruned, cfg):
+    """One fused kernel launch: merge + local fixpoint + send pack, plus the
+    payload gather. Returns (dist, payload [P, K, P, C], last_sent', sends,
+    nrel, resid): a non-empty ``resid`` row means ``cfg.pallas_sweeps``
+    in-kernel sweeps did not reach the fixpoint, and the caller must rescue
+    the round before using the send outputs."""
+    P, K = dist.shape[:2]
+    new_dist, send_val, new_last, nrel, sends, resid = fused_round_pallas(
+        dist, front_in, live, incoming.reshape(P, K, -1), last_sent,
+        sh.slot_valid, sh.relax_layout, sh.send_layout, sh.merge_layout,
+        pruned[:, :sh.e_loc], pruned[:, sh.e_loc:], vb=sh.rx_vb,
+        sb=sh.tx_sb, n_sweeps=cfg.pallas_sweeps)
+    payload = send_payload_bucket(send_val, sh.tx_payload_slot)
+    return new_dist, payload, new_last, sends, nrel, resid
+
+
+def _phase_fused_rescue(sh: SsspShards, dist, resid, last_sent, pruned, cfg):
+    """Finish a fused round whose in-kernel sweeps left a residual
+    frontier: continue the fixpoint with the relax kernel and re-pack the
+    sends against the ORIGINAL ``last_sent``. Returns (dist, payload,
+    last_sent', sends, nrel_extra)."""
+    new_dist, send_val, new_last, nrel_extra, sends = fused_round_rescue(
+        dist, resid, last_sent, sh.slot_valid, sh.relax_layout,
+        sh.send_layout, pruned[:, :sh.e_loc], pruned[:, sh.e_loc:],
+        vb=sh.rx_vb, sb=sh.tx_sb, n_sweeps=cfg.pallas_sweeps,
+        max_iters=cfg.local_iters, send_bounds=sh.send_bounds)
+    payload = send_payload_bucket(send_val, sh.tx_payload_slot)
+    return new_dist, payload, new_last, sends, nrel_extra
+
+
+def _account_delivery(sh: SsspShards, dist, incoming):
+    """Receive counts and per-query any-improvement bits of a delivered
+    [P, K, P, C] batch against the post-relax distances: the staged merge
+    phase's accounting, without merging (the values merge next round). A
+    message improves iff it beats the distance at its routed target; the
+    sentinel target gathers -inf, never beaten. Returns (any_imp, recvs),
+    both [P, K]."""
+    P, K = dist.shape[:2]
+    flat = incoming.reshape(P, K, -1)
+    recvs = torch.isfinite(flat).sum(-1, dtype=torch.int32)
+    d_t = take_fill(dist, sh.recv_idx.reshape(P, 1, -1), -INF)
+    return (flat < d_t).any(-1), recvs
+
+
+def make_finalize(sh: SsspShards, cfg: SsspConfig):
+    """Exit-time ``fn(carry) -> dist`` merging the delivered-but-unmerged
+    batch of a fused solve (the fused round merges a round's delivery in
+    the next round, so the loop can exit with one batch outstanding), or
+    None for the staged round, which leaves nothing outstanding. The merge
+    runs unconditionally: the final distances must not depend on the
+    detector's reasoning."""
+    if _round_mode(sh, cfg) != "fused":
+        return None
+
+    def finalize(carry: _Carry):
+        return _phase_merge_xla(sh, carry.dist, carry.incoming)[0]
+
+    return finalize
+
+
+def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
+    """The fused-round variant of ``make_round``. The idle branch (Trishla)
+    runs before the kernel, gated per shard, since merge and send run on
+    idle rounds too. The rescue runs when any row of the whole stack kept a
+    residual frontier. Accounting happens at delivery time, from the
+    post-relax distances and the raw delivered batch."""
+    comm = SimComm()
+    exchange_f = phases.resolve("exchange", cfg.exchange)
+    toka_f = phases.resolve("toka", cfg.toka)
+
+    def round_fn(carry: _Carry) -> _Carry:
+        live = ~carry.done                                  # [P, K]
+        idle = ~(carry.front_any & live).any(-1)            # [P]
+        pruned, cursor = _prune_idle(sh, idle, carry.pruned,
+                                     carry.tri_cursor, cfg)
+        # the injected frontier: source bits on round 0, empty thereafter
+        front_in = carry.active & live[..., None]
+        dist, payload, last_sent, sends, nrel, resid = _phase_fused(
+            sh, carry.dist, front_in, live, carry.incoming, carry.last_sent,
+            pruned, cfg)
+        if bool((resid > 0).any()):
+            dist, payload, last_sent, sends, extra = _phase_fused_rescue(
+                sh, dist, resid, carry.last_sent, pruned, cfg)
+            nrel = nrel + extra
+        payload, nbytes = _mask_payload(payload)
+        incoming = exchange_f(payload).contiguous()   # read twice
+        any_imp, recvs = _account_delivery(sh, dist, incoming)
+        # toka reads only any(new_active, -1): a [P, K, 1] plane of the
+        # any-improvement bits stands in for the staged merge's frontier
+        done = toka_f(comm, any_imp[..., None])
+        return _Carry(
+            dist=dist, active=torch.zeros_like(carry.active), pruned=pruned,
+            tri_cursor=cursor, last_sent=last_sent,
+            done=carry.done | done, rounds=carry.rounds + 1,
+            q_rounds=carry.q_rounds + (~carry.done).to(torch.int32),
+            relaxations=carry.relaxations + nrel,
+            msgs_sent=carry.msgs_sent + sends,
+            msgs_recv=carry.msgs_recv + recvs,
+            comm_bytes=carry.comm_bytes + nbytes,
+            incoming=incoming, front_any=any_imp)
+
+    return round_fn
+
+
 def make_round(sh: SsspShards, cfg: SsspConfig):
-    """Returns round(carry) -> carry for the staged pipeline."""
+    """Returns round(carry) -> carry for the config's round pipeline."""
+    if _round_mode(sh, cfg) == "fused":
+        return _make_round_fused(sh, cfg)
     comm = SimComm()
     send_f = phases.resolve("send", cfg.send_backend)
     exchange_f = phases.resolve("exchange", cfg.exchange)
@@ -297,6 +439,12 @@ def init_carry(sh: SsspShards, sources, cfg: SsspConfig,
         pruned = torch.zeros((P, sh.e_loc + sh.e_cut), dtype=torch.bool,
                              device=dev)
     zero = torch.zeros((P, nq), dtype=torch.int32, device=dev)
+    incoming = front_any = None
+    if _round_mode(sh, cfg) == "fused":
+        # an all-+inf batch makes round 0's merge the identity (the base
+        # case of the fused round's equality with the staged one)
+        incoming = torch.full((P, nq, P, sh.bucket_cap), INF, device=dev)
+        front_any = active.any(-1)
     return _Carry(
         dist=dist, active=active, pruned=pruned,
         tri_cursor=torch.zeros((P,), dtype=torch.int32, device=dev),
@@ -304,7 +452,8 @@ def init_carry(sh: SsspShards, sources, cfg: SsspConfig,
         done=(~q_valid)[None, :].expand(P, nq).clone(),
         rounds=0, q_rounds=zero, relaxations=zero, msgs_sent=zero,
         msgs_recv=zero,
-        comm_bytes=torch.zeros((), dtype=torch.int32, device=dev))
+        comm_bytes=torch.zeros((), dtype=torch.int32, device=dev),
+        incoming=incoming, front_any=front_any)
 
 
 def certificate_improved_sim(sh: SsspShards, dist):

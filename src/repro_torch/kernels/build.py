@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-KERNELS = ("relax", "send", "merge")          # one source, one library each
+KERNELS = ("relax", "send", "merge", "round")  # one source, one library each
 COUNTERS = KERNELS + tuple(f"{k}_ragged" for k in KERNELS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -39,7 +39,7 @@
 // through L1 and L2. Parallelism is only P*K CTAs: this is the simple,
 // exact design, to be made faster later. One template serves both
 // layouts; kRagged picks the tile map.
-#include "tile_reduce.cuh"
+#include "sweeps.cuh"
 
 namespace {
 
@@ -81,44 +81,11 @@ relax_fixpoint_kernel(const float* __restrict__ dist,
   }
   for (int v = tid; v < vb; v += nt) tile[v] = repro::kInfBits;
   if (tid == 0) total = 0;
-  int active = __syncthreads_or(any);
+  const int active = __syncthreads_or(any);
 
-  int count = 0;
-  for (int s = 0; s < n_sweeps && active; ++s) {
-    if (s > 0) {
-      // advance the frontier: vertices improved during sweep s-1
-      int anyf = 0;
-      for (int v = tid; v < bp; v += nt) {
-        const float ov = o[v];
-        const bool nf = ov < pv[v];
-        fc[v] = nf ? 1.f : 0.f;
-        pv[v] = ov;
-        anyf |= nf;
-      }
-      active = __syncthreads_or(anyf);
-      if (!active) break;
-    }
-    for (int c = 0; c < n_rows; ++c) {
-      const int t = kRagged ? min(ct[c], n_vtiles - 1) : c / n_chunks;
-      float* ot = o + static_cast<long long>(t) * vb;
-      const long long base = lay + static_cast<long long>(c) * eb;
-      for (int e = tid; e < eb; e += nt) {
-        const int sv = src_t[base + e];
-        if (fc[sv] > 0.f) {
-          const float w = pruned_t[base + e] > 0 ? repro::inf_f() : w_t[base + e];
-          count += w < repro::inf_f();
-          repro::tile_min_into(tile, dstrel_t[base + e], o[sv] + w);
-        }
-      }
-      __syncthreads();
-      for (int v = tid; v < vb; v += nt) {
-        const float m = __int_as_float(tile[v]);
-        if (m < ot[v]) ot[v] = m;
-        tile[v] = repro::kInfBits;
-      }
-      __syncthreads();
-    }
-  }
+  const int count = repro::relax_sweeps<kRagged>(
+      o, pv, fc, tile, active, ct, src_t + lay, w_t + lay, dstrel_t + lay,
+      pruned_t + lay, bp, n_vtiles, n_rows, n_chunks, eb, vb, n_sweeps);
 
   for (int v = tid; v < bp; v += nt) resid[roff + v] = o[v] < pv[v] ? 1.f : 0.f;
   atomicAdd(&total, count);

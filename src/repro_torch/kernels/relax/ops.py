@@ -1,11 +1,14 @@
-"""Host-side dst-tiled layout builders (dense and ragged) and the operand
-padding of the relax kernels (the reference's ``kernels/relax/ops.py``)."""
+"""Host-side dst-tiled layout builders (dense and ragged), the operand
+padding of the relax kernels and their relaunch loop (the reference's
+``kernels/relax/ops.py``)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.common import pad_last, take_fill
+from repro_torch.kernels.relax.relax import (relax_dst_ragged_fixpoint_batch,
+                                            relax_dst_tiled_fixpoint_batch)
 
 
 def _by_dst_tile(src, dst, w, n_vertices: int, vb: int):
@@ -114,3 +117,33 @@ def fixpoint_operands(dist, active, pruned_loc, eid_t, block_pad: int):
     pruned_t = take_fill(pruned_loc.to(torch.int32), eid_t.reshape(P, -1),
                          0).reshape(eid_t.shape)
     return dist_pad, front_pad, pruned_t
+
+
+def relax_to_fixpoint(dist, front, relax_layout, pruned_t, *, vb: int,
+                      n_sweeps: int, max_iters: int, spent: int = 0):
+    """Relaunch the relax kernel (dense, or ragged for a 5-tuple layout
+    with its chunk->tile map) on the residual frontier, up to ``n_sweeps``
+    sweeps a launch, until every shard's frontier is empty or the shard has
+    run ``max_iters`` sweeps, ``spent`` of them before the first launch
+    (the reference's per-shard loop condition). A stopped shard gets an
+    empty frontier in later launches, which makes its rows no-ops.
+    dist/front [P, K, block_pad]. Returns (dist, relaxations [P, K])."""
+    src_t, w_t, dstrel_t = relax_layout[:3]
+    if len(relax_layout) == 5:
+        relax, lead = relax_dst_ragged_fixpoint_batch, relax_layout[4:]
+    else:
+        relax, lead = relax_dst_tiled_fixpoint_batch, ()
+    P, K = dist.shape[:2]
+    nrel = torch.zeros((P, K), dtype=torch.int32, device=dist.device)
+    it = torch.full((P,), spent, dtype=torch.int32, device=dist.device)
+    while True:
+        run = (front > 0).flatten(1).any(-1) & (it < max_iters)   # [P]
+        if not bool(run.any()):
+            break
+        dist, resid, n = relax(
+            dist, front * run[:, None, None], *lead, src_t, w_t, dstrel_t,
+            pruned_t, vb=vb, n_sweeps=n_sweeps)
+        front = torch.where(run[:, None, None], resid, front)
+        nrel += n
+        it += n_sweeps * run.to(torch.int32)
+    return dist, nrel

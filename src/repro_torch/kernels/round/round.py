@@ -1,0 +1,195 @@
+"""One SP-Async round in one launch: merge, local fixpoint and send pack,
+dense and ragged layouts.
+
+Port of the reference's ``kernels/round/round.py: fused_round_tiled`` and
+``fused_round_ragged``. Each wrapper runs the CUDA kernel
+(``csrc/round.cu``) on CUDA tensors and its plain PyTorch version on CPU
+tensors; the ``*_plain`` functions are the plain versions, callable on
+either device.
+
+The Pallas grid walks three stages over a shard's distance rows: stage 0
+merges the delivered messages and derives the round's frontier
+``((merged < dist) & live) | front``; stages 1..S are the relax sweeps;
+stage S+1 packs the sends against ``last_sent``. Each stage computes what
+one staged kernel computes, in the same tile and chunk order, so the plain
+versions run those kernels' plain versions in stage order. The Pallas
+kernel's shard-wide early-out flag is a per-row one here: a row with no
+frontier relaxes nothing, so both give the same rows and counts.
+
+Shapes carry the ``sim`` backend's leading shard axis: dist/front
+``[P, K, bp]``; live ``[P, K]`` f32 0/1; incoming ``[P, K, M]`` bucket
+messages (``dense=False``) or ``[P, K, bp]`` remote minima
+(``dense=True``); last ``[P, K, S_pad]``; valid ``[P, S_pad]`` int32.
+``mx_layout`` = (pos, dstrel, valid) or None when dense; ``rx_layout`` =
+(src, w, dstrel, pruned); ``tx_layout`` = (src, w, segrel, pruned). Dense
+layouts are ``[P, n_tiles, n_chunks, EB]``; ragged ones are
+``[P, total_chunks, EB]`` and each tuple ends with its chunk->tile map
+``[P, total_chunks]``. Returns (out ``[P, K, bp]``, resid ``[P, K, bp]``
+f32 0/1, send_val ``[P, K, S_pad]`` +inf where not improved, new_last
+``[P, K, S_pad]``, nrel ``[P, K]`` int32, sends ``[P, K]`` int32).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.common import check_cuda
+from repro_torch.kernels.merge.merge import (merge_scatter_ragged_plain,
+                                            merge_scatter_tiled_plain)
+from repro_torch.kernels.relax.relax import (
+    relax_dst_ragged_fixpoint_batch_plain,
+    relax_dst_tiled_fixpoint_batch_plain)
+from repro_torch.kernels.send.send import (send_pack_ragged_plain,
+                                          send_pack_tiled_plain)
+
+
+def _frontier(dist, merged, front, live):
+    """Stage 0's frontier: vertices the merge improved in live queries,
+    plus the injected ``front``."""
+    newf = (merged < dist) & (live[..., None] > 0)
+    return torch.maximum(newf.float(), front)
+
+
+def fused_round_tiled_plain(dist, front, live, incoming, last, valid,
+                            mx_layout, rx_layout, tx_layout, *, vb: int,
+                            sb: int, n_sweeps: int, dense: bool):
+    """Transliteration of the Pallas grid (stage, tile, chunk) over dense
+    layouts (see the module doc for shapes and returns)."""
+    if dense:
+        merged = torch.minimum(dist, incoming)
+    else:
+        merged = merge_scatter_tiled_plain(dist, incoming, *mx_layout,
+                                           vb=vb)[0]
+    out, resid, nrel = relax_dst_tiled_fixpoint_batch_plain(
+        merged, _frontier(dist, merged, front, live), *rx_layout, vb=vb,
+        n_sweeps=n_sweeps)
+    val, new_last, sends = send_pack_tiled_plain(out, last, valid,
+                                                 *tx_layout, sb=sb)
+    return out, resid, val, new_last, nrel, sends
+
+
+def fused_round_ragged_plain(dist, front, live, incoming, last, valid,
+                             mx_layout, rx_layout, tx_layout, *, vb: int,
+                             sb: int, n_sweeps: int, dense: bool):
+    """Transliteration of the Pallas ragged grid (stage, flat chunk): chunk
+    c of a stage lands in tile ``min(ctile[c], n_tiles - 1)``, and init and
+    finalize run once over the whole row (see the module doc)."""
+    if dense:
+        merged = torch.minimum(dist, incoming)
+    else:
+        *mx, mx_ct = mx_layout
+        merged = merge_scatter_ragged_plain(dist, incoming, mx_ct, *mx,
+                                            vb=vb)[0]
+    *rx, rx_ct = rx_layout
+    out, resid, nrel = relax_dst_ragged_fixpoint_batch_plain(
+        merged, _frontier(dist, merged, front, live), rx_ct, *rx, vb=vb,
+        n_sweeps=n_sweeps)
+    *tx, tx_ct = tx_layout
+    val, new_last, sends = send_pack_ragged_plain(out, last, valid, tx_ct,
+                                                  *tx, sb=sb)
+    return out, resid, val, new_last, nrel, sends
+
+
+_SIGNATURES = {"fused_round_tiled": build.signature(25, 15),
+               "fused_round_ragged": build.signature(28, 15)}
+
+
+def _check(name, dist, front, live, incoming, last, valid, mx_layout,
+           rx_layout, tx_layout, *, vb, sb, dense):
+    """Raise unless the rows, slots and layouts fit the kernel: shapes,
+    contiguous CUDA float32 rows and weights, int32 indices and masks."""
+    P, K, bp = dist.shape
+    sp = last.shape[-1]
+    if (front.shape != dist.shape or live.shape != (P, K)
+            or incoming.shape[:2] != (P, K) or last.shape[:2] != (P, K)
+            or valid.shape != (P, sp) or bp % vb or sp % sb
+            or (dense and incoming.shape[-1] != bp)):
+        raise ValueError(f"{name}: rows {tuple(dist.shape)}, incoming "
+                         f"{tuple(incoming.shape)}, slots "
+                         f"{tuple(last.shape)} / {tuple(valid.shape)} do not "
+                         f"match tiles of {vb} / {sb}")
+    check_cuda(name, torch.float32, dist, front, live, incoming, last,
+               rx_layout[1], tx_layout[1])
+    check_cuda(name, torch.int32, valid, *rx_layout[:1], *rx_layout[2:],
+               *tx_layout[:1], *tx_layout[2:], *(mx_layout or ()))
+
+
+def _launch(symbol, counter, rows, layouts, dims, *, vb, sb, n_sweeps,
+            dense):
+    """Allocate the outputs and the scratch rows (prev, fcur), launch one
+    CTA per (shard, query) with ``layouts`` in the C argument order (None
+    for a null pointer) and count the launch."""
+    dist, last, incoming = rows[0], rows[4], rows[3]
+    P, K, bp = dist.shape
+    lib = build.load("round", _SIGNATURES)
+    outs = (torch.empty_like(dist), torch.empty_like(dist),
+            torch.empty_like(last), torch.empty_like(last),
+            torch.empty((P, K), dtype=torch.int32, device=dist.device),
+            torch.empty((P, K), dtype=torch.int32, device=dist.device),
+            torch.empty_like(dist), torch.empty_like(dist))
+    ptrs = [ctypes.c_void_p(None) if a is None else build.ptr(a)
+            for a in (*rows, *layouts, *outs)]
+    stream = torch.cuda.current_stream(dist.device).cuda_stream
+    code = getattr(lib, symbol)(
+        *ptrs, P, K, bp, last.shape[-1], incoming.shape[-1], int(dense),
+        *dims, vb, sb, n_sweeps, stream)
+    build.check(lib, counter, code)
+    build.count_launch(counter)
+    return outs[:6]
+
+
+def fused_round_tiled(dist, front, live, incoming, last, valid, mx_layout,
+                      rx_layout, tx_layout, *, vb: int, sb: int,
+                      n_sweeps: int, dense: bool):
+    """Same contract as the plain version. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (one CTA per (shard, query))."""
+    if not dist.is_cuda:
+        return fused_round_tiled_plain(
+            dist, front, live, incoming, last, valid, mx_layout, rx_layout,
+            tx_layout, vb=vb, sb=sb, n_sweeps=n_sweeps, dense=dense)
+    mx_layout = None if dense else mx_layout
+    _check("round", dist, front, live, incoming, last, valid, mx_layout,
+           rx_layout, tx_layout, vb=vb, sb=sb, dense=dense)
+    bp, sp = dist.shape[-1], last.shape[-1]
+    if (rx_layout[0].shape[1] * vb != bp or tx_layout[0].shape[1] * sb != sp
+            or (not dense and mx_layout[0].shape[1] * vb != bp)):
+        raise ValueError(f"round: layouts do not tile rows of {bp} by {vb} "
+                         f"and slots of {sp} by {sb}")
+    dims = ((1, 1) if dense else mx_layout[0].shape[2:]) + (
+        rx_layout[0].shape[2:] + tx_layout[0].shape[2:])
+    return _launch("fused_round_tiled", "round",
+                   (dist, front, live, incoming, last, valid),
+                   (*(mx_layout or (None,) * 3), *rx_layout, *tx_layout),
+                   dims, vb=vb, sb=sb, n_sweeps=n_sweeps, dense=dense)
+
+
+def fused_round_ragged(dist, front, live, incoming, last, valid, mx_layout,
+                       rx_layout, tx_layout, *, vb: int, sb: int,
+                       n_sweeps: int, dense: bool):
+    """Same contract as the plain version. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (one CTA per (shard, query)).
+    Each chunk->tile map must be non-decreasing per shard, as the shard
+    builders make and check it."""
+    if not dist.is_cuda:
+        return fused_round_ragged_plain(
+            dist, front, live, incoming, last, valid, mx_layout, rx_layout,
+            tx_layout, vb=vb, sb=sb, n_sweeps=n_sweeps, dense=dense)
+    mx_layout = None if dense else mx_layout
+    _check("round_ragged", dist, front, live, incoming, last, valid,
+           mx_layout, rx_layout, tx_layout, vb=vb, sb=sb, dense=dense)
+    lays = (rx_layout, tx_layout) + ((mx_layout,) if mx_layout else ())
+    for lay in lays:
+        if lay[-1].shape != lay[0].shape[:2]:
+            raise ValueError(f"round_ragged: ctile {tuple(lay[-1].shape)} "
+                             f"does not match chunks {tuple(lay[0].shape)}")
+    # the C entry point takes each layout with its chunk->tile map first
+    mx = (None,) * 4 if dense else (mx_layout[-1], *mx_layout[:-1])
+    dims = ((1, 1) if dense else mx_layout[0].shape[1:]) + (
+        rx_layout[0].shape[1:] + tx_layout[0].shape[1:])
+    return _launch("fused_round_ragged", "round_ragged",
+                   (dist, front, live, incoming, last, valid),
+                   (*mx, rx_layout[-1], *rx_layout[:-1], tx_layout[-1],
+                    *tx_layout[:-1]),
+                   dims, vb=vb, sb=sb, n_sweeps=n_sweeps, dense=dense)

@@ -135,7 +135,7 @@ def test_offline_pruning_matches_reference(jax_graphs, jax_shards):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("round", "fused"), ("exchange", "pmin"), ("exchange", "async"),
+    ("exchange", "a2a_dense"), ("exchange", "pmin"), ("exchange", "async"),
     ("toka", "toka1"), ("toka", "toka3"), ("local_solver", "delta"),
     ("warm_start", "landmark"), ("faults", object())])
 def test_config_values_not_ported_raise(field, value):

@@ -23,6 +23,9 @@ from repro_torch.kernels.merge import (  # noqa: E402
     build_msg_ragged_layout, build_msg_tiled_layout, merge_scatter_ragged,
     merge_scatter_ragged_plain, merge_scatter_tiled,
     merge_scatter_tiled_plain)
+from repro_torch.kernels.round import (  # noqa: E402
+    fused_round_operands, fused_round_ragged, fused_round_ragged_plain,
+    fused_round_tiled, fused_round_tiled_plain)
 from repro_torch.kernels.relax import (  # noqa: E402
     build_dst_ragged_layout, fixpoint_operands,
     relax_dst_ragged_fixpoint_batch, relax_dst_ragged_fixpoint_batch_plain,
@@ -34,6 +37,9 @@ from repro_torch.kernels.send import (  # noqa: E402
 pytestmark = pytest.mark.gpu
 ALL_KERNELS = dict(local_solver="pallas", send_backend="pallas",
                    merge_backend="pallas")
+STAGED = ("relax", "send", "merge")         # the staged round's kernels
+COUNTERS = ("rounds", "relaxations", "msgs_sent", "msgs_recv",
+            "pruned_edges", "q_rounds", "q_relaxations", "bytes_moved")
 
 
 @pytest.fixture
@@ -162,7 +168,7 @@ def test_engine_on_gpu_matches_cpu_and_launches_kernels(cuda, shards):
     eng = tc.SsspEngine.build(sh, cfg)               # cuda by default
     on_gpu = eng.solve(srcs)
     assert eng.device.type == "cuda"
-    assert min(build.LAUNCHES[k] for k in build.KERNELS) > 0
+    assert min(build.LAUNCHES[k] for k in STAGED) > 0
     assert on_gpu.status == on_cpu.status == "converged"
     np.testing.assert_array_equal(on_gpu.dist, on_cpu.dist)
     for f in ("rounds", "relaxations", "msgs_sent", "msgs_recv",
@@ -291,7 +297,7 @@ def test_ragged_engine_on_gpu_matches_cpu(cuda):
     on_cpu = tc.SsspEngine.build(ragged, cfg, device="cpu").solve(srcs)
     build.reset_launches()
     on_gpu = tc.SsspEngine.build(ragged, cfg).solve(srcs)
-    assert min(build.LAUNCHES[f"{k}_ragged"] for k in build.KERNELS) > 0
+    assert min(build.LAUNCHES[f"{k}_ragged"] for k in STAGED) > 0
     assert max(build.LAUNCHES[k] for k in build.KERNELS) == 0
     gpu_dense = tc.SsspEngine.build(dense, cfg).solve(srcs)
     assert on_gpu.status == on_cpu.status == gpu_dense.status == "converged"
@@ -299,5 +305,94 @@ def test_ragged_engine_on_gpu_matches_cpu(cuda):
         np.testing.assert_array_equal(on_gpu.dist, other.dist)
         for f in ("rounds", "relaxations", "msgs_sent", "msgs_recv",
                   "pruned_edges", "q_rounds", "q_relaxations"):
+            np.testing.assert_array_equal(np.asarray(getattr(on_gpu.stats, f)),
+                                          np.asarray(getattr(other.stats, f)))
+
+
+# ----------------------------------------------------------- fused round --
+
+def _round_operands(sh, nq, dense, seed):
+    """Kernel operands (``fused_round_operands``) of a random mid-solve
+    state: dist 30% +inf, frontier, live queries, bucket messages at the
+    routed positions only (or a dense [P, K, block] incoming), last_sent
+    +inf on invalid slots, Trishla masks."""
+    rng = np.random.default_rng(seed)
+    P, block, S = sh.n_parts, sh.block, sh.n_slots
+    ridx = sh.recv_idx.reshape(P, -1).numpy()
+    dist = _rows(rng, (P, nq, block), 0.3)
+    front = rng.random(dist.shape) < 0.2
+    live = rng.random((P, nq)) < 0.8
+    if dense:
+        inc = _rows(rng, (P, nq, block), 0.5)
+    else:
+        inc = _rows(rng, (P, nq, ridx.shape[1]), 0.5)
+        inc[np.broadcast_to((ridx == block)[:, None], inc.shape)] = np.inf
+    last = _rows(rng, (P, nq, S), 0.5)
+    last[~np.broadcast_to(sh.slot_valid.numpy()[:, None], last.shape)] = np.inf
+    prn_loc = rng.random((P, sh.e_loc)) < 0.15
+    prn_cut = rng.random((P, sh.e_cut)) < 0.15
+    return fused_round_operands(
+        *map(torch.from_numpy, (dist, front, live, inc, last)),
+        sh.slot_valid, sh.relax_layout, sh.send_layout, sh.merge_layout,
+        *map(torch.from_numpy, (prn_loc, prn_cut)), vb=sh.rx_vb,
+        sb=sh.tx_sb, dense=dense)
+
+
+def _to(ops, device):
+    return [None if a is None else
+            a.to(device) if isinstance(a, torch.Tensor) else
+            tuple(x.to(device) for x in a) for a in ops]
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+def test_round_kernel_matches_plain(cuda, layout, dense):
+    """Kernels 7 and 8 against their plain versions, all six outputs, on
+    layouts with several tiles and chunks (VB 32, EB 64)."""
+    g = tg.rmat_graph(scale=9, edge_factor=8, seed=2)
+    sh = tc.build_shards(g, 2, layout=layout, relax_vb=VB, relax_eb=EB,
+                         send_sb=VB, send_eb=EB, merge_vb=VB, merge_eb=EB)
+    args = _to(_round_operands(sh, 3, dense, seed=dense), cuda)
+    kernel, plain, name = ((fused_round_ragged, fused_round_ragged_plain,
+                            "round_ragged") if layout == "ragged" else
+                           (fused_round_tiled, fused_round_tiled_plain,
+                            "round"))
+    n0 = build.LAUNCHES[name]
+    for sweeps in (2, 8):
+        kw = dict(vb=VB, sb=VB, n_sweeps=sweeps, dense=dense)
+        out = kernel(*args, **kw)
+        ref = plain(*args, **kw)
+        assert int(out[4].sum()) > 0 and int(out[5].sum()) > 0
+        for got, want in zip(out, ref):
+            assert torch.equal(got, want)
+    assert build.LAUNCHES[name] == n0 + 2
+
+
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+def test_fused_engine_on_gpu_matches_cpu(cuda, layout):
+    """round="fused" on the card equals its CPU run and the card's staged
+    solve (all but n_dispatches), with one fused launch a round and no
+    merge launch."""
+    g = tg.rmat_graph(scale=9, edge_factor=8, seed=2)
+    sh = tc.build_shards(g, 4, layout=layout, relax_vb=VB, relax_eb=EB,
+                         send_sb=VB, send_eb=EB, merge_vb=VB, merge_eb=EB)
+    rng = np.random.default_rng(4)
+    deg = np.diff(g.row_ptr.numpy())
+    srcs = [int(s) for s in rng.choice(np.nonzero(deg)[0], 3, replace=False)]
+    cfg = tc.SsspConfig(round="fused", pallas_sweeps=2, tri_chunk=16)
+    on_cpu = tc.SsspEngine.build(sh, cfg, device="cpu").solve(srcs)
+    build.reset_launches()
+    on_gpu = tc.SsspEngine.build(sh, cfg).solve(srcs)
+    sfx = "_ragged" if layout == "ragged" else ""
+    assert build.LAUNCHES["round" + sfx] == int(on_gpu.stats.rounds)
+    assert build.LAUNCHES["merge" + sfx] == 0
+    assert build.LAUNCHES["relax" + sfx] >= build.LAUNCHES["send" + sfx] > 0
+    staged = tc.SsspEngine.build(sh, tc.SsspConfig(
+        **ALL_KERNELS, pallas_sweeps=2, tri_chunk=16)).solve(srcs)
+    assert on_gpu.status == on_cpu.status == staged.status == "converged"
+    assert int(on_gpu.stats.n_dispatches) == 2 * int(on_gpu.stats.rounds)
+    for other in (on_cpu, staged):
+        np.testing.assert_array_equal(on_gpu.dist, other.dist)
+        for f in COUNTERS:
             np.testing.assert_array_equal(np.asarray(getattr(on_gpu.stats, f)),
                                           np.asarray(getattr(other.stats, f)))
