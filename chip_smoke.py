@@ -7,7 +7,8 @@ Run from the root of a checkout; it needs one CUDA device and ``nvcc``.
 Phases, each of which exits non-zero on a mismatch:
 
   build    compile the CUDA kernel sources (relax, send, merge, round; each
-           holds a dense kernel and its ragged sibling) from
+           holds a dense kernel and its ragged sibling, relax also the three
+           single-query kernels; embedding_bag) from
            src/repro_torch/kernels/csrc, one nvcc each, in parallel;
   kernel   hold each dense kernel against its plain PyTorch version on the
            card, bit-equal, on the real layouts of the scale-1e6 graph at
@@ -42,7 +43,22 @@ Phases, each of which exits non-zero on a mismatch:
            counter but n_dispatches, round_ragged launched once a round,
            merge_ragged never, relax/send_ragged only by rescued rounds,
            no dense kernel; profiles of the staged and the fused K=16
-           solves.
+           solves;
+  single   the standalone kernel API's single-query relax kernels on
+           scale-1e6 as one block (layout [512, 16, 512]): from 2 sources,
+           kernel 9 in a residual-frontier loop (relax_fixpoint_pallas,
+           n_sweeps=8), kernel 10 with the frontier chased between launches
+           (relax_masked_pallas) and kernel 11 until a sweep changes
+           nothing (relax_pallas): equal to scipy's Dijkstra and bit-equal
+           to each other, kernel 10's relaxations equal to the same loop on
+           the CPU; each kernel bit-equal to its plain version (kernel 9 at
+           n_sweeps=2) at a mid-solve state with a 10% Trishla mask, timed;
+           relax_jnp timed beside them;
+  embag    kernel 13 at the AutoInt configuration's size: a [39e6, 16]
+           f32 table made on the card, 10,223,616 one-index bags (sum) and
+           2,555,904 four-index bags (mean, f32 and bf16), 5% padding: each
+           bit-equal to the plain version, timed beside its bound and
+           F.embedding_bag.
 
 The line before last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Build logs and traces go to chiprun_out/.
@@ -75,7 +91,15 @@ SOURCES = {                    # kernel -> (CUDA source, TPU kernel replaced)
     "merge_ragged": (f"{CSRC}/merge.cu", f"{TPU}/merge/merge.py:165"),
     "round": (f"{CSRC}/round.cu", f"{TPU}/round/round.py:219"),
     "round_ragged": (f"{CSRC}/round.cu", f"{TPU}/round/round.py:457"),
+    "relax_single": (f"{CSRC}/relax.cu", f"{TPU}/relax/relax.py:239"),
+    "relax_masked": (f"{CSRC}/relax.cu", f"{TPU}/relax/relax.py:155"),
+    "relax_sweep": (f"{CSRC}/relax.cu", f"{TPU}/relax/relax.py:89"),
+    "embedding_bag": (f"{CSRC}/embedding_bag.cu",
+                      f"{TPU}/embedding_bag/embedding_bag.py:43"),
 }
+AUTOINT = dict(fields=39, vocab=1_000_000, dim=16)  # src/repro/configs/autoint.py:6
+SERVE_BULK = 262_144           # src/repro/configs/registry.py:77
+TRAIN_BATCH = 65_536           # src/repro/configs/registry.py:75
 STAGED = ("relax", "send", "merge")     # the staged round's kernels
 
 
@@ -487,6 +511,238 @@ def check_fused(res_f, res_s, launches, ragged: bool, what: str) -> int:
     return rescued
 
 
+def single_phase(torch, np, g, rng):
+    """The standalone kernel API's single-query relax kernels (9, 10, 11)
+    on the whole graph ``g`` as one block: three single-source solves of
+    two sources, checked against scipy's Dijkstra and each other; each
+    kernel bit-equal to its plain version at one mid-solve state, timed
+    beside its bound. Returns the table rows."""
+    from repro_torch.graph import graph_to_numpy
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import take_fill
+    from repro_torch.kernels.relax import (
+        build_dst_tiled_layout, relax_dst_tiled, relax_dst_tiled_fixpoint,
+        relax_dst_tiled_fixpoint_plain, relax_dst_tiled_masked,
+        relax_dst_tiled_masked_plain, relax_dst_tiled_plain,
+        relax_fixpoint_pallas, relax_jnp, relax_masked_pallas, relax_pallas)
+    dev = torch.device("cuda")
+    vb, eb, inf = 128, 512, float("inf")
+    n = g.n_vertices
+    edges = graph_to_numpy(g)
+    t0 = time.perf_counter()
+    src_t, w_t, dr_t, eid_t, bp = build_dst_tiled_layout(
+        *edges, n, vb=vb, eb=eb, with_eid=True)
+    t_lay = time.perf_counter() - t0
+    cpu_lay = (src_t, w_t, dr_t)
+    lay = tuple(a.to(dev) for a in cpu_lay)
+    eid = eid_t.to(dev)
+    m = len(edges[0])
+    # Trishla masks: none (the solves), and 10% drawn from a seed (the
+    # kernel comparisons)
+    pr0 = torch.zeros(eid.shape, dtype=torch.int32, device=dev)
+    p10 = torch.from_numpy((np.random.default_rng(14).random(m) < 0.1)
+                           .astype(np.int32)).to(dev)
+    pr10 = take_fill(p10, eid.reshape(-1), 0).reshape(eid.shape)
+    sources = live_sources(np, rng, g, 2)
+    kw = dict(vb=vb, eb=eb)
+    say(f"single phase: scale-1e6 as one block, {n} vertices, {m} edges; "
+        f"layout {tuple(src_t.shape)}, block_pad {bp}, host build "
+        f"{t_lay:.1f} s; sources {sources}")
+
+    def start(s, device):
+        d = torch.full((bp,), inf, device=device)
+        f = torch.zeros(bp, device=device)
+        d[s], f[s] = 0.0, 1.0
+        return d, f
+
+    def solve9(s):
+        """Kernel 9 in a residual-frontier loop (tests/test_pallas_solver.py
+        :84-98)."""
+        d, f = start(s, dev)
+        rel = 0
+        while bool((f > 0).any()):
+            d, f, nr = relax_fixpoint_pallas(d, f, *lay, pr0, n_sweeps=8,
+                                             **kw)
+            rel += int(nr)
+        return d, rel
+
+    def solve10(s, device=dev, layout=lay, pruned=pr0, until=None):
+        """Kernel 10 with the frontier chased between launches; ``until``
+        stops after that many steps."""
+        d, f = start(s, device)
+        rel = steps = 0
+        while bool((f > 0).any()) and steps != until:
+            new, nr = relax_masked_pallas(d, f, *layout, pruned, **kw)
+            f, d = (new < d).float(), new
+            rel += int(nr)
+            steps += 1
+        return d, rel, f
+
+    def solve11(s):
+        """Kernel 11 until a sweep changes nothing (no count)."""
+        d = start(s, dev)[0]
+        while True:
+            new = relax_pallas(d, *lay, **kw)
+            if torch.equal(new, d):
+                return d, None
+            d = new
+
+    ref = scipy_dijkstra(np, g, sources)
+    solved, launches, rows = {}, {}, {}
+    for name, solve in (("relax_single", solve9), ("relax_masked", solve10),
+                        ("relax_sweep", solve11)):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        solved[name], per = [], []
+        for s in sources:
+            k0 = build.LAUNCHES[name]
+            solved[name].append(solve(s)[:2])
+            per.append(build.LAUNCHES[name] - k0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = build.LAUNCHES[name]
+        if min(per) < 1 or sum(build.LAUNCHES.values()) != launches[name]:
+            fail(f"single {name}: launches {build.LAUNCHES}")
+        for i, (d, _) in enumerate(solved[name]):
+            if not np.allclose(d[:n].cpu().numpy(), ref[i], rtol=RTOL,
+                               atol=ATOL):
+                fail(f"single {name}: source {sources[i]} disagrees with "
+                     f"Dijkstra")
+        rels = [r for _, r in solved[name] if r is not None]
+        say(f"  {name} solves: {wall:.3f} s wall for {len(sources)} sources, "
+            f"launches per solve {per}"
+            + (f", relaxations {rels}" if rels else ""))
+    for name in ("relax_masked", "relax_sweep"):
+        for (a, _), (b, _) in zip(solved["relax_single"], solved[name]):
+            if not torch.equal(a, b):
+                fail(f"single: the {name} solve differs from relax_single's")
+    t0 = time.perf_counter()
+    cpu_rel = [solve10(s, torch.device("cpu"), cpu_lay, pr0.cpu())[1]
+               for s in sources]
+    if cpu_rel != [r for _, r in solved["relax_masked"]]:
+        fail(f"single: relax_masked relaxations {solved['relax_masked']} vs "
+             f"{cpu_rel} with the plain version on the CPU")
+    say(f"  the three solves bit-equal, equal to scipy's Dijkstra; "
+        f"relax_masked relaxations equal to the plain loop on the CPU "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # each kernel against its plain version at one mid-solve state: three
+    # masked steps from the first source, the 10% Trishla mask
+    d, _, f = solve10(sources[0], until=3)
+    if not bool((f > 0).any()):
+        fail("single: the mid-solve frontier is empty")
+    args9 = (d, f, *lay, pr10)
+    out11 = relax_dst_tiled(d, *lay, vb=vb)
+    ref11, plain11 = once(torch, lambda: relax_dst_tiled_plain(d, *lay,
+                                                               vb=vb))
+    out10 = relax_dst_tiled_masked(*args9, vb=vb)
+    ref10, plain10 = once(torch, lambda: relax_dst_tiled_masked_plain(
+        *args9, vb=vb))
+    out9 = relax_dst_tiled_fixpoint(*args9, vb=vb, n_sweeps=2)
+    ref9, plain9 = once(torch, lambda: relax_dst_tiled_fixpoint_plain(
+        *args9, vb=vb, n_sweeps=2))
+    errs = {"relax_sweep": compare(torch, "relax_sweep", [out11], [ref11]),
+            "relax_masked": compare(torch, "relax_masked", out10, ref10),
+            "relax_single": compare(torch, "relax_single", out9, ref9)}
+    live = int((torch.isfinite(lay[1])).sum())
+    rows["relax_sweep"] = dict(
+        ms=timed(torch, lambda: relax_dst_tiled(d, *lay, vb=vb), 50),
+        plain_ms=plain11, bound=bound(nbytes(d, *lay, out11), 2 * live))
+    rows["relax_masked"] = dict(
+        ms=timed(torch, lambda: relax_dst_tiled_masked(*args9, vb=vb), 50),
+        plain_ms=plain10, bound=bound(nbytes(*args9, *out10),
+                                      2 * int(out10[1])))
+    rows["relax_single"] = dict(
+        ms=timed(torch, lambda: relax_dst_tiled_fixpoint(*args9, vb=vb,
+                                                         n_sweeps=2), 5),
+        plain_ms=plain9, bound=bound(nbytes(*args9, *out9),
+                                     2 * int(out9[2])))
+    ms8 = timed(torch, lambda: relax_dst_tiled_fixpoint(*args9, vb=vb,
+                                                        n_sweeps=8), 3)
+    flat = [torch.from_numpy(a).to(dev) for a in edges]
+    jnp_ms = timed(torch, lambda: relax_jnp(d[:n], *flat), 50)
+    say(f"  kernels bit-equal to their plain versions at the state after 3 "
+        f"masked steps (frontier {int((f > 0).sum())} vertices; "
+        f"relax_masked {int(out10[1])} relaxations; relax_single with "
+        f"n_sweeps=2 for the plain version's time, {int(out9[2])} "
+        f"relaxations, residual {int((out9[1] > 0).sum())})")
+    for name, r in rows.items():
+        r.update(err=errs[name], library_ms=None)
+        say(f"  {name}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.2f} ms "
+            f"plain, bound {r['bound'][0]:.5f} ms ({r['bound'][1]}), "
+            f"{launches[name]} launches for {len(sources)} solves")
+    say(f"  relax_single with n_sweeps=8: {ms8:.4f} ms; relax_jnp (gather + "
+        f"scatter_reduce amin over the {m} flat edges): {jnp_ms:.4f} ms")
+    return rows, launches
+
+
+def embag_phase(torch, np):
+    """Kernel 13 at the AutoInt configuration's full size: a [39e6, 16]
+    table made on the card from a seeded generator, the serve_bulk batch
+    of one-hot bags (sum) and a train batch of 4-index bags (mean, f32 and
+    bf16), 5% of the indices the padding sentinel V. Each run bit-equal to
+    the plain version, timed beside its bound and F.embedding_bag."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.embedding_bag import (embedding_bag_p,
+                                                   embedding_bag_p_plain)
+    dev = torch.device("cuda")
+    V, D = AUTOINT["fields"] * AUTOINT["vocab"], AUTOINT["dim"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    table = torch.randn((V, D), generator=gen, device=dev)
+
+    def bags(B, L):
+        idx = torch.randint(0, V, (B, L), generator=gen, device=dev,
+                            dtype=torch.int32)
+        pad = torch.rand((B, L), generator=gen, device=dev) < 0.05
+        return torch.where(pad, V, idx).to(torch.int32).contiguous()
+
+    runs = (("serve sum", table, bags(SERVE_BULK * AUTOINT["fields"], 1),
+             "sum"),)
+    multi = bags(TRAIN_BATCH * AUTOINT["fields"], 4)
+    runs += (("multi-hot mean f32", table, multi, "mean"),
+             ("multi-hot mean bf16", table.to(torch.bfloat16), multi,
+              "mean"))
+    build.reset_launches()
+    outs = [embedding_bag_p(t, i, mode=mode) for _, t, i, mode in runs]
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES["embedding_bag"]
+    if launches != len(runs) or sum(build.LAUNCHES.values()) != launches:
+        fail(f"embag: launches {build.LAUNCHES}")
+    say(f"embag phase: table [{V}, {D}] f32 on the card, AutoInt "
+        f"({AUTOINT['fields']} fields x {AUTOINT['vocab']} vocab)")
+    stats = {}
+    for (what, t, i, mode), out in zip(runs, outs):
+        ref, plain_ms = once(torch, lambda: embedding_bag_p_plain(t, i,
+                                                                  mode=mode))
+        err = compare(torch, "embedding_bag", [out], [ref])
+        ms = timed(torch, lambda: embedding_bag_p(t, i, mode=mode), 20)
+        valid = i[i < V]
+        rows_read = int(torch.unique(valid).numel())
+        b = bound(nbytes(i, out) + rows_read * D * t.element_size(),
+                  int(valid.numel()) * D + (out.numel() if mode == "mean"
+                                            else 0))
+        ext = torch.cat([t, torch.zeros((1, D), dtype=t.dtype, device=dev)])
+        il = i.long()
+        lib_ms = timed(torch, lambda: F.embedding_bag(
+            il, ext, mode=mode, padding_idx=V), 20)
+        lib = F.embedding_bag(il, ext, mode=mode, padding_idx=V)
+        lib_err = float((lib.float() - out.float()).abs().max())
+        del ext, il, lib
+        say(f"  {what}: bags {tuple(i.shape)}, {int(valid.numel())} valid "
+            f"rows ({rows_read} distinct); {ms:.4f} ms kernel, "
+            f"{plain_ms:.3f} ms plain, bound {b[0]:.5f} ms ({b[1]}), "
+            f"F.embedding_bag {lib_ms:.4f} ms (max abs diff {lib_err:.3g})")
+        stats[what] = dict(ms=ms, plain_ms=plain_ms, bound=b,
+                           library_ms=lib_ms, err=err)
+    # the table's row: the 4-index f32 bags; the error: the largest of all
+    row = dict(stats["multi-hot mean f32"],
+               err=max(r["err"] for r in stats.values()))
+    return {"embedding_bag": row}, {"embedding_bag": launches}
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a checkout")
@@ -680,7 +936,7 @@ def main():
     torch.cuda.synchronize()
     ragged_in_main = {k: v for k, v in build.LAUNCHES.items()
                       if k.endswith("_ragged")}
-    dense_in_main = {k: build.LAUNCHES[k] for k in build.KERNELS}
+    dense_in_main = {k: build.LAUNCHES[k] for k in build.ROUND}
     launches.update(ragged_in_main)
     res1 = eng7.solve(src7[:1])
     for name, r in (("K=16", res), ("K=1", res1)):
@@ -735,6 +991,15 @@ def main():
     profile_solve(torch, eng7f, src7,
                   out_dir / "chip_smoke_trace_1e7_fused.json",
                   "scale-1e7 ragged fused K=16")
+    del eng7, eng7f, sh7, g7, res, res1, resf, resf1
+
+    # ---- the standalone kernel API: kernels 9, 10, 11 and 13 ---------------
+    for phase in (lambda: single_phase(torch, np, g, rng),
+                  lambda: embag_phase(torch, np)):
+        new_rows, new_launches = phase()
+        rows.update(new_rows)
+        launches.update(new_launches)
+        torch.cuda.empty_cache()
     say(f"total: {time.perf_counter() - t_start:.1f} s after the card query")
 
     table = [{"name": name, "route": "cuda", "source": SOURCES[name][0],

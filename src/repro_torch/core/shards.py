@@ -285,8 +285,8 @@ def shards_from_arrays(fields: dict, **static) -> SsspShards:
 
 def _check_weights(w, valid):
     """Raise on NaN / non-finite / negative weights among the valid edges:
-    the monotone pipeline (and the kernels' int-reinterpreted atomicMin)
-    needs finite non-negative weights. Padding legitimately carries +inf."""
+    the monotone pipeline needs finite non-negative weights. Padding
+    legitimately carries +inf."""
     bad_nan = valid & np.isnan(w)
     bad_inf = valid & ~np.isnan(w) & ~np.isfinite(w)
     bad_neg = valid & (w < 0)
@@ -560,7 +560,7 @@ def _assemble_shards(parts, n, P, block, *, max_triangles_per_part,
     build_rx = build_dst_ragged_layout if ragged else build_dst_tiled_layout
     rx = _stack(
         [build_rx(loc_src[p], loc_dst[p], loc_w[p], block, vb=relax_vb,
-                  eb=relax_eb) for p in range(P)],
+                  eb=relax_eb, with_eid=True) for p in range(P)],
         fills=with_ctile((n_vtiles * relax_vb - 1, np.inf, 0, e_loc), n_vtiles),
         sentinels={3: [(len(loc_src[p]), e_loc) for p in range(P)]},
         axis=axis)

@@ -9,9 +9,12 @@ a CPU-only process imports this module without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-path went through the kernels. A source holds a dense kernel and its
-ragged sibling; their counters (``relax`` and ``relax_ragged``, ...) are
-kept apart, so a run also shows which layout family it used.
+path went through the kernels. A source of the round holds a dense kernel
+and its ragged sibling; their counters (``relax`` and ``relax_ragged``,
+...) are kept apart, so a run also shows which layout family it used.
+``relax.cu`` also holds the single-query kernels of the standalone kernel
+API, each with its own counter: ``relax_single`` (the fixpoint),
+``relax_masked`` (the masked sweep) and ``relax_sweep`` (the plain sweep).
 """
 from __future__ import annotations
 
@@ -25,8 +28,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-KERNELS = ("relax", "send", "merge", "round")  # one source, one library each
-COUNTERS = KERNELS + tuple(f"{k}_ragged" for k in KERNELS)
+ROUND = ("relax", "send", "merge", "round")   # dense + ragged kernel each
+KERNELS = ROUND + ("embedding_bag",)  # one source, one library each
+COUNTERS = (ROUND + tuple(f"{k}_ragged" for k in ROUND)
+            + ("relax_single", "relax_masked", "relax_sweep", "embedding_bag"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

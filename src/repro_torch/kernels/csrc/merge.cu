@@ -44,7 +44,7 @@ merge_scatter_kernel(const float* __restrict__ dist,
                      int* recvs, int K, int bp, int m, int n_vtiles, int n_rows,
                      int n_chunks, int eb, int vb) {
   extern __shared__ int smem[];
-  int* tile = smem;                        // [K, vb] int-reinterpreted minima
+  int* tile = smem;                        // [K, vb] minima as keys (min_key)
   int* cnt = smem + K * vb;                // [K] finite messages seen
   const int p = blockIdx.x / n_vtiles;
   const int i = blockIdx.x % n_vtiles;
@@ -53,7 +53,7 @@ merge_scatter_kernel(const float* __restrict__ dist,
   const int lane = tid & 31;
   for (int x = tid; x < K * vb; x += nt) {
     const int q = x / vb;
-    tile[x] = __float_as_int(
+    tile[x] = repro::min_key(
         dist[(static_cast<long long>(p) * K + q) * bp + i * vb + x % vb]);
   }
   for (int q = tid; q < K; q += nt) cnt[q] = 0;
@@ -82,7 +82,7 @@ merge_scatter_kernel(const float* __restrict__ dist,
         const bool fin = v < repro::inf_f();
         const unsigned b = __ballot_sync(0xffffffffu, fin);
         if (lane == 0 && b) atomicAdd(cnt + q, __popc(b));
-        if (fin) atomicMin(tile + q * vb + r, __float_as_int(v));
+        repro::tile_min_into(tile + q * vb, r, v);
       }
     }
   }
@@ -91,7 +91,7 @@ merge_scatter_kernel(const float* __restrict__ dist,
   for (int x = tid; x < K * vb; x += nt) {
     const int q = x / vb;
     const long long o = (static_cast<long long>(p) * K + q) * bp + i * vb + x % vb;
-    const float nv = __int_as_float(tile[x]);
+    const float nv = repro::key_value(tile[x]);
     out[o] = nv;
     front[o] = nv < dist[o] ? 1.f : 0.f;
   }

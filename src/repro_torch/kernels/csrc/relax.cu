@@ -1,69 +1,82 @@
-// K-query local fixpoint over the dst-tiled local edges, dense and ragged.
+// The relax family: the K-query local fixpoint over the dst-tiled local
+// edges (dense and ragged) and the three single-query kernels of the
+// standalone kernel API.
 //
 // Replaces: kernels/relax/relax.py: relax_dst_tiled_fixpoint_batch (the
 // Pallas kernel _relax_fixpoint_batch_kernel, grid (sweep, vtile, chunk,
 // query)) and relax_dst_ragged_fixpoint_batch (the Pallas kernel
 // _relax_ragged_fixpoint_batch_kernel, grid (sweep, chunk, query), with the
-// chunk->tile map ctile scalar-prefetched).
+// chunk->tile map ctile scalar-prefetched); and, for one query on one
+// block, relax_dst_tiled_fixpoint (_relax_fixpoint_kernel, grid (sweep,
+// vtile, chunk)), relax_dst_tiled_masked (_relax_masked_kernel, grid
+// (vtile, chunk)) and relax_dst_tiled (_relax_kernel, grid (vtile, chunk)).
 //
-// What it computes, per (shard, query) row: up to n_sweeps frontier-chased
-// Gauss-Seidel min-plus sweeps. A sweep walks the shard's edge chunks in
-// layout order; each chunk gathers dist[src] + w for the edges whose source
-// is in the sweep's frontier (Trishla-pruned edges count as +inf),
-// min-reduces them per destination, and mins its vertex tile into the live
-// row, so later chunks see earlier improvements. The dense layout holds
-// n_chunks chunks for every tile (chunk c is in tile c / n_chunks); the
-// ragged layout holds only each tile's own chunks, flat, with chunk c in
+// What the fixpoint kernels compute, per (shard, query) row: up to n_sweeps
+// frontier-chased Gauss-Seidel min-plus sweeps. A sweep walks the shard's
+// edge chunks in layout order; each chunk gathers dist[src] + w for the
+// edges whose source is in the sweep's frontier (Trishla-pruned edges count
+// as +inf), min-reduces them per destination, and mins its vertex tile into
+// the live row, so later chunks see earlier improvements. The dense layout
+// holds n_chunks chunks for every tile (chunk c is in tile c / n_chunks);
+// the ragged layout holds only each tile's own chunks, flat, with chunk c in
 // tile min(ctile[c], n_vtiles - 1): the padding chunks that stack shards
 // to one chunk count carry the sentinel tile and w = +inf, so they are
 // no-ops. The ragged order is the dense order minus the dense layout's
 // all-padding chunks, so both give the same rows and the same counts. A
 // row whose sweep changes nothing stops (the per-query early-out).
 // Outputs: the distances, the residual frontier (vertices improved in the
-// last sweep run) and the per-query relaxation count.
+// last sweep run) and the per-query relaxation count. The single-query
+// fixpoint (relax_fixpoint) is the same chain for one row.
 //
-// What bounds it: the order. Each chunk reads the row that every earlier
-// chunk of the sweep wrote, so the work of one row is a chain of
-// n_sweeps * chunks-per-shard dependent steps, each a gather, a block
-// barrier, a shared-memory reduce and a barrier. Bytes are not the limit.
-// The ragged layout shortens that chain to the chunks that hold edges.
+// What bounds the fixpoint kernels: the order. Each chunk reads the row
+// that every earlier chunk of the sweep wrote, so the work of one row is a
+// chain of n_sweeps * chunks-per-shard dependent steps, each a gather, a
+// block barrier, a shared-memory reduce and a barrier. Bytes are not the
+// limit. The ragged layout shortens that chain to the chunks that hold
+// edges.
 //
-// Design: one CTA per (shard, query) row, a grid of P*K. The CTA walks
-// sweeps -> chunks in the Pallas grid order, which reproduces the
-// reference's sequence of reads and writes exactly, so the relaxation
-// count is exact and not merely bounded. Per chunk every thread gathers
-// and atomicMins its candidates into a shared VB-tile (tile_min_into);
-// after a barrier the tile is min'd into the row, then reset. The gathers
-// of a chunk all precede its writes, as in the reference. The rows (live
-// distances, previous sweep, frontier) stay in global memory, reached
-// through L1 and L2. Parallelism is only P*K CTAs: this is the simple,
-// exact design, to be made faster later. One template serves both
-// layouts; kRagged picks the tile map.
+// Design of the fixpoint kernels: one CTA per (shard, query) row, a grid
+// of P*K (a grid of 1 for relax_fixpoint). The CTA walks sweeps -> chunks
+// in the Pallas grid order, which reproduces the reference's sequence of
+// reads and writes exactly, so the relaxation count is exact and not
+// merely bounded. Per chunk every thread gathers and atomicMins its
+// candidates into a shared VB-tile (tile_min_into); after a barrier the
+// tile is min'd into the row, then reset. The gathers of a chunk all
+// precede its writes, as in the reference. The rows (live distances,
+// previous sweep, frontier) stay in global memory, reached through L1 and
+// L2. Parallelism is only P*K CTAs: this is the simple, exact design, to
+// be made faster later. One template serves both layouts; kRagged picks
+// the tile map.
+//
+// The two single sweeps (relax_sweep, relax_masked) are Jacobi: every
+// gather reads the INPUT distances, so vertex tiles are independent and
+// the order of a tile's chunks does not matter (min is exact). What bounds
+// them: bytes, the layout planes streamed once (the 256 KB distance and
+// frontier vectors of a 65,536-vertex block sit in L2). Design: one CTA per
+// vertex tile, a grid of n_vtiles; it seeds a shared VB-tile from
+// dist[tile], walks the tile's chunks gathering dist[src] + w from global
+// memory and min-reducing into the tile, and writes the tile out once. The
+// masked sweep also gathers front[src], folds the Trishla mask into w and
+// counts f_src & (w < inf) per CTA, added to nrel[0] with one integer
+// atomicAdd per CTA (exact in any order; the wrapper zeroes nrel first).
+// Both take any non-NaN distances (tile_reduce.cuh: min_key).
 #include "sweeps.cuh"
 
 namespace {
 
+// One (shard, query) row's fixpoint: the rows at offset roff; the layout
+// pointers (and ct, the chunk->tile row, when ragged) are the shard's own.
 template <bool kRagged>
-__global__ void __launch_bounds__(repro::kThreads)
-relax_fixpoint_kernel(const float* __restrict__ dist,
-                      const float* __restrict__ front,
-                      const int* __restrict__ ctile,
-                      const int* __restrict__ src_t,
-                      const float* __restrict__ w_t,
-                      const int* __restrict__ dstrel_t,
-                      const int* __restrict__ pruned_t, float* out,
-                      float* resid, int* nrel, float* prev, float* fcur, int K,
-                      int bp, int n_vtiles, int n_rows, int n_chunks, int eb,
-                      int vb, int n_sweeps) {
-  extern __shared__ int tile[];            // [vb] int-reinterpreted minima
+__device__ void fixpoint_row(const float* __restrict__ dist,
+                             const float* __restrict__ front, const int* ct,
+                             const int* src_t, const float* w_t,
+                             const int* dstrel_t, const int* pruned_t,
+                             float* out, float* resid, int* nrel, float* prev,
+                             float* fcur, long long roff, int bp, int n_vtiles,
+                             int n_rows, int n_chunks, int eb, int vb,
+                             int n_sweeps) {
+  extern __shared__ int tile[];            // [vb] minima as keys (min_key)
   __shared__ int total;
-  const int row = blockIdx.x;              // p * K + q
-  const int p = row / K;
-  const long long roff = static_cast<long long>(row) * bp;
-  // n_rows chunks of eb edges per shard: n_vtiles * n_chunks dense,
-  // total_chunks ragged
-  const long long lay = static_cast<long long>(p) * n_rows * eb;
-  const int* ct = kRagged ? ctile + static_cast<long long>(p) * n_rows : nullptr;
   float* o = out + roff;
   float* pv = prev + roff;
   float* fc = fcur + roff;
@@ -84,13 +97,97 @@ relax_fixpoint_kernel(const float* __restrict__ dist,
   const int active = __syncthreads_or(any);
 
   const int count = repro::relax_sweeps<kRagged>(
-      o, pv, fc, tile, active, ct, src_t + lay, w_t + lay, dstrel_t + lay,
-      pruned_t + lay, bp, n_vtiles, n_rows, n_chunks, eb, vb, n_sweeps);
+      o, pv, fc, tile, active, ct, src_t, w_t, dstrel_t, pruned_t, bp,
+      n_vtiles, n_rows, n_chunks, eb, vb, n_sweeps);
 
   for (int v = tid; v < bp; v += nt) resid[roff + v] = o[v] < pv[v] ? 1.f : 0.f;
   atomicAdd(&total, count);
   __syncthreads();
-  if (tid == 0) nrel[row] = total;
+  if (tid == 0) *nrel = total;
+}
+
+template <bool kRagged>
+__global__ void __launch_bounds__(repro::kThreads)
+relax_fixpoint_kernel(const float* __restrict__ dist,
+                      const float* __restrict__ front,
+                      const int* __restrict__ ctile,
+                      const int* __restrict__ src_t,
+                      const float* __restrict__ w_t,
+                      const int* __restrict__ dstrel_t,
+                      const int* __restrict__ pruned_t, float* out,
+                      float* resid, int* nrel, float* prev, float* fcur, int K,
+                      int bp, int n_vtiles, int n_rows, int n_chunks, int eb,
+                      int vb, int n_sweeps) {
+  const int row = blockIdx.x;              // p * K + q
+  const int p = row / K;
+  // n_rows chunks of eb edges per shard: n_vtiles * n_chunks dense,
+  // total_chunks ragged
+  const long long lay = static_cast<long long>(p) * n_rows * eb;
+  const int* ct = kRagged ? ctile + static_cast<long long>(p) * n_rows : nullptr;
+  fixpoint_row<kRagged>(dist, front, ct, src_t + lay, w_t + lay,
+                        dstrel_t + lay, pruned_t + lay, out, resid, nrel + row,
+                        prev, fcur, static_cast<long long>(row) * bp, bp,
+                        n_vtiles, n_rows, n_chunks, eb, vb, n_sweeps);
+}
+
+// Kernel 9: the single-query fixpoint, one CTA over the whole block.
+__global__ void __launch_bounds__(repro::kThreads)
+relax_single_kernel(const float* __restrict__ dist,
+                    const float* __restrict__ front,
+                    const int* __restrict__ src_t,
+                    const float* __restrict__ w_t,
+                    const int* __restrict__ dstrel_t,
+                    const int* __restrict__ pruned_t, float* out, float* resid,
+                    int* nrel, float* prev, float* fcur, int bp, int n_vtiles,
+                    int n_chunks, int eb, int vb, int n_sweeps) {
+  fixpoint_row<false>(dist, front, nullptr, src_t, w_t, dstrel_t, pruned_t,
+                      out, resid, nrel, prev, fcur, 0, bp, n_vtiles,
+                      n_vtiles * n_chunks, n_chunks, eb, vb, n_sweeps);
+}
+
+// Kernels 11 (kMasked false) and 10 (kMasked true): one Jacobi sweep, one
+// CTA per vertex tile. front, pruned_t and nrel are read / written only
+// when kMasked.
+template <bool kMasked>
+__global__ void __launch_bounds__(repro::kThreads)
+relax_sweep_kernel(const float* __restrict__ dist,
+                   const float* __restrict__ front,
+                   const int* __restrict__ src_t,
+                   const float* __restrict__ w_t,
+                   const int* __restrict__ dstrel_t,
+                   const int* __restrict__ pruned_t, float* __restrict__ out,
+                   int* nrel, int n_chunks, int eb, int vb) {
+  extern __shared__ int tile[];            // [vb] minima as keys (min_key)
+  __shared__ int total;
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const float* dt = dist + static_cast<long long>(t) * vb;
+  for (int v = tid; v < vb; v += nt) tile[v] = repro::min_key(dt[v]);
+  if (tid == 0) total = 0;
+  __syncthreads();
+
+  int count = 0;
+  const long long lay = static_cast<long long>(t) * n_chunks * eb;
+  for (long long i = lay + tid; i < lay + static_cast<long long>(n_chunks) * eb;
+       i += nt) {
+    const int sv = src_t[i];
+    if (kMasked) {
+      if (front[sv] > 0.f) {
+        const float w = pruned_t[i] > 0 ? repro::inf_f() : w_t[i];
+        count += w < repro::inf_f();
+        repro::tile_min_into(tile, dstrel_t[i], dist[sv] + w);
+      }
+    } else {
+      repro::tile_min_into(tile, dstrel_t[i], dist[sv] + w_t[i]);
+    }
+  }
+  if (kMasked) atomicAdd(&total, count);
+  __syncthreads();
+
+  float* ot = out + static_cast<long long>(t) * vb;
+  for (int v = tid; v < vb; v += nt) ot[v] = repro::key_value(tile[v]);
+  if (kMasked && tid == 0 && total) atomicAdd(nrel, total);
 }
 
 template <bool kRagged>
@@ -108,6 +205,11 @@ int launch(const float* dist, const float* front, const int* ctile,
       dist, front, ctile, src_t, w_t, dstrel_t, pruned_t, out, resid, nrel,
       prev, fcur, K, bp, n_vtiles, n_rows, n_chunks, eb, vb, n_sweeps);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Kernel>
+cudaError_t allow_tile(Kernel kernel, int vb) {
+  return repro::allow_smem(kernel, static_cast<size_t>(vb) * sizeof(int));
 }
 
 }  // namespace
@@ -137,4 +239,52 @@ extern "C" int relax_ragged_fixpoint_batch(
   return launch<true>(dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, out,
                       resid, nrel, prev, fcur, P, K, bp, n_vtiles,
                       total_chunks, 1, eb, vb, n_sweeps, stream);
+}
+
+// Kernel 9: one query, dense layout [n_vtiles, n_chunks, eb]; rows [bp],
+// nrel [1].
+extern "C" int relax_fixpoint(const float* dist, const float* front,
+                              const int* src_t, const float* w_t,
+                              const int* dstrel_t, const int* pruned_t,
+                              float* out, float* resid, int* nrel, float* prev,
+                              float* fcur, int bp, int n_vtiles, int n_chunks,
+                              int eb, int vb, int n_sweeps,
+                              cudaStream_t stream) {
+  cudaError_t err = allow_tile(relax_single_kernel, vb);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  relax_single_kernel<<<1, repro::kThreads, vb * sizeof(int), stream>>>(
+      dist, front, src_t, w_t, dstrel_t, pruned_t, out, resid, nrel, prev,
+      fcur, bp, n_vtiles, n_chunks, eb, vb, n_sweeps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 10: one masked, counted Jacobi sweep; nrel [1] zeroed by the
+// caller on the same stream.
+extern "C" int relax_masked(const float* dist, const float* front,
+                            const int* src_t, const float* w_t,
+                            const int* dstrel_t, const int* pruned_t,
+                            float* out, int* nrel, int n_vtiles, int n_chunks,
+                            int eb, int vb, cudaStream_t stream) {
+  if (n_vtiles == 0) return 0;
+  cudaError_t err = allow_tile(relax_sweep_kernel<true>, vb);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  relax_sweep_kernel<true><<<n_vtiles, repro::kThreads, vb * sizeof(int),
+                             stream>>>(dist, front, src_t, w_t, dstrel_t,
+                                       pruned_t, out, nrel, n_chunks, eb, vb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 11: one unmasked Jacobi sweep.
+extern "C" int relax_sweep(const float* dist, const int* src_t,
+                           const float* w_t, const int* dstrel_t, float* out,
+                           int n_vtiles, int n_chunks, int eb, int vb,
+                           cudaStream_t stream) {
+  if (n_vtiles == 0) return 0;
+  cudaError_t err = allow_tile(relax_sweep_kernel<false>, vb);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  relax_sweep_kernel<false><<<n_vtiles, repro::kThreads, vb * sizeof(int),
+                              stream>>>(dist, nullptr, src_t, w_t, dstrel_t,
+                                        nullptr, out, nullptr, n_chunks, eb,
+                                        vb);
+  return static_cast<int>(cudaGetLastError());
 }

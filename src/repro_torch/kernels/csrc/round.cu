@@ -97,7 +97,7 @@ fused_round_kernel(const float* __restrict__ dist,
                    float* new_last, int* nrel, int* sends, float* prev,
                    float* fcur, int K, int bp, int sp, int m, int dense,
                    int vb, int sb, int n_sweeps) {
-  extern __shared__ int tile[];            // [max(vb, sb)] int-reinterpreted
+  extern __shared__ int tile[];            // [max(vb, sb)] minima as keys
   __shared__ int totals[2];                // relaxations, sends
   const int row = blockIdx.x;              // p * K + q
   const int p = row / K;
@@ -130,7 +130,7 @@ fused_round_kernel(const float* __restrict__ dist,
         [&](int t) {
           float* ot = o + static_cast<long long>(t) * vb;
           for (int v = tid; v < vb; v += nt) {
-            const float mv = __int_as_float(tile[v]);
+            const float mv = repro::key_value(tile[v]);
             if (mv < ot[v]) ot[v] = mv;
             tile[v] = repro::kInfBits;
           }
@@ -182,7 +182,7 @@ fused_round_kernel(const float* __restrict__ dist,
       [&](int t) {
         for (int x = tid; x < sb; x += nt) {
           const int slot = t * sb + x;
-          const float mv = __int_as_float(tile[x]);
+          const float mv = repro::key_value(tile[x]);
           const float before = ls[slot];
           const bool improved = sv[slot] > 0 && mv < before;
           vo[slot] = improved ? mv : repro::inf_f();

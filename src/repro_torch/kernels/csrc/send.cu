@@ -48,7 +48,7 @@ send_pack_kernel(const float* __restrict__ dist,
                  int* sends, int K, int bp, int sp, int n_stiles, int n_rows,
                  int n_chunks, int eb, int sb) {
   extern __shared__ int smem[];
-  int* tile = smem;                        // [K, sb] int-reinterpreted minima
+  int* tile = smem;                        // [K, sb] minima as keys (min_key)
   int* cnt = smem + K * sb;                // [K] improved slots
   const int p = blockIdx.x / n_stiles;
   const int i = blockIdx.x % n_stiles;
@@ -86,7 +86,7 @@ send_pack_kernel(const float* __restrict__ dist,
     const int q = x / sb;
     const int slot = i * sb + x % sb;
     const long long o = (static_cast<long long>(p) * K + q) * sp + slot;
-    const float m = __int_as_float(tile[x]);
+    const float m = repro::key_value(tile[x]);
     const float before = last[o];
     const bool improved = valid[static_cast<long long>(p) * sp + slot] > 0 && m < before;
     val[o] = improved ? m : repro::inf_f();

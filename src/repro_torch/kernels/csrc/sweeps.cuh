@@ -62,7 +62,7 @@ __device__ int relax_sweeps(float* o, float* pv, float* fc, int* tile,
       }
       __syncthreads();
       for (int v = tid; v < vb; v += nt) {
-        const float m = __int_as_float(tile[v]);
+        const float m = key_value(tile[v]);
         if (m < ot[v]) ot[v] = m;
         tile[v] = kInfBits;
       }

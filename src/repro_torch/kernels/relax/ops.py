@@ -1,5 +1,6 @@
-"""Host-side dst-tiled layout builders (dense and ragged), the operand
-padding of the relax kernels and their relaunch loop (the reference's
+"""Host-side dst-tiled layout builders (dense and ragged), the standalone
+kernel API of the single-query relax kernels, the operand padding of the
+batched relax kernels and their relaunch loop (the reference's
 ``kernels/relax/ops.py``)."""
 from __future__ import annotations
 
@@ -7,8 +8,12 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.common import pad_last, take_fill
+from repro_torch.kernels.relax.ref import relax_ref
 from repro_torch.kernels.relax.relax import (relax_dst_ragged_fixpoint_batch,
-                                            relax_dst_tiled_fixpoint_batch)
+                                            relax_dst_tiled,
+                                            relax_dst_tiled_fixpoint,
+                                            relax_dst_tiled_fixpoint_batch,
+                                            relax_dst_tiled_masked)
 
 
 def _by_dst_tile(src, dst, w, n_vertices: int, vb: int):
@@ -36,15 +41,16 @@ def _i32(a):
 
 
 def build_dst_tiled_layout(src, dst, w, n_vertices: int, *, vb: int = 128,
-                           eb: int = 512):
+                           eb: int = 512, with_eid: bool = False):
     """One-time host preprocessing: edges -> [n_vtiles, n_chunks, EB].
 
     Padding entries use src = block_pad - 1 (the gather stays in range; the
     padded distance slot is +inf) and w = +inf so they never win the min.
-    eid_t is each tiled slot's position in the ORIGINAL edge list
-    (sentinel = len(src) for padding), so runtime per-edge state (the
-    Trishla mask) gathers into tiled order. Returns (src_t, w_t, dstrel_t,
-    eid_t) as int32/float32 torch tensors, and ``block_pad``."""
+    Returns (src_t, w_t, dstrel_t, block_pad) as int32/float32 torch
+    tensors and an int. With ``with_eid=True`` it returns (src_t, w_t,
+    dstrel_t, eid_t, block_pad): eid_t is each tiled slot's position in the
+    ORIGINAL edge list (sentinel = len(src) for padding), so runtime
+    per-edge state (the Trishla mask) gathers into tiled order."""
     (src, dst, w, eid, n_edges, n_vtiles, block_pad, counts,
      starts) = _by_dst_tile(src, dst, w, n_vertices, vb)
     n_chunks = max(int(-(-counts.max() // eb)) if counts.size else 1, 1)
@@ -62,14 +68,15 @@ def build_dst_tiled_layout(src, dst, w, n_vertices: int, *, vb: int = 128,
         eid_t[t, :k] = eid[lo:hi]
 
     shape3 = (n_vtiles, n_chunks, eb)
-    return (_i32(src_t.reshape(shape3)),
-            torch.from_numpy(w_t.reshape(shape3)),
-            _i32(dstrel_t.reshape(shape3)), _i32(eid_t.reshape(shape3)),
-            block_pad)
+    out = (_i32(src_t.reshape(shape3)), torch.from_numpy(w_t.reshape(shape3)),
+           _i32(dstrel_t.reshape(shape3)))
+    if with_eid:
+        out += (_i32(eid_t.reshape(shape3)),)
+    return out + (block_pad,)
 
 
 def build_dst_ragged_layout(src, dst, w, n_vertices: int, *, vb: int = 128,
-                            eb: int = 512):
+                            eb: int = 512, with_eid: bool = False):
     """CSR-chunked (ragged) dst layout: edges -> [total_chunks, EB] rows
     plus the [total_chunks] chunk->tile map ``ctile``.
 
@@ -79,7 +86,8 @@ def build_dst_ragged_layout(src, dst, w, n_vertices: int, *, vb: int = 128,
     least 1; an all-padding chunk carries the sentinel tile ``n_vtiles``).
     ``ctile`` is non-decreasing, so each tile owns a contiguous chunk range.
     Padding inside a partly filled chunk mirrors the dense builder. Returns
-    (src_r, w_r, dstrel_r, eid_r, ctile, block_pad)."""
+    (src_r, w_r, dstrel_r[, eid_r], ctile, block_pad), eid_r with
+    ``with_eid=True``."""
     (src, dst, w, eid, n_edges, n_vtiles, block_pad, counts,
      starts) = _by_dst_tile(src, dst, w, n_vertices, vb)
     total_chunks = max(int((-(-counts // eb)).sum()), 1)
@@ -100,8 +108,55 @@ def build_dst_ragged_layout(src, dst, w, n_vertices: int, *, vb: int = 128,
             eid_r[row, :k] = eid[off:off + k]
             ctile[row] = t
             row += 1
-    return (_i32(src_r), torch.from_numpy(w_r), _i32(dstrel_r), _i32(eid_r),
-            _i32(ctile), block_pad)
+    out = (_i32(src_r), torch.from_numpy(w_r), _i32(dstrel_r))
+    if with_eid:
+        out += (_i32(eid_r),)
+    return out + (_i32(ctile), block_pad)
+
+
+def _check_eb(src_t, eb: int):
+    if src_t.shape[-1] != eb:
+        raise ValueError(f"layout chunks hold {src_t.shape[-1]} edges, "
+                         f"eb={eb}")
+
+
+def relax_pallas(dist_pad, src_t, w_t, dstrel_t, *, vb: int = 128,
+                 eb: int = 512, interpret: bool = True):
+    """One unmasked Jacobi sweep (kernel 11) over the layout of
+    ``build_dst_tiled_layout``: dist_pad [block_pad] f32 -> [block_pad].
+    ``interpret`` is the reference's keyword, accepted and ignored."""
+    _check_eb(src_t, eb)
+    return relax_dst_tiled(dist_pad, src_t, w_t, dstrel_t, vb=vb)
+
+
+def relax_masked_pallas(dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t,
+                        *, vb: int = 128, eb: int = 512,
+                        interpret: bool = True):
+    """One frontier-masked sweep (kernel 10). Returns (new_dist, n_relax
+    scalar)."""
+    _check_eb(src_t, eb)
+    new, nrel = relax_dst_tiled_masked(dist_pad, front_pad, src_t, w_t,
+                                       dstrel_t, pruned_t, vb=vb)
+    return new, nrel[0]
+
+
+def relax_fixpoint_pallas(dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t,
+                          *, vb: int = 128, eb: int = 512, n_sweeps: int = 8,
+                          interpret: bool = True):
+    """Fused multi-sweep solve (kernel 9). Returns (new_dist,
+    residual_frontier, n_relax scalar)."""
+    _check_eb(src_t, eb)
+    new, resid, nrel = relax_dst_tiled_fixpoint(
+        dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t, vb=vb,
+        n_sweeps=n_sweeps)
+    return new, resid, nrel[0]
+
+
+def relax_jnp(dist, src, dst, w):
+    """The flat-edge relaxation as plain tensor ops (a gather and a
+    scatter-min), the reference's XLA path; the same function as
+    ``relax_ref``."""
+    return relax_ref(dist, src, dst, w)
 
 
 def fixpoint_operands(dist, active, pruned_loc, eid_t, block_pad: int):

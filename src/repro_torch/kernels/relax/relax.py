@@ -1,15 +1,25 @@
-"""K-query local fixpoint over the dst-tiled local edges, dense and ragged.
+"""The relax family: the K-query local fixpoint over the dst-tiled local
+edges (dense and ragged) and the single-query kernels of the standalone
+kernel API.
 
 Port of the reference's ``kernels/relax/relax.py:
-relax_dst_tiled_fixpoint_batch`` and ``relax_dst_ragged_fixpoint_batch``.
-Each wrapper runs the CUDA kernel (``csrc/relax.cu``) on CUDA tensors and
-its plain PyTorch version on CPU tensors; the ``*_plain`` functions are the
-plain versions, callable on either device.
+relax_dst_tiled_fixpoint_batch`` and ``relax_dst_ragged_fixpoint_batch``
+(kernels 1 and 2), and of ``relax_dst_tiled_fixpoint`` (kernel 9),
+``relax_dst_tiled_masked`` (10) and ``relax_dst_tiled`` (11). Each wrapper
+runs the CUDA kernel (``csrc/relax.cu``) on CUDA tensors and its plain
+PyTorch version on CPU tensors; the ``*_plain`` functions are the plain
+versions, callable on either device.
 
-Shapes carry the ``sim`` backend's leading shard axis: rows are
-``[P, K, block_pad]``; the dense layout is ``[P, n_vtiles, n_chunks, EB]``,
-the ragged one ``[P, total_chunks, EB]`` with the chunk->tile map ``ctile``
-``[P, total_chunks]``.
+Shapes of kernels 1 and 2 carry the ``sim`` backend's leading shard axis:
+rows are ``[P, K, block_pad]``; the dense layout is ``[P, n_vtiles,
+n_chunks, EB]``, the ragged one ``[P, total_chunks, EB]`` with the
+chunk->tile map ``ctile`` ``[P, total_chunks]``. Kernels 9-11 take one row
+``[block_pad]`` and one dense layout ``[n_vtiles, n_chunks, EB]``, as the
+reference does; their kernels order candidates by an order-preserving key
+(``csrc/tile_reduce.cuh: min_key``), so they take any non-NaN distances,
+negative ones included. Every kernel reads the layout as the builders make
+it (sources in ``[0, block_pad)``, ``dstrel`` in ``[0, vb)``): the
+wrappers check shapes and dtypes, not index values.
 """
 from __future__ import annotations
 
@@ -105,8 +115,63 @@ def relax_dst_ragged_fixpoint_batch_plain(dist, front, ctile, src_r, w_r,
     return _fixpoint_plain(dist, front, chunks, vb=vb, n_sweeps=n_sweeps)
 
 
+def relax_dst_tiled_fixpoint_plain(dist_pad, front_pad, src_t, w_t,
+                                   dstrel_t, pruned_t, *, vb: int,
+                                   n_sweeps: int):
+    """Kernel 9's plain version: the Pallas grid (sweep, vtile, chunk) for
+    one row, i.e. kernel 1's chunk steps in grid order with P = K = 1.
+    Returns (dist [bp], residual frontier [bp] f32 0/1, relaxations [1]
+    int32)."""
+    out, resid, nrel = relax_dst_tiled_fixpoint_batch_plain(
+        dist_pad[None, None], front_pad[None, None], src_t[None], w_t[None],
+        dstrel_t[None], pruned_t[None], vb=vb, n_sweeps=n_sweeps)
+    return out[0, 0], resid[0, 0], nrel[0]
+
+
+def _sweep_plain(dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t, *,
+                 vb: int):
+    """One Jacobi sweep (every gather reads the input ``dist_pad``), chunk
+    index by chunk index, each step over all vertex tiles at once; masked
+    and counted when ``front_pad`` is given. Returns (dist [bp], count [1]
+    int32)."""
+    n_vtiles, n_chunks, _ = src_t.shape
+    out = dist_pad.reshape(n_vtiles, vb)
+    count = torch.zeros(1, dtype=torch.int32, device=dist_pad.device)
+    for j in range(n_chunks):
+        src = src_t[:, j].long()                           # [n_vtiles, EB]
+        d_src = dist_pad[src]
+        if front_pad is None:
+            cand = d_src + w_t[:, j]
+        else:
+            w = torch.where(pruned_t[:, j] > 0, INF, w_t[:, j])
+            f_src = front_pad[src] > 0
+            cand = torch.where(f_src, d_src + w, INF)
+            count += (f_src & (w < INF)).sum(dtype=torch.int32)
+        out = torch.minimum(out, tile_min_batch(cand, dstrel_t[:, j],
+                                                width=vb))
+    return out.reshape(-1), count
+
+
+def relax_dst_tiled_masked_plain(dist_pad, front_pad, src_t, w_t, dstrel_t,
+                                 pruned_t, *, vb: int):
+    """Kernel 10's plain version: one frontier-masked, Trishla-pruned Jacobi
+    sweep with relaxation counting. Returns (dist [bp], relaxations [1]
+    int32)."""
+    return _sweep_plain(dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t,
+                        vb=vb)
+
+
+def relax_dst_tiled_plain(dist_pad, src_t, w_t, dstrel_t, *, vb: int):
+    """Kernel 11's plain version: one unmasked Jacobi min-plus sweep.
+    Returns dist [bp]."""
+    return _sweep_plain(dist_pad, None, src_t, w_t, dstrel_t, None, vb=vb)[0]
+
+
 _SIGNATURES = {"relax_fixpoint_batch": build.signature(11, 8),
-               "relax_ragged_fixpoint_batch": build.signature(12, 8)}
+               "relax_ragged_fixpoint_batch": build.signature(12, 8),
+               "relax_fixpoint": build.signature(11, 6),
+               "relax_masked": build.signature(8, 4),
+               "relax_sweep": build.signature(5, 4)}
 
 
 def _outputs(dist):
@@ -170,3 +235,87 @@ def relax_dst_ragged_fixpoint_batch(dist, front, ctile, src_r, w_r, dstrel_r,
     build.check(lib, "relax_ragged", code)
     build.count_launch("relax_ragged")
     return outs[:3]
+
+
+def _single_operands(name, rows, planes, vb: int):
+    """Raise unless ``rows`` are contiguous CUDA f32 [bp] vectors and
+    ``planes`` = (src_t, w_t, dstrel_t[, pruned_t]) contiguous CUDA
+    [n_vtiles, n_chunks, EB] planes (w_t f32, the others int32) with
+    bp = n_vtiles * vb. Returns (n_vtiles, n_chunks, EB)."""
+    shape = tuple(planes[0].shape)
+    if (len(shape) != 3 or any(tuple(p.shape) != shape for p in planes)
+            or any(r.shape != (shape[0] * vb,) for r in rows)):
+        raise ValueError(
+            f"{name}: rows {[tuple(r.shape) for r in rows]} and layout "
+            f"{[tuple(p.shape) for p in planes]} do not match "
+            f"[n_vtiles * {vb}] and one [n_vtiles, n_chunks, EB] shape")
+    check_cuda(name, torch.float32, *rows, planes[1])
+    check_cuda(name, torch.int32, planes[0], *planes[2:])
+    return shape
+
+
+def relax_dst_tiled_fixpoint(dist_pad, front_pad, src_t, w_t, dstrel_t,
+                             pruned_t, *, vb: int, n_sweeps: int):
+    """Kernel 9: same contract as the plain version. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (one CTA)."""
+    if not dist_pad.is_cuda:
+        return relax_dst_tiled_fixpoint_plain(
+            dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t, vb=vb,
+            n_sweeps=n_sweeps)
+    n_vtiles, n_chunks, eb = _single_operands(
+        "relax_single", (dist_pad, front_pad),
+        (src_t, w_t, dstrel_t, pruned_t), vb)
+    lib = build.load("relax", _SIGNATURES)
+    out, resid, prev, fcur = (torch.empty_like(dist_pad) for _ in range(4))
+    nrel = torch.empty(1, dtype=torch.int32, device=dist_pad.device)
+    stream = torch.cuda.current_stream(dist_pad.device).cuda_stream
+    code = lib.relax_fixpoint(
+        *map(build.ptr, (dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t,
+                         out, resid, nrel, prev, fcur)),
+        n_vtiles * vb, n_vtiles, n_chunks, eb, vb, n_sweeps, stream)
+    build.check(lib, "relax_single", code)
+    build.count_launch("relax_single")
+    return out, resid, nrel
+
+
+def relax_dst_tiled_masked(dist_pad, front_pad, src_t, w_t, dstrel_t,
+                           pruned_t, *, vb: int):
+    """Kernel 10: same contract as the plain version. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (one CTA per vertex
+    tile)."""
+    if not dist_pad.is_cuda:
+        return relax_dst_tiled_masked_plain(
+            dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t, vb=vb)
+    n_vtiles, n_chunks, eb = _single_operands(
+        "relax_masked", (dist_pad, front_pad),
+        (src_t, w_t, dstrel_t, pruned_t), vb)
+    lib = build.load("relax", _SIGNATURES)
+    out = torch.empty_like(dist_pad)
+    nrel = torch.zeros(1, dtype=torch.int32, device=dist_pad.device)
+    stream = torch.cuda.current_stream(dist_pad.device).cuda_stream
+    code = lib.relax_masked(
+        *map(build.ptr, (dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t,
+                         out, nrel)),
+        n_vtiles, n_chunks, eb, vb, stream)
+    build.check(lib, "relax_masked", code)
+    build.count_launch("relax_masked")
+    return out, nrel
+
+
+def relax_dst_tiled(dist_pad, src_t, w_t, dstrel_t, *, vb: int):
+    """Kernel 11: same contract as the plain version. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (one CTA per vertex
+    tile)."""
+    if not dist_pad.is_cuda:
+        return relax_dst_tiled_plain(dist_pad, src_t, w_t, dstrel_t, vb=vb)
+    n_vtiles, n_chunks, eb = _single_operands(
+        "relax_sweep", (dist_pad,), (src_t, w_t, dstrel_t), vb)
+    lib = build.load("relax", _SIGNATURES)
+    out = torch.empty_like(dist_pad)
+    stream = torch.cuda.current_stream(dist_pad.device).cuda_stream
+    code = lib.relax_sweep(
+        *map(build.ptr, (dist_pad, src_t, w_t, dstrel_t, out)),
+        n_vtiles, n_chunks, eb, vb, stream)
+    build.check(lib, "relax_sweep", code)
+    build.count_launch("relax_sweep")
+    return out

@@ -24,7 +24,7 @@ def build_slot_tiled_layout(cut_src, cut_seg, cut_w, n_slots: int, *,
     Returns (src_t, w_t, segrel_t, eid_t, S_pad); eid_t maps tiled slots
     back to cut-edge positions (sentinel = len(cut_src))."""
     src_t, w_t, segrel_t, eid_t, s_pad = build_dst_tiled_layout(
-        cut_src, cut_seg, cut_w, n_slots, vb=sb, eb=eb)
+        cut_src, cut_seg, cut_w, n_slots, vb=sb, eb=eb, with_eid=True)
     src_t = torch.where(eid_t == len(np.asarray(cut_src)), 0, src_t)
     return src_t, w_t, segrel_t, eid_t, s_pad
 
@@ -37,7 +37,7 @@ def build_slot_ragged_layout(cut_src, cut_seg, cut_w, n_slots: int, *,
 
     Returns (src_r, w_r, segrel_r, eid_r, ctile, S_pad)."""
     src_r, w_r, segrel_r, eid_r, ctile, s_pad = build_dst_ragged_layout(
-        cut_src, cut_seg, cut_w, n_slots, vb=sb, eb=eb)
+        cut_src, cut_seg, cut_w, n_slots, vb=sb, eb=eb, with_eid=True)
     src_r = torch.where(eid_r == len(np.asarray(cut_src)), 0, src_r)
     return src_r, w_r, segrel_r, eid_r, ctile, s_pad
 

@@ -5,7 +5,7 @@ Plain PyTorch version of the reference's ``kernels/tile_reduce.py``
 with a tile-relative target in ``[0, width)``, reduced to per-target minima.
 The CUDA kernels do the same move as a device function,
 ``tile_min_into`` in ``csrc/tile_reduce.cuh``: an ``atomicMin`` of the
-int-reinterpreted candidate into a shared-memory tile.
+candidate's order-preserving int key into a shared-memory tile.
 """
 from __future__ import annotations
 

@@ -30,6 +30,12 @@ from repro_torch.kernels.relax import (  # noqa: E402
     build_dst_ragged_layout, fixpoint_operands,
     relax_dst_ragged_fixpoint_batch, relax_dst_ragged_fixpoint_batch_plain,
     relax_dst_tiled_fixpoint_batch, relax_dst_tiled_fixpoint_batch_plain)
+from repro_torch.kernels.relax import (  # noqa: E402
+    build_dst_tiled_layout, relax_dst_tiled, relax_dst_tiled_fixpoint,
+    relax_dst_tiled_fixpoint_plain, relax_dst_tiled_masked,
+    relax_dst_tiled_masked_plain, relax_dst_tiled_plain)
+from repro_torch.kernels.embedding_bag import (  # noqa: E402
+    embedding_bag_p, embedding_bag_p_plain)
 from repro_torch.kernels.send import (  # noqa: E402
     build_slot_ragged_layout, send_operands, send_pack_ragged,
     send_pack_ragged_plain, send_pack_tiled, send_pack_tiled_plain)
@@ -207,7 +213,8 @@ def test_relax_ragged_kernel_matches_plain(cuda, nq):
     for e, hi in ((900, n - 2 * VB - 10), (150, n)):
         lays.append(build_dst_ragged_layout(
             rng.integers(0, n, e), rng.integers(0, hi, e),
-            rng.uniform(1, 20, e).astype(np.float32), n, vb=VB, eb=EB))
+            rng.uniform(1, 20, e).astype(np.float32), n, vb=VB, eb=EB,
+            with_eid=True))
     bp = lays[0][5]
     src, w, rel, eid, ctile = _stack_ragged(
         lays, (bp - 1, float("inf"), 0, 900, bp // VB))
@@ -396,3 +403,112 @@ def test_fused_engine_on_gpu_matches_cpu(cuda, layout):
         for f in COUNTERS:
             np.testing.assert_array_equal(np.asarray(getattr(on_gpu.stats, f)),
                                           np.asarray(getattr(other.stats, f)))
+
+
+# ------------------------------------- the standalone kernel API (9-11, 13) --
+
+def _single(rng, device, negative=False):
+    """One block of 600 vertices (5 tiles of 128, several chunks of 128
+    edges), a row with 30% +inf, a 40% frontier, a 20% Trishla mask; with
+    ``negative``, distances and weights of both signs."""
+    n, m = 600, 5000
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    lo = -20 if negative else 1
+    w = rng.uniform(lo, 20, m).astype(np.float32)
+    src_t, w_t, dr_t, eid_t, bp = build_dst_tiled_layout(
+        src, dst, w, n, vb=128, eb=128, with_eid=True)
+    dist = rng.uniform(-50 if negative else 0, 50, bp).astype(np.float32)
+    dist[rng.random(bp) < 0.3] = np.inf
+    front = (rng.random(bp) < 0.4).astype(np.float32)
+    pruned = torch.from_numpy((rng.random(m + 1) < 0.2).astype(np.int32))
+    pruned[m] = 0                           # the padding eid: not pruned
+    pr_t = pruned[eid_t.long()]
+    return [torch.from_numpy(a).to(device) if isinstance(a, np.ndarray)
+            else a.contiguous().to(device)
+            for a in (dist, front, src_t, w_t, dr_t, pr_t)]
+
+
+@pytest.mark.parametrize("negative", [False, True])
+def test_relax_single_kernels_match_plain(cuda, negative):
+    """Kernels 11, 10 and 9 bit-equal to their plain versions, negative
+    distances and weights included (the order-preserving key), each
+    launched once."""
+    dist, front, src_t, w_t, dr_t, pr_t = _single(
+        np.random.default_rng(3 + negative), cuda, negative)
+    n0 = dict(build.LAUNCHES)
+    out = relax_dst_tiled(dist, src_t, w_t, dr_t, vb=128)
+    assert torch.equal(out, relax_dst_tiled_plain(dist, src_t, w_t, dr_t,
+                                                  vb=128))
+    assert bool((out < dist).any())
+    out, nrel = relax_dst_tiled_masked(dist, front, src_t, w_t, dr_t, pr_t,
+                                       vb=128)
+    ref = relax_dst_tiled_masked_plain(dist, front, src_t, w_t, dr_t, pr_t,
+                                       vb=128)
+    assert int(nrel) > 0
+    for got, want in zip((out, nrel), ref):
+        assert torch.equal(got, want)
+    for sweeps in (1, 4):
+        out = relax_dst_tiled_fixpoint(dist, front, src_t, w_t, dr_t, pr_t,
+                                       vb=128, n_sweeps=sweeps)
+        ref = relax_dst_tiled_fixpoint_plain(dist, front, src_t, w_t, dr_t,
+                                             pr_t, vb=128, n_sweeps=sweeps)
+        for got, want in zip(out, ref):
+            assert torch.equal(got, want)
+    for k, n in (("relax_sweep", 1), ("relax_masked", 1),
+                 ("relax_single", 2)):
+        assert build.LAUNCHES[k] == n0[k] + n
+
+
+def test_relax_single_wrappers_reject_bad_operands(cuda):
+    dist, front, src_t, w_t, dr_t, pr_t = _single(np.random.default_rng(4),
+                                                  cuda)
+    with pytest.raises(ValueError, match="float32"):
+        relax_dst_tiled(dist.double(), src_t, w_t, dr_t, vb=128)
+    with pytest.raises(ValueError, match="int32"):
+        relax_dst_tiled_masked(dist, front, src_t, w_t, dr_t, pr_t.long(),
+                               vb=128)
+    with pytest.raises(ValueError, match="do not match"):
+        relax_dst_tiled_fixpoint(dist[:-128], front[:-128], src_t, w_t, dr_t,
+                                 pr_t, vb=128, n_sweeps=2)
+    with pytest.raises(ValueError, match="do not match"):
+        relax_dst_tiled_masked(dist, front, src_t, w_t, dr_t,
+                               pr_t[:, :-1].contiguous(), vb=128)
+    with pytest.raises(ValueError, match="do not match"):
+        relax_dst_tiled(dist, src_t, w_t, dr_t, vb=64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 6])
+def test_embedding_bag_kernel_matches_plain(cuda, dtype, D):
+    """Kernel 13, sum and mean, L 1..4, bit-equal to its plain version;
+    D = 16 takes the 16-byte lane loads, D = 6 single elements. Indices
+    outside [0, V) are skipped."""
+    rng = np.random.default_rng(D)
+    V = 1000
+    table = torch.from_numpy(rng.standard_normal((V, D)).astype(
+        np.float32)).to(cuda, dtype)
+    n0 = build.LAUNCHES["embedding_bag"]
+    for L in range(1, 5):
+        idx = rng.integers(0, V, (64, L))
+        idx[rng.random(idx.shape) < 0.1] = V
+        idx[0, 0] = -3
+        idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+        for mode in ("sum", "mean"):
+            out = embedding_bag_p(table, idx, mode=mode)
+            assert out.dtype == dtype
+            assert torch.equal(out, embedding_bag_p_plain(table, idx,
+                                                          mode=mode))
+    assert build.LAUNCHES["embedding_bag"] == n0 + 8
+
+
+def test_embedding_bag_wrapper_rejects_bad_operands(cuda):
+    table = torch.ones((16, 8), device=cuda)
+    idx = torch.zeros((8, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        embedding_bag_p(table, idx.long())
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        embedding_bag_p(table.half(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag_p(torch.ones((16, 16), device=cuda)[:, :8], idx)
+    with pytest.raises(ValueError, match="multiple of bb"):
+        embedding_bag_p(table, idx[:5])

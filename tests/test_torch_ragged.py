@@ -246,7 +246,8 @@ def test_relax_ragged_plain_matches_pallas(nq):
     edges = [_edges(rng, n, 700, n - 2 * vb - 10), _edges(rng, n, 150, n)]
     lays = []
     for src, dst, w in edges:
-        lay = build_dst_ragged_layout(src, dst, w, n, vb=vb, eb=eb)
+        lay = build_dst_ragged_layout(src, dst, w, n, vb=vb, eb=eb,
+                                      with_eid=True)
         ref = j_relax.build_dst_ragged_layout(src, dst, w, n, vb=vb, eb=eb,
                                               with_eid=True)
         for a, b in zip(lay, ref):
