@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of SP-Async on one NVIDIA GPU and check it.
+"""Drive the PyTorch port of SP-Async, and its transformer serving path, on
+one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
@@ -8,7 +9,7 @@ Phases, each of which exits non-zero on a mismatch:
 
   build    compile the CUDA kernel sources (relax, send, merge, round; each
            holds a dense kernel and its ragged sibling, relax also the three
-           single-query kernels; embedding_bag) from
+           single-query kernels; embedding_bag; flash_attention) from
            src/repro_torch/kernels/csrc, one nvcc each, in parallel;
   kernel   hold each dense kernel against its plain PyTorch version on the
            card, bit-equal, on the real layouts of the scale-1e6 graph at
@@ -58,7 +59,27 @@ Phases, each of which exits non-zero on a mismatch:
            f32 table made on the card, 10,223,616 one-index bags (sum) and
            2,555,904 four-index bags (mean, f32 and bf16), 5% padding: each
            bit-equal to the plain version, timed beside its bound and
-           F.embedding_bag.
+           F.embedding_bag;
+  flash    kernel 12 (flash attention) through its entry point against its
+           plain version at the prefill shapes of gemma-7b ([4, 16, 2048,
+           256]), deepseek-7b ([4, 32, 2048, 128]) and mistral-large (GQA
+           group 12: q [1, 96, 2048, 128], kv [1, 8, 2048, 128]), causal,
+           bf16 and f32, and at gemma's decode shape (Sq = 1, q_offset =
+           Skv - 1): within 2e-5 (f32) / 2 ulps (bf16), timed beside its bound
+           and F.scaled_dot_product_attention;
+  serve    this slice's main path: full-width gemma-7b in bf16 (weights
+           made on the card from a seed), attn_impl="pallas": 4 prompts of
+           2048 tokens through make_prefill_step, the caches padded by 32,
+           32 greedy steps of make_serve_step; kernel 12 launched 28 times
+           in the prefill and never in decode; time to first token, decode
+           ms/step and tokens/s, peak memory, profiles of the prefill and of
+           4 decode steps; then the prefill's last logits "pallas" vs "xla"
+           (bf16, full width; the same greedy tokens), attention() per
+           layer against the xla path on the same q, k, v (2 bf16 ulps; a
+           planted fault, the last kv tile dropped, must fail it),
+           decode == forward for full-width gemma at
+           depth 4 in f32 (2e-3), and the three smoke configs' forward on
+           the card vs the CPU (1e-4).
 
 The line before last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Build logs and traces go to chiprun_out/.
@@ -96,11 +117,39 @@ SOURCES = {                    # kernel -> (CUDA source, TPU kernel replaced)
     "relax_sweep": (f"{CSRC}/relax.cu", f"{TPU}/relax/relax.py:89"),
     "embedding_bag": (f"{CSRC}/embedding_bag.cu",
                       f"{TPU}/embedding_bag/embedding_bag.py:43"),
+    "flash_attention": (f"{CSRC}/flash_attention.cu",
+                        f"{TPU}/flash_attention/flash_attention.py:68"),
 }
 AUTOINT = dict(fields=39, vocab=1_000_000, dim=16)  # src/repro/configs/autoint.py:6
 SERVE_BULK = 262_144           # src/repro/configs/registry.py:77
 TRAIN_BATCH = 65_536           # src/repro/configs/registry.py:75
 STAGED = ("relax", "send", "merge")     # the staged round's kernels
+BF16_OPS_PER_S = 989.4e12      # H100 SXM bf16 dense tensor rate
+# The serve phase: full-width gemma-7b (src/repro/configs/gemma_7b.py), 4
+# prompts of 2048 tokens, caches padded by 32, 32 greedy decode steps: a
+# cut of the registry's prefill_32k (32 x 32768) and decode_32k (128 x
+# 32768) cells, src/repro/configs/registry.py:45-48.
+SERVE = dict(arch="gemma-7b", batch=4, prompt=2048, gen=32, seed=15)
+# Kernel 12 at the prefill shapes of the dense LM configs: (B, Hq, Hkv, S, D)
+FLASH_SHAPES = {"gemma-7b": (4, 16, 16, 2048, 256),
+                "deepseek-7b": (4, 32, 32, 2048, 128),
+                "mistral-large-123b": (1, 96, 8, 2048, 128)}
+FLASH_F32_TOL = 2e-5           # max abs error, tests/test_kernels.py:63
+# In bf16 the kernel and its plain version read the same inputs, compute in
+# f32 and round once: they may differ where the two f32 sums, taken in
+# another order, round apart. Held to 2 bf16 ulps of |plain| elementwise
+# (an ulp of at least 5e-6, for values near 0).
+FLASH_BF16_ULPS = 2
+DEPTH_CHECK = dict(layers=4, batch=2, seq=256)    # decode == forward, f32
+# pallas vs xla prefill at full width in bf16: largest |difference| of the
+# last logits over the largest |logit|. Measured 0.00226 on an H100 (the two
+# paths round their f32 attention to bf16 at different ulps, 28 layers
+# deep); held at about 9x that. It is blind to small faults: the kernel with
+# its last kv tile dropped read 0.002823 on an H100, since the attention of a
+# random model over 2048 keys moves its residual stream little. The phase
+# therefore also holds attention() per layer against the xla path on the same
+# q, k, v (FLASH_BF16_ULPS), and fails unless that check sees the dropped tile.
+PALLAS_VS_XLA_REL = 0.02
 
 
 def fail(msg: str):
@@ -144,10 +193,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: int, n_ops: int):
-    """Least time (ms) for the work: bytes over the memory rate vs float32
-    operations over the card's peak; returns (ms, what bounds it)."""
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+def bound(n_bytes: int, n_ops: int, ops_per_s: float = FP32_OPS_PER_S):
+    """Least time (ms) for the work: bytes over the memory rate vs
+    operations over the card's peak for their type (float32 unless given);
+    returns (ms, what bounds it)."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
@@ -180,19 +230,19 @@ def same_results(a, b, what: str, skip=()):
         fail(f"{what}: status {a.status} vs {b.status}")
 
 
-def profile_solve(torch, eng, sources, trace_path: Path, label: str):
-    """Where the time of one solve goes: device time by kernel name and the
-    device's idle share of the solve window, read from a torch.profiler
-    trace (kernel events inside the ``solve`` annotation)."""
+def profile_run(torch, fn, trace_path: Path, label: str):
+    """Where the time of one run of ``fn`` goes: device time by kernel name
+    and the device's idle share of the run's window, read from a
+    torch.profiler trace (kernel events inside the ``run`` annotation)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with record_function("solve"):
-            eng.solve(sources)
+        with record_function("run"):
+            fn()
             torch.cuda.synchronize()
     prof.export_chrome_trace(str(trace_path))
     events = json.loads(trace_path.read_text())["traceEvents"]
-    win = next(e for e in events if e.get("name") == "solve"
+    win = next(e for e in events if e.get("name") == "run"
                and e.get("cat") == "user_annotation")
     t0, t1 = win["ts"], win["ts"] + win["dur"]
     kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
@@ -202,10 +252,10 @@ def profile_solve(torch, eng, sources, trace_path: Path, label: str):
         by_name[name] = by_name.get(name, 0.0) + (f - s)
         busy += max(0.0, f - max(s, end))
         end = max(end, f)
-    say(f"profile {label}: solve window {win['dur'] / 1e3:.3f} ms, device "
+    say(f"profile {label}: window {win['dur'] / 1e3:.3f} ms, device "
         f"busy {busy / 1e3:.3f} ms, idle share {1 - busy / win['dur']:.3f}, "
         f"{len(kernels)} kernels")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         n = sum(1 for k in kernels if k[2] == name)
         say(f"  {us / 1e3:9.3f} ms  {n:5d}x  {name[:90]}")
 
@@ -743,6 +793,294 @@ def embag_phase(torch, np):
     return {"embedding_bag": row}, {"embedding_bag": launches}
 
 
+def bf16_ulps(torch, got, want) -> float:
+    """Largest elementwise |got - want| in bf16 ulps of |want|, an ulp
+    being at least 5e-6 (for values near 0)."""
+    w = want.float().abs()
+    ulp = torch.exp2(torch.frexp(w)[1].float() - 8)
+    ulp = torch.where(w > 0, ulp, 0.0).clamp(min=5e-6)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def causal_pairs(Sq: int, Skv: int, q_offset: int) -> int:
+    """(query, key) pairs a causal mask with ``q_offset`` leaves valid in one
+    head: row i sees keys 0 .. i + q_offset, at most Skv of them."""
+    return sum(max(0, min(Skv, i + q_offset + 1)) for i in range(Sq))
+
+
+def flash_phase(torch):
+    """Kernel 12 through its entry point against its plain version on the
+    card: the prefill shapes of the three dense LM configs (causal, bf16
+    and f32) and gemma's decode shape (Sq = 1 against the padded cache,
+    q_offset = Skv - 1, bf16); max abs error within the reference's
+    tolerances, timed beside its bound and F.scaled_dot_product_attention.
+    Returns the table row at gemma's prefill in bf16, the main path's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_p_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    runs = [(arch, dt, B, Hq, Hkv, S, S, D, 0)
+            for arch, (B, Hq, Hkv, S, D) in FLASH_SHAPES.items()
+            for dt in ("bfloat16", "float32")]
+    B, H, _, S, D = FLASH_SHAPES[SERVE["arch"]]
+    skv = S + SERVE["gen"]
+    runs.append((f"{SERVE['arch']} decode", "bfloat16", B, H, H, 1, skv, D,
+                 skv - 1))
+    say("flash phase: kernel 12 vs its plain version (block 128, causal)")
+
+    def pad(t, b):
+        return F.pad(t, (0, 0, 0, (-t.shape[2]) % b))
+
+    rows = {}
+    for name, dt, B, Hq, Hkv, Sq, Skv, D, off in runs:
+        dtype = getattr(torch, dt)
+        q = torch.randn((B, Hq, Sq, D), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((B, Hkv, Skv, D), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        bq, bk = min(128, Sq), min(128, Skv)
+        kw = dict(causal=True, q_offset=off, block_q=bq)
+        out = flash_attention(q, k, v, **kw)
+        ref, plain_ms = once(torch, lambda: flash_attention_p_plain(
+            pad(q, bq), pad(k, bk), pad(v, bk), scale=D ** -0.5, causal=True,
+            q_offset=off, kv_len=Skv, block_q=bq, block_k=bk)[:, :, :Sq])
+        err = float((out.float() - ref.float()).abs().max())
+        ulps = bf16_ulps(torch, out, ref) if dt == "bfloat16" else None
+        if not (bool(torch.isfinite(out).all()) and (
+                err <= FLASH_F32_TOL if ulps is None
+                else ulps <= FLASH_BF16_ULPS)):
+            fail(f"flash {name} {dt}: kernel vs plain max abs err {err}"
+                 f" ({ulps} bf16 ulps)")
+        ms = timed(torch, lambda: flash_attention(q, k, v, **kw), 5)
+        # the same function: top-left causal when Sq == Skv, none in decode
+        lib = dict(is_causal=Sq == Skv, enable_gqa=Hq != Hkv)
+        lib_ms = timed(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, **lib), 5)
+        lib_err = float((F.scaled_dot_product_attention(q, k, v, **lib)
+                         .float() - out.float()).abs().max())
+        ops = 4 * B * Hq * D * causal_pairs(Sq, Skv, off)
+        b = bound(nbytes(q, k, v, out), ops,
+                  BF16_OPS_PER_S if dt == "bfloat16" else FP32_OPS_PER_S)
+        say(f"  {name} {dt} q {tuple(q.shape)} kv {tuple(k.shape)}: "
+            f"{ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
+            f"{b[0]:.5f} ms ({b[1]}, {ops / 1e9:.2f} GFLOP), SDPA "
+            f"{lib_ms:.4f} ms; max abs err {err:.3g}"
+            + (f" ({ulps:.3g} bf16 ulps)" if ulps is not None else "")
+            + f" (SDPA vs kernel {lib_err:.3g})")
+        if name == SERVE["arch"] and dt == "bfloat16":
+            rows["flash_attention"] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                           bound=b, library_ms=lib_ms)
+        del q, k, v, out, ref
+    return rows
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def serve_phase(torch, np, out_dir: Path):
+    """This slice's main path: full-width gemma-7b in bf16 with
+    attn_impl="pallas", weights made on the card from a seeded generator;
+    4 random prompts of 2048 tokens through make_prefill_step, the caches
+    padded by 32, then 32 greedy steps of make_serve_step, as
+    examples/serve_decode.py drives them. Kernel 12 must launch once a
+    layer in the prefill and never in decode. Then the checks: the
+    prefill's last logits with "pallas" against "xla" at full width in
+    bf16, and each layer's attention against "xla" on the same inputs,
+    which must also catch a planted fault; full-width gemma at depth 4 in f32, forward over 256 tokens
+    against a prefill of 252 and 4 decode steps (rtol = atol = 2e-3); the
+    three smoke configs' forward on the card (kernel) against the CPU
+    (plain), f32 logits within 1e-4. Returns the launches of the main
+    path."""
+    import dataclasses
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import _load
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import materialize
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(_load(SERVE["arch"])[1], attn_impl="pallas")
+    B, P, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE["seed"])
+    t0 = time.perf_counter()
+    params = materialize(tf.param_defs(cfg), gen, device=dev,
+                         default_dtype=cfg.dtype)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    w_bytes = sum(nbytes(t) for t in (params["embed"], params["final_norm"],
+                                      params["unembed"],
+                                      *params["layers"].values()))
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device=dev, dtype=torch.int32)
+    say(f"serve phase: {cfg.name} {cfg.n_params()} params ({w_bytes} B "
+        f"bf16) made on the card in {t_init:.1f} s; {B} prompts x {P} "
+        f"tokens, {G} greedy steps, attn_impl={cfg.attn_impl}")
+    prefill, serve = tf.make_prefill_step(cfg), tf.make_serve_step(cfg)
+    prefill(params, {"tokens": prompts[:, :128]})   # warm-up: library loads
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    logits, kvs = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    in_prefill = dict(build.LAUNCHES)
+    caches = tuple(F.pad(t, (0, 0, 0, 0, 0, G)) for t in kvs)
+    del kvs
+    tok = logits.argmax(dim=-1)[:, None].to(torch.int32)
+    toks = [tok]
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(G + 1)]
+    build.reset_launches()
+    t0 = time.perf_counter()
+    marks[0].record()
+    for i in range(G):
+        last, caches = serve(params, tok, caches, P + i)
+        tok = last.argmax(dim=-1)[:, None].to(torch.int32)
+        toks.append(tok)
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    in_decode = dict(build.LAUNCHES)
+    steps = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+    peak = torch.cuda.max_memory_allocated()
+    n_fa = in_prefill["flash_attention"]
+    if n_fa != cfg.n_layers or sum(in_prefill.values()) != n_fa:
+        fail(f"serve: prefill launches {in_prefill}, want flash_attention "
+             f"{cfg.n_layers} and nothing else")
+    if sum(in_decode.values()):
+        fail(f"serve: decode launched kernels {in_decode}")
+    out = torch.cat(toks, dim=1)
+    if (tuple(out.shape) != (B, G + 1) or not bool(torch.isfinite(logits).all())
+            or not bool(torch.isfinite(last).all())
+            or not bool(((out >= 0) & (out < cfg.vocab_size)).all())
+            or tuple(caches[0].shape) != (cfg.n_layers, B, P + G,
+                                          cfg.n_kv_heads, cfg.hd)):
+        fail(f"serve: bad outputs {tuple(out.shape)} {caches[0].shape}")
+    say(f"  prefill (time to first token) {ttft:.4f} s, {B * P / ttft:.1f} "
+        f"prompt tokens/s; decode {1e3 * t_dec / G:.3f} ms/step, "
+        f"{B * G / t_dec:.1f} tokens/s (steps between CUDA events: median "
+        f"{steps[G // 2]:.3f}, min {steps[0]:.3f}, max {steps[-1]:.3f} ms); "
+        f"peak allocated {peak} B; flash_attention launches {n_fa} in the "
+        f"prefill, {in_decode['flash_attention']} in decode")
+    again = []
+    for _ in range(2):      # the spread of the prefill time
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        again.append(time.perf_counter() - t0)
+    say(f"  prefill again: {', '.join(f'{t:.4f}' for t in again)} s")
+    say(f"  greedy tokens of prompt 0: {out[0, :12].tolist()} ...")
+    profile_run(torch, lambda: prefill(params, {"tokens": prompts}),
+                out_dir / "chip_smoke_trace_prefill.json",
+                f"{cfg.name} prefill {B}x{P}")
+    profile_run(torch, lambda: [serve(params, tok, caches, P + G - 1)
+                                for _ in range(4)],
+                out_dir / "chip_smoke_trace_decode.json",
+                f"{cfg.name} 4 decode steps")
+
+    # (b) the kernel path against materialized scores, full width, bf16
+    cfg_x = dataclasses.replace(cfg, attn_impl="xla")
+    lx = tf.make_prefill_step(cfg_x)(params, {"tokens": prompts})[0]
+    diff = float((logits - lx).abs().max())
+    top = float(lx.abs().max())
+    agree = float((logits.argmax(-1) == lx.argmax(-1)).float().mean())
+    say(f"  pallas vs xla prefill, last logits: max abs diff {diff:.4g}, "
+        f"largest |logit| {top:.4g} (ratio {diff / top:.4g}, tolerance "
+        f"{PALLAS_VS_XLA_REL}); greedy tokens agree {agree:.2f}")
+    if not diff <= PALLAS_VS_XLA_REL * top:
+        fail(f"serve: pallas vs xla prefill logits differ by {diff}")
+    if agree < 1.0:
+        fail(f"serve: pallas vs xla greedy tokens agree {agree:.2f}, not 1")
+    # per layer: attention() through kernel 12 against the xla path on the
+    # main path's own q, k, v (2 bf16 ulps, as in the flash phase); then the
+    # same with a planted fault, the kernel's last kv tile dropped, which
+    # this check must catch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    real_attn, real_p = tf.attention, fa_ops.flash_attention_p
+
+    def checked(q, k, v, c, **kw):
+        out = real_attn(q, k, v, c, **kw)
+        ulps.append(bf16_ulps(torch, out, real_attn(q, k, v, cfg_x, **kw)))
+        return out
+
+    def short(q, k, v, *, kv_len, block_k, **kw):
+        return real_p(q, k, v, kv_len=kv_len - block_k, block_k=block_k,
+                      **kw)
+
+    seen = {}
+    for name, patch in (("kernel", real_p), ("planted fault", short)):
+        ulps = []
+        tf.attention, fa_ops.flash_attention_p = checked, patch
+        try:
+            lf = prefill(params, {"tokens": prompts})[0]
+        finally:
+            tf.attention, fa_ops.flash_attention_p = real_attn, real_p
+        seen[name] = (max(ulps), len(ulps))
+        say(f"  {name} vs xla attention, per layer on the same q, k, v: "
+            f"largest {max(ulps):.4g} bf16 ulps over {len(ulps)} layers "
+            f"(tolerance {FLASH_BF16_ULPS}); last logits ratio "
+            f"{float((lf - lx).abs().max()) / top:.4g} (tolerance "
+            f"{PALLAS_VS_XLA_REL}), greedy tokens agree "
+            f"{float((lf.argmax(-1) == lx.argmax(-1)).float().mean()):.2f}")
+    top_ulps, n_checked = seen["kernel"]
+    if n_checked != cfg.n_layers or not top_ulps <= FLASH_BF16_ULPS:
+        fail(f"serve: per-layer attention, kernel vs xla: {seen['kernel']}")
+    if not seen["planted fault"][0] > FLASH_BF16_ULPS:
+        fail(f"serve: the per-layer check passes a dropped kv tile "
+             f"({seen['planted fault']})")
+    del params, caches, logits, lx, lf, last
+    torch.cuda.empty_cache()
+
+    # (a) decode == forward at full width, depth 4, f32
+    cfg4 = dataclasses.replace(cfg, n_layers=DEPTH_CHECK["layers"],
+                               dtype="float32")
+    gen.manual_seed(SERVE["seed"] + 1)
+    p4 = materialize(tf.param_defs(cfg4), gen, device=dev,
+                     default_dtype=cfg4.dtype)
+    Bc, S = DEPTH_CHECK["batch"], DEPTH_CHECK["seq"]
+    pre = S - 4
+    t4 = torch.randint(0, cfg4.vocab_size, (Bc, S), generator=gen, device=dev,
+                       dtype=torch.int32)
+    full, _, _ = tf.forward(p4, t4, cfg4)
+    _, kvs = tf.make_prefill_step(cfg4)(p4, {"tokens": t4[:, :pre]})
+    c4 = tuple(F.pad(t, (0, 0, 0, 0, 0, S - pre)) for t in kvs)
+    worst = 0.0
+    for i in range(pre, S):
+        lg, c4 = tf.make_serve_step(cfg4)(p4, t4[:, i:i + 1], c4, i)
+        d = (lg - full[:, i]).abs()
+        if bool((d > 2e-3 + 2e-3 * full[:, i].abs()).any()):
+            fail(f"serve: depth-4 f32 decode step {i} differs from forward "
+                 f"by {float(d.max())}")
+        worst = max(worst, float(d.max()))
+    say(f"  decode == forward: full-width {cfg.name} at depth "
+        f"{cfg4.n_layers}, f32, {Bc} x {S} tokens (prefill {pre} + 4 "
+        f"steps): max abs diff {worst:.3g} (rtol = atol = 2e-3)")
+    del p4, full, kvs, c4
+    torch.cuda.empty_cache()
+
+    # (c) the smoke configs: card (kernel) against CPU (plain), f32
+    for arch in ("gemma-7b", "deepseek-7b", "mistral-large-123b"):
+        c = dataclasses.replace(_load(arch, smoke=True)[1], attn_impl="pallas")
+        pc = materialize(tf.param_defs(c), torch.Generator().manual_seed(0),
+                         device="cpu", default_dtype=c.dtype)
+        tc = torch.randint(0, c.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+        got = tf.forward(_to(pc, dev), tc.to(dev), c)[0].cpu()
+        err = float((got - tf.forward(pc, tc, c)[0]).abs().max())
+        if not err <= 1e-4:
+            fail(f"serve: {c.name} card vs CPU forward differ by {err}")
+        say(f"  {c.name}: card forward (kernel 12, head dim {c.hd}) vs CPU "
+            f"(plain): max abs diff {err:.3g} (tolerance 1e-4)")
+    return {"flash_attention": n_fa}
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a checkout")
@@ -851,8 +1189,8 @@ def main():
         fail(f"scale: a dense kernel was not launched {launches}")
     say(f"scale phase: 16 queries converged, 4 match Dijkstra; launches "
         f"per K=16 solve {launches}")
-    profile_solve(torch, eng, sources, out_dir / "chip_smoke_trace.json",
-                  "scale-1e6 dense K=16")
+    profile_run(torch, lambda: eng.solve(sources),
+                out_dir / "chip_smoke_trace.json", "scale-1e6 dense K=16")
     build.reset_launches()
     res_f = eng_f.solve(sources)
     torch.cuda.synchronize()
@@ -862,9 +1200,9 @@ def main():
     say(f"scale phase fused K=16: {res_f.wall_s:.3f} s wall, "
         f"{int(res_f.stats.rounds)} rounds ({rescued} rescued), equal to "
         f"staged but n_dispatches; launches {dict(build.LAUNCHES)}")
-    profile_solve(torch, eng_f, sources,
-                  out_dir / "chip_smoke_trace_fused.json",
-                  "scale-1e6 dense fused K=16")
+    profile_run(torch, lambda: eng_f.solve(sources),
+                out_dir / "chip_smoke_trace_fused.json",
+                "scale-1e6 dense fused K=16")
     del eng, eng_f, sh, res, res1, res_f
 
     # ---- ragged vs dense at scale-1e6, from one stream --------------------
@@ -986,11 +1324,12 @@ def main():
             f"{int(r.stats.relaxations)} relaxations, {mteps:.1f} MTEPS")
     say(f"fused path: 16 queries converged, equal to the staged solves but "
         f"n_dispatches; launches per K=16 solve {fused_launches}")
-    profile_solve(torch, eng7, src7, out_dir / "chip_smoke_trace_1e7.json",
-                  "scale-1e7 ragged staged K=16")
-    profile_solve(torch, eng7f, src7,
-                  out_dir / "chip_smoke_trace_1e7_fused.json",
-                  "scale-1e7 ragged fused K=16")
+    profile_run(torch, lambda: eng7.solve(src7),
+                out_dir / "chip_smoke_trace_1e7.json",
+                "scale-1e7 ragged staged K=16")
+    profile_run(torch, lambda: eng7f.solve(src7),
+                out_dir / "chip_smoke_trace_1e7_fused.json",
+                "scale-1e7 ragged fused K=16")
     del eng7, eng7f, sh7, g7, res, res1, resf, resf1
 
     # ---- the standalone kernel API: kernels 9, 10, 11 and 13 ---------------
@@ -1000,6 +1339,11 @@ def main():
         rows.update(new_rows)
         launches.update(new_launches)
         torch.cuda.empty_cache()
+
+    # ---- the transformer serving path: kernel 12, then gemma-7b ------------
+    rows.update(flash_phase(torch))
+    torch.cuda.empty_cache()
+    launches.update(serve_phase(torch, np, out_dir))
     say(f"total: {time.perf_counter() - t_start:.1f} s after the card query")
 
     table = [{"name": name, "route": "cuda", "source": SOURCES[name][0],

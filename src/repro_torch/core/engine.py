@@ -26,6 +26,7 @@ from repro_torch.core.sssp import (SsspConfig, SsspStats, _Carry,
                                    certificate_improved_sim,
                                    dispatches_per_round, init_carry,
                                    make_finalize, make_round)
+from repro_torch.device import resolve_device
 
 
 def bucket_k(k: int) -> int:
@@ -78,15 +79,6 @@ class QueryResult:
         return np.asarray(self.stats.q_converged)
 
 
-def _device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
-
-
 class SsspEngine:
     """One per-graph session on the ``sim`` backend: owns the shards (on
     its device), the resolved round and, for the fused round, the exit-time
@@ -100,7 +92,7 @@ class SsspEngine:
         if backend != "sim":
             raise ValueError(f"unknown backend {backend!r}; valid: "
                              "['shmap', 'sim']")
-        self.device = _device(device)
+        self.device = resolve_device(device)
         self.shards = shards.to(self.device)
         self.cfg = cfg
         self.backend = backend
@@ -114,7 +106,7 @@ class SsspEngine:
         """A session over ``SsspShards`` (used as-is) or a ``Graph``
         (partitioned here with ``n_parts`` and any ``build_shards``
         keyword)."""
-        dev = _device(device)      # fail before any host work without CUDA
+        dev = resolve_device(device)      # fail before any host work without CUDA
         if isinstance(graph_or_shards, SsspShards):
             if shard_kwargs:
                 raise ValueError("shard build options only apply when "

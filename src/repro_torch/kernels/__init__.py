@@ -6,11 +6,16 @@ kernel API: the single-query relax kernels (``relax_pallas``, one Jacobi
 sweep; ``relax_masked_pallas``, a masked and counted sweep;
 ``relax_fixpoint_pallas``, the Gauss–Seidel fixpoint) and the embedding
 bag (``embedding_bag.embedding_bag``; its kernel ``embedding_bag_p``; the
-package, not the function, keeps the name here). ``build`` compiles and
-loads them; ``common`` and ``tile_reduce`` hold what they share."""
+package, not the function, keeps the name here). The transformer's flash
+attention (``flash_attention.flash_attention``; its kernel
+``flash_attention_p``; here too the package keeps the name). ``build``
+compiles and loads them; ``common`` and ``tile_reduce`` hold what they
+share."""
 from repro_torch.kernels.embedding_bag import (embedding_bag_jnp,
                                                embedding_bag_p,
                                                embedding_bag_ref)
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention_p, flash_attention_p_plain)
 from repro_torch.kernels.relax import (relax_fixpoint_pallas, relax_jnp,
                                        relax_masked_pallas, relax_pallas,
                                        relax_ref)

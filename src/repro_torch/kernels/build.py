@@ -15,6 +15,8 @@ and its ragged sibling; their counters (``relax`` and ``relax_ragged``,
 ``relax.cu`` also holds the single-query kernels of the standalone kernel
 API, each with its own counter: ``relax_single`` (the fixpoint),
 ``relax_masked`` (the masked sweep) and ``relax_sweep`` (the plain sweep).
+``embedding_bag.cu`` and ``flash_attention.cu`` hold one kernel each, under
+their own names.
 """
 from __future__ import annotations
 
@@ -29,9 +31,10 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 ROUND = ("relax", "send", "merge", "round")   # dense + ragged kernel each
-KERNELS = ROUND + ("embedding_bag",)  # one source, one library each
+KERNELS = ROUND + ("embedding_bag", "flash_attention")  # a library each
 COUNTERS = (ROUND + tuple(f"{k}_ragged" for k in ROUND)
-            + ("relax_single", "relax_masked", "relax_sweep", "embedding_bag"))
+            + ("relax_single", "relax_masked", "relax_sweep", "embedding_bag",
+               "flash_attention"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,123 @@
+"""Flash attention forward (FlashAttention-2 schedule, GQA-aware), kernel 12.
+
+Port of the reference's ``kernels/flash_attention/flash_attention.py:
+flash_attention_p``. The wrapper runs the CUDA kernel
+(``csrc/flash_attention.cu``) on CUDA tensors and its plain PyTorch version
+on CPU tensors; ``flash_attention_p_plain`` is the plain version, callable
+on either device.
+
+q [B, Hq, Sq, D]; k/v [B, Hkv, Skv, D], pre-padded: Sq a multiple of
+``block_q`` and Skv of ``block_k`` (the reference's grid of whole tiles).
+Key columns ``>= kv_len`` are padding. Query head h reads kv head
+``h // (Hq // Hkv)``; no repeated KV is made.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the head widths the kernel is built for
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(q, k, v, kv_len: int, block_q: int, block_k: int):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
+                         f"[B, Hq, Sq, D] and two equal [B, Hkv, Skv, D]")
+    B, Hq, Sq, D = q.shape
+    Bk, Hkv, Skv, Dk = k.shape
+    if Bk != B or Dk != D or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} differ in B or D, or Hq % Hkv")
+    if Sq % block_q or Skv % block_k or not 0 <= kv_len <= Skv:
+        raise ValueError(f"flash_attention: Sq {Sq}, Skv {Skv} are not "
+                         f"multiples of block_q {block_q}, block_k {block_k}, "
+                         f"or kv_len {kv_len} is not in [0, Skv]")
+
+
+def flash_attention_p_plain(q, k, v, *, scale: float, causal: bool,
+                            q_offset: int, kv_len: int, block_q: int,
+                            block_k: int):
+    """The Pallas kernel's loop: for each kv tile of ``block_k`` in order,
+    f32 scores times ``scale``, the masks ``kj < kv_len`` and (causal)
+    ``qi + q_offset >= kj``, and the online-softmax update with the same
+    ``isfinite`` guards; then acc / l where l > 0, else acc / 1. Every q
+    tile runs the same update, so all rows go at once. Returns q's shape
+    and type."""
+    _check(q, k, v, kv_len, block_q, block_k)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    dev = q.device
+    qh = q.float().reshape(B, Hkv, g, Sq, D)       # head h = (h // g, h % g)
+    qi = torch.arange(Sq, device=dev)[:, None] + q_offset
+    acc = torch.zeros((B, Hkv, g, Sq, D), dtype=torch.float32, device=dev)
+    m = torch.full((B, Hkv, g, Sq), -torch.inf, device=dev)
+    l = torch.zeros((B, Hkv, g, Sq), device=dev)
+    for j in range(Skv // block_k):
+        kb = k[:, :, j * block_k:(j + 1) * block_k].float()
+        vb = v[:, :, j * block_k:(j + 1) * block_k].float()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qh, kb) * scale
+        kj = j * block_k + torch.arange(block_k, device=dev)[None, :]
+        valid = kj < kv_len
+        if causal:
+            valid = valid & (qi >= kj)
+        s = torch.where(valid, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - torch.where(torch.isfinite(m_new), m_new,
+                                      0.0)[..., None])
+        p = torch.where(valid, p, 0.0)
+        fin = torch.isfinite(m)
+        alpha = torch.exp(torch.where(fin, m - m_new, -torch.inf))
+        alpha = torch.where(fin, alpha, 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p, vb)
+        m = m_new
+    denom = torch.where(l > 0, l, 1.0)
+    return (acc / denom[..., None]).to(q.dtype).reshape(B, Hq, Sq, D)
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+             + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
+_SIGNATURES = {"flash_attention": _ARGTYPES}
+
+
+def flash_attention_p(q, k, v, *, scale: float, causal: bool, q_offset: int,
+                      kv_len: int, block_q: int, block_k: int,
+                      interpret: bool = True):
+    """Same contract as the plain version. CPU tensors take the plain
+    version; CUDA tensors launch the kernel, which reads q, k and v through
+    their strides (the last axis must be contiguous) and writes an output
+    laid out as q is. ``interpret`` is the reference's keyword, accepted and
+    ignored."""
+    if not q.is_cuda:
+        return flash_attention_p_plain(
+            q, k, v, scale=scale, causal=causal, q_offset=q_offset,
+            kv_len=kv_len, block_q=block_q, block_k=block_k)
+    _check(q, k, v, kv_len, block_q, block_k)
+    for t in (q, k, v):
+        if (not t.is_cuda or t.device != q.device or t.dtype != q.dtype
+                or t.dtype not in DTYPES or t.stride(-1) != 1):
+            raise ValueError(
+                f"flash_attention: expected CUDA f32 or bf16 tensors of one "
+                f"type on one device with a contiguous last axis, got "
+                f"{t.dtype} on {t.device}, strides {t.stride()}")
+    B, Hq, Sq, D = q.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} is not one of "
+                         f"{HEAD_DIMS}")
+    out = torch.empty_like(q)   # q's layout when dense, else contiguous
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    lib = build.load("flash_attention", _SIGNATURES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.flash_attention(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), B, Hq,
+        k.shape[1], Sq, D, int(causal), int(q_offset), int(kv_len),
+        int(q.dtype == torch.bfloat16), *strides, float(scale), stream)
+    build.check(lib, "flash_attention", code)
+    build.count_launch("flash_attention")
+    return out

@@ -1,0 +1,347 @@
+"""Decoder-only transformer LM, dense: the serving half of the reference's
+``models/transformer.py``.
+
+One implementation covers the dense LM configs: GQA/MQA/MHA, RoPE,
+RMSNorm, optional per-head QK-norm (Qwen3), GeGLU/SwiGLU, explicit
+head_dim (Gemma's 256) and embedding scaling (Gemma). Parameters are a
+nested dict of tensors with the layers stacked on a leading ``[L, ...]``
+axis, as the reference's.
+
+The port runs on one device. The reference's ``MeshAxes`` arguments, its
+use-site weight gathers (``_use``) and its sharding constraints have no
+counterpart here and are gone from every signature. The layer loop is a
+Python loop over the stacked parameters; ``scan_layers`` and ``remat`` are
+accepted and change nothing in serving. A config with ``moe`` set raises:
+the MoE FFN (``models/moe.py``), training (``_attn_chunked``'s custom VJP,
+``loss_fn``, ``make_train_step``) and the optimizer wait for later slices
+(ROADMAP Queue 1 item 10).
+
+Attention impls: "xla" (materialized scores), "chunked" (online softmax
+over kv chunks, the forward only) and "pallas" (kernel 12: the CUDA flash
+kernel on CUDA tensors, its plain version on CPU tensors). Decode, with a
+cache, always takes the materialized-scores path, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.params import ParamDef, as_dtype, n_params
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int | None = None          # None -> d_model // n_heads
+    activation: str = "silu"             # silu (SwiGLU) | gelu (GeGLU)
+    moe: Any = None                      # not ported: must stay None
+    moe_impl: str = "shmap"
+    qk_norm: bool = False                # Qwen3
+    embed_scale: bool = False            # Gemma: x *= sqrt(d_model)
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    dtype: Any = torch.bfloat16          # a torch dtype or its name
+    remat: bool = True                   # no effect in serving
+    scan_layers: bool = True             # no effect: the loop is Python's
+    attn_impl: str = "chunked"           # xla | chunked | pallas
+    attn_chunk: int = 1024
+
+    def __post_init__(self):
+        if self.moe is not None:
+            raise NotImplementedError(
+                "the MoE FFN (models/moe.py) is not ported yet: ROADMAP "
+                "Queue 1 item 10")
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return as_dtype(self.dtype)
+
+    def n_params(self) -> int:
+        return n_params(param_defs(self))
+
+    def n_active_params(self) -> int:
+        """Params touched per token: all of them in a dense model."""
+        return self.n_params()
+
+
+# --------------------------------------------------------------------------
+# parameter declaration
+# --------------------------------------------------------------------------
+
+def param_defs(cfg: TransformerConfig):
+    D, H, Hkv, Dh, Fd, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.n_layers)
+
+    def ld(shape, **kw):  # layer-stacked param (leading L dim)
+        return ParamDef((L, *shape), **kw)
+
+    layer = dict(
+        attn_norm=ld((D,), init="ones"),
+        wq=ld((D, H * Dh)),
+        wk=ld((D, Hkv * Dh)),
+        wv=ld((D, Hkv * Dh)),
+        wo=ld((H * Dh, D)),
+        mlp_norm=ld((D,), init="ones"),
+        w_gate=ld((D, Fd)),
+        w_up=ld((D, Fd)),
+        w_down=ld((Fd, D)),
+    )
+    if cfg.qk_norm:
+        layer["q_norm"] = ld((Dh,), init="ones")
+        layer["k_norm"] = ld((Dh,), init="ones")
+    return dict(
+        embed=ParamDef((V, D), init="embed", scale=1.0),
+        layers=layer,
+        final_norm=ParamDef((D,), init="ones"),
+        unembed=ParamDef((D, V)),
+    )
+
+
+# --------------------------------------------------------------------------
+# building blocks
+# --------------------------------------------------------------------------
+
+def dtype_fence(x, dtype):
+    """Identity. In the reference its backward casts the cotangent to
+    ``dtype``; the port's serving path has no backward."""
+    return x
+
+
+def rmsnorm(x, g, eps):
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * g.float()).to(x.dtype)
+
+
+def rope(x, positions, theta):
+    """x: [B, S, H, Dh]; positions: [B, S] int. Rotates the two halves of
+    the head axis (not even/odd pairs); frequencies in float32, each the
+    correctly rounded ``theta ** e`` (as XLA gives it: torch's float32 pow
+    is off by an ulp for a few exponents, which position 2000 turns into
+    1e-4 of the output), so the power is taken in float64 and rounded."""
+    half = x.shape[-1] // 2
+    e = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freq = torch.pow(theta, e.double()).float()
+    ang = positions[..., None].float() * freq                  # [B, S, half]
+    cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _attn_xla(q, k, v, *, causal, q_offset, scale):
+    """q: [B, S, H, Dh]; k/v: [B, Skv, Hkv, Dh] (materialized scores)."""
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    qh = q.reshape(B, S, Hkv, H // Hkv, Dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh.float(), k.float()) * scale
+    if causal:
+        qi = torch.arange(S, device=q.device)[:, None] + q_offset
+        kj = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = torch.where(qi >= kj, s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, S, H, Dh).to(q.dtype)
+
+
+def _chunk_kv(x, chunk):
+    """[B, Skv, Hkv, Dh] -> ([nc, B, chunk, Hkv, Dh] zero-padded, nc)."""
+    B, Skv, Hkv, Dh = x.shape
+    nc = -(-Skv // chunk)
+    xp = F.pad(x, (0, 0, 0, 0, 0, nc * chunk - Skv))
+    return xp.reshape(B, nc, chunk, Hkv, Dh).transpose(0, 1), nc
+
+
+def _attn_fwd_scan(q, k, v, causal, q_offset, scale, chunk):
+    """Online softmax over kv chunks. Returns (out [B, Hkv, g, S, Dh] f32,
+    lse [B, Hkv, g, S])."""
+    B, S, H, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    kc, nc = _chunk_kv(k, chunk)
+    vc, _ = _chunk_kv(v, chunk)
+    qh = q.reshape(B, S, Hkv, g, Dh).float()
+    qi = torch.arange(S, device=q.device)[:, None] + q_offset
+    acc = torch.zeros((B, Hkv, g, S, Dh), dtype=torch.float32, device=q.device)
+    m = torch.full((B, Hkv, g, S), -torch.inf, device=q.device)
+    l = torch.zeros((B, Hkv, g, S), device=q.device)
+    for j in range(nc):
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qh, kc[j].float()) * scale
+        kj = j * chunk + torch.arange(chunk, device=q.device)[None, :]
+        valid = kj < Skv
+        if causal:
+            valid = valid & (qi >= kj)
+        s = torch.where(valid, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - torch.where(torch.isfinite(m_new), m_new,
+                                      0.0)[..., None])
+        p = torch.where(valid, p, 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p, vc[j].float())
+        m = m_new
+    l_safe = torch.where(l > 0, l, 1.0)
+    out = acc / l_safe[..., None]                       # [B, Hkv, g, S, Dh]
+    lse = torch.where(torch.isfinite(m), m + torch.log(l_safe), -torch.inf)
+    return out, lse
+
+
+def _attn_chunked(q, k, v, causal, q_offset, scale, chunk):
+    """Flash-style attention in plain tensor ops, the forward only (the
+    reference's custom VJP is for training)."""
+    out, _ = _attn_fwd_scan(q, k, v, causal, q_offset, scale, chunk)
+    B, S, H, Dh = q.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)
+
+
+def attention(q, k, v, cfg: TransformerConfig, *, causal=True, q_offset=0):
+    """q: [B, S, H, Dh]; k/v: [B, Skv, Hkv, Dh]."""
+    scale = cfg.hd ** -0.5
+    if cfg.attn_impl == "pallas":
+        from repro_torch.kernels.flash_attention import flash_attention
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal,
+                            q_offset=q_offset)
+        return o.transpose(1, 2)
+    if cfg.attn_impl == "chunked" and q.shape[1] > 1:
+        return _attn_chunked(q, k, v, causal, q_offset, scale, cfg.attn_chunk)
+    return _attn_xla(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
+
+
+def _ffn_dense(x, lp, cfg):
+    act = (F.silu if cfg.activation == "silu"
+           else partial(F.gelu, approximate="tanh"))
+    h = act(x @ lp["w_gate"]) * (x @ lp["w_up"])
+    return h @ lp["w_down"]
+
+
+def _layer(x, lp, cfg: TransformerConfig, positions, cache=None,
+           cache_pos=None):
+    """One transformer block. x: [B, S, D]. Returns (x', new_cache_slice,
+    aux). With a cache (k, v: [B, Skv, Hkv, Dh]) the new k and v are written
+    into it in place at ``cache_pos``, the start clamped to [0, Skv - S] as
+    ``lax.dynamic_update_slice`` clamps it."""
+    B, S, D = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    q = (h @ lp["wq"]).reshape(B, S, H, Dh)
+    k = (h @ lp["wk"]).reshape(B, S, Hkv, Dh)
+    v = (h @ lp["wv"]).reshape(B, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, lp["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, lp["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        o = attention(q, k, v, cfg, causal=True)
+        new_cache = (k, v)
+    else:
+        ck, cv = cache           # [B, Skv, Hkv, Dh], decode: S == 1
+        start = min(max(int(cache_pos), 0), ck.shape[1] - S)
+        ck[:, start:start + S] = k
+        cv[:, start:start + S] = v
+        o = _attn_xla(q, ck, cv, causal=True, q_offset=cache_pos,
+                      scale=cfg.hd ** -0.5)
+        new_cache = (ck, cv)
+    x = x + (o.reshape(B, S, H * Dh) @ lp["wo"])
+
+    h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    x = x + _ffn_dense(h, lp, cfg)
+    x = dtype_fence(x, cfg.dtype)
+    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# --------------------------------------------------------------------------
+# full model
+# --------------------------------------------------------------------------
+
+def _trunk(params, tokens, cfg: TransformerConfig, caches=None,
+           cache_pos=None):
+    """Embedding and layers: (x [B, S, D] before the final norm, kvs,
+    aux). Without caches the layers' k and v are written into one stacked
+    [L, B, S, Hkv, Dh] pair; with caches, into the caches in place."""
+    B, S = tokens.shape
+    dt = cfg.torch_dtype
+    x = params["embed"][tokens.long()].to(dt)
+    if cfg.embed_scale:   # the scale rounded to the model's type first
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
+    pos0 = 0 if cache_pos is None else int(cache_pos)
+    positions = (pos0 + torch.arange(S, device=x.device))[None].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kvs = caches
+    for i in range(cfg.n_layers):
+        lp = {name: t[i] for name, t in params["layers"].items()}
+        if caches is None:
+            x, (k, v), a = _layer(x, lp, cfg, positions)
+            if kvs is None:
+                kvs = tuple(torch.empty((cfg.n_layers, *t.shape),
+                                        dtype=t.dtype, device=t.device)
+                            for t in (k, v))
+            kvs[0][i], kvs[1][i] = k, v
+        else:
+            x, _, a = _layer(x, lp, cfg, positions,
+                             cache=(caches[0][i], caches[1][i]),
+                             cache_pos=cache_pos)
+        aux = aux + a
+    return x, kvs, aux
+
+
+def _logits(x, params, cfg: TransformerConfig):
+    """Final norm and the unembedding, a float32 product."""
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x.float() @ params["unembed"].float()
+
+
+def forward(params, tokens, cfg: TransformerConfig, caches=None,
+            cache_pos=None):
+    """tokens: [B, S]. caches: None | (k: [L, B, Skv, Hkv, Dh], v), written
+    in place. Returns (logits_f32 [B, S, V], new_caches, aux_loss)."""
+    x, kvs, aux = _trunk(params, tokens, cfg, caches, cache_pos)
+    return _logits(x, params, cfg), kvs, aux
+
+
+# --------------------------------------------------------------------------
+# step functions
+# --------------------------------------------------------------------------
+
+def make_prefill_step(cfg: TransformerConfig):
+    """prefill_step(params, {"tokens": [B, S]}) -> (last logits [B, V] f32,
+    (k, v) caches [L, B, S, Hkv, Dh]). Only the last position is
+    unembedded: the reference computes every position's logits and keeps
+    the last, which is the same row (at gemma-7b's 4 x 2048 prompts the
+    whole [B, S, V] f32 block is 8.4 GB)."""
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        x, kvs, _ = _trunk(params, batch["tokens"], cfg)
+        return _logits(x[:, -1:], params, cfg)[:, -1], kvs
+
+    return prefill_step
+
+
+def make_serve_step(cfg: TransformerConfig):
+    """One decode step: new token [B, 1] + KV caches (written in place; the
+    reference's serving example donates them) at position ``pos``."""
+    @torch.no_grad()
+    def serve_step(params, token, caches, pos):
+        logits, new_caches, _ = forward(params, token, cfg, caches=caches,
+                                        cache_pos=pos)
+        return logits[:, -1], new_caches
+
+    return serve_step

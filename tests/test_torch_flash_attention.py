@@ -1,0 +1,164 @@
+"""Kernel 12 of the PyTorch port (flash attention) against the JAX package.
+
+The same numpy inputs go through the JAX ``flash_attention`` (the Pallas
+kernel in interpret mode) and the port's ``flash_attention`` (on CPU
+tensors, the kernel's plain version), and through both ``attention_ref``
+oracles. f32 results agree to 1e-6; the kernel agrees with the oracle at
+the reference's tolerances (tests/test_kernels.py: 2e-5 f32, 3e-2 bf16).
+"""
+import importlib
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+
+from repro.kernels.flash_attention import attention_ref as jax_attention_ref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.kernels import build  # noqa: E402
+
+tfa = importlib.import_module("repro_torch.kernels.flash_attention")
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    flash_attention_p, flash_attention_p_plain)
+
+F32_TOL = 1e-6     # port plain version vs Pallas interpret, float32
+REF_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py:63
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, dtype, bq, bk, q_offset)
+CASES = {
+    # the five cases of tests/test_kernels.py:48-54
+    "mha": (2, 4, 4, 128, 128, 64, True, "float32", 64, 64, 0),
+    "gqa_pads": (2, 4, 2, 96, 160, 64, True, "float32", 32, 64, 0),
+    "mqa_bidir": (1, 8, 1, 64, 64, 32, False, "float32", 64, 32, 0),
+    "bf16": (2, 4, 4, 128, 128, 64, True, "bfloat16", 64, 64, 0),
+    "ragged_pads": (1, 2, 2, 33, 77, 16, True, "float32", 16, 32, 0),
+    # tests/test_kernels.py:68, decode-shaped
+    "decode_offset": (1, 4, 2, 1, 192, 64, True, "float32", 1, 128, 191),
+    # gemma's head width with two q tiles (and two kv tiles)
+    "d256_two_q_tiles": (1, 2, 2, 256, 256, 256, True, "float32", 128, 128, 0),
+    # a GQA group of 3
+    "gqa_group3": (2, 6, 2, 48, 80, 32, True, "float32", 16, 32, 0),
+    # D = 128 (deepseek's and mistral's head width), non-causal
+    "d128_bidir": (1, 2, 1, 40, 72, 128, False, "float32", 32, 32, 0),
+}
+
+
+def _inputs(case, seed=0):
+    B, Hq, Hkv, Sq, Skv, D, _, dtype, *_ = case
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))]
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    # the same values in both frameworks (bf16 rounded once, by JAX)
+    tx = [torch.from_numpy(np.array(a.astype(jnp.float32)))
+          .to(getattr(torch, dtype)) for a in jx]
+    return jx, tx
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_flash_attention_matches_pallas_interpret(name):
+    case = CASES[name]
+    causal, dtype, bq, bk, off = case[6:]
+    jx, tx = _inputs(case)
+    kw = dict(causal=causal, q_offset=off, block_q=bq, block_k=bk)
+    want = np.asarray(jax_flash(*jx, interpret=True, **kw).astype(jnp.float32))
+    got = tfa.flash_attention(*tx, **kw)
+    assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), want, rtol=0, atol=F32_TOL)
+    else:
+        # both round the same f32 function once: at most one bf16 ulp apart
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+        assert np.all(np.abs(_np(got) - want) <= ulp)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_flash_attention_matches_ref(name):
+    """The port's kernel path against the port's oracle at the reference's
+    tolerances, and the port's oracle against the JAX oracle."""
+    case = CASES[name]
+    causal, dtype, bq, bk, off = case[6:]
+    jx, tx = _inputs(case, seed=1)
+    out = tfa.flash_attention(*tx, causal=causal, q_offset=off, block_q=bq,
+                              block_k=bk)
+    ref = tfa.attention_ref(*tx, causal=causal, q_offset=off)
+    assert np.abs(_np(out) - _np(ref)).max() < REF_TOL[dtype]
+    jref = np.asarray(jax_attention_ref(*jx, causal=causal, q_offset=off)
+                      .astype(jnp.float32))
+    tol = F32_TOL if dtype == "float32" else REF_TOL[dtype]
+    np.testing.assert_allclose(_np(ref), jref, rtol=0, atol=tol)
+
+
+def test_negative_offset_masks_whole_rows():
+    """q_offset < 0 leaves the first rows with no valid key: the kernels
+    give 0 there (both), the oracles NaN (both)."""
+    case = (1, 3, 1, 40, 40, 32, True, "float32", 16, 16, -20)
+    jx, tx = _inputs(case, seed=2)
+    kw = dict(causal=True, q_offset=-20, block_q=16, block_k=16)
+    want = np.asarray(jax_flash(*jx, interpret=True, **kw))
+    got = _np(tfa.flash_attention(*tx, **kw))
+    np.testing.assert_allclose(got, want, rtol=0, atol=F32_TOL)
+    assert np.all(got[:, :, :20] == 0) and np.all(want[:, :, :20] == 0)
+    assert np.abs(got[:, :, 20:]).max() > 0
+    ref = _np(tfa.attention_ref(*tx, causal=True, q_offset=-20))
+    jref = np.asarray(jax_attention_ref(*jx, causal=True, q_offset=-20))
+    assert np.isnan(ref[:, :, :20]).all() and np.isnan(jref[:, :, :20]).all()
+    np.testing.assert_allclose(ref[:, :, 20:], jref[:, :, 20:], rtol=0,
+                               atol=F32_TOL)
+
+
+def test_kernel_on_cpu_is_the_plain_version():
+    """On CPU tensors the kernel wrapper is the plain version, bit for bit,
+    and counts no launch."""
+    jx, tx = _inputs(CASES["gqa_pads"])
+    q, k, v = tx
+    kw = dict(scale=64 ** -0.5, causal=True, q_offset=0, kv_len=150,
+              block_q=32, block_k=32)
+    before = dict(build.LAUNCHES)
+    a = flash_attention_p(q, k, v, **kw)
+    b = flash_attention_p_plain(q, k, v, **kw)
+    assert torch.equal(a, b)
+    assert build.LAUNCHES == before
+
+
+def test_flash_attention_strided_inputs():
+    """[B, S, H, D] tensors seen as [B, H, S, D] (as attention() passes
+    them) give the same result as contiguous copies."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 64, 4, 32)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 64, 2, 32)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 64, 2, 32)).astype(np.float32))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    a = tfa.flash_attention(*views, block_q=32, block_k=32)
+    b = tfa.flash_attention(*[t.contiguous() for t in views], block_q=32,
+                            block_k=32)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["group", "q_blocks", "kv_blocks", "kv_len"])
+def test_flash_attention_rejects_bad_shapes(bad):
+    q = torch.zeros((1, 4, 32, 16))
+    k = torch.zeros((1, 2, 32, 16))
+    kw = dict(scale=0.25, causal=True, q_offset=0, kv_len=32, block_q=16,
+              block_k=16)
+    if bad == "group":
+        k = torch.zeros((1, 3, 32, 16))
+    elif bad == "q_blocks":
+        kw["block_q"] = 24
+    elif bad == "kv_blocks":
+        kw["block_k"] = 24
+    else:
+        kw["kv_len"] = 33
+    with pytest.raises(ValueError):
+        flash_attention_p(q, k, k, **kw)
+    if bad == "group":
+        with pytest.raises(ValueError):
+            tfa.flash_attention(q, k, k)

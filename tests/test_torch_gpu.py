@@ -2,7 +2,9 @@
 PyTorch versions (bit-equal), and the engine's card run against its CPU
 run. Every test is marked ``gpu`` and skips without a CUDA device.
 
-This file imports neither JAX nor the JAX package, so it also runs where
+Kernel 12 (flash attention) is held against its plain version within
+2e-5 in f32 (the reference's tolerance) and 2 bf16 ulps in bf16, not bit for
+bit: it sums in another order. This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed; the repository's conftest imports JAX, so run it
 there without it:
 
@@ -36,6 +38,10 @@ from repro_torch.kernels.relax import (  # noqa: E402
     relax_dst_tiled_masked_plain, relax_dst_tiled_plain)
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
     embedding_bag_p, embedding_bag_p_plain)
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    flash_attention_p, flash_attention_p_plain)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention)
 from repro_torch.kernels.send import (  # noqa: E402
     build_slot_ragged_layout, send_operands, send_pack_ragged,
     send_pack_ragged_plain, send_pack_tiled, send_pack_tiled_plain)
@@ -512,3 +518,134 @@ def test_embedding_bag_wrapper_rejects_bad_operands(cuda):
         embedding_bag_p(torch.ones((16, 16), device=cuda)[:, :8], idx)
     with pytest.raises(ValueError, match="multiple of bb"):
         embedding_bag_p(table, idx[:5])
+
+
+FLASH_F32_TOL = 2e-5   # max abs error, test_kernels.py:63
+FLASH_BF16_ULPS = 2    # same bf16 inputs, f32 math, one rounding each
+
+
+def _bf16_ulps(got, want):
+    """Largest elementwise |got - want| in bf16 ulps of |want|, an ulp
+    being at least 5e-6 (for values near 0)."""
+    w = want.float().abs()
+    ulp = torch.exp2(torch.frexp(w)[1].float() - 8)
+    ulp = torch.where(w > 0, ulp, 0.0).clamp(min=5e-6)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def _flash_inputs(device, dtype, B, Hq, Hkv, Sq, Skv, D, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g).to(device, dtype) for s in
+            ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,q_offset", [
+    (2, 4, 4, 128, 128, 16, True, 0),
+    (2, 4, 2, 96, 160, 32, True, 0),            # GQA, kv padding
+    (1, 8, 1, 64, 64, 64, False, 0),            # MQA, bidirectional
+    (1, 6, 2, 200, 200, 128, True, 0),          # a group of 3
+    (1, 24, 2, 130, 130, 128, True, 0),         # a group of 12 (mistral's)
+    (2, 2, 2, 256, 256, 256, True, 0),          # gemma's head width
+    (1, 4, 4, 1, 300, 256, True, 299),          # decode-shaped
+    (1, 3, 1, 40, 40, 32, True, -20),           # rows with no valid key
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Hq, Hkv, Sq,
+                                              Skv, D, causal, q_offset):
+    """Kernel 12 through the entry point (padding to the blocks, kv_len
+    masking) against its plain version on the same card tensors."""
+    q, k, v = _flash_inputs(cuda, dtype, B, Hq, Hkv, Sq, Skv, D)
+    kw = dict(causal=causal, q_offset=q_offset, block_q=min(64, Sq),
+              block_k=64)
+    n0 = build.LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == n0 + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    bq = kw["block_q"]
+    pad = lambda t, b: torch.nn.functional.pad(  # noqa: E731
+        t, (0, 0, 0, (-t.shape[2]) % b))
+    want = flash_attention_p_plain(
+        pad(q, bq), pad(k, 64), pad(v, 64), scale=D ** -0.5, causal=causal,
+        q_offset=q_offset, kv_len=Skv, block_q=bq, block_k=64)[:, :, :Sq]
+    if dtype == torch.float32:
+        err = float((out - want).abs().max())
+        assert err <= FLASH_F32_TOL, err
+    else:
+        ulps = _bf16_ulps(out, want)
+        assert ulps <= FLASH_BF16_ULPS, ulps
+    if q_offset < 0:
+        assert bool((out[:, :, :-q_offset] == 0).all())
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    """attention() hands the kernel [B, S, H, D] tensors seen as
+    [B, H, S, D]; the result equals that of contiguous copies, and the
+    output keeps the [B, S, H, D] layout."""
+    g = torch.Generator().manual_seed(1)
+    bshd = [torch.randn(s, generator=g).to(cuda, torch.bfloat16)
+            for s in ((2, 128, 4, 128), (2, 128, 2, 128), (2, 128, 2, 128))]
+    views = [t.transpose(1, 2) for t in bshd]
+    a = flash_attention(*views, block_q=64, block_k=64)
+    b = flash_attention(*[t.contiguous() for t in views], block_q=64,
+                        block_k=64)
+    assert torch.equal(a, b)
+    assert a.transpose(1, 2).is_contiguous()
+
+
+def test_flash_attention_wrapper_rejects_bad_operands(cuda):
+    q, k, v = _flash_inputs(cuda, torch.float32, 1, 2, 2, 64, 64, 32)
+    kw = dict(scale=0.2, causal=True, q_offset=0, kv_len=64, block_q=64,
+              block_k=64)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        flash_attention_p(q.half(), k.half(), v.half(), **kw)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        flash_attention_p(q, k.bfloat16(), v, **kw)
+    strided = torch.zeros((1, 2, 64, 64), device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        flash_attention_p(q, strided, v, **kw)
+    q48, k48, v48 = _flash_inputs(cuda, torch.float32, 1, 2, 2, 64, 64, 48)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_p(q48, k48, v48, **kw)
+    with pytest.raises(ValueError, match="multiples"):
+        flash_attention_p(q, k, v, **dict(kw, block_k=48))
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "deepseek-7b",
+                                  "mistral-large-123b"])
+def test_transformer_smoke_forward_on_gpu_matches_cpu(cuda, arch):
+    """The smoke configs' forward with attn_impl="pallas": on the card
+    (kernel 12, one launch a layer) against the CPU (its plain version),
+    f32 logits within 1e-4; prefill + decode on the card reproduce the
+    card's forward at 2e-3 (tests/test_arch_smoke.py:92)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import _load
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import materialize
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(_load(arch, smoke=True)[1], attn_impl="pallas")
+    params = materialize(tf.param_defs(cfg), torch.Generator().manual_seed(0),
+                         device="cpu", default_dtype=cfg.dtype)
+    on_card = {"embed": params["embed"].to(cuda),
+               "final_norm": params["final_norm"].to(cuda),
+               "unembed": params["unembed"].to(cuda),
+               "layers": {k: t.to(cuda) for k, t in params["layers"].items()}}
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    n0 = build.LAUNCHES["flash_attention"]
+    got, kv_got, _ = tf.forward(on_card, toks.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == n0 + cfg.n_layers
+    want, kv_want, _ = tf.forward(params, toks, cfg)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    for a, b in zip(kv_got, kv_want):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4
+    _, kvs = tf.make_prefill_step(cfg)(on_card, {"tokens": toks[:, :36].to(cuda)})
+    caches = tuple(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 4)) for t in kvs)
+    n1 = build.LAUNCHES["flash_attention"]
+    for i in range(36, 40):
+        logits, caches = tf.make_serve_step(cfg)(
+            on_card, toks[:, i:i + 1].to(cuda), caches, i)
+        torch.testing.assert_close(logits, got[:, i], rtol=2e-3, atol=2e-3)
+    assert build.LAUNCHES["flash_attention"] == n1     # decode: no kernel
