@@ -9,8 +9,10 @@ Phases, each of which exits non-zero on a mismatch:
 
   build    compile the CUDA kernel sources (relax, send, merge, round; each
            holds a dense kernel and its ragged sibling, relax also the three
-           single-query kernels; embedding_bag; flash_attention) from
-           src/repro_torch/kernels/csrc, one nvcc each, in parallel;
+           single-query kernels; embedding_bag; flash_attention, kernel 12's
+           f32 route, and flash_attention_tc, its bf16 route on the tensor
+           cores) from src/repro_torch/kernels/csrc, one nvcc each, in
+           parallel;
   kernel   hold each dense kernel against its plain PyTorch version on the
            card, bit-equal, on the real layouts of the scale-1e6 graph at
            mid-solve state, and time kernel, plain version and bound; the
@@ -57,29 +59,36 @@ Phases, each of which exits non-zero on a mismatch:
            relax_jnp timed beside them;
   embag    kernel 13 at the AutoInt configuration's size: a [39e6, 16]
            f32 table made on the card, 10,223,616 one-index bags (sum) and
-           2,555,904 four-index bags (mean, f32 and bf16), 5% padding: each
+           2,555,904 four-index bags (mean, f32 and bf16), 5% padding, 5%
+           negative indices (wrapping): each
            bit-equal to the plain version, timed beside its bound and
            F.embedding_bag;
   flash    kernel 12 (flash attention) through its entry point against its
            plain version at the prefill shapes of gemma-7b ([4, 16, 2048,
            256]), deepseek-7b ([4, 32, 2048, 128]) and mistral-large (GQA
            group 12: q [1, 96, 2048, 128], kv [1, 8, 2048, 128]), causal,
-           bf16 and f32, and at gemma's decode shape (Sq = 1, q_offset =
-           Skv - 1): within 2e-5 (f32) / 2 ulps (bf16), timed beside its bound
-           and F.scaled_dot_product_attention;
-  serve    this slice's main path: full-width gemma-7b in bf16 (weights
-           made on the card from a seed), attn_impl="pallas": 4 prompts of
-           2048 tokens through make_prefill_step, the caches padded by 32,
-           32 greedy steps of make_serve_step; kernel 12 launched 28 times
-           in the prefill and never in decode; time to first token, decode
+           and at gemma's decode shape (Sq = 1, q_offset = Skv - 1), each in
+           bf16 (the tensor-core kernel, within 2 bf16 ulps) and f32 (the
+           CUDA-core kernel, within 2e-5), each launch counted on its own
+           route, timed beside its bound and F.scaled_dot_product_attention;
+           a planted fault (the tensor-core kernel with its P_lo products
+           dropped, p rounded to bf16 alone) must fail the bf16 check;
+  serve    the transformer's main path: full-width gemma-7b in bf16
+           (weights made on the card from a seed), attn_impl="pallas": 4
+           prompts of 2048 tokens through make_prefill_step, the caches
+           padded by 32, 32 greedy steps of make_serve_step; kernel 12's
+           tensor-core kernel launched 28 times in the prefill, and nothing
+           else, and no kernel in decode; time to first token, decode
            ms/step and tokens/s, peak memory, profiles of the prefill and of
-           4 decode steps; then the prefill's last logits "pallas" vs "xla"
+           4 decode steps (the serve steps write the donated caches in
+           place); then the prefill's last logits "pallas" vs "xla"
            (bf16, full width; the same greedy tokens), attention() per
            layer against the xla path on the same q, k, v (2 bf16 ulps; a
            planted fault, the last kv tile dropped, must fail it),
            decode == forward for full-width gemma at
-           depth 4 in f32 (2e-3), and the three smoke configs' forward on
-           the card vs the CPU (1e-4).
+           depth 4 in f32 (2e-3; the run that counts kernel 12's f32 route),
+           and the three smoke configs' forward on the card vs the CPU
+           (1e-4).
 
 The line before last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Build logs and traces go to chiprun_out/.
@@ -117,6 +126,8 @@ SOURCES = {                    # kernel -> (CUDA source, TPU kernel replaced)
     "relax_sweep": (f"{CSRC}/relax.cu", f"{TPU}/relax/relax.py:89"),
     "embedding_bag": (f"{CSRC}/embedding_bag.cu",
                       f"{TPU}/embedding_bag/embedding_bag.py:43"),
+    "flash_attention_tc": (f"{CSRC}/flash_attention_tc.cu",
+                           f"{TPU}/flash_attention/flash_attention.py:68"),
     "flash_attention": (f"{CSRC}/flash_attention.cu",
                         f"{TPU}/flash_attention/flash_attention.py:68"),
 }
@@ -731,8 +742,10 @@ def embag_phase(torch, np):
     """Kernel 13 at the AutoInt configuration's full size: a [39e6, 16]
     table made on the card from a seeded generator, the serve_bulk batch
     of one-hot bags (sum) and a train batch of 4-index bags (mean, f32 and
-    bf16), 5% of the indices the padding sentinel V. Each run bit-equal to
-    the plain version, timed beside its bound and F.embedding_bag."""
+    bf16), 5% of the indices the padding sentinel V and 5% negative (in
+    [-V, 0), wrapping to row V + i). Each run bit-equal to the plain
+    version, timed beside its bound and F.embedding_bag (given the wrapped
+    indices)."""
     import torch.nn.functional as F
     from repro_torch.kernels import build
     from repro_torch.kernels.embedding_bag import (embedding_bag_p,
@@ -746,8 +759,9 @@ def embag_phase(torch, np):
     def bags(B, L):
         idx = torch.randint(0, V, (B, L), generator=gen, device=dev,
                             dtype=torch.int32)
-        pad = torch.rand((B, L), generator=gen, device=dev) < 0.05
-        return torch.where(pad, V, idx).to(torch.int32).contiguous()
+        u = torch.rand((B, L), generator=gen, device=dev)
+        idx = torch.where(u < 0.05, idx - V, idx)   # [-V, 0): wraps to idx
+        return torch.where(u > 0.95, V, idx).to(torch.int32).contiguous()
 
     runs = (("serve sum", table, bags(SERVE_BULK * AUTOINT["fields"], 1),
              "sum"),)
@@ -769,13 +783,13 @@ def embag_phase(torch, np):
                                                                   mode=mode))
         err = compare(torch, "embedding_bag", [out], [ref])
         ms = timed(torch, lambda: embedding_bag_p(t, i, mode=mode), 20)
-        valid = i[i < V]
+        valid = i[(i >= -V) & (i < V)] % V
         rows_read = int(torch.unique(valid).numel())
         b = bound(nbytes(i, out) + rows_read * D * t.element_size(),
                   int(valid.numel()) * D + (out.numel() if mode == "mean"
                                             else 0))
         ext = torch.cat([t, torch.zeros((1, D), dtype=t.dtype, device=dev)])
-        il = i.long()
+        il = torch.where(i < 0, i + V, i).long()   # F.embedding_bag: >= 0
         lib_ms = timed(torch, lambda: F.embedding_bag(
             il, ext, mode=mode, padding_idx=V), 20)
         lib = F.embedding_bag(il, ext, mode=mode, padding_idx=V)
@@ -810,15 +824,19 @@ def causal_pairs(Sq: int, Skv: int, q_offset: int) -> int:
 
 def flash_phase(torch):
     """Kernel 12 through its entry point against its plain version on the
-    card: the prefill shapes of the three dense LM configs (causal, bf16
-    and f32) and gemma's decode shape (Sq = 1 against the padded cache,
-    q_offset = Skv - 1, bf16); max abs error within the reference's
-    tolerances, timed beside its bound and F.scaled_dot_product_attention.
-    Returns the table row at gemma's prefill in bf16, the main path's."""
+    card: the prefill shapes of the three dense LM configs and gemma's
+    decode shape (Sq = 1 against the padded cache, q_offset = Skv - 1),
+    causal, each in bf16 (the tensor-core kernel, 2 bf16 ulps) and f32 (the
+    CUDA-core kernel, 2e-5), each launch on its own route; timed beside its
+    bound and F.scaled_dot_product_attention. Then a planted fault, the
+    tensor-core kernel with its P_lo products dropped, must fail the bf16
+    check. Returns the table rows at gemma's prefill shape: bf16 (the main
+    path's) and f32."""
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_p_plain)
+        _launch_tc, flash_attention_p_plain)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
@@ -827,8 +845,9 @@ def flash_phase(torch):
             for dt in ("bfloat16", "float32")]
     B, H, _, S, D = FLASH_SHAPES[SERVE["arch"]]
     skv = S + SERVE["gen"]
-    runs.append((f"{SERVE['arch']} decode", "bfloat16", B, H, H, 1, skv, D,
-                 skv - 1))
+    runs += [(f"{SERVE['arch']} decode", dt, B, H, H, 1, skv, D, skv - 1)
+             for dt in ("bfloat16", "float32")]
+    route = {"bfloat16": "flash_attention_tc", "float32": "flash_attention"}
     say("flash phase: kernel 12 vs its plain version (block 128, causal)")
 
     def pad(t, b):
@@ -842,7 +861,12 @@ def flash_phase(torch):
                 .to(dtype) for _ in range(2))
         bq, bk = min(128, Sq), min(128, Skv)
         kw = dict(causal=True, q_offset=off, block_q=bq)
+        build.reset_launches()
         out = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if {n: c for n, c in build.LAUNCHES.items() if c} != {route[dt]: 1}:
+            fail(f"flash {name} {dt}: launches {build.LAUNCHES}, want one "
+                 f"{route[dt]}")
         ref, plain_ms = once(torch, lambda: flash_attention_p_plain(
             pad(q, bq), pad(k, bk), pad(v, bk), scale=D ** -0.5, causal=True,
             q_offset=off, kv_len=Skv, block_q=bq, block_k=bk)[:, :, :Sq])
@@ -863,15 +887,27 @@ def flash_phase(torch):
         ops = 4 * B * Hq * D * causal_pairs(Sq, Skv, off)
         b = bound(nbytes(q, k, v, out), ops,
                   BF16_OPS_PER_S if dt == "bfloat16" else FP32_OPS_PER_S)
-        say(f"  {name} {dt} q {tuple(q.shape)} kv {tuple(k.shape)}: "
-            f"{ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
+        say(f"  {name} {dt} q {tuple(q.shape)} kv {tuple(k.shape)}, "
+            f"{route[dt]}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
             f"{b[0]:.5f} ms ({b[1]}, {ops / 1e9:.2f} GFLOP), SDPA "
             f"{lib_ms:.4f} ms; max abs err {err:.3g}"
             + (f" ({ulps:.3g} bf16 ulps)" if ulps is not None else "")
             + f" (SDPA vs kernel {lib_err:.3g})")
+        if name == SERVE["arch"]:
+            rows[route[dt]] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                   bound=b, library_ms=lib_ms)
         if name == SERVE["arch"] and dt == "bfloat16":
-            rows["flash_attention"] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                           bound=b, library_ms=lib_ms)
+            # the planted fault: P_lo dropped, p rounded to bf16 alone
+            bad = torch.empty_like(q)
+            _launch_tc(q, k, v, bad, scale=D ** -0.5, causal=True,
+                       q_offset=0, kv_len=Skv, split_p=False)
+            bad_ulps = bf16_ulps(torch, bad, ref)
+            say(f"  planted fault (P_lo dropped) at {name}: {bad_ulps:.4g} "
+                f"bf16 ulps (tolerance {FLASH_BF16_ULPS})")
+            if not bad_ulps > FLASH_BF16_ULPS:
+                fail(f"flash: the bf16 check passes the kernel with P_lo "
+                     f"dropped ({bad_ulps} ulps)")
+            del bad
         del q, k, v, out, ref
     return rows
 
@@ -883,19 +919,21 @@ def _to(tree, device):
 
 
 def serve_phase(torch, np, out_dir: Path):
-    """This slice's main path: full-width gemma-7b in bf16 with
+    """The transformer's main path: full-width gemma-7b in bf16 with
     attn_impl="pallas", weights made on the card from a seeded generator;
     4 random prompts of 2048 tokens through make_prefill_step, the caches
-    padded by 32, then 32 greedy steps of make_serve_step, as
-    examples/serve_decode.py drives them. Kernel 12 must launch once a
-    layer in the prefill and never in decode. Then the checks: the
-    prefill's last logits with "pallas" against "xla" at full width in
-    bf16, and each layer's attention against "xla" on the same inputs,
-    which must also catch a planted fault; full-width gemma at depth 4 in f32, forward over 256 tokens
-    against a prefill of 252 and 4 decode steps (rtol = atol = 2e-3); the
-    three smoke configs' forward on the card (kernel) against the CPU
-    (plain), f32 logits within 1e-4. Returns the launches of the main
-    path."""
+    padded by 32, then 32 greedy steps of make_serve_step with the caches
+    donated, as examples/serve_decode.py drives them. Kernel 12's
+    tensor-core kernel must launch once a layer in the prefill, and nothing
+    else, and no kernel in decode. Then the checks: the prefill's last
+    logits with "pallas" against "xla" at full width in bf16, and each
+    layer's attention against "xla" on the same inputs, which must also
+    catch a planted fault; full-width gemma at depth 4 in f32, forward over
+    256 tokens against a prefill of 252 and 4 decode steps (rtol = atol =
+    2e-3), whose forward and prefill must launch kernel 12's f32 route once
+    a layer each; the three smoke configs' forward on the card (kernel)
+    against the CPU (plain), f32 logits within 1e-4. Returns the launches
+    of both routes' runs."""
     import dataclasses
     import torch.nn.functional as F
     from repro_torch.configs.registry import _load
@@ -920,7 +958,8 @@ def serve_phase(torch, np, out_dir: Path):
     say(f"serve phase: {cfg.name} {cfg.n_params()} params ({w_bytes} B "
         f"bf16) made on the card in {t_init:.1f} s; {B} prompts x {P} "
         f"tokens, {G} greedy steps, attn_impl={cfg.attn_impl}")
-    prefill, serve = tf.make_prefill_step(cfg), tf.make_serve_step(cfg)
+    prefill = tf.make_prefill_step(cfg)
+    serve = tf.make_serve_step(cfg, donate=True)   # caches written in place
     prefill(params, {"tokens": prompts[:, :128]})   # warm-up: library loads
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -950,9 +989,9 @@ def serve_phase(torch, np, out_dir: Path):
     in_decode = dict(build.LAUNCHES)
     steps = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
     peak = torch.cuda.max_memory_allocated()
-    n_fa = in_prefill["flash_attention"]
+    n_fa = in_prefill["flash_attention_tc"]
     if n_fa != cfg.n_layers or sum(in_prefill.values()) != n_fa:
-        fail(f"serve: prefill launches {in_prefill}, want flash_attention "
+        fail(f"serve: prefill launches {in_prefill}, want flash_attention_tc "
              f"{cfg.n_layers} and nothing else")
     if sum(in_decode.values()):
         fail(f"serve: decode launched kernels {in_decode}")
@@ -967,8 +1006,8 @@ def serve_phase(torch, np, out_dir: Path):
         f"prompt tokens/s; decode {1e3 * t_dec / G:.3f} ms/step, "
         f"{B * G / t_dec:.1f} tokens/s (steps between CUDA events: median "
         f"{steps[G // 2]:.3f}, min {steps[0]:.3f}, max {steps[-1]:.3f} ms); "
-        f"peak allocated {peak} B; flash_attention launches {n_fa} in the "
-        f"prefill, {in_decode['flash_attention']} in decode")
+        f"peak allocated {peak} B; flash_attention_tc launches {n_fa} in the "
+        f"prefill, {sum(in_decode.values())} kernel launches in decode")
     again = []
     for _ in range(2):      # the spread of the prefill time
         t0 = time.perf_counter()
@@ -1048,8 +1087,13 @@ def serve_phase(torch, np, out_dir: Path):
     pre = S - 4
     t4 = torch.randint(0, cfg4.vocab_size, (Bc, S), generator=gen, device=dev,
                        dtype=torch.int32)
+    build.reset_launches()
     full, _, _ = tf.forward(p4, t4, cfg4)
     _, kvs = tf.make_prefill_step(cfg4)(p4, {"tokens": t4[:, :pre]})
+    n_f32 = build.LAUNCHES["flash_attention"]
+    if n_f32 != 2 * cfg4.n_layers or sum(build.LAUNCHES.values()) != n_f32:
+        fail(f"serve: depth-4 f32 forward and prefill launches "
+             f"{build.LAUNCHES}, want flash_attention {2 * cfg4.n_layers}")
     c4 = tuple(F.pad(t, (0, 0, 0, 0, 0, S - pre)) for t in kvs)
     worst = 0.0
     for i in range(pre, S):
@@ -1061,7 +1105,8 @@ def serve_phase(torch, np, out_dir: Path):
         worst = max(worst, float(d.max()))
     say(f"  decode == forward: full-width {cfg.name} at depth "
         f"{cfg4.n_layers}, f32, {Bc} x {S} tokens (prefill {pre} + 4 "
-        f"steps): max abs diff {worst:.3g} (rtol = atol = 2e-3)")
+        f"steps): max abs diff {worst:.3g} (rtol = atol = 2e-3); "
+        f"flash_attention (f32 route) launches {n_f32}")
     del p4, full, kvs, c4
     torch.cuda.empty_cache()
 
@@ -1078,7 +1123,7 @@ def serve_phase(torch, np, out_dir: Path):
             fail(f"serve: {c.name} card vs CPU forward differ by {err}")
         say(f"  {c.name}: card forward (kernel 12, head dim {c.hd}) vs CPU "
             f"(plain): max abs diff {err:.3g} (tolerance 1e-4)")
-    return {"flash_attention": n_fa}
+    return {"flash_attention_tc": n_fa, "flash_attention": n_f32}
 
 
 def main():

@@ -36,6 +36,13 @@ def bucket_k(k: int) -> int:
     return 1 << (k - 1).bit_length()
 
 
+def _total(counts: torch.Tensor) -> np.int32:
+    """A counter's total over shards (and queries), summed in int32 so that
+    it wraps past 2**31 - 1 as the reference's ``np.sum(..., dtype=np.int32)``
+    does."""
+    return np.int32(int(counts.sum(dtype=torch.int32)))
+
+
 def _as_sources(sources, n_vertices: int) -> tuple[int, ...]:
     if isinstance(sources, (int, np.integer)):
         srcs = (int(sources),)
@@ -153,10 +160,10 @@ class SsspEngine:
         dist = dist_pk.transpose(0, 1).reshape(kb, -1)[:k, :self.n_vertices]
         stats = SsspStats(
             rounds=np.int32(carry.rounds),
-            relaxations=np.int32(int(carry.relaxations.sum())),
-            msgs_sent=np.int32(int(carry.msgs_sent.sum())),
-            msgs_recv=np.int32(int(carry.msgs_recv.sum())),
-            pruned_edges=np.int32(int(carry.pruned.sum())),
+            relaxations=_total(carry.relaxations),
+            msgs_sent=_total(carry.msgs_sent),
+            msgs_recv=_total(carry.msgs_recv),
+            pruned_edges=_total(carry.pruned),
             q_rounds=carry.q_rounds.amax(0)[:k].cpu().numpy(),
             q_relaxations=carry.relaxations.sum(0, dtype=torch.int32)[:k]
             .cpu().numpy(),

@@ -20,9 +20,11 @@ from repro_torch.models.params import materialize
 def generate(params, prompts, cfg: tf.TransformerConfig, gen_len: int):
     """Greedy decode of ``gen_len`` tokens after ``prompts`` [B, P] int:
     the prefill, the caches padded by ``gen_len`` on the sequence axis,
-    then ``gen_len - 1`` serve steps. Returns [B, gen_len] int32."""
+    then ``gen_len - 1`` serve steps, which are given the caches to write
+    in place (the reference example donates them). Returns [B, gen_len]
+    int32."""
     prefill = tf.make_prefill_step(cfg)
-    serve = tf.make_serve_step(cfg)
+    serve = tf.make_serve_step(cfg, donate=True)
     prompt_len = prompts.shape[1]
     logits, kvs = prefill(params, {"tokens": prompts})
     caches = tuple(F.pad(t, (0, 0, 0, 0, 0, gen_len)) for t in kvs)

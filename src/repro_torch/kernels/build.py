@@ -15,8 +15,10 @@ and its ragged sibling; their counters (``relax`` and ``relax_ragged``,
 ``relax.cu`` also holds the single-query kernels of the standalone kernel
 API, each with its own counter: ``relax_single`` (the fixpoint),
 ``relax_masked`` (the masked sweep) and ``relax_sweep`` (the plain sweep).
-``embedding_bag.cu`` and ``flash_attention.cu`` hold one kernel each, under
-their own names.
+``embedding_bag.cu`` holds one kernel under its own name. Kernel 12 has two
+sources, one kernel each, chosen by the inputs' type: ``flash_attention.cu``
+(f32, counter ``flash_attention``) and ``flash_attention_tc.cu`` (bf16 on
+the tensor cores, counter ``flash_attention_tc``).
 """
 from __future__ import annotations
 
@@ -31,10 +33,11 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 ROUND = ("relax", "send", "merge", "round")   # dense + ragged kernel each
-KERNELS = ROUND + ("embedding_bag", "flash_attention")  # a library each
+KERNELS = ROUND + ("embedding_bag", "flash_attention",   # a library each
+                   "flash_attention_tc")
 COUNTERS = (ROUND + tuple(f"{k}_ragged" for k in ROUND)
             + ("relax_single", "relax_masked", "relax_sweep", "embedding_bag",
-               "flash_attention"))
+               "flash_attention", "flash_attention_tc"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -6,9 +6,10 @@
 // DMA per index).
 //
 // What it computes: out[b] = sum over l = 0..L-1 of table[idx[b, l]] for
-// the valid indices (0 <= idx < V; V, the padding sentinel, and any other
-// index outside the table is skipped), added in l order in float32, the
-// mean dividing by max(count, 1); cast once to the table's type (f32 or
+// the valid indices (-V <= idx < V, an index below 0 wrapping to row
+// V + idx as in the reference; V, the padding sentinel, and any other index
+// outside [-V, V) is skipped and not counted), added in l order in float32,
+// the mean dividing by max(count, 1); cast once to the table's type (f32 or
 // bf16, round to nearest even). The same adds in the same order as the
 // Pallas kernel's unrolled loop, so the result is bit-equal to the plain
 // version, which keeps that order.
@@ -69,11 +70,11 @@ embedding_bag_kernel(const T* __restrict__ table, const int* __restrict__ idx,
     float cnt = 0.f;
     for (int l = 0; l < L; ++l) {
       const int i = ix[l];
-      const bool valid = static_cast<unsigned>(i) < static_cast<unsigned>(V);
+      const bool valid = i >= -V && i < V;
       Pack<T, kVec> p = {};
       if (valid)
         p = *reinterpret_cast<const Pack<T, kVec>*>(
-            table + static_cast<long long>(i) * D + v * kVec);
+            table + static_cast<long long>(i < 0 ? i + V : i) * D + v * kVec);
 #pragma unroll
       for (int k = 0; k < kVec; ++k)
         acc[k] = acc[k] + (valid ? to_f32(p.v[k]) : 0.f);

@@ -1,34 +1,32 @@
-// Flash attention forward: softmax(q k^T * scale, masked) v with an online
-// softmax, GQA, a causal mask with a query offset, and kv padding.
+// Flash attention forward in f32 on the CUDA cores: kernel 12's f32 route.
+// bf16 inputs take csrc/flash_attention_tc.cu, on the tensor cores.
 //
 // Replaces: kernels/flash_attention/flash_attention.py: flash_attention_p
 // (the Pallas kernel _flash_kernel, grid (B, Hq, q tile, kv tile) with the kv
 // axis innermost and the f32 accumulator, row max and row sum in VMEM
 // scratch across kv steps; GQA through the k/v index maps, h // group).
 //
-// What it computes: q [B, Hq, Sq, D], k and v [B, Hkv, >= kv_len, D] (f32,
-// or bf16 when bf16 != 0), out [B, Hq, Sq, D] in q's type. Query row r of
-// head h reads kv head h / group; key column kj is valid when
-// kj < kv_len and, when causal, r + q_offset >= kj. Scores, the running max
-// m, the running sum l and the accumulator are f32; each kv tile does the
-// Pallas kernel's update with its guards: m' = max(m, rowmax(s)),
-// p = exp(s - (m' finite ? m' : 0)) on valid columns else 0,
-// alpha = m finite ? exp(m - m') : 0, l = l * alpha + rowsum(p),
-// acc = acc * alpha + p v. The output is acc / l where l > 0, else acc / 1,
-// so a row with no valid key gives 0. The kernel tiles kv by its own 64
-// columns, not by the caller's block_k: the function is the same, and the
-// sums are taken in another order (f32 results agree to about 1e-6).
+// What it computes: q [B, Hq, Sq, D], k and v [B, Hkv, >= kv_len, D], out
+// [B, Hq, Sq, D], all f32. Query row r of head h reads kv head h / group;
+// key column kj is valid when kj < kv_len and, when causal,
+// r + q_offset >= kj. Scores, the running max m, the running sum l and the
+// accumulator are f32; each kv tile does the Pallas kernel's update with its
+// guards: m' = max(m, rowmax(s)), p = exp(s - (m' finite ? m' : 0)) on valid
+// columns else 0, alpha = m finite ? exp(m - m') : 0, l = l * alpha +
+// rowsum(p), acc = acc * alpha + p v. The output is acc / l where l > 0,
+// else acc / 1, so a row with no valid key gives 0. The kernel tiles kv by
+// its own 64 columns, not by the caller's block_k: the function is the same,
+// and the sums are taken in another order (results agree to about 1e-6).
 //
-// What bounds it: operations. At gemma-7b's prefill (B 4, H 16, S 2048,
-// D 256, causal) it does 137.5 GFLOP against 268 MB of q, k, v and out; at
-// the card's bf16 tensor rate that is 0.139 ms, against 0.080 ms for the
-// bytes. This first kernel does its products on the f32 CUDA cores (67
-// TFLOP/s at most), so it cannot come near that bound: wgmma, TMA and a
-// warp-specialised schedule are the next redesign.
+// What bounds it: operations, on the f32 CUDA cores (67 TFLOP/s at most).
+// f32 stays off the tensor cores: TF32 keeps 10 mantissa bits and would miss
+// the reference's f32 tolerance of 2e-5 by an order of magnitude. At
+// gemma-7b's prefill shape in f32 (B 4, H 16, S 2048, D 256, causal) the
+// function is 137.5 GFLOP, 2.05 ms at that rate.
 //
 // Design: one CTA of 256 threads per (q tile of 64 rows, head, batch); q
 // tiles are launched last-first, so the long causal rows start early. The
-// CTA keeps its q tile in shared memory as f32 and walks the kv tiles of 64
+// CTA keeps its q tile in shared memory and walks the kv tiles of 64
 // columns in order, up to the last column any of its rows may see (tiles
 // wholly above the causal diagonal or past kv_len are skipped: there they
 // add exactly nothing). Per tile it stages K transposed ([D][64]) and V
@@ -42,7 +40,6 @@
 // cudaFuncSetAttribute). The strides of q, k, v and out are the caller's
 // (the last axis contiguous), so a [B, S, H, D] tensor seen as
 // [B, H, S, D] is read in place.
-#include <cuda_bf16.h>
 #include <math.h>
 
 #include "tile_reduce.cuh"
@@ -54,20 +51,6 @@ constexpr int kBQ = 64;         // query rows per CTA
 constexpr int kBK = 64;         // kv columns per tile
 constexpr int kRows = kBQ / 16;
 constexpr int kCols = kBK / 16;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // isfinite for the running max, which is -inf or finite
 __device__ __forceinline__ bool finite(float x) { return fabsf(x) < INFINITY; }
@@ -81,10 +64,10 @@ constexpr size_t smem_floats() {
   return kBQ * (D + 1) + D * (kBK + 1) + kBK * D + kBQ * (kBK + 1);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int group,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int group,
                  int Sq, int causal, int q_offset, int kv_len, float scale,
                  Strides sq, Strides sk, Strides sv, Strides so) {
   constexpr int kDC = D / 16;
@@ -97,15 +80,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + hk * sk.h;
-  const T* vb = v + b * sv.b + hk * sv.h;
-  T* ob = o + b * so.b + h * so.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + hk * sk.h;
+  const float* vb = v + b * sv.b + hk * sv.h;
+  float* ob = o + b * so.b + h * so.h;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
     Qs[r * (D + 1) + d] =
-        q0 + r < Sq ? to_f32(qb[(q0 + r) * sq.s + d]) : 0.f;
+        q0 + r < Sq ? qb[(q0 + r) * sq.s + d] : 0.f;
   }
   // the columns any row of this tile may see
   int kv_end = kv_len;
@@ -125,8 +108,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, d = i % D;
       const bool in = j0 + r < kv_len;
-      Kt[d * (kBK + 1) + r] = in ? to_f32(kb[(j0 + r) * sk.s + d]) : 0.f;
-      Vs[r * D + d] = in ? to_f32(vb[(j0 + r) * sv.s + d]) : 0.f;
+      Kt[d * (kBK + 1) + r] = in ? kb[(j0 + r) * sk.s + d] : 0.f;
+      Vs[r * D + d] = in ? vb[(j0 + r) * sv.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -207,12 +190,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = l[a] > 0.f ? l[a] : 1.f;
 #pragma unroll
     for (int c = 0; c < kDC; ++c)
-      ob[r * so.s + tx + 16 * c] = from_f32<T>(acc[a][c] / den);
+      ob[r * so.s + tx + 16 * c] = acc[a][c] / den;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
+template <int D>
+int launch(const float* q, const float* k, const float* v, float* o, int B,
            int Hq, int Hkv, int Sq, int causal, int q_offset, int kv_len,
            float scale, Strides sq, Strides sk, Strides sv, Strides so,
            cudaStream_t stream) {
@@ -220,26 +203,34 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (Hkv <= 0 || Hq % Hkv || Hq > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = smem_floats<D>() * sizeof(float);
-  const cudaError_t e = repro::allow_smem(flash_fwd_kernel<T, D>, smem);
+  const cudaError_t e = repro::allow_smem(flash_fwd_kernel<D>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq / Hkv, Sq, causal,
-      q_offset, kv_len, scale, sq, sk, sv, so);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, Hq / Hkv, Sq, causal, q_offset, kv_len, scale, sq, sk, sv,
+      so);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(int D, const void* q, const void* k, const void* v, void* o,
-             int B, int Hq, int Hkv, int Sq, int causal, int q_offset,
-             int kv_len, float scale, Strides sq, Strides sk, Strides sv,
-             Strides so, cudaStream_t stream) {
+}  // namespace
+
+// q [B, Hq, Sq, D], k and v [B, Hkv, >= kv_len, D], out like q, all f32,
+// each given by its batch, head and sequence strides in elements (the last
+// axis contiguous); D in {16, 32, 64, 128, 256}.
+extern "C" int flash_attention(
+    const float* q, const float* k, const float* v, float* o, int B, int Hq,
+    int Hkv, int Sq, int D, int causal, int q_offset, int kv_len,
+    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+    float scale, cudaStream_t stream) {
+  const Strides sq{q_sb, q_sh, q_ss}, sk{k_sb, k_sh, k_ss},
+      sv{v_sb, v_sh, v_ss}, so{o_sb, o_sh, o_ss};
   switch (D) {
 #define REPRO_FA_CASE(DD)                                                  \
   case DD:                                                                 \
-    return launch<T, DD>(q, k, v, o, B, Hq, Hkv, Sq, causal, q_offset,     \
-                         kv_len, scale, sq, sk, sv, so, stream);
+    return launch<DD>(q, k, v, o, B, Hq, Hkv, Sq, causal, q_offset,        \
+                      kv_len, scale, sq, sk, sv, so, stream);
     REPRO_FA_CASE(16)
     REPRO_FA_CASE(32)
     REPRO_FA_CASE(64)
@@ -249,26 +240,4 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-}  // namespace
-
-// q [B, Hq, Sq, D], k and v [B, Hkv, >= kv_len, D], out like q, each given
-// by its batch, head and sequence strides in elements (the last axis
-// contiguous); f32, or bf16 when bf16 != 0; D in {16, 32, 64, 128, 256}.
-extern "C" int flash_attention(
-    const void* q, const void* k, const void* v, void* o, int B, int Hq,
-    int Hkv, int Sq, int D, int causal, int q_offset, int kv_len, int bf16,
-    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
-    float scale, cudaStream_t stream) {
-  const Strides sq{q_sb, q_sh, q_ss}, sk{k_sb, k_sh, k_ss},
-      sv{v_sb, v_sh, v_ss}, so{o_sb, o_sh, o_ss};
-  if (bf16)
-    return dispatch<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, Sq, causal,
-                                   q_offset, kv_len, scale, sq, sk, sv, so,
-                                   stream);
-  return dispatch<float>(D, q, k, v, o, B, Hq, Hkv, Sq, causal, q_offset,
-                         kv_len, scale, sq, sk, sv, so, stream);
 }

@@ -6,8 +6,11 @@ embedding_bag_p``. The wrapper runs the CUDA kernel
 on CPU tensors; ``embedding_bag_p_plain`` is the plain version, callable on
 either device.
 
-table [V, D] f32 or bf16; indices [B, L] int32, where an index outside
-[0, V) (the sentinel ``V`` in particular) is padding and is skipped;
+table [V, D] f32 or bf16; indices [B, L] int32. An index in [-V, 0) wraps to
+row V + i, as in every path of the reference; an index outside [-V, V) (the
+sentinel ``V`` in particular) is padding and is skipped, not counted (below
+-V the reference's own paths disagree: its Pallas kernel reads row 0 and
+counts it, its XLA path adds 0 and counts it);
 B % bb == 0, as the reference's grid of B / bb bag tiles requires. Rows are
 added in ``l`` order in float32, the mean divides by max(count, 1), and the
 result is cast once to the table's type.
@@ -32,8 +35,8 @@ def _check(indices, mode: str, bb: int):
 
 def embedding_bag_p_plain(table, indices, *, mode: str = "sum", bb: int = 8):
     """The Pallas kernel's loop: per bag, the valid rows added in ``l``
-    order in float32 (an invalid index adds 0.0, as there), the count
-    beside them. Returns [B, D] in the table's type."""
+    order in float32 (an index in [-V, 0) wraps, one outside [-V, V) adds
+    0.0), the count beside them. Returns [B, D] in the table's type."""
     _check(indices, mode, bb)
     V, D = table.shape
     B, L = indices.shape
@@ -41,8 +44,8 @@ def embedding_bag_p_plain(table, indices, *, mode: str = "sum", bb: int = 8):
     cnt = torch.zeros(B, dtype=torch.float32, device=table.device)
     for l in range(L):
         ix = indices[:, l].long()
-        valid = (ix >= 0) & (ix < V)
-        rows = table[torch.where(valid, ix, 0)].float()
+        valid = (ix >= -V) & (ix < V)
+        rows = table[torch.where(valid, ix % V, 0)].float()
         acc = acc + torch.where(valid[:, None], rows, 0.0)
         cnt = cnt + valid.float()
     if mode == "mean":

@@ -1,10 +1,14 @@
-"""Flash attention forward (FlashAttention-2 schedule, GQA-aware), kernel 12.
+"""Flash attention forward (online softmax, GQA-aware), kernel 12.
 
 Port of the reference's ``kernels/flash_attention/flash_attention.py:
-flash_attention_p``. The wrapper runs the CUDA kernel
-(``csrc/flash_attention.cu``) on CUDA tensors and its plain PyTorch version
-on CPU tensors; ``flash_attention_p_plain`` is the plain version, callable
-on either device.
+flash_attention_p``. On CUDA tensors the wrapper launches one of two CUDA
+kernels, chosen by the inputs' type alone: bf16 takes the tensor-core kernel
+(``csrc/flash_attention_tc.cu``: TMA loads, ``wgmma`` products, a producer
+and two consumer warpgroups; counter ``flash_attention_tc``), f32 the
+CUDA-core kernel (``csrc/flash_attention.cu``; counter ``flash_attention``).
+On CPU tensors it runs the plain PyTorch version,
+``flash_attention_p_plain``, which is callable on either device and is the
+plain version of both kernels.
 
 q [B, Hq, Sq, D]; k/v [B, Hkv, Skv, D], pre-padded: Sq a multiple of
 ``block_q`` and Skv of ``block_k`` (the reference's grid of whole tiles).
@@ -81,19 +85,56 @@ def flash_attention_p_plain(q, k, v, *, scale: float, causal: bool,
     return (acc / denom[..., None]).to(q.dtype).reshape(B, Hq, Sq, D)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-             + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
-_SIGNATURES = {"flash_attention": _ARGTYPES}
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+             + [ctypes.c_longlong] * 12 + [ctypes.c_float])
+_SIGNATURES = {"flash_attention": _ARGTYPES + [ctypes.c_void_p]}
+_TC_SIGNATURES = {"flash_attention_tc": _ARGTYPES + [ctypes.c_int,
+                                                     ctypes.c_void_p]}
+
+
+def _tma_strides(t):
+    """The batch, head and sequence strides of bf16 ``t`` for a TMA map.
+    Raises unless its pointer and the strides of its axes longer than 1
+    are multiples of 16 bytes, as TMA needs; an axis of length 1 gets a
+    stride that TMA takes (it is never stepped along)."""
+    shape, stride = t.shape[:3], t.stride()[:3]
+    if t.data_ptr() % 16 or any(n > 1 and s % 8
+                                for n, s in zip(shape, stride)):
+        raise ValueError(
+            f"flash_attention: a bf16 operand's pointer and strides must "
+            f"be 16-byte aligned for TMA, got pointer {t.data_ptr():#x}, "
+            f"strides {t.stride()}")
+    span = max([t.shape[3]] + [n * s for n, s in zip(shape, stride)
+                               if n > 1])
+    return [s if n > 1 else span for n, s in zip(shape, stride)]
+
+
+def _launch_tc(q, k, v, out, *, scale: float, causal: bool, q_offset: int,
+               kv_len: int, split_p: bool = True):
+    """Launch the tensor-core kernel on checked bf16 CUDA tensors, without
+    counting it. ``split_p=False`` drops the kernel's P_lo products, a
+    planted fault for the checks; the wrapper never sets it."""
+    strides = [s for t in (q, k, v) for s in _tma_strides(t)]
+    strides += list(out.stride()[:3])
+    B, Hq, Sq, D = q.shape
+    lib = build.load("flash_attention_tc", _TC_SIGNATURES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.flash_attention_tc(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), B, Hq,
+        k.shape[1], Sq, D, int(causal), int(q_offset), int(kv_len), *strides,
+        float(scale), int(split_p), stream)
+    build.check(lib, "flash_attention_tc", code)
 
 
 def flash_attention_p(q, k, v, *, scale: float, causal: bool, q_offset: int,
                       kv_len: int, block_q: int, block_k: int,
                       interpret: bool = True):
     """Same contract as the plain version. CPU tensors take the plain
-    version; CUDA tensors launch the kernel, which reads q, k and v through
-    their strides (the last axis must be contiguous) and writes an output
-    laid out as q is. ``interpret`` is the reference's keyword, accepted and
-    ignored."""
+    version; CUDA tensors launch a kernel, bf16 the tensor-core one and f32
+    the CUDA-core one, which reads q, k and v through their strides (the
+    last axis must be contiguous; for bf16 also 16-byte aligned pointers and
+    strides) and writes an output laid out as q is. ``interpret`` is the
+    reference's keyword, accepted and ignored."""
     if not q.is_cuda:
         return flash_attention_p_plain(
             q, k, v, scale=scale, causal=causal, q_offset=q_offset,
@@ -111,13 +152,18 @@ def flash_attention_p(q, k, v, *, scale: float, causal: bool, q_offset: int,
         raise ValueError(f"flash_attention: head dim {D} is not one of "
                          f"{HEAD_DIMS}")
     out = torch.empty_like(q)   # q's layout when dense, else contiguous
+    if q.dtype == torch.bfloat16:
+        _launch_tc(q, k, v, out, scale=scale, causal=causal,
+                   q_offset=q_offset, kv_len=kv_len)
+        build.count_launch("flash_attention_tc")
+        return out
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     lib = build.load("flash_attention", _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.flash_attention(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), B, Hq,
-        k.shape[1], Sq, D, int(causal), int(q_offset), int(kv_len),
-        int(q.dtype == torch.bfloat16), *strides, float(scale), stream)
+        k.shape[1], Sq, D, int(causal), int(q_offset), int(kv_len), *strides,
+        float(scale), stream)
     build.check(lib, "flash_attention", code)
     build.count_launch("flash_attention")
     return out

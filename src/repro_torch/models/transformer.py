@@ -17,9 +17,11 @@ the MoE FFN (``models/moe.py``), training (``_attn_chunked``'s custom VJP,
 (ROADMAP Queue 1 item 10).
 
 Attention impls: "xla" (materialized scores), "chunked" (online softmax
-over kv chunks, the forward only) and "pallas" (kernel 12: the CUDA flash
-kernel on CUDA tensors, its plain version on CPU tensors). Decode, with a
-cache, always takes the materialized-scores path, as in the reference.
+over kv chunks, the forward only) and "pallas" (kernel 12: on CUDA tensors
+a CUDA flash kernel, the tensor-core one for bf16 and the CUDA-core one for
+f32; its plain version on CPU tensors). Decode, with a cache, always takes
+the materialized-scores path, as in the reference. Caches passed in are
+left intact unless the caller donates them (``donate=True``).
 """
 from __future__ import annotations
 
@@ -235,7 +237,8 @@ def _layer(x, lp, cfg: TransformerConfig, positions, cache=None,
     """One transformer block. x: [B, S, D]. Returns (x', new_cache_slice,
     aux). With a cache (k, v: [B, Skv, Hkv, Dh]) the new k and v are written
     into it in place at ``cache_pos``, the start clamped to [0, Skv - S] as
-    ``lax.dynamic_update_slice`` clamps it."""
+    ``lax.dynamic_update_slice`` clamps it; ``_trunk`` hands it a copy unless
+    the caller donated the caches."""
     B, S, D = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
@@ -273,11 +276,14 @@ def _layer(x, lp, cfg: TransformerConfig, positions, cache=None,
 # --------------------------------------------------------------------------
 
 def _trunk(params, tokens, cfg: TransformerConfig, caches=None,
-           cache_pos=None):
+           cache_pos=None, donate: bool = False):
     """Embedding and layers: (x [B, S, D] before the final norm, kvs,
     aux). Without caches the layers' k and v are written into one stacked
-    [L, B, S, Hkv, Dh] pair; with caches, into the caches in place."""
+    [L, B, S, Hkv, Dh] pair; with caches, into a copy of them, or into the
+    caches themselves when ``donate`` is set."""
     B, S = tokens.shape
+    if caches is not None and not donate:
+        caches = tuple(t.clone() for t in caches)   # the caller's stay intact
     dt = cfg.torch_dtype
     x = params["embed"][tokens.long()].to(dt)
     if cfg.embed_scale:   # the scale rounded to the model's type first
@@ -310,10 +316,13 @@ def _logits(x, params, cfg: TransformerConfig):
 
 
 def forward(params, tokens, cfg: TransformerConfig, caches=None,
-            cache_pos=None):
-    """tokens: [B, S]. caches: None | (k: [L, B, Skv, Hkv, Dh], v), written
-    in place. Returns (logits_f32 [B, S, V], new_caches, aux_loss)."""
-    x, kvs, aux = _trunk(params, tokens, cfg, caches, cache_pos)
+            cache_pos=None, *, donate: bool = False):
+    """tokens: [B, S]. caches: None | (k: [L, B, Skv, Hkv, Dh], v). Returns
+    (logits_f32 [B, S, V], new_caches, aux_loss). The caches passed in are
+    left intact, as in the reference, unless ``donate`` is set: then the new
+    k and v are written into them in place and they are returned (the
+    counterpart of the reference's ``donate_argnums``)."""
+    x, kvs, aux = _trunk(params, tokens, cfg, caches, cache_pos, donate)
     return _logits(x, params, cfg), kvs, aux
 
 
@@ -335,13 +344,16 @@ def make_prefill_step(cfg: TransformerConfig):
     return prefill_step
 
 
-def make_serve_step(cfg: TransformerConfig):
-    """One decode step: new token [B, 1] + KV caches (written in place; the
-    reference's serving example donates them) at position ``pos``."""
+def make_serve_step(cfg: TransformerConfig, *, donate: bool = False):
+    """One decode step: new token [B, 1] + KV caches at position ``pos`` ->
+    (last logits [B, V] f32, new caches). The caches passed in are left
+    intact, as in the reference, unless ``donate`` is set: then they are
+    written in place and returned, as the reference's serving example gets
+    with ``jax.jit(serve_step, donate_argnums=(2,))``."""
     @torch.no_grad()
     def serve_step(params, token, caches, pos):
         logits, new_caches, _ = forward(params, token, cfg, caches=caches,
-                                        cache_pos=pos)
+                                        cache_pos=pos, donate=donate)
         return logits[:, -1], new_caches
 
     return serve_step

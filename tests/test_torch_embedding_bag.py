@@ -94,3 +94,47 @@ def test_embedding_bag_p_checks_its_operands():
     with pytest.raises(ValueError, match="mode"):
         embedding_bag(table, torch.zeros((8, 2), dtype=torch.int32),
                       mode="max")
+
+
+def _arange_table():
+    """V = 10, D = 4, row r = [4r + 1, ..., 4r + 4] (the case of the fault
+    found against the reference: negative indices)."""
+    return np.arange(40, dtype=np.float32).reshape(10, 4) + 1
+
+
+@pytest.mark.parametrize("path", ["kernel", "embedding_bag_jnp",
+                                  "embedding_bag_ref"])
+@pytest.mark.parametrize("mode,first", [("sum", 51.0), ("mean", 17.0)])
+def test_negative_indices_wrap(path, mode, first):
+    """An index in [-V, 0) reads row V + i and counts, as in all three
+    reference paths: bag [1, -1, 2] reads rows 1, 9 and 2, so its first
+    column sums to 5 + 37 + 9 = 51 and averages 17."""
+    table = _arange_table()
+    idx = np.array([[1, -1, 2]] * 8, np.int32)
+    port = {"kernel": embedding_bag, "embedding_bag_jnp": embedding_bag_jnp,
+            "embedding_bag_ref": embedding_bag_ref}[path]
+    got = port(torch.from_numpy(table), torch.from_numpy(idx), mode=mode)
+    assert float(got[0, 0]) == first
+    jfn = {"kernel": j_emb.embedding_bag, "embedding_bag_jnp":
+           j_emb.embedding_bag_jnp, "embedding_bag_ref":
+           j_emb.embedding_bag_ref}[path]
+    jkw = {"interpret": True} if path == "kernel" else {}
+    want = jfn(jnp.asarray(table), jnp.asarray(idx), mode=mode, **jkw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=0)
+
+
+def test_indices_below_minus_v_are_padding():
+    """Below -V the port skips the index and does not count it, in every
+    path. The reference's paths disagree there and the port follows
+    neither: for bag [9, -10, -11] the Pallas kernel reads row 0 for -11 and
+    counts it (first column: sum 39, mean 13), ``embedding_bag_jnp`` adds 0
+    and counts it (38, 12.67); the port reads rows 9 and 0 (38, 19)."""
+    table = torch.from_numpy(_arange_table())
+    idx = torch.tensor([[9, -10, -11]] * 8, dtype=torch.int32)
+    for port in (embedding_bag, embedding_bag_jnp, embedding_bag_ref):
+        assert float(port(table, idx, mode="sum")[0, 0]) == 38.0
+        assert float(port(table, idx, mode="mean")[0, 0]) == 19.0
+    jt, ji = jnp.asarray(table.numpy()), jnp.asarray(idx.numpy())
+    assert float(j_emb.embedding_bag(jt, ji, interpret=True)[0, 0]) == 39.0
+    assert float(j_emb.embedding_bag_jnp(jt, ji)[0, 0]) == 38.0

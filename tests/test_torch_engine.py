@@ -116,6 +116,34 @@ def test_own_build_solves_like_dijkstra():
     np.testing.assert_array_equal(res.q_relaxations, exact.q_relaxations)
 
 
+def test_solve_totals_wrap_in_int32():
+    """The solve's totals are int32 sums that wrap past 2**31 - 1, as the
+    reference's ``np.sum(..., dtype=np.int32)``, and never raise. The carry
+    is made by hand: after each real round its per-(shard, query) counters
+    are set to 2**29 + i, so each total passes 2**31 on 4 shards."""
+    g = tg.road_grid_graph(10, seed=2)
+    eng = tc.SsspEngine.build(g, tc.SsspConfig(), n_parts=4, device="cpu")
+    real = eng.round_fn
+    big = torch.tensor([[2**29], [2**29 + 1], [2**29 + 2], [2**29 + 3]],
+                       dtype=torch.int32)
+
+    def round_fn(carry):
+        carry = real(carry)
+        return carry._replace(relaxations=big.clone(), msgs_sent=big + 5,
+                              msgs_recv=big + 7)
+
+    eng.round_fn = round_fn
+    res = eng.solve([0], bucket=False)
+    for field, add in (("relaxations", 0), ("msgs_sent", 5),
+                       ("msgs_recv", 7)):
+        want = np.sum((big + add).numpy(), dtype=np.int32)
+        assert want < 0                     # 4 * 2**29 + ... wrapped
+        got = getattr(res.stats, field)
+        assert got == want and got.dtype == np.int32, field
+    np.testing.assert_array_equal(res.q_relaxations,
+                                  np.sum(big.numpy(), 0, dtype=np.int32))
+
+
 def test_max_rounds_status():
     g = tg.road_grid_graph(10, seed=2)
     eng = tc.SsspEngine.build(g, tc.SsspConfig(max_rounds=2), n_parts=4,

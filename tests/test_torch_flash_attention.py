@@ -162,3 +162,44 @@ def test_flash_attention_rejects_bad_shapes(bad):
     if bad == "group":
         with pytest.raises(ValueError):
             tfa.flash_attention(q, k, k)
+
+
+def _bf16_ulps(got, want):
+    """Largest elementwise |got - want| in bf16 ulps of |want|, an ulp being
+    at least 5e-6 (for values near 0), as the card's checks count them."""
+    w = want.float().abs()
+    ulp = torch.exp2(torch.frexp(w)[1].float() - 8)
+    ulp = torch.where(w > 0, ulp, 0.0).clamp(min=5e-6)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def _p_rounded(q, k, v, scale, how):
+    """Causal attention in f32 with p rounded before p v as the bf16
+    tensor-core kernel could round it: "hi+lo" splits p into bf16(p) and
+    bf16(p - bf16(p)), two products summed in f32 (the kernel's choice);
+    "bf16" rounds p once (what plain bf16 FlashAttention does). l is the f32
+    sum of the unrounded p."""
+    S = q.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    causal = torch.ones(S, S, dtype=torch.bool).tril()
+    s = torch.where(causal, s, -torch.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    hi = p.bfloat16().float()
+    parts = [hi, (p - hi).bfloat16().float()] if how == "hi+lo" else [hi]
+    acc = sum(torch.einsum("bhqk,bhkd->bhqd", x, v.float()) for x in parts)
+    return (acc / p.sum(-1, keepdim=True)).bfloat16()
+
+
+def test_split_p_keeps_bf16_within_two_ulps():
+    """Why the tensor-core kernel runs P v twice: at gemma-smoke's heads
+    (4 x 32), causal, bf16 inputs over 512 positions, splitting p into bf16
+    hi + lo stays within the 2 bf16 ulps that the card's checks hold kernel
+    12 to against its plain version; rounding p to bf16 alone does not."""
+    rng = np.random.default_rng(16)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 4, 512, 32))
+                                .astype(np.float32)).bfloat16()
+               for _ in range(3))
+    kw = dict(scale=32 ** -0.5, causal=True, q_offset=0, kv_len=512)
+    plain = flash_attention_p_plain(q, k, v, block_q=128, block_k=128, **kw)
+    assert _bf16_ulps(_p_rounded(q, k, v, kw["scale"], "hi+lo"), plain) <= 2
+    assert _bf16_ulps(_p_rounded(q, k, v, kw["scale"], "bf16"), plain) > 2

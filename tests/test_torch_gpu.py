@@ -3,8 +3,9 @@ PyTorch versions (bit-equal), and the engine's card run against its CPU
 run. Every test is marked ``gpu`` and skips without a CUDA device.
 
 Kernel 12 (flash attention) is held against its plain version within
-2e-5 in f32 (the reference's tolerance) and 2 bf16 ulps in bf16, not bit for
-bit: it sums in another order. This file imports neither JAX nor the JAX package, so it also runs where
+2e-5 in f32 (the reference's tolerance, the CUDA-core kernel) and 2 bf16
+ulps in bf16 (the tensor-core kernel), not bit for bit: it sums in another
+order. This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed; the repository's conftest imports JAX, so run it
 there without it:
 
@@ -487,8 +488,8 @@ def test_relax_single_wrappers_reject_bad_operands(cuda):
 @pytest.mark.parametrize("D", [16, 6])
 def test_embedding_bag_kernel_matches_plain(cuda, dtype, D):
     """Kernel 13, sum and mean, L 1..4, bit-equal to its plain version;
-    D = 16 takes the 16-byte lane loads, D = 6 single elements. Indices
-    outside [0, V) are skipped."""
+    D = 16 takes the 16-byte lane loads, D = 6 single elements. Indices in
+    [-V, 0) wrap to row V + i; those outside [-V, V) are skipped."""
     rng = np.random.default_rng(D)
     V = 1000
     table = torch.from_numpy(rng.standard_normal((V, D)).astype(
@@ -498,6 +499,9 @@ def test_embedding_bag_kernel_matches_plain(cuda, dtype, D):
         idx = rng.integers(0, V, (64, L))
         idx[rng.random(idx.shape) < 0.1] = V
         idx[0, 0] = -3
+        idx[1, 0] = -V
+        idx[2, -1] = -V - 5
+        idx[3] = rng.integers(-V, 0, L)
         idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
         for mode in ("sum", "mean"):
             out = embedding_bag_p(table, idx, mode=mode)
@@ -539,6 +543,11 @@ def _flash_inputs(device, dtype, B, Hq, Hkv, Sq, Skv, D, seed=0):
             ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))]
 
 
+# the counter of the kernel each input type launches
+FLASH_ROUTE = {torch.float32: "flash_attention",
+               torch.bfloat16: "flash_attention_tc"}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,q_offset", [
     (2, 4, 4, 128, 128, 16, True, 0),
@@ -549,18 +558,25 @@ def _flash_inputs(device, dtype, B, Hq, Hkv, Sq, Skv, D, seed=0):
     (2, 2, 2, 256, 256, 256, True, 0),          # gemma's head width
     (1, 4, 4, 1, 300, 256, True, 299),          # decode-shaped
     (1, 3, 1, 40, 40, 32, True, -20),           # rows with no valid key
+    (1, 4, 2, 200, 200, 64, True, 0),           # kv_len 200: mid-tile at 128
+    (2, 2, 1, 160, 100, 256, False, 0),         # kv_len 100: mid-tile at 64
+    (1, 2, 2, 300, 300, 256, True, 0),          # three q tiles, 300 % 64
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Hq, Hkv, Sq,
                                               Skv, D, causal, q_offset):
     """Kernel 12 through the entry point (padding to the blocks, kv_len
-    masking) against its plain version on the same card tensors."""
+    masking) against its plain version on the same card tensors, through
+    both routes: f32 launches the CUDA-core kernel, bf16 the tensor-core
+    one, and only that one."""
     q, k, v = _flash_inputs(cuda, dtype, B, Hq, Hkv, Sq, Skv, D)
     kw = dict(causal=causal, q_offset=q_offset, block_q=min(64, Sq),
               block_k=64)
-    n0 = build.LAUNCHES["flash_attention"]
+    n0 = dict(build.LAUNCHES)
     out = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["flash_attention"] == n0 + 1
+    ran = {name: n - n0[name] for name, n in build.LAUNCHES.items()
+           if n != n0[name]}
+    assert ran == {FLASH_ROUTE[dtype]: 1}
     assert out.dtype == dtype and out.shape == q.shape
     bq = kw["block_q"]
     pad = lambda t, b: torch.nn.functional.pad(  # noqa: E731
@@ -578,13 +594,31 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Hq, Hkv, Sq,
         assert bool((out[:, :, :-q_offset] == 0).all())
 
 
-def test_flash_attention_kernel_reads_strided_views(cuda):
+def test_flash_attention_tc_fault_is_seen(cuda):
+    """The tensor-core kernel with its P_lo products dropped (p rounded to
+    bf16 alone, as plain bf16 FlashAttention does) misses the 2-ulp
+    tolerance that the kernel itself meets."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        _launch_tc)
+    q, k, v = _flash_inputs(cuda, torch.bfloat16, 1, 4, 4, 1024, 1024, 256)
+    kw = dict(scale=256 ** -0.5, causal=True, q_offset=0, kv_len=1024)
+    want = flash_attention_p_plain(q, k, v, block_q=128, block_k=128, **kw)
+    out = torch.empty_like(q)
+    _launch_tc(q, k, v, out, **kw)
+    assert _bf16_ulps(out, want) <= FLASH_BF16_ULPS
+    _launch_tc(q, k, v, out, split_p=False, **kw)
+    assert _bf16_ulps(out, want) > FLASH_BF16_ULPS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,Hq,Hkv", [(128, 4, 2), (256, 2, 2), (64, 12, 1)])
+def test_flash_attention_kernel_reads_strided_views(cuda, dtype, D, Hq, Hkv):
     """attention() hands the kernel [B, S, H, D] tensors seen as
     [B, H, S, D]; the result equals that of contiguous copies, and the
     output keeps the [B, S, H, D] layout."""
     g = torch.Generator().manual_seed(1)
-    bshd = [torch.randn(s, generator=g).to(cuda, torch.bfloat16)
-            for s in ((2, 128, 4, 128), (2, 128, 2, 128), (2, 128, 2, 128))]
+    bshd = [torch.randn(s, generator=g).to(cuda, dtype)
+            for s in ((2, 192, Hq, D), (2, 192, Hkv, D), (2, 192, Hkv, D))]
     views = [t.transpose(1, 2) for t in bshd]
     a = flash_attention(*views, block_q=64, block_k=64)
     b = flash_attention(*[t.contiguous() for t in views], block_q=64,
@@ -609,15 +643,23 @@ def test_flash_attention_wrapper_rejects_bad_operands(cuda):
         flash_attention_p(q48, k48, v48, **kw)
     with pytest.raises(ValueError, match="multiples"):
         flash_attention_p(q, k, v, **dict(kw, block_k=48))
+    # bf16 goes through TMA: a pointer or a stride off 16 bytes raises
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    buf = torch.zeros((1, 2, 64, 40), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_p(qb, buf[..., 1:33], vb, **kw)
+    wide = torch.zeros((1, 2, 64, 36), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_p(qb, kb, wide[..., :32], **kw)
 
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "deepseek-7b",
                                   "mistral-large-123b"])
 def test_transformer_smoke_forward_on_gpu_matches_cpu(cuda, arch):
     """The smoke configs' forward with attn_impl="pallas": on the card
-    (kernel 12, one launch a layer) against the CPU (its plain version),
-    f32 logits within 1e-4; prefill + decode on the card reproduce the
-    card's forward at 2e-3 (tests/test_arch_smoke.py:92)."""
+    (kernel 12's f32 route, one launch a layer) against the CPU (its plain
+    version), f32 logits within 1e-4; prefill + decode on the card
+    reproduce the card's forward at 2e-3 (tests/test_arch_smoke.py:92)."""
     import dataclasses
 
     from repro_torch.configs.registry import _load
@@ -649,3 +691,56 @@ def test_transformer_smoke_forward_on_gpu_matches_cpu(cuda, arch):
             on_card, toks[:, i:i + 1].to(cuda), caches, i)
         torch.testing.assert_close(logits, got[:, i], rtol=2e-3, atol=2e-3)
     assert build.LAUNCHES["flash_attention"] == n1     # decode: no kernel
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "deepseek-7b",
+                                  "mistral-large-123b"])
+def test_transformer_smoke_serve_bf16_launches_tc_kernel(cuda, arch):
+    """The serve path in bf16 (the smoke configs in the full configs' type)
+    with attn_impl="pallas": the prefill launches the tensor-core kernel
+    once a layer and nothing else, decode launches no kernel, and each
+    layer's attention is within 2 bf16 ulps of the plain version."""
+    import dataclasses
+
+    from repro_torch.configs.registry import _load
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import materialize
+    cfg = dataclasses.replace(_load(arch, smoke=True)[1], attn_impl="pallas",
+                              dtype="bfloat16")
+    params = materialize(tf.param_defs(cfg), torch.Generator().manual_seed(0),
+                         device="cpu", default_dtype=cfg.dtype)
+    on_card = {"embed": params["embed"].to(cuda),
+               "final_norm": params["final_norm"].to(cuda),
+               "unembed": params["unembed"].to(cuda),
+               "layers": {k: t.to(cuda) for k, t in params["layers"].items()}}
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    real, worst = tf.attention, []
+
+    def checked(q, k, v, c, **kw):
+        out = real(q, k, v, c, **kw)
+        plain = flash_attention_p_plain(
+            *(t.transpose(1, 2) for t in (q, k, v)), scale=c.hd ** -0.5,
+            causal=True, q_offset=0, kv_len=k.shape[1], block_q=q.shape[1],
+            block_k=k.shape[1])
+        worst.append(_bf16_ulps(out, plain.transpose(1, 2)))
+        return out
+
+    build.reset_launches()
+    tf.attention = checked
+    try:
+        logits, kvs = tf.make_prefill_step(cfg)(on_card, {"tokens": toks})
+    finally:
+        tf.attention = real
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == dict(
+        {n: 0 for n in build.COUNTERS}, flash_attention_tc=cfg.n_layers)
+    assert len(worst) == cfg.n_layers and max(worst) <= FLASH_BF16_ULPS
+    caches = tuple(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 2)) for t in kvs)
+    build.reset_launches()
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    for i in range(2):
+        logits, caches = tf.make_serve_step(cfg)(on_card, tok, caches, 40 + i)
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+    assert bool(torch.isfinite(logits).all())
+    assert sum(build.LAUNCHES.values()) == 0

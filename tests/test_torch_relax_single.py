@@ -254,3 +254,20 @@ def test_flat_relax_matches_reference(fn):
     _equal(got, ref(jnp.asarray(dist), jnp.asarray(src), jnp.asarray(dst),
                     jnp.asarray(w)))
     assert got.shape == (n,) and got.dtype == torch.float32
+
+
+@pytest.mark.parametrize("fn", ["relax_ref", "relax_jnp"])
+def test_flat_relax_wraps_negative_indices(fn):
+    """An index in [-n, 0) wraps NumPy-style, as ``jnp.take(mode="fill")``
+    and ``.at[].min(mode="drop")`` read it; below -n a source gathers +inf
+    and a destination is dropped. dist [0, 5, inf, inf], src [0, -3, 1, -9],
+    dst [2, -1, -2, 3], w = 1 gives [0, 5, 1, 6] in both packages."""
+    dist = np.array([0, 5, INF, INF], np.float32)
+    src = np.array([0, -3, 1, -9], np.int32)
+    dst = np.array([2, -1, -2, 3], np.int32)
+    w = np.ones(4, np.float32)
+    port = {"relax_ref": relax_ref, "relax_jnp": relax_jnp}[fn]
+    got = port(t(dist), t(src), t(dst), t(w))
+    assert got.tolist() == [0.0, 5.0, 1.0, 6.0]
+    _equal(got, getattr(j_relax, fn)(jnp.asarray(dist), jnp.asarray(src),
+                                     jnp.asarray(dst), jnp.asarray(w)))

@@ -336,6 +336,43 @@ def test_prefill_and_serve_match(mesh11, jax_pallas_interpret, arch):
             _close(a, b, F32_REL)
 
 
+def test_serve_step_leaves_caches_intact(mesh11):
+    """Two continuations decoded from one prefill (the caller keeps the
+    prefill's caches and branches from them): each equals the JAX package's,
+    whose serve step returns new caches, and the caches passed in stay
+    unchanged. Donated caches are written in place and returned."""
+    cj, ct = _configs("gemma-7b")
+    pj, pt = _params(cj, seed=7)
+    toks = _tokens(cj, (2, 16), seed=7)
+    _, kvj = _jit(mesh11, jtf.make_prefill_step(cj, AX), pj,
+                  {"tokens": jnp.asarray(toks)})
+    _, kvt = ttf.make_prefill_step(ct)(pt, {"tokens": torch.from_numpy(toks)})
+    cj0 = tuple(jnp.pad(t, ((0, 0), (0, 0), (0, 3), (0, 0), (0, 0)))
+                for t in kvj)
+    ct0 = tuple(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 3)) for t in kvt)
+    kept = tuple(t.clone() for t in ct0)
+    serve_j, serve_t = jtf.make_serve_step(cj, AX), ttf.make_serve_step(ct)
+    ends = []
+    for first in (1, 2):       # two different first tokens, one prefill
+        tok = np.full((2, 1), first, np.int32)
+        cjb, ctb = cj0, ct0
+        for pos in (16, 17, 18):
+            lj, cjb = _jit(mesh11, serve_j, pj, jnp.asarray(tok), cjb,
+                           jnp.int32(pos))
+            lt, ctb = serve_t(pt, torch.from_numpy(tok), ctb, pos)
+            _close(lt, lj, F32_REL)
+            tok = np.asarray(jnp.argmax(lj, -1))[:, None].astype(np.int32)
+        for a, b in zip(ctb, cjb):
+            _close(a, b, F32_REL)
+        assert all(torch.equal(a, b) for a, b in zip(ct0, kept))
+        ends.append(ctb[0])
+    assert not torch.equal(ends[0], ends[1])
+    donated = ttf.make_serve_step(ct, donate=True)(
+        pt, torch.ones((2, 1), dtype=torch.int32), ct0, 16)[1]
+    assert donated[0] is ct0[0] and donated[1] is ct0[1]
+    assert not torch.equal(ct0[0], kept[0])
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
     """Prefill + decode reproduce the full forward's logits (the serving
