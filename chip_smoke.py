@@ -15,7 +15,8 @@ Phases, each of which exits non-zero on a mismatch:
            parallel;
   kernel   hold each dense kernel against its plain PyTorch version on the
            card, bit-equal, on the real layouts of the scale-1e6 graph at
-           mid-solve state, and time kernel, plain version and bound; the
+           mid-solve state, and time kernel, plain version and bound (kernel
+           5 and its scatter_reduce_ yardstick as medians); the
            fused round kernel at the state after round 2 of a fused solve,
            with bucket messages and again with a dense incoming row;
   parity   solve rmat scale 11 (Trishla on, P=8, K=4) with the all-kernel
@@ -36,17 +37,21 @@ Phases, each of which exits non-zero on a mismatch:
            vertices, 9,879,136 directed edges; P=8, ragged, EB 512, VB 128)
            and hold each ragged kernel against its plain version, bit-equal,
            at the state after round 2 of the K=16 solve (the ragged fused
-           round at round 2 of the fused solve); time them;
+           round at round 2 of the fused solve); time them (kernels 2 and 8
+           as medians of 20 timings of 10 calls); a planted fault, each of
+           the two with its hazard re-read off, must differ from its plain
+           version (at that state, else on a path inside one tile);
   main     the staged main path: SsspEngine.solve on the scale-1e7 ragged
            shards with K=16 and K=1, every query certified converged, 2
            sources checked against scipy's Dijkstra, the ragged kernels
-           launched and the dense ones not;
+           launched and the dense ones not; the median of 5 more K=16
+           solves;
   fused    this slice's main path: the same solves with round="fused":
            converged, equal to the staged solves in distances and every
            counter but n_dispatches, round_ragged launched once a round,
            merge_ragged never, relax/send_ragged only by rescued rounds,
-           no dense kernel; profiles of the staged and the fused K=16
-           solves;
+           no dense kernel; the median of 5 more K=16 solves; profiles of
+           the staged and the fused K=16 solves;
   single   the standalone kernel API's single-query relax kernels on
            scale-1e6 as one block (layout [512, 16, 512]): from 2 sources,
            kernel 9 in a residual-frontier loop (relax_fixpoint_pallas,
@@ -184,6 +189,26 @@ def timed(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_median(torch, fn, reps: int = 10, samples: int = 20):
+    """(median, mean) ms per call over ``samples`` timings of ``reps``
+    back-to-back calls each, after one warm-up call: CUDA events, as
+    ``timed``."""
+    import statistics
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times), statistics.fmean(times)
 
 
 def once(torch, fn):
@@ -369,26 +394,32 @@ def dense_kernel_phase(torch, eng, sources, cfg):
     rows["send"]["bound"] = bound(nbytes(*s_args, *s_out),
                                   2 * len(sources) * live_cut)
     rows["send"]["library_ms"] = None
-    rows["merge"]["ms"] = timed(
-        torch, lambda: merge_scatter_tiled(*m_args, vb=dsh.mx_vb), 50)
+    rows["merge"]["ms"], rows["merge"]["mean_ms"] = timed_median(
+        torch, lambda: merge_scatter_tiled(*m_args, vb=dsh.mx_vb))
     rows["merge"]["plain_ms"] = timed(
         torch, lambda: merge_scatter_tiled_plain(*m_args, vb=dsh.mx_vb), 2)
     rows["merge"]["bound"] = bound(nbytes(*m_args, *m_out),
                                    len(sources) * int(m_valid.sum()))
-    rows["merge"]["library_ms"] = merge_library_ms(
+    (rows["merge"]["library_ms"],
+     rows["merge"]["library_mean_ms"]) = merge_library_ms(
         torch, dsh, m_args[0], incoming, len(sources))
+    say(f"  merge (kernel 5) median {rows['merge']['ms']:.4f} ms (mean "
+        f"{rows['merge']['mean_ms']:.4f}) vs scatter_reduce_(\"amin\") "
+        f"median {rows['merge']['library_ms']:.4f} ms (mean "
+        f"{rows['merge']['library_mean_ms']:.4f}): 20 timings of 10 calls")
     return rows
 
 
 def merge_library_ms(torch, dsh, dist_pad, incoming, k):
-    """The merge's scatter-min as one PyTorch call, as a yardstick only."""
+    """The merge's scatter-min as one PyTorch call, as a yardstick only:
+    (median, mean) ms, as ``timed_median``."""
     from repro_torch.kernels.common import pad_last
     P = dsh.n_parts
     ext = pad_last(dist_pad[..., :dsh.block], dsh.block + 1, float("inf"))
     ridx = dsh.recv_idx.reshape(P, 1, -1).long().clamp(max=dsh.block)
     ridx = ridx.expand(P, k, -1).contiguous()
-    return timed(torch, lambda: ext.scatter_reduce_(-1, ridx, incoming,
-                                                    "amin"), 50)
+    return timed_median(torch, lambda: ext.scatter_reduce_(-1, ridx, incoming,
+                                                           "amin"))
 
 
 def ragged_kernel_phase(torch, eng, sources, cfg):
@@ -396,11 +427,13 @@ def ragged_kernel_phase(torch, eng, sources, cfg):
     K=16 solve: each bit-equal to its plain version (timed on that one
     call), then timed beside its bound and, for merge, the library call."""
     from repro_torch.kernels.common import pad_last, take_fill
+    import numpy as np
     from repro_torch.kernels.merge import (merge_scatter_ragged,
                                            merge_scatter_ragged_plain)
     from repro_torch.kernels.relax import (
         fixpoint_operands, relax_dst_ragged_fixpoint_batch,
         relax_dst_ragged_fixpoint_batch_plain)
+    from repro_torch.kernels.relax import relax as relax_mod
     from repro_torch.kernels.send import (send_operands, send_pack_ragged,
                                           send_pack_ragged_plain,
                                           send_payload_bucket)
@@ -455,10 +488,15 @@ def ragged_kernel_phase(torch, eng, sources, cfg):
         f"{int(r_out[2].sum())} relaxations; {int(s_out[2].sum())} sends; "
         f"{int(m_out[2].sum())} receives)")
 
-    rows["relax_ragged"]["ms"] = timed(
-        torch, lambda: relax_dst_ragged_fixpoint_batch(*r_args, **r_kw), 10)
-    rows["relax_ragged"]["bound"] = bound(
-        nbytes(*r_args, *r_out), 2 * int(r_out[2].sum()))
+    r = rows["relax_ragged"]
+    r["ms"], r["mean_ms"] = timed_median(
+        torch, lambda: relax_dst_ragged_fixpoint_batch(*r_args, **r_kw))
+    r["bound"] = bound(nbytes(*r_args, *r_out), 2 * int(r_out[2].sum()))
+    planted_hazard_fault(
+        torch, "relax_ragged",
+        lambda: (lambda **f: relax_mod._launch_ragged(*r_args, **r_kw, **f),
+                 r_ref),
+        lambda: path_case(torch, np, r_args[0].device)[0])
     rows["relax_ragged"]["library_ms"] = None
     rows["send_ragged"]["ms"] = timed(
         torch, lambda: send_pack_ragged(*s_args, **s_kw), 50)
@@ -471,8 +509,81 @@ def ragged_kernel_phase(torch, eng, sources, cfg):
     rows["merge_ragged"]["bound"] = bound(
         nbytes(*m_args, dsh.merge_bounds, *m_out), K * int(m_valid.sum()))
     rows["merge_ragged"]["library_ms"] = merge_library_ms(
-        torch, dsh, m_args[0], incoming, K)
+        torch, dsh, m_args[0], incoming, K)[0]
     return rows
+
+
+def planted_hazard_fault(torch, name, case, fallback):
+    """Kernel 2 or 8 with its hazard re-read off (every source read from
+    its early gather) must differ from its plain version: at the phase's
+    state ``case()`` -> (launch(**fault), ref), else, where that state shows
+    no hazard, on the path-inside-a-tile case ``fallback()``."""
+    for where, make in (("the phase's state", case),
+                        ("the path-inside-a-tile layout", fallback)):
+        launch, ref = make()
+        bad = launch(hazard=False)
+        torch.cuda.synchronize()
+        diff = [i for i, (g, w) in enumerate(zip(bad, ref))
+                if not torch.equal(g, w)]
+        if diff:
+            say(f"  planted fault ({name}, hazard re-read off) differs from "
+                f"the plain version at {where} in outputs {diff}, "
+                f"relaxations {int(bad[-1 if name == 'relax_ragged' else 4].sum())}"
+                f" vs {int(ref[-1 if name == 'relax_ragged' else 4].sum())}")
+            return
+    fail(f"{name}: the planted fault (hazard re-read off) equals the plain "
+         f"version")
+
+
+def path_case(torch, np, dev):
+    """Kernels 2 and 8 on a layout where a hazard must show: 128 vertices on
+    2 shards (ragged, VB 32, EB 4), a path 0 -> 1 -> ... -> 30 inside vertex
+    tile 0 of shard 0 (hops of weight 1, four to a chunk) and a few cut
+    edges; row 0 holds 10 v on the path, all in the frontier, so a later
+    chunk reads what an earlier chunk of the same tile improved. Returns
+    (kernel 2 case, kernel 8 case), each a (launch(**fault), plain result)
+    pair for ``planted_hazard_fault``."""
+    from repro_torch.core import build_shards
+    from repro_torch.graph import csr_from_coo
+    from repro_torch.kernels.relax import (fixpoint_operands,
+                                           relax_dst_ragged_fixpoint_batch_plain)
+    from repro_torch.kernels.relax import relax as relax_mod
+    from repro_torch.kernels.round import (fused_round_operands,
+                                           fused_round_ragged_plain)
+    from repro_torch.kernels.round import round as round_mod
+    n, k = 128, 3
+    src = np.r_[np.arange(30), 30, 5, 70, 100]
+    dst = np.r_[np.arange(1, 31), 70, 100, 71, 101]
+    sh = build_shards(csr_from_coo(src, dst, np.ones(len(src), np.float32),
+                                   n), 2, enumerate_triangles=False,
+                      layout="ragged", relax_vb=32, relax_eb=4, send_sb=32,
+                      send_eb=4, merge_vb=32, merge_eb=4).to(dev)
+    P, block = sh.n_parts, sh.block
+    dist = torch.full((P, k, block), float("inf"), device=dev)
+    dist[:, :, :31] = 10.0 * torch.arange(31, device=dev)
+    front = dist < float("inf")
+    pruned = torch.zeros((P, sh.e_loc + sh.e_cut), dtype=torch.bool,
+                         device=dev)
+    src_r, w_r, rel_r, eid_r, ct_r = sh.relax_layout
+    d, f, prn = fixpoint_operands(dist, front, pruned[:, :sh.e_loc], eid_r,
+                                  -(-block // 32) * 32)
+    r_args = (d, f, ct_r, src_r, w_r, rel_r, prn)
+    r_kw = dict(vb=32, n_sweeps=2)
+    relax = ((lambda **x: relax_mod._launch_ragged(*r_args, **r_kw, **x)),
+             relax_dst_ragged_fixpoint_batch_plain(*r_args, **r_kw))
+    live = torch.ones((P, k), dtype=torch.bool, device=dev)
+    last = torch.full((P, k, sh.n_slots), float("inf"), device=dev)
+    inc = torch.full((P, k, sh.recv_idx.shape[-1] * P), float("inf"),
+                     device=dev)
+    ops = fused_round_operands(
+        dist, front, live, inc.reshape(P, k, -1), last, sh.slot_valid,
+        sh.relax_layout, sh.send_layout, sh.merge_layout,
+        pruned[:, :sh.e_loc], pruned[:, sh.e_loc:], vb=32, sb=32,
+        dense=False)
+    kw = dict(vb=32, sb=32, n_sweeps=2, dense=False)
+    rnd = ((lambda **x: round_mod._launch_ragged(*ops, **kw, **x)),
+           fused_round_ragged_plain(*ops, **kw))
+    return relax, rnd
 
 
 def tensors(*items):
@@ -498,6 +609,7 @@ def round_kernel_phase(torch, np, eng, sources, cfg, name):
                                            fused_round_ragged_plain,
                                            fused_round_tiled,
                                            fused_round_tiled_plain)
+    from repro_torch.kernels.round import round as round_mod
     kernel, plain = ((fused_round_ragged, fused_round_ragged_plain)
                      if name == "round_ragged"
                      else (fused_round_tiled, fused_round_tiled_plain))
@@ -516,6 +628,7 @@ def round_kernel_phase(torch, np, eng, sources, cfg, name):
         rng.random(shape) < 0.01, rng.uniform(0, 20, shape),
         np.inf).astype(np.float32)).to(carry.dist.device)
     kw = dict(vb=dsh.rx_vb, sb=dsh.tx_sb, n_sweeps=cfg.pallas_sweeps)
+    ragged = name == "round_ragged"
     row, errs = {}, []
     for dense, incoming in ((False, bucket), (True, dense_inc)):
         ops = fused_round_operands(
@@ -527,7 +640,12 @@ def round_kernel_phase(torch, np, eng, sources, cfg, name):
         out = kernel(*ops, dense=dense, **kw)
         ref, plain_ms = once(torch, lambda: plain(*ops, dense=dense, **kw))
         errs.append(compare(torch, name, out, ref))
-        ms = timed(torch, lambda: kernel(*ops, dense=dense, **kw), 5)
+        mean = None
+        if ragged:
+            ms, mean = timed_median(
+                torch, lambda: kernel(*ops, dense=dense, **kw))
+        else:
+            ms = timed(torch, lambda: kernel(*ops, dense=dense, **kw), 5)
         # operations: an add and a min per relaxation and per live cut edge
         # and query, a min per delivered message (or row entry) and query
         tx_w, tx_prn = ops[8][1], ops[8][3]
@@ -537,15 +655,33 @@ def round_kernel_phase(torch, np, eng, sources, cfg, name):
         n_ops = 2 * int(out[4].sum()) + 2 * K * live_cut + merges
         b = bound(nbytes(*tensors(*ops), *out), n_ops)
         say(f"  {name} ({'dense' if dense else 'bucket'} incoming): "
-            f"{ms:.4f} ms kernel, {plain_ms:.2f} ms plain, bound {b[0]:.5f} "
+            f"{ms:.4f} ms kernel"
+            + (f" (median; mean {mean:.4f})" if ragged else "")
+            + f", {plain_ms:.2f} ms plain, bound {b[0]:.5f} "
             f"ms ({b[1]}); {int(torch.isfinite(incoming).sum())} incoming "
             f"values, {int(out[4].sum())} relaxations, "
             f"{int(out[5].sum())} sends, "
             f"residual rows {int((out[1] > 0).any(-1).sum())}")
         if not dense:
-            row = dict(ms=ms, plain_ms=plain_ms, bound=b, library_ms=None)
+            row = dict(ms=ms, mean_ms=mean, plain_ms=plain_ms, bound=b,
+                       library_ms=None)
+            if ragged:
+                launch = (lambda **f: round_mod._launch_ragged(
+                    *ops, dense=dense, **kw, **f))
+                planted_hazard_fault(torch, name, lambda: (launch, ref),
+                                     lambda: path_case(torch, np,
+                                                       ops[0].device)[1])
     row["err"] = max(errs)
     return {name: row}
+
+
+def solve_median(eng, sources, what: str, n: int = 5):
+    """The host wall of ``n`` more solves of ``sources``: median, min and
+    max, printed."""
+    import statistics
+    walls = [eng.solve(sources).wall_s for _ in range(n)]
+    say(f"{what}: median of {n} solves {statistics.median(walls):.4f} s "
+        f"(min {min(walls):.4f}, max {max(walls):.4f})")
 
 
 def check_fused(res_f, res_s, launches, ragged: bool, what: str) -> int:
@@ -1346,6 +1482,7 @@ def main():
     say(f"main path: 16 queries converged, 2 match scipy Dijkstra "
         f"({time.perf_counter() - t0:.1f} s); launches per K=16 solve "
         f"ragged {ragged_in_main}, dense {dense_in_main}")
+    solve_median(eng7, src7, "main path K=16")
 
     # ---- fused: round="fused" on the same shards and sources --------------
     eng7f = SsspEngine.build(eng7.shards, cfg_f)
@@ -1369,6 +1506,7 @@ def main():
             f"{int(r.stats.relaxations)} relaxations, {mteps:.1f} MTEPS")
     say(f"fused path: 16 queries converged, equal to the staged solves but "
         f"n_dispatches; launches per K=16 solve {fused_launches}")
+    solve_median(eng7f, src7, "fused path K=16")
     profile_run(torch, lambda: eng7.solve(src7),
                 out_dir / "chip_smoke_trace_1e7.json",
                 "scale-1e7 ragged staged K=16")

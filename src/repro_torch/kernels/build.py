@@ -136,6 +136,10 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def ptr_or_null(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None) if t is None else ptr(t)
+
+
 def signature(n_ptr: int, n_int: int) -> list:
     """argtypes of an entry point: pointers, then ints, then the stream."""
     return [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]

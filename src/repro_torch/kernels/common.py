@@ -65,3 +65,33 @@ def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor):
             raise ValueError(
                 f"{name}: expected contiguous CUDA {dtype}, got "
                 f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+
+
+def check_chain(name: str, eb: int, vb: int, *tensors: torch.Tensor):
+    """Raise unless the ragged chain (csrc/sweeps_ragged.cuh) takes the
+    operands: EB a multiple of 4 and 16-byte aligned layout planes (the
+    ring is fed by bulk copies) and rows (read four floats at a time), VB a
+    multiple of 32 (a warp's vertices are one word of the bitmasks)."""
+    if eb % 4 or vb % 32 or any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: chunks of {eb} edges, tiles of {vb} "
+                         f"vertices or storage not 16-byte aligned: the "
+                         f"ragged chain needs EB % 4 == 0, VB % 32 == 0 and "
+                         f"16-byte aligned rows and layout planes")
+
+
+def ragged_scratch(name: str, lib, symbol: str, rows: int, dims, device):
+    """The ragged chain's frontier and improved bitmasks in device memory,
+    [rows, bytes / 4] int32, when they do not fit beside the ring in shared
+    memory; None when they do. ``symbol`` (called with ``dims``: bp,
+    n_vtiles, eb, vb[, sb]) gives the bytes a row needs, 0 when they fit and
+    -1 when the row is past the chain's cap (the ring, window and a byte a
+    vertex tile must fit in shared memory), which raises."""
+    nbytes = getattr(lib, symbol)(*dims)
+    if nbytes < 0:
+        raise ValueError(
+            f"{name}: a row of {dims[1]} vertex tiles of {dims[3]} is past the "
+            f"ragged chain's cap (its shared memory holds a byte a vertex "
+            f"tile beside the ring and window); use more shards")
+    if nbytes == 0:
+        return None
+    return torch.empty((rows, nbytes // 4), dtype=torch.int32, device=device)

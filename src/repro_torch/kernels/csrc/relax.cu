@@ -30,23 +30,30 @@
 //
 // What bounds the fixpoint kernels: the order. Each chunk reads the row
 // that every earlier chunk of the sweep wrote, so the work of one row is a
-// chain of n_sweeps * chunks-per-shard dependent steps, each a gather, a
-// block barrier, a shared-memory reduce and a barrier. Bytes are not the
-// limit. The ragged layout shortens that chain to the chunks that hold
-// edges.
+// chain of n_sweeps * chunks-per-shard dependent steps. Bytes are not the
+// limit.
 //
-// Design of the fixpoint kernels: one CTA per (shard, query) row, a grid
-// of P*K (a grid of 1 for relax_fixpoint). The CTA walks sweeps -> chunks
-// in the Pallas grid order, which reproduces the reference's sequence of
-// reads and writes exactly, so the relaxation count is exact and not
-// merely bounded. Per chunk every thread gathers and atomicMins its
-// candidates into a shared VB-tile (tile_min_into); after a barrier the
-// tile is min'd into the row, then reset. The gathers of a chunk all
-// precede its writes, as in the reference. The rows (live distances,
-// previous sweep, frontier) stay in global memory, reached through L1 and
-// L2. Parallelism is only P*K CTAs: this is the simple, exact design, to
-// be made faster later. One template serves both layouts; kRagged picks
-// the tile map.
+// Design of the dense fixpoint kernels (1 and 9): one CTA per (shard,
+// query) row, a grid of P*K (a grid of 1 for relax_fixpoint), walking
+// sweeps -> chunks in the Pallas grid order (sweeps.cuh), which reproduces
+// the reference's sequence of reads and writes exactly, so the relaxation
+// count is exact and not merely bounded. Per chunk every thread gathers and
+// atomicMins its candidates into a shared VB-tile (tile_min_into); after a
+// barrier the tile is min'd into the row, then reset. The rows (live
+// distances, previous sweep, frontier) stay in global memory, reached
+// through L1 and L2, so each chunk step waits on a chain of device-memory
+// round trips: the simple, exact design.
+//
+// Design of the ragged fixpoint kernel (2), redesigned for Hopper: the same
+// grid and the same order, on the chain of sweeps_ragged.cuh: a producer
+// warp streams the layout through a ring of shared-memory stages with bulk
+// copies, the frontier and the improved set are bitmasks in shared memory,
+// and the distance gathers are issued two chunks ahead, a source whose tile
+// may have been written since being read again from a shared window of the
+// live tiles. What bounds it now: the chain of chunk steps, each the SM's
+// own work (an L1 request per early gather, shared-memory reads and
+// atomics) between two barriers of the consumer warps; no step waits on
+// device memory.
 //
 // The two single sweeps (relax_sweep, relax_masked) are Jacobi: every
 // gather reads the INPUT distances, so vertex tiles are independent and
@@ -61,14 +68,14 @@
 // atomicAdd per CTA (exact in any order; the wrapper zeroes nrel first).
 // Both take any non-NaN distances (tile_reduce.cuh: min_key).
 #include "sweeps.cuh"
+#include "sweeps_ragged.cuh"
 
 namespace {
 
-// One (shard, query) row's fixpoint: the rows at offset roff; the layout
-// pointers (and ct, the chunk->tile row, when ragged) are the shard's own.
-template <bool kRagged>
+// One (shard, query) row's dense fixpoint: the rows at offset roff; the
+// layout pointers are the shard's own.
 __device__ void fixpoint_row(const float* __restrict__ dist,
-                             const float* __restrict__ front, const int* ct,
+                             const float* __restrict__ front,
                              const int* src_t, const float* w_t,
                              const int* dstrel_t, const int* pruned_t,
                              float* out, float* resid, int* nrel, float* prev,
@@ -96,9 +103,9 @@ __device__ void fixpoint_row(const float* __restrict__ dist,
   if (tid == 0) total = 0;
   const int active = __syncthreads_or(any);
 
-  const int count = repro::relax_sweeps<kRagged>(
-      o, pv, fc, tile, active, ct, src_t, w_t, dstrel_t, pruned_t, bp,
-      n_vtiles, n_rows, n_chunks, eb, vb, n_sweeps);
+  const int count = repro::relax_sweeps(
+      o, pv, fc, tile, active, src_t, w_t, dstrel_t, pruned_t, bp, n_rows,
+      n_chunks, eb, vb, n_sweeps);
 
   for (int v = tid; v < bp; v += nt) resid[roff + v] = o[v] < pv[v] ? 1.f : 0.f;
   atomicAdd(&total, count);
@@ -106,28 +113,82 @@ __device__ void fixpoint_row(const float* __restrict__ dist,
   if (tid == 0) *nrel = total;
 }
 
-template <bool kRagged>
 __global__ void __launch_bounds__(repro::kThreads)
 relax_fixpoint_kernel(const float* __restrict__ dist,
                       const float* __restrict__ front,
-                      const int* __restrict__ ctile,
                       const int* __restrict__ src_t,
                       const float* __restrict__ w_t,
                       const int* __restrict__ dstrel_t,
                       const int* __restrict__ pruned_t, float* out,
                       float* resid, int* nrel, float* prev, float* fcur, int K,
-                      int bp, int n_vtiles, int n_rows, int n_chunks, int eb,
-                      int vb, int n_sweeps) {
+                      int bp, int n_vtiles, int n_chunks, int eb, int vb,
+                      int n_sweeps) {
   const int row = blockIdx.x;              // p * K + q
   const int p = row / K;
-  // n_rows chunks of eb edges per shard: n_vtiles * n_chunks dense,
-  // total_chunks ragged
-  const long long lay = static_cast<long long>(p) * n_rows * eb;
-  const int* ct = kRagged ? ctile + static_cast<long long>(p) * n_rows : nullptr;
-  fixpoint_row<kRagged>(dist, front, ct, src_t + lay, w_t + lay,
-                        dstrel_t + lay, pruned_t + lay, out, resid, nrel + row,
-                        prev, fcur, static_cast<long long>(row) * bp, bp,
-                        n_vtiles, n_rows, n_chunks, eb, vb, n_sweeps);
+  const long long lay = static_cast<long long>(p) * n_vtiles * n_chunks * eb;
+  fixpoint_row(dist, front, src_t + lay, w_t + lay, dstrel_t + lay,
+               pruned_t + lay, out, resid, nrel + row, prev, fcur,
+               static_cast<long long>(row) * bp, bp, n_vtiles,
+               n_vtiles * n_chunks, n_chunks, eb, vb, n_sweeps);
+}
+
+// Kernel 2: one block of ragged::kThreads per (shard, query) row on the
+// chain of sweeps_ragged.cuh. vstate: the rows' vertex state in device
+// memory, used only when it does not fit in shared memory (bits_smem 0).
+template <bool kHazard>
+__global__ void __launch_bounds__(repro::ragged::kThreads, 1)
+relax_ragged_kernel(const float* __restrict__ dist,
+                    const float* __restrict__ front,
+                    const int* __restrict__ ctile, const int* src_r,
+                    const float* w_r, const int* dstrel_r, const int* pruned_r,
+                    float* out, float* resid, int* nrel, uint32_t* vstate,
+                    int K, int bp, int n_vtiles, int rows, int eb, int vb,
+                    int n_sweeps, int bits_smem) {
+  namespace rg = repro::ragged;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int row = blockIdx.x;              // p * K + q
+  const int p = row / K;
+  const int tid = threadIdx.x;
+  const long long roff = static_cast<long long>(row) * bp;
+  const int vbytes = rg::vstate_bytes(bp);
+  const rg::Layout L =
+      rg::smem_layout(eb, vb, n_vtiles, 0, bits_smem ? vbytes : 0);
+  uint32_t* vs =
+      bits_smem ? reinterpret_cast<uint32_t*>(smem + L.vstate)
+                : vstate + static_cast<long long>(row) * (vbytes / 4);
+  const int words = rg::bit_words(bp);
+  const long long lay = static_cast<long long>(p) * rows * eb;
+  const rg::Chain ch{out + roff, {vs, vs + words},
+                     ctile + static_cast<long long>(p) * rows, src_r + lay,
+                     w_r + lay, dstrel_r + lay, pruned_r + lay, bp, n_vtiles,
+                     rows, eb, vb, n_sweeps};
+  int* total = reinterpret_cast<int*>(smem + L.ctl) + 4;
+  if (tid == 0) *total = 0;
+  // the row, the frontier bitmask, the improved one empty (bp is a
+  // multiple of 32: four vertices a lane, a word per 8 lanes)
+  const float4* d4 = reinterpret_cast<const float4*>(dist + roff);
+  const float4* f4 = reinterpret_cast<const float4*>(front + roff);
+  float4* o4 = reinterpret_cast<float4*>(ch.o);
+  unsigned any = 0;
+  // (i - lane keeps the loop warp-uniform)
+  for (int i = tid; i - (tid & 31) < bp / 4; i += rg::kThreads) {
+    const bool in = i < bp / 4;
+    unsigned nib = 0;
+    if (in) {
+      o4[i] = d4[i];
+      nib = rg::nibble(f4[i]);
+      if ((i & 7) == 0) vs[words + (i >> 3)] = 0;
+    }
+    any |= nib;
+    rg::pack_nibbles(vs, i, nib, in);
+  }
+  const int active = __syncthreads_or(any != 0);
+  int r;
+  const int count = rg::sweeps<kHazard>(smem, L, ch, active, &r);
+  rg::unpack_bits(resid + roff, ch.bits[r], bp, rg::kThreads);
+  if (count) atomicAdd(total, count);
+  __syncthreads();
+  if (tid == 0) nrel[row] = *total;
 }
 
 // Kernel 9: the single-query fixpoint, one CTA over the whole block.
@@ -140,9 +201,9 @@ relax_single_kernel(const float* __restrict__ dist,
                     const int* __restrict__ pruned_t, float* out, float* resid,
                     int* nrel, float* prev, float* fcur, int bp, int n_vtiles,
                     int n_chunks, int eb, int vb, int n_sweeps) {
-  fixpoint_row<false>(dist, front, nullptr, src_t, w_t, dstrel_t, pruned_t,
-                      out, resid, nrel, prev, fcur, 0, bp, n_vtiles,
-                      n_vtiles * n_chunks, n_chunks, eb, vb, n_sweeps);
+  fixpoint_row(dist, front, src_t, w_t, dstrel_t, pruned_t, out, resid, nrel,
+               prev, fcur, 0, bp, n_vtiles, n_vtiles * n_chunks, n_chunks, eb,
+               vb, n_sweeps);
 }
 
 // Kernels 11 (kMasked false) and 10 (kMasked true): one Jacobi sweep, one
@@ -190,20 +251,26 @@ relax_sweep_kernel(const float* __restrict__ dist,
   if (kMasked && tid == 0 && total) atomicAdd(nrel, total);
 }
 
-template <bool kRagged>
-int launch(const float* dist, const float* front, const int* ctile,
-           const int* src_t, const float* w_t, const int* dstrel_t,
-           const int* pruned_t, float* out, float* resid, int* nrel,
-           float* prev, float* fcur, int P, int K, int bp, int n_vtiles,
-           int n_rows, int n_chunks, int eb, int vb, int n_sweeps,
-           cudaStream_t stream) {
-  if (P * K == 0) return 0;
-  const size_t smem = static_cast<size_t>(vb) * sizeof(int);
-  cudaError_t err = repro::allow_smem(relax_fixpoint_kernel<kRagged>, smem);
+template <bool kHazard>
+int launch_ragged(const float* dist, const float* front, const int* ctile,
+                  const int* src_r, const float* w_r, const int* dstrel_r,
+                  const int* pruned_r, float* out, float* resid, int* nrel,
+                  uint32_t* vstate, int P, int K, int bp, int n_vtiles,
+                  int rows, int eb, int vb, int n_sweeps,
+                  cudaStream_t stream) {
+  namespace rg = repro::ragged;
+  const int need = rg::scratch_bytes(bp, n_vtiles, eb, vb, 0);
+  if (need < 0 || (need > 0 && vstate == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bits_smem = need == 0;
+  const rg::Layout L = rg::smem_layout(
+      eb, vb, n_vtiles, 0, bits_smem ? rg::vstate_bytes(bp) : 0);
+  auto kernel = relax_ragged_kernel<kHazard>;
+  cudaError_t err = repro::allow_smem(kernel, L.total);
   if (err != cudaSuccess) return static_cast<int>(err);
-  relax_fixpoint_kernel<kRagged><<<P * K, repro::kThreads, smem, stream>>>(
-      dist, front, ctile, src_t, w_t, dstrel_t, pruned_t, out, resid, nrel,
-      prev, fcur, K, bp, n_vtiles, n_rows, n_chunks, eb, vb, n_sweeps);
+  kernel<<<P * K, rg::kThreads, L.total, stream>>>(
+      dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, out, resid, nrel,
+      vstate, K, bp, n_vtiles, rows, eb, vb, n_sweeps, bits_smem);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -222,23 +289,43 @@ extern "C" int relax_fixpoint_batch(const float* dist, const float* front,
                                     float* prev, float* fcur, int P, int K,
                                     int bp, int n_vtiles, int n_chunks, int eb,
                                     int vb, int n_sweeps, cudaStream_t stream) {
-  return launch<false>(dist, front, nullptr, src_t, w_t, dstrel_t, pruned_t,
-                       out, resid, nrel, prev, fcur, P, K, bp, n_vtiles,
-                       n_vtiles * n_chunks, n_chunks, eb, vb, n_sweeps,
-                       stream);
+  if (P * K == 0) return 0;
+  const size_t smem = static_cast<size_t>(vb) * sizeof(int);
+  cudaError_t err = repro::allow_smem(relax_fixpoint_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  relax_fixpoint_kernel<<<P * K, repro::kThreads, smem, stream>>>(
+      dist, front, src_t, w_t, dstrel_t, pruned_t, out, resid, nrel, prev,
+      fcur, K, bp, n_vtiles, n_chunks, eb, vb, n_sweeps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of vertex state a row of the ragged kernel needs in device memory:
+// 0 when its bitmasks fit in shared memory, -1 when the row is past the
+// chain's cap (sweeps_ragged.cuh: layout_fits).
+extern "C" int relax_ragged_scratch_bytes(int bp, int n_vtiles, int eb,
+                                          int vb) {
+  return repro::ragged::scratch_bytes(bp, n_vtiles, eb, vb, 0);
 }
 
 // Ragged layout [P, total_chunks, eb] with the chunk->tile map ctile
-// [P, total_chunks].
+// [P, total_chunks]; vstate [P * K, relax_ragged_scratch_bytes / 4] or null
+// when that is 0. hazard 0 is the planted fault of the checks (every
+// source read from its early gather).
 extern "C" int relax_ragged_fixpoint_batch(
     const float* dist, const float* front, const int* ctile, const int* src_r,
     const float* w_r, const int* dstrel_r, const int* pruned_r, float* out,
-    float* resid, int* nrel, float* prev, float* fcur, int P, int K, int bp,
+    float* resid, int* nrel, uint32_t* vstate, int P, int K, int bp,
     int n_vtiles, int total_chunks, int eb, int vb, int n_sweeps,
-    cudaStream_t stream) {
-  return launch<true>(dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, out,
-                      resid, nrel, prev, fcur, P, K, bp, n_vtiles,
-                      total_chunks, 1, eb, vb, n_sweeps, stream);
+    int hazard, cudaStream_t stream) {
+  if (P * K == 0) return 0;
+  if (!hazard)
+    return launch_ragged<false>(dist, front, ctile, src_r, w_r, dstrel_r,
+                                pruned_r, out, resid, nrel, vstate, P, K, bp,
+                                n_vtiles, total_chunks, eb, vb, n_sweeps,
+                                stream);
+  return launch_ragged<true>(dist, front, ctile, src_r, w_r, dstrel_r,
+                             pruned_r, out, resid, nrel, vstate, P, K, bp,
+                             n_vtiles, total_chunks, eb, vb, n_sweeps, stream);
 }
 
 // Kernel 9: one query, dense layout [n_vtiles, n_chunks, eb]; rows [bp],

@@ -1,14 +1,15 @@
-// The Gauss-Seidel sweep chain of one (shard, query) row, shared by the
-// relax kernel (csrc/relax.cu) and the fused round (csrc/round.cu).
+// The Gauss-Seidel sweep chain of one (shard, query) row over the dense
+// layout, shared by the dense relax kernels 1 and 9 (csrc/relax.cu) and the
+// dense fused round, kernel 7 (csrc/round.cu). The ragged kernels 2 and 8
+// run the chain of sweeps_ragged.cuh.
 //
 // Up to n_sweeps frontier-chased min-plus sweeps. A sweep walks the shard's
 // n_rows edge chunks of eb edges in layout order; chunk c lands in vertex
-// tile c / n_chunks (dense layout) or min(ct[c], n_vtiles - 1) (ragged
-// layout, whose padding chunks carry w = +inf and are no-ops). Each chunk
-// gathers o[src] + w for the edges whose source is in the sweep's frontier
-// (Trishla-pruned edges count as +inf), min-reduces them per destination in
-// the shared tile (tile_min_into) and, after a barrier, mins the tile into
-// the row, so later chunks see earlier improvements. The gathers of a chunk
+// tile c / n_chunks. Each chunk gathers o[src] + w for the edges whose
+// source is in the sweep's frontier (Trishla-pruned edges count as +inf),
+// min-reduces them per destination in the shared tile (tile_min_into) and,
+// after a barrier, mins the tile into the row, so later chunks see earlier
+// improvements. The gathers of a chunk
 // all precede its writes, as in the reference. A sweep after the first
 // opens by making the vertices improved in the previous sweep the frontier;
 // a row whose sweep changed nothing stops (the per-query early-out).
@@ -24,13 +25,12 @@ namespace repro {
 // the row starts with a frontier. tile: [vb] shared ints, +inf bits on entry
 // and on exit. Returns this thread's share of the relaxation count; on
 // return, o[v] < pv[v] is the residual frontier.
-template <bool kRagged>
-__device__ int relax_sweeps(float* o, float* pv, float* fc, int* tile,
-                            int active, const int* ct, const int* src_t,
-                            const float* w_t, const int* dstrel_t,
-                            const int* pruned_t, int bp, int n_vtiles,
-                            int n_rows, int n_chunks, int eb, int vb,
-                            int n_sweeps) {
+__device__ inline int relax_sweeps(float* o, float* pv, float* fc, int* tile,
+                                   int active, const int* src_t,
+                                   const float* w_t, const int* dstrel_t,
+                                   const int* pruned_t, int bp, int n_rows,
+                                   int n_chunks, int eb, int vb,
+                                   int n_sweeps) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   int count = 0;
@@ -49,7 +49,7 @@ __device__ int relax_sweeps(float* o, float* pv, float* fc, int* tile,
       if (!active) break;
     }
     for (int c = 0; c < n_rows; ++c) {
-      const int t = kRagged ? min(ct[c], n_vtiles - 1) : c / n_chunks;
+      const int t = c / n_chunks;
       float* ot = o + static_cast<long long>(t) * vb;
       const long long base = static_cast<long long>(c) * eb;
       for (int e = tid; e < eb; e += nt) {

@@ -23,10 +23,13 @@ wrappers check shapes and dtypes, not index values.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import INF, check_cuda
+from repro_torch.kernels.common import (INF, check_chain, check_cuda,
+                                        ragged_scratch)
 from repro_torch.kernels.tile_reduce import tile_min_batch
 
 
@@ -168,14 +171,16 @@ def relax_dst_tiled_plain(dist_pad, src_t, w_t, dstrel_t, *, vb: int):
 
 
 _SIGNATURES = {"relax_fixpoint_batch": build.signature(11, 8),
-               "relax_ragged_fixpoint_batch": build.signature(12, 8),
+               "relax_ragged_fixpoint_batch": build.signature(11, 9),
+               "relax_ragged_scratch_bytes": [ctypes.c_int] * 4,
                "relax_fixpoint": build.signature(11, 6),
                "relax_masked": build.signature(8, 4),
                "relax_sweep": build.signature(5, 4)}
 
 
 def _outputs(dist):
-    """out, resid, nrel, and the scratch rows prev and fcur."""
+    """out, resid, nrel, and the dense chain's scratch rows prev and
+    fcur."""
     P, K, _ = dist.shape
     return (torch.empty_like(dist), torch.empty_like(dist),
             torch.empty((P, K), dtype=torch.int32, device=dist.device),
@@ -211,11 +216,21 @@ def relax_dst_tiled_fixpoint_batch(dist, front, src_t, w_t, dstrel_t,
 def relax_dst_ragged_fixpoint_batch(dist, front, ctile, src_r, w_r, dstrel_r,
                                     pruned_r, *, vb: int, n_sweeps: int):
     """Same contract as the plain version. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (one CTA per (shard, query))."""
+    version; CUDA tensors launch the kernel (one block per (shard, query)
+    on the chain of ``csrc/sweeps_ragged.cuh``)."""
     if not dist.is_cuda:
         return relax_dst_ragged_fixpoint_batch_plain(
             dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, vb=vb,
             n_sweeps=n_sweeps)
+    return _launch_ragged(dist, front, ctile, src_r, w_r, dstrel_r, pruned_r,
+                          vb=vb, n_sweeps=n_sweeps)
+
+
+def _launch_ragged(dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, *,
+                   vb: int, n_sweeps: int, hazard: bool = True):
+    """Kernel 2's launch. ``hazard=False`` is a planted fault for the
+    checks alone (every source read from its early gather), which must
+    differ from the plain version."""
     P, K, bp = dist.shape
     _, total_chunks, eb = src_r.shape
     if bp % vb or front.shape != dist.shape or ctile.shape != (
@@ -225,16 +240,22 @@ def relax_dst_ragged_fixpoint_batch(dist, front, ctile, src_r, w_r, dstrel_r,
                          f"and {total_chunks} chunks")
     check_cuda("relax_ragged", torch.float32, dist, front, w_r)
     check_cuda("relax_ragged", torch.int32, ctile, src_r, dstrel_r, pruned_r)
+    check_chain("relax_ragged", eb, vb, dist, front, src_r, w_r, dstrel_r,
+                pruned_r)
     lib = build.load("relax", _SIGNATURES)
-    outs = _outputs(dist)
+    outs = (torch.empty_like(dist), torch.empty_like(dist),
+            torch.empty((P, K), dtype=torch.int32, device=dist.device))
+    vstate = ragged_scratch("relax_ragged", lib, "relax_ragged_scratch_bytes",
+                            P * K, (bp, bp // vb, eb, vb), dist.device)
     stream = torch.cuda.current_stream(dist.device).cuda_stream
     code = lib.relax_ragged_fixpoint_batch(
         *map(build.ptr, (dist, front, ctile, src_r, w_r, dstrel_r, pruned_r,
                          *outs)),
-        P, K, bp, bp // vb, total_chunks, eb, vb, n_sweeps, stream)
+        build.ptr_or_null(vstate), P, K, bp, bp // vb, total_chunks, eb, vb,
+        n_sweeps, int(hazard), stream)
     build.check(lib, "relax_ragged", code)
     build.count_launch("relax_ragged")
-    return outs[:3]
+    return outs
 
 
 def _single_operands(name, rows, planes, vb: int):

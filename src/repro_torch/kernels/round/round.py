@@ -35,7 +35,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_cuda
+from repro_torch.kernels.common import (check_chain, check_cuda,
+                                        chunk_bounds, ragged_scratch)
 from repro_torch.kernels.merge.merge import (merge_scatter_ragged_plain,
                                             merge_scatter_tiled_plain)
 from repro_torch.kernels.relax.relax import (
@@ -93,7 +94,8 @@ def fused_round_ragged_plain(dist, front, live, incoming, last, valid,
 
 
 _SIGNATURES = {"fused_round_tiled": build.signature(25, 15),
-               "fused_round_ragged": build.signature(28, 15)}
+               "fused_round_ragged": build.signature(27, 16),
+               "round_ragged_scratch_bytes": [ctypes.c_int] * 5}
 
 
 def _check(name, dist, front, live, incoming, last, valid, mx_layout,
@@ -116,28 +118,26 @@ def _check(name, dist, front, live, incoming, last, valid, mx_layout,
                *tx_layout[:1], *tx_layout[2:], *(mx_layout or ()))
 
 
-def _launch(symbol, counter, rows, layouts, dims, *, vb, sb, n_sweeps,
-            dense):
-    """Allocate the outputs and the scratch rows (prev, fcur), launch one
-    CTA per (shard, query) with ``layouts`` in the C argument order (None
-    for a null pointer) and count the launch."""
-    dist, last, incoming = rows[0], rows[4], rows[3]
-    P, K, bp = dist.shape
-    lib = build.load("round", _SIGNATURES)
-    outs = (torch.empty_like(dist), torch.empty_like(dist),
+def _outputs(dist, last):
+    """out, resid, send_val, new_last, nrel, sends."""
+    P, K, _ = dist.shape
+    return (torch.empty_like(dist), torch.empty_like(dist),
             torch.empty_like(last), torch.empty_like(last),
             torch.empty((P, K), dtype=torch.int32, device=dist.device),
-            torch.empty((P, K), dtype=torch.int32, device=dist.device),
-            torch.empty_like(dist), torch.empty_like(dist))
-    ptrs = [ctypes.c_void_p(None) if a is None else build.ptr(a)
-            for a in (*rows, *layouts, *outs)]
+            torch.empty((P, K), dtype=torch.int32, device=dist.device))
+
+
+def _launch(lib, symbol, counter, rows, layouts, outs, scratch, ints):
+    """Launch one block per (shard, query) with ``rows``, ``layouts`` (None
+    for a null pointer), ``outs`` and ``scratch`` in the C argument order,
+    then ``ints``; count the launch."""
+    dist = rows[0]
+    ptrs = [build.ptr_or_null(a) for a in (*rows, *layouts, *outs, *scratch)]
     stream = torch.cuda.current_stream(dist.device).cuda_stream
-    code = getattr(lib, symbol)(
-        *ptrs, P, K, bp, last.shape[-1], incoming.shape[-1], int(dense),
-        *dims, vb, sb, n_sweeps, stream)
+    code = getattr(lib, symbol)(*ptrs, *ints, stream)
     build.check(lib, counter, code)
     build.count_launch(counter)
-    return outs[:6]
+    return outs
 
 
 def fused_round_tiled(dist, front, live, incoming, last, valid, mx_layout,
@@ -159,23 +159,42 @@ def fused_round_tiled(dist, front, live, incoming, last, valid, mx_layout,
                          f"and slots of {sp} by {sb}")
     dims = ((1, 1) if dense else mx_layout[0].shape[2:]) + (
         rx_layout[0].shape[2:] + tx_layout[0].shape[2:])
-    return _launch("fused_round_tiled", "round",
-                   (dist, front, live, incoming, last, valid),
+    P, K, _ = dist.shape
+    # the dense chain's scratch rows prev and fcur
+    scratch = (torch.empty_like(dist), torch.empty_like(dist))
+    return _launch(build.load("round", _SIGNATURES), "fused_round_tiled",
+                   "round", (dist, front, live, incoming, last, valid),
                    (*(mx_layout or (None,) * 3), *rx_layout, *tx_layout),
-                   dims, vb=vb, sb=sb, n_sweeps=n_sweeps, dense=dense)
+                   _outputs(dist, last), scratch,
+                   (P, K, bp, sp, incoming.shape[-1], int(dense), *dims, vb,
+                    sb, n_sweeps))
 
 
 def fused_round_ragged(dist, front, live, incoming, last, valid, mx_layout,
                        rx_layout, tx_layout, *, vb: int, sb: int,
                        n_sweeps: int, dense: bool):
     """Same contract as the plain version. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (one CTA per (shard, query)).
-    Each chunk->tile map must be non-decreasing per shard, as the shard
-    builders make and check it."""
+    version; CUDA tensors launch the kernel (one block per (shard, query):
+    the relax stage on the chain of ``csrc/sweeps_ragged.cuh``, merge and
+    send over warps by tile). Each chunk->tile map must be non-decreasing
+    per shard, as the shard builders make and check it."""
     if not dist.is_cuda:
         return fused_round_ragged_plain(
             dist, front, live, incoming, last, valid, mx_layout, rx_layout,
             tx_layout, vb=vb, sb=sb, n_sweeps=n_sweeps, dense=dense)
+    return _launch_ragged(dist, front, live, incoming, last, valid,
+                          mx_layout, rx_layout, tx_layout, vb=vb, sb=sb,
+                          n_sweeps=n_sweeps, dense=dense)
+
+
+def _launch_ragged(dist, front, live, incoming, last, valid, mx_layout,
+                   rx_layout, tx_layout, *, vb: int, sb: int, n_sweeps: int,
+                   dense: bool, hazard: bool = True):
+    """Kernel 8's launch. Its merge and send take the tile -> chunk ranges
+    of their layouts (``chunk_bounds``, two small searches a launch).
+    ``hazard=False`` is a planted fault for the checks alone (every source
+    of the relax stage read from its early gather), which must differ from
+    the plain version."""
     mx_layout = None if dense else mx_layout
     _check("round_ragged", dist, front, live, incoming, last, valid,
            mx_layout, rx_layout, tx_layout, vb=vb, sb=sb, dense=dense)
@@ -184,12 +203,27 @@ def fused_round_ragged(dist, front, live, incoming, last, valid, mx_layout,
         if lay[-1].shape != lay[0].shape[:2]:
             raise ValueError(f"round_ragged: ctile {tuple(lay[-1].shape)} "
                              f"does not match chunks {tuple(lay[0].shape)}")
-    # the C entry point takes each layout with its chunk->tile map first
-    mx = (None,) * 4 if dense else (mx_layout[-1], *mx_layout[:-1])
+    P, K, bp = dist.shape
+    sp = last.shape[-1]
+    n_vtiles, n_stiles = bp // vb, sp // sb
+    send_bounds = chunk_bounds(tx_layout[-1], n_stiles)
+    eb = rx_layout[0].shape[-1]
+    check_chain("round_ragged", eb, vb, dist, front, incoming,
+                *rx_layout[:4])
+    lib = build.load("round", _SIGNATURES)
+    vstate = ragged_scratch("round_ragged", lib,
+                            "round_ragged_scratch_bytes", P * K,
+                            (bp, n_vtiles, eb, vb, sb), dist.device)
+    # the C entry point takes the merge and send layouts after their tile
+    # ranges, the relax layout after its chunk->tile map
+    mx = (None,) * 4 if dense else (chunk_bounds(mx_layout[-1], n_vtiles),
+                                    *mx_layout[:-1])
     dims = ((1, 1) if dense else mx_layout[0].shape[1:]) + (
         rx_layout[0].shape[1:] + tx_layout[0].shape[1:])
-    return _launch("fused_round_ragged", "round_ragged",
+    return _launch(lib, "fused_round_ragged", "round_ragged",
                    (dist, front, live, incoming, last, valid),
-                   (*mx, rx_layout[-1], *rx_layout[:-1], tx_layout[-1],
+                   (*mx, rx_layout[-1], *rx_layout[:-1], send_bounds,
                     *tx_layout[:-1]),
-                   dims, vb=vb, sb=sb, n_sweeps=n_sweeps, dense=dense)
+                   _outputs(dist, last), (vstate,),
+                   (P, K, bp, sp, incoming.shape[-1], int(dense), *dims, vb,
+                    sb, n_sweeps, int(hazard)))

@@ -11,6 +11,8 @@ there without it:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -410,6 +412,132 @@ def test_fused_engine_on_gpu_matches_cpu(cuda, layout):
         for f in COUNTERS:
             np.testing.assert_array_equal(np.asarray(getattr(on_gpu.stats, f)),
                                           np.asarray(getattr(other.stats, f)))
+
+
+# ------------------ kernels 2 and 8 on the ragged chain: placement, hazard --
+
+def _path_shards():
+    """A hazard that must show: 128 vertices on 2 shards (ragged, VB 32,
+    EB 4), a path 0 -> 1 -> ... -> 30 inside vertex tile 0 of shard 0
+    (four hops a chunk) and a few cut edges."""
+    src = np.r_[np.arange(30), 30, 5, 70, 100]
+    dst = np.r_[np.arange(1, 31), 70, 100, 71, 101]
+    g = tg.csr_from_coo(src, dst, np.ones(len(src), np.float32), 128)
+    return tc.build_shards(g, 2, enumerate_triangles=False, layout="ragged",
+                           relax_vb=32, relax_eb=4, send_sb=32, send_eb=4,
+                           merge_vb=32, merge_eb=4)
+
+
+def _wide_shards():
+    """A row wider than the shared-memory bitmask limit: 2 shards of 2**20
+    vertices (VB 128, EB 512: 8,192 vertex tiles), the path of
+    ``_path_shards`` and 20,000 random edges into the first 64 tiles, from
+    sources anywhere (cut edges from shard 1)."""
+    rng = np.random.default_rng(9)
+    n = 1 << 21
+    src = np.r_[np.arange(30), rng.integers(0, n, 20_000)]
+    dst = np.r_[np.arange(1, 31), rng.integers(0, 8192, 20_000)]
+    w = np.r_[np.ones(30), rng.uniform(0, 20, 20_000)].astype(np.float32)
+    return tc.build_shards(tg.csr_from_coo(src, dst, w, n), 2,
+                           enumerate_triangles=False, layout="ragged")
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_shards(case):
+    return _path_shards() if case == "path" else _wide_shards()
+
+
+def _chain_operands(case, nq, device):
+    """Kernel 8's operands (kernel 2's are among them) at a random mid-solve
+    state, row 0 replaced by 10 v at local vertices v < 31, all in the
+    frontier, +inf elsewhere: a path that improves within one sweep."""
+    sh = _chain_shards(case)
+    ops = _to(_round_operands(sh, nq, False, seed=nq), device)
+    dist, front, live = ops[0], ops[1], ops[2]
+    dist[:, 0] = float("inf")
+    dist[:, 0, :31] = 10.0 * torch.arange(31, device=device)
+    front[:, 0] = 0.0
+    front[:, 0, :31] = 1.0
+    live[:, 0] = 1.0
+    src, w, rel, prn, ct = ops[7]
+    return sh, ops, (dist, front, ct, src, w, rel, prn)
+
+
+@pytest.mark.parametrize("sweeps", [1, 8])
+@pytest.mark.parametrize("nq", [1, 3, 16])
+@pytest.mark.parametrize("case", ["path", "wide"])
+def test_ragged_chain_kernels_match_plain(cuda, case, nq, sweeps):
+    """Kernels 2 and 8 bit-equal to their plain versions, on a path
+    inside one tile and on a row whose bitmasks live in device memory
+    (``*_ragged_scratch_bytes`` > 0)."""
+    from repro_torch.kernels.relax import relax as relax_mod
+    from repro_torch.kernels.round import round as round_mod
+    sh, ops, rargs = _chain_operands(case, nq, cuda)
+    bp = rargs[0].shape[-1]
+    vb, sb = sh.rx_vb, sh.tx_sb
+    need = (build.load("relax", relax_mod._SIGNATURES)
+            .relax_ragged_scratch_bytes(bp, bp // vb, sh.rx_eb, vb),
+            build.load("round", round_mod._SIGNATURES)
+            .round_ragged_scratch_bytes(bp, bp // vb, sh.rx_eb, vb, sb))
+    assert all((n > 0) == (case == "wide") for n in need)
+    rkw = dict(vb=vb, n_sweeps=sweeps)
+    want = relax_dst_ragged_fixpoint_batch_plain(*rargs, **rkw)
+    assert int(want[2].sum()) > 0
+    n0 = build.LAUNCHES["relax_ragged"]
+    for g, w in zip(relax_dst_ragged_fixpoint_batch(*rargs, **rkw), want):
+        assert torch.equal(g, w)
+    assert build.LAUNCHES["relax_ragged"] == n0 + 1
+    kw = dict(vb=vb, sb=sb, n_sweeps=sweeps, dense=False)
+    want = fused_round_ragged_plain(*ops, **kw)
+    n0 = build.LAUNCHES["round_ragged"]
+    for g, w in zip(fused_round_ragged(*ops, **kw), want):
+        assert torch.equal(g, w)
+    assert build.LAUNCHES["round_ragged"] == n0 + 1
+
+
+@pytest.mark.parametrize("nq", [1, 3, 16])
+def test_ragged_chain_planted_fault_is_caught(cuda, nq):
+    """Kernels 2 and 8 with the hazard re-read off (every source read from
+    its early gather) differ from their plain versions on the path."""
+    from repro_torch.kernels.relax import relax as relax_mod
+    from repro_torch.kernels.round import round as round_mod
+    _, ops, rargs = _chain_operands("path", nq, cuda)
+    bad = relax_mod._launch_ragged(*rargs, vb=32, n_sweeps=1, hazard=False)
+    want = relax_dst_ragged_fixpoint_batch_plain(*rargs, vb=32, n_sweeps=1)
+    assert not torch.equal(bad[0], want[0])
+    kw = dict(vb=32, sb=32, n_sweeps=1, dense=False)
+    bad = round_mod._launch_ragged(*ops, **kw, hazard=False)
+    assert not torch.equal(bad[0], fused_round_ragged_plain(*ops, **kw)[0])
+
+
+def test_ragged_chain_row_past_cap_raises(cuda):
+    """A row past the ragged chain's cap (its shared memory holds a byte a
+    vertex tile beside the ring and window: 83,904 tiles for kernel 2,
+    75,200 for kernel 8 at EB 512, VB = SB = 128) raises a ValueError that
+    names it, before any launch."""
+    from repro_torch.kernels.relax import relax as relax_mod
+    from repro_torch.kernels.round import round as round_mod
+    lib_r = build.load("relax", relax_mod._SIGNATURES)
+    lib_x = build.load("round", round_mod._SIGNATURES)
+    vb, eb = 128, 512
+    assert lib_r.relax_ragged_scratch_bytes(83_904 * vb, 83_904, eb, vb) > 0
+    assert lib_r.relax_ragged_scratch_bytes(83_905 * vb, 83_905, eb, vb) == -1
+    assert lib_x.round_ragged_scratch_bytes(75_200 * vb, 75_200, eb, vb,
+                                            vb) > 0
+    assert lib_x.round_ragged_scratch_bytes(75_201 * vb, 75_201, eb, vb,
+                                            vb) == -1
+    # one shard, one query, one chunk of no edges: 90,000 vertex tiles
+    bp = 90_000 * vb
+    dist = torch.zeros((1, 1, bp), device=cuda)
+    front = torch.zeros_like(dist)
+    ct = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    src = torch.zeros((1, 1, eb), dtype=torch.int32, device=cuda)
+    w = torch.full((1, 1, eb), float("inf"), device=cuda)
+    n0 = build.LAUNCHES["relax_ragged"]
+    with pytest.raises(ValueError, match="past the ragged chain's cap"):
+        relax_dst_ragged_fixpoint_batch(dist, front, ct, src, w, src, src,
+                                        vb=vb, n_sweeps=1)
+    assert build.LAUNCHES["relax_ragged"] == n0
 
 
 # ------------------------------------- the standalone kernel API (9-11, 13) --
