@@ -9,14 +9,16 @@ Phases, each of which exits non-zero on a mismatch:
 
   build    compile the CUDA kernel sources (relax, send, merge, round; each
            holds a dense kernel and its ragged sibling, relax also the three
-           single-query kernels; embedding_bag; flash_attention, kernel 12's
-           f32 route, and flash_attention_tc, its bf16 route on the tensor
-           cores) from src/repro_torch/kernels/csrc, one nvcc each, in
-           parallel;
+           single-query kernels; embedding_bag; flash_attention and
+           flash_attention_tc, kernel 12's f32 (3xTF32) and bf16 routes,
+           both on the tensor cores) from src/repro_torch/kernels/csrc, one
+           nvcc each, in parallel;
   kernel   hold each dense kernel against its plain PyTorch version on the
            card, bit-equal, on the real layouts of the scale-1e6 graph at
            mid-solve state, and time kernel, plain version and bound (kernel
-           5 and its scatter_reduce_ yardstick as medians); the
+           5 and its scatter_reduce_ yardstick three ways, three times: CUDA
+           events over 10 back-to-back calls as medians, device time a launch
+           from a profiler trace, host time a call); the
            fused round kernel at the state after round 2 of a fused solve,
            with bucket messages and again with a dense incoming row;
   parity   solve rmat scale 11 (Trishla on, P=8, K=4) with the all-kernel
@@ -73,11 +75,12 @@ Phases, each of which exits non-zero on a mismatch:
            256]), deepseek-7b ([4, 32, 2048, 128]) and mistral-large (GQA
            group 12: q [1, 96, 2048, 128], kv [1, 8, 2048, 128]), causal,
            and at gemma's decode shape (Sq = 1, q_offset = Skv - 1), each in
-           bf16 (the tensor-core kernel, within 2 bf16 ulps) and f32 (the
-           CUDA-core kernel, within 2e-5), each launch counted on its own
-           route, timed beside its bound and F.scaled_dot_product_attention;
-           a planted fault (the tensor-core kernel with its P_lo products
-           dropped, p rounded to bf16 alone) must fail the bf16 check;
+           bf16 (the bf16 kernel, within 2 bf16 ulps) and f32 (the 3xTF32
+           kernel, within 2e-5), each launch counted on its own route, timed
+           beside its bounds and F.scaled_dot_product_attention (f32: both
+           as medians); two planted faults must fail their checks: the bf16
+           kernel with its P_lo products dropped (p rounded to bf16 alone)
+           and the f32 kernel with its lo products dropped (1xTF32);
   serve    the transformer's main path: full-width gemma-7b in bf16
            (weights made on the card from a seed), attn_impl="pallas": 4
            prompts of 2048 tokens through make_prefill_step, the caches
@@ -101,6 +104,7 @@ The line before last is the JSON kernel table; the last line is
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -141,6 +145,7 @@ SERVE_BULK = 262_144           # src/repro/configs/registry.py:77
 TRAIN_BATCH = 65_536           # src/repro/configs/registry.py:75
 STAGED = ("relax", "send", "merge")     # the staged round's kernels
 BF16_OPS_PER_S = 989.4e12      # H100 SXM bf16 dense tensor rate
+TF32_OPS_PER_S = 495e12         # H100 SXM TF32 dense tensor rate
 # The serve phase: full-width gemma-7b (src/repro/configs/gemma_7b.py), 4
 # prompts of 2048 tokens, caches padded by 32, 32 greedy decode steps: a
 # cut of the registry's prefill_32k (32 x 32768) and decode_32k (128 x
@@ -195,7 +200,6 @@ def timed_median(torch, fn, reps: int = 10, samples: int = 20):
     """(median, mean) ms per call over ``samples`` timings of ``reps``
     back-to-back calls each, after one warm-up call: CUDA events, as
     ``timed``."""
-    import statistics
     fn()
     torch.cuda.synchronize()
     times = []
@@ -321,7 +325,7 @@ def scipy_dijkstra(np, g, sources):
     return dijkstra(m, directed=True, indices=list(sources))
 
 
-def dense_kernel_phase(torch, eng, sources, cfg):
+def dense_kernel_phase(torch, eng, sources, cfg, out_dir: Path):
     """Dense kernels 1, 3, 5 at the state after round 2 of a solve: each
     bit-equal to its plain version, then timed beside its bound."""
     from repro_torch.kernels.common import pad_last, take_fill
@@ -394,32 +398,87 @@ def dense_kernel_phase(torch, eng, sources, cfg):
     rows["send"]["bound"] = bound(nbytes(*s_args, *s_out),
                                   2 * len(sources) * live_cut)
     rows["send"]["library_ms"] = None
-    rows["merge"]["ms"], rows["merge"]["mean_ms"] = timed_median(
-        torch, lambda: merge_scatter_tiled(*m_args, vb=dsh.mx_vb))
     rows["merge"]["plain_ms"] = timed(
         torch, lambda: merge_scatter_tiled_plain(*m_args, vb=dsh.mx_vb), 2)
     rows["merge"]["bound"] = bound(nbytes(*m_args, *m_out),
                                    len(sources) * int(m_valid.sum()))
-    (rows["merge"]["library_ms"],
-     rows["merge"]["library_mean_ms"]) = merge_library_ms(
-        torch, dsh, m_args[0], incoming, len(sources))
-    say(f"  merge (kernel 5) median {rows['merge']['ms']:.4f} ms (mean "
-        f"{rows['merge']['mean_ms']:.4f}) vs scatter_reduce_(\"amin\") "
-        f"median {rows['merge']['library_ms']:.4f} ms (mean "
-        f"{rows['merge']['library_mean_ms']:.4f}): 20 timings of 10 calls")
+    calls = {"kernel 5": lambda: merge_scatter_tiled(*m_args, vb=dsh.mx_vb),
+             "scatter_reduce_": merge_library_call(torch, dsh, m_args[0],
+                                                   incoming, len(sources))}
+    runs = three_way(torch, calls, out_dir)
+    for key, name in (("ms", "kernel 5"), ("library_ms", "scatter_reduce_")):
+        rows["merge"][key] = statistics.median(r["events"] for r in runs[name])
     return rows
 
 
-def merge_library_ms(torch, dsh, dist_pad, incoming, k):
-    """The merge's scatter-min as one PyTorch call, as a yardstick only:
-    (median, mean) ms, as ``timed_median``."""
+def merge_library_call(torch, dsh, dist_pad, incoming, k):
+    """The merge's scatter-min as one PyTorch call, as a yardstick only."""
     from repro_torch.kernels.common import pad_last
     P = dsh.n_parts
     ext = pad_last(dist_pad[..., :dsh.block], dsh.block + 1, float("inf"))
     ridx = dsh.recv_idx.reshape(P, 1, -1).long().clamp(max=dsh.block)
     ridx = ridx.expand(P, k, -1).contiguous()
-    return timed_median(torch, lambda: ext.scatter_reduce_(-1, ridx, incoming,
-                                                           "amin"))
+    return lambda: ext.scatter_reduce_(-1, ridx, incoming, "amin")
+
+
+def device_ms(torch, fn, n: int, trace_path: Path):
+    """Device time of one call by kernel name, from a torch.profiler trace
+    of ``n`` back-to-back calls: {name: (ms a call, launches a call)} over
+    the trace's kernel and memset events."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace_path))
+    by_name = {}
+    for e in json.loads(trace_path.read_text())["traceEvents"]:
+        if e.get("cat") in ("kernel", "gpu_memset"):
+            us, count = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (us + e["dur"], count + 1)
+    return {name: (us / 1e3 / n, count / n)
+            for name, (us, count) in by_name.items()}
+
+
+def host_ms(torch, fn, n: int) -> float:
+    """Host time (ms) of one call over ``n`` back-to-back calls with no
+    synchronize between them: the time to issue a call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * t / n
+
+
+def three_way(torch, calls: dict, out_dir: Path, reps: int = 3):
+    """Each call of ``calls`` timed three ways, ``reps`` times in turns:
+    CUDA events over 10 back-to-back calls (median of 20 timings, which
+    reads the larger of the host's issue time and the device time), device
+    time a call from a profiler trace of 20 calls, and host time a call
+    (no synchronize). Returns {name: [{events, device, host} per rep]}."""
+    runs = {name: [] for name in calls}
+    for rep in range(reps):
+        for name, fn in calls.items():
+            events = timed_median(torch, fn)[0]
+            kernels = device_ms(torch, fn, 20, out_dir / (
+                "chip_smoke_trace_merge_"
+                + name.replace(" ", "").replace("_", "") + ".json"))
+            host = host_ms(torch, fn, 50)
+            runs[name].append(dict(events=events, host=host, device=sum(
+                ms for ms, _ in kernels.values())))
+            say(f"  {name} run {rep + 1}: events {events:.4f} ms (median of "
+                f"20 x 10 calls), device {runs[name][-1]['device']:.4f} ms "
+                f"a call (" + ", ".join(
+                    f"{n[:48]} {ms:.4f} ms x {c:g}"
+                    for n, (ms, c) in kernels.items())
+                + f"), host {host:.4f} ms a call")
+    return runs
 
 
 def ragged_kernel_phase(torch, eng, sources, cfg):
@@ -508,8 +567,8 @@ def ragged_kernel_phase(torch, eng, sources, cfg):
         torch, lambda: merge_scatter_ragged(*m_args, **m_kw), 50)
     rows["merge_ragged"]["bound"] = bound(
         nbytes(*m_args, dsh.merge_bounds, *m_out), K * int(m_valid.sum()))
-    rows["merge_ragged"]["library_ms"] = merge_library_ms(
-        torch, dsh, m_args[0], incoming, K)[0]
+    rows["merge_ragged"]["library_ms"] = timed_median(
+        torch, merge_library_call(torch, dsh, m_args[0], incoming, K))[0]
     return rows
 
 
@@ -678,7 +737,6 @@ def round_kernel_phase(torch, np, eng, sources, cfg, name):
 def solve_median(eng, sources, what: str, n: int = 5):
     """The host wall of ``n`` more solves of ``sources``: median, min and
     max, printed."""
-    import statistics
     walls = [eng.solve(sources).wall_s for _ in range(n)]
     say(f"{what}: median of {n} solves {statistics.median(walls):.4f} s "
         f"(min {min(walls):.4f}, max {max(walls):.4f})")
@@ -962,17 +1020,18 @@ def flash_phase(torch):
     """Kernel 12 through its entry point against its plain version on the
     card: the prefill shapes of the three dense LM configs and gemma's
     decode shape (Sq = 1 against the padded cache, q_offset = Skv - 1),
-    causal, each in bf16 (the tensor-core kernel, 2 bf16 ulps) and f32 (the
-    CUDA-core kernel, 2e-5), each launch on its own route; timed beside its
-    bound and F.scaled_dot_product_attention. Then a planted fault, the
-    tensor-core kernel with its P_lo products dropped, must fail the bf16
-    check. Returns the table rows at gemma's prefill shape: bf16 (the main
-    path's) and f32."""
+    causal, each in bf16 (the bf16 kernel, 2 bf16 ulps) and f32 (the 3xTF32
+    kernel, 2e-5), each launch on its own route; timed beside its bound and
+    F.scaled_dot_product_attention (f32: both as medians). Then two planted
+    faults at gemma's shape must fail their checks: the bf16 kernel with its
+    P_lo products dropped, and the f32 kernel with its lo products dropped
+    (one TF32 product). Returns the table rows at gemma's prefill shape:
+    bf16 (the main path's) and f32."""
     import torch.nn.functional as F
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.flash_attention import (
-        _launch_tc, flash_attention_p_plain)
+        _launch_f32, _launch_tc, flash_attention_p_plain)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
@@ -1013,36 +1072,62 @@ def flash_phase(torch):
                 else ulps <= FLASH_BF16_ULPS)):
             fail(f"flash {name} {dt}: kernel vs plain max abs err {err}"
                  f" ({ulps} bf16 ulps)")
-        ms = timed(torch, lambda: flash_attention(q, k, v, **kw), 5)
         # the same function: top-left causal when Sq == Skv, none in decode
         lib = dict(is_causal=Sq == Skv, enable_gqa=Hq != Hkv)
-        lib_ms = timed(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, **lib), 5)
-        lib_err = float((F.scaled_dot_product_attention(q, k, v, **lib)
-                         .float() - out.float()).abs().max())
+
+        def kernel_call():
+            return flash_attention(q, k, v, **kw)
+
+        def sdpa_call():
+            return F.scaled_dot_product_attention(q, k, v, **lib)
+
+        if dt == "float32":
+            ms, lib_ms = (timed_median(torch, fn)[0]
+                          for fn in (kernel_call, sdpa_call))
+        else:
+            ms, lib_ms = (timed(torch, fn, 5) for fn in (kernel_call,
+                                                         sdpa_call))
+        lib_err = float((sdpa_call().float() - out.float()).abs().max())
         ops = 4 * B * Hq * D * causal_pairs(Sq, Skv, off)
-        b = bound(nbytes(q, k, v, out), ops,
-                  BF16_OPS_PER_S if dt == "bfloat16" else FP32_OPS_PER_S)
+        if dt == "bfloat16":
+            b = bound(nbytes(q, k, v, out), ops, BF16_OPS_PER_S)
+            bounds = f"bound {b[0]:.5f} ms ({b[1]})"
+        else:   # 3xTF32: three TF32 products for each f32 one
+            b = bound(nbytes(q, k, v, out), 3 * ops, TF32_OPS_PER_S)
+            b_f32 = bound(nbytes(q, k, v, out), ops)
+            bounds = (f"bound {b[0]:.5f} ms in 3xTF32 ({b[1]}), "
+                      f"{b_f32[0]:.5f} ms on the f32 CUDA cores")
         say(f"  {name} {dt} q {tuple(q.shape)} kv {tuple(k.shape)}, "
-            f"{route[dt]}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, bound "
-            f"{b[0]:.5f} ms ({b[1]}, {ops / 1e9:.2f} GFLOP), SDPA "
-            f"{lib_ms:.4f} ms; max abs err {err:.3g}"
+            f"{route[dt]}: {ms:.4f} ms kernel"
+            + (" (median)" if dt == "float32" else "")
+            + f", {plain_ms:.3f} ms plain, {bounds}, {ops / 1e9:.2f} GFLOP, "
+            f"SDPA {lib_ms:.4f} ms; max abs err {err:.3g}"
             + (f" ({ulps:.3g} bf16 ulps)" if ulps is not None else "")
             + f" (SDPA vs kernel {lib_err:.3g})")
         if name == SERVE["arch"]:
             rows[route[dt]] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                    bound=b, library_ms=lib_ms)
-        if name == SERVE["arch"] and dt == "bfloat16":
-            # the planted fault: P_lo dropped, p rounded to bf16 alone
+            # the planted faults: P_lo dropped (p rounded to bf16 alone), or
+            # the f32 kernel's lo products dropped (one TF32 product)
             bad = torch.empty_like(q)
-            _launch_tc(q, k, v, bad, scale=D ** -0.5, causal=True,
-                       q_offset=0, kv_len=Skv, split_p=False)
-            bad_ulps = bf16_ulps(torch, bad, ref)
-            say(f"  planted fault (P_lo dropped) at {name}: {bad_ulps:.4g} "
-                f"bf16 ulps (tolerance {FLASH_BF16_ULPS})")
-            if not bad_ulps > FLASH_BF16_ULPS:
-                fail(f"flash: the bf16 check passes the kernel with P_lo "
-                     f"dropped ({bad_ulps} ulps)")
+            fault = dict(scale=D ** -0.5, causal=True, q_offset=0,
+                         kv_len=Skv)
+            if dt == "bfloat16":
+                _launch_tc(q, k, v, bad, split_p=False, **fault)
+                miss = bf16_ulps(torch, bad, ref)
+                say(f"  planted fault (P_lo dropped) at {name}: {miss:.4g} "
+                    f"bf16 ulps (tolerance {FLASH_BF16_ULPS})")
+                caught = miss > FLASH_BF16_ULPS
+            else:
+                _launch_f32(q, k, v, bad, split=False, **fault)
+                miss = float((bad - ref).abs().max())
+                say(f"  planted fault (1xTF32, lo products dropped) at "
+                    f"{name}: max abs err {miss:.4g} (tolerance "
+                    f"{FLASH_F32_TOL})")
+                caught = miss > FLASH_F32_TOL
+            if not caught:
+                fail(f"flash: the {dt} check passes the planted fault "
+                     f"({miss})")
             del bad
         del q, k, v, out, ref
     return rows
@@ -1311,7 +1396,7 @@ def main():
     sources = live_sources(np, rng, g, 16)
 
     # ---- kernel phase: dense kernels at mid-solve state ------------------
-    rows = dense_kernel_phase(torch, eng, sources, cfg)
+    rows = dense_kernel_phase(torch, eng, sources, cfg, out_dir)
     for name, r in rows.items():
         say(f"  {name}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.2f} ms "
             f"plain, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")

@@ -16,9 +16,10 @@ and its ragged sibling; their counters (``relax`` and ``relax_ragged``,
 API, each with its own counter: ``relax_single`` (the fixpoint),
 ``relax_masked`` (the masked sweep) and ``relax_sweep`` (the plain sweep).
 ``embedding_bag.cu`` holds one kernel under its own name. Kernel 12 has two
-sources, one kernel each, chosen by the inputs' type: ``flash_attention.cu``
-(f32, counter ``flash_attention``) and ``flash_attention_tc.cu`` (bf16 on
-the tensor cores, counter ``flash_attention_tc``).
+sources, one kernel each, chosen by the inputs' type, both on the tensor
+cores and sharing ``hopper.cuh``: ``flash_attention.cu`` (f32 in 3xTF32,
+counter ``flash_attention``) and ``flash_attention_tc.cu`` (bf16, counter
+``flash_attention_tc``).
 """
 from __future__ import annotations
 
@@ -130,6 +131,14 @@ def check(lib: ctypes.CDLL, name: str, code: int) -> None:
         msg = lib.repro_error_string(code).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} "
                            f"(error {code})")
+
+
+def current_stream(device) -> int:
+    """The raw handle of PyTorch's current stream on CUDA ``device``, as
+    ``torch.cuda.current_stream(device).cuda_stream`` gives it, without
+    making a Stream object on every call."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -5,7 +5,8 @@
 // (the Pallas kernel _flash_kernel, grid (B, Hq, q tile, kv tile) with the kv
 // axis innermost and the f32 accumulator, row max and row sum in VMEM
 // scratch across kv steps; GQA through the k/v index maps, h // group).
-// csrc/flash_attention.cu keeps the f32 route on the CUDA cores.
+// csrc/flash_attention.cu is the f32 route (3xTF32 on wgmma); the Hopper
+// primitives both share are in csrc/hopper.cuh.
 //
 // What it computes: q [B, Hq, Sq, D], k and v [B, Hkv, >= kv_len, D], bf16,
 // out [B, Hq, Sq, D] bf16. Query row r of head h reads kv head h / group;
@@ -75,22 +76,20 @@
 // tiles, so a load or barrier that never completes traps instead of hanging
 // the card; the consumers spin without a trap, which would cost them
 // registers.
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
 
+#include "hopper.cuh"
 #include "tile_reduce.cuh"
 
 namespace {
+
+using namespace repro;
 
 constexpr int kWG = 128;            // threads per warpgroup
 constexpr int kThreads = 3 * kWG;   // the producer and two consumers
 constexpr int kBQ = 128;            // query rows per CTA, 64 per consumer
 constexpr int kStages = 2;          // the K/V ring
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr long long kHangCycles = 20000000000LL;   // ~10 s at 1.98 GHz
 
 template <int D>
 struct Tile {
@@ -99,7 +98,7 @@ struct Tile {
   static constexpr int ROW = 2 * W;                  // bytes per slab row
   static constexpr int SLABS = D / W;
   // wgmma's swizzle code for the slab rows: 1 = 128 B, 2 = 64 B, 3 = 32 B
-  static constexpr int SWZ = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
+  static constexpr int SWZ = swizzle_code(ROW);
   static constexpr int Q_WG = 64 * D * 2;            // one consumer's q rows
   static constexpr int KV = BK * D * 2;              // K or V, one stage
   static constexpr int OFF_K = 2 * Q_WG;
@@ -107,106 +106,6 @@ struct Tile {
   static constexpr int OFF_BAR = OFF_V + kStages * KV;
   static constexpr int SMEM = OFF_BAR + 64 + 1024;   // barriers, alignment
 };
-
-__device__ __forceinline__ bool finite(float x) { return fabsf(x) < INFINITY; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers -------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-// Wait for the phase of ``parity`` to complete.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  while (!mbar_try(bar, parity)) {
-  }
-}
-
-// The same, trapping rather than hanging when the phase never completes.
-// Only the producer uses it: a trap in the consumers' code costs them
-// registers (ptxas then spills and serializes their wgmmas at D = 256).
-__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar,
-                                                  uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - t0 > kHangCycles) __trap();
-}
-
-// ---- TMA -------------------------------------------------------------------
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2, int c3,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// ---- wgmma -----------------------------------------------------------------
-
-// A shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle code in bits 62-63.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo, int swz) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(swz) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin registers that an in-flight wgmma reads or writes to this point of the
-// program, so the compiler moves no access to them across a wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-}
 
 // S (+)= A B with A [64 x 16] and B [16 x N] both from shared memory, K-major
 // (wgmma m64nNk16, f32 += bf16 x bf16); N = 64 or 128.
@@ -449,7 +348,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(empty + 8 * s, 2 * kWG);
     }
     mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -617,58 +516,6 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ---- host ------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, looked up once through the runtime.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map (D, rows, heads, batch) of a bf16 tensor given by its element
-// strides, in boxes of w columns by box_rows rows of one head, swizzled as
-// wide as a box row; rows past ``rows`` read as zeros.
-bool encode(CUtensorMap* map, const void* ptr, int D, int rows, int heads,
-            int batch, long long ss, long long sh, long long sb, int w,
-            int box_rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * ss),
-                                 static_cast<cuuint64_t>(2 * sh),
-                                 static_cast<cuuint64_t>(2 * sb)};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(w),
-                             static_cast<cuuint32_t>(box_rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = w == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                           : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int Sq, int causal, int q_offset, int kv_len,
@@ -680,9 +527,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     return static_cast<int>(cudaErrorInvalidConfiguration);
   CUtensorMap mq, mk, mv;
   const int kv_rows = kv_len > 0 ? kv_len : 1;   // never read when 0
-  if (!encode(&mq, q, D, Sq, Hq, B, st[2], st[1], st[0], T::W, 64) ||
-      !encode(&mk, k, D, kv_rows, Hkv, B, st[5], st[4], st[3], T::W, T::BK) ||
-      !encode(&mv, v, D, kv_rows, Hkv, B, st[8], st[7], st[6], T::W, T::BK))
+  constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!encode(&mq, q, kBf16, 2, D, Sq, Hq, B, st[2], st[1], st[0], T::W, 64) ||
+      !encode(&mk, k, kBf16, 2, D, kv_rows, Hkv, B, st[5], st[4], st[3], T::W,
+              T::BK) ||
+      !encode(&mv, v, kBf16, 2, D, kv_rows, Hkv, B, st[8], st[7], st[6], T::W,
+              T::BK))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = repro::allow_smem(flash_tc_kernel<D>, T::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -20,21 +20,36 @@
 // merge for all K queries; the message gathers and the [K, block] rows are
 // the rest. There is one min per (message, query).
 //
-// Design: one CTA per (shard, vertex tile), a grid of P*n_vtiles, with no
-// dependency between tiles. The CTA seeds a [K, VB] shared-memory tile
-// with the current distances, loops over the tile's chunks and the K
-// queries, and min-reduces each finite message into the tile
-// (tile_min_into). Receive counts are taken a warp at a time with a ballot
-// and summed in shared memory, then added to the [P, K] output with one
-// atomicAdd per query. The finalizer (new row, frontier plane) runs in the
-// same CTA. One template serves both layouts; kRagged picks how a tile
-// finds its chunks.
+// Design: one CTA of 128 threads per (shard, vertex tile), a grid of
+// P*n_vtiles, with no dependency between tiles. The CTA seeds a [K, VB]
+// shared-memory tile with the current distances and min-reduces each finite
+// message into it (tile_min_into). A launch lasts about as long as one CTA,
+// so a CTA is built for memory-level parallelism: its threads take the
+// tile's chunks as one flat run of message quads (at EB 512 a chunk is one
+// quad a thread), each thread reads its quad's (valid, pos, dstrel) 16 bytes
+// a plane (pos and dstrel only when a message of the quad is valid) and
+// issues the gathers of its 4 messages for 8 queries, 32 loads, before it
+// reduces any (K is taken 8 queries at a time). 128 threads a CTA and 8
+// queries at a time: 256 threads and 16 queries ran the ragged merge slower
+// than the kernel of one gather at a time before it (PERF.md).
+// Finite-message counts stay in registers until the quads are done, are
+// summed once a warp (one shared atomicAdd per warp and query), and reach
+// the [P, K] output with one atomicAdd per (CTA, query); recvs is zeroed by
+// a memset on the launch's stream. The finalizer (new row, frontier plane)
+// runs in the same CTA. One template serves both layouts; kRagged picks how
+// a tile finds its chunks. A min is order-free and the counts are exact, so
+// out, front and recvs do not depend on the order.
+#include <stdint.h>
+
 #include "tile_reduce.cuh"
 
 namespace {
 
+constexpr int kMergeThreads = 128;
+constexpr int kG = 8;    // queries whose gathers a thread issues together
+
 template <bool kRagged>
-__global__ void __launch_bounds__(repro::kThreads)
+__global__ void __launch_bounds__(kMergeThreads)
 merge_scatter_kernel(const float* __restrict__ dist,
                      const float* __restrict__ incoming,
                      const int* __restrict__ bounds,
@@ -42,7 +57,7 @@ merge_scatter_kernel(const float* __restrict__ dist,
                      const int* __restrict__ dstrel_t,
                      const int* __restrict__ valid_t, float* out, float* front,
                      int* recvs, int K, int bp, int m, int n_vtiles, int n_rows,
-                     int n_chunks, int eb, int vb) {
+                     int n_chunks, int eb, int vb, int vec) {
   extern __shared__ int smem[];
   int* tile = smem;                        // [K, vb] minima as keys (min_key)
   int* cnt = smem + K * vb;                // [K] finite messages seen
@@ -50,7 +65,6 @@ merge_scatter_kernel(const float* __restrict__ dist,
   const int i = blockIdx.x % n_vtiles;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int lane = tid & 31;
   for (int x = tid; x < K * vb; x += nt) {
     const int q = x / vb;
     tile[x] = repro::min_key(
@@ -69,21 +83,61 @@ merge_scatter_kernel(const float* __restrict__ dist,
   }
   const float* in = incoming + static_cast<long long>(p) * K * m;
   const long long lay = static_cast<long long>(p) * n_rows * eb;
-  for (int j = c0; j < c1; ++j) {
-    const long long c = lay + static_cast<long long>(j) * eb;
-    // warp-uniform trip count, so every lane takes part in the ballots
-    for (int e0 = 0; e0 < eb; e0 += nt) {
-      const int e = e0 + tid;
-      const bool ok = e < eb && valid_t[c + e] > 0;
-      const int ps = ok ? pos_t[c + e] : 0;
-      const int r = ok ? dstrel_t[c + e] : 0;
-      for (int q = 0; q < K; ++q) {
-        const float v = ok ? in[static_cast<long long>(q) * m + ps] : repro::inf_f();
-        const bool fin = v < repro::inf_f();
-        const unsigned b = __ballot_sync(0xffffffffu, fin);
-        if (lane == 0 && b) atomicAdd(cnt + q, __popc(b));
-        repro::tile_min_into(tile + q * vb, r, v);
+  const int quads = (eb + 3) / 4;          // message quads a chunk
+  const int n_quads = (c1 - c0) * quads;
+  for (int q0 = 0; q0 < K; q0 += kG) {
+    int seen[kG];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) seen[g] = 0;
+    for (int x = tid; x < n_quads; x += nt) {
+      const int e = 4 * (x % quads);
+      const long long at =
+          lay + static_cast<long long>(c0 + x / quads) * eb + e;
+      int ok[4], ps[4] = {0, 0, 0, 0}, r[4] = {0, 0, 0, 0};
+      if (vec) {
+        const int4 a = __ldg(reinterpret_cast<const int4*>(valid_t + at));
+        ok[0] = a.x; ok[1] = a.y; ok[2] = a.z; ok[3] = a.w;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          ok[u] = e + u < eb ? __ldg(valid_t + at + u) : 0;
       }
+      if (!(ok[0] > 0 || ok[1] > 0 || ok[2] > 0 || ok[3] > 0)) continue;
+      if (vec) {
+        const int4 a = __ldg(reinterpret_cast<const int4*>(pos_t + at));
+        const int4 d = __ldg(reinterpret_cast<const int4*>(dstrel_t + at));
+        ps[0] = a.x; ps[1] = a.y; ps[2] = a.z; ps[3] = a.w;
+        r[0] = d.x; r[1] = d.y; r[2] = d.z; r[3] = d.w;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (ok[u] > 0) {
+            ps[u] = __ldg(pos_t + at + u);
+            r[u] = __ldg(dstrel_t + at + u);
+          }
+      }
+      // every gather of the quad, then every reduce
+      float v[4][kG];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int g = 0; g < kG; ++g)
+          v[u][g] = ok[u] > 0 && q0 + g < K
+                        ? __ldg(in + static_cast<long long>(q0 + g) * m + ps[u])
+                        : repro::inf_f();
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int g = 0; g < kG; ++g)
+          if (v[u][g] < repro::inf_f()) {
+            ++seen[g];
+            atomicMin(tile + (q0 + g) * vb + r[u], repro::min_key(v[u][g]));
+          }
+    }
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      const int s = __reduce_add_sync(0xffffffffu, seen[g]);
+      if ((tid & 31) == 0 && s) atomicAdd(cnt + q0 + g, s);
     }
   }
   __syncthreads();
@@ -95,7 +149,6 @@ merge_scatter_kernel(const float* __restrict__ dist,
     out[o] = nv;
     front[o] = nv < dist[o] ? 1.f : 0.f;
   }
-  __syncthreads();
   for (int q = tid; q < K; q += nt)
     if (cnt[q]) atomicAdd(recvs + p * K + q, cnt[q]);
 }
@@ -106,13 +159,20 @@ int launch(const float* dist, const float* incoming, const int* bounds,
            float* out, float* front, int* recvs, int P, int K, int bp, int m,
            int n_vtiles, int n_rows, int n_chunks, int eb, int vb,
            cudaStream_t stream) {
-  if (P * K * n_vtiles == 0) return 0;
+  if (P * K == 0) return 0;
+  cudaError_t err = cudaMemsetAsync(recvs, 0, sizeof(int) * P * K, stream);
+  if (err != cudaSuccess || n_vtiles == 0) return static_cast<int>(err);
   const size_t smem = static_cast<size_t>(K) * (vb + 1) * sizeof(int);
-  cudaError_t err = repro::allow_smem(merge_scatter_kernel<kRagged>, smem);
+  err = repro::allow_smem(merge_scatter_kernel<kRagged>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  merge_scatter_kernel<kRagged><<<P * n_vtiles, repro::kThreads, smem, stream>>>(
+  // quads read 16 bytes a plane when every quad is 16-byte aligned
+  const uintptr_t planes = reinterpret_cast<uintptr_t>(pos_t) |
+                           reinterpret_cast<uintptr_t>(dstrel_t) |
+                           reinterpret_cast<uintptr_t>(valid_t);
+  const int vec = eb % 4 == 0 && planes % 16 == 0;
+  merge_scatter_kernel<kRagged><<<P * n_vtiles, kMergeThreads, smem, stream>>>(
       dist, incoming, bounds, pos_t, dstrel_t, valid_t, out, front, recvs, K,
-      bp, m, n_vtiles, n_rows, n_chunks, eb, vb);
+      bp, m, n_vtiles, n_rows, n_chunks, eb, vb, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,13 +2,13 @@
 
 Port of the reference's ``kernels/flash_attention/flash_attention.py:
 flash_attention_p``. On CUDA tensors the wrapper launches one of two CUDA
-kernels, chosen by the inputs' type alone: bf16 takes the tensor-core kernel
-(``csrc/flash_attention_tc.cu``: TMA loads, ``wgmma`` products, a producer
-and two consumer warpgroups; counter ``flash_attention_tc``), f32 the
-CUDA-core kernel (``csrc/flash_attention.cu``; counter ``flash_attention``).
-On CPU tensors it runs the plain PyTorch version,
-``flash_attention_p_plain``, which is callable on either device and is the
-plain version of both kernels.
+kernels on Hopper's tensor cores (TMA loads, ``wgmma`` products, a producer
+warpgroup and consumer warpgroups), chosen by the inputs' type alone: bf16
+takes ``csrc/flash_attention_tc.cu`` (bf16 products, P split into bf16 hi +
+lo; counter ``flash_attention_tc``), f32 ``csrc/flash_attention.cu`` (every
+product in 3xTF32; counter ``flash_attention``). On CPU tensors it runs the
+plain PyTorch version, ``flash_attention_p_plain``, which is callable on
+either device and is the plain version of both kernels.
 
 q [B, Hq, Sq, D]; k/v [B, Hkv, Skv, D], pre-padded: Sq a multiple of
 ``block_q`` and Skv of ``block_k`` (the reference's grid of whole tiles).
@@ -87,54 +87,69 @@ def flash_attention_p_plain(q, k, v, *, scale: float, causal: bool,
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 12 + [ctypes.c_float])
-_SIGNATURES = {"flash_attention": _ARGTYPES + [ctypes.c_void_p]}
-_TC_SIGNATURES = {"flash_attention_tc": _ARGTYPES + [ctypes.c_int,
-                                                     ctypes.c_void_p]}
+# each C entry point: the arguments, then split (0: a planted fault), stream
+_SIGNATURE = _ARGTYPES + [ctypes.c_int, ctypes.c_void_p]
 
 
 def _tma_strides(t):
-    """The batch, head and sequence strides of bf16 ``t`` for a TMA map.
-    Raises unless its pointer and the strides of its axes longer than 1
-    are multiples of 16 bytes, as TMA needs; an axis of length 1 gets a
-    stride that TMA takes (it is never stepped along)."""
+    """The batch, head and sequence strides of ``t`` for a TMA map. Raises
+    unless its pointer and the strides of its axes longer than 1 are
+    multiples of 16 bytes, as TMA needs; an axis of length 1 gets a stride
+    that TMA takes (it is never stepped along)."""
     shape, stride = t.shape[:3], t.stride()[:3]
-    if t.data_ptr() % 16 or any(n > 1 and s % 8
+    per16 = 16 // t.element_size()
+    if t.data_ptr() % 16 or any(n > 1 and s % per16
                                 for n, s in zip(shape, stride)):
         raise ValueError(
-            f"flash_attention: a bf16 operand's pointer and strides must "
-            f"be 16-byte aligned for TMA, got pointer {t.data_ptr():#x}, "
+            f"flash_attention: an operand's pointer and strides must be "
+            f"16-byte aligned for TMA, got pointer {t.data_ptr():#x}, "
             f"strides {t.stride()}")
     span = max([t.shape[3]] + [n * s for n, s in zip(shape, stride)
                                if n > 1])
     return [s if n > 1 else span for n, s in zip(shape, stride)]
 
 
-def _launch_tc(q, k, v, out, *, scale: float, causal: bool, q_offset: int,
-               kv_len: int, split_p: bool = True):
-    """Launch the tensor-core kernel on checked bf16 CUDA tensors, without
-    counting it. ``split_p=False`` drops the kernel's P_lo products, a
-    planted fault for the checks; the wrapper never sets it."""
+def _launch(name, q, k, v, out, *, scale: float, causal: bool,
+            q_offset: int, kv_len: int, split: bool):
+    """Launch kernel ``name`` on checked CUDA tensors, without counting it."""
     strides = [s for t in (q, k, v) for s in _tma_strides(t)]
     strides += list(out.stride()[:3])
     B, Hq, Sq, D = q.shape
-    lib = build.load("flash_attention_tc", _TC_SIGNATURES)
+    lib = build.load(name, {name: _SIGNATURE})
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.flash_attention_tc(
+    code = getattr(lib, name)(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), B, Hq,
         k.shape[1], Sq, D, int(causal), int(q_offset), int(kv_len), *strides,
-        float(scale), int(split_p), stream)
-    build.check(lib, "flash_attention_tc", code)
+        float(scale), int(split), stream)
+    build.check(lib, name, code)
+
+
+def _launch_tc(q, k, v, out, *, scale: float, causal: bool, q_offset: int,
+               kv_len: int, split_p: bool = True):
+    """Launch the bf16 kernel on checked bf16 CUDA tensors, without counting
+    it. ``split_p=False`` drops the kernel's P_lo products, a planted fault
+    for the checks; the wrapper never sets it."""
+    _launch("flash_attention_tc", q, k, v, out, scale=scale, causal=causal,
+            q_offset=q_offset, kv_len=kv_len, split=split_p)
+
+
+def _launch_f32(q, k, v, out, *, scale: float, causal: bool, q_offset: int,
+                kv_len: int, split: bool = True):
+    """Launch the f32 kernel on checked f32 CUDA tensors, without counting
+    it. ``split=False`` drops the lo products (one TF32 product, 1xTF32), a
+    planted fault for the checks; the wrapper never sets it."""
+    _launch("flash_attention", q, k, v, out, scale=scale, causal=causal,
+            q_offset=q_offset, kv_len=kv_len, split=split)
 
 
 def flash_attention_p(q, k, v, *, scale: float, causal: bool, q_offset: int,
                       kv_len: int, block_q: int, block_k: int,
                       interpret: bool = True):
     """Same contract as the plain version. CPU tensors take the plain
-    version; CUDA tensors launch a kernel, bf16 the tensor-core one and f32
-    the CUDA-core one, which reads q, k and v through their strides (the
-    last axis must be contiguous; for bf16 also 16-byte aligned pointers and
-    strides) and writes an output laid out as q is. ``interpret`` is the
-    reference's keyword, accepted and ignored."""
+    version; CUDA tensors launch a kernel, the bf16 one or the f32 one,
+    which reads q, k and v through their strides (the last axis contiguous,
+    16-byte aligned pointers and strides) and writes an output laid out as
+    q is. ``interpret`` is the reference's keyword, accepted and ignored."""
     if not q.is_cuda:
         return flash_attention_p_plain(
             q, k, v, scale=scale, causal=causal, q_offset=q_offset,
@@ -152,18 +167,11 @@ def flash_attention_p(q, k, v, *, scale: float, causal: bool, q_offset: int,
         raise ValueError(f"flash_attention: head dim {D} is not one of "
                          f"{HEAD_DIMS}")
     out = torch.empty_like(q)   # q's layout when dense, else contiguous
+    kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
     if q.dtype == torch.bfloat16:
-        _launch_tc(q, k, v, out, scale=scale, causal=causal,
-                   q_offset=q_offset, kv_len=kv_len)
+        _launch_tc(q, k, v, out, **kw)
         build.count_launch("flash_attention_tc")
-        return out
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    lib = build.load("flash_attention", _SIGNATURES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.flash_attention(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), B, Hq,
-        k.shape[1], Sq, D, int(causal), int(q_offset), int(kv_len), *strides,
-        float(scale), stream)
-    build.check(lib, "flash_attention", code)
-    build.count_launch("flash_attention")
+    else:
+        _launch_f32(q, k, v, out, **kw)
+        build.count_launch("flash_attention")
     return out

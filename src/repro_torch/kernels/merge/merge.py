@@ -80,15 +80,16 @@ _SIGNATURES = {"merge_scatter_tiled": build.signature(8, 8),
 
 
 def _outputs(dist):
-    """out, front, and the zeroed recvs [P, K]."""
+    """out, front, and recvs [P, K], which the C entry point zeroes on the
+    launch's stream (no fill kernel of its own)."""
     return (torch.empty_like(dist), torch.empty_like(dist),
-            torch.zeros(dist.shape[:2], dtype=torch.int32,
-                        device=dist.device))
+            dist.new_empty(dist.shape[:2], dtype=torch.int32))
 
 
 def merge_scatter_tiled(dist, incoming, pos_t, dstrel_t, valid_t, *, vb: int):
     """Same contract as the plain version. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (one CTA per (shard, tile))."""
+    version; CUDA tensors launch the kernel (one CTA per (shard, tile), its
+    threads over the tile's message quads)."""
     if not dist.is_cuda:
         return merge_scatter_tiled_plain(dist, incoming, pos_t, dstrel_t,
                                          valid_t, vb=vb)
@@ -102,9 +103,10 @@ def merge_scatter_tiled(dist, incoming, pos_t, dstrel_t, valid_t, *, vb: int):
     check_cuda("merge", torch.int32, pos_t, dstrel_t, valid_t)
     lib = build.load("merge", _SIGNATURES)
     outs = _outputs(dist)
-    stream = torch.cuda.current_stream(dist.device).cuda_stream
+    stream = build.current_stream(dist.device)
     code = lib.merge_scatter_tiled(
-        *map(build.ptr, (dist, incoming, pos_t, dstrel_t, valid_t, *outs)),
+        *(t.data_ptr() for t in (dist, incoming, pos_t, dstrel_t, valid_t,
+                                 *outs)),
         P, K, bp, incoming.shape[-1], n_vtiles, n_chunks, eb, vb, stream)
     build.check(lib, "merge", code)
     build.count_launch("merge")
@@ -138,10 +140,10 @@ def merge_scatter_ragged(dist, incoming, ctile, pos_r, dstrel_r, valid_r, *,
     check_cuda("merge_ragged", torch.int32, bounds, pos_r, dstrel_r, valid_r)
     lib = build.load("merge", _SIGNATURES)
     outs = _outputs(dist)
-    stream = torch.cuda.current_stream(dist.device).cuda_stream
+    stream = build.current_stream(dist.device)
     code = lib.merge_scatter_ragged(
-        *map(build.ptr, (dist, incoming, bounds, pos_r, dstrel_r, valid_r,
-                         *outs)),
+        *(t.data_ptr() for t in (dist, incoming, bounds, pos_r, dstrel_r,
+                                 valid_r, *outs)),
         P, K, bp, incoming.shape[-1], n_vtiles, total_chunks, eb, vb, stream)
     build.check(lib, "merge_ragged", code)
     build.count_launch("merge_ragged")

@@ -18,8 +18,8 @@ the MoE FFN (``models/moe.py``), training (``_attn_chunked``'s custom VJP,
 
 Attention impls: "xla" (materialized scores), "chunked" (online softmax
 over kv chunks, the forward only) and "pallas" (kernel 12: on CUDA tensors
-a CUDA flash kernel, the tensor-core one for bf16 and the CUDA-core one for
-f32; its plain version on CPU tensors). Decode, with a cache, always takes
+a CUDA flash kernel on the tensor cores, one for bf16 and one for f32 (in
+3xTF32); its plain version on CPU tensors). Decode, with a cache, always takes
 the materialized-scores path, as in the reference. Caches passed in are
 left intact unless the caller donates them (``donate=True``).
 """

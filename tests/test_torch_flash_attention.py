@@ -203,3 +203,106 @@ def test_split_p_keeps_bf16_within_two_ulps():
     plain = flash_attention_p_plain(q, k, v, block_q=128, block_k=128, **kw)
     assert _bf16_ulps(_p_rounded(q, k, v, kw["scale"], "hi+lo"), plain) <= 2
     assert _bf16_ulps(_p_rounded(q, k, v, kw["scale"], "bf16"), plain) > 2
+
+
+def _tf32(x, how):
+    """f32 values cut to TF32 (10 mantissa bits), kept as f32: "round" to
+    nearest with ties away from zero (the f32 kernel's cvt.rna), or
+    "truncate" (the 13 low bits dropped)."""
+    bits = x.contiguous().view(torch.int32)
+    if how == "round":
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_products(eq, a, b, terms, how):
+    """einsum ``eq`` of f32 ``a`` and ``b`` as the f32 kernel's tensor cores
+    take it: each operand split into hi = tf32(x) and lo = tf32(x - hi), and
+    hi hi (+ hi lo + lo hi when ``terms`` is 3) summed in f32. A product of
+    two TF32 values is exact in f32."""
+    ah, bh = _tf32(a, how), _tf32(b, how)
+    out = torch.einsum(eq, ah, bh)
+    if terms == 3:
+        al, bl = _tf32(a - ah, how), _tf32(b - bh, how)
+        out = out + torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+    return out
+
+
+def _tf32_attention(q, k, v, scale, terms, how, block_k=32):
+    """Causal attention in the f32 kernel's arithmetic: kv tiles of 32, the
+    plain version's online-softmax update with its guards, S = Q K^T and
+    P V in ``terms`` TF32 products, l the f32 sum of the unsplit p."""
+    S = q.shape[2]
+    qi = torch.arange(S)[:, None]
+    acc = torch.zeros(q.shape)
+    m = torch.full(q.shape[:3], -torch.inf)
+    l = torch.zeros(q.shape[:3])
+    for j0 in range(0, k.shape[2], block_k):
+        kb, vb = k[:, :, j0:j0 + block_k], v[:, :, j0:j0 + block_k]
+        s = _tf32_products("bhqd,bhkd->bhqk", q, kb, terms, how) * scale
+        valid = qi >= j0 + torch.arange(kb.shape[2])[None, :]
+        s = torch.where(valid, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - torch.where(torch.isfinite(m_new), m_new,
+                                      0.0)[..., None])
+        p = torch.where(valid, p, 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _tf32_products(
+            "bhqk,bhkd->bhqd", p, vb, terms, how)
+        m = m_new
+    return acc / torch.where(l > 0, l, 1.0)[..., None]
+
+
+@pytest.mark.parametrize("how", ["round", "truncate"])
+@pytest.mark.parametrize("D", [128, 256])
+def test_three_tf32_products_keep_f32_within_2e5(D, how):
+    """Why the f32 kernel runs each product as three TF32 products: causal,
+    numpy-seeded inputs over 96 positions (kv tiles of 32, each on the
+    diagonal straddling it), 3xTF32 stays within the reference's 2e-5 of the
+    plain version at gemma's and deepseek's head widths, with TF32 rounded
+    (the kernel's cvt.rna) or truncated; one TF32 product does not."""
+    rng = np.random.default_rng(18 + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 96, D))
+                                .astype(np.float32)) for _ in range(3))
+    scale = D ** -0.5
+    plain = flash_attention_p_plain(q, k, v, scale=scale, causal=True,
+                                    q_offset=0, kv_len=96, block_q=96,
+                                    block_k=32)
+    err3 = float((_tf32_attention(q, k, v, scale, 3, how) - plain)
+                 .abs().max())
+    err1 = float((_tf32_attention(q, k, v, scale, 1, how) - plain)
+                 .abs().max())
+    assert err3 <= REF_TOL["float32"], err3
+    assert err1 > REF_TOL["float32"], err1
+
+
+def test_tf32_key_order_pairs_p_fragments_with_v():
+    """The f32 kernel hands S's accumulator to P V as tf32 A fragments
+    unshuffled: a thread holds keys 2t and 2t + 1 of each group of 8 (the
+    accumulator) where the fragment's columns are t and t + 4, so V^T's
+    columns hold each group's keys in the order 0 2 4 6 1 3 5 7. With P and
+    V so permuted alike, the product equals the plain one (integer values,
+    exact); with V unpermuted it does not."""
+    rng = np.random.default_rng(18)
+    P = torch.from_numpy(rng.integers(-8, 8, (64, 32)).astype(np.float32))
+    V = torch.from_numpy(rng.integers(-8, 8, (32, 16)).astype(np.float32))
+    A = torch.zeros(64, 32)
+    for w in range(4):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+
+            def acc(i):   # accumulator register i of this thread
+                return P[16 * w + g + 8 * ((i >> 1) & 1),
+                         8 * (i >> 2) + 2 * t + (i & 1)]
+            for kk in range(4):   # a0, a1, a2, a3 = s[4kk], [+2], [+1], [+3]
+                A[16 * w + g, 8 * kk + t] = acc(4 * kk)
+                A[16 * w + g + 8, 8 * kk + t] = acc(4 * kk + 2)
+                A[16 * w + g, 8 * kk + t + 4] = acc(4 * kk + 1)
+                A[16 * w + g + 8, 8 * kk + t + 4] = acc(4 * kk + 3)
+    Vt = torch.zeros(32, 16)
+    for key in range(32):   # the column the kernel writes key ``key`` to
+        x = key & 7
+        Vt[(key & ~7) | (x >> 1) | ((x & 1) << 2)] = V[key]
+    assert torch.equal(A @ Vt, P @ V)
+    assert not torch.equal(A @ V, P @ V)

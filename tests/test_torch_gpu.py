@@ -3,8 +3,8 @@ PyTorch versions (bit-equal), and the engine's card run against its CPU
 run. Every test is marked ``gpu`` and skips without a CUDA device.
 
 Kernel 12 (flash attention) is held against its plain version within
-2e-5 in f32 (the reference's tolerance, the CUDA-core kernel) and 2 bf16
-ulps in bf16 (the tensor-core kernel), not bit for bit: it sums in another
+2e-5 in f32 (the reference's tolerance, the 3xTF32 kernel) and 2 bf16
+ulps in bf16 (the bf16 kernel), not bit for bit: it sums in another
 order. This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed; the repository's conftest imports JAX, so run it
 there without it:
@@ -694,8 +694,8 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Hq, Hkv, Sq,
                                               Skv, D, causal, q_offset):
     """Kernel 12 through the entry point (padding to the blocks, kv_len
     masking) against its plain version on the same card tensors, through
-    both routes: f32 launches the CUDA-core kernel, bf16 the tensor-core
-    one, and only that one."""
+    both routes: f32 launches the 3xTF32 kernel, bf16 the bf16 one, and
+    only that one."""
     q, k, v = _flash_inputs(cuda, dtype, B, Hq, Hkv, Sq, Skv, D)
     kw = dict(causal=causal, q_offset=q_offset, block_q=min(64, Sq),
               block_k=64)
@@ -872,3 +872,128 @@ def test_transformer_smoke_serve_bf16_launches_tc_kernel(cuda, arch):
         tok = logits.argmax(-1)[:, None].to(torch.int32)
     assert bool(torch.isfinite(logits).all())
     assert sum(build.LAUNCHES.values()) == 0
+
+
+# ------------------------------------- kernel 12 f32 on the tensor cores --
+
+@pytest.mark.parametrize("case", ["gqa", "decode", "kv_straddle"])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+def test_flash_attention_f32_every_head_dim(cuda, D, case):
+    """The f32 route (3xTF32 on wgmma) at every head width the kernel is
+    built for: a GQA group of 2 over 200 causal rows (the last kv tile of 32
+    straddles the diagonal and kv_len), gemma's decode shape (Sq = 1,
+    q_offset = Skv - 1), and kv_len 70 inside a kv tile with more q rows
+    than keys; one flash_attention launch, within 2e-5 of the plain
+    version."""
+    B, Hq, Hkv, Sq, Skv, causal, off = {
+        "gqa": (1, 4, 2, 200, 200, True, 0),
+        "decode": (2, 4, 4, 1, 300, True, 299),
+        "kv_straddle": (2, 2, 1, 150, 70, False, 0)}[case]
+    q, k, v = _flash_inputs(cuda, torch.float32, B, Hq, Hkv, Sq, Skv, D,
+                            seed=D)
+    kw = dict(causal=causal, q_offset=off, block_q=min(64, Sq), block_k=64)
+    n0 = build.LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == n0 + 1
+    bq = kw["block_q"]
+    pad = lambda t, b: torch.nn.functional.pad(  # noqa: E731
+        t, (0, 0, 0, (-t.shape[2]) % b))
+    want = flash_attention_p_plain(
+        pad(q, bq), pad(k, 64), pad(v, 64), scale=D ** -0.5, causal=causal,
+        q_offset=off, kv_len=Skv, block_q=bq, block_k=64)[:, :, :Sq]
+    err = float((out - want).abs().max())
+    assert err <= FLASH_F32_TOL, err
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_attention_f32_one_tf32_product_fails(cuda, D):
+    """The planted fault: the f32 kernel with its lo products dropped (one
+    TF32 product, 1xTF32, through the uncounted launcher) misses the 2e-5
+    that the kernel itself meets."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        _launch_f32)
+    q, k, v = _flash_inputs(cuda, torch.float32, 1, 4, 4, 512, 512, D)
+    kw = dict(scale=D ** -0.5, causal=True, q_offset=0, kv_len=512)
+    want = flash_attention_p_plain(q, k, v, block_q=128, block_k=128, **kw)
+    n0 = dict(build.LAUNCHES)
+    out = torch.empty_like(q)
+    _launch_f32(q, k, v, out, **kw)
+    assert float((out - want).abs().max()) <= FLASH_F32_TOL
+    _launch_f32(q, k, v, out, split=False, **kw)
+    assert float((out - want).abs().max()) > FLASH_F32_TOL
+    assert build.LAUNCHES == n0
+
+
+# ----------------------------------------------------- kernels 5 and 6 ----
+
+def _merge_case(layout, K, eb, all_inf, device):
+    """Two shards of 1000 vertices (tiles of 128) receiving from 4 senders
+    x 400 bucket positions: tile 2 receives nothing, the hot tile 0 takes a
+    third of the messages (several chunks), query 0's incoming row is all
+    +inf (or every row, with ``all_inf``). Returns (args, kw) of the
+    wrapper of ``layout``."""
+    rng = np.random.default_rng(5 * K + eb)
+    block, Pn, C, vb = 1000, 4, 400, 128
+    lays, incs = [], []
+    for _ in range(2):
+        ridx = rng.integers(0, block, (Pn, C))
+        ridx[(ridx >= 2 * vb) & (ridx < 3 * vb)] = block   # tile 2 empty
+        ridx[rng.random(ridx.shape) < 0.33] = 5
+        ridx[rng.random(ridx.shape) < 0.1] = block          # no message
+        build_ = (build_msg_tiled_layout if layout == "dense"
+                  else build_msg_ragged_layout)
+        lays.append(build_(ridx, block, vb=vb, eb=eb))
+        inc = _rows(rng, (K, Pn * C), 0.4)
+        inc[0] = np.inf
+        if all_inf:
+            inc[:] = np.inf
+        inc[:, ridx.reshape(-1) >= block] = np.inf
+        incs.append(inc)
+    incoming = torch.from_numpy(np.stack(incs))
+    if layout == "dense":
+        nch = max(lay[0].shape[1] for lay in lays)
+        planes = [torch.stack([torch.nn.functional.pad(
+            lay[k], (0, 0, 0, nch - lay[k].shape[1])) for lay in lays])
+            for k in range(3)]
+        bp = lays[0][3]
+    else:
+        bp = lays[0][4]
+        pos, rel, valid, ctile = _stack_ragged(lays, (0, 0, 0, bp // vb))
+        planes = [ctile, pos, rel, valid]
+    dist = pad_last(torch.from_numpy(_rows(rng, (2, K, block), 0.3)), bp,
+                    float("inf"))
+    return [a.to(device) for a in (dist, incoming, *planes)], dict(vb=vb)
+
+
+@pytest.mark.parametrize("all_inf", [False, True])
+@pytest.mark.parametrize("eb", [128, 102])
+@pytest.mark.parametrize("K", [1, 3, 16, 17, 32])
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+def test_merge_kernels_match_plain_at_many_queries(cuda, layout, K, eb,
+                                                   all_inf):
+    """Kernels 5 and 6 bit-equal to their plain versions (out, front,
+    recvs) at K 1, 3, 16 (one group of gathers), 17 and 32 (two groups),
+    with a tile that receives no valid message, an all-inf incoming row,
+    recvs summed over the CTAs of many tiles, and EB 102 (not a multiple of
+    4: the quads read one word at a time)."""
+    args, kw = _merge_case(layout, K, eb, all_inf, cuda)
+    name = "merge" if layout == "dense" else "merge_ragged"
+    kernel, plain = {"dense": (merge_scatter_tiled, merge_scatter_tiled_plain),
+                     "ragged": (merge_scatter_ragged,
+                                merge_scatter_ragged_plain)}[layout]
+    n0 = build.LAUNCHES[name]
+    out = kernel(*args, **kw)
+    ref = plain(*args, **kw)
+    assert build.LAUNCHES[name] == n0 + 1
+    for got, want in zip(out, ref):
+        assert torch.equal(got, want)
+    got_recvs = out[2]
+    if all_inf:
+        assert int(got_recvs.sum()) == 0 and torch.equal(out[0], args[0])
+    else:
+        assert int(got_recvs[:, 0].sum()) == 0
+        if K > 1:
+            assert int(got_recvs[:, 1:].min()) > 0
+    # recvs is zeroed by the launch: a second call gives the same counts
+    assert torch.equal(kernel(*args, **kw)[2], got_recvs)
