@@ -19,8 +19,12 @@ Phases, each of which exits non-zero on a mismatch:
            5 and its scatter_reduce_ yardstick three ways, three times: CUDA
            events over 10 back-to-back calls as medians, device time a launch
            from a profiler trace, host time a call); the
-           fused round kernel at the state after round 2 of a fused solve,
-           with bucket messages and again with a dense incoming row;
+           fused round kernel 7 at the state after round 2 of a fused solve,
+           with bucket messages and again with a dense incoming row, as
+           medians of 20 timings of 10 calls, its live chunks and chain
+           steps a sweep printed, its bound the bytes of the rows and the
+           live chunks; a planted fault, its hazard re-read off,
+           must differ (at that state, else on a path inside one tile);
   parity   solve rmat scale 11 (Trishla on, P=8, K=4) with the all-kernel
            staged config and with round="fused", each on the card and on
            the CPU: distances and every counter equal; fused == staged but
@@ -62,7 +66,10 @@ Phases, each of which exits non-zero on a mismatch:
            nothing (relax_pallas): equal to scipy's Dijkstra and bit-equal
            to each other, kernel 10's relaxations equal to the same loop on
            the CPU; each kernel bit-equal to its plain version (kernel 9 at
-           n_sweeps=2) at a mid-solve state with a 10% Trishla mask, timed;
+           n_sweeps=2) at a mid-solve state with a 10% Trishla mask, timed
+           (kernel 9 as medians of 20 timings of 10 calls, its live chunks
+           printed, its bound the bytes of the rows, the weights and the
+           other planes' live chunks; a planted fault, its hazard re-read off, must differ);
            relax_jnp timed beside them;
   embag    kernel 13 at the AutoInt configuration's size: a [39e6, 16]
            f32 table made on the card, 10,223,616 one-index bags (sum) and
@@ -231,6 +238,12 @@ def once(torch, fn):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def live_bytes(planes, n_live: int) -> int:
+    """Bytes of ``n_live`` chunks of the dense layout planes ``planes``
+    ([..., EB] each): what a kernel that skips the dead chunks reads."""
+    return n_live * sum(a.shape[-1] * a.element_size() for a in planes)
 
 
 def bound(n_bytes: int, n_ops: int, ops_per_s: float = FP32_OPS_PER_S):
@@ -573,10 +586,10 @@ def ragged_kernel_phase(torch, eng, sources, cfg):
 
 
 def planted_hazard_fault(torch, name, case, fallback):
-    """Kernel 2 or 8 with its hazard re-read off (every source read from
-    its early gather) must differ from its plain version: at the phase's
-    state ``case()`` -> (launch(**fault), ref), else, where that state shows
-    no hazard, on the path-inside-a-tile case ``fallback()``."""
+    """Kernel 2, 8, 9 or 7 with its hazard re-read off (every source read
+    from its early gather) must differ from its plain version: at the
+    phase's state ``case()`` -> (launch(**fault), ref), else, where that
+    state shows no hazard, on the path-inside-a-tile case ``fallback()``."""
     for where, make in (("the phase's state", case),
                         ("the path-inside-a-tile layout", fallback)):
         launch, ref = make()
@@ -584,38 +597,41 @@ def planted_hazard_fault(torch, name, case, fallback):
         torch.cuda.synchronize()
         diff = [i for i, (g, w) in enumerate(zip(bad, ref))
                 if not torch.equal(g, w)]
+        k = -1 if name.startswith("relax") else 4     # the relaxations
         if diff:
             say(f"  planted fault ({name}, hazard re-read off) differs from "
                 f"the plain version at {where} in outputs {diff}, "
-                f"relaxations {int(bad[-1 if name == 'relax_ragged' else 4].sum())}"
-                f" vs {int(ref[-1 if name == 'relax_ragged' else 4].sum())}")
+                f"relaxations {int(bad[k].sum())} vs {int(ref[k].sum())}")
             return
     fail(f"{name}: the planted fault (hazard re-read off) equals the plain "
          f"version")
 
 
-def path_case(torch, np, dev):
-    """Kernels 2 and 8 on a layout where a hazard must show: 128 vertices on
-    2 shards (ragged, VB 32, EB 4), a path 0 -> 1 -> ... -> 30 inside vertex
-    tile 0 of shard 0 (hops of weight 1, four to a chunk) and a few cut
-    edges; row 0 holds 10 v on the path, all in the frontier, so a later
-    chunk reads what an earlier chunk of the same tile improved. Returns
-    (kernel 2 case, kernel 8 case), each a (launch(**fault), plain result)
-    pair for ``planted_hazard_fault``."""
+def path_case(torch, np, dev, layout="ragged"):
+    """Kernels 2 and 8 (``layout`` "ragged") or 9 and 7 ("dense") on a
+    layout where a hazard must show: 128 vertices on 2 shards (VB 32, EB 4),
+    a path 0 -> 1 -> ... -> 30 inside vertex tile 0 of shard 0 (hops of
+    weight 1, four to a chunk) and a few cut edges; row 0 holds 10 v on the
+    path, all in the frontier, so a later chunk reads what an earlier chunk
+    of the same tile improved (kernel 9: shard 0's row 0). Returns (relax
+    case, round case), each a (launch(**fault), plain result) pair for
+    ``planted_hazard_fault``."""
     from repro_torch.core import build_shards
     from repro_torch.graph import csr_from_coo
     from repro_torch.kernels.relax import (fixpoint_operands,
-                                           relax_dst_ragged_fixpoint_batch_plain)
+                                           relax_dst_ragged_fixpoint_batch_plain,
+                                           relax_dst_tiled_fixpoint_plain)
     from repro_torch.kernels.relax import relax as relax_mod
     from repro_torch.kernels.round import (fused_round_operands,
-                                           fused_round_ragged_plain)
+                                           fused_round_ragged_plain,
+                                           fused_round_tiled_plain)
     from repro_torch.kernels.round import round as round_mod
     n, k = 128, 3
     src = np.r_[np.arange(30), 30, 5, 70, 100]
     dst = np.r_[np.arange(1, 31), 70, 100, 71, 101]
     sh = build_shards(csr_from_coo(src, dst, np.ones(len(src), np.float32),
                                    n), 2, enumerate_triangles=False,
-                      layout="ragged", relax_vb=32, relax_eb=4, send_sb=32,
+                      layout=layout, relax_vb=32, relax_eb=4, send_sb=32,
                       send_eb=4, merge_vb=32, merge_eb=4).to(dev)
     P, block = sh.n_parts, sh.block
     dist = torch.full((P, k, block), float("inf"), device=dev)
@@ -623,13 +639,23 @@ def path_case(torch, np, dev):
     front = dist < float("inf")
     pruned = torch.zeros((P, sh.e_loc + sh.e_cut), dtype=torch.bool,
                          device=dev)
-    src_r, w_r, rel_r, eid_r, ct_r = sh.relax_layout
-    d, f, prn = fixpoint_operands(dist, front, pruned[:, :sh.e_loc], eid_r,
+    lay = sh.relax_layout
+    d, f, prn = fixpoint_operands(dist, front, pruned[:, :sh.e_loc], lay[3],
                                   -(-block // 32) * 32)
-    r_args = (d, f, ct_r, src_r, w_r, rel_r, prn)
     r_kw = dict(vb=32, n_sweeps=2)
-    relax = ((lambda **x: relax_mod._launch_ragged(*r_args, **r_kw, **x)),
-             relax_dst_ragged_fixpoint_batch_plain(*r_args, **r_kw))
+    if layout == "ragged":
+        r_args = (d, f, lay[4], *lay[:3], prn)
+        r_launch, r_plain = (relax_mod._launch_ragged,
+                             relax_dst_ragged_fixpoint_batch_plain)
+        launch, plain = round_mod._launch_ragged, fused_round_ragged_plain
+    else:
+        r_args = tuple(a[0, 0] for a in (d, f)) + tuple(
+            a[0].contiguous() for a in (*lay[:3], prn))
+        r_launch, r_plain = (relax_mod._launch_single,
+                             relax_dst_tiled_fixpoint_plain)
+        launch, plain = round_mod._launch_tiled, fused_round_tiled_plain
+    relax = ((lambda **x: r_launch(*r_args, **r_kw, **x)),
+             r_plain(*r_args, **r_kw))
     live = torch.ones((P, k), dtype=torch.bool, device=dev)
     last = torch.full((P, k, sh.n_slots), float("inf"), device=dev)
     inc = torch.full((P, k, sh.recv_idx.shape[-1] * P), float("inf"),
@@ -640,8 +666,9 @@ def path_case(torch, np, dev):
         pruned[:, :sh.e_loc], pruned[:, sh.e_loc:], vb=32, sb=32,
         dense=False)
     kw = dict(vb=32, sb=32, n_sweeps=2, dense=False)
-    rnd = ((lambda **x: round_mod._launch_ragged(*ops, **kw, **x)),
-           fused_round_ragged_plain(*ops, **kw))
+    chunks = {} if layout == "ragged" else dict(chunks=sh.round_chunks)
+    rnd = ((lambda **x: launch(*ops, **kw, **chunks, **x)),
+           plain(*ops, **kw))
     return relax, rnd
 
 
@@ -661,8 +688,11 @@ def round_kernel_phase(torch, np, eng, sources, cfg, name):
     the state after round 2 of ``eng``'s fused solve: bit-equal to its plain
     version (all six outputs) with the delivered bucket messages, and again
     with a dense [P, K, block] incoming row made from a numpy seed; each
-    plain version timed on the call the comparison used, the kernel with
-    CUDA events beside its bound."""
+    plain version timed on the call the comparison used, the kernel as
+    medians of 20 x 10 calls (CUDA events) beside its bound (kernel 7 with
+    the shards' live chunks, as the engine passes them, its bytes those of
+    the rows and of the live chunks it reads); a planted fault,
+    the hazard re-read off, must differ."""
     from repro_torch.kernels.round import (fused_round_operands,
                                            fused_round_ragged,
                                            fused_round_ragged_plain,
@@ -688,6 +718,14 @@ def round_kernel_phase(torch, np, eng, sources, cfg, name):
         np.inf).astype(np.float32)).to(carry.dist.device)
     kw = dict(vb=dsh.rx_vb, sb=dsh.tx_sb, n_sweeps=cfg.pallas_sweeps)
     ragged = name == "round_ragged"
+    chunks = {} if ragged else dict(chunks=dsh.round_chunks)
+    if not ragged:
+        counts = [(int(b[:, -1].sum()), i.numel(), b[:, -1].tolist())
+                  for i, b in dsh.round_chunks]
+        say(f"  round live chunks (merge, relax, send): "
+            + ", ".join(f"{a} of {n}" for a, n, _ in counts)
+            + f"; chain steps a sweep per shard {counts[1][2]} (the whole "
+            f"layout: {dsh.rx_src.shape[1] * dsh.rx_src.shape[2]} each)")
     row, errs = {}, []
     for dense, incoming in ((False, bucket), (True, dense_inc)):
         ops = fused_round_operands(
@@ -696,15 +734,11 @@ def round_kernel_phase(torch, np, eng, sources, cfg, name):
             dsh.send_layout, dsh.merge_layout, carry.pruned[:, :dsh.e_loc],
             carry.pruned[:, dsh.e_loc:], vb=dsh.rx_vb, sb=dsh.tx_sb,
             dense=dense)
-        out = kernel(*ops, dense=dense, **kw)
+        out = kernel(*ops, dense=dense, **kw, **chunks)
         ref, plain_ms = once(torch, lambda: plain(*ops, dense=dense, **kw))
         errs.append(compare(torch, name, out, ref))
-        mean = None
-        if ragged:
-            ms, mean = timed_median(
-                torch, lambda: kernel(*ops, dense=dense, **kw))
-        else:
-            ms = timed(torch, lambda: kernel(*ops, dense=dense, **kw), 5)
+        ms, mean = timed_median(
+            torch, lambda: kernel(*ops, dense=dense, **kw, **chunks))
         # operations: an add and a min per relaxation and per live cut edge
         # and query, a min per delivered message (or row entry) and query
         tx_w, tx_prn = ops[8][1], ops[8][3]
@@ -712,11 +746,20 @@ def round_kernel_phase(torch, np, eng, sources, cfg, name):
         merges = (incoming[..., :dsh.block].numel() if dense
                   else K * int(ops[6][2].sum()))
         n_ops = 2 * int(out[4].sum()) + 2 * K * live_cut + merges
-        b = bound(nbytes(*tensors(*ops), *out), n_ops)
+        if ragged:
+            n_bytes = nbytes(*tensors(*ops), *out)
+        else:
+            # the rows, and each stage's live chunks with their lists
+            n_bytes = nbytes(*ops[:6], *out)
+            for lay, (idx, b) in zip(ops[6:], dsh.round_chunks):
+                if lay is not None:
+                    n_live = int(b[:, -1].sum())
+                    n_bytes += (live_bytes(lay, n_live) + nbytes(b)
+                                + n_live * idx.element_size())
+        b = bound(n_bytes, n_ops)
         say(f"  {name} ({'dense' if dense else 'bucket'} incoming): "
-            f"{ms:.4f} ms kernel"
-            + (f" (median; mean {mean:.4f})" if ragged else "")
-            + f", {plain_ms:.2f} ms plain, bound {b[0]:.5f} "
+            f"{ms:.4f} ms kernel (median; mean {mean:.4f})"
+            f", {plain_ms:.2f} ms plain, bound {b[0]:.5f} "
             f"ms ({b[1]}); {int(torch.isfinite(incoming).sum())} incoming "
             f"values, {int(out[4].sum())} relaxations, "
             f"{int(out[5].sum())} sends, "
@@ -724,12 +767,12 @@ def round_kernel_phase(torch, np, eng, sources, cfg, name):
         if not dense:
             row = dict(ms=ms, mean_ms=mean, plain_ms=plain_ms, bound=b,
                        library_ms=None)
-            if ragged:
-                launch = (lambda **f: round_mod._launch_ragged(
-                    *ops, dense=dense, **kw, **f))
-                planted_hazard_fault(torch, name, lambda: (launch, ref),
-                                     lambda: path_case(torch, np,
-                                                       ops[0].device)[1])
+            fn = round_mod._launch_ragged if ragged else round_mod._launch_tiled
+            launch = (lambda **f: fn(*ops, dense=dense, **kw, **chunks, **f))
+            planted_hazard_fault(
+                torch, name, lambda: (launch, ref),
+                lambda: path_case(torch, np, ops[0].device,
+                                  "ragged" if ragged else "dense")[1])
     row["err"] = max(errs)
     return {name: row}
 
@@ -774,7 +817,8 @@ def single_phase(torch, np, g, rng):
     beside its bound. Returns the table rows."""
     from repro_torch.graph import graph_to_numpy
     from repro_torch.kernels import build
-    from repro_torch.kernels.common import take_fill
+    from repro_torch.kernels.common import live_chunks, take_fill
+    from repro_torch.kernels.relax import relax as relax_mod
     from repro_torch.kernels.relax import (
         build_dst_tiled_layout, relax_dst_tiled, relax_dst_tiled_fixpoint,
         relax_dst_tiled_fixpoint_plain, relax_dst_tiled_masked,
@@ -908,11 +952,24 @@ def single_phase(torch, np, g, rng):
         ms=timed(torch, lambda: relax_dst_tiled_masked(*args9, vb=vb), 50),
         plain_ms=plain10, bound=bound(nbytes(*args9, *out10),
                                       2 * int(out10[1])))
+    n_live = int(live_chunks(lay[1][None] < inf)[1][0, -1])
+    n_all = lay[0].shape[0] * lay[0].shape[1]
+    say(f"  relax_single live chunks: {n_live} of {n_all} (chain steps a "
+        f"sweep: {n_live}, the whole layout {n_all})")
+    ms9, mean9 = timed_median(
+        torch, lambda: relax_dst_tiled_fixpoint(*args9, vb=vb, n_sweeps=2))
+    # the bytes it needs: the rows, the weights in full (which chunks are
+    # live) and the other planes over the live chunks
     rows["relax_single"] = dict(
-        ms=timed(torch, lambda: relax_dst_tiled_fixpoint(*args9, vb=vb,
-                                                         n_sweeps=2), 5),
-        plain_ms=plain9, bound=bound(nbytes(*args9, *out9),
-                                     2 * int(out9[2])))
+        ms=ms9, mean_ms=mean9, plain_ms=plain9,
+        bound=bound(nbytes(d, f, lay[1], *out9)
+                    + live_bytes((lay[0], lay[2], pr10), n_live),
+                    2 * int(out9[2])))
+    planted_hazard_fault(
+        torch, "relax_single",
+        lambda: ((lambda **f: relax_mod._launch_single(
+            *args9, vb=vb, n_sweeps=2, **f)), ref9),
+        lambda: path_case(torch, np, dev, "dense")[0])
     ms8 = timed(torch, lambda: relax_dst_tiled_fixpoint(*args9, vb=vb,
                                                         n_sweeps=8), 3)
     flat = [torch.from_numpy(a).to(dev) for a in edges]
@@ -924,9 +981,12 @@ def single_phase(torch, np, g, rng):
         f"relaxations, residual {int((out9[1] > 0).sum())})")
     for name, r in rows.items():
         r.update(err=errs[name], library_ms=None)
-        say(f"  {name}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.2f} ms "
-            f"plain, bound {r['bound'][0]:.5f} ms ({r['bound'][1]}), "
-            f"{launches[name]} launches for {len(sources)} solves")
+        say(f"  {name}: {r['ms']:.4f} ms kernel"
+            + (f" (median; mean {r['mean_ms']:.4f})" if "mean_ms" in r
+               else "")
+            + f", {r['plain_ms']:.2f} ms plain, bound {r['bound'][0]:.5f} ms "
+            f"({r['bound'][1]}), {launches[name]} launches for "
+            f"{len(sources)} solves")
     say(f"  relax_single with n_sweeps=8: {ms8:.4f} ms; relax_jnp (gather + "
         f"scatter_reduce amin over the {m} flat edges): {jnp_ms:.4f} ms")
     return rows, launches

@@ -40,7 +40,7 @@ import torch
 
 from repro_torch.core.partition import partition_1d
 from repro_torch.graph.structure import Graph
-from repro_torch.kernels.common import chunk_bounds
+from repro_torch.kernels.common import chunk_bounds, live_chunks
 from repro_torch.kernels.merge.ops import (build_msg_ragged_layout,
                                            build_msg_tiled_layout)
 from repro_torch.kernels.relax.ops import (build_dst_ragged_layout,
@@ -171,6 +171,18 @@ class SsspShards:
         if self.mx_ctile is None:
             return None
         return chunk_bounds(self.mx_ctile, -(-self.block // self.mx_vb))
+
+    @functools.cached_property
+    def round_chunks(self):
+        """The dense layouts' live chunks that kernel 7 walks, (merge by
+        ``mx_valid``, relax by ``rx_w``, send by ``tx_w``), each the
+        (idx, bounds) pair of ``live_chunks``; None when ragged. Derived
+        once, as ``send_bounds``."""
+        if self.rx_ctile is not None:
+            return None
+        return (live_chunks(self.mx_valid > 0),
+                live_chunks(self.rx_w < float("inf")),
+                live_chunks(self.tx_w < float("inf")))
 
     def arrays(self) -> dict[str, torch.Tensor]:
         """Every array field by name (the ctile maps only when ragged)."""

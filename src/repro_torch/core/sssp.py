@@ -288,7 +288,7 @@ def _phase_fused(sh: SsspShards, dist, front_in, live, incoming, last_sent,
         dist, front_in, live, incoming.reshape(P, K, -1), last_sent,
         sh.slot_valid, sh.relax_layout, sh.send_layout, sh.merge_layout,
         pruned[:, :sh.e_loc], pruned[:, sh.e_loc:], vb=sh.rx_vb,
-        sb=sh.tx_sb, n_sweeps=cfg.pallas_sweeps)
+        sb=sh.tx_sb, n_sweeps=cfg.pallas_sweeps, chunks=sh.round_chunks)
     payload = send_payload_bucket(send_val, sh.tx_payload_slot)
     return new_dist, payload, new_last, sends, nrel, resid
 

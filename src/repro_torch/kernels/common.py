@@ -58,6 +58,28 @@ def chunk_bounds(ctile: torch.Tensor, n_tiles: int) -> torch.Tensor:
                               out_int32=True)
 
 
+def live_chunks(live_slots: torch.Tensor):
+    """The live chunks of a dense layout, the chunks kernels 7 and 9 walk.
+    ``live_slots`` [P, n_tiles, n_chunks, EB] bool marks the slots that hold
+    an edge (``w < +inf``) or a message (``valid > 0``); a chunk with none is
+    an exact no-op in every stage of the round and the relax sweeps, so the
+    kernels skip it. Returns (idx [P, n_tiles * n_chunks] int32: the live
+    chunks' indices first, in layout order, then the dead ones; bounds
+    [P, n_tiles + 1] int32: tile i's live chunks are
+    ``idx[p, bounds[p, i]:bounds[p, i + 1]]``, and ``bounds[p, n_tiles]``
+    is the shard's live count). Device ops only: no host sync, as the
+    kernels read the count where it lies. Kernel 9's entry point derives
+    the same list on the card (``csrc/relax.cu``: the pre-pass)."""
+    P, n_tiles, n_chunks, _ = live_slots.shape
+    live = live_slots.any(-1).reshape(P, -1)
+    idx = torch.sort((~live).to(torch.int32), dim=-1,
+                     stable=True).indices.to(torch.int32)
+    pos = torch.arange(idx.shape[1], device=idx.device)
+    tiles = torch.where(pos < live.sum(-1, keepdim=True), idx // n_chunks,
+                        n_tiles).to(torch.int32)
+    return idx, chunk_bounds(tiles, n_tiles)
+
+
 def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor):
     """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``."""
     for t in tensors:
@@ -68,10 +90,11 @@ def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor):
 
 
 def check_chain(name: str, eb: int, vb: int, *tensors: torch.Tensor):
-    """Raise unless the ragged chain (csrc/sweeps_ragged.cuh) takes the
-    operands: EB a multiple of 4 and 16-byte aligned layout planes (the
-    ring is fed by bulk copies) and rows (read four floats at a time), VB a
-    multiple of 32 (a warp's vertices are one word of the bitmasks)."""
+    """Raise unless the Hopper chain (csrc/sweeps_ragged.cuh, kernels 2, 8,
+    9 and 7) takes the operands: EB a multiple of 4 and 16-byte aligned
+    layout planes (the ring is fed by bulk copies) and rows (read four
+    floats at a time), VB a multiple of 32 (a warp's vertices are one word
+    of the bitmasks)."""
     if eb % 4 or vb % 32 or any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: chunks of {eb} edges, tiles of {vb} "
                          f"vertices or storage not 16-byte aligned: the "
@@ -80,7 +103,7 @@ def check_chain(name: str, eb: int, vb: int, *tensors: torch.Tensor):
 
 
 def ragged_scratch(name: str, lib, symbol: str, rows: int, dims, device):
-    """The ragged chain's frontier and improved bitmasks in device memory,
+    """The Hopper chain's frontier and improved bitmasks in device memory,
     [rows, bytes / 4] int32, when they do not fit beside the ring in shared
     memory; None when they do. ``symbol`` (called with ``dims``: bp,
     n_vtiles, eb, vb[, sb]) gives the bytes a row needs, 0 when they fit and

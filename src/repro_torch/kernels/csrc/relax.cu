@@ -33,27 +33,35 @@
 // chain of n_sweeps * chunks-per-shard dependent steps. Bytes are not the
 // limit.
 //
-// Design of the dense fixpoint kernels (1 and 9): one CTA per (shard,
-// query) row, a grid of P*K (a grid of 1 for relax_fixpoint), walking
-// sweeps -> chunks in the Pallas grid order (sweeps.cuh), which reproduces
-// the reference's sequence of reads and writes exactly, so the relaxation
-// count is exact and not merely bounded. Per chunk every thread gathers and
-// atomicMins its candidates into a shared VB-tile (tile_min_into); after a
-// barrier the tile is min'd into the row, then reset. The rows (live
-// distances, previous sweep, frontier) stay in global memory, reached
-// through L1 and L2, so each chunk step waits on a chain of device-memory
-// round trips: the simple, exact design.
+// Design of the dense batched fixpoint kernel (1): one CTA per (shard,
+// query) row, a grid of P*K, walking sweeps -> chunks in the Pallas grid
+// order (sweeps.cuh), which reproduces the reference's sequence of reads
+// and writes exactly, so the relaxation count is exact and not merely
+// bounded. Per chunk every thread gathers and atomicMins its candidates
+// into a shared VB-tile (tile_min_into); after a barrier the tile is min'd
+// into the row, then reset. The rows (live distances, previous sweep,
+// frontier) stay in global memory, reached through L1 and L2, so each
+// chunk step waits on a chain of device-memory round trips: the simple,
+// exact design.
 //
-// Design of the ragged fixpoint kernel (2), redesigned for Hopper: the same
-// grid and the same order, on the chain of sweeps_ragged.cuh: a producer
-// warp streams the layout through a ring of shared-memory stages with bulk
-// copies, the frontier and the improved set are bitmasks in shared memory,
-// and the distance gathers are issued two chunks ahead, a source whose tile
-// may have been written since being read again from a shared window of the
-// live tiles. What bounds it now: the chain of chunk steps, each the SM's
-// own work (an L1 request per early gather, shared-memory reads and
-// atomics) between two barriers of the consumer warps; no step waits on
-// device memory.
+// Design of the ragged fixpoint kernel (2) and of the single-query
+// fixpoint (9), redesigned for Hopper: the same order, on the chain of
+// sweeps_ragged.cuh: a producer warp streams the layout through a ring of
+// shared-memory stages with bulk copies, the frontier and the improved set
+// are bitmasks in shared memory, and the distance gathers are issued two
+// chunks ahead, a source whose tile may have been written since being read
+// again from a shared window of the live tiles. Kernel 2 walks the ragged
+// layout. Kernel 9 walks the dense layout's live chunks (those holding a
+// finite weight), in layout order: a chunk of +inf weights is an exact
+// no-op, and at the scale-1e6 block 6,076 of its 8,192 chunks are. Its
+// entry point finds them on the device, ahead of the chain on the same
+// stream, with no host sync: a pass over the weights (a warp a chunk) sets
+// a flag a chunk, and one block compacts the flags into the list and its
+// length by a block-wide scan. One query is one chain, on one SM: the
+// order makes the count exact, so the row is not split. What bounds both
+// now: the chain of chunk steps, each the SM's own work (an L1 request per
+// early gather, shared-memory reads and atomics) between two barriers of
+// the consumer warps; no step waits on device memory.
 //
 // The two single sweeps (relax_sweep, relax_masked) are Jacobi: every
 // gather reads the INPUT distances, so vertex tiles are independent and
@@ -72,8 +80,8 @@
 
 namespace {
 
-// One (shard, query) row's dense fixpoint: the rows at offset roff; the
-// layout pointers are the shard's own.
+// Kernel 1: one (shard, query) row's dense fixpoint on the plain chain:
+// the rows at offset roff; the layout pointers are the shard's own.
 __device__ void fixpoint_row(const float* __restrict__ dist,
                              const float* __restrict__ front,
                              const int* src_t, const float* w_t,
@@ -132,17 +140,22 @@ relax_fixpoint_kernel(const float* __restrict__ dist,
                n_vtiles * n_chunks, n_chunks, eb, vb, n_sweeps);
 }
 
-// Kernel 2: one block of ragged::kThreads per (shard, query) row on the
-// chain of sweeps_ragged.cuh. vstate: the rows' vertex state in device
-// memory, used only when it does not fit in shared memory (bits_smem 0).
-template <bool kHazard>
+// Kernels 2 and 9: one block of ragged::kThreads per (shard, query) row on
+// the chain of sweeps_ragged.cuh. Kernel 2 (kList false) walks the ragged
+// layout [P, rows, eb] with its chunk -> tile map ctile; kernel 9 (kList)
+// walks the live chunks live_idx[p][0 .. live_n[p]) of the dense layout
+// [P, rows = n_vtiles * n_chunks, eb] (csrc/relax.cu: the pre-pass). vstate:
+// the rows' vertex state in device memory, used only when it does not fit
+// in shared memory (bits_smem 0).
+template <bool kHazard, bool kList>
 __global__ void __launch_bounds__(repro::ragged::kThreads, 1)
 relax_ragged_kernel(const float* __restrict__ dist,
                     const float* __restrict__ front,
                     const int* __restrict__ ctile, const int* src_r,
                     const float* w_r, const int* dstrel_r, const int* pruned_r,
                     float* out, float* resid, int* nrel, uint32_t* vstate,
-                    int K, int bp, int n_vtiles, int rows, int eb, int vb,
+                    const int* live_idx, const int* live_n, int K, int bp,
+                    int n_vtiles, int rows, int n_chunks, int eb, int vb,
                     int n_sweeps, int bits_smem) {
   namespace rg = repro::ragged;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -158,10 +171,14 @@ relax_ragged_kernel(const float* __restrict__ dist,
                 : vstate + static_cast<long long>(row) * (vbytes / 4);
   const int words = rg::bit_words(bp);
   const long long lay = static_cast<long long>(p) * rows * eb;
+  const long long cp = static_cast<long long>(p) * rows;
+  int chain_rows = rows;
+  if constexpr (kList) chain_rows = live_n[p];
   const rg::Chain ch{out + roff, {vs, vs + words},
-                     ctile + static_cast<long long>(p) * rows, src_r + lay,
-                     w_r + lay, dstrel_r + lay, pruned_r + lay, bp, n_vtiles,
-                     rows, eb, vb, n_sweeps};
+                     kList ? nullptr : ctile + cp, src_r + lay, w_r + lay,
+                     dstrel_r + lay, pruned_r + lay, bp, n_vtiles,
+                     chain_rows, eb, vb, n_sweeps,
+                     kList ? live_idx + cp : nullptr, n_chunks};
   int* total = reinterpret_cast<int*>(smem + L.ctl) + 4;
   if (tid == 0) *total = 0;
   // the row, the frontier bitmask, the improved one empty (bp is a
@@ -182,28 +199,74 @@ relax_ragged_kernel(const float* __restrict__ dist,
     any |= nib;
     rg::pack_nibbles(vs, i, nib, in);
   }
-  const int active = __syncthreads_or(any != 0);
+  int active = __syncthreads_or(any != 0);
+  // no live chunk: the sweeps relax nothing (out = dist, resid empty)
+  if constexpr (kList) active = active && chain_rows > 0;
   int r;
-  const int count = rg::sweeps<kHazard>(smem, L, ch, active, &r);
+  const int count = rg::sweeps<kHazard, kList>(smem, L, ch, active, &r);
   rg::unpack_bits(resid + roff, ch.bits[r], bp, rg::kThreads);
   if (count) atomicAdd(total, count);
   __syncthreads();
   if (tid == 0) nrel[row] = *total;
 }
 
-// Kernel 9: the single-query fixpoint, one CTA over the whole block.
-__global__ void __launch_bounds__(repro::kThreads)
-relax_single_kernel(const float* __restrict__ dist,
-                    const float* __restrict__ front,
-                    const int* __restrict__ src_t,
-                    const float* __restrict__ w_t,
-                    const int* __restrict__ dstrel_t,
-                    const int* __restrict__ pruned_t, float* out, float* resid,
-                    int* nrel, float* prev, float* fcur, int bp, int n_vtiles,
-                    int n_chunks, int eb, int vb, int n_sweeps) {
-  fixpoint_row(dist, front, src_t, w_t, dstrel_t, pruned_t, out, resid, nrel,
-               prev, fcur, 0, bp, n_vtiles, n_vtiles * n_chunks, n_chunks, eb,
-               vb, n_sweeps);
+// Kernel 9's pre-pass, part 1: flags[c] = 1 when chunk c of the dense
+// layout holds a finite weight (a warp a chunk, four weights a lane at a
+// time; eb a multiple of 4).
+__global__ void live_flags_kernel(const float* __restrict__ w, int* flags,
+                                  int rows, int eb) {
+  const long long c =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (c >= rows) return;                   // whole warps
+  const float4* w4 = reinterpret_cast<const float4*>(w + c * eb);
+  const float inf = repro::inf_f();
+  bool any = false;
+  for (int i = lane; i < eb / 4; i += 32) {
+    const float4 x = w4[i];
+    any |= x.x < inf || x.y < inf || x.z < inf || x.w < inf;
+  }
+  any = __any_sync(0xffffffffu, any);
+  if (lane == 0) flags[c] = any;
+}
+
+// Kernel 9's pre-pass, part 2 (one block): idx[0 .. n) = the chunks whose
+// flag is set, in layout order, and *n_live = n; blockDim.x flags a round,
+// a block-wide exclusive scan of the flags placing each live chunk.
+__global__ void __launch_bounds__(1024)
+live_list_kernel(const int* __restrict__ flags, int* idx, int* n_live,
+                 int rows) {
+  __shared__ int sums[32];                 // warps' live counts, scanned
+  __shared__ int carry;                    // live chunks of earlier rounds
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+  if (tid == 0) carry = 0;
+  __syncthreads();
+  for (int base = 0; base < rows; base += blockDim.x) {
+    const int c = base + tid;
+    const bool f = c < rows && flags[c] != 0;
+    const unsigned b = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) sums[warp] = __popc(b);
+    __syncthreads();
+    if (warp == 0) {                       // inclusive scan over the warps
+      int v = lane < n_warps ? sums[lane] : 0;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, v, d);
+        if (lane >= d) v += u;
+      }
+      sums[lane] = v;
+    }
+    __syncthreads();
+    if (f)
+      idx[carry + (warp ? sums[warp - 1] : 0) +
+          __popc(b & ((1u << lane) - 1u))] = c;
+    __syncthreads();
+    if (tid == 0) carry += sums[31];
+    __syncthreads();
+  }
+  if (tid == 0) *n_live = carry;
 }
 
 // Kernels 11 (kMasked false) and 10 (kMasked true): one Jacobi sweep, one
@@ -251,13 +314,13 @@ relax_sweep_kernel(const float* __restrict__ dist,
   if (kMasked && tid == 0 && total) atomicAdd(nrel, total);
 }
 
-template <bool kHazard>
+template <bool kHazard, bool kList>
 int launch_ragged(const float* dist, const float* front, const int* ctile,
                   const int* src_r, const float* w_r, const int* dstrel_r,
                   const int* pruned_r, float* out, float* resid, int* nrel,
-                  uint32_t* vstate, int P, int K, int bp, int n_vtiles,
-                  int rows, int eb, int vb, int n_sweeps,
-                  cudaStream_t stream) {
+                  uint32_t* vstate, const int* live_idx, const int* live_n,
+                  int P, int K, int bp, int n_vtiles, int rows, int n_chunks,
+                  int eb, int vb, int n_sweeps, cudaStream_t stream) {
   namespace rg = repro::ragged;
   const int need = rg::scratch_bytes(bp, n_vtiles, eb, vb, 0);
   if (need < 0 || (need > 0 && vstate == nullptr))
@@ -265,12 +328,13 @@ int launch_ragged(const float* dist, const float* front, const int* ctile,
   const int bits_smem = need == 0;
   const rg::Layout L = rg::smem_layout(
       eb, vb, n_vtiles, 0, bits_smem ? rg::vstate_bytes(bp) : 0);
-  auto kernel = relax_ragged_kernel<kHazard>;
+  auto kernel = relax_ragged_kernel<kHazard, kList>;
   cudaError_t err = repro::allow_smem(kernel, L.total);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<P * K, rg::kThreads, L.total, stream>>>(
       dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, out, resid, nrel,
-      vstate, K, bp, n_vtiles, rows, eb, vb, n_sweeps, bits_smem);
+      vstate, live_idx, live_n, K, bp, n_vtiles, rows, n_chunks, eb, vb,
+      n_sweeps, bits_smem);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -319,30 +383,48 @@ extern "C" int relax_ragged_fixpoint_batch(
     int hazard, cudaStream_t stream) {
   if (P * K == 0) return 0;
   if (!hazard)
-    return launch_ragged<false>(dist, front, ctile, src_r, w_r, dstrel_r,
-                                pruned_r, out, resid, nrel, vstate, P, K, bp,
-                                n_vtiles, total_chunks, eb, vb, n_sweeps,
-                                stream);
-  return launch_ragged<true>(dist, front, ctile, src_r, w_r, dstrel_r,
-                             pruned_r, out, resid, nrel, vstate, P, K, bp,
-                             n_vtiles, total_chunks, eb, vb, n_sweeps, stream);
+    return launch_ragged<false, false>(
+        dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, out, resid, nrel,
+        vstate, nullptr, nullptr, P, K, bp, n_vtiles, total_chunks, 1, eb,
+        vb, n_sweeps, stream);
+  return launch_ragged<true, false>(
+      dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, out, resid, nrel,
+      vstate, nullptr, nullptr, P, K, bp, n_vtiles, total_chunks, 1, eb, vb,
+      n_sweeps, stream);
 }
 
 // Kernel 9: one query, dense layout [n_vtiles, n_chunks, eb]; rows [bp],
-// nrel [1].
+// nrel [1]. live: [2 * n_vtiles * n_chunks + 1] int32 scratch (the chunks'
+// flags, the live list, its length), filled by the pre-pass on the same
+// stream; vstate [relax_ragged_scratch_bytes / 4] or null when that is 0.
+// hazard 0 is the planted fault of the checks.
 extern "C" int relax_fixpoint(const float* dist, const float* front,
                               const int* src_t, const float* w_t,
                               const int* dstrel_t, const int* pruned_t,
-                              float* out, float* resid, int* nrel, float* prev,
-                              float* fcur, int bp, int n_vtiles, int n_chunks,
-                              int eb, int vb, int n_sweeps,
-                              cudaStream_t stream) {
-  cudaError_t err = allow_tile(relax_single_kernel, vb);
+                              float* out, float* resid, int* nrel, int* live,
+                              uint32_t* vstate, int bp, int n_vtiles,
+                              int n_chunks, int eb, int vb, int n_sweeps,
+                              int hazard, cudaStream_t stream) {
+  const int rows = n_vtiles * n_chunks;
+  int* flags = live;
+  int* idx = live + rows;
+  int* n_live = live + 2 * rows;
+  live_flags_kernel<<<(rows + 15) / 16, 512, 0, stream>>>(w_t, flags, rows,
+                                                          eb);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  relax_single_kernel<<<1, repro::kThreads, vb * sizeof(int), stream>>>(
-      dist, front, src_t, w_t, dstrel_t, pruned_t, out, resid, nrel, prev,
-      fcur, bp, n_vtiles, n_chunks, eb, vb, n_sweeps);
-  return static_cast<int>(cudaGetLastError());
+  live_list_kernel<<<1, 1024, 0, stream>>>(flags, idx, n_live, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!hazard)
+    return launch_ragged<false, true>(
+        dist, front, nullptr, src_t, w_t, dstrel_t, pruned_t, out, resid,
+        nrel, vstate, idx, n_live, 1, 1, bp, n_vtiles, rows, n_chunks, eb,
+        vb, n_sweeps, stream);
+  return launch_ragged<true, true>(
+      dist, front, nullptr, src_t, w_t, dstrel_t, pruned_t, out, resid, nrel,
+      vstate, idx, n_live, 1, 1, bp, n_vtiles, rows, n_chunks, eb, vb,
+      n_sweeps, stream);
 }
 
 // Kernel 10: one masked, counted Jacobi sweep; nrel [1] zeroed by the

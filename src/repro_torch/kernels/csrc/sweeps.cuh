@@ -1,7 +1,8 @@
-// The Gauss-Seidel sweep chain of one (shard, query) row over the dense
-// layout, shared by the dense relax kernels 1 and 9 (csrc/relax.cu) and the
-// dense fused round, kernel 7 (csrc/round.cu). The ragged kernels 2 and 8
-// run the chain of sweeps_ragged.cuh.
+// The plain Gauss-Seidel sweep chain of one (shard, query) row over the
+// dense layout, walking every chunk, the all-padding ones included: the
+// relax stage of kernel 1 alone (csrc/relax.cu, relax_fixpoint_batch).
+// Kernels 2 and 8 (ragged) and 9 and 7 (the dense layout's live chunks) run
+// the Hopper chain of sweeps_ragged.cuh.
 //
 // Up to n_sweeps frontier-chased min-plus sweeps. A sweep walks the shard's
 // n_rows edge chunks of eb edges in layout order; chunk c lands in vertex

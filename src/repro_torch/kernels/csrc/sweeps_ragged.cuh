@@ -1,19 +1,30 @@
-// The Gauss-Seidel sweep chain of one (shard, query) row over the ragged
-// layout, for Hopper: the relax stage of kernels 2 (csrc/relax.cu,
-// relax_ragged_fixpoint_batch) and 8 (csrc/round.cu, fused_round_ragged).
-// The dense kernels 1, 7 and 9 keep the plain chain of sweeps.cuh.
+// The Gauss-Seidel sweep chain of one (shard, query) row, for Hopper: the
+// relax stage of kernels 2 (csrc/relax.cu, relax_ragged_fixpoint_batch) and
+// 8 (csrc/round.cu, fused_round_ragged) over the ragged layout, and of
+// kernels 9 (relax.cu, relax_fixpoint) and 7 (round.cu, fused_round_tiled)
+// over the dense layout's live chunks (kList). Kernel 1 alone keeps the
+// plain chain of sweeps.cuh.
 //
 // What it computes is what sweeps.cuh computes, in the same order: up to
 // n_sweeps frontier-chased min-plus sweeps; a sweep walks the shard's
 // chunks in layout order, chunk c landing in vertex tile
-// min(ctile[c], n_vtiles - 1); each chunk gathers o[src] + w for the edges
-// whose source is in the sweep's frontier (pruned edges count as +inf),
-// min-reduces them per destination in a shared tile of keys
-// (tile_min_into), and only then mins the tile into the live row. The next
-// sweep's frontier is the set of vertices improved in this one (exactly
-// o_end < o_start, as the row never rises); a row whose sweep improved
-// nothing stops. So every distance and every count, q_relaxations
+// min(ctile[c], n_vtiles - 1) (ragged) or c / n_chunks (dense); each chunk
+// gathers o[src] + w for the edges whose source is in the sweep's frontier
+// (pruned edges count as +inf), min-reduces them per destination in a
+// shared tile of keys (tile_min_into), and only then mins the tile into
+// the live row. The next sweep's frontier is the set of vertices improved
+// in this one (exactly o_end < o_start, as the row never rises); a row
+// whose sweep improved nothing stops. So every distance and every count, q_relaxations
 // included, is the reference's.
+//
+// The dense layout gives every tile as many chunks as the heaviest tile
+// needs and pads the rest with w = +inf; at the scale-1e6 layouts 65-74% of
+// its chunks hold no finite weight. Such a chunk is an exact no-op (every
+// candidate is +inf and it counts nothing), so with kList the chain walks
+// only the live chunks, a list of chunk indices in layout order (so their
+// tiles do not decrease, as the window needs) whose length the kernel
+// reads from device memory. It is the dense order minus its dead chunks,
+// as the ragged order is. kList false compiles to the ragged path.
 //
 // What bounds it: the order. Each chunk may read what the previous one
 // wrote, so a row is a chain of up to n_sweeps * chunks steps; the design
@@ -262,7 +273,9 @@ __device__ __forceinline__ void unpack_bits(float* resid, const uint32_t* bits,
 // ---- the chain --------------------------------------------------------------
 
 // One row: the live row o in device memory, the two bitmasks (bits[cur] is
-// the frontier), and the shard's layout rows.
+// the frontier), and the shard's layout rows. Ragged: the chain walks
+// chunks 0 .. rows - 1, chunk c in tile ct[c]. kList (dense): it walks the
+// live chunks idx[0 .. rows - 1], chunk c in tile c / n_chunks.
 struct Chain {
   float* o;
   uint32_t* bits[2];
@@ -272,6 +285,8 @@ struct Chain {
   const int* rel;
   const int* prn;
   int bp, n_vtiles, rows, eb, vb, n_sweeps;
+  const int* idx;
+  int n_chunks;
 };
 
 // The chunk's stage in the ring: src, w, dstrel, pruned planes, then ctile.
@@ -302,8 +317,10 @@ __device__ __forceinline__ int stage_tile(const unsigned char* st, int eb,
 // row is final in device memory and the returned index `resid` names the
 // bitmask of vertices improved in the last sweep run (the residual
 // frontier). kHazard false is a planted fault for the checks only: every
-// source is read from its early gather.
-template <bool kHazard>
+// source is read from its early gather. kList: the chain walks the live
+// chunk list ch.idx (rows > 0; the caller makes a row with no live chunk
+// inactive).
+template <bool kHazard, bool kList = false>
 __device__ int sweeps(unsigned char* smem, const Layout& L, const Chain& ch,
                       int active, int* resid) {
   constexpr int D = kLookahead;
@@ -339,16 +356,26 @@ __device__ int sweeps(unsigned char* smem, const Layout& L, const Chain& ch,
   int count = 0;
   int consumed = 0;                           // chunks through the ring
   if (tid >= kConsumers) {
-    // ---- the producer warp: chunk g of the stream is chunk g % rows ----
+    // ---- the producer warp: chunk g of the stream is chunk g % rows of
+    // the layout (ragged) or of the live list (kList) ----
     const int lane = tid - kConsumers;
     long long g = 0;
     bool stopped = false;
     for (long long base = 0; base < total && !stopped; base += 32) {
-      int ctv = 0;
-      if (base + lane < total) ctv = ch.ct[(base + lane) % ch.rows];
+      int ctv = 0, cv = 0;
+      if (base + lane < total) {
+        if constexpr (kList) {
+          cv = ch.idx[(base + lane) % ch.rows];
+          ctv = cv / ch.n_chunks;
+        } else {
+          ctv = ch.ct[(base + lane) % ch.rows];
+        }
+      }
       const int n = static_cast<int>(min(32LL, total - base));
       for (int j = 0; j < n; ++j, ++g) {
         const int ctj = __shfl_sync(0xffffffffu, ctv, j);
+        int cj = 0;
+        if constexpr (kList) cj = __shfl_sync(0xffffffffu, cv, j);
         if (lane == 0) {
           const int st = static_cast<int>(g % kStages);
           const uint32_t par =
@@ -361,7 +388,9 @@ __device__ int sweeps(unsigned char* smem, const Layout& L, const Chain& ch,
           if (!stopped) {
             unsigned char* s = ring + st * L.stage;
             *reinterpret_cast<int*>(s + 16 * eb) = ctj;
-            const long long off = (g % ch.rows) * static_cast<long long>(eb);
+            const long long off =
+                (kList ? static_cast<long long>(cj) : g % ch.rows) *
+                static_cast<long long>(eb);
             mbar_expect_tx(full + st, 16u * eb);
             bulk_load(s, ch.src + off, 4u * eb, full + st);
             bulk_load(s + 4 * eb, ch.w + off, 4u * eb, full + st);

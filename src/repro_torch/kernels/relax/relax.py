@@ -19,7 +19,11 @@ reference does; their kernels order candidates by an order-preserving key
 (``csrc/tile_reduce.cuh: min_key``), so they take any non-NaN distances,
 negative ones included. Every kernel reads the layout as the builders make
 it (sources in ``[0, block_pad)``, ``dstrel`` in ``[0, vb)``): the
-wrappers check shapes and dtypes, not index values.
+wrappers check shapes and dtypes, not index values. Kernels 2 and 9 run the
+Hopper chain of ``csrc/sweeps_ragged.cuh`` (kernel 9 over the dense
+layout's live chunks), which takes VB a multiple of 32, EB of 4 and 16-byte
+aligned operands (``check_chain``); kernel 1 the plain chain of
+``csrc/sweeps.cuh``.
 """
 from __future__ import annotations
 
@@ -173,14 +177,14 @@ def relax_dst_tiled_plain(dist_pad, src_t, w_t, dstrel_t, *, vb: int):
 _SIGNATURES = {"relax_fixpoint_batch": build.signature(11, 8),
                "relax_ragged_fixpoint_batch": build.signature(11, 9),
                "relax_ragged_scratch_bytes": [ctypes.c_int] * 4,
-               "relax_fixpoint": build.signature(11, 6),
+               "relax_fixpoint": build.signature(11, 7),
                "relax_masked": build.signature(8, 4),
                "relax_sweep": build.signature(5, 4)}
 
 
 def _outputs(dist):
-    """out, resid, nrel, and the dense chain's scratch rows prev and
-    fcur."""
+    """out, resid, nrel, and kernel 1's scratch rows prev and fcur (the
+    plain chain of ``csrc/sweeps.cuh``)."""
     P, K, _ = dist.shape
     return (torch.empty_like(dist), torch.empty_like(dist),
             torch.empty((P, K), dtype=torch.int32, device=dist.device),
@@ -278,22 +282,44 @@ def _single_operands(name, rows, planes, vb: int):
 def relax_dst_tiled_fixpoint(dist_pad, front_pad, src_t, w_t, dstrel_t,
                              pruned_t, *, vb: int, n_sweeps: int):
     """Kernel 9: same contract as the plain version. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (one CTA)."""
+    plain version; CUDA tensors launch the kernel (one block on the chain
+    of ``csrc/sweeps_ragged.cuh`` over the layout's live chunks, which its
+    entry point finds on the device first)."""
     if not dist_pad.is_cuda:
         return relax_dst_tiled_fixpoint_plain(
             dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t, vb=vb,
             n_sweeps=n_sweeps)
+    return _launch_single(dist_pad, front_pad, src_t, w_t, dstrel_t,
+                          pruned_t, vb=vb, n_sweeps=n_sweeps)
+
+
+def _launch_single(dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t, *,
+                   vb: int, n_sweeps: int, hazard: bool = True):
+    """Kernel 9's launch: the live-chunk pre-pass and the chain, on the
+    current stream. ``hazard=False`` is a planted fault for the checks
+    alone (every source read from its early gather), which must differ from
+    the plain version."""
     n_vtiles, n_chunks, eb = _single_operands(
         "relax_single", (dist_pad, front_pad),
         (src_t, w_t, dstrel_t, pruned_t), vb)
+    check_chain("relax_single", eb, vb, dist_pad, front_pad, src_t, w_t,
+                dstrel_t, pruned_t)
+    bp = n_vtiles * vb
+    dev = dist_pad.device
     lib = build.load("relax", _SIGNATURES)
-    out, resid, prev, fcur = (torch.empty_like(dist_pad) for _ in range(4))
-    nrel = torch.empty(1, dtype=torch.int32, device=dist_pad.device)
-    stream = torch.cuda.current_stream(dist_pad.device).cuda_stream
+    vstate = ragged_scratch("relax_single", lib, "relax_ragged_scratch_bytes",
+                            1, (bp, n_vtiles, eb, vb), dev)
+    out, resid = torch.empty_like(dist_pad), torch.empty_like(dist_pad)
+    nrel = torch.empty(1, dtype=torch.int32, device=dev)
+    # the pre-pass's chunk flags, live list and its length
+    live = torch.empty(2 * n_vtiles * n_chunks + 1, dtype=torch.int32,
+                       device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.relax_fixpoint(
         *map(build.ptr, (dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t,
-                         out, resid, nrel, prev, fcur)),
-        n_vtiles * vb, n_vtiles, n_chunks, eb, vb, n_sweeps, stream)
+                         out, resid, nrel, live)),
+        build.ptr_or_null(vstate), bp, n_vtiles, n_chunks, eb, vb, n_sweeps,
+        int(hazard), stream)
     build.check(lib, "relax_single", code)
     build.count_launch("relax_single")
     return out, resid, nrel

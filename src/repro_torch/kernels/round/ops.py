@@ -74,7 +74,7 @@ def fused_round_operands(dist, front_in, live, incoming, last_sent,
 def fused_round_pallas(dist, front_in, live, incoming, last_sent, slot_valid,
                        relax_layout, send_layout, merge_layout, pruned_loc,
                        pruned_cut, *, vb: int = 128, sb: int = 128,
-                       n_sweeps: int = 8, dense: bool = False):
+                       n_sweeps: int = 8, dense: bool = False, chunks=None):
     """One fused merge + local-fixpoint + send-pack round on every shard.
 
     dist/front_in: [P, K, block]; live: [P, K] bool; incoming: [P, K, M]
@@ -84,7 +84,9 @@ def fused_round_pallas(dist, front_in, live, incoming, last_sent, slot_valid,
     dstrel, valid) (ignored when dense); pruned_loc/pruned_cut: [P, e_loc] /
     [P, e_cut] Trishla masks in original edge order. Ragged shards pass
     5-tuple relax/send and 4-tuple merge layouts (+ the chunk->tile map);
-    the tuple arity selects the ragged kernel.
+    the tuple arity selects the ragged kernel. ``chunks``: the dense
+    layouts' live chunks (``SsspShards.round_chunks``), which kernel 7
+    needs on CUDA tensors; None for ragged layouts and on the CPU.
 
     Returns (new_dist [P, K, block], send_val [P, K, S], new_last
     [P, K, S], nrel [P, K], sends [P, K], resid [P, K, block] f32: a
@@ -95,10 +97,12 @@ def fused_round_pallas(dist, front_in, live, incoming, last_sent, slot_valid,
         dist, front_in, live, incoming, last_sent, slot_valid, relax_layout,
         send_layout, merge_layout, pruned_loc, pruned_cut, vb=vb, sb=sb,
         dense=dense)
-    round_fn = (fused_round_ragged if len(relax_layout) == 5
-                else fused_round_tiled)
-    out, resid, sval, nlast, nrel, sends = round_fn(
-        *ops, vb=vb, sb=sb, n_sweeps=n_sweeps, dense=dense)
+    kw = dict(vb=vb, sb=sb, n_sweeps=n_sweeps, dense=dense)
+    if len(relax_layout) == 5:
+        out, resid, sval, nlast, nrel, sends = fused_round_ragged(*ops, **kw)
+    else:
+        out, resid, sval, nlast, nrel, sends = fused_round_tiled(
+            *ops, **kw, chunks=chunks)
     return (out[..., :block], sval[..., :n_slots], nlast[..., :n_slots],
             nrel, sends, resid[..., :block])
 

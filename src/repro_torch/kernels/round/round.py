@@ -93,7 +93,7 @@ def fused_round_ragged_plain(dist, front, live, incoming, last, valid,
     return out, resid, val, new_last, nrel, sends
 
 
-_SIGNATURES = {"fused_round_tiled": build.signature(25, 15),
+_SIGNATURES = {"fused_round_tiled": build.signature(30, 16),
                "fused_round_ragged": build.signature(27, 16),
                "round_ragged_scratch_bytes": [ctypes.c_int] * 5}
 
@@ -142,32 +142,67 @@ def _launch(lib, symbol, counter, rows, layouts, outs, scratch, ints):
 
 def fused_round_tiled(dist, front, live, incoming, last, valid, mx_layout,
                       rx_layout, tx_layout, *, vb: int, sb: int,
-                      n_sweeps: int, dense: bool):
+                      n_sweeps: int, dense: bool, chunks):
     """Same contract as the plain version. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (one CTA per (shard, query))."""
+    version; CUDA tensors launch the kernel (one block per (shard, query):
+    the relax stage on the chain of ``csrc/sweeps_ragged.cuh`` over the
+    relax layout's live chunks, merge and send over warps by tile, dead
+    chunks skipped). ``chunks``: the layouts' live chunks (merge, relax,
+    send), each the (idx, bounds) pair of ``live_chunks``, as the shards
+    derive them once (``SsspShards.round_chunks``); the plain version
+    walks every chunk and ignores them."""
     if not dist.is_cuda:
         return fused_round_tiled_plain(
             dist, front, live, incoming, last, valid, mx_layout, rx_layout,
             tx_layout, vb=vb, sb=sb, n_sweeps=n_sweeps, dense=dense)
+    return _launch_tiled(dist, front, live, incoming, last, valid, mx_layout,
+                         rx_layout, tx_layout, vb=vb, sb=sb,
+                         n_sweeps=n_sweeps, dense=dense, chunks=chunks)
+
+
+def _launch_tiled(dist, front, live, incoming, last, valid, mx_layout,
+                  rx_layout, tx_layout, *, vb: int, sb: int, n_sweeps: int,
+                  dense: bool, chunks, hazard: bool = True):
+    """Kernel 7's launch. ``hazard=False`` is a planted fault for the checks
+    alone (every source of the relax stage read from its early gather),
+    which must differ from the plain version."""
     mx_layout = None if dense else mx_layout
     _check("round", dist, front, live, incoming, last, valid, mx_layout,
            rx_layout, tx_layout, vb=vb, sb=sb, dense=dense)
-    bp, sp = dist.shape[-1], last.shape[-1]
+    P, K, bp = dist.shape
+    sp = last.shape[-1]
     if (rx_layout[0].shape[1] * vb != bp or tx_layout[0].shape[1] * sb != sp
             or (not dense and mx_layout[0].shape[1] * vb != bp)):
         raise ValueError(f"round: layouts do not tile rows of {bp} by {vb} "
                          f"and slots of {sp} by {sb}")
+    if chunks is None:
+        raise ValueError("round: the layouts' live chunks are required "
+                         "(SsspShards.round_chunks)")
+    for lay, ch in zip((mx_layout, rx_layout, tx_layout), chunks):
+        if lay is None:
+            continue
+        n_tiles, n_chunks = lay[0].shape[1:3]
+        if (ch[0].shape != (P, n_tiles * n_chunks)
+                or ch[1].shape != (P, n_tiles + 1)):
+            raise ValueError(f"round: live chunks {tuple(ch[0].shape)} / "
+                             f"{tuple(ch[1].shape)} do not match the layout "
+                             f"{tuple(lay[0].shape)}")
+        check_cuda("round", torch.int32, *ch)
+    eb = rx_layout[0].shape[-1]
+    check_chain("round", eb, vb, dist, front, incoming, *rx_layout)
+    lib = build.load("round", _SIGNATURES)
+    vstate = ragged_scratch("round", lib, "round_ragged_scratch_bytes",
+                            P * K, (bp, bp // vb, eb, vb, sb), dist.device)
+    # the C entry point takes each layout after its live chunks
+    mx = (None,) * 5 if dense else (*chunks[0], *mx_layout)
     dims = ((1, 1) if dense else mx_layout[0].shape[2:]) + (
         rx_layout[0].shape[2:] + tx_layout[0].shape[2:])
-    P, K, _ = dist.shape
-    # the dense chain's scratch rows prev and fcur
-    scratch = (torch.empty_like(dist), torch.empty_like(dist))
-    return _launch(build.load("round", _SIGNATURES), "fused_round_tiled",
-                   "round", (dist, front, live, incoming, last, valid),
-                   (*(mx_layout or (None,) * 3), *rx_layout, *tx_layout),
-                   _outputs(dist, last), scratch,
+    return _launch(lib, "fused_round_tiled", "round",
+                   (dist, front, live, incoming, last, valid),
+                   (*mx, *chunks[1], *rx_layout, *chunks[2], *tx_layout),
+                   _outputs(dist, last), (vstate,),
                    (P, K, bp, sp, incoming.shape[-1], int(dense), *dims, vb,
-                    sb, n_sweeps))
+                    sb, n_sweeps, int(hazard)))
 
 
 def fused_round_ragged(dist, front, live, incoming, last, valid, mx_layout,

@@ -11,6 +11,7 @@ there without it:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -373,10 +374,13 @@ def test_round_kernel_matches_plain(cuda, layout, dense):
                             "round_ragged") if layout == "ragged" else
                            (fused_round_tiled, fused_round_tiled_plain,
                             "round"))
+    # kernel 7 walks the live chunks the shards derive once
+    chunks = ({} if layout == "ragged"
+              else dict(chunks=sh.to(cuda).round_chunks))
     n0 = build.LAUNCHES[name]
     for sweeps in (2, 8):
         kw = dict(vb=VB, sb=VB, n_sweeps=sweeps, dense=dense)
-        out = kernel(*args, **kw)
+        out = kernel(*args, **kw, **chunks)
         ref = plain(*args, **kw)
         assert int(out[4].sum()) > 0 and int(out[5].sum()) > 0
         for got, want in zip(out, ref):
@@ -538,6 +542,149 @@ def test_ragged_chain_row_past_cap_raises(cuda):
         relax_dst_ragged_fixpoint_batch(dist, front, ct, src, w, src, src,
                                         vb=vb, n_sweeps=1)
     assert build.LAUNCHES["relax_ragged"] == n0
+
+
+# ---- kernels 9 and 7 on the chain over the dense layout's live chunks --
+
+def _with_dead_chunk(sh, at):
+    """Dense shards with a dead chunk (+inf weights, as a real edge of
+    weight +inf leaves one) inserted at chunk ``at`` of every tile of the
+    relax and send layouts: in the middle of every tile that has more."""
+    def insert(a, fill):
+        dead = torch.full((*a.shape[:2], 1, a.shape[3]), fill, dtype=a.dtype)
+        return torch.cat([a[:, :, :at], dead, a[:, :, at:]], 2).contiguous()
+    fills = (0, float("inf"), 0, 10 ** 9)
+    rx = ("rx_src", "rx_w", "rx_dstrel", "rx_eid")
+    tx = ("tx_src", "tx_w", "tx_segrel", "tx_eid")
+    return dataclasses.replace(sh, **{
+        k: insert(getattr(sh, k), f) for names in (rx, tx)
+        for k, f in zip(names, fills)})
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_path_shards(case):
+    """The path of ``_path_shards`` in the dense layout (VB 32, EB 4), a
+    dead chunk after the third chunk of every tile; tile 1 of shard 0 has
+    no edge. "no-live": the relax layout holds no live chunk at all.
+    "wide": the graph of ``_wide_shards`` in the dense layout."""
+    if case == "wide":
+        rng = np.random.default_rng(9)
+        n = 1 << 21
+        src = np.r_[np.arange(30), rng.integers(0, n, 20_000)]
+        dst = np.r_[np.arange(1, 31), rng.integers(0, 8192, 20_000)]
+        w = np.r_[np.ones(30), rng.uniform(0, 20, 20_000)].astype(np.float32)
+        return tc.build_shards(tg.csr_from_coo(src, dst, w, n), 2,
+                               enumerate_triangles=False, layout="dense")
+    src = np.r_[np.arange(30), 30, 5, 70, 100]
+    dst = np.r_[np.arange(1, 31), 70, 100, 71, 101]
+    g = tg.csr_from_coo(src, dst, np.ones(len(src), np.float32), 128)
+    sh = _with_dead_chunk(tc.build_shards(
+        g, 2, enumerate_triangles=False, layout="dense", relax_vb=32,
+        relax_eb=4, send_sb=32, send_eb=4, merge_vb=32, merge_eb=4), 3)
+    if case == "no-live":
+        sh = dataclasses.replace(sh, rx_w=torch.full_like(sh.rx_w,
+                                                          float("inf")))
+    return sh
+
+
+def _dense_chain_operands(case, nq, device):
+    """Kernel 7's operands at a random mid-solve state, row 0 holding the
+    path (10 v at v < 31, all in the frontier), and kernel 9's (shard 0,
+    row 0)."""
+    sh = _dense_path_shards(case)
+    ops = _to(_round_operands(sh, nq, False, seed=nq), device)
+    dist, front, live = ops[0], ops[1], ops[2]
+    dist[:, 0] = float("inf")
+    dist[:, 0, :31] = 10.0 * torch.arange(31, device=device)
+    front[:, 0] = 0.0
+    front[:, 0, :31] = 1.0
+    live[:, 0] = 1.0
+    args9 = (dist[0, 0].contiguous(), front[0, 0].contiguous(),
+             *(a[0].contiguous() for a in ops[7]))
+    return sh, ops, args9
+
+
+@pytest.mark.parametrize("sweeps", [1, 8])
+@pytest.mark.parametrize("nq", [1, 3, 16])
+@pytest.mark.parametrize("case", ["path", "no-live"])
+def test_live_chain_kernels_match_plain(cuda, case, nq, sweeps):
+    """Kernels 9 and 7 bit-equal to their plain versions on dense layouts
+    with a dead chunk in the middle of a tile and a tile with no live chunk
+    ("path"), and with no live relax chunk at all ("no-live": out == dist,
+    resid empty, no relaxation); kernel 7 with the shards' live chunks."""
+    sh, ops, args9 = _dense_chain_operands(case, nq, cuda)
+    kw9 = dict(vb=32, n_sweeps=sweeps)
+    want = relax_dst_tiled_fixpoint_plain(*args9, **kw9)
+    assert (int(want[2]) > 0) == (case == "path")
+    n0 = build.LAUNCHES["relax_single"]
+    for g, w in zip(relax_dst_tiled_fixpoint(*args9, **kw9), want):
+        assert torch.equal(g, w)
+    assert build.LAUNCHES["relax_single"] == n0 + 1
+    kw = dict(vb=32, sb=32, n_sweeps=sweeps, dense=False)
+    want = fused_round_tiled_plain(*ops, **kw)
+    if case == "no-live":
+        assert int(want[4].sum()) == 0 and not bool(want[1].any())
+    n0 = build.LAUNCHES["round"]
+    got = fused_round_tiled(*ops, **kw, chunks=sh.to(cuda).round_chunks)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert build.LAUNCHES["round"] == n0 + 1
+
+
+@pytest.mark.parametrize("nq", [1, 3, 16])
+def test_live_chain_planted_fault_is_caught(cuda, nq):
+    """Kernels 9 and 7 with the hazard re-read off (every source read from
+    its early gather) differ from their plain versions on the path."""
+    from repro_torch.kernels.relax import relax as relax_mod
+    from repro_torch.kernels.round import round as round_mod
+    sh, ops, args9 = _dense_chain_operands("path", nq, cuda)
+    bad = relax_mod._launch_single(*args9, vb=32, n_sweeps=1, hazard=False)
+    want = relax_dst_tiled_fixpoint_plain(*args9, vb=32, n_sweeps=1)
+    assert not torch.equal(bad[0], want[0])
+    kw = dict(vb=32, sb=32, n_sweeps=1, dense=False)
+    bad = round_mod._launch_tiled(
+        *ops, **kw, chunks=sh.to(cuda).round_chunks, hazard=False)
+    assert not torch.equal(bad[0], fused_round_tiled_plain(*ops, **kw)[0])
+
+
+def test_live_chain_wide_row_matches_plain(cuda):
+    """Kernels 9 and 7 on rows whose bitmasks do not fit beside the ring
+    (they live in device memory): ``_wide_shards``' graph in the dense
+    layout, 8,192 vertex tiles a shard, all but the first 64 dead."""
+    from repro_torch.kernels.relax import relax as relax_mod
+    from repro_torch.kernels.round import round as round_mod
+    sh, ops, args9 = _dense_chain_operands("wide", 3, cuda)
+    bp, vb, eb = args9[0].shape[0], sh.rx_vb, sh.rx_eb
+    assert build.load("relax", relax_mod._SIGNATURES).relax_ragged_scratch_bytes(
+        bp, bp // vb, eb, vb) > 0
+    assert build.load("round", round_mod._SIGNATURES).round_ragged_scratch_bytes(
+        bp, bp // vb, eb, vb, sh.tx_sb) > 0
+    want = relax_dst_tiled_fixpoint_plain(*args9, vb=vb, n_sweeps=2)
+    assert int(want[2]) > 0
+    for g, w in zip(relax_dst_tiled_fixpoint(*args9, vb=vb, n_sweeps=2),
+                    want):
+        assert torch.equal(g, w)
+    kw = dict(vb=vb, sb=sh.tx_sb, n_sweeps=2, dense=False)
+    want = fused_round_tiled_plain(*ops, **kw)
+    assert int(want[4].sum()) > 0
+    for g, w in zip(fused_round_tiled(*ops, **kw,
+                                      chunks=sh.to(cuda).round_chunks), want):
+        assert torch.equal(g, w)
+
+
+def test_live_chain_row_past_cap_raises(cuda):
+    """Kernel 9's row past the chain's cap (83,904 vertex tiles at EB 512,
+    VB 128, as kernel 2's) raises before any launch; kernel 7 shares kernel
+    8's cap (``round_ragged_scratch_bytes``)."""
+    vb, eb, n_vtiles = 128, 512, 90_000
+    dist = torch.zeros(n_vtiles * vb, device=cuda)
+    src = torch.zeros((n_vtiles, 1, eb), dtype=torch.int32, device=cuda)
+    w = torch.full((n_vtiles, 1, eb), float("inf"), device=cuda)
+    n0 = build.LAUNCHES["relax_single"]
+    with pytest.raises(ValueError, match="past the ragged chain's cap"):
+        relax_dst_tiled_fixpoint(dist, dist, src, w, src, src, vb=vb,
+                                 n_sweeps=1)
+    assert build.LAUNCHES["relax_single"] == n0
 
 
 # ------------------------------------- the standalone kernel API (9-11, 13) --
