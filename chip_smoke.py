@@ -15,10 +15,16 @@ Phases, each of which exits non-zero on a mismatch:
            nvcc each, in parallel;
   kernel   hold each dense kernel against its plain PyTorch version on the
            card, bit-equal, on the real layouts of the scale-1e6 graph at
-           mid-solve state, and time kernel, plain version and bound (kernel
-           5 and its scatter_reduce_ yardstick three ways, three times: CUDA
-           events over 10 back-to-back calls as medians, device time a launch
-           from a profiler trace, host time a call); the
+           mid-solve state (kernel 1 with the shards' relax live chunks, as
+           the engine passes them, and again with its entry point's
+           pre-pass; its live chunks and chain steps a sweep printed), and
+           time kernel, plain version and bound (kernels 1 and 3 as medians
+           of 20 timings of 10 calls, kernel 1's bound the bytes of the rows
+           and the live chunks; kernel 1's planted fault, its hazard re-read
+           off, must differ, at that state, else on a path inside one tile;
+           kernel 5 and its scatter_reduce_ yardstick three ways, three
+           times: CUDA events over 10 back-to-back calls as medians, device
+           time a launch from a profiler trace, host time a call); the
            fused round kernel 7 at the state after round 2 of a fused solve,
            with bucket messages and again with a dense incoming row, as
            medians of 20 timings of 10 calls, its live chunks and chain
@@ -43,8 +49,10 @@ Phases, each of which exits non-zero on a mismatch:
            vertices, 9,879,136 directed edges; P=8, ragged, EB 512, VB 128)
            and hold each ragged kernel against its plain version, bit-equal,
            at the state after round 2 of the K=16 solve (the ragged fused
-           round at round 2 of the fused solve); time them (kernels 2 and 8
-           as medians of 20 timings of 10 calls); a planted fault, each of
+           round at round 2 of the fused solve); time them (kernels 2, 4
+           and 8 as medians of 20 timings of 10 calls; kernel 4 also for
+           query 0 alone, K=1, where its rows need no interleave, beside
+           K=16); a planted fault, each of
            the two with its hazard re-read off, must differ from its plain
            version (at that state, else on a path inside one tile);
   main     the staged main path: SsspEngine.solve on the scale-1e7 ragged
@@ -283,10 +291,43 @@ def same_results(a, b, what: str, skip=()):
         fail(f"{what}: status {a.status} vs {b.status}")
 
 
+# Kernels a port entry point launches before its main kernel on the same
+# stream: send.cu's interleave (kernels 3 and 4) and relax.cu's live-chunk
+# pre-pass (kernels 1 and 9 without a list). A profile counts each under
+# the main kernel that follows it, so no part of an entry point's work
+# drops out of the list.
+HELPER_KERNELS = ("interleave_kernel", "live_flags_kernel",
+                  "live_list_kernel")
+
+
+def by_entry_point(kernels):
+    """Device time by kernel name from ``kernels``, (start, end, name) in
+    stream order, with each helper kernel's time added to the next main
+    kernel's entry: {name: [us, launches of the main kernel, {helper:
+    us}]}."""
+    out, pending = {}, {}
+    for s, f, name in kernels:
+        helper = next((h for h in HELPER_KERNELS if h in name), None)
+        if helper:
+            pending[helper] = pending.get(helper, 0.0) + (f - s)
+            continue
+        row = out.setdefault(name, [0.0, 0, {}])
+        row[0] += (f - s) + sum(pending.values())
+        row[1] += 1
+        for h, us in pending.items():
+            row[2][h] = row[2].get(h, 0.0) + us
+        pending = {}
+    for h, us in pending.items():   # a helper with no main kernel after it
+        out.setdefault(h, [0.0, 0, {}])[0] += us
+    return out
+
+
 def profile_run(torch, fn, trace_path: Path, label: str):
     """Where the time of one run of ``fn`` goes: device time by kernel name
-    and the device's idle share of the run's window, read from a
-    torch.profiler trace (kernel events inside the ``run`` annotation)."""
+    (a port entry point's helper kernels under its main kernel, their share
+    printed beside it) and the device's idle share of the run's window,
+    read from a torch.profiler trace (kernel events inside the ``run``
+    annotation)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -300,17 +341,18 @@ def profile_run(torch, fn, trace_path: Path, label: str):
     t0, t1 = win["ts"], win["ts"] + win["dur"]
     kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                      if e.get("cat") == "kernel" and t0 <= e["ts"] < t1)
-    by_name, busy, end = {}, 0.0, t0
-    for s, f, name in kernels:
-        by_name[name] = by_name.get(name, 0.0) + (f - s)
+    busy, end = 0.0, t0
+    for s, f, _ in kernels:
         busy += max(0.0, f - max(s, end))
         end = max(end, f)
     say(f"profile {label}: window {win['dur'] / 1e3:.3f} ms, device "
         f"busy {busy / 1e3:.3f} ms, idle share {1 - busy / win['dur']:.3f}, "
         f"{len(kernels)} kernels")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        n = sum(1 for k in kernels if k[2] == name)
-        say(f"  {us / 1e3:9.3f} ms  {n:5d}x  {name[:90]}")
+    rows = sorted(by_entry_point(kernels).items(), key=lambda kv: -kv[1][0])
+    for name, (us, n, helpers) in rows[:10]:
+        extra = "".join(f" (+ {h} {hu / 1e3:.3f} ms)"
+                        for h, hu in helpers.items())
+        say(f"  {us / 1e3:9.3f} ms  {n:5d}x  {name[:90]}{extra}")
 
 
 def live_sources(np, rng, g, k):
@@ -340,13 +382,19 @@ def scipy_dijkstra(np, g, sources):
 
 def dense_kernel_phase(torch, eng, sources, cfg, out_dir: Path):
     """Dense kernels 1, 3, 5 at the state after round 2 of a solve: each
-    bit-equal to its plain version, then timed beside its bound."""
+    bit-equal to its plain version (kernel 1 with the shards' relax live
+    chunks, as the engine passes them, and with its entry point's
+    pre-pass), then timed beside its bound (kernels 1 and 3 as medians of
+    20 x 10 calls; kernel 1's bound over the live chunks it reads); kernel
+    1's planted fault, its hazard re-read off, must differ."""
+    import numpy as np
     from repro_torch.kernels.common import pad_last, take_fill
     from repro_torch.kernels.merge import (merge_scatter_tiled,
                                            merge_scatter_tiled_plain)
     from repro_torch.kernels.relax import (fixpoint_operands,
                                            relax_dst_tiled_fixpoint_batch,
                                            relax_dst_tiled_fixpoint_batch_plain)
+    from repro_torch.kernels.relax import relax as relax_mod
     from repro_torch.kernels.send import (send_operands, send_pack_tiled,
                                           send_pack_tiled_plain,
                                           send_payload_bucket)
@@ -360,12 +408,21 @@ def dense_kernel_phase(torch, eng, sources, cfg, out_dir: Path):
                              eid_t, src_t.shape[1] * dsh.rx_vb)
     r_args = (*r_in[:2], src_t, w_t, dstrel_t, r_in[2])
     r_kw = dict(vb=dsh.rx_vb, n_sweeps=cfg.pallas_sweeps)
+    r_chunks = dsh.relax_chunks
     if not bool((r_in[1] > 0).any()):
         fail("kernel phase: the mid-solve frontier is empty")
-    r_out = relax_dst_tiled_fixpoint_batch(*r_args, **r_kw)
-    r_ref = relax_dst_tiled_fixpoint_batch_plain(*r_args, **r_kw)
-    torch.cuda.synchronize()
-    rows = {"relax": dict(err=compare(torch, "relax", r_out, r_ref))}
+    r_out = relax_dst_tiled_fixpoint_batch(*r_args, **r_kw, chunks=r_chunks)
+    r_ref, r_plain = once(torch, lambda: relax_dst_tiled_fixpoint_batch_plain(
+        *r_args, **r_kw))
+    rows = {"relax": dict(err=max(
+        compare(torch, "relax", r_out, r_ref),
+        compare(torch, "relax (pre-pass)",
+                relax_dst_tiled_fixpoint_batch(*r_args, **r_kw), r_ref)),
+        plain_ms=r_plain)}
+    live_n = r_chunks[1][:, -1].tolist()
+    say(f"  relax live chunks: {sum(live_n)} of {r_chunks[0].numel()}; "
+        f"chain steps a sweep per shard {live_n} (the whole layout: "
+        f"{src_t.shape[1] * src_t.shape[2]} each)")
 
     dist = r_out[0][..., :dsh.block]
     tsrc, tw, tseg, teid = dsh.send_layout
@@ -376,9 +433,10 @@ def dense_kernel_phase(torch, eng, sources, cfg, out_dir: Path):
                              tsrc.shape[1], dsh.tx_sb),
               tsrc, tw, tseg, pruned_t)
     s_out = send_pack_tiled(*s_args, sb=dsh.tx_sb)
-    s_ref = send_pack_tiled_plain(*s_args, sb=dsh.tx_sb)
-    torch.cuda.synchronize()
-    rows["send"] = dict(err=compare(torch, "send", s_out, s_ref))
+    s_ref, s_plain = once(torch, lambda: send_pack_tiled_plain(
+        *s_args, sb=dsh.tx_sb))
+    rows["send"] = dict(err=compare(torch, "send", s_out, s_ref),
+                        plain_ms=s_plain)
 
     S = dsh.n_slots
     payload = send_payload_bucket(s_out[0][..., :S], dsh.tx_payload_slot)
@@ -396,17 +454,28 @@ def dense_kernel_phase(torch, eng, sources, cfg, out_dir: Path):
         f"{int(m_out[2].sum())} receives)")
 
     # times at these inputs, and the least time the card could take
-    rows["relax"]["ms"] = timed(torch, lambda: relax_dst_tiled_fixpoint_batch(
-        *r_args, **r_kw), 10)
-    rows["relax"]["plain_ms"] = timed(
-        torch, lambda: relax_dst_tiled_fixpoint_batch_plain(*r_args, **r_kw), 2)
-    rows["relax"]["bound"] = bound(
-        nbytes(*r_args, *r_out), 2 * int(r_out[2].sum()))
-    rows["relax"]["library_ms"] = None
-    rows["send"]["ms"] = timed(
-        torch, lambda: send_pack_tiled(*s_args, sb=dsh.tx_sb), 50)
-    rows["send"]["plain_ms"] = timed(
-        torch, lambda: send_pack_tiled_plain(*s_args, sb=dsh.tx_sb), 2)
+    r = rows["relax"]
+    r["ms"], r["mean_ms"] = timed_median(
+        torch, lambda: relax_dst_tiled_fixpoint_batch(*r_args, **r_kw,
+                                                      chunks=r_chunks))
+    # bytes: the rows, and the live chunks of the four planes with the list
+    n_live = sum(live_n)
+    r["bound"] = bound(
+        nbytes(*r_args[:2], *r_out, r_chunks[1])
+        + live_bytes(r_args[2:], n_live) + n_live * r_chunks[0].element_size(),
+        2 * int(r_out[2].sum()))
+    r["library_ms"] = None
+    say(f"  relax: {r['ms']:.4f} ms kernel (median; mean {r['mean_ms']:.4f}); "
+        f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]}) over the live "
+        f"chunks, {bound(nbytes(*r_args, *r_out), 0)[0]:.5f} ms over every "
+        f"chunk")
+    planted_hazard_fault(
+        torch, "relax",
+        lambda: (lambda **f: relax_mod._launch_tiled(
+            *r_args, **r_kw, chunks=r_chunks, **f), r_ref),
+        lambda: path_case(torch, np, r_args[0].device, "dense")[2])
+    rows["send"]["ms"], rows["send"]["mean_ms"] = timed_median(
+        torch, lambda: send_pack_tiled(*s_args, sb=dsh.tx_sb))
     live_cut = int((torch.isfinite(tw) & (pruned_t == 0)).sum())
     rows["send"]["bound"] = bound(nbytes(*s_args, *s_out),
                                   2 * len(sources) * live_cut)
@@ -570,12 +639,26 @@ def ragged_kernel_phase(torch, eng, sources, cfg):
                  r_ref),
         lambda: path_case(torch, np, r_args[0].device)[0])
     rows["relax_ragged"]["library_ms"] = None
-    rows["send_ragged"]["ms"] = timed(
-        torch, lambda: send_pack_ragged(*s_args, **s_kw), 50)
+    sr = rows["send_ragged"]
+    sr["ms"], sr["mean_ms"] = timed_median(
+        torch, lambda: send_pack_ragged(*s_args, **s_kw))
     live_cut = int((torch.isfinite(tw) & (pruned_t == 0)).sum())
-    rows["send_ragged"]["bound"] = bound(
-        nbytes(*s_args, dsh.send_bounds, *s_out), 2 * K * live_cut)
-    rows["send_ragged"]["library_ms"] = None
+    sr["bound"] = bound(nbytes(*s_args, dsh.send_bounds, *s_out),
+                        2 * K * live_cut)
+    sr["library_ms"] = None
+    # the same launch for query 0 alone (no interleave): the interleave's
+    # effect at K = 16 beside K = 1
+    s1_args = (*(a[:, :1].contiguous() for a in s_args[:2]), *s_args[2:])
+    s1_out = send_pack_ragged(*s1_args, **s_kw)
+    compare(torch, "send_ragged (K=1)", s1_out,
+            send_pack_ragged_plain(*s1_args, sb=dsh.tx_sb))
+    ms1, mean1 = timed_median(torch, lambda: send_pack_ragged(*s1_args,
+                                                             **s_kw))
+    b1 = bound(nbytes(*s1_args, dsh.send_bounds, *s1_out), 2 * live_cut)
+    say(f"  send_ragged at K={K}: {sr['ms']:.4f} ms (median; mean "
+        f"{sr['mean_ms']:.4f}), bound {sr['bound'][0]:.5f} ms; at K=1 "
+        f"(query 0, bit-equal): {ms1:.4f} ms (median; mean {mean1:.4f}), "
+        f"bound {b1[0]:.5f} ms; {live_cut} live cut edges")
     rows["merge_ragged"]["ms"] = timed(
         torch, lambda: merge_scatter_ragged(*m_args, **m_kw), 50)
     rows["merge_ragged"]["bound"] = bound(
@@ -614,12 +697,13 @@ def path_case(torch, np, dev, layout="ragged"):
     weight 1, four to a chunk) and a few cut edges; row 0 holds 10 v on the
     path, all in the frontier, so a later chunk reads what an earlier chunk
     of the same tile improved (kernel 9: shard 0's row 0). Returns (relax
-    case, round case), each a (launch(**fault), plain result) pair for
-    ``planted_hazard_fault``."""
+    case, round case, kernel 1's case or None for "ragged"), each a
+    (launch(**fault), plain result) pair for ``planted_hazard_fault``."""
     from repro_torch.core import build_shards
     from repro_torch.graph import csr_from_coo
     from repro_torch.kernels.relax import (fixpoint_operands,
                                            relax_dst_ragged_fixpoint_batch_plain,
+                                           relax_dst_tiled_fixpoint_batch_plain,
                                            relax_dst_tiled_fixpoint_plain)
     from repro_torch.kernels.relax import relax as relax_mod
     from repro_torch.kernels.round import (fused_round_operands,
@@ -656,6 +740,12 @@ def path_case(torch, np, dev, layout="ragged"):
         launch, plain = round_mod._launch_tiled, fused_round_tiled_plain
     relax = ((lambda **x: r_launch(*r_args, **r_kw, **x)),
              r_plain(*r_args, **r_kw))
+    batch = None
+    if layout == "dense":
+        b_args = (d, f, *lay[:3], prn)
+        batch = ((lambda **x: relax_mod._launch_tiled(
+            *b_args, **r_kw, chunks=sh.relax_chunks, **x)),
+            relax_dst_tiled_fixpoint_batch_plain(*b_args, **r_kw))
     live = torch.ones((P, k), dtype=torch.bool, device=dev)
     last = torch.full((P, k, sh.n_slots), float("inf"), device=dev)
     inc = torch.full((P, k, sh.recv_idx.shape[-1] * P), float("inf"),
@@ -669,7 +759,7 @@ def path_case(torch, np, dev, layout="ragged"):
     chunks = {} if layout == "ragged" else dict(chunks=sh.round_chunks)
     rnd = ((lambda **x: launch(*ops, **kw, **chunks, **x)),
            plain(*ops, **kw))
-    return relax, rnd
+    return relax, rnd, batch
 
 
 def tensors(*items):

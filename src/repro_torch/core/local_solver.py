@@ -72,7 +72,8 @@ def local_fixpoint_pallas(dist, active, sh, pruned_loc, *, max_iters: int,
     ``sweeps`` sweeps per launch, relaunched while any shard has a residual
     frontier and sweeps left of its ``max_iters`` (``relax_to_fixpoint``).
     A ragged layout (a 5-tuple, with the chunk->tile map) takes the ragged
-    kernel."""
+    kernel; a dense one takes kernel 1 over its live chunks
+    (``sh.relax_chunks``, derived once per shards object)."""
     block = dist.shape[-1]
     lay = sh.relax_layout
     if len(lay) == 5:                     # ragged: + chunk->tile map
@@ -82,5 +83,6 @@ def local_fixpoint_pallas(dist, active, sh, pruned_loc, *, max_iters: int,
     d, front, pruned_t = fixpoint_operands(dist, active, pruned_loc, lay[3],
                                            block_pad)
     d, nrel = relax_to_fixpoint(d, front, lay, pruned_t, vb=sh.rx_vb,
-                                n_sweeps=sweeps, max_iters=max_iters)
+                                n_sweeps=sweeps, max_iters=max_iters,
+                                chunks=sh.relax_chunks)
     return LocalResult(dist=d[..., :block], relaxations=nrel)

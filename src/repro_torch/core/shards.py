@@ -173,15 +173,23 @@ class SsspShards:
         return chunk_bounds(self.mx_ctile, -(-self.block // self.mx_vb))
 
     @functools.cached_property
-    def round_chunks(self):
-        """The dense layouts' live chunks that kernel 7 walks, (merge by
-        ``mx_valid``, relax by ``rx_w``, send by ``tx_w``), each the
-        (idx, bounds) pair of ``live_chunks``; None when ragged. Derived
-        once, as ``send_bounds``."""
+    def relax_chunks(self):
+        """The dense relax layout's live chunks (by ``rx_w``), the (idx,
+        bounds) pair of ``live_chunks`` that kernels 1 and 7 walk; None
+        when ragged. Derived once, as ``send_bounds``."""
         if self.rx_ctile is not None:
             return None
-        return (live_chunks(self.mx_valid > 0),
-                live_chunks(self.rx_w < float("inf")),
+        return live_chunks(self.rx_w < float("inf"))
+
+    @functools.cached_property
+    def round_chunks(self):
+        """The dense layouts' live chunks that kernel 7 walks, (merge by
+        ``mx_valid``, relax (``relax_chunks``), send by ``tx_w``), each
+        the (idx, bounds) pair of ``live_chunks``; None when ragged.
+        Derived once, as ``send_bounds``."""
+        if self.rx_ctile is not None:
+            return None
+        return (live_chunks(self.mx_valid > 0), self.relax_chunks,
                 live_chunks(self.tx_w < float("inf")))
 
     def arrays(self) -> dict[str, torch.Tensor]:

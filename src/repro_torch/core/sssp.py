@@ -302,7 +302,8 @@ def _phase_fused_rescue(sh: SsspShards, dist, resid, last_sent, pruned, cfg):
         dist, resid, last_sent, sh.slot_valid, sh.relax_layout,
         sh.send_layout, pruned[:, :sh.e_loc], pruned[:, sh.e_loc:],
         vb=sh.rx_vb, sb=sh.tx_sb, n_sweeps=cfg.pallas_sweeps,
-        max_iters=cfg.local_iters, send_bounds=sh.send_bounds)
+        max_iters=cfg.local_iters, send_bounds=sh.send_bounds,
+        relax_chunks=sh.relax_chunks)
     payload = send_payload_bucket(send_val, sh.tx_payload_slot)
     return new_dist, payload, new_last, sends, nrel_extra
 

@@ -33,35 +33,31 @@
 // chain of n_sweeps * chunks-per-shard dependent steps. Bytes are not the
 // limit.
 //
-// Design of the dense batched fixpoint kernel (1): one CTA per (shard,
-// query) row, a grid of P*K, walking sweeps -> chunks in the Pallas grid
-// order (sweeps.cuh), which reproduces the reference's sequence of reads
-// and writes exactly, so the relaxation count is exact and not merely
-// bounded. Per chunk every thread gathers and atomicMins its candidates
-// into a shared VB-tile (tile_min_into); after a barrier the tile is min'd
-// into the row, then reset. The rows (live distances, previous sweep,
-// frontier) stay in global memory, reached through L1 and L2, so each
-// chunk step waits on a chain of device-memory round trips: the simple,
-// exact design.
-//
-// Design of the ragged fixpoint kernel (2) and of the single-query
-// fixpoint (9), redesigned for Hopper: the same order, on the chain of
-// sweeps_ragged.cuh: a producer warp streams the layout through a ring of
-// shared-memory stages with bulk copies, the frontier and the improved set
-// are bitmasks in shared memory, and the distance gathers are issued two
-// chunks ahead, a source whose tile may have been written since being read
-// again from a shared window of the live tiles. Kernel 2 walks the ragged
-// layout. Kernel 9 walks the dense layout's live chunks (those holding a
-// finite weight), in layout order: a chunk of +inf weights is an exact
-// no-op, and at the scale-1e6 block 6,076 of its 8,192 chunks are. Its
-// entry point finds them on the device, ahead of the chain on the same
-// stream, with no host sync: a pass over the weights (a warp a chunk) sets
-// a flag a chunk, and one block compacts the flags into the list and its
-// length by a block-wide scan. One query is one chain, on one SM: the
-// order makes the count exact, so the row is not split. What bounds both
-// now: the chain of chunk steps, each the SM's own work (an L1 request per
-// early gather, shared-memory reads and atomics) between two barriers of
-// the consumer warps; no step waits on device memory.
+// Design of the three fixpoint kernels, for Hopper: one block per (shard,
+// query) row (a grid of P*K; kernel 9: one), walking sweeps -> chunks in
+// the Pallas grid order, which reproduces the reference's sequence of
+// reads and writes exactly, so the relaxation count is exact and not
+// merely bounded. The walk is the chain of sweeps_ragged.cuh: a producer
+// warp streams the layout through a ring of shared-memory stages with bulk
+// copies, the frontier and the improved set are bitmasks in shared memory,
+// and the distance gathers are issued two chunks ahead, a source whose tile
+// may have been written since being read again from a shared window of the
+// live tiles. Kernel 2 walks the ragged layout. Kernels 1 (K queries, P
+// shards) and 9 (one row) walk the dense layout's live chunks (those
+// holding a finite weight), in layout order: a chunk of +inf weights is an
+// exact no-op, and at the scale-1e6 shards 1,006 of kernel 1's 1,536
+// chunks are (6,076 of 8,192 at kernel 9's block). Kernel 1 takes the list
+// from its caller (the engine derives it once per shards object,
+// SsspShards.round_chunks), its length the last entry of the tile bounds,
+// read on the device; a caller without one, and kernel 9, get it from the
+// entry point's pre-pass, ahead of the chain on the same stream, with no
+// host sync: a pass over the weights (a warp a chunk) sets a flag a chunk,
+// and one block a shard compacts the flags into the list and its length by
+// a block-wide scan. One query is one chain, on one SM: the order makes the
+// count exact, so the row is not split. What bounds them now: the chain of
+// chunk steps, each the SM's own work (an L1 request per early gather,
+// shared-memory reads and atomics) between two barriers of the consumer
+// warps; no step waits on device memory.
 //
 // The two single sweeps (relax_sweep, relax_masked) are Jacobi: every
 // gather reads the INPUT distances, so vertex tiles are independent and
@@ -75,78 +71,17 @@
 // counts f_src & (w < inf) per CTA, added to nrel[0] with one integer
 // atomicAdd per CTA (exact in any order; the wrapper zeroes nrel first).
 // Both take any non-NaN distances (tile_reduce.cuh: min_key).
-#include "sweeps.cuh"
 #include "sweeps_ragged.cuh"
 
 namespace {
 
-// Kernel 1: one (shard, query) row's dense fixpoint on the plain chain:
-// the rows at offset roff; the layout pointers are the shard's own.
-__device__ void fixpoint_row(const float* __restrict__ dist,
-                             const float* __restrict__ front,
-                             const int* src_t, const float* w_t,
-                             const int* dstrel_t, const int* pruned_t,
-                             float* out, float* resid, int* nrel, float* prev,
-                             float* fcur, long long roff, int bp, int n_vtiles,
-                             int n_rows, int n_chunks, int eb, int vb,
-                             int n_sweeps) {
-  extern __shared__ int tile[];            // [vb] minima as keys (min_key)
-  __shared__ int total;
-  float* o = out + roff;
-  float* pv = prev + roff;
-  float* fc = fcur + roff;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-
-  int any = 0;
-  for (int v = tid; v < bp; v += nt) {
-    const float d = dist[roff + v];
-    const float f = front[roff + v];
-    o[v] = d;
-    pv[v] = d;
-    fc[v] = f;
-    any |= f > 0.f;
-  }
-  for (int v = tid; v < vb; v += nt) tile[v] = repro::kInfBits;
-  if (tid == 0) total = 0;
-  const int active = __syncthreads_or(any);
-
-  const int count = repro::relax_sweeps(
-      o, pv, fc, tile, active, src_t, w_t, dstrel_t, pruned_t, bp, n_rows,
-      n_chunks, eb, vb, n_sweeps);
-
-  for (int v = tid; v < bp; v += nt) resid[roff + v] = o[v] < pv[v] ? 1.f : 0.f;
-  atomicAdd(&total, count);
-  __syncthreads();
-  if (tid == 0) *nrel = total;
-}
-
-__global__ void __launch_bounds__(repro::kThreads)
-relax_fixpoint_kernel(const float* __restrict__ dist,
-                      const float* __restrict__ front,
-                      const int* __restrict__ src_t,
-                      const float* __restrict__ w_t,
-                      const int* __restrict__ dstrel_t,
-                      const int* __restrict__ pruned_t, float* out,
-                      float* resid, int* nrel, float* prev, float* fcur, int K,
-                      int bp, int n_vtiles, int n_chunks, int eb, int vb,
-                      int n_sweeps) {
-  const int row = blockIdx.x;              // p * K + q
-  const int p = row / K;
-  const long long lay = static_cast<long long>(p) * n_vtiles * n_chunks * eb;
-  fixpoint_row(dist, front, src_t + lay, w_t + lay, dstrel_t + lay,
-               pruned_t + lay, out, resid, nrel + row, prev, fcur,
-               static_cast<long long>(row) * bp, bp, n_vtiles,
-               n_vtiles * n_chunks, n_chunks, eb, vb, n_sweeps);
-}
-
-// Kernels 2 and 9: one block of ragged::kThreads per (shard, query) row on
-// the chain of sweeps_ragged.cuh. Kernel 2 (kList false) walks the ragged
-// layout [P, rows, eb] with its chunk -> tile map ctile; kernel 9 (kList)
-// walks the live chunks live_idx[p][0 .. live_n[p]) of the dense layout
-// [P, rows = n_vtiles * n_chunks, eb] (csrc/relax.cu: the pre-pass). vstate:
-// the rows' vertex state in device memory, used only when it does not fit
-// in shared memory (bits_smem 0).
+// Kernels 2, 1 and 9: one block of ragged::kThreads per (shard, query) row
+// on the chain of sweeps_ragged.cuh. Kernel 2 (kList false) walks the
+// ragged layout [P, rows, eb] with its chunk -> tile map ctile; kernels 1
+// and 9 (kList) walk the live chunks live_idx[p][0 .. live_n[p * n_stride])
+// of the dense layout [P, rows = n_vtiles * n_chunks, eb] (the caller's
+// list, or the pre-pass's below). vstate: the rows' vertex state in device
+// memory, used only when it does not fit in shared memory (bits_smem 0).
 template <bool kHazard, bool kList>
 __global__ void __launch_bounds__(repro::ragged::kThreads, 1)
 relax_ragged_kernel(const float* __restrict__ dist,
@@ -154,9 +89,9 @@ relax_ragged_kernel(const float* __restrict__ dist,
                     const int* __restrict__ ctile, const int* src_r,
                     const float* w_r, const int* dstrel_r, const int* pruned_r,
                     float* out, float* resid, int* nrel, uint32_t* vstate,
-                    const int* live_idx, const int* live_n, int K, int bp,
-                    int n_vtiles, int rows, int n_chunks, int eb, int vb,
-                    int n_sweeps, int bits_smem) {
+                    const int* live_idx, const int* live_n, int n_stride,
+                    int K, int bp, int n_vtiles, int rows, int n_chunks,
+                    int eb, int vb, int n_sweeps, int bits_smem) {
   namespace rg = repro::ragged;
   extern __shared__ __align__(16) unsigned char smem[];
   const int row = blockIdx.x;              // p * K + q
@@ -173,7 +108,7 @@ relax_ragged_kernel(const float* __restrict__ dist,
   const long long lay = static_cast<long long>(p) * rows * eb;
   const long long cp = static_cast<long long>(p) * rows;
   int chain_rows = rows;
-  if constexpr (kList) chain_rows = live_n[p];
+  if constexpr (kList) chain_rows = live_n[static_cast<long long>(p) * n_stride];
   const rg::Chain ch{out + roff, {vs, vs + words},
                      kList ? nullptr : ctile + cp, src_r + lay, w_r + lay,
                      dstrel_r + lay, pruned_r + lay, bp, n_vtiles,
@@ -210,9 +145,10 @@ relax_ragged_kernel(const float* __restrict__ dist,
   if (tid == 0) nrel[row] = *total;
 }
 
-// Kernel 9's pre-pass, part 1: flags[c] = 1 when chunk c of the dense
-// layout holds a finite weight (a warp a chunk, four weights a lane at a
-// time; eb a multiple of 4).
+// The live-chunk pre-pass of kernels 1 and 9, part 1: flags[c] = 1 when
+// chunk c of the dense layout (every shard's chunks, flat) holds a finite
+// weight (a warp a chunk, four weights a lane at a time; eb a multiple of
+// 4).
 __global__ void live_flags_kernel(const float* __restrict__ w, int* flags,
                                   int rows, int eb) {
   const long long c =
@@ -230,12 +166,16 @@ __global__ void live_flags_kernel(const float* __restrict__ w, int* flags,
   if (lane == 0) flags[c] = any;
 }
 
-// Kernel 9's pre-pass, part 2 (one block): idx[0 .. n) = the chunks whose
-// flag is set, in layout order, and *n_live = n; blockDim.x flags a round,
-// a block-wide exclusive scan of the flags placing each live chunk.
+// The pre-pass, part 2 (one block a shard p): idx[p][0 .. n) = the shard's
+// chunks whose flag is set, in layout order, and n_live[p] = n; blockDim.x
+// flags a round, a block-wide exclusive scan of the flags placing each
+// live chunk.
 __global__ void __launch_bounds__(1024)
 live_list_kernel(const int* __restrict__ flags, int* idx, int* n_live,
                  int rows) {
+  const long long off = static_cast<long long>(blockIdx.x) * rows;
+  flags += off;
+  idx += off;
   __shared__ int sums[32];                 // warps' live counts, scanned
   __shared__ int carry;                    // live chunks of earlier rounds
   const int tid = threadIdx.x;
@@ -266,7 +206,7 @@ live_list_kernel(const int* __restrict__ flags, int* idx, int* n_live,
     if (tid == 0) carry += sums[31];
     __syncthreads();
   }
-  if (tid == 0) *n_live = carry;
+  if (tid == 0) n_live[blockIdx.x] = carry;
 }
 
 // Kernels 11 (kMasked false) and 10 (kMasked true): one Jacobi sweep, one
@@ -319,8 +259,9 @@ int launch_ragged(const float* dist, const float* front, const int* ctile,
                   const int* src_r, const float* w_r, const int* dstrel_r,
                   const int* pruned_r, float* out, float* resid, int* nrel,
                   uint32_t* vstate, const int* live_idx, const int* live_n,
-                  int P, int K, int bp, int n_vtiles, int rows, int n_chunks,
-                  int eb, int vb, int n_sweeps, cudaStream_t stream) {
+                  int n_stride, int P, int K, int bp, int n_vtiles, int rows,
+                  int n_chunks, int eb, int vb, int n_sweeps,
+                  cudaStream_t stream) {
   namespace rg = repro::ragged;
   const int need = rg::scratch_bytes(bp, n_vtiles, eb, vb, 0);
   if (need < 0 || (need > 0 && vstate == nullptr))
@@ -333,9 +274,48 @@ int launch_ragged(const float* dist, const float* front, const int* ctile,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<P * K, rg::kThreads, L.total, stream>>>(
       dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, out, resid, nrel,
-      vstate, live_idx, live_n, K, bp, n_vtiles, rows, n_chunks, eb, vb,
-      n_sweeps, bits_smem);
+      vstate, live_idx, live_n, n_stride, K, bp, n_vtiles, rows, n_chunks, eb,
+      vb, n_sweeps, bits_smem);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernels 1 and 9 over the dense layout [P, rows = n_vtiles * n_chunks,
+// eb]: the caller's live chunks (idx [P, rows], the shard's count at
+// live_n[p * n_stride]), or, when idx is null, the pre-pass's, written to
+// `live` ([2 * P * rows + P] int32: the chunks' flags, the lists, the
+// counts) on the same stream; then the chain.
+int launch_live(const float* dist, const float* front, const int* src_t,
+                const float* w_t, const int* dstrel_t, const int* pruned_t,
+                float* out, float* resid, int* nrel, const int* idx,
+                const int* live_n, int n_stride, int* live, uint32_t* vstate,
+                int P, int K, int bp, int n_vtiles, int n_chunks, int eb,
+                int vb, int n_sweeps, int hazard, cudaStream_t stream) {
+  const int rows = n_vtiles * n_chunks;
+  if (idx == nullptr) {
+    const long long all = static_cast<long long>(P) * rows;
+    int* flags = live;
+    int* list = live + all;
+    int* counts = live + 2 * all;
+    live_flags_kernel<<<static_cast<unsigned>((all + 15) / 16), 512, 0,
+                        stream>>>(w_t, flags, static_cast<int>(all), eb);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    live_list_kernel<<<P, 1024, 0, stream>>>(flags, list, counts, rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    idx = list;
+    live_n = counts;
+    n_stride = 1;
+  }
+  if (!hazard)
+    return launch_ragged<false, true>(
+        dist, front, nullptr, src_t, w_t, dstrel_t, pruned_t, out, resid,
+        nrel, vstate, idx, live_n, n_stride, P, K, bp, n_vtiles, rows,
+        n_chunks, eb, vb, n_sweeps, stream);
+  return launch_ragged<true, true>(
+      dist, front, nullptr, src_t, w_t, dstrel_t, pruned_t, out, resid, nrel,
+      vstate, idx, live_n, n_stride, P, K, bp, n_vtiles, rows, n_chunks, eb,
+      vb, n_sweeps, stream);
 }
 
 template <typename Kernel>
@@ -345,30 +325,33 @@ cudaError_t allow_tile(Kernel kernel, int vb) {
 
 }  // namespace
 
-// Dense layout [P, n_vtiles, n_chunks, eb].
-extern "C" int relax_fixpoint_batch(const float* dist, const float* front,
-                                    const int* src_t, const float* w_t,
-                                    const int* dstrel_t, const int* pruned_t,
-                                    float* out, float* resid, int* nrel,
-                                    float* prev, float* fcur, int P, int K,
-                                    int bp, int n_vtiles, int n_chunks, int eb,
-                                    int vb, int n_sweeps, cudaStream_t stream) {
-  if (P * K == 0) return 0;
-  const size_t smem = static_cast<size_t>(vb) * sizeof(int);
-  cudaError_t err = repro::allow_smem(relax_fixpoint_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  relax_fixpoint_kernel<<<P * K, repro::kThreads, smem, stream>>>(
-      dist, front, src_t, w_t, dstrel_t, pruned_t, out, resid, nrel, prev,
-      fcur, K, bp, n_vtiles, n_chunks, eb, vb, n_sweeps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Bytes of vertex state a row of the ragged kernel needs in device memory:
-// 0 when its bitmasks fit in shared memory, -1 when the row is past the
-// chain's cap (sweeps_ragged.cuh: layout_fits).
+// Bytes of vertex state a row of the chain needs in device memory: 0 when
+// its bitmasks fit in shared memory, -1 when the row is past the chain's
+// cap (sweeps_ragged.cuh: layout_fits).
 extern "C" int relax_ragged_scratch_bytes(int bp, int n_vtiles, int eb,
                                           int vb) {
   return repro::ragged::scratch_bytes(bp, n_vtiles, eb, vb, 0);
+}
+
+// Kernel 1: dense layout [P, n_vtiles, n_chunks, eb], rows [P, K, bp].
+// chunk_idx [P, n_vtiles * n_chunks] and chunk_bounds [P, n_vtiles + 1]:
+// the live chunks (common.py: live_chunks), the shard's count the last
+// bound; or both null, and the pre-pass fills live [2 * P * n_vtiles *
+// n_chunks + P]. vstate [P * K, relax_ragged_scratch_bytes / 4] or null
+// when that is 0. hazard 0 is the planted fault of the checks (every
+// source read from its early gather).
+extern "C" int relax_fixpoint_batch(
+    const float* dist, const float* front, const int* src_t, const float* w_t,
+    const int* dstrel_t, const int* pruned_t, float* out, float* resid,
+    int* nrel, const int* chunk_idx, const int* chunk_bounds, int* live,
+    uint32_t* vstate, int P, int K, int bp, int n_vtiles, int n_chunks,
+    int eb, int vb, int n_sweeps, int hazard, cudaStream_t stream) {
+  if (P * K == 0) return 0;
+  return launch_live(dist, front, src_t, w_t, dstrel_t, pruned_t, out, resid,
+                     nrel, chunk_idx,
+                     chunk_bounds ? chunk_bounds + n_vtiles : nullptr,
+                     n_vtiles + 1, live, vstate, P, K, bp, n_vtiles,
+                     n_chunks, eb, vb, n_sweeps, hazard, stream);
 }
 
 // Ragged layout [P, total_chunks, eb] with the chunk->tile map ctile
@@ -385,12 +368,12 @@ extern "C" int relax_ragged_fixpoint_batch(
   if (!hazard)
     return launch_ragged<false, false>(
         dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, out, resid, nrel,
-        vstate, nullptr, nullptr, P, K, bp, n_vtiles, total_chunks, 1, eb,
+        vstate, nullptr, nullptr, 0, P, K, bp, n_vtiles, total_chunks, 1, eb,
         vb, n_sweeps, stream);
   return launch_ragged<true, false>(
       dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, out, resid, nrel,
-      vstate, nullptr, nullptr, P, K, bp, n_vtiles, total_chunks, 1, eb, vb,
-      n_sweeps, stream);
+      vstate, nullptr, nullptr, 0, P, K, bp, n_vtiles, total_chunks, 1, eb,
+      vb, n_sweeps, stream);
 }
 
 // Kernel 9: one query, dense layout [n_vtiles, n_chunks, eb]; rows [bp],
@@ -405,26 +388,9 @@ extern "C" int relax_fixpoint(const float* dist, const float* front,
                               uint32_t* vstate, int bp, int n_vtiles,
                               int n_chunks, int eb, int vb, int n_sweeps,
                               int hazard, cudaStream_t stream) {
-  const int rows = n_vtiles * n_chunks;
-  int* flags = live;
-  int* idx = live + rows;
-  int* n_live = live + 2 * rows;
-  live_flags_kernel<<<(rows + 15) / 16, 512, 0, stream>>>(w_t, flags, rows,
-                                                          eb);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  live_list_kernel<<<1, 1024, 0, stream>>>(flags, idx, n_live, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!hazard)
-    return launch_ragged<false, true>(
-        dist, front, nullptr, src_t, w_t, dstrel_t, pruned_t, out, resid,
-        nrel, vstate, idx, n_live, 1, 1, bp, n_vtiles, rows, n_chunks, eb,
-        vb, n_sweeps, stream);
-  return launch_ragged<true, true>(
-      dist, front, nullptr, src_t, w_t, dstrel_t, pruned_t, out, resid, nrel,
-      vstate, idx, n_live, 1, 1, bp, n_vtiles, rows, n_chunks, eb, vb,
-      n_sweeps, stream);
+  return launch_live(dist, front, src_t, w_t, dstrel_t, pruned_t, out, resid,
+                     nrel, nullptr, nullptr, 1, live, vstate, 1, 1, bp,
+                     n_vtiles, n_chunks, eb, vb, n_sweeps, hazard, stream);
 }
 
 // Kernel 10: one masked, counted Jacobi sweep; nrel [1] zeroed by the

@@ -19,25 +19,178 @@
 // the same values, because accumulation never reads the mask, and a tile
 // with no chunks finalizes to +inf with no send, as there.
 //
-// What bounds it: bytes. Each layout chunk (src, w, segrel, pruned) is read
-// once and serves all K queries; the distance gathers and the [K, S] rows
-// are the rest of the traffic. The arithmetic is one add and one min per
-// (edge, query).
+// What bounds it: bytes, once the distance gathers are cheap. Each layout
+// chunk (src, w, segrel, pruned) is read once and serves all K queries;
+// the rows and the [K, S] slot rows (last_sent read, val and new_last
+// written) are the rest. A live edge gathers dist[p, q, src] for every
+// query q, and in the [P, K, bp] rows the K values of one source lie
+// bp * 4 bytes apart: K sectors of 32 bytes an edge. The kernel of one
+// edge a thread, K gathers in a loop, took 0.97 ms at the scale-1e7
+// layout with K = 16 (8.6M cut edges; byte bound 0.13 ms, H100).
 //
-// Design: one CTA per (shard, slot tile), a grid of P*n_stiles. Tiles have
-// no dependency on each other, so they run in parallel; the CTA loops over
-// the tile's chunks and, inside, over the K queries, min-reducing into a
-// [K, SB] shared-memory tile (tile_min_into). The finalizer runs in the
-// same CTA once all chunks are in; per-query counts are summed in shared
-// memory and added to the [P, K] output with one atomicAdd per query. One
-// template serves both layouts; kRagged picks how a tile finds its chunks.
+// Design, for Hopper (kernels 4 and 3, one template; kRagged picks how a
+// tile finds its chunks):
+//  - The entry point first writes the rows query-interleaved, [P, bp, K]
+//    (interleave_kernel: a tiled transpose through shared memory, on the
+//    same stream; skipped at K = 1, where the two layouts are one), so the
+//    K candidates of an edge are K * 4 contiguous bytes.
+//  - One CTA of 256 threads per (shard, slot tile), a grid of P *
+//    n_stiles; tiles have no dependency on each other. The CTA walks the
+//    tile's edges in batches (1,024 edges, fewer at the largest K; see
+//    below): it stages a batch's live edges (finite and unpruned) in
+//    shared memory, compacted (a ballot a warp; the order is free, as a
+//    min is), each thread issuing all its loads of the batch before it
+//    compacts any. Then its threads take the staged
+//    edges as flat (edge, query) pairs, query fastest: K neighbouring lanes
+//    read one staged edge (a shared-memory broadcast) and gather its K
+//    candidates in one coalesced request. Each thread reads kUnroll pairs,
+//    then issues their kUnroll gathers, then reduces: many gathers in
+//    flight a thread and no wait on device memory between an edge and its
+//    gathers, as round.cu's reduce_by_warp. Padding and pruned edges cost
+//    no pair.
+//  - The tile of minima is slot-major, [sb][kp] keys (min_key) with kp = K
+//    rounded up to odd: the K atomicMins of one edge land in K banks, the
+//    same-address atomics of a hub slot spread over its queries, and the
+//    finalizer's reads (query-major, slot fastest, so its stores to the
+//    [K, S] rows are coalesced) stride kp words, conflict-free.
+//  - The finalizer runs in the same CTA once all chunks are in; per-query
+//    counts are summed a warp at a time into shared memory and added to the
+//    [P, K] output with one atomicAdd per (CTA, query). Data read or
+//    written once (layout, slot rows) is streamed (evict first), so L2
+//    keeps the interleaved rows that the gathers revisit.
+//  - The staged batch takes the shared memory the tile leaves free, up to
+//    1,024 edges (down to 1 at the largest K), and the odd row stride
+//    drops to K where its padding does not fit: every (K, sb) whose tile
+//    of minima and counts fit, with 20 bytes to spare, runs.
+#include <algorithm>
+
 #include "tile_reduce.cuh"
 
 namespace {
 
+constexpr int kPackThreads = 256;     // threads a pack CTA
+constexpr int kStage = 4;             // edges a thread stages a batch
+constexpr int kBatch = kStage * kPackThreads;   // most edges a batch stages
+constexpr int kUnroll = 4;            // pairs whose gathers a thread issues
+constexpr int kSmemLimit = 232448;    // dynamic shared memory a block
+constexpr int kIlvThreads = 256;      // threads an interleave block
+constexpr int kIlvV = 128;            // vertices of an interleave tile
+constexpr int kIlvQ = 32;             // queries of an interleave tile
+
+// Data read or written once: streamed past the caches (evict first), so
+// that L2 keeps the interleaved rows that the gathers revisit.
+template <typename T>
+__device__ __forceinline__ T once(const T* p) {
+  return __ldcs(p);
+}
+__device__ __forceinline__ void put_once(float* p, float v) { __stcs(p, v); }
+
+// The pack CTA's shared memory: the staged batch of nb edges (16 bytes an
+// edge), the tile of minima [sb][kp], the counts and the staged count.
+inline long long smem_bytes(int K, int kp, int sb, int nb) {
+  return 16LL * nb + (static_cast<long long>(sb) * kp + K + 1) * 4;
+}
+
+// The pack CTA's shape for K queries and slot tiles of sb: the tile's row
+// stride kp (K rounded up to odd, or K where that padding does not fit),
+// the staged batch nb (kBatch edges, or as many as the shared memory the
+// tile leaves free holds) and the bytes; false when not one edge fits.
+struct PackShape {
+  int kp, nb;
+  long long smem;
+};
+inline bool pack_shape(int K, int sb, PackShape* s) {
+  for (const int kp : {K | 1, K}) {
+    const long long left = kSmemLimit - smem_bytes(K, kp, sb, 0);
+    if (left >= 16) {
+      s->kp = kp;
+      s->nb = static_cast<int>(std::min<long long>(kBatch, left / 16));
+      s->smem = smem_bytes(K, kp, sb, s->nb);
+      return true;
+    }
+  }
+  return false;
+}
+
+// rows [P, K, bp] -> out [P, bp, K]: block (vertex tile, query tile, p)
+// stages a [32 queries][128 vertices] tile in shared memory (rows read
+// along vertices), then writes the tile's vertices one after another, its
+// queries contiguous (at K <= 32 the tile's output is one contiguous run).
+__global__ void __launch_bounds__(kIlvThreads)
+interleave_kernel(const float* __restrict__ rows, float* __restrict__ out,
+                  int K, int bp) {
+  __shared__ float t[kIlvQ][kIlvV + 1];
+  const int p = blockIdx.z;
+  const int v0 = blockIdx.x * kIlvV;
+  const int q0 = blockIdx.y * kIlvQ;
+  const int nv = min(kIlvV, bp - v0);
+  const int nq = min(kIlvQ, K - q0);
+  const float* in = rows + static_cast<long long>(p) * K * bp;
+  for (int i = threadIdx.x; i < kIlvQ * kIlvV; i += kIlvThreads) {
+    const int ql = i / kIlvV, vl = i % kIlvV;
+    if (ql < nq && vl < nv)
+      t[ql][vl] = once(in + static_cast<long long>(q0 + ql) * bp + v0 + vl);
+  }
+  __syncthreads();
+  float* o = out + static_cast<long long>(p) * bp * K;
+  // element i of the output tile is (vertex i / nq, query i % nq), stepped
+  int vl = threadIdx.x / nq, ql = threadIdx.x % nq;
+  const int dv = kIlvThreads / nq, dql = kIlvThreads % nq;
+  for (int i = threadIdx.x; i < nv * nq; i += kIlvThreads) {
+    o[static_cast<long long>(v0 + vl) * K + q0 + ql] = t[ql][vl];
+    vl += dv;
+    ql += dql;
+    if (ql >= nq) {
+      ql -= nq;
+      ++vl;
+    }
+  }
+}
+
+// The (edge, query) pairs of the n staged edges, min-reduced into the tile:
+// pair f = threadIdx.x + j * kPackThreads is edge f / K, query f % K,
+// stepped without a division (kFixed: K divides the CTA, so a thread's
+// query never changes). kUnroll staged reads (a broadcast to the K lanes
+// of an edge), then kUnroll gathers in flight, then the reduce.
+template <bool kFixed>
+__device__ __forceinline__ void reduce_pairs(const int4* staged, int n,
+                                             int K,
+                                             const float* __restrict__ drow,
+                                             int* tile) {
+  const int de = kPackThreads / K, dqs = kPackThreads % K;
+  int e = threadIdx.x / K, q = threadIdx.x % K;
+  while (e < n) {
+    int off[kUnroll], at[kUnroll];
+    float w[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int4 st = e < n ? staged[e] : make_int4(0, 0, repro::kInfBits, 0);
+      off[u] = st.x + q;
+      at[u] = st.y + q;
+      w[u] = __int_as_float(st.z);
+      e += de;
+      if (!kFixed) {
+        q += dqs;
+        if (q >= K) {
+          q -= K;
+          ++e;
+        }
+      }
+    }
+    float d[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      d[u] = w[u] < repro::inf_f() ? drow[off[u]] : repro::inf_f();
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      repro::tile_min_into(tile, at[u], d[u] + w[u]);
+  }
+}
+
+// dq: the interleaved rows [P, bp, K] (the rows themselves at K = 1).
 template <bool kRagged>
-__global__ void __launch_bounds__(repro::kThreads)
-send_pack_kernel(const float* __restrict__ dist,
+__global__ void __launch_bounds__(kPackThreads)
+send_pack_kernel(const float* __restrict__ dq,
                  const float* __restrict__ last,
                  const int* __restrict__ valid,
                  const int* __restrict__ bounds,
@@ -46,19 +199,21 @@ send_pack_kernel(const float* __restrict__ dist,
                  const int* __restrict__ segrel_t,
                  const int* __restrict__ pruned_t, float* val, float* new_last,
                  int* sends, int K, int bp, int sp, int n_stiles, int n_rows,
-                 int n_chunks, int eb, int sb) {
-  extern __shared__ int smem[];
-  int* tile = smem;                        // [K, sb] minima as keys (min_key)
-  int* cnt = smem + K * sb;                // [K] improved slots
+                 int n_chunks, int eb, int sb, int kp, int nb) {
+  extern __shared__ int4 smem4[];
+  int4* staged = smem4;                    // [nb] src * K, segrel * kp, w
+  int* tile = reinterpret_cast<int*>(smem4 + nb);       // [sb, kp] keys
+  int* cnt = tile + sb * kp;               // [K] improved slots
+  int* n_staged = cnt + K;                 // live edges staged
   const int p = blockIdx.x / n_stiles;
   const int i = blockIdx.x % n_stiles;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  for (int x = tid; x < K * sb; x += nt) tile[x] = repro::kInfBits;
-  for (int q = tid; q < K; q += nt) cnt[q] = 0;
-  __syncthreads();
+  const int lane = tid & 31;
+  for (int x = tid; x < sb * kp; x += kPackThreads) tile[x] = repro::kInfBits;
+  for (int q = tid; q < K; q += kPackThreads) cnt[q] = 0;
 
-  // the tile's chunks [c0, c1) among the shard's n_rows chunks
+  // the tile's chunks [c0, c1) among the shard's n_rows chunks, as one
+  // flat run of edges [e_begin, e_end)
   int c0 = i * n_chunks;
   int c1 = c0 + n_chunks;
   if (kRagged) {
@@ -66,81 +221,155 @@ send_pack_kernel(const float* __restrict__ dist,
     c0 = b[i];
     c1 = b[i + 1];
   }
-  const float* drow = dist + static_cast<long long>(p) * K * bp;
-  const long long lay = static_cast<long long>(p) * n_rows * eb;
-  for (int j = c0; j < c1; ++j) {
-    const long long c = lay + static_cast<long long>(j) * eb;
-    for (int e = tid; e < eb; e += nt) {
-      const float w = pruned_t[c + e] > 0 ? repro::inf_f() : w_t[c + e];
-      if (!(w < repro::inf_f())) continue;
-      const int sv = src_t[c + e];
-      const int r = segrel_t[c + e];
-      for (int q = 0; q < K; ++q)
-        repro::tile_min_into(tile + q * sb, r,
-                             drow[static_cast<long long>(q) * bp + sv] + w);
+  const long long e_begin = (static_cast<long long>(p) * n_rows + c0) * eb;
+  const long long e_end = e_begin + static_cast<long long>(c1 - c0) * eb;
+  const float* drow = dq + static_cast<long long>(p) * bp * K;
+  for (long long b0 = e_begin; b0 < e_end; b0 += nb) {
+    const int n = static_cast<int>(min(static_cast<long long>(nb),
+                                       e_end - b0));
+    if (tid == 0) *n_staged = 0;
+    __syncthreads();
+    // stage the batch's live edges (finite, unpruned), compacted: every
+    // load first, then a ballot a warp and one shared atomicAdd for the
+    // warp's place, so each warp's edges stay in layout order (sorted by
+    // slot) and the warps' blocks land in any order (a min is order-free)
+    int sv[kStage], r[kStage];
+    float w[kStage];
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int j = tid + u * kPackThreads;
+      w[u] = repro::inf_f();
+      sv[u] = 0;
+      r[u] = 0;
+      if (j < n) {
+        const long long x = b0 + j;
+        if (once(pruned_t + x) <= 0) w[u] = once(w_t + x);
+        sv[u] = once(src_t + x);
+        r[u] = once(segrel_t + x);
+      }
     }
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const bool ok = w[u] < repro::inf_f();
+      const unsigned m = __ballot_sync(0xffffffffu, ok);
+      int base = 0;
+      if (lane == 0 && m) base = atomicAdd(n_staged, __popc(m));
+      base = __shfl_sync(0xffffffffu, base, 0);
+      if (ok)
+        staged[base + __popc(m & ((1u << lane) - 1u))] =
+            make_int4(sv[u] * K, r[u] * kp, __float_as_int(w[u]), 0);
+    }
+    __syncthreads();
+    if (kPackThreads % K == 0)
+      reduce_pairs<true>(staged, *n_staged, K, drow, tile);
+    else
+      reduce_pairs<false>(staged, *n_staged, K, drow, tile);
+    __syncthreads();
   }
   __syncthreads();
 
-  for (int x = tid; x < K * sb; x += nt) {
-    const int q = x / sb;
-    const int slot = i * sb + x % sb;
-    const long long o = (static_cast<long long>(p) * K + q) * sp + slot;
-    const float m = repro::key_value(tile[x]);
-    const float before = last[o];
-    const bool improved = valid[static_cast<long long>(p) * sp + slot] > 0 && m < before;
-    val[o] = improved ? m : repro::inf_f();
-    new_last[o] = improved ? m : before;
-    if (improved) atomicAdd(cnt + q, 1);
+  // finalize: x = q * sb + slot, slot fastest, (q, slot) stepped without a
+  // division (x - lane keeps the loop warp-uniform for the count's ballot)
+  int qf = tid / sb, sf = tid % sb;
+  const int dqf = kPackThreads / sb, dsf = kPackThreads % sb;
+  for (int x = tid; x - lane < K * sb; x += kPackThreads) {
+    const bool in = x < K * sb;
+    const int qx = in ? qf : 0;
+    const int s = sf;
+    sf += dsf;
+    qf += dqf;
+    if (sf >= sb) {
+      sf -= sb;
+      ++qf;
+    }
+    bool improved = false;
+    if (in) {
+      const int slot = i * sb + s;
+      const long long o = (static_cast<long long>(p) * K + qx) * sp + slot;
+      const float m = repro::key_value(tile[s * kp + qx]);
+      const float before = once(last + o);
+      improved =
+          once(valid + static_cast<long long>(p) * sp + slot) > 0 && m < before;
+      put_once(val + o, improved ? m : repro::inf_f());
+      put_once(new_last + o, improved ? m : before);
+    }
+    // the lanes of one query add their improved slots once
+    const unsigned same = __match_any_sync(0xffffffffu, qx);
+    const unsigned imp = __ballot_sync(0xffffffffu, improved) & same;
+    if (improved && lane == __ffs(imp) - 1) atomicAdd(cnt + qx, __popc(imp));
   }
   __syncthreads();
-  for (int q = tid; q < K; q += nt)
-    if (cnt[q]) atomicAdd(sends + p * K + q, cnt[q]);
+  for (int qc = tid; qc < K; qc += kPackThreads)
+    if (cnt[qc]) atomicAdd(sends + p * K + qc, cnt[qc]);
 }
 
 template <bool kRagged>
-int launch(const float* dist, const float* last, const int* valid,
-           const int* bounds, const int* src_t, const float* w_t,
-           const int* segrel_t, const int* pruned_t, float* val,
-           float* new_last, int* sends, int P, int K, int bp, int sp,
-           int n_stiles, int n_rows, int n_chunks, int eb, int sb,
+int launch(const float* dist, float* dist_qi, const float* last,
+           const int* valid, const int* bounds, const int* src_t,
+           const float* w_t, const int* segrel_t, const int* pruned_t,
+           float* val, float* new_last, int* sends, int P, int K, int bp,
+           int sp, int n_stiles, int n_rows, int n_chunks, int eb, int sb,
            cudaStream_t stream) {
   if (P * K * n_stiles == 0) return 0;
-  const size_t smem = static_cast<size_t>(K) * (sb + 1) * sizeof(int);
-  cudaError_t err = repro::allow_smem(send_pack_kernel<kRagged>, smem);
+  PackShape sh;
+  if (!pack_shape(K, sb, &sh) || (K > 1 && dist_qi == nullptr) ||
+      static_cast<long long>(bp) * K > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = repro::allow_smem(send_pack_kernel<kRagged>,
+                                      static_cast<size_t>(sh.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  send_pack_kernel<kRagged><<<P * n_stiles, repro::kThreads, smem, stream>>>(
-      dist, last, valid, bounds, src_t, w_t, segrel_t, pruned_t, val, new_last,
-      sends, K, bp, sp, n_stiles, n_rows, n_chunks, eb, sb);
+  const float* dq = dist;
+  if (K > 1) {
+    const dim3 grid((bp + kIlvV - 1) / kIlvV, (K + kIlvQ - 1) / kIlvQ, P);
+    interleave_kernel<<<grid, kIlvThreads, 0, stream>>>(dist, dist_qi, K, bp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dq = dist_qi;
+  }
+  send_pack_kernel<kRagged><<<P * n_stiles, kPackThreads,
+                              static_cast<size_t>(sh.smem), stream>>>(
+      dq, last, valid, bounds, src_t, w_t, segrel_t, pruned_t, val, new_last,
+      sends, K, bp, sp, n_stiles, n_rows, n_chunks, eb, sb, sh.kp, sh.nb);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Dense layout [P, n_stiles, n_chunks, eb].
-extern "C" int send_pack_tiled(const float* dist, const float* last,
-                               const int* valid, const int* src_t,
-                               const float* w_t, const int* segrel_t,
-                               const int* pruned_t, float* val, float* new_last,
-                               int* sends, int P, int K, int bp, int sp,
-                               int n_stiles, int n_chunks, int eb, int sb,
+// Bytes of shared memory a pack CTA takes for K queries and slot tiles of
+// sb, or -1 when its tile of minima is past the card's limit a block.
+extern "C" int send_smem_bytes(int K, int sb) {
+  PackShape sh;
+  return pack_shape(K, sb, &sh) ? static_cast<int>(sh.smem) : -1;
+}
+
+// Dense layout [P, n_stiles, n_chunks, eb]. dist_qi: [P, bp, K] scratch
+// for the interleaved rows (null at K = 1).
+extern "C" int send_pack_tiled(const float* dist, float* dist_qi,
+                               const float* last, const int* valid,
+                               const int* src_t, const float* w_t,
+                               const int* segrel_t, const int* pruned_t,
+                               float* val, float* new_last, int* sends, int P,
+                               int K, int bp, int sp, int n_stiles,
+                               int n_chunks, int eb, int sb,
                                cudaStream_t stream) {
-  return launch<false>(dist, last, valid, nullptr, src_t, w_t, segrel_t,
-                       pruned_t, val, new_last, sends, P, K, bp, sp, n_stiles,
-                       n_stiles * n_chunks, n_chunks, eb, sb, stream);
+  return launch<false>(dist, dist_qi, last, valid, nullptr, src_t, w_t,
+                       segrel_t, pruned_t, val, new_last, sends, P, K, bp, sp,
+                       n_stiles, n_stiles * n_chunks, n_chunks, eb, sb,
+                       stream);
 }
 
 // Ragged layout [P, total_chunks, eb]; bounds [P, n_stiles + 1] are the
-// tile -> chunk ranges of the chunk->tile map.
-extern "C" int send_pack_ragged(const float* dist, const float* last,
-                                const int* valid, const int* bounds,
-                                const int* src_r, const float* w_r,
-                                const int* segrel_r, const int* pruned_r,
-                                float* val, float* new_last, int* sends, int P,
-                                int K, int bp, int sp, int n_stiles,
+// tile -> chunk ranges of the chunk->tile map; dist_qi as above.
+extern "C" int send_pack_ragged(const float* dist, float* dist_qi,
+                                const float* last, const int* valid,
+                                const int* bounds, const int* src_r,
+                                const float* w_r, const int* segrel_r,
+                                const int* pruned_r, float* val,
+                                float* new_last, int* sends, int P, int K,
+                                int bp, int sp, int n_stiles,
                                 int total_chunks, int eb, int sb,
                                 cudaStream_t stream) {
-  return launch<true>(dist, last, valid, bounds, src_r, w_r, segrel_r,
-                      pruned_r, val, new_last, sends, P, K, bp, sp, n_stiles,
-                      total_chunks, 0, eb, sb, stream);
+  return launch<true>(dist, dist_qi, last, valid, bounds, src_r, w_r,
+                      segrel_r, pruned_r, val, new_last, sends, P, K, bp, sp,
+                      n_stiles, total_chunks, 0, eb, sb, stream);
 }

@@ -1,21 +1,20 @@
 // The Gauss-Seidel sweep chain of one (shard, query) row, for Hopper: the
 // relax stage of kernels 2 (csrc/relax.cu, relax_ragged_fixpoint_batch) and
 // 8 (csrc/round.cu, fused_round_ragged) over the ragged layout, and of
-// kernels 9 (relax.cu, relax_fixpoint) and 7 (round.cu, fused_round_tiled)
-// over the dense layout's live chunks (kList). Kernel 1 alone keeps the
-// plain chain of sweeps.cuh.
+// kernels 1 (relax.cu, relax_fixpoint_batch), 9 (relax.cu, relax_fixpoint)
+// and 7 (round.cu, fused_round_tiled) over the dense layout's live chunks
+// (kList).
 //
-// What it computes is what sweeps.cuh computes, in the same order: up to
-// n_sweeps frontier-chased min-plus sweeps; a sweep walks the shard's
-// chunks in layout order, chunk c landing in vertex tile
+// What it computes: up to n_sweeps frontier-chased min-plus sweeps; a sweep
+// walks the shard's chunks in layout order, chunk c landing in vertex tile
 // min(ctile[c], n_vtiles - 1) (ragged) or c / n_chunks (dense); each chunk
 // gathers o[src] + w for the edges whose source is in the sweep's frontier
 // (pruned edges count as +inf), min-reduces them per destination in a
 // shared tile of keys (tile_min_into), and only then mins the tile into
 // the live row. The next sweep's frontier is the set of vertices improved
 // in this one (exactly o_end < o_start, as the row never rises); a row
-// whose sweep improved nothing stops. So every distance and every count, q_relaxations
-// included, is the reference's.
+// whose sweep improved nothing stops. So every distance and every count,
+// q_relaxations included, is the reference's.
 //
 // The dense layout gives every tile as many chunks as the heaviest tile
 // needs and pads the rest with w = +inf; at the scale-1e6 layouts 65-74% of

@@ -175,19 +175,23 @@ def fixpoint_operands(dist, active, pruned_loc, eid_t, block_pad: int):
 
 
 def relax_to_fixpoint(dist, front, relax_layout, pruned_t, *, vb: int,
-                      n_sweeps: int, max_iters: int, spent: int = 0):
+                      n_sweeps: int, max_iters: int, spent: int = 0,
+                      chunks=None):
     """Relaunch the relax kernel (dense, or ragged for a 5-tuple layout
     with its chunk->tile map) on the residual frontier, up to ``n_sweeps``
     sweeps a launch, until every shard's frontier is empty or the shard has
     run ``max_iters`` sweeps, ``spent`` of them before the first launch
     (the reference's per-shard loop condition). A stopped shard gets an
     empty frontier in later launches, which makes its rows no-ops.
+    ``chunks``: the dense layout's live chunks, passed to kernel 1
+    (``relax_dst_tiled_fixpoint_batch``); ignored for a ragged layout.
     dist/front [P, K, block_pad]. Returns (dist, relaxations [P, K])."""
     src_t, w_t, dstrel_t = relax_layout[:3]
     if len(relax_layout) == 5:
-        relax, lead = relax_dst_ragged_fixpoint_batch, relax_layout[4:]
+        relax, lead, kw = (relax_dst_ragged_fixpoint_batch,
+                           relax_layout[4:], {})
     else:
-        relax, lead = relax_dst_tiled_fixpoint_batch, ()
+        relax, lead, kw = relax_dst_tiled_fixpoint_batch, (), {"chunks": chunks}
     P, K = dist.shape[:2]
     nrel = torch.zeros((P, K), dtype=torch.int32, device=dist.device)
     it = torch.full((P,), spent, dtype=torch.int32, device=dist.device)
@@ -197,7 +201,7 @@ def relax_to_fixpoint(dist, front, relax_layout, pruned_t, *, vb: int,
             break
         dist, resid, n = relax(
             dist, front * run[:, None, None], *lead, src_t, w_t, dstrel_t,
-            pruned_t, vb=vb, n_sweeps=n_sweeps)
+            pruned_t, vb=vb, n_sweeps=n_sweeps, **kw)
         front = torch.where(run[:, None, None], resid, front)
         nrel += n
         it += n_sweeps * run.to(torch.int32)

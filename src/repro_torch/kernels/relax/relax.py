@@ -19,11 +19,11 @@ reference does; their kernels order candidates by an order-preserving key
 (``csrc/tile_reduce.cuh: min_key``), so they take any non-NaN distances,
 negative ones included. Every kernel reads the layout as the builders make
 it (sources in ``[0, block_pad)``, ``dstrel`` in ``[0, vb)``): the
-wrappers check shapes and dtypes, not index values. Kernels 2 and 9 run the
-Hopper chain of ``csrc/sweeps_ragged.cuh`` (kernel 9 over the dense
+wrappers check shapes and dtypes, not index values. Kernels 1, 2 and 9 run
+the Hopper chain of ``csrc/sweeps_ragged.cuh`` (1 and 9 over the dense
 layout's live chunks), which takes VB a multiple of 32, EB of 4 and 16-byte
-aligned operands (``check_chain``); kernel 1 the plain chain of
-``csrc/sweeps.cuh``.
+aligned operands (``check_chain``) and has a cap on a row's vertex tiles
+(``ragged_scratch``).
 """
 from __future__ import annotations
 
@@ -174,7 +174,7 @@ def relax_dst_tiled_plain(dist_pad, src_t, w_t, dstrel_t, *, vb: int):
     return _sweep_plain(dist_pad, None, src_t, w_t, dstrel_t, None, vb=vb)[0]
 
 
-_SIGNATURES = {"relax_fixpoint_batch": build.signature(11, 8),
+_SIGNATURES = {"relax_fixpoint_batch": build.signature(13, 9),
                "relax_ragged_fixpoint_batch": build.signature(11, 9),
                "relax_ragged_scratch_bytes": [ctypes.c_int] * 4,
                "relax_fixpoint": build.signature(11, 7),
@@ -183,22 +183,36 @@ _SIGNATURES = {"relax_fixpoint_batch": build.signature(11, 8),
 
 
 def _outputs(dist):
-    """out, resid, nrel, and kernel 1's scratch rows prev and fcur (the
-    plain chain of ``csrc/sweeps.cuh``)."""
+    """out, resid and nrel of kernels 1 and 2."""
     P, K, _ = dist.shape
     return (torch.empty_like(dist), torch.empty_like(dist),
-            torch.empty((P, K), dtype=torch.int32, device=dist.device),
-            torch.empty_like(dist), torch.empty_like(dist))
+            torch.empty((P, K), dtype=torch.int32, device=dist.device))
 
 
 def relax_dst_tiled_fixpoint_batch(dist, front, src_t, w_t, dstrel_t,
-                                   pruned_t, *, vb: int, n_sweeps: int):
+                                   pruned_t, *, vb: int, n_sweeps: int,
+                                   chunks=None):
     """Same contract as the plain version. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (one CTA per (shard, query))."""
+    version and ignore ``chunks``; CUDA tensors launch the kernel (one
+    block per (shard, query) on the chain of ``csrc/sweeps_ragged.cuh``
+    over the layout's live chunks). ``chunks``: those chunks, the (idx,
+    bounds) pair of ``live_chunks(w_t < inf)``, as the shards derive it
+    once (``SsspShards.round_chunks[1]``); without it the entry point
+    finds them on the card first."""
     if not dist.is_cuda:
         return relax_dst_tiled_fixpoint_batch_plain(
             dist, front, src_t, w_t, dstrel_t, pruned_t, vb=vb,
             n_sweeps=n_sweeps)
+    return _launch_tiled(dist, front, src_t, w_t, dstrel_t, pruned_t, vb=vb,
+                         n_sweeps=n_sweeps, chunks=chunks)
+
+
+def _launch_tiled(dist, front, src_t, w_t, dstrel_t, pruned_t, *, vb: int,
+                  n_sweeps: int, chunks=None, hazard: bool = True):
+    """Kernel 1's launch: the live-chunk pre-pass where ``chunks`` is None,
+    then the chain, on the current stream. ``hazard=False`` is a planted
+    fault for the checks alone (every source read from its early gather),
+    which must differ from the plain version."""
     P, K, bp = dist.shape
     _, n_vtiles, n_chunks, eb = src_t.shape
     if bp != n_vtiles * vb or front.shape != dist.shape:
@@ -206,15 +220,33 @@ def relax_dst_tiled_fixpoint_batch(dist, front, src_t, w_t, dstrel_t,
                          f"{n_vtiles} tiles of {vb}")
     check_cuda("relax", torch.float32, dist, front, w_t)
     check_cuda("relax", torch.int32, src_t, dstrel_t, pruned_t)
+    live = None
+    if chunks is None:
+        # the pre-pass's chunk flags, live lists and their lengths
+        live = torch.empty(2 * P * n_vtiles * n_chunks + P,
+                           dtype=torch.int32, device=dist.device)
+        chunks = (None, None)
+    else:
+        idx, bounds = chunks
+        if (idx.shape != (P, n_vtiles * n_chunks)
+                or bounds.shape != (P, n_vtiles + 1)):
+            raise ValueError(f"relax: live chunks {tuple(idx.shape)} / "
+                             f"{tuple(bounds.shape)} do not match the layout "
+                             f"{tuple(src_t.shape)}")
+        check_cuda("relax", torch.int32, idx, bounds)
+    check_chain("relax", eb, vb, dist, front, src_t, w_t, dstrel_t, pruned_t)
     lib = build.load("relax", _SIGNATURES)
+    vstate = ragged_scratch("relax", lib, "relax_ragged_scratch_bytes", P * K,
+                            (bp, n_vtiles, eb, vb), dist.device)
     outs = _outputs(dist)
     stream = torch.cuda.current_stream(dist.device).cuda_stream
     code = lib.relax_fixpoint_batch(
-        *map(build.ptr, (dist, front, src_t, w_t, dstrel_t, pruned_t, *outs)),
-        P, K, bp, n_vtiles, n_chunks, eb, vb, n_sweeps, stream)
+        *map(build.ptr_or_null, (dist, front, src_t, w_t, dstrel_t, pruned_t,
+                                 *outs, *chunks, live, vstate)),
+        P, K, bp, n_vtiles, n_chunks, eb, vb, n_sweeps, int(hazard), stream)
     build.check(lib, "relax", code)
     build.count_launch("relax")
-    return outs[:3]
+    return outs
 
 
 def relax_dst_ragged_fixpoint_batch(dist, front, ctile, src_r, w_r, dstrel_r,
@@ -247,8 +279,7 @@ def _launch_ragged(dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, *,
     check_chain("relax_ragged", eb, vb, dist, front, src_r, w_r, dstrel_r,
                 pruned_r)
     lib = build.load("relax", _SIGNATURES)
-    outs = (torch.empty_like(dist), torch.empty_like(dist),
-            torch.empty((P, K), dtype=torch.int32, device=dist.device))
+    outs = _outputs(dist)
     vstate = ragged_scratch("relax_ragged", lib, "relax_ragged_scratch_bytes",
                             P * K, (bp, bp // vb, eb, vb), dist.device)
     stream = torch.cuda.current_stream(dist.device).cuda_stream

@@ -110,7 +110,8 @@ def fused_round_pallas(dist, front_in, live, incoming, last_sent, slot_valid,
 def fused_round_rescue(dist, resid, last_sent, slot_valid, relax_layout,
                        send_layout, pruned_loc, pruned_cut, *, vb: int = 128,
                        sb: int = 128, n_sweeps: int = 8,
-                       max_iters: int = 10_000, send_bounds=None):
+                       max_iters: int = 10_000, send_bounds=None,
+                       relax_chunks=None):
     """Finish a round whose in-kernel sweeps left a residual frontier.
 
     ``dist``/``resid`` are the fused kernel's merged-and-partially-relaxed
@@ -119,8 +120,10 @@ def fused_round_rescue(dist, resid, last_sent, slot_valid, relax_layout,
     ``n_sweeps``, exactly like the staged pipeline's outer loop) and
     re-packs the sends against the original ``last_sent``
     (``send_bounds``: the ragged send layout's precomputed tile -> chunk
-    ranges). Returns (new_dist [P, K, block], send_val [P, K, S],
-    new_last [P, K, S], nrel_extra [P, K], sends [P, K])."""
+    ranges; ``relax_chunks``: the dense relax layout's live chunks, which
+    kernel 1 walks, ``SsspShards.round_chunks[1]``). Returns (new_dist
+    [P, K, block], send_val [P, K, S], new_last [P, K, S], nrel_extra
+    [P, K], sends [P, K])."""
     block = dist.shape[-1]
     bp, _ = _padded_widths(block, last_sent.shape[-1], relax_layout,
                            send_layout, vb=vb, sb=sb)
@@ -128,7 +131,8 @@ def fused_round_rescue(dist, resid, last_sent, slot_valid, relax_layout,
                                          relax_layout[3], bp)
     d2, nrel_extra = relax_to_fixpoint(d, front, relax_layout, prn_rx, vb=vb,
                                        n_sweeps=n_sweeps,
-                                       max_iters=max_iters, spent=n_sweeps)
+                                       max_iters=max_iters, spent=n_sweeps,
+                                       chunks=relax_chunks)
     d2 = d2[..., :block]
     sval, nlast, sends = send_pack(
         d2, last_sent, slot_valid, *send_layout[:3],

@@ -13,6 +13,8 @@ with the chunk->tile map ``ctile`` ``[P, total_chunks]``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
@@ -81,21 +83,34 @@ def send_pack_ragged_plain(dist, last, valid, ctile, src_r, w_r, segrel_r,
     return _finalize(acc, last, valid)
 
 
-_SIGNATURES = {"send_pack_tiled": build.signature(10, 8),
-               "send_pack_ragged": build.signature(11, 8)}
+_SIGNATURES = {"send_pack_tiled": build.signature(11, 8),
+               "send_pack_ragged": build.signature(12, 8),
+               "send_smem_bytes": [ctypes.c_int] * 2}
 
 
-def _outputs(last):
-    """val, new_last, and the zeroed sends [P, K]."""
-    return (torch.empty_like(last), torch.empty_like(last),
-            torch.zeros(last.shape[:2], dtype=torch.int32,
-                        device=last.device))
+def _outputs(name, lib, dist, last, sb: int):
+    """The interleaved rows' scratch [P, bp, K] (None at K = 1), val,
+    new_last, and the zeroed sends [P, K]. Raises when the CTA's tile of
+    minima for K queries and slot tiles of ``sb`` leaves no room in shared
+    memory for one staged edge (past 450 queries at ``sb`` = 128)."""
+    P, K, bp = dist.shape
+    if lib.send_smem_bytes(K, sb) < 0:
+        raise ValueError(f"{name}: a tile of {sb} slots for {K} queries does "
+                         f"not fit in shared memory; use fewer queries a "
+                         f"batch")
+    scratch = (torch.empty((P, bp, K), device=dist.device) if K > 1
+               else None)
+    return scratch, (torch.empty_like(last), torch.empty_like(last),
+                     torch.zeros(last.shape[:2], dtype=torch.int32,
+                                 device=last.device))
 
 
 def send_pack_tiled(dist, last, valid, src_t, w_t, segrel_t, pruned_t, *,
                     sb: int):
     """Same contract as the plain version. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (one CTA per (shard, tile))."""
+    version; CUDA tensors launch the kernel (the rows query-interleaved,
+    then one CTA per (shard, slot tile) over (edge, query) pairs; kernel
+    4's template)."""
     if not dist.is_cuda:
         return send_pack_tiled_plain(dist, last, valid, src_t, w_t, segrel_t,
                                      pruned_t, sb=sb)
@@ -109,11 +124,11 @@ def send_pack_tiled(dist, last, valid, src_t, w_t, segrel_t, pruned_t, *,
     check_cuda("send", torch.float32, dist, last, w_t)
     check_cuda("send", torch.int32, valid, src_t, segrel_t, pruned_t)
     lib = build.load("send", _SIGNATURES)
-    outs = _outputs(last)
+    scratch, outs = _outputs("send", lib, dist, last, sb)
     stream = torch.cuda.current_stream(dist.device).cuda_stream
     code = lib.send_pack_tiled(
-        *map(build.ptr, (dist, last, valid, src_t, w_t, segrel_t, pruned_t,
-                         *outs)),
+        *map(build.ptr_or_null, (dist, scratch, last, valid, src_t, w_t,
+                                 segrel_t, pruned_t, *outs)),
         P, K, bp, sp, n_stiles, n_chunks, eb, sb, stream)
     build.check(lib, "send", code)
     build.count_launch("send")
@@ -123,8 +138,9 @@ def send_pack_tiled(dist, last, valid, src_t, w_t, segrel_t, pruned_t, *,
 def send_pack_ragged(dist, last, valid, ctile, src_r, w_r, segrel_r,
                      pruned_r, *, sb: int, bounds=None):
     """Same contract as the plain version. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (one CTA per (shard, slot
-    tile), over the tile's chunk range). ``bounds`` [P, n_stiles + 1] are
+    version; CUDA tensors launch the kernel (the rows query-interleaved,
+    then one CTA per (shard, slot tile) over the (edge, query) pairs of
+    the tile's chunk range). ``bounds`` [P, n_stiles + 1] are
     the tile -> chunk ranges of ``ctile`` (``chunk_bounds``); callers that
     launch often pass them precomputed."""
     if not dist.is_cuda:
@@ -147,11 +163,11 @@ def send_pack_ragged(dist, last, valid, ctile, src_r, w_r, segrel_r,
     check_cuda("send_ragged", torch.int32, valid, bounds, src_r, segrel_r,
                pruned_r)
     lib = build.load("send", _SIGNATURES)
-    outs = _outputs(last)
+    scratch, outs = _outputs("send_ragged", lib, dist, last, sb)
     stream = torch.cuda.current_stream(dist.device).cuda_stream
     code = lib.send_pack_ragged(
-        *map(build.ptr, (dist, last, valid, bounds, src_r, w_r, segrel_r,
-                         pruned_r, *outs)),
+        *map(build.ptr_or_null, (dist, scratch, last, valid, bounds, src_r,
+                                 w_r, segrel_r, pruned_r, *outs)),
         P, K, bp, sp, n_stiles, total_chunks, eb, sb, stream)
     build.check(lib, "send_ragged", code)
     build.count_launch("send_ragged")

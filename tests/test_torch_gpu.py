@@ -47,7 +47,8 @@ from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention)
 from repro_torch.kernels.send import (  # noqa: E402
-    build_slot_ragged_layout, send_operands, send_pack_ragged,
+    build_slot_ragged_layout, build_slot_tiled_layout, send_operands,
+    send_pack_ragged,
     send_pack_ragged_plain, send_pack_tiled, send_pack_tiled_plain)
 
 pytestmark = pytest.mark.gpu
@@ -685,6 +686,169 @@ def test_live_chain_row_past_cap_raises(cuda):
         relax_dst_tiled_fixpoint(dist, dist, src, w, src, src, vb=vb,
                                  n_sweeps=1)
     assert build.LAUNCHES["relax_single"] == n0
+
+
+# ---------------- kernel 1 on the chain over the relax layout's live chunks --
+
+def _kernel1_operands(case, nq, device, shards):
+    """Kernel 1's operands (dist, front, src, w, rel, pruned) on the card
+    and their shards: "rmat" the module's ``shards`` at a random state,
+    "path" the dense path shards (a dead chunk inside every tile, a tile
+    with no edge) with row 0 holding the path."""
+    if case == "path":
+        sh, ops, _ = _dense_chain_operands("path", nq, device)
+        return sh, (ops[0], ops[1], *ops[7])
+    _, sh = shards
+    dist, active, pruned, _ = _state(sh, nq, seed=30 + nq)
+    return sh, tuple(_relax_args(sh, dist, active, pruned, device))
+
+
+@pytest.mark.parametrize("sweeps", [1, 8])
+@pytest.mark.parametrize("nq", [1, 3, 16])
+@pytest.mark.parametrize("case", ["rmat", "path"])
+def test_kernel1_matches_plain_with_and_without_chunks(cuda, shards, case,
+                                                       nq, sweeps):
+    """Kernel 1 bit-equal to its plain version (distances, residual
+    frontier, per-(shard, query) relaxations) with the shards' relax live
+    chunks, as the engine passes them, and without (the entry point's
+    pre-pass finds them), on a layout with dead chunks inside tiles and a
+    tile with no live chunk."""
+    sh, args = _kernel1_operands(case, nq, cuda, shards)
+    kw = dict(vb=sh.rx_vb, n_sweeps=sweeps)
+    want = relax_dst_tiled_fixpoint_batch_plain(*args, **kw)
+    assert int(want[2].sum()) > 0
+    chunks = sh.to(cuda).relax_chunks
+    n0 = build.LAUNCHES["relax"]
+    for ch in (chunks, None):
+        got = relax_dst_tiled_fixpoint_batch(*args, **kw, chunks=ch)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert build.LAUNCHES["relax"] == n0 + 2
+
+
+@pytest.mark.parametrize("nq", [1, 3, 16])
+def test_kernel1_planted_fault_is_caught(cuda, shards, nq):
+    """Kernel 1 with the hazard re-read off (every source read from its
+    early gather) differs from its plain version on the path, with the
+    shards' live chunks and with the pre-pass's."""
+    from repro_torch.kernels.relax import relax as relax_mod
+    sh, args = _kernel1_operands("path", nq, cuda, shards)
+    want = relax_dst_tiled_fixpoint_batch_plain(*args, vb=32, n_sweeps=1)
+    for ch in (sh.to(cuda).relax_chunks, None):
+        bad = relax_mod._launch_tiled(*args, vb=32, n_sweeps=1, chunks=ch,
+                                      hazard=False)
+        assert not torch.equal(bad[0], want[0])
+
+
+def test_kernel1_row_past_cap_raises(cuda):
+    """Kernel 1's row past the chain's cap (83,904 vertex tiles at EB 512,
+    VB 128, as kernels 2 and 9) raises before any launch, with or without
+    the live chunks; it never falls back to another kernel."""
+    from repro_torch.kernels.common import live_chunks
+    vb, eb, n_vtiles = 128, 512, 90_000
+    dist = torch.zeros((1, 1, n_vtiles * vb), device=cuda)
+    src = torch.zeros((1, n_vtiles, 1, eb), dtype=torch.int32, device=cuda)
+    w = torch.full((1, n_vtiles, 1, eb), float("inf"), device=cuda)
+    chunks = live_chunks(w < float("inf"))
+    n0 = build.LAUNCHES["relax"]
+    for ch in (chunks, None):
+        with pytest.raises(ValueError, match="past the ragged chain's cap"):
+            relax_dst_tiled_fixpoint_batch(dist, dist, src, w, src, src,
+                                           vb=vb, n_sweeps=1, chunks=ch)
+    assert build.LAUNCHES["relax"] == n0
+
+
+# ------------------ kernels 4 and 3: (edge, query) pairs, interleaved rows --
+
+def _send_case(layout, K, device, sb=VB):
+    """Kernel 4's (ragged) or 3's (dense) operands, P = 2, slot tiles of
+    sb, chunks of EB: shard 0 has a hub slot (3,000 edges into slot 7),
+    600 random edges and no edge into slots [200, 400) nor into its last
+    five tiles; shard 1 has 90 edges, so the ragged stack pads it with
+    sentinel chunks (and the dense one with padding chunks); 20% of the
+    edges pruned; rows with 30% +inf, last_sent with 50%, 90% of the slots
+    valid."""
+    rng = np.random.default_rng(40 + K)
+    n, s = 300, 1000
+    band = np.r_[0:200, 400:s - 5 * sb]
+    cases = [(np.r_[np.full(3000, 7), rng.choice(band, 600)],
+              rng.integers(0, n, 3600)),
+             (rng.integers(0, s, 90), rng.integers(0, n, 90))]
+    build_lay = (build_slot_ragged_layout if layout == "ragged"
+                 else build_slot_tiled_layout)
+    lays = [build_lay(src, np.sort(seg), rng.uniform(1, 20, len(seg)).astype(
+        np.float32), s, sb=sb, eb=EB) for seg, src in cases]
+    if layout == "ragged":
+        n_stiles = lays[0][5] // sb
+        planes = _stack_ragged(lays, (0, float("inf"), 0, 10 ** 6, n_stiles))
+        lead, planes = [planes[4]], planes[:3]
+    else:
+        n_stiles = lays[0][0].shape[0]
+        n_chunks = max(lay[0].shape[1] for lay in lays)
+        planes = [torch.stack([torch.nn.functional.pad(
+            lay[k], (0, 0, 0, n_chunks - lay[k].shape[1]), value=fill)
+            for lay in lays]) for k, fill in enumerate((0, float("inf"), 0))]
+        lead = []
+    pruned = torch.from_numpy(
+        (rng.random(planes[0].shape) < 0.2).astype(np.int32))
+    dist = torch.from_numpy(_rows(rng, (2, K, n), 0.3))
+    last = torch.from_numpy(_rows(rng, (2, K, s), 0.5))
+    valid = torch.from_numpy(rng.random((2, s)) < 0.9)
+    return [a.to(device) for a in (
+        *send_operands(dist, last, valid, n_stiles, sb), *lead, *planes,
+        pruned)]
+
+
+@pytest.mark.parametrize("K,sb", [(1, VB), (3, VB), (16, VB), (48, VB),
+                                  (450, 128), (1760, VB)])
+@pytest.mark.parametrize("layout", ["ragged", "dense"])
+def test_send_kernels_match_plain_at_many_queries(cuda, layout, K, sb):
+    """Kernels 4 (ragged) and 3 (dense), which gather from the query-
+    interleaved rows, bit-equal to their plain versions at K = 1 (no
+    interleave), 3 (not a power of two), 16 and 48 (more queries than a
+    warp's lanes) on a layout with a hub slot, empty slot tiles and
+    padding chunks; and at the largest K whose tile of minima and counts,
+    K * (sb + 1) words, fits in shared memory a block (450 at the engine's
+    slot tiles of 128, 1,760 at 32), where the tile drops its odd-stride
+    padding and the staged batch shrinks to the few edges it leaves room
+    for."""
+    args = _send_case(layout, K, cuda, sb=sb)
+    kernel, plain, counter = (
+        (send_pack_ragged, send_pack_ragged_plain, "send_ragged")
+        if layout == "ragged" else
+        (send_pack_tiled, send_pack_tiled_plain, "send"))
+    n0 = build.LAUNCHES[counter]
+    got = kernel(*args, sb=sb)
+    want = plain(*args, sb=sb)
+    assert build.LAUNCHES[counter] == n0 + 1
+    assert int(want[2].sum()) > 0
+    hub = want[1][0, :, 7]
+    assert bool(torch.isfinite(hub).any())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("layout", ["ragged", "dense"])
+def test_send_kernels_reject_a_tile_past_shared_memory(cuda, layout):
+    """A query batch whose tile of minima and counts (128 slots x 451 keys
+    and 451 counts, one query past the largest that fits) is past the
+    card's shared memory a block raises before any launch; no fallback."""
+    K, sb, eb = 451, 128, 64
+    dist = torch.zeros((1, K, 128), device=cuda)
+    last = torch.zeros((1, K, sb), device=cuda)
+    valid = torch.ones((1, sb), dtype=torch.int32, device=cuda)
+    src = torch.zeros((1, 1, 1, eb), dtype=torch.int32, device=cuda)
+    w = torch.ones((1, 1, 1, eb), device=cuda)
+    counter = "send_ragged" if layout == "ragged" else "send"
+    n0 = build.LAUNCHES[counter]
+    with pytest.raises(ValueError, match="does not fit in shared memory"):
+        if layout == "ragged":
+            ct = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+            send_pack_ragged(dist, last, valid, ct, src[0], w[0], src[0],
+                             src[0], sb=sb)
+        else:
+            send_pack_tiled(dist, last, valid, src, w, src, src, sb=sb)
+    assert build.LAUNCHES[counter] == n0
 
 
 # ------------------------------------- the standalone kernel API (9-11, 13) --

@@ -18,11 +18,14 @@ The merge and send stages of kernel 8 walk each tile's chunk range
 ``chunk_bounds(ctile)``; those ranges are held against a numpy reference,
 empty tiles and sentinel padding chunks included.
 
-Kernels 9 and 7 run the same chain over the dense layout's live chunks
+Kernels 1, 9 and 7 run the same chain over the dense layout's live chunks
 (``live_chunks``: the chunks holding a finite weight, in layout order, tile
 c // n_chunks). The emulation walks those chunks and is held bit for bit
 against the plain versions of kernels 1 and 9 (which walk every chunk) and
-against the JAX package's kernel 9 in interpret mode; kernel 7's merge and
+against the JAX package's kernels 1 and 9 in interpret mode (kernel 1 on
+one and four shards, its planted fault differing on a path); the dense
+staged solver and the fused round's rescue are checked to hand kernel 1
+the shards' own list (``SsspShards.round_chunks[1]``); kernel 7's merge and
 send, warp by tile over each tile's live chunks, are emulated beside it and
 held against ``fused_round_tiled_plain`` and the JAX package's fused round
 in interpret mode. The live-chunk lists are held against numpy: a tile with
@@ -45,7 +48,8 @@ from repro_torch.kernels.common import (  # noqa: E402
 from repro_torch.kernels.relax import (  # noqa: E402
     build_dst_ragged_layout, build_dst_tiled_layout, fixpoint_operands,
     relax_dst_ragged_fixpoint_batch, relax_dst_ragged_fixpoint_batch_plain,
-    relax_dst_tiled_fixpoint_batch_plain, relax_dst_tiled_fixpoint_plain)
+    relax_dst_tiled_fixpoint_batch, relax_dst_tiled_fixpoint_batch_plain,
+    relax_dst_tiled_fixpoint_plain)
 from repro_torch.kernels.round import (  # noqa: E402
     fused_round_operands, fused_round_tiled_plain)
 
@@ -363,7 +367,7 @@ def test_planted_fault_no_hazard_reread_is_caught(d, K, n_sweeps):
 @pytest.mark.parametrize("d", [1, 2, 4, 8])
 def test_planted_fault_over_live_chunks_is_caught(d, K, n_sweeps):
     """The same fault in the schedule over the dense layout's live chunks
-    (kernels 9 and 7) differs from the plain version on the path."""
+    (kernels 1, 9 and 7) differs from the plain version on the path."""
     args = _operands("path-dense", K)
     want = relax_dst_tiled_fixpoint_batch_plain(*args, vb=VB,
                                                 n_sweeps=n_sweeps)
@@ -534,6 +538,119 @@ def test_live_schedule_matches_jax_kernel9(graph):
         assert int(got[2].sum()) == 0
     else:
         assert int(got[2].sum()) > 0
+
+
+def _kernel1_case(P, K, seed=0):
+    """Kernel 1's operands on P shards of 256 / P vertices (VB 32, EB 4):
+    random local edges (weights in [0, 3)), but tile 0 of shard 0 holds
+    only a path 0 -> 1 -> ... -> 30 (hops of weight 1, four to a chunk);
+    a dead chunk (all +inf) inserted as chunk 5 of every tile, so the path
+    runs across it; the last tile of shard 0 with no live chunk; a 20%
+    Trishla mask off the path. Rows as ``_operands``: row 0 of each shard
+    holds 10 v at v < 31, all in the frontier, the others a random
+    mid-solve state. Returns (dist, front, src, w, rel, pruned)."""
+    rng = np.random.default_rng(seed + 10 * P)
+    nb = 256 // P
+    lays = []
+    for p in range(P):
+        src, dst = rng.integers(0, nb, 2 * nb), rng.integers(0, nb, 2 * nb)
+        w = rng.uniform(0, 3, 2 * nb).astype(np.float32)
+        if p == 0:
+            keep, hop = dst >= VB, np.repeat(np.arange(30), 4)
+            src, dst = np.r_[hop, src[keep]], np.r_[hop + 1, dst[keep]]
+            w = np.r_[np.ones(len(hop), np.float32), w[keep]]
+        lays.append(build_dst_tiled_layout(src, dst, w, nb, vb=VB, eb=4)[:3])
+    n_chunks = max(lay[0].shape[1] for lay in lays) + 1
+    planes = []
+    for k, fill in enumerate((nb - 1, INF, 0)):
+        per = []
+        for lay in lays:
+            a = lay[k]
+            dead = torch.full((a.shape[0], 1, 4), fill, dtype=a.dtype)
+            a = torch.cat([a[:, :5], dead, a[:, 5:]], 1)
+            per.append(torch.cat([a, torch.full(
+                (a.shape[0], n_chunks - a.shape[1], 4), fill,
+                dtype=a.dtype)], 1))
+        planes.append(torch.stack(per))
+    src, w, rel = planes
+    w[0, -1] = INF                          # shard 0's last tile: none live
+    pruned = torch.from_numpy((rng.random(src.shape) < 0.2).astype(np.int32))
+    pruned[0, 0] = 0                        # the path is never pruned
+    dist = rng.uniform(0, 50, (P, K, nb)).astype(np.float32)
+    dist[rng.random(dist.shape) < 0.3] = np.inf
+    front = (rng.random(dist.shape) < 0.3) & np.isfinite(dist)
+    dist[:, 0] = np.inf
+    dist[:, 0, :31] = 10.0 * np.arange(31)
+    front[:, 0] = False
+    front[:, 0, :31] = True
+    return (torch.from_numpy(dist), torch.from_numpy(front.astype(np.float32)),
+            src, w, rel, pruned)
+
+
+@pytest.mark.parametrize("n_sweeps", [1, 8])
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("P", [1, 4])
+def test_kernel1_live_schedule_matches_jax(P, K, n_sweeps):
+    """Kernel 1's schedule, the K-query chain of every shard over the relax
+    layout's live chunks (``live_chunks(w < inf)``, as the engine passes
+    them), bit-equal to the port's plain kernel 1 and to the JAX package's
+    kernel 1 in interpret mode, shard by shard (distances, residual
+    frontier, per-(shard, query) relaxations), on a layout with a dead
+    chunk inside every tile, a tile with no live chunk and a Trishla mask;
+    the planted fault, hazard sources read at issue time, differs on the
+    path."""
+    jnp = pytest.importorskip("jax.numpy")
+    j_relax = pytest.importorskip("repro.kernels.relax.relax")
+    args = _kernel1_case(P, K)
+    kw = dict(vb=VB, n_sweeps=n_sweeps)
+    idx, bounds = live_chunks(args[3] < INF)
+    assert 5 not in idx[0, :int(bounds[0, 1])].tolist()   # the dead chunk
+    assert int(bounds[0, -1]) == int(bounds[0, -2])       # a tile none live
+    want = relax_dst_tiled_fixpoint_batch_plain(*args, **kw)
+    assert int(want[2].sum()) > 0
+    got = emulate_live(*args[:2], idx, bounds, *args[2:], d=2, **kw)
+    cpu = relax_dst_tiled_fixpoint_batch(*args, **kw, chunks=(idx, bounds))
+    for g, c, w in zip(got, cpu, want):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(c, w)
+    for p in range(P):
+        ref = j_relax.relax_dst_tiled_fixpoint_batch(
+            *(jnp.asarray(a[p].numpy()) for a in args), eb=4, interpret=True,
+            **kw)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g[p].numpy(), np.asarray(r))
+    bad = emulate_live(*args[:2], idx, bounds, *args[2:], d=2, hazard=False,
+                       **kw)
+    assert not torch.equal(bad[0][0, 0], want[0][0, 0])
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_dense_solvers_pass_the_relax_chunks(monkeypatch, fused):
+    """The dense staged local solver (``local_fixpoint_pallas``) and the
+    fused round's rescue (``fused_round_rescue``, one sweep a launch so
+    that rounds are rescued) hand kernel 1 the shards' own relax live
+    chunks, ``SsspShards.round_chunks[1]``, derived once per shards
+    object; the solve is unchanged."""
+    import repro_torch.kernels.relax.ops as relax_ops
+    seen = []
+    kernel1 = relax_ops.relax_dst_tiled_fixpoint_batch
+
+    def spy(*args, chunks=None, **kw):
+        seen.append(chunks)
+        return kernel1(*args, chunks=chunks, **kw)
+
+    g = tg.rmat_graph(scale=8, edge_factor=6, seed=5)
+    sh = tc.build_shards(g, 2, layout="dense", relax_vb=VB, relax_eb=EB,
+                         send_sb=VB, send_eb=EB, merge_vb=VB, merge_eb=EB)
+    cfg = (dict(round="fused", pallas_sweeps=1) if fused else dict(
+        local_solver="pallas", send_backend="pallas", merge_backend="pallas"))
+    eng = tc.SsspEngine.build(sh, tc.SsspConfig(**cfg), device="cpu")
+    want = eng.solve([0, 1])
+    monkeypatch.setattr(relax_ops, "relax_dst_tiled_fixpoint_batch", spy)
+    got = eng.solve([0, 1])
+    assert seen and all(c is eng.shards.round_chunks[1] for c in seen)
+    assert eng.shards.relax_chunks is eng.shards.round_chunks[1]
+    np.testing.assert_array_equal(got.dist, want.dist)
+    assert int(got.stats.relaxations) == int(want.stats.relaxations)
 
 
 def emulate_round(ops, chunks, *, vb, sb, n_sweeps, dense, d):
