@@ -41,10 +41,14 @@ Phases, each of which exits non-zero on a mismatch:
            every staged dense kernel launched; profile of the K=16 solve;
            then the fused K=16 solve of the same sources (the dense fused
            path): equal but for n_dispatches, one round launch a round;
-           its profile;
+           its profile; then 300 sources (bucket 512: kernels 3-6 split the
+           queries into groups) staged and fused, each converged and equal
+           in distances and per-query rounds and relaxations to the same
+           sources in batches of at most 256, 4 of them against Dijkstra;
   ragged   stream-build scale-1e6 ragged (build_shards_stream) and dense
            (build_shards over csr_from_coo of the same chunks) and solve
-           both with K=16: distances and every counter equal;
+           both with K=16: distances and every counter equal; 300 sources
+           on the ragged shards, checked as in the scale phase;
   kern1e7  the main path's state: stream-build preset "scale-1e7" (524,288
            vertices, 9,879,136 directed edges; P=8, ragged, EB 512, VB 128)
            and hold each ragged kernel against its plain version, bit-equal,
@@ -52,7 +56,9 @@ Phases, each of which exits non-zero on a mismatch:
            round at round 2 of the fused solve); time them (kernels 2, 4
            and 8 as medians of 20 timings of 10 calls; kernel 4 also for
            query 0 alone, K=1, where its rows need no interleave, beside
-           K=16); a planted fault, each of
+           K=16; kernels 4 and 6 at K = 450, 512 and 1,000, the K=16 rows
+           tiled, where they split the queries into groups, each query
+           equal to the K=16 launch's); a planted fault, each of
            the two with its hazard re-read off, must differ from its plain
            version (at that state, else on a path inside one tile);
   main     the staged main path: SsspEngine.solve on the scale-1e7 ragged
@@ -73,12 +79,18 @@ Phases, each of which exits non-zero on a mismatch:
            (relax_masked_pallas) and kernel 11 until a sweep changes
            nothing (relax_pallas): equal to scipy's Dijkstra and bit-equal
            to each other, kernel 10's relaxations equal to the same loop on
-           the CPU; each kernel bit-equal to its plain version (kernel 9 at
-           n_sweeps=2) at a mid-solve state with a 10% Trishla mask, timed
-           (kernel 9 as medians of 20 timings of 10 calls, its live chunks
-           printed, its bound the bytes of the rows, the weights and the
-           other planes' live chunks; a planted fault, its hazard re-read off, must differ);
-           relax_jnp timed beside them;
+           the CPU (kernels 10 and 11 given the layout's live chunks, as a
+           caller that sweeps one layout many times does); each kernel
+           bit-equal to its plain version (kernel 9 at n_sweeps=2) at a
+           mid-solve state with a 10% Trishla mask (10 and 11 also with
+           their entry point's pre-pass; with a live chunk dropped from
+           their list, the planted fault, they must differ), timed (kernel
+           9 as medians of 20 timings of 10 calls, its live chunks printed,
+           its bound the bytes of the rows, the weights and the other
+           planes' live chunks; a planted fault, its hazard re-read off,
+           must differ; kernels 10 and 11 three ways, three times, with
+           the live chunks and with the pre-pass, their bounds over the
+           live chunks); relax_jnp timed beside them;
   embag    kernel 13 at the AutoInt configuration's size: a [39e6, 16]
            f32 table made on the card, 10,223,616 one-index bags (sum) and
            2,555,904 four-index bags (mean, f32 and bf16), 5% padding, 5%
@@ -159,6 +171,7 @@ AUTOINT = dict(fields=39, vocab=1_000_000, dim=16)  # src/repro/configs/autoint.
 SERVE_BULK = 262_144           # src/repro/configs/registry.py:77
 TRAIN_BATCH = 65_536           # src/repro/configs/registry.py:75
 STAGED = ("relax", "send", "merge")     # the staged round's kernels
+MANY_K = (450, 512, 1000)      # kernels 4 and 6 timed at these query counts too
 BF16_OPS_PER_S = 989.4e12      # H100 SXM bf16 dense tensor rate
 TF32_OPS_PER_S = 495e12         # H100 SXM TF32 dense tensor rate
 # The serve phase: full-width gemma-7b (src/repro/configs/gemma_7b.py), 4
@@ -477,13 +490,24 @@ def dense_kernel_phase(torch, eng, sources, cfg, out_dir: Path):
     rows["send"]["ms"], rows["send"]["mean_ms"] = timed_median(
         torch, lambda: send_pack_tiled(*s_args, sb=dsh.tx_sb))
     live_cut = int((torch.isfinite(tw) & (pruned_t == 0)).sum())
-    rows["send"]["bound"] = bound(nbytes(*s_args, *s_out),
-                                  2 * len(sources) * live_cut)
+    # bounds over the live chunks (those holding an edge or a message:
+    # the shards' send and merge lists): the rows and those chunks' planes
+    n_mx, n_tx = (int(b[:, -1].sum()) for _, b in (dsh.round_chunks[0],
+                                                    dsh.round_chunks[2]))
+    rows["send"]["bound"] = bound(
+        nbytes(*s_args[:3], *s_out) + live_bytes(s_args[3:], n_tx),
+        2 * len(sources) * live_cut)
     rows["send"]["library_ms"] = None
     rows["merge"]["plain_ms"] = timed(
         torch, lambda: merge_scatter_tiled_plain(*m_args, vb=dsh.mx_vb), 2)
-    rows["merge"]["bound"] = bound(nbytes(*m_args, *m_out),
-                                   len(sources) * int(m_valid.sum()))
+    rows["merge"]["bound"] = bound(
+        nbytes(*m_args[:2], *m_out) + live_bytes(m_args[2:], n_mx),
+        len(sources) * int(m_valid.sum()))
+    say(f"  send, merge bounds over the live chunks ({n_tx} of "
+        f"{tsrc[..., 0].numel()}, {n_mx} of {m_pos[..., 0].numel()}): "
+        f"{rows['send']['bound'][0]:.5f}, {rows['merge']['bound'][0]:.5f} "
+        f"ms; over every chunk {bound(nbytes(*s_args, *s_out), 0)[0]:.5f}, "
+        f"{bound(nbytes(*m_args, *m_out), 0)[0]:.5f} ms")
     calls = {"kernel 5": lambda: merge_scatter_tiled(*m_args, vb=dsh.mx_vb),
              "scatter_reduce_": merge_library_call(torch, dsh, m_args[0],
                                                    incoming, len(sources))}
@@ -504,9 +528,11 @@ def merge_library_call(torch, dsh, dist_pad, incoming, k):
 
 
 def device_ms(torch, fn, n: int, trace_path: Path):
-    """Device time of one call by kernel name, from a torch.profiler trace
-    of ``n`` back-to-back calls: {name: (ms a call, launches a call)} over
-    the trace's kernel and memset events."""
+    """Device time by kernel name, from a torch.profiler trace of ``n``
+    back-to-back calls: {name: (ms a launch, launches a call)} over the
+    trace's kernel and memset events. The trace may miss a few launches of
+    a burst of short calls (it held 15-18 of each 20 on an H100), so a
+    launch's time is the mean over those it holds."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -521,7 +547,7 @@ def device_ms(torch, fn, n: int, trace_path: Path):
         if e.get("cat") in ("kernel", "gpu_memset"):
             us, count = by_name.get(e["name"], (0.0, 0))
             by_name[e["name"]] = (us + e["dur"], count + 1)
-    return {name: (us / 1e3 / n, count / n)
+    return {name: (us / 1e3 / count, count / n)
             for name, (us, count) in by_name.items()}
 
 
@@ -543,21 +569,24 @@ def three_way(torch, calls: dict, out_dir: Path, reps: int = 3):
     CUDA events over 10 back-to-back calls (median of 20 timings, which
     reads the larger of the host's issue time and the device time), device
     time a call from a profiler trace of 20 calls, and host time a call
-    (no synchronize). Returns {name: [{events, device, host} per rep]}."""
+    (no synchronize); a call's device time is the sum over its kernels of
+    the mean time a launch times the launches a call (rounded: each kernel
+    here launches once a call). Returns {name: [{events, device, host} per
+    rep]}."""
     runs = {name: [] for name in calls}
     for rep in range(reps):
         for name, fn in calls.items():
             events = timed_median(torch, fn)[0]
             kernels = device_ms(torch, fn, 20, out_dir / (
-                "chip_smoke_trace_merge_"
+                "chip_smoke_trace_3way_"
                 + name.replace(" ", "").replace("_", "") + ".json"))
             host = host_ms(torch, fn, 50)
             runs[name].append(dict(events=events, host=host, device=sum(
-                ms for ms, _ in kernels.values())))
+                ms * max(1, round(c)) for ms, c in kernels.values())))
             say(f"  {name} run {rep + 1}: events {events:.4f} ms (median of "
                 f"20 x 10 calls), device {runs[name][-1]['device']:.4f} ms "
                 f"a call (" + ", ".join(
-                    f"{n[:48]} {ms:.4f} ms x {c:g}"
+                    f"{n[:48]} {ms:.4f} ms a launch, {c:g} a call"
                     for n, (ms, c) in kernels.items())
                 + f"), host {host:.4f} ms a call")
     return runs
@@ -659,6 +688,46 @@ def ragged_kernel_phase(torch, eng, sources, cfg):
         f"{sr['mean_ms']:.4f}), bound {sr['bound'][0]:.5f} ms; at K=1 "
         f"(query 0, bit-equal): {ms1:.4f} ms (median; mean {mean1:.4f}), "
         f"bound {b1[0]:.5f} ms; {live_cut} live cut edges")
+    # kernel 4 at many queries: the K=16 rows tiled to kq queries (query q
+    # repeats query q % 16), so every output of query q must equal the K=16
+    # launch's for query q % 16
+    for kq in MANY_K:
+        reps = -(-kq // K)
+        kq_args = (*(a.repeat(1, reps, 1)[:, :kq].contiguous()
+                     for a in s_args[:2]), *s_args[2:])
+        kq_out = send_pack_ragged(*kq_args, **s_kw)
+        q = torch.arange(kq, device=tw.device) % K
+        for i, (got, want) in enumerate(zip(kq_out, s_out)):
+            if not torch.equal(got, want[:, q]):
+                fail(f"send_ragged at K={kq}: output {i} differs from the "
+                     f"K={K} launch's")
+        ms_k, mean_k = timed_median(
+            torch, lambda: send_pack_ragged(*kq_args, **s_kw))
+        b_k = bound(nbytes(*kq_args, dsh.send_bounds, *kq_out),
+                    2 * kq * live_cut)
+        say(f"  send_ragged at K={kq} (the K={K} rows tiled, equal to the "
+            f"K={K} launch's per query): {ms_k:.4f} ms (median; mean "
+            f"{mean_k:.4f}), bound {b_k[0]:.5f} ms")
+        del kq_args, kq_out
+    # kernel 6 likewise: the K=16 rows and incoming messages tiled to kq
+    for kq in MANY_K:
+        reps = -(-kq // K)
+        kq_args = (*(a.repeat(1, reps, 1)[:, :kq].contiguous()
+                     for a in m_args[:2]), *m_args[2:])
+        kq_out = merge_scatter_ragged(*kq_args, **m_kw)
+        q = torch.arange(kq, device=tw.device) % K
+        for i, (got, want) in enumerate(zip(kq_out, m_out)):
+            if not torch.equal(got, want[:, q]):
+                fail(f"merge_ragged at K={kq}: output {i} differs from the "
+                     f"K={K} launch's")
+        ms_k, mean_k = timed_median(
+            torch, lambda: merge_scatter_ragged(*kq_args, **m_kw))
+        b_k = bound(nbytes(*kq_args, dsh.merge_bounds, *kq_out),
+                    kq * int(m_valid.sum()))
+        say(f"  merge_ragged at K={kq} (the K={K} rows tiled, equal to the "
+            f"K={K} launch's per query): {ms_k:.4f} ms (median; mean "
+            f"{mean_k:.4f}), bound {b_k[0]:.5f} ms")
+        del kq_args, kq_out
     rows["merge_ragged"]["ms"] = timed(
         torch, lambda: merge_scatter_ragged(*m_args, **m_kw), 50)
     rows["merge_ragged"]["bound"] = bound(
@@ -875,6 +944,40 @@ def solve_median(eng, sources, what: str, n: int = 5):
         f"(min {min(walls):.4f}, max {max(walls):.4f})")
 
 
+def many_queries(np, eng, g, what: str, n: int = 300):
+    """``n`` sources in one solve (300 ride the bucket of 512: kernels 3-6
+    split the queries into groups at the engine's tiles of 128, the fused
+    round's rescue too): converged, equal in distances and per-query rounds
+    and relaxations to the same sources solved in batches of at most 256,
+    and 4 of them equal to scipy's Dijkstra. The sources come from a
+    generator of their own, so the other phases draw the sources they drew
+    before this check was added."""
+    from repro_torch.kernels import build
+    sources = live_sources(np, np.random.default_rng(21), g, n)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.solve(sources)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    if res.status != "converged" or not res.q_converged.all():
+        fail(f"{what} K={n}: status {res.status}")
+    parts = [eng.solve(sources[i:i + 256]) for i in range(0, n, 256)]
+    if not np.array_equal(np.concatenate([r.dist for r in parts]), res.dist):
+        fail(f"{what} K={n}: distances differ from batches of 256")
+    for f in ("q_rounds", "q_relaxations"):
+        if not np.array_equal(np.concatenate([getattr(r, f) for r in parts]),
+                              getattr(res, f)):
+            fail(f"{what} K={n}: {f} differs from batches of 256")
+    ref = scipy_dijkstra(np, g, sources[:4])
+    for i in range(4):
+        if not np.allclose(res.dist[i], ref[i], rtol=RTOL, atol=ATOL):
+            fail(f"{what} K={n}: source {sources[i]} disagrees with Dijkstra")
+    say(f"many queries, {what}: K={n} (bucket {res.bucket_k}) converged in "
+        f"{int(res.stats.rounds)} rounds, {wall:.3f} s wall; equal to "
+        f"batches of at most 256 in distances, q_rounds and q_relaxations; "
+        f"4 match scipy's Dijkstra; launches {launches}")
+
+
 def check_fused(res_f, res_s, launches, ragged: bool, what: str) -> int:
     """Fail unless the fused solve ``res_f`` converged and equals the
     staged solve ``res_s`` but for n_dispatches (2 vs 4 a round), and its
@@ -899,7 +1002,7 @@ def check_fused(res_f, res_s, launches, ragged: bool, what: str) -> int:
     return rescued
 
 
-def single_phase(torch, np, g, rng):
+def single_phase(torch, np, g, rng, out_dir: Path):
     """The standalone kernel API's single-query relax kernels (9, 10, 11)
     on the whole graph ``g`` as one block: three single-source solves of
     two sources, checked against scipy's Dijkstra and each other; each
@@ -934,6 +1037,9 @@ def single_phase(torch, np, g, rng):
     pr10 = take_fill(p10, eid.reshape(-1), 0).reshape(eid.shape)
     sources = live_sources(np, rng, g, 2)
     kw = dict(vb=vb, eb=eb)
+    # the live chunks kernels 10 and 11 walk, derived once for the layout,
+    # as a caller that sweeps it many times does
+    chunks = live_chunks(lay[1][None] < inf)
     say(f"single phase: scale-1e6 as one block, {n} vertices, {m} edges; "
         f"layout {tuple(src_t.shape)}, block_pad {bp}, host build "
         f"{t_lay:.1f} s; sources {sources}")
@@ -955,13 +1061,15 @@ def single_phase(torch, np, g, rng):
             rel += int(nr)
         return d, rel
 
-    def solve10(s, device=dev, layout=lay, pruned=pr0, until=None):
+    def solve10(s, device=dev, layout=lay, pruned=pr0, until=None,
+                live=chunks):
         """Kernel 10 with the frontier chased between launches; ``until``
         stops after that many steps."""
         d, f = start(s, device)
         rel = steps = 0
         while bool((f > 0).any()) and steps != until:
-            new, nr = relax_masked_pallas(d, f, *layout, pruned, **kw)
+            new, nr = relax_masked_pallas(d, f, *layout, pruned, chunks=live,
+                                          **kw)
             f, d = (new < d).float(), new
             rel += int(nr)
             steps += 1
@@ -971,7 +1079,7 @@ def single_phase(torch, np, g, rng):
         """Kernel 11 until a sweep changes nothing (no count)."""
         d = start(s, dev)[0]
         while True:
-            new = relax_pallas(d, *lay, **kw)
+            new = relax_pallas(d, *lay, chunks=chunks, **kw)
             if torch.equal(new, d):
                 return d, None
             d = new
@@ -1007,8 +1115,8 @@ def single_phase(torch, np, g, rng):
             if not torch.equal(a, b):
                 fail(f"single: the {name} solve differs from relax_single's")
     t0 = time.perf_counter()
-    cpu_rel = [solve10(s, torch.device("cpu"), cpu_lay, pr0.cpu())[1]
-               for s in sources]
+    cpu_rel = [solve10(s, torch.device("cpu"), cpu_lay, pr0.cpu(),
+                       live=None)[1] for s in sources]
     if cpu_rel != [r for _, r in solved["relax_masked"]]:
         fail(f"single: relax_masked relaxations {solved['relax_masked']} vs "
              f"{cpu_rel} with the plain version on the CPU")
@@ -1022,12 +1130,33 @@ def single_phase(torch, np, g, rng):
     if not bool((f > 0).any()):
         fail("single: the mid-solve frontier is empty")
     args9 = (d, f, *lay, pr10)
-    out11 = relax_dst_tiled(d, *lay, vb=vb)
+    out11 = relax_dst_tiled(d, *lay, vb=vb, chunks=chunks)
     ref11, plain11 = once(torch, lambda: relax_dst_tiled_plain(d, *lay,
                                                                vb=vb))
-    out10 = relax_dst_tiled_masked(*args9, vb=vb)
+    out10 = relax_dst_tiled_masked(*args9, vb=vb, chunks=chunks)
     ref10, plain10 = once(torch, lambda: relax_dst_tiled_masked_plain(
         *args9, vb=vb))
+    # the same two launches with the entry point's pre-pass, and with a
+    # list that drops one live chunk (the planted fault: must differ)
+    compare(torch, "relax_sweep (pre-pass)", [relax_dst_tiled(d, *lay,
+                                                              vb=vb)], [ref11])
+    compare(torch, "relax_masked (pre-pass)",
+            relax_dst_tiled_masked(*args9, vb=vb), ref10)
+    idx, bounds = chunks
+    t = int(bounds[0].diff().argmax())
+    lo = int(bounds[0, t])
+    bad = (torch.cat([idx[:, :lo], idx[:, lo + 1:], idx[:, lo:lo + 1]], 1),
+           bounds.clone())
+    bad[1][0, t + 1:] -= 1
+    if (torch.equal(relax_dst_tiled(d, *lay, vb=vb, chunks=bad), ref11)
+            or all(torch.equal(a, b) for a, b in zip(
+                relax_dst_tiled_masked(*args9, vb=vb, chunks=bad), ref10))):
+        fail("single: kernels 10 and 11 with a live chunk dropped from "
+             "their list equal their plain versions")
+    say(f"  relax_sweep, relax_masked: bit-equal with the live chunks and "
+        f"with the pre-pass; with chunk {int(idx[0, lo])} (tile {t}, "
+        f"{int(bounds[0, t + 1]) - lo} live chunks) dropped from the list "
+        f"both differ (the planted fault)")
     out9 = relax_dst_tiled_fixpoint(*args9, vb=vb, n_sweeps=2)
     ref9, plain9 = once(torch, lambda: relax_dst_tiled_fixpoint_plain(
         *args9, vb=vb, n_sweeps=2))
@@ -1035,15 +1164,44 @@ def single_phase(torch, np, g, rng):
             "relax_masked": compare(torch, "relax_masked", out10, ref10),
             "relax_single": compare(torch, "relax_single", out9, ref9)}
     live = int((torch.isfinite(lay[1])).sum())
-    rows["relax_sweep"] = dict(
-        ms=timed(torch, lambda: relax_dst_tiled(d, *lay, vb=vb), 50),
-        plain_ms=plain11, bound=bound(nbytes(d, *lay, out11), 2 * live))
-    rows["relax_masked"] = dict(
-        ms=timed(torch, lambda: relax_dst_tiled_masked(*args9, vb=vb), 50),
-        plain_ms=plain10, bound=bound(nbytes(*args9, *out10),
-                                      2 * int(out10[1])))
-    n_live = int(live_chunks(lay[1][None] < inf)[1][0, -1])
+    n_live = int(chunks[1][0, -1])
     n_all = lay[0].shape[0] * lay[0].shape[1]
+    # kernels 10 and 11 timed three ways, with the layout's live chunks (the
+    # route of the table's rows) and with the pre-pass; a row's time is the
+    # device time a call (median of the three runs), its bound the bytes of
+    # the rows, the live chunks' planes and the list (the pre-pass's also
+    # the weights in full), or the operations (an add and a min per live
+    # edge, per counted relaxation for kernel 10)
+    runs = three_way(torch, {
+        "kernel 11": lambda: relax_dst_tiled(d, *lay, vb=vb, chunks=chunks),
+        "kernel 10": lambda: relax_dst_tiled_masked(*args9, vb=vb,
+                                                    chunks=chunks),
+        "kernel 11 pre-pass": lambda: relax_dst_tiled(d, *lay, vb=vb),
+        "kernel 10 pre-pass": lambda: relax_dst_tiled_masked(*args9, vb=vb)},
+        out_dir)
+    med = {name: {k: statistics.median(r[k] for r in rs)
+                  for k in ("events", "device", "host")}
+           for name, rs in runs.items()}
+    list_bytes = nbytes(chunks[1]) + n_live * chunks[0].element_size()
+    dead_w = (n_all - n_live) * lay[1].shape[-1] * lay[1].element_size()
+    for name, key, n_bytes, n_ops, plain_ms in (
+            ("kernel 11", "relax_sweep",
+             nbytes(d, out11) + live_bytes(lay, n_live) + list_bytes,
+             2 * live, plain11),
+            ("kernel 10", "relax_masked",
+             nbytes(d, f, *out10) + live_bytes((*lay, pr10), n_live)
+             + list_bytes, 2 * int(out10[1]), plain10)):
+        m, mp = med[name], med[name + " pre-pass"]
+        rows[key] = dict(ms=m["device"], plain_ms=plain_ms,
+                         bound=bound(n_bytes, n_ops))
+        say(f"  {name}: medians of three runs, with the live chunks: events "
+            f"{m['events']:.4f} ms, device {m['device']:.4f} ms a call, host "
+            f"{m['host']:.4f} ms a call, bound {rows[key]['bound'][0]:.5f} "
+            f"ms ({rows[key]['bound'][1]}); with the pre-pass: events "
+            f"{mp['events']:.4f} ms, device {mp['device']:.4f} ms a call, "
+            f"host {mp['host']:.4f} ms a call, bound "
+            f"{bound(n_bytes + dead_w, n_ops)[0]:.5f} ms (the weights read "
+            f"in full)")
     say(f"  relax_single live chunks: {n_live} of {n_all} (chain steps a "
         f"sweep: {n_live}, the whole layout {n_all})")
     ms9, mean9 = timed_median(
@@ -1619,6 +1777,8 @@ def main():
     profile_run(torch, lambda: eng_f.solve(sources),
                 out_dir / "chip_smoke_trace_fused.json",
                 "scale-1e6 dense fused K=16")
+    many_queries(np, eng, g, "scale-1e6 staged dense")
+    many_queries(np, eng_f, g, "scale-1e6 fused dense")
     del eng, eng_f, sh, res, res1, res_f
 
     # ---- ragged vs dense at scale-1e6, from one stream --------------------
@@ -1653,6 +1813,8 @@ def main():
         f"{int(rr.stats.rounds)}, relaxations {int(rr.stats.relaxations)}, "
         f"wall {rr.wall_s:.3f} s ragged, {results['dense'].wall_s:.3f} s "
         f"dense")
+    many_queries(np, SsspEngine.build(rag6, cfg), g6,
+                 "scale-1e6 staged ragged")
     del rag6, den6, results, rr, chunks6, g6
 
     # ---- scale-1e7: stream build, ragged kernels, the main path -----------
@@ -1751,7 +1913,7 @@ def main():
     del eng7, eng7f, sh7, g7, res, res1, resf, resf1
 
     # ---- the standalone kernel API: kernels 9, 10, 11 and 13 ---------------
-    for phase in (lambda: single_phase(torch, np, g, rng),
+    for phase in (lambda: single_phase(torch, np, g, rng, out_dir),
                   lambda: embag_phase(torch, np)):
         new_rows, new_launches = phase()
         rows.update(new_rows)

@@ -39,7 +39,24 @@
 // runs in the same CTA. One template serves both layouts; kRagged picks how
 // a tile finds its chunks. A min is order-free and the counts are exact, so
 // out, front and recvs do not depend on the order.
+//
+// Query groups: the [Kg, VB] tile takes Kg * (VB + 1) * 4 bytes of shared
+// memory. All K queries form one group while their tile lets an SM hold
+// kShare = 8 CTAs (K up to 56 at VB 128, 28 at VB 256: K = 16 is one
+// group); past that, the launch is a grid of P * n_vtiles by G groups, G
+// the fewest whose tiles do and Kg = ceil(K / G), each CTA merging the
+// queries [q0, q0 + Kg) of group blockIdx.y, so recvs[p, q] is added to
+// only by its own group's CTAs. A CTA is latency-bound (its gathers in
+// flight), so the CTAs an SM holds, not the fewest groups, set its speed:
+// the fewest groups that fit a block (one CTA an SM) ran several times
+// slower at K = 450 and 1,000 on an H100 than kShare 6 or 8
+// (chip_smoke.py times K = 450, 512 and 1,000). Each group re-reads the
+// layout; every output is per query, so the split is exact. Only a tile too wide
+// for one query (VB past 58,110) has no shape (merge_smem_bytes returns
+// -1; the wrapper raises before any launch).
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "tile_reduce.cuh"
 
@@ -47,6 +64,20 @@ namespace {
 
 constexpr int kMergeThreads = 128;
 constexpr int kG = 8;    // queries whose gathers a thread issues together
+constexpr long long kSmemLimit = 232448;   // dynamic shared memory a block
+constexpr int kShare = 8;                  // CTAs a group's tile lets an SM hold
+
+// Queries a CTA merges for K queries and tiles of vb: all K while their
+// tile fits kShare to an SM, else the even share of the fewest groups whose
+// tiles do (one query a group at the least); 0 when not one query's tile
+// fits a block.
+inline int group_queries(int K, int vb) {
+  const long long row = (vb + 1LL) * sizeof(int);
+  if (K < 1 || kSmemLimit < row) return 0;
+  const long long fit = std::max(1LL, kSmemLimit / kShare / row);
+  const long long groups = (K + fit - 1) / fit;
+  return static_cast<int>((K + groups - 1) / groups);
+}
 
 template <bool kRagged>
 __global__ void __launch_bounds__(kMergeThreads)
@@ -57,20 +88,22 @@ merge_scatter_kernel(const float* __restrict__ dist,
                      const int* __restrict__ dstrel_t,
                      const int* __restrict__ valid_t, float* out, float* front,
                      int* recvs, int K, int bp, int m, int n_vtiles, int n_rows,
-                     int n_chunks, int eb, int vb, int vec) {
+                     int n_chunks, int eb, int vb, int kg, int vec) {
   extern __shared__ int smem[];
-  int* tile = smem;                        // [K, vb] minima as keys (min_key)
-  int* cnt = smem + K * vb;                // [K] finite messages seen
+  int* tile = smem;                        // [nq, vb] minima as keys (min_key)
+  int* cnt = smem + kg * vb;               // [nq] finite messages seen
   const int p = blockIdx.x / n_vtiles;
   const int i = blockIdx.x % n_vtiles;
+  const int qb = blockIdx.y * kg;          // the group's queries [qb, qb + nq)
+  const int nq = min(kg, K - qb);
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  for (int x = tid; x < K * vb; x += nt) {
+  const long long row0 = static_cast<long long>(p) * K + qb;
+  for (int x = tid; x < nq * vb; x += nt) {
     const int q = x / vb;
-    tile[x] = repro::min_key(
-        dist[(static_cast<long long>(p) * K + q) * bp + i * vb + x % vb]);
+    tile[x] = repro::min_key(dist[(row0 + q) * bp + i * vb + x % vb]);
   }
-  for (int q = tid; q < K; q += nt) cnt[q] = 0;
+  for (int q = tid; q < nq; q += nt) cnt[q] = 0;
   __syncthreads();
 
   // the tile's chunks [c0, c1) among the shard's n_rows chunks
@@ -81,11 +114,11 @@ merge_scatter_kernel(const float* __restrict__ dist,
     c0 = b[i];
     c1 = b[i + 1];
   }
-  const float* in = incoming + static_cast<long long>(p) * K * m;
+  const float* in = incoming + row0 * m;
   const long long lay = static_cast<long long>(p) * n_rows * eb;
   const int quads = (eb + 3) / 4;          // message quads a chunk
   const int n_quads = (c1 - c0) * quads;
-  for (int q0 = 0; q0 < K; q0 += kG) {
+  for (int q0 = 0; q0 < nq; q0 += kG) {
     int seen[kG];
 #pragma unroll
     for (int g = 0; g < kG; ++g) seen[g] = 0;
@@ -122,7 +155,7 @@ merge_scatter_kernel(const float* __restrict__ dist,
       for (int u = 0; u < 4; ++u)
 #pragma unroll
         for (int g = 0; g < kG; ++g)
-          v[u][g] = ok[u] > 0 && q0 + g < K
+          v[u][g] = ok[u] > 0 && q0 + g < nq
                         ? __ldg(in + static_cast<long long>(q0 + g) * m + ps[u])
                         : repro::inf_f();
 #pragma unroll
@@ -142,15 +175,15 @@ merge_scatter_kernel(const float* __restrict__ dist,
   }
   __syncthreads();
 
-  for (int x = tid; x < K * vb; x += nt) {
+  for (int x = tid; x < nq * vb; x += nt) {
     const int q = x / vb;
-    const long long o = (static_cast<long long>(p) * K + q) * bp + i * vb + x % vb;
+    const long long o = (row0 + q) * bp + i * vb + x % vb;
     const float nv = repro::key_value(tile[x]);
     out[o] = nv;
     front[o] = nv < dist[o] ? 1.f : 0.f;
   }
-  for (int q = tid; q < K; q += nt)
-    if (cnt[q]) atomicAdd(recvs + p * K + q, cnt[q]);
+  for (int q = tid; q < nq; q += nt)
+    if (cnt[q]) atomicAdd(recvs + row0 + q, cnt[q]);
 }
 
 template <bool kRagged>
@@ -162,7 +195,10 @@ int launch(const float* dist, const float* incoming, const int* bounds,
   if (P * K == 0) return 0;
   cudaError_t err = cudaMemsetAsync(recvs, 0, sizeof(int) * P * K, stream);
   if (err != cudaSuccess || n_vtiles == 0) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(K) * (vb + 1) * sizeof(int);
+  const int kg = group_queries(K, vb);
+  if (kg == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(P * n_vtiles, (K + kg - 1) / kg);
+  const size_t smem = static_cast<size_t>(kg) * (vb + 1) * sizeof(int);
   err = repro::allow_smem(merge_scatter_kernel<kRagged>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // quads read 16 bytes a plane when every quad is 16-byte aligned
@@ -170,13 +206,20 @@ int launch(const float* dist, const float* incoming, const int* bounds,
                            reinterpret_cast<uintptr_t>(dstrel_t) |
                            reinterpret_cast<uintptr_t>(valid_t);
   const int vec = eb % 4 == 0 && planes % 16 == 0;
-  merge_scatter_kernel<kRagged><<<P * n_vtiles, kMergeThreads, smem, stream>>>(
+  merge_scatter_kernel<kRagged><<<grid, kMergeThreads, smem, stream>>>(
       dist, incoming, bounds, pos_t, dstrel_t, valid_t, out, front, recvs, K,
-      bp, m, n_vtiles, n_rows, n_chunks, eb, vb, vec);
+      bp, m, n_vtiles, n_rows, n_chunks, eb, vb, kg, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// Bytes of shared memory a merge CTA takes for K queries (its group's) and
+// tiles of vb, or -1 when not even one query's tile fits a block.
+extern "C" int merge_smem_bytes(int K, int vb) {
+  const int kg = group_queries(K, vb);
+  return kg ? static_cast<int>(kg * (vb + 1LL) * sizeof(int)) : -1;
+}
 
 // Dense layout [P, n_vtiles, n_chunks, eb].
 extern "C" int merge_scatter_tiled(const float* dist, const float* incoming,

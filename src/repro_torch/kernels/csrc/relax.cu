@@ -59,18 +59,57 @@
 // shared-memory reads and atomics) between two barriers of the consumer
 // warps; no step waits on device memory.
 //
-// The two single sweeps (relax_sweep, relax_masked) are Jacobi: every
-// gather reads the INPUT distances, so vertex tiles are independent and
-// the order of a tile's chunks does not matter (min is exact). What bounds
-// them: bytes, the layout planes streamed once (the 256 KB distance and
-// frontier vectors of a 65,536-vertex block sit in L2). Design: one CTA per
-// vertex tile, a grid of n_vtiles; it seeds a shared VB-tile from
-// dist[tile], walks the tile's chunks gathering dist[src] + w from global
-// memory and min-reducing into the tile, and writes the tile out once. The
-// masked sweep also gathers front[src], folds the Trishla mask into w and
-// counts f_src & (w < inf) per CTA, added to nrel[0] with one integer
-// atomicAdd per CTA (exact in any order; the wrapper zeroes nrel first).
-// Both take any non-NaN distances (tile_reduce.cuh: min_key).
+// The two single sweeps (relax_sweep, kernel 11; relax_masked, kernel 10)
+// are Jacobi: every gather reads the INPUT distances, min is exact and the
+// count is an integer sum, so neither the order of the chunks nor that of
+// the CTAs changes an output, and the work may be split and reordered
+// freely. What bounds them: bytes, the live chunks' layout planes read once
+// (16 bytes an edge for kernel 10, 12 for kernel 11: about 17 and 13 MB at
+// the scale-1e6 block, 2,116 live chunks of 8,192), while the 256 KB
+// distance and frontier vectors the gathers read sit in L2. Design, for
+// Hopper: one cooperative launch of a persistent grid (as many CTAs of 512
+// threads as are co-resident, two an SM) in two phases.
+//  - Phase A, balanced by live chunk and not by tile: the CTA's four groups
+//    of 128 threads take the live chunks live_idx[j], j = group, group +
+//    groups, ... (the caller's list, live_chunks(w_t[None] < inf), or the
+//    entry point's pre-pass, live_flags_kernel / live_list_kernel, which
+//    also writes each tile's range of the list). A thread loads four
+//    consecutive edges of each plane at once (16-byte loads, through the
+//    read-only cache, so a caller sweeping one layout finds it in L2), then
+//    their frontier gathers, then the distance gathers of the edges in the
+//    frontier, before it reduces any; the candidates are min-reduced into
+//    the group's shared [vb] tile of keys (tile_reduce.cuh: min_key), which
+//    it writes to the chunk's slot of a scratch of partial minima. Edges of
+//    weight +inf (padding, and kernel 10's Trishla-pruned edges) issue no
+//    gather. No tile waits for its heaviest CTA: a tile's live chunks (at
+//    most 16 here, 4.13 on average) spread over several groups.
+//  - Phase B, after the launch's one grid-wide barrier (cooperative_groups
+//    grid sync): CTA b finalizes tiles b, b + grid, ..., the first of them
+//    seeded with min_key(dist[tile]) before the barrier: the new tile is
+//    that min the partial minima of the tile's slots (its range of the
+//    list), eight slot loads in flight a thread; a tile with no live chunk
+//    keeps its distances. CTA 0 writes nrel, the sum of the CTAs' counts,
+//    so kernel 10's call is one launch (no memset), kernel 11's too, and
+//    the caller's list route reads no dead chunk at all.
+// Where the time goes, on an H100 at the scale-1e6 block: the launch, the
+// barrier and phase B a fixed part of a call, phase A most of the rest
+// (the plane loads, then the gathers, each thread a chain). Variants that
+// removed the barrier (the last group to bring a tile's slot finalizes
+// it, on counters each launch's last arrivals zero again) or staged each
+// CTA's chunks by bulk copies (cp.async.bulk) ran slower in chip runs made
+// to choose the design; PERF.md gives this design's times.
+// The contract is the plain version's, held bit for bit: any distances and
+// weights, negative ones and -inf included. A NaN candidate (-inf + inf,
+// or +inf + -inf) makes its vertex NaN, as the plain version's min does: in
+// phase A it reduces as the key kNanKey, below every other key. A dead
+// chunk (every weight +inf) is an exact no-op only while no distance is
+// -inf: -inf + inf is NaN. So phase A also flags, a CTA, whether its slice
+// of dist holds -inf, and where any CTA saw one, phase B walks each tile's
+// +inf-weight edges, dead chunks included, for sources at -inf (in the
+// frontier, for kernel 10) and makes their targets NaN: held, not
+// rejected, at the cost of that walk only when a -inf is there.
+#include <cooperative_groups.h>
+
 #include "sweeps_ragged.cuh"
 
 namespace {
@@ -145,22 +184,26 @@ relax_ragged_kernel(const float* __restrict__ dist,
   if (tid == 0) nrel[row] = *total;
 }
 
-// The live-chunk pre-pass of kernels 1 and 9, part 1: flags[c] = 1 when
-// chunk c of the dense layout (every shard's chunks, flat) holds a finite
-// weight (a warp a chunk, four weights a lane at a time; eb a multiple of
-// 4).
+// The live-chunk pre-pass of kernels 1, 9, 10 and 11, part 1: flags[c] = 1
+// when chunk c of the dense layout (every shard's chunks, flat) holds a
+// finite weight (a warp a chunk, four weights a lane at a time when vec: eb
+// a multiple of 4 and w 16-byte aligned; else one).
 __global__ void live_flags_kernel(const float* __restrict__ w, int* flags,
-                                  int rows, int eb) {
+                                  int rows, int eb, int vec) {
   const long long c =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (c >= rows) return;                   // whole warps
-  const float4* w4 = reinterpret_cast<const float4*>(w + c * eb);
   const float inf = repro::inf_f();
   bool any = false;
-  for (int i = lane; i < eb / 4; i += 32) {
-    const float4 x = w4[i];
-    any |= x.x < inf || x.y < inf || x.z < inf || x.w < inf;
+  if (vec) {
+    const float4* w4 = reinterpret_cast<const float4*>(w + c * eb);
+    for (int i = lane; i < eb / 4; i += 32) {
+      const float4 x = w4[i];
+      any |= x.x < inf || x.y < inf || x.z < inf || x.w < inf;
+    }
+  } else {
+    for (int i = lane; i < eb; i += 32) any |= w[c * eb + i] < inf;
   }
   any = __any_sync(0xffffffffu, any);
   if (lane == 0) flags[c] = any;
@@ -169,10 +212,12 @@ __global__ void live_flags_kernel(const float* __restrict__ w, int* flags,
 // The pre-pass, part 2 (one block a shard p): idx[p][0 .. n) = the shard's
 // chunks whose flag is set, in layout order, and n_live[p] = n; blockDim.x
 // flags a round, a block-wide exclusive scan of the flags placing each
-// live chunk.
+// live chunk. With tile_bounds (kernels 10 and 11, one shard), also tile
+// i's range of the list: tile_bounds[i] = the live chunks before chunk
+// i * n_chunks.
 __global__ void __launch_bounds__(1024)
 live_list_kernel(const int* __restrict__ flags, int* idx, int* n_live,
-                 int rows) {
+                 int rows, int* tile_bounds, int n_chunks) {
   const long long off = static_cast<long long>(blockIdx.x) * rows;
   flags += off;
   idx += off;
@@ -199,9 +244,11 @@ live_list_kernel(const int* __restrict__ flags, int* idx, int* n_live,
       sums[lane] = v;
     }
     __syncthreads();
-    if (f)
-      idx[carry + (warp ? sums[warp - 1] : 0) +
-          __popc(b & ((1u << lane) - 1u))] = c;
+    const int at =
+        carry + (warp ? sums[warp - 1] : 0) + __popc(b & ((1u << lane) - 1u));
+    if (f) idx[at] = c;
+    if (tile_bounds != nullptr && c < rows && c % n_chunks == 0)
+      tile_bounds[c / n_chunks] = at;
     __syncthreads();
     if (tid == 0) carry += sums[31];
     __syncthreads();
@@ -209,49 +256,229 @@ live_list_kernel(const int* __restrict__ flags, int* idx, int* n_live,
   if (tid == 0) n_live[blockIdx.x] = carry;
 }
 
-// Kernels 11 (kMasked false) and 10 (kMasked true): one Jacobi sweep, one
-// CTA per vertex tile. front, pruned_t and nrel are read / written only
-// when kMasked.
+// Kernels 11 (kMasked false) and 10 (kMasked true): one Jacobi sweep over
+// the live chunks, phases A and B of the header. front, pruned_t and nrel
+// are read / written only when kMasked. live_idx: the live chunks, in
+// layout order; tile_bounds [n_vtiles + 1]: tile t's range of the list, the
+// list's length the last entry. partial [list length, vb]: the chunks'
+// partial minima; cta_words [2 * gridDim.x]: the CTAs' relaxations, then
+// their -inf flags. vec: eb a multiple of 4 and the planes 16-byte aligned.
+namespace sweep {
+
+constexpr int kThreads = 512;              // a CTA, two an SM
+constexpr int kGroup = 128;                // threads that walk one chunk
+constexpr int kGroups = kThreads / kGroup;
+constexpr int kRound = 4 * kGroup;         // edges a group loads at once
+constexpr int kNanKey = -2147483647 - 1;   // below every key
+
+// The group's barrier (ids 1..kGroups; __syncthreads is barrier 0).
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(kGroup) : "memory");
+}
+
+// Entries [e, e + 4) of a plane: one 16-byte load when vec, else one at a
+// time, `fill` past the chunk's end (`left` entries remain).
+__device__ __forceinline__ void load4(const int* p, bool vec, int left,
+                                      int fill, int (&v)[4]) {
+  if (vec) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = u < left ? __ldg(p + u) : fill;
+  }
+}
+
+// min over the slots j = lo, lo + step, ... < hi of column v of the partial
+// minima, eight loads in flight at a time.
+__device__ __forceinline__ int slots_min(const int* partial, int lo, int hi,
+                                         int step, int vb, int v) {
+  int k = repro::kInfBits;
+  for (int j = lo; j < hi; j += 8 * step) {
+    int a[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      a[u] = j + u * step < hi
+                 ? __ldcg(partial + static_cast<long long>(j + u * step) * vb +
+                          v)
+                 : repro::kInfBits;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) k = min(k, a[u]);
+  }
+  return k;
+}
+
+}  // namespace sweep
+
 template <bool kMasked>
-__global__ void __launch_bounds__(repro::kThreads)
+__global__ void __launch_bounds__(sweep::kThreads, 2)
 relax_sweep_kernel(const float* __restrict__ dist,
                    const float* __restrict__ front,
                    const int* __restrict__ src_t,
                    const float* __restrict__ w_t,
                    const int* __restrict__ dstrel_t,
-                   const int* __restrict__ pruned_t, float* __restrict__ out,
-                   int* nrel, int n_chunks, int eb, int vb) {
-  extern __shared__ int tile[];            // [vb] minima as keys (min_key)
+                   const int* __restrict__ pruned_t,
+                   const int* __restrict__ live_idx,
+                   const int* __restrict__ tile_bounds,
+                   float* __restrict__ out, int* nrel, int* partial,
+                   int* cta_words, int n_vtiles, int n_chunks, int eb, int vb,
+                   int vec) {
+  namespace sw = sweep;
+  extern __shared__ int tiles[];           // [kGroups][vb] keys
   __shared__ int total;
-  const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const float* dt = dist + static_cast<long long>(t) * vb;
-  for (int v = tid; v < vb; v += nt) tile[v] = repro::min_key(dt[v]);
+  const int lane = tid & 31;
+  const int g = tid / sw::kGroup;
+  const int gt = tid % sw::kGroup;
+  const int bp = n_vtiles * vb;
+  const int rows = n_vtiles * n_chunks;
+  const float inf = repro::inf_f();
   if (tid == 0) total = 0;
-  __syncthreads();
 
+  // ---- phase A: the live chunks, a group each, partial minima to slots
+  int* tile = tiles + g * vb;
+  const int stride = gridDim.x * sw::kGroups;
+  int j = blockIdx.x * sw::kGroups + g;
+  int c = j < rows ? live_idx[j] : 0;      // (beside the list's length)
+  const int n_live = tile_bounds[n_vtiles];
+  for (int r = gt; r < vb; r += sw::kGroup) tile[r] = repro::kInfBits;
   int count = 0;
-  const long long lay = static_cast<long long>(t) * n_chunks * eb;
-  for (long long i = lay + tid; i < lay + static_cast<long long>(n_chunks) * eb;
-       i += nt) {
-    const int sv = src_t[i];
-    if (kMasked) {
-      if (front[sv] > 0.f) {
-        const float w = pruned_t[i] > 0 ? repro::inf_f() : w_t[i];
-        count += w < repro::inf_f();
-        repro::tile_min_into(tile, dstrel_t[i], dist[sv] + w);
+  for (; j < n_live; j += stride) {
+    const int c_next = j + stride < n_live ? live_idx[j + stride] : 0;
+    const long long base = static_cast<long long>(c) * eb;
+    for (int e0 = 0; e0 < eb; e0 += sw::kRound) {
+      // the round's plane loads, then the gathers, then the reduce
+      const int e = e0 + 4 * gt;
+      const bool in = e < eb;
+      const long long at = base + (in ? e : 0);
+      const int left = in ? eb - e : 0;
+      int sv[4], rel[4], wb[4], prn[4] = {0, 0, 0, 0};
+      sw::load4(src_t + at, vec && in, left, 0, sv);
+      sw::load4(reinterpret_cast<const int*>(w_t) + at, vec && in, left,
+                repro::kInfBits, wb);
+      sw::load4(dstrel_t + at, vec && in, left, 0, rel);
+      if (kMasked) sw::load4(pruned_t + at, vec && in, left, 0, prn);
+      float w[4], d[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        w[u] = prn[u] > 0 ? inf : __int_as_float(wb[u]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (kMasked && w[u] < inf && !(__ldg(front + sv[u]) > 0.f))
+          w[u] = inf;                      // its source is not in the frontier
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        d[u] = w[u] < inf ? __ldg(dist + sv[u]) : inf;
+      if (e0 == 0) sw::group_sync(g);      // the tile re-initialized
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (!(w[u] < inf)) continue;
+        count += kMasked;
+        const float cand = d[u] + w[u];
+        if (cand < inf)
+          atomicMin(tile + rel[u], repro::min_key(cand));
+        else if (cand != cand)
+          atomicMin(tile + rel[u], sw::kNanKey);
       }
-    } else {
-      repro::tile_min_into(tile, dstrel_t[i], dist[sv] + w_t[i]);
     }
+    sw::group_sync(g);
+    int* slot = partial + static_cast<long long>(j) * vb;
+    for (int r = gt; r < vb; r += sw::kGroup) {
+      slot[r] = tile[r];
+      tile[r] = repro::kInfBits;
+    }
+    c = c_next;
   }
-  if (kMasked) atomicAdd(&total, count);
+  // the CTA's slice of dist: any -inf (a dead chunk is then no no-op)
+  bool neg = false;
+  for (int v = blockIdx.x * sw::kThreads + tid; v < bp;
+       v += gridDim.x * sw::kThreads)
+    neg |= dist[v] == -inf;
+  const int any_neg = __syncthreads_or(neg);
+  if (kMasked) {
+    const int cnt = __reduce_add_sync(0xffffffffu, count);
+    if (lane == 0 && cnt) atomicAdd(&total, cnt);
+  }
+  // the CTA's tiles (blockIdx.x + k * gridDim.x), `held` at a time: the
+  // first ones' distances as keys before the barrier
+  const int mine = blockIdx.x < n_vtiles
+                       ? (n_vtiles - blockIdx.x + gridDim.x - 1) / gridDim.x
+                       : 0;
+  const int held = max(1, min(min(mine, sw::kGroups), sw::kThreads / vb));
+  int* acc = tiles;                        // [held][vb] keys
+  for (int x = tid; x < held * vb; x += sw::kThreads) {
+    const int t = blockIdx.x + (x / vb) * gridDim.x;
+    if (t < n_vtiles)
+      acc[x] = repro::min_key(dist[static_cast<long long>(t) * vb + x % vb]);
+  }
   __syncthreads();
+  if (tid == 0) {
+    cta_words[blockIdx.x] = total;
+    cta_words[gridDim.x + blockIdx.x] = any_neg;
+  }
+  __threadfence();
+  cooperative_groups::this_grid().sync();
 
-  float* ot = out + static_cast<long long>(t) * vb;
-  for (int v = tid; v < vb; v += nt) ot[v] = repro::key_value(tile[v]);
-  if (kMasked && tid == 0 && total) atomicAdd(nrel, total);
+  // ---- phase B: dist min the slots of each tile, written once
+  int nrel_part = 0, neg_any = 0;
+  for (int b = tid; b < gridDim.x; b += sw::kThreads) {
+    if (kMasked && blockIdx.x == 0) nrel_part += __ldcg(cta_words + b);
+    neg_any |= __ldcg(cta_words + gridDim.x + b);
+  }
+  const int split = max(1, sw::kThreads / (held * vb));  // threads a vertex
+  for (int t0 = blockIdx.x; t0 < n_vtiles; t0 += held * gridDim.x) {
+    if (t0 != blockIdx.x) {                // later rounds: seed acc here
+      for (int x = tid; x < held * vb; x += sw::kThreads) {
+        const int t = t0 + (x / vb) * gridDim.x;
+        if (t < n_vtiles)
+          acc[x] =
+              repro::min_key(dist[static_cast<long long>(t) * vb + x % vb]);
+      }
+      __syncthreads();
+    }
+    for (int x = tid; x < held * vb * split; x += sw::kThreads) {
+      const int k = x / (vb * split);
+      const int v = x % vb;
+      const int t = t0 + k * gridDim.x;
+      if (t >= n_vtiles) continue;
+      const int key = sw::slots_min(partial, tile_bounds[t] + (x / vb) % split,
+                                    tile_bounds[t + 1], split, vb, v);
+      if (key < repro::kInfBits) atomicMin(acc + k * vb + v, key);
+    }
+    if (__syncthreads_or(neg_any)) {
+      // every +inf-weight edge of the tiles, dead chunks included: a source
+      // at -inf (in the frontier) makes its target NaN, as -inf + inf does
+      for (int k = 0; k < held; ++k) {
+        const int t = t0 + k * gridDim.x;
+        if (t >= n_vtiles) break;
+        const long long base = static_cast<long long>(t) * n_chunks * eb;
+        const long long n = static_cast<long long>(n_chunks) * eb;
+        for (long long e = tid; e < n; e += sw::kThreads) {
+          const long long i = base + e;
+          if (w_t[i] < inf && !(kMasked && pruned_t[i] > 0)) continue;
+          const int sv = src_t[i];
+          if (dist[sv] == -inf && (!kMasked || front[sv] > 0.f))
+            atomicMin(acc + k * vb + dstrel_t[i], sw::kNanKey);
+        }
+      }
+      __syncthreads();
+    }
+    for (int x = tid; x < held * vb; x += sw::kThreads) {
+      const int t = t0 + (x / vb) * gridDim.x;
+      if (t < n_vtiles)
+        out[static_cast<long long>(t) * vb + x % vb] =
+            repro::key_value(acc[x]);
+    }
+    __syncthreads();
+  }
+  if (kMasked && blockIdx.x == 0) {
+    const int cnt = __reduce_add_sync(0xffffffffu, nrel_part);
+    if (tid == 0) total = 0;
+    __syncthreads();
+    if (lane == 0 && cnt) atomicAdd(&total, cnt);
+    __syncthreads();
+    if (tid == 0) *nrel = total;
+  }
 }
 
 template <bool kHazard, bool kList>
@@ -297,10 +524,11 @@ int launch_live(const float* dist, const float* front, const int* src_t,
     int* list = live + all;
     int* counts = live + 2 * all;
     live_flags_kernel<<<static_cast<unsigned>((all + 15) / 16), 512, 0,
-                        stream>>>(w_t, flags, static_cast<int>(all), eb);
+                        stream>>>(w_t, flags, static_cast<int>(all), eb, 1);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    live_list_kernel<<<P, 1024, 0, stream>>>(flags, list, counts, rows);
+    live_list_kernel<<<P, 1024, 0, stream>>>(flags, list, counts, rows,
+                                             nullptr, 1);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     idx = list;
@@ -318,9 +546,91 @@ int launch_live(const float* dist, const float* front, const int* src_t,
       vb, n_sweeps, stream);
 }
 
-template <typename Kernel>
-cudaError_t allow_tile(Kernel kernel, int vb) {
-  return repro::allow_smem(kernel, static_cast<size_t>(vb) * sizeof(int));
+// Kernels 10 and 11's persistent grid: as many CTAs as are co-resident on
+// the card (a cooperative launch needs every CTA resident: two an SM), no
+// more than the work has (a group a chunk, a CTA a tile); 0 on an error.
+template <bool kMasked>
+int sweep_grid(int rows, int n_vtiles, int eb, int vb) {
+  static int last_vb = -1, last_eb = -1, resident = 0;   // the occupancy
+  if (vb != last_vb || eb != last_eb) {
+    const size_t smem = static_cast<size_t>(sweep::kGroups) * vb * sizeof(int);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (repro::allow_smem(relax_sweep_kernel<kMasked>, smem) != cudaSuccess ||
+        cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, relax_sweep_kernel<kMasked>, sweep::kThreads, smem) !=
+            cudaSuccess)
+      return 0;
+    resident = sms * per_sm;
+    last_vb = vb;
+    last_eb = eb;
+  }
+  const int work = std::max((rows + sweep::kGroups - 1) / sweep::kGroups,
+                            n_vtiles);
+  return std::max(1, std::min(resident, work));
+}
+
+// Words of int32 scratch kernel 10 (masked) or 11 takes: a slot of partial
+// minima a live chunk, the CTAs' words and, with the pre-pass (prepass),
+// its flags, list and tile bounds; -1 when past int range or when no CTA
+// fits.
+long long sweep_scratch_words(int masked, int prepass, int n_vtiles,
+                              int n_chunks, int eb, int vb) {
+  const long long rows = static_cast<long long>(n_vtiles) * n_chunks;
+  const int grid =
+      masked ? sweep_grid<true>(static_cast<int>(rows), n_vtiles, eb, vb)
+             : sweep_grid<false>(static_cast<int>(rows), n_vtiles, eb, vb);
+  const long long words =
+      rows * vb + 2LL * grid + (prepass ? 2 * rows + n_vtiles + 1 : 0);
+  return grid < 1 || words > 0x7fffffffLL ? -1 : words;
+}
+
+// Kernels 10 and 11: the live chunks idx / tile bounds from the caller, or
+// (idx null) the pre-pass's, written to the end of scratch on the same
+// stream; then the cooperative launch.
+template <bool kMasked>
+int launch_sweep(const float* dist, const float* front, const int* src_t,
+                 const float* w_t, const int* dstrel_t, const int* pruned_t,
+                 const int* idx, const int* bounds, float* out, int* nrel,
+                 int* scratch, int n_vtiles, int n_chunks, int eb, int vb,
+                 cudaStream_t stream) {
+  if (n_vtiles == 0)
+    return static_cast<int>(
+        kMasked ? cudaMemsetAsync(nrel, 0, sizeof(int), stream) : cudaSuccess);
+  const int rows = n_vtiles * n_chunks;
+  const int grid = sweep_grid<kMasked>(rows, n_vtiles, eb, vb);
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const uintptr_t planes =
+      reinterpret_cast<uintptr_t>(src_t) | reinterpret_cast<uintptr_t>(w_t) |
+      reinterpret_cast<uintptr_t>(dstrel_t) |
+      reinterpret_cast<uintptr_t>(kMasked ? pruned_t : src_t);
+  int vec = eb % 4 == 0 && planes % 16 == 0;
+  int* partial = scratch;
+  int* cta_words = scratch + static_cast<long long>(rows) * vb;
+  if (idx == nullptr) {
+    int* flags = cta_words + 2 * grid;
+    int* list = flags + rows;
+    int* tb = list + rows;
+    live_flags_kernel<<<(rows + 15) / 16, 512, 0, stream>>>(w_t, flags, rows,
+                                                            eb, vec);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    live_list_kernel<<<1, 1024, 0, stream>>>(flags, list, tb + n_vtiles, rows,
+                                             tb, n_chunks);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    idx = list;
+    bounds = tb;
+  }
+  void* args[] = {&dist, &front, &src_t, &w_t, &dstrel_t, &pruned_t, &idx,
+                  &bounds, &out, &nrel, &partial, &cta_words, &n_vtiles,
+                  &n_chunks, &eb, &vb, &vec};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(relax_sweep_kernel<kMasked>), grid,
+      sweep::kThreads, args,
+      static_cast<size_t>(sweep::kGroups) * vb * sizeof(int), stream));
 }
 
 }  // namespace
@@ -393,33 +703,39 @@ extern "C" int relax_fixpoint(const float* dist, const float* front,
                      n_vtiles, n_chunks, eb, vb, n_sweeps, hazard, stream);
 }
 
-// Kernel 10: one masked, counted Jacobi sweep; nrel [1] zeroed by the
-// caller on the same stream.
+// Words of int32 scratch the entry points below take (sweep_scratch_words).
+extern "C" int relax_sweep_scratch_words(int masked, int prepass,
+                                         int n_vtiles, int n_chunks, int eb,
+                                         int vb) {
+  return static_cast<int>(
+      sweep_scratch_words(masked, prepass, n_vtiles, n_chunks, eb, vb));
+}
+
+// Kernel 10: one masked, counted Jacobi sweep over the live chunks; dense
+// layout [n_vtiles, n_chunks, eb], rows [bp], nrel [1]. chunk_idx
+// [n_vtiles * n_chunks] and chunk_bounds [n_vtiles + 1]: the live chunks
+// (common.py: live_chunks), or both null for the pre-pass; scratch
+// [relax_sweep_scratch_words(1, null idx, ...)] int32.
 extern "C" int relax_masked(const float* dist, const float* front,
                             const int* src_t, const float* w_t,
                             const int* dstrel_t, const int* pruned_t,
-                            float* out, int* nrel, int n_vtiles, int n_chunks,
-                            int eb, int vb, cudaStream_t stream) {
-  if (n_vtiles == 0) return 0;
-  cudaError_t err = allow_tile(relax_sweep_kernel<true>, vb);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  relax_sweep_kernel<true><<<n_vtiles, repro::kThreads, vb * sizeof(int),
-                             stream>>>(dist, front, src_t, w_t, dstrel_t,
-                                       pruned_t, out, nrel, n_chunks, eb, vb);
-  return static_cast<int>(cudaGetLastError());
+                            const int* chunk_idx, const int* chunk_bounds,
+                            float* out, int* nrel, int* scratch, int n_vtiles,
+                            int n_chunks, int eb, int vb,
+                            cudaStream_t stream) {
+  return launch_sweep<true>(dist, front, src_t, w_t, dstrel_t, pruned_t,
+                            chunk_idx, chunk_bounds, out, nrel, scratch,
+                            n_vtiles, n_chunks, eb, vb, stream);
 }
 
-// Kernel 11: one unmasked Jacobi sweep.
+// Kernel 11: one unmasked Jacobi sweep over the live chunks; operands as
+// kernel 10's.
 extern "C" int relax_sweep(const float* dist, const int* src_t,
-                           const float* w_t, const int* dstrel_t, float* out,
-                           int n_vtiles, int n_chunks, int eb, int vb,
-                           cudaStream_t stream) {
-  if (n_vtiles == 0) return 0;
-  cudaError_t err = allow_tile(relax_sweep_kernel<false>, vb);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  relax_sweep_kernel<false><<<n_vtiles, repro::kThreads, vb * sizeof(int),
-                              stream>>>(dist, nullptr, src_t, w_t, dstrel_t,
-                                        nullptr, out, nullptr, n_chunks, eb,
-                                        vb);
-  return static_cast<int>(cudaGetLastError());
+                           const float* w_t, const int* dstrel_t,
+                           const int* chunk_idx, const int* chunk_bounds,
+                           float* out, int* scratch, int n_vtiles,
+                           int n_chunks, int eb, int vb, cudaStream_t stream) {
+  return launch_sweep<false>(dist, nullptr, src_t, w_t, dstrel_t, nullptr,
+                             chunk_idx, chunk_bounds, out, nullptr, scratch,
+                             n_vtiles, n_chunks, eb, vb, stream);
 }

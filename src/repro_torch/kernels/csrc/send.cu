@@ -58,10 +58,26 @@
 //    [P, K] output with one atomicAdd per (CTA, query). Data read or
 //    written once (layout, slot rows) is streamed (evict first), so L2
 //    keeps the interleaved rows that the gathers revisit.
-//  - The staged batch takes the shared memory the tile leaves free, up to
-//    1,024 edges (down to 1 at the largest K), and the odd row stride
-//    drops to K where its padding does not fit: every (K, sb) whose tile
-//    of minima and counts fit, with 20 bytes to spare, runs.
+//  - Query groups: a CTA holds the tile of minima of Kg queries, the
+//    queries [q0, q0 + Kg) of group blockIdx.y (a grid of P * n_stiles by
+//    G groups), and gathers their Kg contiguous candidates from offset q0
+//    of the one interleaved row buffer. Kg = K, one group, whenever the
+//    tile of all K queries leaves room for a full staged batch (1,024
+//    edges; K up to 418 at slot tiles of 128, 1,636 at 32). Past that, G
+//    is the fewest groups whose CTAs, each beside a full batch, fit
+//    kShare = 6 to an SM, and Kg = ceil(K / G) spreads the queries evenly
+//    (K = 450 at sb = 128: eleven groups of 41; 1,000: twenty-four of 42),
+//    so the batch never shrinks below 1,024 edges. The pairs' gathers are
+//    latency-bound, so the CTAs an SM holds set the speed: the fewest
+//    groups that fit a block (one CTA an SM) ran several times slower at
+//    K = 450 and 1,000 on an H100 than kShare 4 or 6, 6 the fastest tried
+//    (chip_smoke.py times K = 450, 512 and 1,000). Each group re-reads the
+//    layout, G times its bytes. Every output is per query, so the split is
+//    exact. Only a
+//    slot tile too wide for one query's tile beside one staged edge has no
+//    shape (send_smem_bytes returns -1; the wrapper raises before any
+//    launch). The odd row stride drops to Kg where its padding does not
+//    fit.
 #include <algorithm>
 
 #include "tile_reduce.cuh"
@@ -73,6 +89,7 @@ constexpr int kStage = 4;             // edges a thread stages a batch
 constexpr int kBatch = kStage * kPackThreads;   // most edges a batch stages
 constexpr int kUnroll = 4;            // pairs whose gathers a thread issues
 constexpr int kSmemLimit = 232448;    // dynamic shared memory a block
+constexpr int kShare = 6;             // past one group: CTAs an SM holds
 constexpr int kIlvThreads = 256;      // threads an interleave block
 constexpr int kIlvV = 128;            // vertices of an interleave tile
 constexpr int kIlvQ = 32;             // queries of an interleave tile
@@ -86,30 +103,71 @@ __device__ __forceinline__ T once(const T* p) {
 __device__ __forceinline__ void put_once(float* p, float v) { __stcs(p, v); }
 
 // The pack CTA's shared memory: the staged batch of nb edges (16 bytes an
-// edge), the tile of minima [sb][kp], the counts and the staged count.
-inline long long smem_bytes(int K, int kp, int sb, int nb) {
-  return 16LL * nb + (static_cast<long long>(sb) * kp + K + 1) * 4;
+// edge), the tile of minima [sb][kp] of its kg queries, the counts and the
+// staged count.
+inline long long smem_bytes(int kg, int kp, int sb, int nb) {
+  return 16LL * nb + (static_cast<long long>(sb) * kp + kg + 1) * 4;
 }
 
-// The pack CTA's shape for K queries and slot tiles of sb: the tile's row
-// stride kp (K rounded up to odd, or K where that padding does not fit),
-// the staged batch nb (kBatch edges, or as many as the shared memory the
-// tile leaves free holds) and the bytes; false when not one edge fits.
+// The pack CTA's shape: its queries kg, the groups of the launch, the
+// tile's row stride kp (kg rounded up to odd, or kg where that padding does
+// not fit), the staged batch nb (kBatch edges, or as many as the shared
+// memory the tile leaves free holds) and the bytes.
 struct PackShape {
-  int kp, nb;
+  int kg, groups, kp, nb;
   long long smem;
 };
-inline bool pack_shape(int K, int sb, PackShape* s) {
-  for (const int kp : {K | 1, K}) {
-    const long long left = kSmemLimit - smem_bytes(K, kp, sb, 0);
-    if (left >= 16) {
+
+// kg queries a CTA with a staged batch of at least min_nb edges, in at most
+// `limit` bytes.
+inline bool fit(int kg, int sb, int min_nb, long long limit, PackShape* s) {
+  for (const int kp : {kg | 1, kg}) {
+    const long long left = limit - smem_bytes(kg, kp, sb, 0);
+    if (left >= 16LL * min_nb) {
+      s->kg = kg;
       s->kp = kp;
       s->nb = static_cast<int>(std::min<long long>(kBatch, left / 16));
-      s->smem = smem_bytes(K, kp, sb, s->nb);
+      s->smem = smem_bytes(kg, kp, sb, s->nb);
       return true;
     }
   }
   return false;
+}
+
+// The most queries (at most K - 1) a CTA holds beside a full staged batch
+// in `limit` bytes, 0 when not one.
+inline int most_queries(int K, int sb, long long limit) {
+  PackShape s;
+  int lo = 0, hi = K - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (fit(mid, sb, kBatch, limit, &s)) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// K queries and slot tiles of sb: one group when all K fit beside a full
+// staged batch; else the fewest groups whose CTAs, each beside a full
+// batch, fit kShare to an SM (else one to an SM), the queries spread
+// evenly; else one query a group beside the batch that fits; false when
+// not even one query and one staged edge fit.
+inline bool pack_shape(int K, int sb, PackShape* s) {
+  if (K < 1) return false;
+  if (fit(K, sb, kBatch, kSmemLimit, s)) {
+    s->groups = 1;
+    return true;
+  }
+  int most = most_queries(K, sb, kSmemLimit / kShare);
+  if (most == 0) most = most_queries(K, sb, kSmemLimit);
+  int kg = 1, min_nb = 1;
+  if (most >= 1) {
+    const int groups = (K + most - 1) / most;
+    kg = (K + groups - 1) / groups;
+    min_nb = kBatch;
+  }
+  if (!fit(kg, sb, min_nb, kSmemLimit, s)) return false;
+  s->groups = (K + kg - 1) / kg;
+  return true;
 }
 
 // rows [P, K, bp] -> out [P, bp, K]: block (vertex tile, query tile, p)
@@ -147,11 +205,12 @@ interleave_kernel(const float* __restrict__ rows, float* __restrict__ out,
   }
 }
 
-// The (edge, query) pairs of the n staged edges, min-reduced into the tile:
-// pair f = threadIdx.x + j * kPackThreads is edge f / K, query f % K,
-// stepped without a division (kFixed: K divides the CTA, so a thread's
-// query never changes). kUnroll staged reads (a broadcast to the K lanes
-// of an edge), then kUnroll gathers in flight, then the reduce.
+// The (edge, query) pairs of the n staged edges and the group's K queries,
+// min-reduced into the tile: pair f = threadIdx.x + j * kPackThreads is
+// edge f / K, query f % K, stepped without a division (kFixed: K divides
+// the CTA, so a thread's query never changes). kUnroll staged reads (a
+// broadcast to the K lanes of an edge), then kUnroll gathers in flight,
+// then the reduce.
 template <bool kFixed>
 __device__ __forceinline__ void reduce_pairs(const int4* staged, int n,
                                              int K,
@@ -187,7 +246,12 @@ __device__ __forceinline__ void reduce_pairs(const int4* staged, int n,
   }
 }
 
-// dq: the interleaved rows [P, bp, K] (the rows themselves at K = 1).
+// dq: the interleaved rows [P, bp, K] (the rows themselves at K = 1). The
+// CTA (shard p, slot tile i, group blockIdx.y) packs queries [q0, q0 + nq),
+// nq = min(kg, K - q0). Its pair loop runs kg queries wide whatever nq
+// (kernel parameters, so the loop holds no more registers than with one
+// group); a last group's queries past K gather from the scratch's K words
+// of padding into tile columns the finalizer never reads.
 template <bool kRagged>
 __global__ void __launch_bounds__(kPackThreads)
 send_pack_kernel(const float* __restrict__ dq,
@@ -199,18 +263,18 @@ send_pack_kernel(const float* __restrict__ dq,
                  const int* __restrict__ segrel_t,
                  const int* __restrict__ pruned_t, float* val, float* new_last,
                  int* sends, int K, int bp, int sp, int n_stiles, int n_rows,
-                 int n_chunks, int eb, int sb, int kp, int nb) {
+                 int n_chunks, int eb, int sb, int kg, int kp, int nb) {
   extern __shared__ int4 smem4[];
   int4* staged = smem4;                    // [nb] src * K, segrel * kp, w
   int* tile = reinterpret_cast<int*>(smem4 + nb);       // [sb, kp] keys
-  int* cnt = tile + sb * kp;               // [K] improved slots
-  int* n_staged = cnt + K;                 // live edges staged
+  int* cnt = tile + sb * kp;               // [kg] improved slots
+  int* n_staged = cnt + kg;                // live edges staged
   const int p = blockIdx.x / n_stiles;
   const int i = blockIdx.x % n_stiles;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   for (int x = tid; x < sb * kp; x += kPackThreads) tile[x] = repro::kInfBits;
-  for (int q = tid; q < K; q += kPackThreads) cnt[q] = 0;
+  for (int q = tid; q < kg; q += kPackThreads) cnt[q] = 0;
 
   // the tile's chunks [c0, c1) among the shard's n_rows chunks, as one
   // flat run of edges [e_begin, e_end)
@@ -223,7 +287,9 @@ send_pack_kernel(const float* __restrict__ dq,
   }
   const long long e_begin = (static_cast<long long>(p) * n_rows + c0) * eb;
   const long long e_end = e_begin + static_cast<long long>(c1 - c0) * eb;
-  const float* drow = dq + static_cast<long long>(p) * bp * K;
+  // the group's candidates: K * src + q0 + q of the shard's rows
+  const float* drow =
+      dq + static_cast<long long>(p) * bp * K + blockIdx.y * kg;
   for (long long b0 = e_begin; b0 < e_end; b0 += nb) {
     const int n = static_cast<int>(min(static_cast<long long>(nb),
                                        e_end - b0));
@@ -260,20 +326,24 @@ send_pack_kernel(const float* __restrict__ dq,
             make_int4(sv[u] * K, r[u] * kp, __float_as_int(w[u]), 0);
     }
     __syncthreads();
-    if (kPackThreads % K == 0)
-      reduce_pairs<true>(staged, *n_staged, K, drow, tile);
+    if (kPackThreads % kg == 0)
+      reduce_pairs<true>(staged, *n_staged, kg, drow, tile);
     else
-      reduce_pairs<false>(staged, *n_staged, K, drow, tile);
+      reduce_pairs<false>(staged, *n_staged, kg, drow, tile);
     __syncthreads();
   }
   __syncthreads();
 
-  // finalize: x = q * sb + slot, slot fastest, (q, slot) stepped without a
-  // division (x - lane keeps the loop warp-uniform for the count's ballot)
+  // finalize the group's nq queries: x = q * sb + slot, slot fastest,
+  // (q, slot) stepped without a division (x - lane keeps the loop
+  // warp-uniform for the count's ballot)
+  const int q0 = blockIdx.y * kg;
+  const int nq = min(kg, K - q0);
+  const long long row0 = static_cast<long long>(p) * K + q0;   // (p, q0)
   int qf = tid / sb, sf = tid % sb;
   const int dqf = kPackThreads / sb, dsf = kPackThreads % sb;
-  for (int x = tid; x - lane < K * sb; x += kPackThreads) {
-    const bool in = x < K * sb;
+  for (int x = tid; x - lane < nq * sb; x += kPackThreads) {
+    const bool in = x < nq * sb;
     const int qx = in ? qf : 0;
     const int s = sf;
     sf += dsf;
@@ -285,7 +355,7 @@ send_pack_kernel(const float* __restrict__ dq,
     bool improved = false;
     if (in) {
       const int slot = i * sb + s;
-      const long long o = (static_cast<long long>(p) * K + qx) * sp + slot;
+      const long long o = (row0 + qx) * sp + slot;
       const float m = repro::key_value(tile[s * kp + qx]);
       const float before = once(last + o);
       improved =
@@ -299,8 +369,8 @@ send_pack_kernel(const float* __restrict__ dq,
     if (improved && lane == __ffs(imp) - 1) atomicAdd(cnt + qx, __popc(imp));
   }
   __syncthreads();
-  for (int qc = tid; qc < K; qc += kPackThreads)
-    if (cnt[qc]) atomicAdd(sends + p * K + qc, cnt[qc]);
+  for (int qc = tid; qc < nq; qc += kPackThreads)
+    if (cnt[qc]) atomicAdd(sends + row0 + qc, cnt[qc]);
 }
 
 template <bool kRagged>
@@ -313,7 +383,7 @@ int launch(const float* dist, float* dist_qi, const float* last,
   if (P * K * n_stiles == 0) return 0;
   PackShape sh;
   if (!pack_shape(K, sb, &sh) || (K > 1 && dist_qi == nullptr) ||
-      static_cast<long long>(bp) * K > 0x7fffffffLL)
+      static_cast<long long>(bp) * K > 0x7fffffffLL || sh.groups > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = repro::allow_smem(send_pack_kernel<kRagged>,
                                       static_cast<size_t>(sh.smem));
@@ -326,24 +396,28 @@ int launch(const float* dist, float* dist_qi, const float* last,
     if (err != cudaSuccess) return static_cast<int>(err);
     dq = dist_qi;
   }
-  send_pack_kernel<kRagged><<<P * n_stiles, kPackThreads,
+  const dim3 grid(P * n_stiles, sh.groups);
+  send_pack_kernel<kRagged><<<grid, kPackThreads,
                               static_cast<size_t>(sh.smem), stream>>>(
       dq, last, valid, bounds, src_t, w_t, segrel_t, pruned_t, val, new_last,
-      sends, K, bp, sp, n_stiles, n_rows, n_chunks, eb, sb, sh.kp, sh.nb);
+      sends, K, bp, sp, n_stiles, n_rows, n_chunks, eb, sb, sh.kg, sh.kp,
+      sh.nb);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Bytes of shared memory a pack CTA takes for K queries and slot tiles of
-// sb, or -1 when its tile of minima is past the card's limit a block.
+// Bytes of shared memory a pack CTA takes for K queries (its group's) and
+// slot tiles of sb, or -1 when not even one query's tile of minima and one
+// staged edge fit in the card's shared memory a block.
 extern "C" int send_smem_bytes(int K, int sb) {
   PackShape sh;
   return pack_shape(K, sb, &sh) ? static_cast<int>(sh.smem) : -1;
 }
 
-// Dense layout [P, n_stiles, n_chunks, eb]. dist_qi: [P, bp, K] scratch
-// for the interleaved rows (null at K = 1).
+// Dense layout [P, n_stiles, n_chunks, eb]. dist_qi: [P * bp * K + K]
+// scratch for the interleaved rows and the padding a last query group's
+// pair loop may read (null at K = 1).
 extern "C" int send_pack_tiled(const float* dist, float* dist_qi,
                                const float* last, const int* valid,
                                const int* src_t, const float* w_t,

@@ -23,7 +23,6 @@
 namespace repro {
 
 constexpr int kInfBits = 0x7f800000;   // +inf as an int (and as a key)
-constexpr int kThreads = 512;          // threads per block in every kernel
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(kInfBits); }
 

@@ -15,6 +15,8 @@ layout is ``[P, n_vtiles, n_chunks, EB]``, the ragged one
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
@@ -76,12 +78,20 @@ def merge_scatter_ragged_plain(dist, incoming, ctile, pos_r, dstrel_r,
 
 
 _SIGNATURES = {"merge_scatter_tiled": build.signature(8, 8),
-               "merge_scatter_ragged": build.signature(9, 8)}
+               "merge_scatter_ragged": build.signature(9, 8),
+               "merge_smem_bytes": [ctypes.c_int] * 2}
 
 
-def _outputs(dist):
+def _outputs(name, lib, dist, vb: int):
     """out, front, and recvs [P, K], which the C entry point zeroes on the
-    launch's stream (no fill kernel of its own)."""
+    launch's stream (no fill kernel of its own). Any K runs: the kernel
+    splits the queries into groups whose [Kg, vb] tiles fit in shared
+    memory. Raises when a tile of ``vb`` vertices is too wide for even one
+    query."""
+    if dist.shape[1] and lib.merge_smem_bytes(dist.shape[1], vb) < 0:
+        raise ValueError(f"{name}: a tile of {vb} vertices does not fit in "
+                         f"shared memory for even one query; use narrower "
+                         f"vertex tiles")
     return (torch.empty_like(dist), torch.empty_like(dist),
             dist.new_empty(dist.shape[:2], dtype=torch.int32))
 
@@ -102,7 +112,7 @@ def merge_scatter_tiled(dist, incoming, pos_t, dstrel_t, valid_t, *, vb: int):
     check_cuda("merge", torch.float32, dist, incoming)
     check_cuda("merge", torch.int32, pos_t, dstrel_t, valid_t)
     lib = build.load("merge", _SIGNATURES)
-    outs = _outputs(dist)
+    outs = _outputs("merge", lib, dist, vb)
     stream = build.current_stream(dist.device)
     code = lib.merge_scatter_tiled(
         *(t.data_ptr() for t in (dist, incoming, pos_t, dstrel_t, valid_t,
@@ -139,7 +149,7 @@ def merge_scatter_ragged(dist, incoming, ctile, pos_r, dstrel_r, valid_r, *,
     check_cuda("merge_ragged", torch.float32, dist, incoming)
     check_cuda("merge_ragged", torch.int32, bounds, pos_r, dstrel_r, valid_r)
     lib = build.load("merge", _SIGNATURES)
-    outs = _outputs(dist)
+    outs = _outputs("merge_ragged", lib, dist, vb)
     stream = build.current_stream(dist.device)
     code = lib.merge_scatter_ragged(
         *(t.data_ptr() for t in (dist, incoming, bounds, pos_r, dstrel_r,

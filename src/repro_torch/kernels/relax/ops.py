@@ -121,22 +121,26 @@ def _check_eb(src_t, eb: int):
 
 
 def relax_pallas(dist_pad, src_t, w_t, dstrel_t, *, vb: int = 128,
-                 eb: int = 512, interpret: bool = True):
+                 eb: int = 512, interpret: bool = True, chunks=None):
     """One unmasked Jacobi sweep (kernel 11) over the layout of
     ``build_dst_tiled_layout``: dist_pad [block_pad] f32 -> [block_pad].
-    ``interpret`` is the reference's keyword, accepted and ignored."""
+    ``interpret`` is the reference's keyword, accepted and ignored;
+    ``chunks``, the layout's ``live_chunks(w_t[None] < inf)``, spares the
+    card's launch its pre-pass (``relax_dst_tiled``)."""
     _check_eb(src_t, eb)
-    return relax_dst_tiled(dist_pad, src_t, w_t, dstrel_t, vb=vb)
+    return relax_dst_tiled(dist_pad, src_t, w_t, dstrel_t, vb=vb,
+                           chunks=chunks)
 
 
 def relax_masked_pallas(dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t,
                         *, vb: int = 128, eb: int = 512,
-                        interpret: bool = True):
+                        interpret: bool = True, chunks=None):
     """One frontier-masked sweep (kernel 10). Returns (new_dist, n_relax
-    scalar)."""
+    scalar). ``chunks`` as ``relax_pallas``'s."""
     _check_eb(src_t, eb)
     new, nrel = relax_dst_tiled_masked(dist_pad, front_pad, src_t, w_t,
-                                       dstrel_t, pruned_t, vb=vb)
+                                       dstrel_t, pruned_t, vb=vb,
+                                       chunks=chunks)
     return new, nrel[0]
 
 

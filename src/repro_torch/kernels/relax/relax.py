@@ -17,7 +17,9 @@ chunk->tile map ``ctile`` ``[P, total_chunks]``. Kernels 9-11 take one row
 ``[block_pad]`` and one dense layout ``[n_vtiles, n_chunks, EB]``, as the
 reference does; their kernels order candidates by an order-preserving key
 (``csrc/tile_reduce.cuh: min_key``), so they take any non-NaN distances,
-negative ones included. Every kernel reads the layout as the builders make
+negative ones included; kernels 10 and 11 (one cooperative launch over the
+layout's live chunks) also give the plain version's NaN wherever it adds
+-inf and +inf. Every kernel reads the layout as the builders make
 it (sources in ``[0, block_pad)``, ``dstrel`` in ``[0, vb)``): the
 wrappers check shapes and dtypes, not index values. Kernels 1, 2 and 9 run
 the Hopper chain of ``csrc/sweeps_ragged.cuh`` (1 and 9 over the dense
@@ -178,8 +180,9 @@ _SIGNATURES = {"relax_fixpoint_batch": build.signature(13, 9),
                "relax_ragged_fixpoint_batch": build.signature(11, 9),
                "relax_ragged_scratch_bytes": [ctypes.c_int] * 4,
                "relax_fixpoint": build.signature(11, 7),
-               "relax_masked": build.signature(8, 4),
-               "relax_sweep": build.signature(5, 4)}
+               "relax_masked": build.signature(11, 4),
+               "relax_sweep": build.signature(8, 4),
+               "relax_sweep_scratch_words": [ctypes.c_int] * 6}
 
 
 def _outputs(dist):
@@ -357,43 +360,62 @@ def _launch_single(dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t, *,
 
 
 def relax_dst_tiled_masked(dist_pad, front_pad, src_t, w_t, dstrel_t,
-                           pruned_t, *, vb: int):
+                           pruned_t, *, vb: int, chunks=None):
     """Kernel 10: same contract as the plain version. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (one CTA per vertex
-    tile)."""
+    plain version and ignore ``chunks``; CUDA tensors launch the kernel (one
+    cooperative launch over the layout's live chunks, balanced by chunk:
+    ``csrc/relax.cu``). ``chunks``: those chunks, the (idx, bounds) pair of
+    ``live_chunks(w_t[None] < inf)``, which a caller that sweeps one layout
+    many times derives once; without it the entry point finds them on the
+    card first (two more launches, and the weights read in full)."""
     if not dist_pad.is_cuda:
         return relax_dst_tiled_masked_plain(
             dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t, vb=vb)
-    n_vtiles, n_chunks, eb = _single_operands(
-        "relax_masked", (dist_pad, front_pad),
-        (src_t, w_t, dstrel_t, pruned_t), vb)
-    lib = build.load("relax", _SIGNATURES)
-    out = torch.empty_like(dist_pad)
-    nrel = torch.zeros(1, dtype=torch.int32, device=dist_pad.device)
-    stream = torch.cuda.current_stream(dist_pad.device).cuda_stream
-    code = lib.relax_masked(
-        *map(build.ptr, (dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t,
-                         out, nrel)),
-        n_vtiles, n_chunks, eb, vb, stream)
-    build.check(lib, "relax_masked", code)
-    build.count_launch("relax_masked")
-    return out, nrel
+    return _launch_sweep("relax_masked", (dist_pad, front_pad),
+                         (src_t, w_t, dstrel_t, pruned_t), vb, chunks)
 
 
-def relax_dst_tiled(dist_pad, src_t, w_t, dstrel_t, *, vb: int):
+def relax_dst_tiled(dist_pad, src_t, w_t, dstrel_t, *, vb: int, chunks=None):
     """Kernel 11: same contract as the plain version. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (one CTA per vertex
-    tile)."""
+    plain version and ignore ``chunks``; CUDA tensors launch the kernel, as
+    kernel 10's (``chunks`` likewise)."""
     if not dist_pad.is_cuda:
         return relax_dst_tiled_plain(dist_pad, src_t, w_t, dstrel_t, vb=vb)
-    n_vtiles, n_chunks, eb = _single_operands(
-        "relax_sweep", (dist_pad,), (src_t, w_t, dstrel_t), vb)
+    return _launch_sweep("relax_sweep", (dist_pad,), (src_t, w_t, dstrel_t),
+                         vb, chunks)[0]
+
+
+def _launch_sweep(name, rows, planes, vb: int, chunks):
+    """Kernels 10 (``rows`` = (dist, front), four planes) and 11 (dist,
+    three planes): the pre-pass where ``chunks`` is None, then the sweep, on
+    the current stream. Returns (out, nrel) for kernel 10, (out,) for 11."""
+    n_vtiles, n_chunks, eb = _single_operands(name, rows, planes, vb)
+    if chunks is not None:
+        idx, bounds = chunks
+        if (idx.shape != (1, n_vtiles * n_chunks)
+                or bounds.shape != (1, n_vtiles + 1)):
+            raise ValueError(f"{name}: live chunks {tuple(idx.shape)} / "
+                             f"{tuple(bounds.shape)} do not match the layout "
+                             f"{tuple(planes[0].shape)}")
+        check_cuda(name, torch.int32, idx, bounds)
+    masked = len(rows) == 2
+    dev = rows[0].device
     lib = build.load("relax", _SIGNATURES)
-    out = torch.empty_like(dist_pad)
-    stream = torch.cuda.current_stream(dist_pad.device).cuda_stream
-    code = lib.relax_sweep(
-        *map(build.ptr, (dist_pad, src_t, w_t, dstrel_t, out)),
-        n_vtiles, n_chunks, eb, vb, stream)
-    build.check(lib, "relax_sweep", code)
-    build.count_launch("relax_sweep")
-    return out
+    words = lib.relax_sweep_scratch_words(int(masked), int(chunks is None),
+                                          n_vtiles, n_chunks, eb, vb)
+    if words < 0:
+        raise ValueError(f"{name}: a layout of {n_vtiles} x {n_chunks} "
+                         f"chunks and tiles of {vb} is past the sweep's "
+                         f"scratch (int32 words) or its tile past shared "
+                         f"memory")
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    outs = (torch.empty_like(rows[0]),)
+    if masked:
+        outs += (torch.empty(1, dtype=torch.int32, device=dev),)
+    code = getattr(lib, name)(
+        *map(build.ptr_or_null, (*rows, *planes, *(chunks or (None, None)),
+                                 *outs, scratch)),
+        n_vtiles, n_chunks, eb, vb, build.current_stream(dev))
+    build.check(lib, name, code)
+    build.count_launch(name)
+    return outs

@@ -89,16 +89,18 @@ _SIGNATURES = {"send_pack_tiled": build.signature(11, 8),
 
 
 def _outputs(name, lib, dist, last, sb: int):
-    """The interleaved rows' scratch [P, bp, K] (None at K = 1), val,
-    new_last, and the zeroed sends [P, K]. Raises when the CTA's tile of
-    minima for K queries and slot tiles of ``sb`` leaves no room in shared
-    memory for one staged edge (past 450 queries at ``sb`` = 128)."""
+    """The interleaved rows' scratch, P * bp * K words and K of padding
+    that a last query group's pair loop may read past the rows (None at
+    K = 1), val, new_last, and the zeroed sends [P, K]. Any K runs: the
+    kernel splits the queries into groups whose tiles of minima fit in
+    shared memory. Raises when a slot tile of ``sb`` is too wide for even
+    one query's tile beside one staged edge."""
     P, K, bp = dist.shape
-    if lib.send_smem_bytes(K, sb) < 0:
-        raise ValueError(f"{name}: a tile of {sb} slots for {K} queries does "
-                         f"not fit in shared memory; use fewer queries a "
-                         f"batch")
-    scratch = (torch.empty((P, bp, K), device=dist.device) if K > 1
+    if K and lib.send_smem_bytes(K, sb) < 0:
+        raise ValueError(f"{name}: a tile of {sb} slots does not fit in "
+                         f"shared memory for even one query; use narrower "
+                         f"slot tiles")
+    scratch = (torch.empty(P * bp * K + K, device=dist.device) if K > 1
                else None)
     return scratch, (torch.empty_like(last), torch.empty_like(last),
                      torch.zeros(last.shape[:2], dtype=torch.int32,

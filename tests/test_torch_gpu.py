@@ -25,6 +25,7 @@ import repro_torch.graph as tg  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.common import pad_last  # noqa: E402
 from repro_torch.kernels.common import chunk_bounds  # noqa: E402
+from repro_torch.kernels.common import live_chunks  # noqa: E402
 from repro_torch.kernels.merge import (  # noqa: E402
     build_msg_ragged_layout, build_msg_tiled_layout, merge_scatter_ragged,
     merge_scatter_ragged_plain, merge_scatter_tiled,
@@ -800,18 +801,20 @@ def _send_case(layout, K, device, sb=VB):
 
 
 @pytest.mark.parametrize("K,sb", [(1, VB), (3, VB), (16, VB), (48, VB),
-                                  (450, 128), (1760, VB)])
+                                  (450, 128), (451, 128), (512, 128),
+                                  (1000, 128), (894, 64), (1760, VB)])
 @pytest.mark.parametrize("layout", ["ragged", "dense"])
 def test_send_kernels_match_plain_at_many_queries(cuda, layout, K, sb):
     """Kernels 4 (ragged) and 3 (dense), which gather from the query-
     interleaved rows, bit-equal to their plain versions at K = 1 (no
     interleave), 3 (not a power of two), 16 and 48 (more queries than a
     warp's lanes) on a layout with a hub slot, empty slot tiles and
-    padding chunks; and at the largest K whose tile of minima and counts,
-    K * (sb + 1) words, fits in shared memory a block (450 at the engine's
-    slot tiles of 128, 1,760 at 32), where the tile drops its odd-stride
-    padding and the staged batch shrinks to the few edges it leaves room
-    for."""
+    padding chunks; and past the most queries whose tile of minima leaves
+    room for a full staged batch (418 at the engine's slot tiles of 128,
+    1,636 at 32), where the launch splits the queries into groups that fit
+    six CTAs to an SM: 450 and 451 (eleven groups at sb 128), 512
+    (twelve), 1,000 (twenty-four), 894 at sb 64 (eleven) and 1,760 at 32
+    (eleven)."""
     args = _send_case(layout, K, cuda, sb=sb)
     kernel, plain, counter = (
         (send_pack_ragged, send_pack_ragged_plain, "send_ragged")
@@ -830,10 +833,10 @@ def test_send_kernels_match_plain_at_many_queries(cuda, layout, K, sb):
 
 @pytest.mark.parametrize("layout", ["ragged", "dense"])
 def test_send_kernels_reject_a_tile_past_shared_memory(cuda, layout):
-    """A query batch whose tile of minima and counts (128 slots x 451 keys
-    and 451 counts, one query past the largest that fits) is past the
-    card's shared memory a block raises before any launch; no fallback."""
-    K, sb, eb = 451, 128, 64
+    """A slot tile too wide for even one query's tile of minima and one
+    staged edge (65,536 slots: 256 KB of keys) raises before any launch;
+    no fallback. Any number of queries runs (the cases above)."""
+    K, sb, eb = 1, 65536, 64
     dist = torch.zeros((1, K, 128), device=cuda)
     last = torch.zeros((1, K, sb), device=cuda)
     valid = torch.ones((1, sb), dtype=torch.int32, device=cuda)
@@ -905,6 +908,106 @@ def test_relax_single_kernels_match_plain(cuda, negative):
         assert build.LAUNCHES[k] == n0[k] + n
 
 
+def _same_nan(got, want):
+    """Bit-equal, NaN in the same places (whatever its payload)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
+def _hub_single(device):
+    """600 vertices in tiles of 128, chunks of 64 edges: tile 1 takes a hub
+    of 900 edges and more (19 live chunks), tile 2 no edge (no live
+    chunk), tile 3 only edges from sources 500-599, which the frontier
+    leaves out; a row with 30% +inf, a 20% Trishla mask."""
+    rng = np.random.default_rng(11)
+    n = 600
+    src = np.r_[rng.integers(0, 500, 900), rng.integers(500, 600, 100),
+                rng.integers(0, n, 700)]
+    dst = np.r_[np.full(900, 130), rng.integers(384, 512, 100),
+                rng.choice(np.r_[0:256, 512:600], 700)]
+    w = rng.uniform(1, 20, len(src)).astype(np.float32)
+    src_t, w_t, dr_t, eid_t, bp = build_dst_tiled_layout(
+        src, dst, w, n, vb=128, eb=64, with_eid=True)
+    dist = rng.uniform(0, 50, bp).astype(np.float32)
+    dist[rng.random(bp) < 0.3] = np.inf
+    front = (rng.random(bp) < 0.5).astype(np.float32)
+    front[500:] = 0.0
+    pruned = torch.from_numpy((rng.random(len(src) + 1) < 0.2)
+                              .astype(np.int32))
+    pruned[-1] = 0
+    return [torch.from_numpy(a).to(device) if isinstance(a, np.ndarray)
+            else a.contiguous().to(device)
+            for a in (dist, front, src_t, w_t, dr_t, pruned[eid_t.long()])]
+
+
+def _sweep_case(case, device):
+    if case == "hub":
+        return _hub_single(device)
+    args = _single(np.random.default_rng(7), device, case != "single")
+    if case == "neg-inf":
+        # a few distances at -inf, the padding source's among them: -inf +
+        # inf is NaN in the plain version, dead chunks included
+        d = args[0].cpu().numpy()
+        d[np.random.default_rng(8).random(d.size) < 0.05] = -np.inf
+        d[-1] = -np.inf
+        args[0] = torch.from_numpy(d).to(device)
+    return args
+
+
+@pytest.mark.parametrize("route", ["chunks", "pre-pass"])
+@pytest.mark.parametrize("case", ["single", "negative", "neg-inf", "hub"])
+def test_sweep_kernels_over_live_chunks_match_plain(cuda, case, route):
+    """Kernels 11 and 10 (one cooperative launch over the live chunks)
+    bit-equal to their plain versions, with the caller's live chunks or the
+    entry point's pre-pass: a tile of many live chunks, a tile with none, a
+    live chunk whose sources are all outside the frontier ("hub"),
+    negative values, and -inf distances, where the plain version's -inf +
+    inf gives NaN (dead chunks included) and the kernels give NaN in the
+    same places; one launch counted a call."""
+    dist, front, src_t, w_t, dr_t, pr_t = _sweep_case(case, cuda)
+    chunks = (live_chunks(w_t[None] < float("inf")) if route == "chunks"
+              else None)
+    if case == "hub":
+        assert chunks is None or 0 in chunks[1][0].diff().tolist()
+    n0 = dict(build.LAUNCHES)
+    out = relax_dst_tiled(dist, src_t, w_t, dr_t, vb=128, chunks=chunks)
+    want = relax_dst_tiled_plain(dist, src_t, w_t, dr_t, vb=128)
+    _same_nan(out, want)
+    out10 = relax_dst_tiled_masked(dist, front, src_t, w_t, dr_t, pr_t,
+                                   vb=128, chunks=chunks)
+    want10 = relax_dst_tiled_masked_plain(dist, front, src_t, w_t, dr_t,
+                                          pr_t, vb=128)
+    _same_nan(out10[0], want10[0])
+    assert torch.equal(out10[1], want10[1]) and int(want10[1]) > 0
+    assert bool(torch.isnan(want).any()) == (case == "neg-inf")
+    for k in ("relax_sweep", "relax_masked"):
+        assert build.LAUNCHES[k] == n0[k] + 1
+
+
+def test_sweep_kernels_planted_fault_dropped_chunk_differs(cuda):
+    """A list of live chunks that drops one (the first of the heaviest
+    tile) gives another result than the plain version: the kernels read
+    the list they are given and nothing else."""
+    dist, front, src_t, w_t, dr_t, pr_t = _hub_single(cuda)
+    idx, bounds = live_chunks(w_t[None] < float("inf"))
+    t = int(bounds[0].diff().argmax())
+    lo = int(bounds[0, t])
+    bad = (torch.cat([idx[:, :lo], idx[:, lo + 1:], idx[:, lo:lo + 1]], 1),
+           bounds.clone())
+    bad[1][0, t + 1:] -= 1
+    out = relax_dst_tiled(dist, src_t, w_t, dr_t, vb=128, chunks=bad)
+    assert not torch.equal(out, relax_dst_tiled_plain(dist, src_t, w_t, dr_t,
+                                                      vb=128))
+    out10 = relax_dst_tiled_masked(dist, front, src_t, w_t, dr_t, pr_t,
+                                   vb=128, chunks=bad)
+    want10 = relax_dst_tiled_masked_plain(dist, front, src_t, w_t, dr_t,
+                                          pr_t, vb=128)
+    assert not (torch.equal(out10[0], want10[0])
+                and torch.equal(out10[1], want10[1]))
+
+
 def test_relax_single_wrappers_reject_bad_operands(cuda):
     dist, front, src_t, w_t, dr_t, pr_t = _single(np.random.default_rng(4),
                                                   cuda)
@@ -921,6 +1024,13 @@ def test_relax_single_wrappers_reject_bad_operands(cuda):
                                pr_t[:, :-1].contiguous(), vb=128)
     with pytest.raises(ValueError, match="do not match"):
         relax_dst_tiled(dist, src_t, w_t, dr_t, vb=64)
+    idx, bounds = live_chunks(w_t[None] < float("inf"))
+    with pytest.raises(ValueError, match="do not match the layout"):
+        relax_dst_tiled(dist, src_t, w_t, dr_t, vb=128,
+                        chunks=(idx, bounds[:, :-1].contiguous()))
+    with pytest.raises(ValueError, match="int32"):
+        relax_dst_tiled_masked(dist, front, src_t, w_t, dr_t, pr_t, vb=128,
+                               chunks=(idx.long(), bounds))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1238,14 +1348,14 @@ def test_flash_attention_f32_one_tf32_product_fails(cuda, D):
 
 # ----------------------------------------------------- kernels 5 and 6 ----
 
-def _merge_case(layout, K, eb, all_inf, device):
-    """Two shards of 1000 vertices (tiles of 128) receiving from 4 senders
-    x 400 bucket positions: tile 2 receives nothing, the hot tile 0 takes a
-    third of the messages (several chunks), query 0's incoming row is all
-    +inf (or every row, with ``all_inf``). Returns (args, kw) of the
+def _merge_case(layout, K, eb, all_inf, device, vb=128):
+    """Two shards of 1000 vertices (tiles of ``vb``) receiving from 4
+    senders x 400 bucket positions: tile 2 receives nothing, the hot tile 0
+    takes a third of the messages (several chunks), query 0's incoming row
+    is all +inf (or every row, with ``all_inf``). Returns (args, kw) of the
     wrapper of ``layout``."""
     rng = np.random.default_rng(5 * K + eb)
-    block, Pn, C, vb = 1000, 4, 400, 128
+    block, Pn, C = 1000, 4, 400
     lays, incs = [], []
     for _ in range(2):
         ridx = rng.integers(0, block, (Pn, C))
@@ -1308,3 +1418,91 @@ def test_merge_kernels_match_plain_at_many_queries(cuda, layout, K, eb,
             assert int(got_recvs[:, 1:].min()) > 0
     # recvs is zeroed by the launch: a second call gives the same counts
     assert torch.equal(kernel(*args, **kw)[2], got_recvs)
+
+
+@pytest.mark.parametrize("K,vb", [(451, 128), (512, 128), (1000, 128),
+                                  (300, 256)])
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+def test_merge_kernels_match_plain_past_one_group(cuda, layout, K, vb):
+    """Kernels 5 and 6 past one query group (a [K, vb] tile that lets an
+    SM hold eight CTAs: 56 queries at vb 128, 28 at 256): the launch splits
+    the queries into groups (nine at 451, ten at 512, eighteen at 1,000,
+    eleven at 300 with vb 256, the first two past the most one block
+    holds), each group's CTAs adding to its own queries' recvs; out, front
+    and recvs bit-equal to the plain versions."""
+    args, kw = _merge_case(layout, K, 128, False, cuda, vb=vb)
+    name = "merge" if layout == "dense" else "merge_ragged"
+    kernel, plain = {"dense": (merge_scatter_tiled, merge_scatter_tiled_plain),
+                     "ragged": (merge_scatter_ragged,
+                                merge_scatter_ragged_plain)}[layout]
+    n0 = build.LAUNCHES[name]
+    out = kernel(*args, **kw)
+    ref = plain(*args, **kw)
+    assert build.LAUNCHES[name] == n0 + 1
+    for got, want in zip(out, ref):
+        assert torch.equal(got, want)
+    assert int(out[2][:, 0].sum()) == 0 and int(out[2][:, 1:].min()) > 0
+
+
+def test_merge_kernels_reject_a_tile_past_shared_memory(cuda):
+    """A vertex tile too wide for even one query (65,536 vertices: 256 KB
+    of keys) raises before any launch; no fallback."""
+    vb, eb = 65536, 4
+    dist = torch.zeros((1, 1, vb), device=cuda)
+    inc = torch.zeros((1, 1, 4), device=cuda)
+    lay = torch.zeros((1, 1, 1, eb), dtype=torch.int32, device=cuda)
+    ct = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    n0 = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match="does not fit in shared memory"):
+        merge_scatter_tiled(dist, inc, lay, lay, lay, vb=vb)
+    with pytest.raises(ValueError, match="does not fit in shared memory"):
+        merge_scatter_ragged(dist, inc, ct, lay[0], lay[0], lay[0], vb=vb)
+    assert build.LAUNCHES == n0
+
+
+# ------------------------------ the engine past one query group (3-6) ----
+
+@pytest.mark.parametrize("K", [300, 1000])
+@pytest.mark.parametrize("layout,rnd", [("dense", "staged"),
+                                        ("ragged", "staged"),
+                                        ("ragged", "fused"),
+                                        ("dense", "fused")])
+def test_engine_many_queries_on_gpu(cuda, layout, rnd, K):
+    """K = 300 (bucket 512) and 1,000 (bucket 1,024) sources on the card,
+    past one query group of kernels 3-6 at the engine's tiles of 128 (past
+    the 418 queries one send group holds): converged, equal to the CPU run in
+    distances, every counter and status, and to the same sources solved on
+    the card in batches of at most 256 in distances and per-query rounds and
+    relaxations."""
+    g = tg.rmat_graph(scale=8, edge_factor=4, seed=1)
+    sh = tc.build_shards(g, 4, layout=layout, relax_eb=EB, send_eb=EB,
+                         merge_eb=EB)
+    rng = np.random.default_rng(K)
+    deg = np.diff(g.row_ptr.numpy())
+    srcs = [int(s) for s in rng.choice(np.nonzero(deg)[0], K)]
+    cfg = (tc.SsspConfig(**ALL_KERNELS) if rnd == "staged"
+           else tc.SsspConfig(round="fused"))
+    build.reset_launches()
+    eng = tc.SsspEngine.build(sh, cfg)
+    on_gpu = eng.solve(srcs)
+    sfx = "_ragged" if layout == "ragged" else ""
+    if rnd == "staged":
+        assert min(build.LAUNCHES[k + sfx] for k in STAGED) > 0
+    else:
+        assert build.LAUNCHES["round" + sfx] == int(on_gpu.stats.rounds)
+    assert on_gpu.bucket_k == (512 if K == 300 else 1024)
+    assert on_gpu.status == "converged" and on_gpu.q_converged.all()
+    on_cpu = tc.SsspEngine.build(sh, cfg, device="cpu").solve(srcs)
+    assert on_cpu.status == on_gpu.status
+    np.testing.assert_array_equal(on_gpu.dist, on_cpu.dist)
+    for f in COUNTERS:
+        np.testing.assert_array_equal(np.asarray(getattr(on_gpu.stats, f)),
+                                      np.asarray(getattr(on_cpu.stats, f)),
+                                      err_msg=f)
+    parts = [eng.solve(srcs[i:i + 256]) for i in range(0, K, 256)]
+    np.testing.assert_array_equal(np.concatenate([p.dist for p in parts]),
+                                  on_gpu.dist)
+    for f in ("q_rounds", "q_relaxations"):
+        np.testing.assert_array_equal(
+            np.concatenate([getattr(p, f) for p in parts]),
+            getattr(on_gpu, f), err_msg=f)
