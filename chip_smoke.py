@@ -34,7 +34,9 @@ Phases, each of which exits non-zero on a mismatch:
   parity   solve rmat scale 11 (Trishla on, P=8, K=4) with the all-kernel
            staged config and with round="fused", each on the card and on
            the CPU: distances and every counter equal; fused == staged but
-           for n_dispatches;
+           for n_dispatches; then local_solver="delta" and toka="toka1"
+           (all-kernel) the same way, their distances == the toka0
+           solve's;
   scale    the dense path: SsspEngine.solve on preset "scale-1e6" (65,536
            vertices, 955,492 directed edges; P=8) with K=16 and K=1, every
            query certified converged, 4 sources checked against Dijkstra,
@@ -45,6 +47,21 @@ Phases, each of which exits non-zero on a mismatch:
            queries into groups) staged and fused, each converged and equal
            in distances and per-query rounds and relaxations to the same
            sources in batches of at most 256, 4 of them against Dijkstra;
+  engine   the session engine on the scale-1e6 dense shards: 8 landmark
+           pivots precomputed (wall, bytes a shard); the scale phase's 16
+           sources solved landmark-warm, staged (kernels 1, 3, 5) and
+           fused (kernel 7): bit-equal to the cold solves, converged, 4
+           against scipy's Dijkstra, rounds and medians of 5 walls warm
+           and cold; kernels 1 and 7 at the warm round-0 state (every
+           seeded vertex in the frontier) bit-equal to their plain
+           versions, timed, and with a live chunk dropped from their list
+           different; the result cache (16 repeats: 16 hits, no round,
+           bucket 0; 8 cached + 8 new ride bucket 8, equal to a cold solve
+           of the 8); drain of 64 single-source handles (max_bucket 16: 4
+           batches of 16, each row equal to a K=1 solve; queries a
+           second); warmup(16) > 0 then 0.0; solve_sim_batch and solve_sim
+           on one engine (trace counts as the reference's test);
+           certify=False reports the detector;
   ragged   stream-build scale-1e6 ragged (build_shards_stream) and dense
            (build_shards over csr_from_coo of the same chunks) and solve
            both with K=16: distances and every counter equal; 300 sources
@@ -65,7 +82,9 @@ Phases, each of which exits non-zero on a mismatch:
            shards with K=16 and K=1, every query certified converged, 2
            sources checked against scipy's Dijkstra, the ragged kernels
            launched and the dense ones not; the median of 5 more K=16
-           solves;
+           solves; then 8 landmarks and the K=16 solve landmark-warm
+           (kernels 2, 4, 6): bit-equal to the cold solve, converged,
+           rounds and walls beside the cold ones;
   fused    this slice's main path: the same solves with round="fused":
            converged, equal to the staged solves in distances and every
            counter but n_dispatches, round_ragged launched once a round,
@@ -368,9 +387,12 @@ def profile_run(torch, fn, trace_path: Path, label: str):
         say(f"  {us / 1e3:9.3f} ms  {n:5d}x  {name[:90]}{extra}")
 
 
-def live_sources(np, rng, g, k):
-    deg = np.diff(g.row_ptr.numpy())
-    return [int(s) for s in rng.choice(np.nonzero(deg)[0], k, replace=False)]
+def live_sources(np, rng, g, k, avoid=()):
+    """``k`` live sources drawn by ``rng``, none of them in ``avoid``."""
+    live = np.nonzero(np.diff(g.row_ptr.numpy()))[0]
+    if len(avoid):
+        live = np.setdiff1d(live, np.asarray(avoid, live.dtype))
+    return [int(s) for s in rng.choice(live, k, replace=False)]
 
 
 def concat_graph(np, chunks, n):
@@ -936,12 +958,13 @@ def round_kernel_phase(torch, np, eng, sources, cfg, name):
     return {name: row}
 
 
-def solve_median(eng, sources, what: str, n: int = 5):
+def solve_median(eng, sources, what: str, n: int = 5) -> float:
     """The host wall of ``n`` more solves of ``sources``: median, min and
-    max, printed."""
+    max, printed; returns the median."""
     walls = [eng.solve(sources).wall_s for _ in range(n)]
     say(f"{what}: median of {n} solves {statistics.median(walls):.4f} s "
         f"(min {min(walls):.4f}, max {max(walls):.4f})")
+    return statistics.median(walls)
 
 
 def many_queries(np, eng, g, what: str, n: int = 300):
@@ -1000,6 +1023,250 @@ def check_fused(res_f, res_s, launches, ragged: bool, what: str) -> int:
             or launches["relax" + sfx] < rescued or other):
         fail(f"{what}: launches {launches} for {rounds} rounds")
     return rescued
+
+
+def rounds_of(res) -> str:
+    return (f"q_rounds mean {float(res.q_rounds.mean()):.2f} max "
+            f"{int(res.q_rounds.max())}, {int(res.stats.rounds)} rounds")
+
+
+def launched(build, names):
+    """The launch counts of ``names`` since the last reset; fails unless
+    each is above 0."""
+    got = {k: build.LAUNCHES[k] for k in names}
+    if min(got.values()) < 1:
+        fail(f"a kernel of the path was not launched: {got}")
+    return got
+
+
+def drop_live_chunk(torch, chunks):
+    """A planted fault: shard 0's (idx, bounds) list of live chunks with
+    the first live chunk of its heaviest tile moved past the live ones,
+    so a kernel given the list never reads it."""
+    idx, bounds = chunks
+    t = int(bounds[0].diff().argmax())
+    lo = int(bounds[0, t])
+    idx, bounds = idx.clone(), bounds.clone()
+    row = idx[0].clone()
+    idx[0] = torch.cat([row[:lo], row[lo + 1:], row[lo:lo + 1]])
+    bounds[0, t + 1:] -= 1
+    return idx, bounds
+
+
+def warm_state_kernels(torch, np, eng_s, eng_f, sources):
+    """Kernels 1 and 7 at the landmark-warm round-0 state, every finitely
+    seeded vertex in the frontier: each bit-equal to its plain version,
+    timed (medians of 20 x 10 calls), and with a live chunk dropped from
+    its list (``drop_live_chunk``) different from it."""
+    from repro_torch.core import init_carry
+    from repro_torch.kernels.relax import (fixpoint_operands,
+                                           relax_dst_tiled_fixpoint_batch,
+                                           relax_dst_tiled_fixpoint_batch_plain)
+    from repro_torch.kernels.round import (fused_round_operands,
+                                           fused_round_tiled,
+                                           fused_round_tiled_plain)
+    dsh = eng_s.shards
+    k = len(sources)
+    src = torch.tensor(sources, dtype=torch.int32, device=dsh.device)
+    q_valid = torch.ones(k, dtype=torch.bool, device=dsh.device)
+    seed = eng_s._warm_stage.seed_stacked(eng_s.landmarks.dist, src, q_valid)
+    carry = init_carry(dsh, sources, eng_s.cfg, q_valid=q_valid,
+                       seed_dist=seed)
+    src_t, w_t, dstrel_t, eid_t = dsh.relax_layout
+    r_in = fixpoint_operands(carry.dist, carry.active,
+                             carry.pruned[:, :dsh.e_loc], eid_t,
+                             src_t.shape[1] * dsh.rx_vb)
+    r_args = (*r_in[:2], src_t, w_t, dstrel_t, r_in[2])
+    r_kw = dict(vb=dsh.rx_vb, n_sweeps=eng_s.cfg.pallas_sweeps)
+    out = relax_dst_tiled_fixpoint_batch(*r_args, **r_kw,
+                                         chunks=dsh.relax_chunks)
+    ref, plain_ms = once(torch, lambda: relax_dst_tiled_fixpoint_batch_plain(
+        *r_args, **r_kw))
+    err = compare(torch, "relax (warm round 0)", out, ref)
+    ms, _ = timed_median(torch, lambda: relax_dst_tiled_fixpoint_batch(
+        *r_args, **r_kw, chunks=dsh.relax_chunks))
+    bad = relax_dst_tiled_fixpoint_batch(
+        *r_args, **r_kw, chunks=drop_live_chunk(torch, dsh.relax_chunks))
+    if all(torch.equal(b, r) for b, r in zip(bad, ref)):
+        fail("relax (warm round 0): a dropped live chunk equals the plain "
+             "version")
+    say(f"  warm round 0, kernel 1: frontier "
+        f"{int(carry.active.sum())} of {carry.active.numel()} (query, "
+        f"vertex) pairs, {int(out[2].sum())} relaxations, residual rows "
+        f"{int((out[1] > 0).any(-1).sum())}; {ms:.4f} ms kernel (median), "
+        f"{plain_ms:.2f} ms plain, max abs err {err}; a dropped live chunk "
+        f"differs ({int(bad[2].sum())} relaxations)")
+
+    fsh = eng_f.shards
+    carry = init_carry(fsh, sources, eng_f.cfg, q_valid=q_valid,
+                       seed_dist=seed)
+    live = ~carry.done
+    ops = fused_round_operands(
+        carry.dist, carry.active & live[..., None], live,
+        carry.incoming.reshape(*carry.dist.shape[:2], -1), carry.last_sent,
+        fsh.slot_valid, fsh.relax_layout, fsh.send_layout, fsh.merge_layout,
+        carry.pruned[:, :fsh.e_loc], carry.pruned[:, fsh.e_loc:],
+        vb=fsh.rx_vb, sb=fsh.tx_sb, dense=False)
+    kw = dict(vb=fsh.rx_vb, sb=fsh.tx_sb, n_sweeps=eng_f.cfg.pallas_sweeps,
+              dense=False)
+    out = fused_round_tiled(*ops, **kw, chunks=fsh.round_chunks)
+    ref, plain_ms = once(torch, lambda: fused_round_tiled_plain(*ops, **kw))
+    err = compare(torch, "round (warm round 0)", out, ref)
+    ms, _ = timed_median(torch, lambda: fused_round_tiled(
+        *ops, **kw, chunks=fsh.round_chunks))
+    m_ch, r_ch, s_ch = fsh.round_chunks
+    bad = fused_round_tiled(*ops, **kw, chunks=(
+        m_ch, drop_live_chunk(torch, r_ch), s_ch))
+    if all(torch.equal(b, r) for b, r in zip(bad, ref)):
+        fail("round (warm round 0): a dropped live chunk equals the plain "
+             "version")
+    say(f"  warm round 0, kernel 7: {int(out[4].sum())} relaxations, "
+        f"{int(out[5].sum())} sends, residual rows "
+        f"{int((out[1] > 0).any(-1).sum())}; {ms:.4f} ms kernel (median), "
+        f"{plain_ms:.2f} ms plain, max abs err {err}; a dropped live chunk "
+        f"differs ({int(bad[4].sum())} relaxations)")
+
+
+def engine_phase(torch, np, eng, eng_f, g, sources, res, res_f):
+    """The session engine's serving surface on the scale-1e6 dense shards:
+    landmark precompute, warm solves against the cold ones (staged and
+    fused; kernels 1 and 7 at the warm round-0 state), the result cache,
+    ``drain`` of 64 single-source handles, ``warmup``, the legacy wrappers
+    and ``certify=False``. ``res``/``res_f``: the cold staged and fused
+    K=16 solves of ``sources``."""
+    from repro_torch.core import (SsspConfig, SsspEngine, engine_for,
+                                  solve_sim, solve_sim_batch)
+    from repro_torch.kernels import build
+    rng = np.random.default_rng(22)
+    sh = eng.shards
+    cfg = eng.cfg
+    cfg_w = SsspConfig(**ALL_KERNELS, warm_start="landmark")
+    # pivots away from the sources, so that no warm source is a cache hit
+    piv = live_sources(np, rng, g, 8, avoid=sources)
+
+    # ---- landmarks
+    eng_w = SsspEngine.build(sh, cfg_w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm = eng_w.precompute_landmarks(piv)
+    torch.cuda.synchronize()
+    say(f"engine phase: precompute_landmarks of 8 pivots "
+        f"{time.perf_counter() - t0:.4f} s wall, {lm.nbytes_per_shard} B a "
+        f"shard ({lm.n_landmarks} x block {sh.block} x 4 B)")
+
+    # ---- warm against cold, staged (kernels 1, 3, 5) and fused (7)
+    eng_wf = SsspEngine.build(sh, SsspConfig(round="fused",
+                                             warm_start="landmark"))
+    eng_wf.precompute_landmarks(piv)
+    build.reset_launches()
+    res_w = eng_w.solve(sources)
+    torch.cuda.synchronize()
+    warm_launches = launched(build, STAGED)
+    build.reset_launches()
+    res_wf = eng_wf.solve(sources)
+    torch.cuda.synchronize()
+    warm_launches.update(launched(build, ("round",)))
+    for what, r, cold, ew, ec in (("staged", res_w, res, eng_w, eng),
+                                  ("fused", res_wf, res_f, eng_wf, eng_f)):
+        if not r.warm_started or r.status != "converged" or not (
+                r.q_converged.all()):
+            fail(f"engine warm {what}: status {r.status}, warm_started "
+                 f"{r.warm_started}")
+        if not np.array_equal(r.dist, cold.dist):
+            fail(f"engine warm {what}: distances differ from the cold solve")
+        w_med = solve_median(ew, sources, f"  warm {what} K=16")
+        c_med = solve_median(ec, sources, f"  cold {what} K=16")
+        say(f"  warm {what} K=16: {rounds_of(r)} (cold {rounds_of(cold)}); "
+            f"{int(r.stats.relaxations)} relaxations (cold "
+            f"{int(cold.stats.relaxations)}); median of 5 walls "
+            f"{w_med:.4f} s warm, {c_med:.4f} s cold")
+    ref = scipy_dijkstra(np, g, sources[:4])
+    for i in range(4):
+        if not np.allclose(res_w.dist[i], ref[i], rtol=RTOL, atol=ATOL):
+            fail(f"engine warm: source {sources[i]} disagrees with Dijkstra")
+    say(f"  warm == cold bit for bit, staged and fused, every query "
+        f"converged, 4 match scipy's Dijkstra; launches {warm_launches}")
+    warm_state_kernels(torch, np, eng_w, eng_wf, sources)
+
+    # ---- the result cache
+    eng_c = SsspEngine.build(sh, cfg_w, result_cache=64)
+    eng_c.precompute_landmarks(piv)
+    first = eng_c.solve(sources)
+    hit = eng_c.solve(sources)
+    if (hit.cache_hits != 16 or hit.bucket_k != 0 or hit.q_rounds.any()
+            or int(hit.stats.rounds) or not np.array_equal(hit.dist,
+                                                           res.dist)
+            or not np.array_equal(first.dist, res.dist)):
+        fail(f"engine cache: hits {hit.cache_hits}, bucket {hit.bucket_k}, "
+             f"q_rounds {hit.q_rounds.tolist()}")
+    new8 = live_sources(np, rng, g, 8, avoid=list(sources) + piv)
+    mixed = eng_c.solve(sources[:8] + new8)
+    cold8 = eng.solve(new8)
+    if (mixed.cache_hits != 8 or mixed.bucket_k != 8
+            or not np.array_equal(mixed.dist[8:], cold8.dist)
+            or not np.array_equal(mixed.dist[:8], res.dist[:8])):
+        fail(f"engine cache: mixed batch hits {mixed.cache_hits}, bucket "
+             f"{mixed.bucket_k}")
+    say(f"  cache: 16 hits in {hit.wall_s:.5f} s wall (0 rounds, bucket 0; "
+        f"the filling warm solve {first.wall_s:.4f} s); 8 cached + 8 new "
+        f"rode bucket {mixed.bucket_k} in {mixed.wall_s:.4f} s, equal to a "
+        f"cold solve of the 8 ({cold8.wall_s:.4f} s)")
+
+    # ---- drain: 64 single-source handles, max_bucket 16
+    srcs64 = live_sources(np, rng, g, 64)
+    eng_d = SsspEngine.build(sh, cfg, max_bucket=16)
+    eng_d.warmup(16)
+    served = eng_d.batches_served
+    handles = [eng_d.submit(s) for s in srcs64]
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng_d.drain()
+    wall = time.perf_counter() - t0
+    drain_launches = launched(build, STAGED)
+    if (len(out) != 64 or eng_d.batches_served - served != 4
+            or eng_d.pending or {r.bucket_k for r in out} != {16}):
+        fail(f"engine drain: {len(out)} results, "
+             f"{eng_d.batches_served - served} batches, buckets "
+             f"{sorted({r.bucket_k for r in out})}")
+    for h, s in zip(handles, srcs64):
+        one = eng.solve([s])
+        r = h.result()
+        if not (np.array_equal(r.dist, one.dist)
+                and np.array_equal(r.q_rounds, one.q_rounds)
+                and np.array_equal(r.q_relaxations, one.q_relaxations)
+                and r.status == "converged"):
+            fail(f"engine drain: source {s} differs from its own solve")
+    say(f"  drain: 64 single-source handles in 4 batches of 16, "
+        f"{wall:.4f} s, {64 / wall:.1f} queries/s; each equal to a K=1 "
+        f"solve of its source; launches {drain_launches}")
+
+    # ---- warm-up, the wrappers, certify=False
+    eng_u = SsspEngine.build(sh, cfg)
+    a, b = eng_u.warmup(16), eng_u.warmup(16)
+    if not (a > 0 and b == 0.0) or eng_u.trace_counts != {16: 1}:
+        fail(f"engine warmup: {a}, then {b}; {eng_u.trace_counts}")
+    solve_sim_batch(sh, sources[:2], cfg)
+    wrap = engine_for(sh, cfg)
+    counts = [dict(wrap.trace_counts)]
+    solve_sim_batch(sh, sources[2:4], cfg)
+    d1, _ = solve_sim(sh, sources[4], cfg)
+    counts.append(dict(wrap.trace_counts))
+    solve_sim(sh, sources[5], cfg)
+    counts.append(dict(wrap.trace_counts))
+    if counts != [{2: 1}, {2: 1, 1: 1}, {2: 1, 1: 1}] or not np.array_equal(
+            d1, res.dist[4]) or engine_for(sh, cfg) is not wrap:
+        fail(f"engine wrappers: trace counts {counts}")
+    nc = SsspEngine.build(sh, cfg, certify=False).solve(sources)
+    nc2 = SsspEngine.build(sh, SsspConfig(**ALL_KERNELS, max_rounds=2),
+                           certify=False).solve(sources)
+    if (not nc.q_converged.all() or nc.status != "converged"
+            or not np.array_equal(nc.dist, res.dist)
+            or nc2.q_converged.any() or nc2.status != "max_rounds"):
+        fail(f"engine certify=False: {nc.status}, {nc2.status}")
+    say(f"  warmup(16) {a:.4f} s, then {b}; solve_sim_batch/solve_sim on "
+        f"one engine, trace counts {counts[-1]}; certify=False reports the "
+        f"detector (converged; max_rounds=2 gives {nc2.status})")
 
 
 def single_phase(torch, np, g, rng, out_dir: Path):
@@ -1727,6 +1994,20 @@ def main():
                           "parity (fused vs staged, card)")
     fused_cpu = SsspEngine.build(shp, cfg_f, device="cpu").solve(srcp)
     same_results(fused_gpu, fused_cpu, "parity (fused, card vs CPU)")
+    # the delta local solver (plain ops) and toka1 (on the staged kernels)
+    for name, extra in (("delta", dict(local_solver="delta")),
+                        ("toka1", dict(ALL_KERNELS, toka="toka1"))):
+        c = SsspConfig(**extra)
+        r_gpu = SsspEngine.build(shp, c).solve(srcp)
+        same_results(r_gpu, SsspEngine.build(shp, c, device="cpu").solve(
+            srcp), f"parity {name} (card vs CPU)")
+        if r_gpu.status != "converged" or not np.array_equal(r_gpu.dist,
+                                                             on_gpu.dist):
+            fail(f"parity {name}: status {r_gpu.status}, or distances "
+                 f"differ from the toka0 solve")
+        say(f"parity {name}: card == CPU, distances == the toka0 solve's, "
+            f"{int(r_gpu.stats.rounds)} rounds, q_relaxations "
+            f"{r_gpu.q_relaxations.tolist()}")
     say(f"parity phase: rmat scale 11 ({gp.n_edges} edges, "
         f"{int(shp.tri_valid.sum())} triangles), P=8 K=4: card == CPU "
         f"staged and fused, fused == staged but n_dispatches "
@@ -1779,7 +2060,11 @@ def main():
                 "scale-1e6 dense fused K=16")
     many_queries(np, eng, g, "scale-1e6 staged dense")
     many_queries(np, eng_f, g, "scale-1e6 fused dense")
+
+    # ---- engine phase: warm start, result cache, drain, wrappers ---------
+    engine_phase(torch, np, eng, eng_f, g, sources, res, res_f)
     del eng, eng_f, sh, res, res1, res_f
+    torch.cuda.empty_cache()
 
     # ---- ragged vs dense at scale-1e6, from one stream --------------------
     n6, stream6 = preset_edge_stream("scale-1e6")
@@ -1880,6 +2165,37 @@ def main():
         f"({time.perf_counter() - t0:.1f} s); launches per K=16 solve "
         f"ragged {ragged_in_main}, dense {dense_in_main}")
     solve_median(eng7, src7, "main path K=16")
+
+    # ---- landmark-warm against cold on the ragged shards (kernels 2, 4, 6)
+    eng7w = SsspEngine.build(eng7.shards, SsspConfig(**ALL_KERNELS,
+                                                     warm_start="landmark"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng7w.precompute_landmarks(
+        live_sources(np, np.random.default_rng(23), g7, 8, avoid=src7))
+    torch.cuda.synchronize()
+    t_land = time.perf_counter() - t0
+    build.reset_launches()
+    res7w = eng7w.solve(src7)
+    torch.cuda.synchronize()
+    warm7 = launched(build, [f"{k}_ragged" for k in STAGED])
+    if any(build.LAUNCHES[k] for k in build.ROUND):
+        fail(f"warm 1e7: a dense kernel was launched {build.LAUNCHES}")
+    if (not res7w.warm_started or res7w.status != "converged"
+            or not res7w.q_converged.all()
+            or not np.array_equal(res7w.dist, res.dist)):
+        fail(f"warm 1e7: status {res7w.status}, or distances differ from "
+             f"the cold solve")
+    say(f"warm 1e7 K=16 (8 landmarks, precompute {t_land:.4f} s): "
+        f"{rounds_of(res7w)} (cold {rounds_of(res)}); "
+        f"{int(res7w.stats.relaxations)} relaxations (cold "
+        f"{int(res.stats.relaxations)}); {res7w.wall_s:.4f} s "
+        f"wall (cold {res.wall_s:.4f} s); median of 5 walls "
+        f"{solve_median(eng7w, src7, '  warm 1e7 K=16'):.4f} s warm, "
+        f"{solve_median(eng7, src7, '  cold 1e7 K=16'):.4f} s cold; == cold "
+        f"bit for bit, "
+        f"converged; launches {warm7}")
+    del eng7w, res7w
 
     # ---- fused: round="fused" on the same shards and sources --------------
     eng7f = SsspEngine.build(eng7.shards, cfg_f)

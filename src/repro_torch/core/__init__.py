@@ -1,9 +1,14 @@
 from repro_torch.core import phases
-from repro_torch.core.engine import QueryResult, SsspEngine, bucket_k
+from repro_torch.core.engine import (QueryHandle, QueryResult, SsspEngine,
+                                     bucket_k, engine_for)
 from repro_torch.core.partition import inter_edge_counts, partition_1d
 from repro_torch.core.shards import (SsspShards, build_shards,
-                                    build_shards_stream, shards_from_arrays)
-from repro_torch.core.sssp import (SimComm, SsspConfig, SsspStats,
+                                    build_shards_stream, shard_distance_rows,
+                                    shards_from_arrays)
+from repro_torch.core.sssp import (RoundPipeline, SimComm, SsspConfig,
+                                   SsspStats, build_pipeline,
                                    certificate_improved_sim,
                                    dispatches_per_round, init_carry,
-                                   make_finalize, make_round)
+                                   make_finalize, make_round, solve_sim,
+                                   solve_sim_batch)
+from repro_torch.core.warmstart import CachedRow, LandmarkCache, ResultCache

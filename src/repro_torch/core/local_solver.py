@@ -1,14 +1,18 @@
 """Intra-partition solver: the paper's "Dijkstra within each node" as
 iterated frontier-masked relaxation to a local fixpoint.
 
-Port of the reference's ``core/local_solver.py`` (``bellman`` and
-``pallas``). Every function takes the ``sim`` backend's stacked state:
+Port of the reference's ``core/local_solver.py`` (``bellman``, ``delta``
+and ``pallas``). Every function takes the ``sim`` backend's stacked state:
 dist/active ``[P, K, block]``, the Trishla mask ``pruned_loc [P, e_loc]``.
 Each (shard, query) row iterates on its own, as the reference's vmapped
 ``while_loop`` lanes do.
 
 - ``bellman``: each step relaxes the local edges whose source improved in
   the previous step (gather + scatter-min), until no row has a frontier.
+- ``delta``: bellman's steps restricted to each row's near bucket, the
+  frontier vertices within ``delta`` of the row's nearest one; the rest
+  wait in the frontier for a later step (Dijkstra-order settling without
+  a heap).
 - ``pallas``: the dst-tiled relax kernel (dense or ragged, by the shards'
   layout) run as a fused multi-sweep fixpoint (``kernels/relax``),
   re-invoked from a host loop on the residual frontier until every shard's
@@ -44,7 +48,8 @@ def _sweep(dist, frontier, loc_src, loc_dst, w):
 
 @phases.register("local_solver", "bellman")
 def local_fixpoint_bellman(dist, active, sh, pruned_loc, *,
-                           max_iters: int, sweeps: int) -> LocalResult:
+                           max_iters: int, sweeps: int,
+                           delta: float) -> LocalResult:
     """Relax frontier edges until no local change. A row whose step budget
     ``max_iters`` is spent stops with its frontier, as the reference's
     lane does."""
@@ -65,9 +70,35 @@ def local_fixpoint_bellman(dist, active, sh, pruned_loc, *,
     return LocalResult(dist=dist, relaxations=nrel)
 
 
+@phases.register("local_solver", "delta")
+def local_fixpoint_delta(dist, active, sh, pruned_loc, *, max_iters: int,
+                         sweeps: int, delta: float) -> LocalResult:
+    """Near/far bucketed fixpoint. Each step, every running row relaxes
+    from its near bucket, ``frontier & (dist <= lo + delta)`` with ``lo``
+    the row's least frontier distance (never empty: the nearest vertex is
+    in it); the far vertices stay in the frontier with those the step
+    improved. A row stops once its frontier is empty or its ``max_iters``
+    steps are spent, as the reference's lane does."""
+    w = torch.where(pruned_loc, INF, sh.loc_w)
+    it = torch.zeros(active.shape[:2], dtype=torch.int32, device=dist.device)
+    nrel = torch.zeros_like(it)
+    frontier = active
+    while True:
+        run = frontier.any(-1) & (it < max_iters)          # [P, K]
+        if not bool(run.any()):
+            break
+        lo = torch.where(frontier, dist, INF).amin(-1, keepdim=True)
+        near = frontier & (dist <= lo + delta) & run[..., None]
+        dist, improved, n = _sweep(dist, near, sh.loc_src, sh.loc_dst, w)
+        frontier = (frontier & ~near) | improved
+        nrel += n
+        it += run.to(torch.int32)
+    return LocalResult(dist=dist, relaxations=nrel)
+
+
 @phases.register("local_solver", "pallas")
 def local_fixpoint_pallas(dist, active, sh, pruned_loc, *, max_iters: int,
-                          sweeps: int) -> LocalResult:
+                          sweeps: int, delta: float) -> LocalResult:
     """Fused kernel fixpoint over the dst-tiled layout ``sh.rx_*``: up to
     ``sweeps`` sweeps per launch, relaunched while any shard has a residual
     frontier and sweeps left of its ``max_iters`` (``relax_to_fixpoint``).

@@ -9,12 +9,12 @@ config dict drives both packages:
   phase          config key              backends ported in this package
   ============== ======================= ==================================
   round          ``cfg.round``           staged | fused
-  local_solver   ``cfg.local_solver``    bellman | pallas
+  local_solver   ``cfg.local_solver``    bellman | delta | pallas
   send           ``cfg.send_backend``    xla | pallas
   exchange       ``cfg.exchange``        bucket
   merge          ``cfg.merge_backend``   xla | pallas
-  toka           ``cfg.toka``            toka0
-  warm_init      ``cfg.warm_start``      none
+  toka           ``cfg.toka``            toka0 | toka1
+  warm_init      ``cfg.warm_start``      none | landmark
   ============== ======================= ==================================
 
 ``pallas`` selects the hand-written CUDA kernel (its plain PyTorch version
@@ -30,11 +30,8 @@ _REGISTRY: dict[str, dict[str, object]] = {}
 
 # reference backends not ported yet -> the ROADMAP item that ports them
 NOT_PORTED: dict[tuple[str, str], str] = {
-    ("local_solver", "delta"): "Queue 1 item 6 (rest of the engine)",
-    ("toka", "toka1"): "Queue 1 item 6 (rest of the engine)",
     ("toka", "toka2"): "Queue 1 item 7 (termination breadth)",
     ("toka", "toka3"): "Queue 1 item 7 (termination breadth)",
-    ("warm_init", "landmark"): "Queue 1 item 6 (rest of the engine)",
     **{("exchange", ex): "Queue 1 item 7 (exchange breadth)"
        for ex in ("pmin", "a2a_dense", "async", "async_bucket",
                   "async_ppermute")},
@@ -64,6 +61,11 @@ def resolve(phase: str, name: str):
             f"{NOT_PORTED[phase, name]}")
     raise ValueError(
         f"unknown {phase} backend {name!r}; valid: {sorted(impls)}")
+
+
+def backends(phase: str) -> tuple[str, ...]:
+    """Registered backend names for a phase (stable order)."""
+    return tuple(sorted(_REGISTRY.get(phase, ())))
 
 
 def validate(phase: str, name: str) -> str:

@@ -303,6 +303,21 @@ def shards_from_arrays(fields: dict, **static) -> SsspShards:
     return _check_ragged(sh) if layout == "ragged" else sh
 
 
+def shard_distance_rows(rows, n_parts: int, block: int,
+                        device=None) -> torch.Tensor:
+    """Host distance rows [L, n_vertices] (e.g. the L solved landmark
+    sources) in the carry's per-shard layout: ``[P, L, block]`` f32 with
+    +inf on the padding vertices, the storage of the engine's landmark
+    cache. On the host, as every shard array, unless ``device`` is given."""
+    rows = np.asarray(rows, np.float32)
+    n_land, n = rows.shape
+    full = np.full((n_land, n_parts * block), np.inf, np.float32)
+    full[:, :n] = rows
+    out = torch.from_numpy(
+        np.swapaxes(full.reshape(n_land, n_parts, block), 0, 1).copy())
+    return out if device is None else out.to(device)
+
+
 def _check_weights(w, valid):
     """Raise on NaN / non-finite / negative weights among the valid edges:
     the monotone pipeline needs finite non-negative weights. Padding

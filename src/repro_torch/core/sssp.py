@@ -15,7 +15,9 @@ exchange is a transpose. One round:
   3. *Exchange*: ``SimComm.exchange_bucket``, a transpose of the shard axes.
   4. *Merge phase*: incoming messages scatter-min into ``dist``; improved
      vertices form the next frontier.
-  5. *toka0*: a query is done once no shard has a frontier for it.
+  5. *Termination*: a query is done once no shard has a frontier for it
+     (toka0), or, with toka1, also once every shard has received at least
+     P x its inter-partition edge count of messages for it.
 
 ``round="fused"`` rotates that chain so the three tiled phases land in one
 kernel launch (``kernels/round``): round r merges the messages delivered in
@@ -33,13 +35,16 @@ from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import phases, trishla
 from repro_torch.core import local_solver  # noqa: F401  (registers the solvers)
+from repro_torch.core import warmstart  # noqa: F401  (registers warm_init)
 from repro_torch.core.shards import SsspShards
+from repro_torch.core.toka import toka1_vote
 from repro_torch.kernels.common import INF, scatter_min_drop, take_fill
 from repro_torch.kernels.merge import merge_scatter
 from repro_torch.kernels.round import fused_round_pallas, fused_round_rescue
@@ -54,7 +59,7 @@ class SsspConfig:
     exchange: str = "bucket"
     toka: str = "toka0"
     async_lag: int = 1
-    local_solver: str = "bellman"   # bellman | pallas
+    local_solver: str = "bellman"   # bellman | delta | pallas
     send_backend: str = "xla"       # xla | pallas
     merge_backend: str = "xla"      # xla | pallas
     round: str = "staged"
@@ -146,7 +151,8 @@ def _phase_local(sh: SsspShards, dist, active, pruned, cursor, cfg):
     Returns (dist, pruned, cursor, relaxations [P, K])."""
     solve = phases.resolve("local_solver", cfg.local_solver)
     res = solve(dist, active, sh, pruned[:, :sh.e_loc],
-                max_iters=cfg.local_iters, sweeps=cfg.pallas_sweeps)
+                max_iters=cfg.local_iters, sweeps=cfg.pallas_sweeps,
+                delta=cfg.delta)
     # an idle shard has no frontier, so its solve above was a no-op
     idle = ~active.flatten(1).any(-1)                       # [P]
     pruned, cursor = _prune_idle(sh, idle, pruned, cursor, cfg)
@@ -249,13 +255,34 @@ class SimComm:
 phases.register("exchange", "bucket")(SimComm.exchange_bucket)
 phases.register("round", "staged")("staged")
 phases.register("round", "fused")("fused")
-phases.register("warm_init", "none")("none")
+
+
+# Termination stages: the reference's arguments, the carry before the
+# round, this round's termination view of the frontier and its per-shard
+# [P, K] send and receive counts, and the shards' inter-edge counts [P];
+# each returns the [P, K] done mask of this round.
+
+def _quiescent(comm: SimComm, new_active):
+    """[P, K]: no shard has a live frontier for the query."""
+    return comm.all_all(~new_active.any(-1))
 
 
 @phases.register("toka", "toka0")
-def _toka0_stage(comm: SimComm, new_active):
-    """[P, K] done mask: no shard has a live frontier for the query."""
-    return comm.all_all(~new_active.any(-1))
+def _toka0_stage(comm: SimComm, carry, new_active, sends, recvs,
+                 inter_edges):
+    return _quiescent(comm, new_active)
+
+
+@phases.register("toka", "toka1")
+def _toka1_stage(comm: SimComm, carry, new_active, sends, recvs,
+                 inter_edges):
+    """Quiescence, or every shard's running receive count past P x its
+    inter-edge count. The reference's ``msg_count`` is the running sum of
+    ``recvs``, which is the carry's ``msgs_recv``: it is read here rather
+    than kept twice."""
+    vote = toka1_vote(carry.msgs_recv + recvs, inter_edges[:, None],
+                      inter_edges.shape[0])
+    return _quiescent(comm, new_active) | comm.all_all(vote)
 
 
 # --------------------------------------------------------------------------
@@ -345,8 +372,7 @@ def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
     residual frontier. Accounting happens at delivery time, from the
     post-relax distances and the raw delivered batch."""
     comm = SimComm()
-    exchange_f = phases.resolve("exchange", cfg.exchange)
-    toka_f = phases.resolve("toka", cfg.toka)
+    pipe = build_pipeline(sh, cfg)
 
     def round_fn(carry: _Carry) -> _Carry:
         live = ~carry.done                                  # [P, K]
@@ -363,11 +389,12 @@ def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
                 sh, dist, resid, carry.last_sent, pruned, cfg)
             nrel = nrel + extra
         payload, nbytes = _mask_payload(payload)
-        incoming = exchange_f(payload).contiguous()   # read twice
+        incoming = pipe.exchange(payload).contiguous()   # read twice
         any_imp, recvs = _account_delivery(sh, dist, incoming)
         # toka reads only any(new_active, -1): a [P, K, 1] plane of the
         # any-improvement bits stands in for the staged merge's frontier
-        done = toka_f(comm, any_imp[..., None])
+        done = pipe.toka(comm, carry, any_imp[..., None], sends, recvs,
+                         sh.inter_edges)
         return _Carry(
             dist=dist, active=torch.zeros_like(carry.active), pruned=pruned,
             tri_cursor=cursor, last_sent=last_sent,
@@ -382,26 +409,50 @@ def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
     return round_fn
 
 
+class RoundPipeline(NamedTuple):
+    """The round's stages, resolved once per (shards, config) from the
+    backend registry: ``local``, ``send`` and ``merge`` take the stacked
+    shards, ``exchange`` the payload, ``toka`` the termination stage's
+    arguments."""
+    local: Any
+    send: Any
+    exchange: Any
+    merge: Any
+    toka: Any
+
+
+def build_pipeline(sh: SsspShards, cfg: SsspConfig) -> RoundPipeline:
+    """Resolve every phase backend for these shards. The reference's
+    fallbacks for shards without tile layouts (ROADMAP Queue 1 item 5b)
+    and its fault-injecting exchange (item 7) are not ported: the port's
+    shards always carry every layout, and ``SsspConfig`` rejects faults."""
+    return RoundPipeline(
+        local=partial(_phase_local, cfg=cfg),
+        send=phases.resolve("send", cfg.send_backend),
+        exchange=phases.resolve("exchange", cfg.exchange),
+        merge=phases.resolve("merge", cfg.merge_backend),
+        toka=phases.resolve("toka", cfg.toka))
+
+
 def make_round(sh: SsspShards, cfg: SsspConfig):
     """Returns round(carry) -> carry for the config's round pipeline."""
     if _round_mode(sh, cfg) == "fused":
         return _make_round_fused(sh, cfg)
     comm = SimComm()
-    send_f = phases.resolve("send", cfg.send_backend)
-    exchange_f = phases.resolve("exchange", cfg.exchange)
-    merge_f = phases.resolve("merge", cfg.merge_backend)
-    toka_f = phases.resolve("toka", cfg.toka)
-    local_f = partial(_phase_local, cfg=cfg)
+    pipe = build_pipeline(sh, cfg)
 
     def round_fn(carry: _Carry) -> _Carry:
         # finished queries stop relaxing and sending while stragglers run
         act = carry.active & ~carry.done[..., None]
-        dist, pruned, cursor, nrel = local_f(sh, carry.dist, act,
-                                             carry.pruned, carry.tri_cursor)
-        payload, last_sent, sends = send_f(sh, dist, pruned, carry.last_sent)
+        dist, pruned, cursor, nrel = pipe.local(
+            sh, carry.dist, act, carry.pruned, carry.tri_cursor)
+        payload, last_sent, sends = pipe.send(sh, dist, pruned,
+                                              carry.last_sent)
         payload, nbytes = _mask_payload(payload)
-        dist, new_active, recvs = merge_f(sh, dist, exchange_f(payload))
-        done = toka_f(comm, new_active)
+        dist, new_active, recvs = pipe.merge(sh, dist,
+                                             pipe.exchange(payload))
+        done = pipe.toka(comm, carry, new_active, sends, recvs,
+                         sh.inter_edges)
         return _Carry(
             dist=dist, active=new_active, pruned=pruned, tri_cursor=cursor,
             last_sent=last_sent,
@@ -416,10 +467,18 @@ def make_round(sh: SsspShards, cfg: SsspConfig):
 
 
 def init_carry(sh: SsspShards, sources, cfg: SsspConfig,
-               q_valid=None) -> _Carry:
+               q_valid=None, seed_dist=None) -> _Carry:
     """Stacked start state for K sources [K] int32. ``q_valid`` masks padded
     bucket rows: an invalid query starts with no frontier and done=True, so
-    it never relaxes, sends or counts."""
+    it never relaxes, sends or counts.
+
+    ``seed_dist`` [P, K, block] (None: the cold +inf start) holds
+    per-vertex upper bounds from a ``warm_init`` stage. The source bit is
+    min-scattered to 0 on top of it, and every finitely seeded vertex of a
+    valid query starts ACTIVE: a seeded value must still be relaxed from,
+    or a neighbour whose shortest path runs through it could stay above
+    its true distance. The monotone round then reaches the cold start's
+    fixpoint from a closer start."""
     dev = sh.device
     sources = torch.as_tensor(sources, dtype=torch.int32, device=dev)
     nq = sources.shape[0]
@@ -428,10 +487,17 @@ def init_carry(sh: SsspShards, sources, cfg: SsspConfig,
     P, block = sh.n_parts, sh.block
     owner, local = (sources // block).long(), (sources % block).long()
     qi = torch.arange(nq, device=dev)
-    dist = torch.full((P, nq, block), INF, device=dev)
-    dist[owner, qi, local] = torch.where(q_valid, 0.0, INF)
-    active = torch.zeros((P, nq, block), dtype=torch.bool, device=dev)
-    active[owner, qi, local] = q_valid
+    if seed_dist is None:
+        dist = torch.full((P, nq, block), INF, device=dev)
+        dist[owner, qi, local] = torch.where(q_valid, 0.0, INF)
+        active = torch.zeros((P, nq, block), dtype=torch.bool, device=dev)
+        active[owner, qi, local] = q_valid
+    else:
+        dist = seed_dist.clone()
+        dist[owner, qi, local] = torch.minimum(
+            dist[owner, qi, local],
+            torch.where(q_valid, 0.0, INF))
+        active = torch.isfinite(dist) & q_valid[None, :, None]
     if cfg.prune_offline_passes > 0:
         pruned = trishla.prune_offline(sh.loc_w, sh.cut_w, sh.tri_uj,
                                        sh.tri_ui, sh.tri_ij, sh.tri_valid,
@@ -478,3 +544,42 @@ def certificate_improved_sim(sh: SsspShards, dist):
     incoming = dense.reshape(P, K, P, block).amin(0).transpose(0, 1)
     merged = torch.minimum(new, incoming)
     return (merged < dist).any(-1).any(0)
+
+
+# --------------------------------------------------------------------------
+# legacy entry points (the reference's deprecated wrappers): each call
+# rides the cached engine of (shards, cfg, device), so repeated calls
+# reuse its buckets. Prefer SsspEngine.build(...).solve(sources).
+# --------------------------------------------------------------------------
+
+def _as_sources(source_or_sources, n_vertices: int | None = None
+                ) -> tuple[int, ...]:
+    if isinstance(source_or_sources, (int, np.integer)):
+        sources = (int(source_or_sources),)
+    else:
+        sources = tuple(int(s) for s in source_or_sources)
+    if n_vertices is not None:
+        for s in sources:
+            # an out-of-range id would be dropped by the init scatter
+            # (an all-+inf row) or land on a padding vertex
+            if not 0 <= s < n_vertices:
+                raise ValueError(
+                    f"source {s} out of range [0, {n_vertices})")
+    return sources
+
+
+def solve_sim_batch(sh: SsspShards, sources: Sequence[int],
+                    cfg: SsspConfig = SsspConfig(), *, device=None):
+    """K sources on the ``sim`` backend, through ``engine_for``. Returns
+    (dist [K, n_vertices], SsspStats with per-query q_rounds and
+    q_relaxations [K])."""
+    from repro_torch.core.engine import engine_for
+    res = engine_for(sh, cfg, "sim", device=device).solve(sources)
+    return res.dist, res.stats
+
+
+def solve_sim(sh: SsspShards, source: int, cfg: SsspConfig = SsspConfig(),
+              *, device=None):
+    """One source: a K=1 batch of ``solve_sim_batch``."""
+    dist, stats = solve_sim_batch(sh, (int(source),), cfg, device=device)
+    return dist[0], stats

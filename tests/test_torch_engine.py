@@ -164,8 +164,8 @@ def test_offline_pruning_matches_reference(jax_graphs, jax_shards):
 
 @pytest.mark.parametrize("field,value", [
     ("exchange", "a2a_dense"), ("exchange", "pmin"), ("exchange", "async"),
-    ("toka", "toka1"), ("toka", "toka3"), ("local_solver", "delta"),
-    ("warm_start", "landmark"), ("faults", object())])
+    ("toka", "toka2"), ("toka", "toka3"), ("exchange", "async_bucket"),
+    ("exchange", "async_ppermute"), ("faults", object())])
 def test_config_values_not_ported_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tc.SsspConfig(**{field: value})

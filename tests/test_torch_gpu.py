@@ -1506,3 +1506,100 @@ def test_engine_many_queries_on_gpu(cuda, layout, rnd, K):
         np.testing.assert_array_equal(
             np.concatenate([getattr(p, f) for p in parts]),
             getattr(on_gpu, f), err_msg=f)
+
+
+# ------------------------------------------------- the session engine --
+
+def _engine_case(layout, triangles=True):
+    """R-MAT scale 9 on 4 shards in ``layout``, 3 live sources and 4 live
+    pivots (none of them a source)."""
+    g = tg.rmat_graph(scale=9, edge_factor=8, seed=2)
+    sh = tc.build_shards(g, 4, layout=layout, relax_vb=VB, relax_eb=EB,
+                         send_sb=VB, send_eb=EB, merge_vb=VB, merge_eb=EB,
+                         enumerate_triangles=triangles)
+    rng = np.random.default_rng(6)
+    live = np.nonzero(np.diff(g.row_ptr.numpy()))[0]
+    picks = [int(s) for s in rng.choice(live, 7, replace=False)]
+    return sh, picks[:3], picks[3:]
+
+
+def _assert_same(a, b):
+    np.testing.assert_array_equal(a.dist, b.dist)
+    for f in COUNTERS + ("q_converged",):
+        np.testing.assert_array_equal(np.asarray(getattr(a.stats, f)),
+                                      np.asarray(getattr(b.stats, f)),
+                                      err_msg=f)
+    assert (a.status, a.warm_started) == (b.status, b.warm_started)
+
+
+@pytest.mark.parametrize("config", ["staged", "fused"])
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+def test_warm_engine_on_gpu_matches_cold_and_cpu(cuda, layout, config):
+    """A landmark-warm solve on the card (round 0 with every seeded vertex
+    in the frontier) equals the card's cold solve in distances and the
+    CPU's warm solve in distances and every counter, through the
+    layout's kernels."""
+    sh, srcs, piv = _engine_case(layout)
+    base = (dict(ALL_KERNELS) if config == "staged"
+            else dict(round="fused", pallas_sweeps=2))
+    cfg = tc.SsspConfig(**base, warm_start="landmark")
+    on_cpu = tc.SsspEngine.build(sh, cfg, device="cpu")
+    on_cpu.precompute_landmarks(piv)
+    eng = tc.SsspEngine.build(sh, cfg)
+    lm = eng.precompute_landmarks(piv)
+    assert lm.dist.is_cuda
+    np.testing.assert_array_equal(lm.dist.cpu().numpy(),
+                                  on_cpu.landmarks.dist.numpy())
+    build.reset_launches()
+    warm = eng.solve(srcs)
+    sfx = "_ragged" if layout == "ragged" else ""
+    names = STAGED if config == "staged" else ("round",)
+    assert min(build.LAUNCHES[k + sfx] for k in names) > 0
+    assert warm.warm_started and warm.status == "converged"
+    _assert_same(warm, on_cpu.solve(srcs))
+    cold = tc.SsspEngine.build(sh, tc.SsspConfig(**base)).solve(srcs)
+    np.testing.assert_array_equal(warm.dist, cold.dist)
+
+
+def test_drain_on_gpu_matches_single_solves(cuda):
+    """Single-source handles drained on the card in buckets of 4 equal
+    K=1 solves of their sources (distances, per-query rounds and
+    relaxations: no triangles, so no online Trishla, whose idle shards
+    depend on the batch), and the CPU's drain."""
+    sh, srcs, piv = _engine_case("dense", triangles=False)
+    cfg = tc.SsspConfig(**ALL_KERNELS)
+    eng = tc.SsspEngine.build(sh, cfg, max_bucket=4)
+    cpu = tc.SsspEngine.build(sh, cfg, device="cpu", max_bucket=4)
+    sources = srcs + piv
+    hs = [eng.submit(s) for s in sources]
+    hc = [cpu.submit(s) for s in sources]
+    build.reset_launches()
+    out = eng.drain()
+    cpu.drain()
+    assert min(build.LAUNCHES[k] for k in STAGED) > 0
+    assert [r.bucket_k for r in out] == [4] * 7
+    assert eng.batches_served == 2 and eng.queries_served == 7
+    for h, c, s in zip(hs, hc, sources):
+        one = eng.solve([s])
+        for f in ("dist", "q_rounds", "q_relaxations", "q_converged"):
+            np.testing.assert_array_equal(getattr(h.result(), f),
+                                          getattr(one, f), err_msg=f)
+        _assert_same(h.result(), c.result())
+
+
+@pytest.mark.parametrize("config", ["delta", "toka1", "toka1-fused"])
+def test_delta_and_toka1_on_gpu_match_cpu(cuda, config):
+    """The delta local solver (plain ops on the card) and toka1 (staged
+    kernels, fused kernel) on the card equal their CPU solves in
+    distances and every counter, and the toka0 solve in distances."""
+    sh, srcs, _ = _engine_case("dense")
+    extra = {"delta": dict(local_solver="delta"),
+             "toka1": dict(ALL_KERNELS, toka="toka1"),
+             "toka1-fused": dict(round="fused", toka="toka1")}[config]
+    cfg = tc.SsspConfig(**extra)
+    on_gpu = tc.SsspEngine.build(sh, cfg).solve(srcs)
+    _assert_same(on_gpu, tc.SsspEngine.build(sh, cfg,
+                                             device="cpu").solve(srcs))
+    toka0 = tc.SsspEngine.build(sh, tc.SsspConfig(**ALL_KERNELS)).solve(srcs)
+    assert on_gpu.status == "converged"
+    np.testing.assert_array_equal(on_gpu.dist, toka0.dist)
