@@ -26,16 +26,22 @@ Phases, each of which exits non-zero on a mismatch:
            times: CUDA events over 10 back-to-back calls as medians, device
            time a launch from a profiler trace, host time a call); the
            fused round kernel 7 at the state after round 2 of a fused solve,
-           with bucket messages and again with a dense incoming row, as
-           medians of 20 timings of 10 calls, its live chunks and chain
-           steps a sweep printed, its bound the bytes of the rows and the
-           live chunks; a planted fault, its hazard re-read off,
-           must differ (at that state, else on a path inside one tile);
+           with bucket messages and again with a dense incoming row (a
+           dense exchange's merge mode), as medians of 20 timings of 10
+           calls, its live chunks and chain steps a sweep printed, its
+           bound the bytes of the rows and the live chunks; in each mode a
+           planted fault, its hazard re-read off, must differ (at that
+           state, else on a path inside one tile);
   parity   solve rmat scale 11 (Trishla on, P=8, K=4) with the all-kernel
            staged config and with round="fused", each on the card and on
            the CPU: distances and every counter equal; fused == staged but
            for n_dispatches; then local_solver="delta" and toka="toka1"
            (all-kernel) the same way, their distances == the toka0
+           solve's; then every other exchange (async_bucket with
+           async_lag=2) staged (all-kernel) and fused, and toka2 and toka3
+           under bucket, async and a2a_dense (all-kernel staged), card ==
+           CPU in distances and every counter (stale_merges and
+           overlap_rounds included), distances == the bucket toka0
            solve's;
   scale    the dense path: SsspEngine.solve on preset "scale-1e6" (65,536
            vertices, 955,492 directed edges; P=8) with K=16 and K=1, every
@@ -62,6 +68,22 @@ Phases, each of which exits non-zero on a mismatch:
            second); warmup(16) > 0 then 0.0; solve_sim_batch and solve_sim
            on one engine (trace counts as the reference's test);
            certify=False reports the detector;
+  async    the asynchronous mode on the scale-1e6 dense shards (K=16, the
+           scale phase's sources) and, after the fused main path, on the
+           scale-1e7 ragged shards (K=16, the main path's sources): the
+           all-kernel staged config and round="fused", each under bucket
+           (the baseline), async, async_bucket (async_lag=2), pmin,
+           a2a_dense and async_ppermute; every solve converged and
+           bit-equal in distances to the bucket solve, each fused solve
+           equal to the staged solve of its exchange in every counter but
+           n_dispatches and overlap_rounds; the dense exchanges' fused
+           solves launch the round kernel (7 or 8, dense merge mode) once
+           a round and never a merge kernel, their staged solves no merge
+           kernel (dense rows merge elementwise); rounds, overlap_rounds,
+           stale_merges, bytes_moved, the wall of a second solve and the
+           peak device memory printed; then at scale-1e7 toka2 and toka3
+           under bucket and async, bit-equal to the toka0 solve, with the
+           rounds each detector adds;
   ragged   stream-build scale-1e6 ragged (build_shards_stream) and dense
            (build_shards over csr_from_coo of the same chunks) and solve
            both with K=16: distances and every counter equal; 300 sources
@@ -75,8 +97,10 @@ Phases, each of which exits non-zero on a mismatch:
            query 0 alone, K=1, where its rows need no interleave, beside
            K=16; kernels 4 and 6 at K = 450, 512 and 1,000, the K=16 rows
            tiled, where they split the queries into groups, each query
-           equal to the K=16 launch's); a planted fault, each of
-           the two with its hazard re-read off, must differ from its plain
+           equal to the K=16 launch's); kernel 8 also with a dense
+           incoming row, bit-equal and timed the same way; a planted
+           fault, each of kernels 2 and 8 (8 in both modes) with its
+           hazard re-read off, must differ from its plain
            version (at that state, else on a path inside one tile);
   main     the staged main path: SsspEngine.solve on the scale-1e7 ragged
            shards with K=16 and K=1, every query certified converged, 2
@@ -191,6 +215,11 @@ SERVE_BULK = 262_144           # src/repro/configs/registry.py:77
 TRAIN_BATCH = 65_536           # src/repro/configs/registry.py:75
 STAGED = ("relax", "send", "merge")     # the staged round's kernels
 MANY_K = (450, 512, 1000)      # kernels 4 and 6 timed at these query counts too
+# the async phase's exchange settings: the synchronous baseline first
+EXCHANGE_SETTINGS = (("bucket", {}), ("async", {}),
+                     ("async_bucket", dict(async_lag=2)), ("pmin", {}),
+                     ("a2a_dense", {}), ("async_ppermute", {}))
+DENSE_EXCHANGES = ("pmin", "a2a_dense", "async_ppermute")
 BF16_OPS_PER_S = 989.4e12      # H100 SXM bf16 dense tensor rate
 TF32_OPS_PER_S = 495e12         # H100 SXM TF32 dense tensor rate
 # The serve phase: full-width gemma-7b (src/repro/configs/gemma_7b.py), 4
@@ -313,7 +342,8 @@ def same_results(a, b, what: str, skip=()):
     import numpy as np
     if not np.array_equal(a.dist, b.dist):
         fail(f"{what}: distances differ")
-    for f in COUNTERS + ("n_dispatches", "bytes_moved"):
+    for f in COUNTERS + ("n_dispatches", "bytes_moved", "stale_merges",
+                         "overlap_rounds"):
         if f in skip:
             continue
         x, y = getattr(a.stats, f), getattr(b.stats, f)
@@ -554,23 +584,28 @@ def device_ms(torch, fn, n: int, trace_path: Path):
     back-to-back calls: {name: (ms a launch, launches a call)} over the
     trace's kernel and memset events. The trace may miss a few launches of
     a burst of short calls (it held 15-18 of each 20 on an H100), so a
-    launch's time is the mean over those it holds."""
+    launch's time is the mean over those it holds. A trace that holds no
+    kernel at all (seen on an H100 for a burst of 0.014 ms calls) is
+    taken again, up to five times, rather than read as 0 ms."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(str(trace_path))
-    by_name = {}
-    for e in json.loads(trace_path.read_text())["traceEvents"]:
-        if e.get("cat") in ("kernel", "gpu_memset"):
-            us, count = by_name.get(e["name"], (0.0, 0))
-            by_name[e["name"]] = (us + e["dur"], count + 1)
-    return {name: (us / 1e3 / count, count / n)
-            for name, (us, count) in by_name.items()}
+    for _attempt in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace_path))
+        by_name = {}
+        for e in json.loads(trace_path.read_text())["traceEvents"]:
+            if e.get("cat") in ("kernel", "gpu_memset"):
+                us, count = by_name.get(e["name"], (0.0, 0))
+                by_name[e["name"]] = (us + e["dur"], count + 1)
+        if by_name:
+            return {name: (us / 1e3 / count, count / n)
+                    for name, (us, count) in by_name.items()}
+    fail(f"the profiler recorded no kernel in five traces ({trace_path})")
 
 
 def host_ms(torch, fn, n: int) -> float:
@@ -868,12 +903,13 @@ def round_kernel_phase(torch, np, eng, sources, cfg, name):
     """Kernel 7 (``name`` "round", dense layouts) or 8 ("round_ragged") at
     the state after round 2 of ``eng``'s fused solve: bit-equal to its plain
     version (all six outputs) with the delivered bucket messages, and again
-    with a dense [P, K, block] incoming row made from a numpy seed; each
-    plain version timed on the call the comparison used, the kernel as
-    medians of 20 x 10 calls (CUDA events) beside its bound (kernel 7 with
-    the shards' live chunks, as the engine passes them, its bytes those of
-    the rows and of the live chunks it reads); a planted fault,
-    the hazard re-read off, must differ."""
+    with a dense [P, K, block] incoming row made from a numpy seed (the
+    merge mode of a dense exchange); each plain version timed on the call
+    the comparison used, the kernel as medians of 20 x 10 calls (CUDA
+    events) beside its bound (kernel 7 with the shards' live chunks, as the
+    engine passes them, its bytes those of the rows and of the live chunks
+    it reads); in each mode a planted fault, the hazard re-read off, must
+    differ. The table's row is the bucket mode's."""
     from repro_torch.kernels.round import (fused_round_operands,
                                            fused_round_ragged,
                                            fused_round_ragged_plain,
@@ -948,14 +984,102 @@ def round_kernel_phase(torch, np, eng, sources, cfg, name):
         if not dense:
             row = dict(ms=ms, mean_ms=mean, plain_ms=plain_ms, bound=b,
                        library_ms=None)
-            fn = round_mod._launch_ragged if ragged else round_mod._launch_tiled
-            launch = (lambda **f: fn(*ops, dense=dense, **kw, **chunks, **f))
-            planted_hazard_fault(
-                torch, name, lambda: (launch, ref),
-                lambda: path_case(torch, np, ops[0].device,
-                                  "ragged" if ragged else "dense")[1])
+        fn = round_mod._launch_ragged if ragged else round_mod._launch_tiled
+        launch = (lambda **f: fn(*ops, dense=dense, **kw, **chunks, **f))
+        planted_hazard_fault(
+            torch, f"{name} ({'dense' if dense else 'bucket'} incoming)",
+            lambda: (launch, ref),
+            lambda: path_case(torch, np, ops[0].device,
+                              "ragged" if ragged else "dense")[1])
     row["err"] = max(errs)
     return {name: row}
+
+
+def async_phase(torch, np, shards, sources, label: str, ragged: bool):
+    """The asynchronous mode at the main path's width: the all-kernel
+    staged config and the fused round, each under the six exchange
+    settings of ``EXCHANGE_SETTINGS`` (``bucket`` first, the baseline).
+    Every solve certified converged and bit-equal in distances to the
+    bucket solve of its round; each fused solve equal to the staged solve
+    of its exchange in every counter but n_dispatches and overlap_rounds
+    (defined otherwise). Launches: a staged solve runs the relax and send
+    kernels, and the merge kernel only under a bucketed exchange (dense
+    rows merge elementwise); a fused solve runs one round kernel a round,
+    the relax and send kernels only to rescue, never the merge kernel;
+    nothing of the other layout family. Prints rounds, overlap_rounds,
+    stale_merges, bytes_moved (an int32 total, which wraps as the
+    reference's does), the wall of a second solve and the peak device
+    memory of the first. Returns {(round, exchange): result}."""
+    from repro_torch.core import SsspConfig, SsspEngine
+    from repro_torch.kernels import build
+    sfx = "_ragged" if ragged else ""
+    out = {}
+    for rnd, base_cfg in (("staged", ALL_KERNELS),
+                          ("fused", dict(round="fused"))):
+        for ex, extra in EXCHANGE_SETTINGS:
+            what = f"async {label} {rnd} {ex}"
+            eng = SsspEngine.build(shards, SsspConfig(
+                **dict(base_cfg, exchange=ex, **extra)))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            res = eng.solve(sources)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            got = dict(build.LAUNCHES)
+            wall = eng.solve(sources).wall_s
+            if res.status != "converged" or not res.q_converged.all():
+                fail(f"{what}: status {res.status}")
+            if not np.array_equal(res.dist, out.get((rnd, "bucket"),
+                                                    res).dist):
+                fail(f"{what}: distances differ from the bucket solve")
+            if rnd == "fused":
+                same_results(res, out["staged", ex], f"{what} vs staged",
+                             skip=("n_dispatches", "overlap_rounds"))
+            rounds = int(res.stats.rounds)
+            mine = {k: got[k + sfx] for k in STAGED + ("round",)}
+            other = sum(v for k, v in got.items()
+                        if k.endswith("_ragged") != ragged)
+            if rnd == "fused":
+                ok = (mine["round"] == rounds and not mine["merge"]
+                      and mine["relax"] >= mine["send"])
+            else:
+                ok = (mine["relax"] > 0 and mine["send"] > 0
+                      and not mine["round"]
+                      and (mine["merge"] > 0) != (ex in DENSE_EXCHANGES))
+            if not ok or other:
+                fail(f"{what}: launches {got} for {rounds} rounds")
+            say(f"{what}: {rounds} rounds, overlap_rounds "
+                f"{int(res.stats.overlap_rounds)}, stale_merges "
+                f"{int(res.stats.stale_merges)}, bytes_moved "
+                f"{int(res.stats.bytes_moved)}, wall {wall:.4f} s (first "
+                f"{res.wall_s:.4f} s), peak {peak / 2**30:.3f} GiB; "
+                f"launches {mine}")
+            out[rnd, ex] = res
+            del eng
+    say(f"async phase {label}: K={len(sources)}, every exchange staged "
+        f"and fused converged, bit-equal to the bucket solve")
+    return out
+
+
+def toka_phase(np, shards, sources, base, label: str):
+    """toka2 and toka3 under ``bucket`` and ``async`` (all-kernel staged):
+    converged, distances bit-equal to the toka0 solve of the same exchange
+    (``base[("staged", exchange)]``), and the rounds each detector adds
+    printed."""
+    from repro_torch.core import SsspConfig, SsspEngine
+    for ex in ("bucket", "async"):
+        r0 = base["staged", ex]
+        for toka in ("toka2", "toka3"):
+            res = SsspEngine.build(shards, SsspConfig(
+                **dict(ALL_KERNELS, exchange=ex, toka=toka))).solve(sources)
+            if (res.status != "converged" or not res.q_converged.all()
+                    or not np.array_equal(res.dist, r0.dist)):
+                fail(f"toka {label} {toka} {ex}: status {res.status}, or "
+                     f"distances differ from the toka0 solve")
+            say(f"toka {label} {toka} under {ex}: {int(res.stats.rounds)} "
+                f"rounds, {int(res.stats.rounds) - int(r0.stats.rounds)} "
+                f"more than toka0, {res.wall_s:.4f} s wall")
 
 
 def solve_median(eng, sources, what: str, n: int = 5) -> float:
@@ -2008,6 +2132,28 @@ def main():
         say(f"parity {name}: card == CPU, distances == the toka0 solve's, "
             f"{int(r_gpu.stats.rounds)} rounds, q_relaxations "
             f"{r_gpu.q_relaxations.tolist()}")
+    # every exchange (toka0), staged and fused; toka2 and toka3 under a
+    # bucketed, a deferred and a dense exchange
+    cases = [(f"{ex} {rnd}", dict(base, exchange=ex, **extra))
+             for ex, extra in EXCHANGE_SETTINGS[1:]
+             for rnd, base in (("staged", ALL_KERNELS),
+                               ("fused", dict(round="fused")))]
+    cases += [(f"{toka} {ex}", dict(ALL_KERNELS, exchange=ex, toka=toka))
+              for toka in ("toka2", "toka3")
+              for ex in ("bucket", "async", "a2a_dense")]
+    for name, extra in cases:
+        c = SsspConfig(**extra)
+        r_gpu = SsspEngine.build(shp, c).solve(srcp)
+        same_results(r_gpu, SsspEngine.build(shp, c, device="cpu").solve(
+            srcp), f"parity {name} (card vs CPU)")
+        if r_gpu.status != "converged" or not np.array_equal(r_gpu.dist,
+                                                             on_gpu.dist):
+            fail(f"parity {name}: status {r_gpu.status}, or distances "
+                 f"differ from the bucket toka0 solve")
+        say(f"parity {name}: card == CPU, distances == the bucket toka0 "
+            f"solve's, {int(r_gpu.stats.rounds)} rounds, overlap_rounds "
+            f"{int(r_gpu.stats.overlap_rounds)}, stale_merges "
+            f"{int(r_gpu.stats.stale_merges)}")
     say(f"parity phase: rmat scale 11 ({gp.n_edges} edges, "
         f"{int(shp.tri_valid.sum())} triangles), P=8 K=4: card == CPU "
         f"staged and fused, fused == staged but n_dispatches "
@@ -2063,7 +2209,12 @@ def main():
 
     # ---- engine phase: warm start, result cache, drain, wrappers ---------
     engine_phase(torch, np, eng, eng_f, g, sources, res, res_f)
-    del eng, eng_f, sh, res, res1, res_f
+
+    # ---- async phase: every exchange at scale-1e6 dense (kernels 1, 3, 5, 7)
+    del eng_f, res1, res_f
+    torch.cuda.empty_cache()
+    async_phase(torch, np, eng.shards, sources, "1e6 dense", ragged=False)
+    del eng, sh, res
     torch.cuda.empty_cache()
 
     # ---- ragged vs dense at scale-1e6, from one stream --------------------
@@ -2226,7 +2377,16 @@ def main():
     profile_run(torch, lambda: eng7f.solve(src7),
                 out_dir / "chip_smoke_trace_1e7_fused.json",
                 "scale-1e7 ragged fused K=16")
-    del eng7, eng7f, sh7, g7, res, res1, resf, resf1
+    del eng7f, res1, resf, resf1
+    torch.cuda.empty_cache()
+
+    # ---- async phase: every exchange at scale-1e7 ragged (2, 4, 6, 8) -----
+    out7 = async_phase(torch, np, eng7.shards, src7, "1e7 ragged",
+                       ragged=True)
+    if not np.array_equal(out7["staged", "bucket"].dist, res.dist):
+        fail("async 1e7: the bucket solve differs from the main path's")
+    toka_phase(np, eng7.shards, src7, out7, "1e7 ragged")
+    del eng7, sh7, g7, res, out7
 
     # ---- the standalone kernel API: kernels 9, 10, 11 and 13 ---------------
     for phase in (lambda: single_phase(torch, np, g, rng, out_dir),

@@ -113,8 +113,8 @@ class QueryResult:
     @property
     def overlap_fraction(self) -> float:
         """Share of rounds whose exchange overlapped local work: 0.0 for
-        the synchronous exchange (the only one ported) and for results the
-        cache served with no round."""
+        a synchronous exchange and for results the cache served with no
+        round."""
         if self.stats.overlap_rounds is None:
             return 0.0
         rounds = int(self.stats.rounds)
@@ -328,10 +328,10 @@ class SsspEngine:
             q_rounds=carry.q_rounds.amax(0)[:k].cpu().numpy(),
             q_relaxations=carry.relaxations.sum(0, dtype=torch.int32)[:k]
             .cpu().numpy(),
-            stale_merges=np.int32(0), resends=np.int32(0),
+            stale_merges=_total(carry.stale), resends=np.int32(0),
             n_dispatches=np.int32(
                 carry.rounds * dispatches_per_round(self.shards, self.cfg)),
-            overlap_rounds=np.int32(0),
+            overlap_rounds=np.int32(int(carry.overlap)),
             bytes_moved=np.int32(int(carry.comm_bytes)))
         # the detector's word (done_k) is a claim; one extra unmasked relax
         # round is the proof, and overrides it in both directions

@@ -6,37 +6,29 @@ The phases and config keys are the reference's (``core/phases.py``), so one
 config dict drives both packages:
 
   ============== ======================= ==================================
-  phase          config key              backends ported in this package
+  phase          config key              backends
   ============== ======================= ==================================
   round          ``cfg.round``           staged | fused
   local_solver   ``cfg.local_solver``    bellman | delta | pallas
   send           ``cfg.send_backend``    xla | pallas
-  exchange       ``cfg.exchange``        bucket
+  exchange       ``cfg.exchange``        bucket | pmin | a2a_dense | async
+                                         | async_bucket | async_ppermute
   merge          ``cfg.merge_backend``   xla | pallas
-  toka           ``cfg.toka``            toka0 | toka1
+  toka           ``cfg.toka``            toka0 | toka1 | toka2 | toka3
   warm_init      ``cfg.warm_start``      none | landmark
   ============== ======================= ==================================
 
 ``pallas`` selects the hand-written CUDA kernel (its plain PyTorch version
-on CPU tensors); ``xla`` selects plain PyTorch ops. The reference's other
-backends are known here and raise ``NotImplementedError`` naming the
-ROADMAP item that ports them; unknown names raise ``ValueError``.
+on CPU tensors); ``xla`` selects plain PyTorch ops. The ``async*``
+exchanges are deferred: a round's sends are delivered one or more rounds
+later (``core/sssp.py: ExchangeStage``). Unknown names raise
+``ValueError`` listing the valid ones.
 """
 from __future__ import annotations
 
 import warnings
 
 _REGISTRY: dict[str, dict[str, object]] = {}
-
-# reference backends not ported yet -> the ROADMAP item that ports them
-NOT_PORTED: dict[tuple[str, str], str] = {
-    ("toka", "toka2"): "Queue 1 item 7 (termination breadth)",
-    ("toka", "toka3"): "Queue 1 item 7 (termination breadth)",
-    **{("exchange", ex): "Queue 1 item 7 (exchange breadth)"
-       for ex in ("pmin", "a2a_dense", "async", "async_bucket",
-                  "async_ppermute")},
-}
-
 
 def register(phase: str, name: str):
     """Decorator: register ``obj`` as backend ``name`` of ``phase``."""
@@ -49,16 +41,11 @@ def register(phase: str, name: str):
 
 
 def resolve(phase: str, name: str):
-    """Look up a backend. A reference backend this package has not ported
-    raises ``NotImplementedError``; an unknown name raises ``ValueError``
-    listing the valid options."""
+    """Look up a backend; an unknown name raises ``ValueError`` listing the
+    valid options."""
     impls = _REGISTRY.get(phase, {})
     if name in impls:
         return impls[name]
-    if (phase, name) in NOT_PORTED:
-        raise NotImplementedError(
-            f"{phase} backend {name!r} is not ported yet: ROADMAP "
-            f"{NOT_PORTED[phase, name]}")
     raise ValueError(
         f"unknown {phase} backend {name!r}; valid: {sorted(impls)}")
 

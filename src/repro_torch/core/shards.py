@@ -156,6 +156,12 @@ class SsspShards:
         return base if self.mx_ctile is None else base + (self.mx_ctile,)
 
     @functools.cached_property
+    def inter_edges_total(self) -> int:
+        """The global cut-edge count on the host (toka3's bound); read
+        once per shards object."""
+        return int(self.inter_edges.sum(dtype=torch.int32))
+
+    @functools.cached_property
     def send_bounds(self):
         """[P, n_stiles + 1] int32 tile -> chunk ranges of the ragged send
         layout (``chunk_bounds``), None when dense. Derived once per shards
@@ -278,6 +284,18 @@ def _check_layout(layout: str) -> None:
     if layout not in ("dense", "ragged"):
         raise ValueError(f"unknown layout {layout!r}: expected 'dense' or "
                          "'ragged'")
+
+
+def _check_layout_options(relax_layout: bool, comm_layout: bool) -> None:
+    """The reference can build shards without the relax or the send/merge
+    tile layouts, and then degrades the kernel backends to plain ones. The
+    port always builds every layout; False raises rather than be ignored."""
+    for name, value in (("relax_layout", relax_layout),
+                        ("comm_layout", comm_layout)):
+        if not value:
+            raise NotImplementedError(
+                f"{name}=False is not ported yet: ROADMAP Queue 1 item 5b "
+                "(the port always builds every tile layout)")
 
 
 def shards_from_arrays(fields: dict, **static) -> SsspShards:
@@ -419,12 +437,17 @@ def _stack(per_shard, fills, sentinels, axis: int):
 
 def build_shards(g: Graph, n_parts: int,
                  max_triangles_per_part: int | None = None,
-                 enumerate_triangles: bool = True, relax_vb: int = 128,
-                 relax_eb: int = 512, send_sb: int = 128, send_eb: int = 512,
-                 merge_vb: int = 128, merge_eb: int = 512,
-                 layout: str = "dense") -> SsspShards:
+                 enumerate_triangles: bool = True, relax_layout: bool = True,
+                 relax_vb: int = 128, relax_eb: int = 512,
+                 comm_layout: bool = True, send_sb: int = 128,
+                 send_eb: int = 512, merge_vb: int = 128,
+                 merge_eb: int = 512, layout: str = "dense") -> SsspShards:
     """Partition + preprocess a materialized ``Graph`` (see module doc).
-    ``layout`` picks the tile-layout family: "dense" or "ragged"."""
+    The parameters are the reference's, in its order. ``layout`` picks the
+    tile-layout family: "dense" or "ragged". ``relax_layout`` and
+    ``comm_layout`` must stay True: the port always builds every tile
+    layout (``_check_layout_options``)."""
+    _check_layout_options(relax_layout, comm_layout)
     _check_layout(layout)
     w_all = g.weight.numpy()
     v_all = g.valid.numpy()
@@ -450,7 +473,8 @@ def build_shards_stream(edge_chunks, n_vertices: int, n_parts: int, *,
                         dedup: bool = True,
                         max_triangles_per_part: int | None = None,
                         enumerate_triangles: bool = False,
-                        relax_vb: int = 128, relax_eb: int = 512,
+                        relax_layout: bool = True, relax_vb: int = 128,
+                        relax_eb: int = 512, comm_layout: bool = True,
                         send_sb: int = 128, send_eb: int = 512,
                         merge_vb: int = 128, merge_eb: int = 512,
                         layout: str = "ragged") -> SsspShards:
@@ -467,7 +491,9 @@ def build_shards_stream(edge_chunks, n_vertices: int, n_parts: int, *,
 
     ``enumerate_triangles`` defaults to False (Trishla's host enumeration
     is superlinear) and ``layout`` to "ragged": this entry point is for
-    large graphs."""
+    large graphs. ``relax_layout`` and ``comm_layout`` as in
+    ``build_shards``."""
+    _check_layout_options(relax_layout, comm_layout)
     _check_layout(layout)
     block = max(-(-n_vertices // n_parts), 1)
     acc = [([], [], []) for _ in range(n_parts)]

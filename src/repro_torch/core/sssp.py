@@ -1,23 +1,29 @@
 """SP-Async round (paper Algorithm 2) on the single-device ``sim`` backend,
 batched over a query axis.
 
-Port of the staged round of the reference's ``core/sssp.py``. All P shards
-are stacked on one device (the reference's ``sim`` backend, which on one
-GPU is the production path): per-shard state is ``[P, K, ...]`` and the
-exchange is a transpose. One round:
+Port of the reference's ``core/sssp.py``. All P shards are stacked on one
+device (the reference's ``sim`` backend, which on one GPU is the production
+path): per-shard state is ``[P, K, ...]`` and the exchange is a transpose
+or a min over the shard axis. One round:
 
   1. *Local phase*: every shard with a live frontier in any query runs its
      local solver to a fixpoint; idle shards evaluate a chunk of Trishla
      triangle candidates instead (only they advance their cursor).
   2. *Send phase*: cut-edge candidates are min-reduced per message slot,
      masked against ``last_sent``, and routed into the bucketed
-     ``[P, K, P, C]`` payload.
-  3. *Exchange*: ``SimComm.exchange_bucket``, a transpose of the shard axes.
-  4. *Merge phase*: incoming messages scatter-min into ``dist``; improved
-     vertices form the next frontier.
-  5. *Termination*: a query is done once no shard has a frontier for it
-     (toka0), or, with toka1, also once every shard has received at least
-     P x its inter-partition edge count of messages for it.
+     ``[P, K, P, C]`` payload, or, under a dense exchange, into
+     owner-addressed ``[P, K, P, block]`` rows.
+  3. *Exchange*: an ``ExchangeStage`` on ``SimComm``. ``bucket`` is a
+     transpose of the shard axes; ``pmin`` and ``a2a_dense`` a min over
+     the senders. The deferred exchanges (``async``, ``async_bucket``,
+     ``async_ppermute``) deliver a round's sends one or more rounds late:
+     the round takes the batch carried in ``carry.inflight`` before its
+     local solve and pushes its own sends after the send phase.
+  4. *Merge phase*: incoming messages scatter-min into ``dist`` (dense
+     rows: an elementwise min); improved vertices form the next frontier.
+  5. *Termination*: a ToKa stage (``toka0``-``toka3``), per query. Payload
+     still in flight counts as activity, so no detector declares
+     quiescence over the wire.
 
 ``round="fused"`` rotates that chain so the three tiled phases land in one
 kernel launch (``kernels/round``): round r merges the messages delivered in
@@ -29,7 +35,10 @@ four.
 
 Phase backends resolve through ``core/phases.py`` from the reference's
 config names: ``xla`` is plain PyTorch ops, ``pallas`` the hand-written
-CUDA kernel (its plain PyTorch version on CPU tensors).
+CUDA kernel (its plain PyTorch version on CPU tensors). The dense payload
+assembly, the dense merge, the token ring and the in-flight buffers are
+plain PyTorch, as they are plain ``jnp`` in the reference. Everything a
+round carries stays on the device; the engine reads one flag a round.
 """
 from __future__ import annotations
 
@@ -43,8 +52,8 @@ import torch
 from repro_torch.core import phases, trishla
 from repro_torch.core import local_solver  # noqa: F401  (registers the solvers)
 from repro_torch.core import warmstart  # noqa: F401  (registers warm_init)
+from repro_torch.core import toka as toka_mod
 from repro_torch.core.shards import SsspShards
-from repro_torch.core.toka import toka1_vote
 from repro_torch.kernels.common import INF, scatter_min_drop, take_fill
 from repro_torch.kernels.merge import merge_scatter
 from repro_torch.kernels.round import fused_round_pallas, fused_round_rescue
@@ -53,12 +62,13 @@ from repro_torch.kernels.send import send_pack, send_payload_bucket
 
 @dataclasses.dataclass(frozen=True)
 class SsspConfig:
-    """The reference's config fields and values. Values this package has
-    not ported raise ``NotImplementedError`` naming their ROADMAP item;
+    """The reference's config fields, values and checks. Fault injection is
+    not ported and raises ``NotImplementedError`` naming its ROADMAP item;
     ``pallas_interpret`` is accepted and has no effect."""
-    exchange: str = "bucket"
-    toka: str = "toka0"
-    async_lag: int = 1
+    exchange: str = "bucket"        # bucket | pmin | a2a_dense
+                                    #   | async | async_bucket | async_ppermute
+    toka: str = "toka0"             # toka0 | toka1 | toka2 | toka3
+    async_lag: int = 1              # rounds a deferred exchange buffers sends
     local_solver: str = "bellman"   # bellman | delta | pallas
     send_backend: str = "xla"       # xla | pallas
     merge_backend: str = "xla"      # xla | pallas
@@ -85,10 +95,18 @@ class SsspConfig:
         phases.validate("warm_init", self.warm_start)
         if self.faults is not None:
             raise NotImplementedError(
-                "fault injection is not ported yet: ROADMAP Queue 1 item 7")
-        if self.async_lag != 1:
-            raise ValueError("async_lag only applies to the deferred "
-                             "exchanges, which are not ported yet")
+                "fault injection is not ported yet: ROADMAP Queue 1 item 7b")
+        if self.toka3_safety <= 0:
+            raise ValueError("toka3_safety must be > 0")
+        if self.async_lag < 1:
+            raise ValueError("async_lag must be >= 1 (1 = double-buffered)")
+        if self.async_lag != 1 and self.exchange not in ("async",
+                                                         "async_bucket"):
+            raise ValueError(
+                f"async_lag={self.async_lag} only applies to the buffered "
+                f"deferred exchanges ('async'/'async_bucket'); "
+                f"exchange={self.exchange!r} ignores it "
+                "(async_ppermute's lag is the ring distance)")
         if self.pallas_sweeps < 1:
             raise ValueError("pallas_sweeps must be >= 1")
 
@@ -102,10 +120,10 @@ class SsspStats(NamedTuple):
     q_rounds: Any = None       # [K] rounds each query was live
     q_relaxations: Any = None  # [K] edge relaxations per query
     q_converged: Any = None    # [K] certified-converged mask
-    stale_merges: Any = None   # 0: no deferred exchange or faults here
-    resends: Any = None        # 0: no anti-entropy here
-    n_dispatches: Any = None   # data-plane dispatches (rounds x 4)
-    overlap_rounds: Any = None  # 0: synchronous exchange
+    stale_merges: Any = None   # improving late (deferred) deliveries
+    resends: Any = None        # 0: no anti-entropy here (item 7b)
+    n_dispatches: Any = None   # data-plane dispatches (rounds x 4 or 2)
+    overlap_rounds: Any = None  # rounds overlapping delivery with compute
     bytes_moved: Any = None    # logical payload bytes on the wire
 
 
@@ -122,10 +140,16 @@ class _Carry(NamedTuple):
     msgs_sent: torch.Tensor    # [P, K] int32
     msgs_recv: torch.Tensor    # [P, K] int32
     comm_bytes: torch.Tensor   # scalar int32
+    streak: torch.Tensor       # [P, K] int32 globally quiet rounds (toka3)
+    stale: torch.Tensor        # [P, K] int32 improving deferred deliveries
+    overlap: torch.Tensor      # scalar int32 rounds of delivery + compute
+    toka2: Any = None          # Toka2State of [P, K] fields (toka2 only)
     incoming: torch.Tensor | None = None   # fused: [P, K, P, C] delivered,
-                                           # not yet merged
+                                           # not yet merged ([P, K, block]
+                                           # under a dense exchange)
     front_any: torch.Tensor | None = None  # fused: [P, K] a frontier bit
                                            # next round
+    inflight: tuple | None = None  # deferred: undelivered payload buffers
 
 
 # --------------------------------------------------------------------------
@@ -170,11 +194,25 @@ def _bucket_payload(sh: SsspShards, send_val):
     return payload.reshape(P, K, P, C)
 
 
+def _scatter_dense(sh: SsspShards, send_val, blk: int):
+    """Masked slot values [P, K, S] -> dense [P, K, P, blk] candidate rows
+    addressed by (owner, dst_local): one ``scatter_reduce_("amin")`` into
+    the flat ``[P, K, P * blk]`` rows. Shared by both send backends and the
+    fused round, as in the reference: bandwidth-bound assembly, no
+    reduction for a kernel to win."""
+    P, K, _ = send_val.shape
+    flat = (sh.slot_owner.long() * blk + sh.slot_dstl.long())[:, None, :]
+    payload = torch.full((P, K, P * blk), INF, device=send_val.device)
+    payload.scatter_reduce_(-1, flat.expand(P, K, -1), send_val, "amin")
+    return payload.reshape(P, K, P, blk)
+
+
 @phases.register("send", "xla")
-def _phase_send_xla(sh: SsspShards, dist, pruned, last_sent):
+def _phase_send_xla(sh: SsspShards, dist, pruned, last_sent, *,
+                    dense: bool = False):
     """Per-slot segment-min of the cut-edge candidates + improvement
-    masking. Returns (payload [P, K, P, C], last_sent' [P, K, S], sends
-    [P, K])."""
+    masking. Returns (payload [P, K, P, C], or [P, K, P, block] when
+    ``dense``, last_sent' [P, K, S], sends [P, K])."""
     S = sh.n_slots
     w_cut = torch.where(pruned[:, sh.e_loc:], INF, sh.cut_w)      # [P, e_cut]
     cand = take_fill(dist, sh.cut_src[:, None, :], INF) + w_cut[:, None, :]
@@ -185,15 +223,18 @@ def _phase_send_xla(sh: SsspShards, dist, pruned, last_sent):
     send_val = torch.where(improved, slot_val, INF)
     new_last = torch.where(improved, slot_val, last_sent)
     sends = improved.sum(-1, dtype=torch.int32)
-    return _bucket_payload(sh, send_val), new_last, sends
+    payload = (_scatter_dense(sh, send_val, dist.shape[-1]) if dense
+               else _bucket_payload(sh, send_val))
+    return payload, new_last, sends
 
 
 @phases.register("send", "pallas")
-def _phase_send_pallas(sh: SsspShards, dist, pruned, last_sent):
+def _phase_send_pallas(sh: SsspShards, dist, pruned, last_sent, *,
+                       dense: bool = False):
     """Slot-tiled send kernel over ``sh.tx_*`` (dense, or ragged when the
     layout carries its chunk->tile map): segment-min, masking and counts in
-    one launch; the payload scatter is the static gather through
-    ``tx_payload_slot``."""
+    one launch; the bucketed payload is the static gather through
+    ``tx_payload_slot``, the dense one ``_scatter_dense``."""
     lay = sh.send_layout
     src_t, w_t, segrel_t, eid_t = lay[:4]
     P = eid_t.shape[0]
@@ -203,14 +244,26 @@ def _phase_send_pallas(sh: SsspShards, dist, pruned, last_sent):
         dist, last_sent, sh.slot_valid, src_t, w_t, segrel_t, pruned_t,
         sb=sh.tx_sb, ctile=lay[4] if len(lay) == 5 else None,
         bounds=sh.send_bounds)
-    return send_payload_bucket(send_val, sh.tx_payload_slot), new_last, sends
+    return _payload(sh, send_val, dist.shape[-1], dense), new_last, sends
+
+
+def _merge_dense(dist, incoming):
+    """Dense incoming rows [P, K, block] are owner-addressed: an
+    elementwise min, no scatter for a kernel to replace (both merge
+    backends, as in the reference). Receives count the improving
+    entries."""
+    new = torch.minimum(dist, incoming)
+    recvs = (incoming < dist).sum(-1, dtype=torch.int32)
+    return new, new < dist, recvs
 
 
 @phases.register("merge", "xla")
-def _phase_merge_xla(sh: SsspShards, dist, incoming):
+def _phase_merge_xla(sh: SsspShards, dist, incoming, *, dense: bool = False):
     """Scatter-min of the incoming [P, K, P, C] messages through
-    ``recv_idx`` (sentinel ``block`` dropped). Returns (dist', new_active,
-    recvs [P, K])."""
+    ``recv_idx`` (sentinel ``block`` dropped), or ``_merge_dense`` of
+    [P, K, block] rows. Returns (dist', new_active, recvs [P, K])."""
+    if dense:
+        return _merge_dense(dist, incoming)
     P, K = dist.shape[:2]
     flat_val = incoming.reshape(P, K, -1)
     new = scatter_min_drop(dist, sh.recv_idx.reshape(P, 1, -1), flat_val)
@@ -219,10 +272,13 @@ def _phase_merge_xla(sh: SsspShards, dist, incoming):
 
 
 @phases.register("merge", "pallas")
-def _phase_merge_pallas(sh: SsspShards, dist, incoming):
+def _phase_merge_pallas(sh: SsspShards, dist, incoming, *,
+                        dense: bool = False):
     """Msg-tiled merge kernel over ``sh.mx_*`` (dense, or ragged when the
     layout carries its chunk->tile map): scatter-min, next frontier and
-    receive counts in one launch."""
+    receive counts in one launch. Dense rows go to ``_merge_dense``."""
+    if dense:
+        return _merge_dense(dist, incoming)
     P, K = dist.shape[:2]
     lay = sh.merge_layout
     return merge_scatter(dist, incoming.reshape(P, K, -1), *lay[:3],
@@ -239,7 +295,20 @@ def _mask_payload(payload):
 
 
 class SimComm:
-    """Exchange and reductions on shard-stacked [P, ...] arrays."""
+    """The reference's communication contract on shard-stacked [P, ...]
+    arrays: reductions act over the shard axis (axis 0) and leave the query
+    axis intact; flags are [P, K], payloads [P_src, K, P_dst, ...]."""
+
+    def __init__(self, n_parts: int, device=None):
+        self.P = n_parts
+        self.device = device
+
+    def rank(self):
+        """[P] int32 shard ids."""
+        return torch.arange(self.P, dtype=torch.int32, device=self.device)
+
+    def size(self) -> int:
+        return self.P
 
     @staticmethod
     def exchange_bucket(payload):
@@ -247,42 +316,259 @@ class SimComm:
         return payload.transpose(0, 2)
 
     @staticmethod
+    def exchange_pmin(payload):
+        """Dense [P_src, K, P_owner, block] -> the per-owner min over the
+        senders, [P_owner, K, block]."""
+        return payload.amin(0).transpose(0, 1)
+
+    exchange_a2a_dense = exchange_pmin   # one realization on one device
+
+    @staticmethod
+    def ring(tok):
+        """One hop forward on the shard ring: every field rolled by +1."""
+        return type(tok)(*(torch.roll(x, 1, 0) for x in tok))
+
+    def dest_dirs(self):
+        """[P_src, P_dst] bool: True where the message travels the forward
+        ring (the shorter way; ties at P/2 go forward), so no message is
+        more than P // 2 hops from its owner."""
+        r = self.rank()[:, None]
+        d = self.rank()[None, :]
+        return ((d - r) % self.P) <= ((r - d) % self.P)
+
+    def async_hop(self, fwd, bwd):
+        """One hop of the two dense transit buffers [P, K, P, block]
+        (column p holds what is bound for shard p): ``fwd`` rolled by +1 on
+        the shard axis, ``bwd`` by -1; shard p then takes the min of both
+        buffers' column p, and those entries are cleared to +inf in the
+        rolled copies (the carried buffers are not written). Returns
+        (incoming [P, K, block], fwd', bwd')."""
+        fwd = torch.roll(fwd, 1, 0)
+        bwd = torch.roll(bwd, -1, 0)
+        r = torch.arange(self.P, device=fwd.device)
+        inc = torch.minimum(fwd[r, :, r], bwd[r, :, r])
+        fwd[r, :, r] = INF
+        bwd[r, :, r] = INF
+        return inc, fwd, bwd
+
+    @staticmethod
+    def all_any(flag):
+        """OR over the shard axis, broadcast back to every shard."""
+        return flag.any(0, keepdim=True).expand_as(flag)
+
+    @staticmethod
     def all_all(flag):
         """AND over the shard axis, broadcast back to every shard."""
         return flag.all(0, keepdim=True).expand_as(flag)
 
+    @staticmethod
+    def total(x):
+        """Sum over the shard axis in x's dtype, broadcast back."""
+        return x.sum(0, keepdim=True, dtype=x.dtype).expand_as(x)
 
-phases.register("exchange", "bucket")(SimComm.exchange_bucket)
+
+# --------------------------------------------------------------------------
+# exchange stages
+# --------------------------------------------------------------------------
+
+class ExchangeStage(NamedTuple):
+    """Registry entry of an exchange mode. ``dense`` selects the payload the
+    send and merge phases build and take ([P, K, P, block] rows vs the
+    bucketed [P, K, P, C]); ``run(comm, payload)`` is the synchronous
+    transfer.
+
+    ``deferred=True`` marks an asynchronous exchange, whose round does not
+    call ``run``: ``recv(comm, inflight) -> (incoming, inflight_mid)``
+    delivers the oldest carried batch at round start (round r receives what
+    round r-1-lag sent), ``push(comm, inflight_mid, payload) -> inflight'``
+    queues this round's sends after the send phase,
+    ``init_inflight(sh, nq, cfg)`` builds the empty (+inf) buffers and
+    ``flush(comm, inflight) -> [incoming, ...]`` drains every undelivered
+    batch at exit (``make_finalize``)."""
+    name: str
+    dense: bool
+    run: Any
+    deferred: bool = False
+    recv: Any = None
+    push: Any = None
+    init_inflight: Any = None
+    flush: Any = None
+
+
+def _async_bucket_recv(comm, inflight):
+    # the oldest buffered payload is delivered; the rest keep aging
+    return comm.exchange_bucket(inflight[0]), inflight[1:]
+
+
+def _async_bucket_push(comm, inflight, payload):
+    return inflight + (payload,)
+
+
+def _async_bucket_init(sh: SsspShards, nq: int, cfg):
+    shape = (sh.n_parts, nq, sh.n_parts, sh.bucket_cap)
+    return tuple(torch.full(shape, INF, device=sh.device)
+                 for _ in range(cfg.async_lag))
+
+
+def _async_bucket_flush(comm, inflight):
+    return [comm.exchange_bucket(b) for b in inflight]
+
+
+def _async_ppermute_recv(comm, inflight):
+    inc, fwd, bwd = comm.async_hop(*inflight)
+    return inc, (fwd, bwd)
+
+
+def _async_ppermute_push(comm, inflight, payload):
+    # min-combine this round's sends into the transit buffers: the dense
+    # payload is owner/vertex-addressed, so combining en route is exact
+    fwd, bwd = inflight
+    mask = comm.dest_dirs()[:, None, :, None]
+    return (torch.minimum(fwd, torch.where(mask, payload, INF)),
+            torch.minimum(bwd, torch.where(mask, INF, payload)))
+
+
+def _async_ppermute_init(sh: SsspShards, nq: int, cfg):
+    z = torch.full((sh.n_parts, nq, sh.n_parts, sh.block), INF,
+                   device=sh.device)
+    return (z, z)
+
+
+def _async_ppermute_flush(comm, inflight):
+    # short-way routing leaves any message at most P // 2 hops from its
+    # owner; the merge order is irrelevant (monotone min)
+    out = []
+    for _ in range(comm.size() // 2):
+        inc, inflight = _async_ppermute_recv(comm, inflight)
+        out.append(inc)
+    return out
+
+
+phases.register("exchange", "bucket")(ExchangeStage(
+    "bucket", dense=False, run=lambda comm, p: comm.exchange_bucket(p)))
+phases.register("exchange", "pmin")(ExchangeStage(
+    "pmin", dense=True, run=lambda comm, p: comm.exchange_pmin(p)))
+phases.register("exchange", "a2a_dense")(ExchangeStage(
+    "a2a_dense", dense=True, run=lambda comm, p: comm.exchange_a2a_dense(p)))
+# deferred exchanges: "async" buffers cfg.async_lag bucketed payloads;
+# "async_ppermute" streams the dense rows hop by hop around the shard ring
+# in both directions, each message the short way. ``run`` is their
+# synchronous realization, unused by the round.
+_ASYNC_BUCKET = ExchangeStage(
+    "async", dense=False, run=lambda comm, p: comm.exchange_bucket(p),
+    deferred=True, recv=_async_bucket_recv, push=_async_bucket_push,
+    init_inflight=_async_bucket_init, flush=_async_bucket_flush)
+phases.register("exchange", "async")(_ASYNC_BUCKET)
+phases.register("exchange", "async_bucket")(
+    _ASYNC_BUCKET._replace(name="async_bucket"))
+phases.register("exchange", "async_ppermute")(ExchangeStage(
+    "async_ppermute", dense=True,
+    run=lambda comm, p: comm.exchange_a2a_dense(p),
+    deferred=True, recv=_async_ppermute_recv, push=_async_ppermute_push,
+    init_inflight=_async_ppermute_init, flush=_async_ppermute_flush))
 phases.register("round", "staged")("staged")
 phases.register("round", "fused")("fused")
 
 
-# Termination stages: the reference's arguments, the carry before the
-# round, this round's termination view of the frontier and its per-shard
-# [P, K] send and receive counts, and the shards' inter-edge counts [P];
-# each returns the [P, K] done mask of this round.
+def _pending_inflight(inflight):
+    """[P, K]: the shard still holds undelivered payload for the query.
+    ORed into the termination view, so no detector declares quiescence
+    over messages in flight."""
+    bits = None
+    for a in inflight:
+        b = torch.isfinite(a).flatten(2).any(-1)
+        bits = b if bits is None else bits | b
+    return bits
+
+
+def _count_improving(sh: SsspShards, dist, incoming, dense: bool):
+    """[P, K] deliveries of a batch that improve on the pre-merge distances:
+    under a deferred exchange every delivered batch is at least a round
+    old, so these are the stale merges. A bucketed message's target is
+    ``recv_idx``; the sentinel gathers -inf, never beaten."""
+    P, K = dist.shape[:2]
+    if dense:
+        return (incoming < dist).sum(-1, dtype=torch.int32)
+    flat = incoming.reshape(P, K, -1)
+    d_t = take_fill(dist, sh.recv_idx.reshape(P, 1, -1), -INF)
+    return (flat < d_t).sum(-1, dtype=torch.int32)
+
+
+# --------------------------------------------------------------------------
+# termination stages
+# --------------------------------------------------------------------------
+#
+# The reference's arguments: the config, the comm, the carry before the
+# round, this round's termination view of the frontier ([P, K, n]; only its
+# any over the last axis is read) with payload in flight ORed in, the
+# per-shard [P, K] send and receive counts, and the shards. Each returns
+# ([P, K] done mask, toka2', streak').
 
 def _quiescent(comm: SimComm, new_active):
-    """[P, K]: no shard has a live frontier for the query."""
-    return comm.all_all(~new_active.any(-1))
+    """([P, K] no shard has a live frontier for the query, [P, K] this
+    shard has none)."""
+    idle = ~new_active.any(-1)
+    return comm.all_all(idle), idle
 
 
 @phases.register("toka", "toka0")
-def _toka0_stage(comm: SimComm, carry, new_active, sends, recvs,
-                 inter_edges):
-    return _quiescent(comm, new_active)
+def _toka0_stage(cfg, comm: SimComm, carry, new_active, sends, recvs,
+                 sh: SsspShards):
+    return _quiescent(comm, new_active)[0], carry.toka2, carry.streak
 
 
 @phases.register("toka", "toka1")
-def _toka1_stage(comm: SimComm, carry, new_active, sends, recvs,
-                 inter_edges):
+def _toka1_stage(cfg, comm: SimComm, carry, new_active, sends, recvs,
+                 sh: SsspShards):
     """Quiescence, or every shard's running receive count past P x its
     inter-edge count. The reference's ``msg_count`` is the running sum of
     ``recvs``, which is the carry's ``msgs_recv``: it is read here rather
     than kept twice."""
-    vote = toka1_vote(carry.msgs_recv + recvs, inter_edges[:, None],
-                      inter_edges.shape[0])
-    return _quiescent(comm, new_active) | comm.all_all(vote)
+    vote = toka_mod.toka1_vote(carry.msgs_recv + recvs,
+                               sh.inter_edges[:, None], sh.n_parts)
+    return (_quiescent(comm, new_active)[0] | comm.all_all(vote),
+            carry.toka2, carry.streak)
+
+
+@phases.register("toka", "toka2")
+def _toka2_stage(cfg, comm: SimComm, carry, new_active, sends, recvs,
+                 sh: SsspShards):
+    """One hop of the K token rings. Safra's counters hold only for a
+    message transport: under a dense exchange a sent improvement is not
+    one counted receive, so the color-only variant runs (counters zeroed,
+    blacken on send), as in the reference."""
+    _, idle = _quiescent(comm, new_active)
+    if not phases.resolve("exchange", cfg.exchange).dense:
+        acct = toka_mod.toka2_account(carry.toka2, sends, recvs)
+    else:
+        zero = torch.zeros_like(sends)
+        acct = toka_mod.toka2_account(carry.toka2, zero, zero)
+        acct = acct._replace(color=torch.where(sends > 0, toka_mod.BLACK,
+                                               acct.color))
+    st, outgoing = toka_mod.toka2_forward(acct, comm.rank()[:, None], idle,
+                                          n_parts=sh.n_parts)
+    st = toka_mod.toka2_absorb(st, comm.ring(outgoing))
+    return comm.all_all(st.seen_red), st, carry.streak
+
+
+@phases.register("toka", "toka3")
+def _toka3_stage(cfg, comm: SimComm, carry, new_active, sends, recvs,
+                 sh: SsspShards):
+    """The timeout: a query is done once it has been globally quiet (no
+    frontier, send, receive or payload in flight) for ``toka3_bound``
+    rounds of the GLOBAL inter-edge count. A deferred exchange widens the
+    bound by its worst delivery lag: ``async_lag`` buffered rounds, plus
+    P // 2 hops for the dense ring. The bound is computed once on the host
+    (``SsspShards.inter_edges_total``), so every device reads the same."""
+    ex = phases.resolve("exchange", cfg.exchange)
+    slack = 0
+    if ex.deferred:
+        slack += cfg.async_lag + (sh.n_parts // 2 if ex.dense else 0)
+    bound = toka_mod.toka3_timeout(sh.inter_edges_total, sh.n_parts,
+                                   float(cfg.toka3_safety), slack)
+    act = new_active.any(-1) | (sends > 0) | (recvs > 0)
+    streak = torch.where(comm.all_any(act), 0, carry.streak + 1)
+    return streak >= bound, carry.toka2, streak
 
 
 # --------------------------------------------------------------------------
@@ -303,24 +589,34 @@ def dispatches_per_round(sh: SsspShards, cfg: SsspConfig) -> int:
     return 2 if _round_mode(sh, cfg) == "fused" else 4
 
 
+def _payload(sh: SsspShards, send_val, blk: int, dense: bool):
+    """Masked slot values [P, K, S] -> the dense rows or the bucketed
+    payload (the static gather through ``tx_payload_slot``)."""
+    return (_scatter_dense(sh, send_val, blk) if dense
+            else send_payload_bucket(send_val, sh.tx_payload_slot))
+
+
 def _phase_fused(sh: SsspShards, dist, front_in, live, incoming, last_sent,
-                 pruned, cfg):
+                 pruned, cfg, *, dense: bool):
     """One fused kernel launch: merge + local fixpoint + send pack, plus the
-    payload gather. Returns (dist, payload [P, K, P, C], last_sent', sends,
-    nrel, resid): a non-empty ``resid`` row means ``cfg.pallas_sweeps``
-    in-kernel sweeps did not reach the fixpoint, and the caller must rescue
-    the round before using the send outputs."""
+    payload assembly (``incoming`` [P, K, P, C] bucketed, or [P, K, block]
+    rows when ``dense``). Returns (dist, payload, last_sent', sends, nrel,
+    resid): a non-empty ``resid`` row means ``cfg.pallas_sweeps`` in-kernel
+    sweeps did not reach the fixpoint, and the caller must rescue the round
+    before using the send outputs."""
     P, K = dist.shape[:2]
     new_dist, send_val, new_last, nrel, sends, resid = fused_round_pallas(
         dist, front_in, live, incoming.reshape(P, K, -1), last_sent,
         sh.slot_valid, sh.relax_layout, sh.send_layout, sh.merge_layout,
         pruned[:, :sh.e_loc], pruned[:, sh.e_loc:], vb=sh.rx_vb,
-        sb=sh.tx_sb, n_sweeps=cfg.pallas_sweeps, chunks=sh.round_chunks)
-    payload = send_payload_bucket(send_val, sh.tx_payload_slot)
+        sb=sh.tx_sb, n_sweeps=cfg.pallas_sweeps, dense=dense,
+        chunks=sh.round_chunks)
+    payload = _payload(sh, send_val, dist.shape[-1], dense)
     return new_dist, payload, new_last, sends, nrel, resid
 
 
-def _phase_fused_rescue(sh: SsspShards, dist, resid, last_sent, pruned, cfg):
+def _phase_fused_rescue(sh: SsspShards, dist, resid, last_sent, pruned, cfg,
+                        *, dense: bool):
     """Finish a fused round whose in-kernel sweeps left a residual
     frontier: continue the fixpoint with the relax kernel and re-pack the
     sends against the ORIGINAL ``last_sent``. Returns (dist, payload,
@@ -331,38 +627,69 @@ def _phase_fused_rescue(sh: SsspShards, dist, resid, last_sent, pruned, cfg):
         vb=sh.rx_vb, sb=sh.tx_sb, n_sweeps=cfg.pallas_sweeps,
         max_iters=cfg.local_iters, send_bounds=sh.send_bounds,
         relax_chunks=sh.relax_chunks)
-    payload = send_payload_bucket(send_val, sh.tx_payload_slot)
+    payload = _payload(sh, send_val, dist.shape[-1], dense)
     return new_dist, payload, new_last, sends, nrel_extra
 
 
-def _account_delivery(sh: SsspShards, dist, incoming):
+def _account_delivery(sh: SsspShards, dist, incoming, dense: bool):
     """Receive counts and per-query any-improvement bits of a delivered
-    [P, K, P, C] batch against the post-relax distances: the staged merge
-    phase's accounting, without merging (the values merge next round). A
-    message improves iff it beats the distance at its routed target; the
-    sentinel target gathers -inf, never beaten. Returns (any_imp, recvs),
-    both [P, K]."""
-    P, K = dist.shape[:2]
-    flat = incoming.reshape(P, K, -1)
-    recvs = torch.isfinite(flat).sum(-1, dtype=torch.int32)
-    d_t = take_fill(dist, sh.recv_idx.reshape(P, 1, -1), -INF)
-    return (flat < d_t).any(-1), recvs
+    batch against the post-relax distances: the staged merge phase's
+    accounting, without merging (the values merge next round). Bucketed: a
+    message improves iff it beats the distance at its routed target (the
+    sentinel target gathers -inf, never beaten); dense rows count their
+    improving entries as receives. Also the improving count ``n_imp``, the
+    deferred exchanges' stale merges. Returns (any_imp, recvs, n_imp), each
+    [P, K]."""
+    n_imp = _count_improving(sh, dist, incoming, dense)
+    if dense:
+        recvs = n_imp
+    else:
+        P, K = dist.shape[:2]
+        recvs = torch.isfinite(incoming.reshape(P, K, -1)).sum(
+            -1, dtype=torch.int32)
+    return n_imp > 0, recvs, n_imp
 
 
 def make_finalize(sh: SsspShards, cfg: SsspConfig):
-    """Exit-time ``fn(carry) -> dist`` merging the delivered-but-unmerged
-    batch of a fused solve (the fused round merges a round's delivery in
-    the next round, so the loop can exit with one batch outstanding), or
-    None for the staged round, which leaves nothing outstanding. The merge
-    runs unconditionally: the final distances must not depend on the
-    detector's reasoning."""
-    if _round_mode(sh, cfg) != "fused":
+    """Exit-time ``fn(carry) -> dist`` merging every delivered-but-unmerged
+    and in-flight batch, or None when nothing can be outstanding (a staged
+    round with a synchronous exchange). The fused round merges a round's
+    delivery in the next round, so the loop can exit with one batch in
+    ``carry.incoming``; a deferred exchange can exit with payload in
+    ``carry.inflight`` (a ``max_rounds`` or toka1 exit), which its
+    ``flush`` drains. The merges run unconditionally: the final distances
+    must not depend on the detector's reasoning."""
+    ex = phases.resolve("exchange", cfg.exchange)
+    fused = _round_mode(sh, cfg) == "fused"
+    if not fused and not ex.deferred:
         return None
+    comm = SimComm(sh.n_parts, sh.device)
+
+    def merge(dist, incoming):
+        if ex.dense:
+            return torch.minimum(dist, incoming)
+        return _phase_merge_xla(sh, dist, incoming)[0]
 
     def finalize(carry: _Carry):
-        return _phase_merge_xla(sh, carry.dist, carry.incoming)[0]
+        dist = carry.dist
+        if fused:
+            dist = merge(dist, carry.incoming)
+        if ex.deferred:
+            for inc in ex.flush(comm, carry.inflight):
+                dist = merge(dist, inc)
+        return dist
 
     return finalize
+
+
+def _exchange(comm, ex: ExchangeStage, inflight_mid, carry_inflight,
+              payload):
+    """(incoming or None, inflight'): a synchronous exchange delivers this
+    round's payload; a deferred one queues it (its delivery happened at
+    round start)."""
+    if ex.deferred:
+        return None, ex.push(comm, inflight_mid, payload)
+    return ex.run(comm, payload), carry_inflight
 
 
 def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
@@ -370,31 +697,50 @@ def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
     runs before the kernel, gated per shard, since merge and send run on
     idle rounds too. The rescue runs when any row of the whole stack kept a
     residual frontier. Accounting happens at delivery time, from the
-    post-relax distances and the raw delivered batch."""
-    comm = SimComm()
+    post-relax distances and the raw delivered batch. A deferred exchange
+    delivers at round start (the kernel merges it next round, a total lag
+    of 2 under ``async``); a round overlaps when some shard had payload on
+    the wire while some shard was not idle."""
+    comm = SimComm(sh.n_parts, sh.device)
     pipe = build_pipeline(sh, cfg)
+    ex = pipe.exchange
+    dense, deferred = ex.dense, ex.deferred
 
     def round_fn(carry: _Carry) -> _Carry:
         live = ~carry.done                                  # [P, K]
         idle = ~(carry.front_any & live).any(-1)            # [P]
+        incoming = inflight_mid = delivering = None
+        if deferred:
+            delivering = _pending_inflight(carry.inflight).any(-1)   # [P]
+            incoming, inflight_mid = ex.recv(comm, carry.inflight)
         pruned, cursor = _prune_idle(sh, idle, carry.pruned,
                                      carry.tri_cursor, cfg)
         # the injected frontier: source bits on round 0, empty thereafter
         front_in = carry.active & live[..., None]
         dist, payload, last_sent, sends, nrel, resid = _phase_fused(
             sh, carry.dist, front_in, live, carry.incoming, carry.last_sent,
-            pruned, cfg)
+            pruned, cfg, dense=dense)
         if bool((resid > 0).any()):
             dist, payload, last_sent, sends, extra = _phase_fused_rescue(
-                sh, dist, resid, carry.last_sent, pruned, cfg)
+                sh, dist, resid, carry.last_sent, pruned, cfg, dense=dense)
             nrel = nrel + extra
         payload, nbytes = _mask_payload(payload)
-        incoming = pipe.exchange(payload).contiguous()   # read twice
-        any_imp, recvs = _account_delivery(sh, dist, incoming)
+        sent, inflight = _exchange(comm, ex, inflight_mid, carry.inflight,
+                                   payload)
+        if sent is not None:
+            incoming = sent
+        incoming = incoming.contiguous()                   # read twice
+        any_imp, recvs, n_imp = _account_delivery(sh, dist, incoming, dense)
         # toka reads only any(new_active, -1): a [P, K, 1] plane of the
         # any-improvement bits stands in for the staged merge's frontier
-        done = pipe.toka(comm, carry, any_imp[..., None], sends, recvs,
-                         sh.inter_edges)
+        toka_flag = any_imp
+        stale, overlap = carry.stale, carry.overlap
+        if deferred:
+            toka_flag = toka_flag | _pending_inflight(inflight)
+            stale = stale + n_imp
+            overlap = overlap + (delivering & ~idle).any().to(torch.int32)
+        done, toka2, streak = pipe.toka(cfg, comm, carry, toka_flag[..., None],
+                                        sends, recvs, sh)
         return _Carry(
             dist=dist, active=torch.zeros_like(carry.active), pruned=pruned,
             tri_cursor=cursor, last_sent=last_sent,
@@ -403,8 +749,9 @@ def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
             relaxations=carry.relaxations + nrel,
             msgs_sent=carry.msgs_sent + sends,
             msgs_recv=carry.msgs_recv + recvs,
-            comm_bytes=carry.comm_bytes + nbytes,
-            incoming=incoming, front_any=any_imp)
+            comm_bytes=carry.comm_bytes + nbytes, streak=streak, stale=stale,
+            overlap=overlap, toka2=toka2, incoming=incoming,
+            front_any=any_imp, inflight=inflight)
 
     return round_fn
 
@@ -412,11 +759,11 @@ def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
 class RoundPipeline(NamedTuple):
     """The round's stages, resolved once per (shards, config) from the
     backend registry: ``local``, ``send`` and ``merge`` take the stacked
-    shards, ``exchange`` the payload, ``toka`` the termination stage's
-    arguments."""
+    shards (send and merge also ``dense=``), ``exchange`` is an
+    ``ExchangeStage``, ``toka`` the termination stage."""
     local: Any
     send: Any
-    exchange: Any
+    exchange: ExchangeStage
     merge: Any
     toka: Any
 
@@ -424,7 +771,7 @@ class RoundPipeline(NamedTuple):
 def build_pipeline(sh: SsspShards, cfg: SsspConfig) -> RoundPipeline:
     """Resolve every phase backend for these shards. The reference's
     fallbacks for shards without tile layouts (ROADMAP Queue 1 item 5b)
-    and its fault-injecting exchange (item 7) are not ported: the port's
+    and its fault-injecting exchange (item 7b) are not ported: the port's
     shards always carry every layout, and ``SsspConfig`` rejects faults."""
     return RoundPipeline(
         local=partial(_phase_local, cfg=cfg),
@@ -435,24 +782,50 @@ def build_pipeline(sh: SsspShards, cfg: SsspConfig) -> RoundPipeline:
 
 
 def make_round(sh: SsspShards, cfg: SsspConfig):
-    """Returns round(carry) -> carry for the config's round pipeline."""
+    """Returns round(carry) -> carry for the config's round pipeline. Under
+    a deferred exchange the round takes its delivery first (the batch sent
+    ``async_lag`` rounds ago, or one ring hop), counts its improving
+    entries against the post-solve distances as stale merges before the
+    merge, and queues its own sends; a round overlaps when some shard had
+    payload on the wire while some shard had a frontier to relax."""
     if _round_mode(sh, cfg) == "fused":
         return _make_round_fused(sh, cfg)
-    comm = SimComm()
+    comm = SimComm(sh.n_parts, sh.device)
     pipe = build_pipeline(sh, cfg)
+    ex = pipe.exchange
+    dense, deferred = ex.dense, ex.deferred
 
     def round_fn(carry: _Carry) -> _Carry:
+        incoming = inflight_mid = delivering = None
+        if deferred:
+            delivering = _pending_inflight(carry.inflight).any(-1)   # [P]
+            incoming, inflight_mid = ex.recv(comm, carry.inflight)
         # finished queries stop relaxing and sending while stragglers run
         act = carry.active & ~carry.done[..., None]
         dist, pruned, cursor, nrel = pipe.local(
             sh, carry.dist, act, carry.pruned, carry.tri_cursor)
         payload, last_sent, sends = pipe.send(sh, dist, pruned,
-                                              carry.last_sent)
+                                              carry.last_sent, dense=dense)
         payload, nbytes = _mask_payload(payload)
-        dist, new_active, recvs = pipe.merge(sh, dist,
-                                             pipe.exchange(payload))
-        done = pipe.toka(comm, carry, new_active, sends, recvs,
-                         sh.inter_edges)
+        sent, inflight = _exchange(comm, ex, inflight_mid, carry.inflight,
+                                   payload)
+        stale, overlap = carry.stale, carry.overlap
+        if deferred:
+            stale = stale + _count_improving(sh, dist, incoming, dense)
+        else:
+            incoming = sent
+        dist, new_active, recvs = pipe.merge(sh, dist, incoming, dense=dense)
+        # termination sees payload in flight as activity; the real frontier
+        # stays clean. The stages read only any(-1) of the view.
+        toka_view = new_active
+        if deferred:
+            toka_view = (new_active.any(-1, keepdim=True)
+                         | _pending_inflight(inflight)[..., None])
+            computing = act.flatten(1).any(-1)                      # [P]
+            overlap = overlap + (delivering & computing).any().to(
+                torch.int32)
+        done, toka2, streak = pipe.toka(cfg, comm, carry, toka_view, sends,
+                                        recvs, sh)
         return _Carry(
             dist=dist, active=new_active, pruned=pruned, tri_cursor=cursor,
             last_sent=last_sent,
@@ -461,7 +834,8 @@ def make_round(sh: SsspShards, cfg: SsspConfig):
             relaxations=carry.relaxations + nrel,
             msgs_sent=carry.msgs_sent + sends,
             msgs_recv=carry.msgs_recv + recvs,
-            comm_bytes=carry.comm_bytes + nbytes)
+            comm_bytes=carry.comm_bytes + nbytes, streak=streak, stale=stale,
+            overlap=overlap, toka2=toka2, inflight=inflight)
 
     return round_fn
 
@@ -478,7 +852,11 @@ def init_carry(sh: SsspShards, sources, cfg: SsspConfig,
     valid query starts ACTIVE: a seeded value must still be relaxed from,
     or a neighbour whose shortest path runs through it could stay above
     its true distance. The monotone round then reaches the cold start's
-    fixpoint from a closer start."""
+    fixpoint from a closer start.
+
+    A deferred exchange starts with empty (+inf) in-flight buffers: round
+    0 delivers nothing. The toka2 rings start with every token on shard
+    0."""
     dev = sh.device
     sources = torch.as_tensor(sources, dtype=torch.int32, device=dev)
     nq = sources.shape[0]
@@ -506,12 +884,19 @@ def init_carry(sh: SsspShards, sources, cfg: SsspConfig,
         pruned = torch.zeros((P, sh.e_loc + sh.e_cut), dtype=torch.bool,
                              device=dev)
     zero = torch.zeros((P, nq), dtype=torch.int32, device=dev)
+    ex = phases.resolve("exchange", cfg.exchange)
     incoming = front_any = None
     if _round_mode(sh, cfg) == "fused":
         # an all-+inf batch makes round 0's merge the identity (the base
         # case of the fused round's equality with the staged one)
-        incoming = torch.full((P, nq, P, sh.bucket_cap), INF, device=dev)
+        shape = ((P, nq, block) if ex.dense
+                 else (P, nq, P, sh.bucket_cap))
+        incoming = torch.full(shape, INF, device=dev)
         front_any = active.any(-1)
+    toka2 = None
+    if cfg.toka == "toka2":
+        toka2 = toka_mod.toka2_init(
+            torch.arange(P, dtype=torch.int32, device=dev)[:, None], nq)
     return _Carry(
         dist=dist, active=active, pruned=pruned,
         tri_cursor=torch.zeros((P,), dtype=torch.int32, device=dev),
@@ -520,7 +905,10 @@ def init_carry(sh: SsspShards, sources, cfg: SsspConfig,
         rounds=0, q_rounds=zero, relaxations=zero, msgs_sent=zero,
         msgs_recv=zero,
         comm_bytes=torch.zeros((), dtype=torch.int32, device=dev),
-        incoming=incoming, front_any=front_any)
+        streak=zero, stale=zero,
+        overlap=torch.zeros((), dtype=torch.int32, device=dev),
+        toka2=toka2, incoming=incoming, front_any=front_any,
+        inflight=(ex.init_inflight(sh, nq, cfg) if ex.deferred else None))
 
 
 def certificate_improved_sim(sh: SsspShards, dist):

@@ -404,9 +404,9 @@ def test_toka1_vote_matches_reference():
 
 
 def test_phase_backends_match_reference_where_ported():
-    for phase in ("local_solver", "warm_init", "send", "merge", "round"):
+    for phase in ("local_solver", "warm_init", "send", "merge", "round",
+                  "toka", "exchange"):
         assert tc.phases.backends(phase) == jc.phases.backends(phase), phase
-    assert tc.phases.backends("toka") == ("toka0", "toka1")
     assert tc.phases.backends("nope") == ()
     pipe = tc.build_pipeline(tc.SsspShards.__new__(tc.SsspShards),
                              tc.SsspConfig(local_solver="delta",

@@ -1603,3 +1603,106 @@ def test_delta_and_toka1_on_gpu_match_cpu(cuda, config):
     toka0 = tc.SsspEngine.build(sh, tc.SsspConfig(**ALL_KERNELS)).solve(srcs)
     assert on_gpu.status == "converged"
     np.testing.assert_array_equal(on_gpu.dist, toka0.dist)
+
+
+# ------------------------------------- the asynchronous mode (exchanges) --
+
+EXCHANGE_SETTINGS = {"bucket": {}, "async": {},
+                     "async_bucket": dict(async_lag=2), "pmin": {},
+                     "a2a_dense": {}, "async_ppermute": {}}
+DENSE_EXCHANGES = ("pmin", "a2a_dense", "async_ppermute")
+
+
+def _assert_same_async(a, b):
+    _assert_same(a, b)
+    for f in ("stale_merges", "overlap_rounds", "n_dispatches"):
+        assert int(getattr(a.stats, f)) == int(getattr(b.stats, f)), f
+
+
+@pytest.mark.parametrize("rnd", ["staged", "fused"])
+@pytest.mark.parametrize("exchange", sorted(EXCHANGE_SETTINGS))
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+def test_exchanges_on_gpu_match_cpu(cuda, layout, exchange, rnd):
+    """Every exchange, staged (all-kernel) and fused, on the card equals
+    its CPU solve in distances and every counter and the bucket solve in
+    distances. Launches: the fused round one round kernel a round (its
+    dense merge mode under a dense exchange) and no merge kernel; the
+    staged round the merge kernel only under a bucketed exchange."""
+    sh, srcs, _ = _engine_case(layout)
+    base = (dict(ALL_KERNELS) if rnd == "staged"
+            else dict(round="fused", pallas_sweeps=2))
+    cfg = tc.SsspConfig(**base, exchange=exchange,
+                        **EXCHANGE_SETTINGS[exchange])
+    build.reset_launches()
+    on_gpu = tc.SsspEngine.build(sh, cfg).solve(srcs)
+    got = dict(build.LAUNCHES)
+    _assert_same_async(on_gpu, tc.SsspEngine.build(sh, cfg, device="cpu")
+                       .solve(srcs))
+    assert on_gpu.status == "converged"
+    sync = tc.SsspEngine.build(sh, tc.SsspConfig(**base)).solve(srcs)
+    np.testing.assert_array_equal(on_gpu.dist, sync.dist)
+    sfx = "_ragged" if layout == "ragged" else ""
+    rounds = int(on_gpu.stats.rounds)
+    if rnd == "fused":
+        assert got["round" + sfx] == rounds and got["merge" + sfx] == 0
+    else:
+        assert got["relax" + sfx] > 0 and got["send" + sfx] > 0
+        assert (got["merge" + sfx] == 0) == (exchange in DENSE_EXCHANGES)
+    if exchange.startswith("async"):
+        assert rounds > int(sync.stats.rounds)
+        assert int(on_gpu.stats.stale_merges) > 0
+
+
+@pytest.mark.parametrize("exchange", ["bucket", "async", "a2a_dense"])
+@pytest.mark.parametrize("toka", ["toka2", "toka3"])
+def test_detectors_on_gpu_match_cpu(cuda, toka, exchange):
+    """toka2 (the token ring) and toka3 (the timeout) on the card equal
+    their CPU solves in distances and every counter, and the toka0 solve
+    of the same exchange in distances."""
+    sh, srcs, _ = _engine_case("dense")
+    cfg = tc.SsspConfig(**ALL_KERNELS, exchange=exchange, toka=toka)
+    on_gpu = tc.SsspEngine.build(sh, cfg).solve(srcs)
+    _assert_same_async(on_gpu, tc.SsspEngine.build(sh, cfg, device="cpu")
+                       .solve(srcs))
+    toka0 = tc.SsspEngine.build(sh, tc.SsspConfig(
+        **ALL_KERNELS, exchange=exchange)).solve(srcs)
+    assert on_gpu.status == "converged"
+    np.testing.assert_array_equal(on_gpu.dist, toka0.dist)
+    assert int(on_gpu.stats.rounds) > int(toka0.stats.rounds)
+
+
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+def test_round_kernel_dense_mode_at_a_deferred_state(cuda, layout):
+    """Kernels 7 and 8 in their dense merge mode at a state of a fused
+    ``async_ppermute`` solve (the first round from the third on whose
+    delivered dense row holds a message, out of phase with the frontier),
+    all six outputs bit-equal to their plain versions, for 1 and 8
+    sweeps."""
+    sh, srcs, _ = _engine_case(layout)
+    eng = tc.SsspEngine.build(sh, tc.SsspConfig(round="fused",
+                                                exchange="async_ppermute"))
+    carry = eng.start(srcs)
+    for r in range(12):
+        carry = eng.round_fn(carry)
+        if r >= 2 and bool(torch.isfinite(carry.incoming).any()):
+            break
+    dsh = eng.shards
+    assert carry.incoming.shape == carry.dist.shape
+    assert bool(torch.isfinite(carry.incoming).any())
+    live = ~carry.done
+    ops = fused_round_operands(
+        carry.dist, carry.active & live[..., None], live, carry.incoming,
+        carry.last_sent, dsh.slot_valid, dsh.relax_layout, dsh.send_layout,
+        dsh.merge_layout, carry.pruned[:, :dsh.e_loc],
+        carry.pruned[:, dsh.e_loc:], vb=dsh.rx_vb, sb=dsh.tx_sb, dense=True)
+    ragged = layout == "ragged"
+    kernel, plain = ((fused_round_ragged, fused_round_ragged_plain)
+                     if ragged else
+                     (fused_round_tiled, fused_round_tiled_plain))
+    chunks = {} if ragged else dict(chunks=dsh.round_chunks)
+    for sweeps in (1, 8):
+        kw = dict(vb=dsh.rx_vb, sb=dsh.tx_sb, n_sweeps=sweeps, dense=True)
+        out = kernel(*ops, **kw, **chunks)
+        ref = plain(*ops, **kw)
+        for got, want in zip(out, ref):
+            assert torch.equal(got, want)

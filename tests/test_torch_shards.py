@@ -121,3 +121,43 @@ def test_ragged_layout_not_ported():
     with pytest.raises(ValueError, match="tx_ctile"):
         tc.shards_from_arrays(fields, **{k: getattr(sh, k)
                                          for k in shards_mod._STATIC})
+
+
+@pytest.mark.parametrize("args", [
+    (4, None, True, True, 64),
+    (4, None, False, True, 64, 128, True, 32, 256, 64, 128, "dense"),
+    (3, 40, True, True, 32, 64, True, 16, 32, 32, 64, "ragged")])
+def test_build_shards_takes_the_reference_argument_order(args):
+    """A positional call in the reference's order (``relax_layout`` fifth,
+    ``comm_layout`` eighth) builds the same tiles in both packages."""
+    gj, gt = _graphs("rmat")
+    sj, st = jc.build_shards(gj, *args), tc.build_shards(gt, *args)
+    assert (st.rx_vb, st.rx_eb) == (sj.rx_vb, sj.rx_eb) == (
+        args[4], args[5] if len(args) > 5 else 512)
+    assert_shards_equal(st, sj)
+
+
+def test_build_shards_stream_takes_the_reference_keywords():
+    gj, gt = _graphs("road")
+    kw = dict(relax_layout=True, relax_vb=32, relax_eb=64, comm_layout=True,
+              send_sb=16, send_eb=32, merge_vb=32, merge_eb=64)
+    st = tc.build_shards_stream(tg.edge_chunks_of(gt, 100), gt.n_vertices, 3,
+                                **kw)
+    sj = jc.build_shards_stream(jg.edge_chunks_of(gj, 100), gj.n_vertices,
+                                3, **kw)
+    assert (st.rx_vb, st.rx_eb, st.tx_sb) == (32, 64, 16)
+    assert_shards_equal(st, sj)
+
+
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("option", ["relax_layout", "comm_layout"])
+def test_layout_options_false_raise(option, stream):
+    """The reference's fallbacks without tile layouts are not ported: False
+    raises, naming its ROADMAP item, rather than being ignored."""
+    _, gt = _graphs("random")
+    with pytest.raises(NotImplementedError, match="item 5b"):
+        if stream:
+            tc.build_shards_stream(tg.edge_chunks_of(gt), gt.n_vertices, 2,
+                                   **{option: False})
+        else:
+            tc.build_shards(gt, 2, **{option: False})
