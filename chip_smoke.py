@@ -31,7 +31,10 @@ Phases, each of which exits non-zero on a mismatch:
            calls, its live chunks and chain steps a sweep printed, its
            bound the bytes of the rows and the live chunks; in each mode a
            planted fault, its hazard re-read off, must differ (at that
-           state, else on a path inside one tile);
+           state, else on a path inside one tile); kernels 3 and 7 (and
+           4 and 8 in the kern1e7 and fused phases) again with last_sent
+           +inf on every other query, the rows a resend round hands them,
+           bit-equal to their plain versions;
   parity   solve rmat scale 11 (Trishla on, P=8, K=4) with the all-kernel
            staged config and with round="fused", each on the card and on
            the CPU: distances and every counter equal; fused == staged but
@@ -42,7 +45,12 @@ Phases, each of which exits non-zero on a mismatch:
            under bucket, async and a2a_dense (all-kernel staged), card ==
            CPU in distances and every counter (stale_merges and
            overlap_rounds included), distances == the bucket toka0
-           solve's;
+           solve's; then each plan of the fault matrix (FAULT_PLANS)
+           under bucket, a2a_dense and async with toka3, staged and
+           fused: card == CPU in distances and every counter
+           (stale_merges and resends included; the CPU solves in a pool
+           of worker processes while the card solves), distances == the
+           fault-free solve's;
   scale    the dense path: SsspEngine.solve on preset "scale-1e6" (65,536
            vertices, 955,492 directed edges; P=8) with K=16 and K=1, every
            query certified converged, 4 sources checked against Dijkstra,
@@ -84,6 +92,28 @@ Phases, each of which exits non-zero on a mismatch:
            peak device memory printed; then at scale-1e7 toka2 and toka3
            under bucket and async, bit-equal to the toka0 solve, with the
            rounds each detector adds;
+  faults   fault injection at the main path's width, after the async
+           phase on the scale-1e6 dense shards and on the scale-1e7
+           ragged shards (K=16, the same sources): the fault matrix's
+           four plans (drop with resend, delay, duplicate, reorder; seed
+           0) all-kernel staged under bucket and a2a_dense and fused
+           under bucket, and the acceptance matrix's drop and delay plans
+           under async with toka3, staged and fused; every solve
+           converged and bit-equal in distances to the fault-free solve,
+           its launches checked as in the async phase; rounds beside the
+           fault-free solve's, stale_merges, resends, the wall, the peak
+           device memory and the fault queue's size printed; at scale-1e6
+           also a degraded solve (drop 0.6, no resend: status degraded,
+           distances at or above the fixpoint and not equal to it) and
+           the draws (uniform and randint of [8, 16, 65536] under
+           per-shard keys, card == CPU bit for bit); at scale-1e7 the
+           injector's time a round under a2a_dense for each plan (plain
+           PyTorch, CUDA events, median of 20);
+  runner   python -m repro_torch.launch.sssp_run on rmat scale 16 (P=8, 4
+           sources, async with toka3, drop 0.2 with resend every 4
+           rounds, the three staged kernels), staged and fused, the two
+           processes at once: each exits 0 and validates against
+           Dijkstra; its lines are echoed;
   ragged   stream-build scale-1e6 ragged (build_shards_stream) and dense
            (build_shards over csr_from_coo of the same chunks) and solve
            both with K=16: distances and every counter equal; 300 sources
@@ -173,7 +203,9 @@ The line before last is the JSON kernel table; the last line is
 """
 from __future__ import annotations
 
+import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -220,6 +252,32 @@ EXCHANGE_SETTINGS = (("bucket", {}), ("async", {}),
                      ("async_bucket", dict(async_lag=2)), ("pmin", {}),
                      ("a2a_dense", {}), ("async_ppermute", {}))
 DENSE_EXCHANGES = ("pmin", "a2a_dense", "async_ppermute")
+# The fault plans: tests/test_faults.py's matrix (seed 0), each run staged
+# (all-kernel) under bucket and a2a_dense and fused under bucket; and
+# tests/test_async_exchange.py's acceptance plans under async with toka3,
+# staged and fused. Every solve must equal the fault-free one in distances.
+FAULT_PLANS = {"drop": dict(drop=0.3, resend_period=4),
+               "delay": dict(delay=0.4), "duplicate": dict(duplicate=0.4),
+               "reorder": dict(reorder=0.4)}
+ACCEPT_PLANS = {"drop": dict(drop=0.2, seed=11, resend_period=4),
+                "delay": dict(delay=0.3, seed=12)}
+FAULT_SETTINGS = ([(name, plan, "staged", "bucket", "toka0")
+                   for name, plan in FAULT_PLANS.items()]
+                  + [(name, plan, "staged", "a2a_dense", "toka0")
+                     for name, plan in FAULT_PLANS.items()]
+                  + [(name, plan, "fused", "bucket", "toka0")
+                     for name, plan in FAULT_PLANS.items()]
+                  + [(f"accept {name}", plan, rnd, "async", "toka3")
+                     for name, plan in ACCEPT_PLANS.items()
+                     for rnd in ("staged", "fused")])
+DEGRADED_PLAN = dict(drop=0.6, seed=2)   # no resend: the solve degrades
+# The runner on the card: the README's command at scale 16 with a faulted
+# asynchronous exchange on the three staged kernels, validated
+RUNNER_ARGS = ("--graph", "rmat", "--scale", "16", "--edge-factor", "8",
+               "--parts", "8", "--num-sources", "4", "--exchange", "async",
+               "--toka", "toka3", "--fault-drop", "0.2", "--resend-period",
+               "4", "--solver", "pallas", "--send-backend", "pallas",
+               "--merge-backend", "pallas", "--validate")
 BF16_OPS_PER_S = 989.4e12      # H100 SXM bf16 dense tensor rate
 TF32_OPS_PER_S = 495e12         # H100 SXM TF32 dense tensor rate
 # The serve phase: full-width gemma-7b (src/repro/configs/gemma_7b.py), 4
@@ -323,6 +381,14 @@ def bound(n_bytes: int, n_ops: int, ops_per_s: float = FP32_OPS_PER_S):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
+def resend_rows(torch, last_sent):
+    """``last_sent`` with every other query's rows set to +inf: the state
+    a resend round hands the send pack for the queries it retransmits."""
+    out = last_sent.clone()
+    out[:, ::2] = float("inf")
+    return out
+
+
 def compare(torch, name, got, want):
     """Max abs difference between the kernel's and the plain version's
     outputs (equal +inf entries count 0); fails unless they are bit-equal."""
@@ -343,7 +409,7 @@ def same_results(a, b, what: str, skip=()):
     if not np.array_equal(a.dist, b.dist):
         fail(f"{what}: distances differ")
     for f in COUNTERS + ("n_dispatches", "bytes_moved", "stale_merges",
-                         "overlap_rounds"):
+                         "overlap_rounds", "resends"):
         if f in skip:
             continue
         x, y = getattr(a.stats, f), getattr(b.stats, f)
@@ -502,6 +568,17 @@ def dense_kernel_phase(torch, eng, sources, cfg, out_dir: Path):
         *s_args, sb=dsh.tx_sb))
     rows["send"] = dict(err=compare(torch, "send", s_out, s_ref),
                         plain_ms=s_plain)
+    # a resend round: last_sent +inf on half the queries
+    rs_args = (*send_operands(dist, resend_rows(torch, carry.last_sent),
+                              dsh.slot_valid, tsrc.shape[1], dsh.tx_sb),
+               *s_args[3:])
+    rs_out = send_pack_tiled(*rs_args, sb=dsh.tx_sb)
+    rows["send"]["err"] = max(rows["send"]["err"], compare(
+        torch, "send (resend rows)", rs_out,
+        send_pack_tiled_plain(*rs_args, sb=dsh.tx_sb)))
+    say(f"  send with last_sent +inf on half the queries (a resend round): "
+        f"bit-equal, {int(rs_out[2].sum())} sends (else "
+        f"{int(s_out[2].sum())})")
 
     S = dsh.n_slots
     payload = send_payload_bucket(s_out[0][..., :S], dsh.tx_payload_slot)
@@ -697,6 +774,17 @@ def ragged_kernel_phase(torch, eng, sources, cfg):
         *s_args, sb=dsh.tx_sb))
     rows["send_ragged"] = dict(err=compare(torch, "send_ragged", s_out,
                                            s_ref), plain_ms=s_plain)
+    # a resend round: last_sent +inf on half the queries
+    rs_args = (*send_operands(dist, resend_rows(torch, carry.last_sent),
+                              dsh.slot_valid, dsh.n_stiles, dsh.tx_sb),
+               *s_args[3:])
+    rs_out = send_pack_ragged(*rs_args, **s_kw)
+    rows["send_ragged"]["err"] = max(rows["send_ragged"]["err"], compare(
+        torch, "send_ragged (resend rows)", rs_out,
+        send_pack_ragged_plain(*rs_args, sb=dsh.tx_sb)))
+    say(f"  send_ragged with last_sent +inf on half the queries (a resend "
+        f"round): bit-equal, {int(rs_out[2].sum())} sends (else "
+        f"{int(s_out[2].sum())})")
 
     payload = send_payload_bucket(s_out[0][..., :dsh.n_slots],
                                   dsh.tx_payload_slot)
@@ -984,6 +1072,15 @@ def round_kernel_phase(torch, np, eng, sources, cfg, name):
         if not dense:
             row = dict(ms=ms, mean_ms=mean, plain_ms=plain_ms, bound=b,
                        library_ms=None)
+            # a resend round: last_sent +inf on half the queries
+            rs_ops = list(ops)
+            rs_ops[4] = resend_rows(torch, ops[4])
+            rs_out = kernel(*rs_ops, dense=dense, **kw, **chunks)
+            errs.append(compare(torch, f"{name} (resend rows)", rs_out,
+                                plain(*rs_ops, dense=dense, **kw)))
+            say(f"  {name} with last_sent +inf on half the queries (a "
+                f"resend round): bit-equal, {int(rs_out[5].sum())} sends "
+                f"(else {int(out[5].sum())})")
         fn = round_mod._launch_ragged if ragged else round_mod._launch_tiled
         launch = (lambda **f: fn(*ops, dense=dense, **kw, **chunks, **f))
         planted_hazard_fault(
@@ -1080,6 +1177,239 @@ def toka_phase(np, shards, sources, base, label: str):
             say(f"toka {label} {toka} under {ex}: {int(res.stats.rounds)} "
                 f"rounds, {int(res.stats.rounds) - int(r0.stats.rounds)} "
                 f"more than toka0, {res.wall_s:.4f} s wall")
+
+
+def _fault_config(rnd: str, ex: str, toka: str) -> dict:
+    base = ALL_KERNELS if rnd == "staged" else dict(round="fused")
+    return dict(base, exchange=ex, toka=toka)
+
+
+def faults_phase(torch, np, shards, sources, label: str, ragged: bool,
+                 base: dict):
+    """Fault injection at the main path's width: every setting of
+    ``FAULT_SETTINGS`` (the fault matrix's four plans staged under bucket
+    and a2a_dense and fused under bucket; the acceptance plans under async
+    with toka3, staged and fused). Every solve certified converged and
+    bit-equal in distances to the fault-free solve of its round, exchange
+    and detector (``base[(round, exchange)]`` for toka0, else solved here).
+    Launches as ``async_phase`` checks them. Prints the rounds beside the
+    fault-free solve's, stale_merges, resends, the wall, the peak device
+    memory and the fault queue's size. Returns {(round, exchange, toka):
+    fault-free result}."""
+    from repro_torch.core import FaultPlan, SsspConfig, SsspEngine
+    from repro_torch.kernels import build
+    sfx = "_ragged" if ragged else ""
+    P, K = shards.n_parts, len(sources)
+    clean = {(rnd, ex, "toka0"): r for (rnd, ex), r in base.items()}
+    for name, plan, rnd, ex, toka in FAULT_SETTINGS:
+        cfg = _fault_config(rnd, ex, toka)
+        key = (rnd, ex, toka)
+        if key not in clean:
+            clean[key] = SsspEngine.build(shards, SsspConfig(**cfg)).solve(
+                sources)
+        ref = clean[key]
+        fp = FaultPlan(**plan)
+        what = (f"faults {label} {name} {rnd} {ex}"
+                + ("" if toka == "toka0" else f" {toka}"))
+        eng = SsspEngine.build(shards, SsspConfig(**cfg, faults=fp))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        res = eng.solve(sources)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        got = dict(build.LAUNCHES)
+        if res.status != "converged" or not res.q_converged.all():
+            fail(f"{what}: status {res.status}")
+        if not np.array_equal(res.dist, ref.dist):
+            fail(f"{what}: distances differ from the fault-free solve")
+        rounds = int(res.stats.rounds)
+        mine = {k: got[k + sfx] for k in STAGED + ("round",)}
+        other = sum(v for k, v in got.items()
+                    if k.endswith("_ragged") != ragged)
+        if rnd == "fused":
+            ok = (mine["round"] == rounds and not mine["merge"]
+                  and mine["relax"] >= mine["send"])
+        else:
+            ok = (mine["relax"] > 0 and mine["send"] > 0
+                  and not mine["round"]
+                  and (mine["merge"] > 0) != (ex in DENSE_EXCHANGES))
+        if not ok or other:
+            fail(f"{what}: launches {got} for {rounds} rounds")
+        M = shards.block if ex in DENSE_EXCHANGES else P * shards.bucket_cap
+        queue = [P, fp.max_delay, K, M]
+        say(f"{what}: {rounds} rounds (fault-free {int(ref.stats.rounds)}), "
+            f"stale_merges {int(res.stats.stale_merges)}, resends "
+            f"{int(res.stats.resends)}, wall {res.wall_s:.4f} s, peak "
+            f"{peak / 2**30:.3f} GiB, fault queue {queue} f32 "
+            f"{4 * np.prod(queue) / 1e6:.1f} MB; launches {mine}")
+        del eng
+    say(f"faults phase {label}: K={K}, {len(FAULT_SETTINGS)} faulted "
+        f"solves converged, bit-equal to the fault-free solves")
+    return clean
+
+
+def degraded_solve(np, shards, sources, clean, label: str):
+    """Heavy drops with no resend (``DEGRADED_PLAN``), all-kernel staged:
+    the detector fires over lost improvements and the certificate says
+    so. Fails unless the status is ``degraded``, some query is not
+    converged, and the distances are at or above the fault-free ones
+    everywhere and differ somewhere."""
+    from repro_torch.core import FaultPlan, SsspConfig, SsspEngine
+    res = SsspEngine.build(shards, SsspConfig(
+        **ALL_KERNELS, faults=FaultPlan(**DEGRADED_PLAN))).solve(sources)
+    base = clean.dist
+    if res.status != "degraded" or res.q_converged.all():
+        fail(f"degraded {label}: status {res.status}, q_converged "
+             f"{res.q_converged.tolist()}")
+    if not (res.dist >= base).all() or np.array_equal(res.dist, base):
+        fail(f"degraded {label}: distances below the fixpoint, or equal "
+             f"to it")
+    say(f"degraded {label} ({DEGRADED_PLAN}, no resend): status degraded, "
+        f"{int((~res.q_converged).sum())} of {len(sources)} queries not "
+        f"converged, {int((res.dist > base).sum())} distances above the "
+        f"fixpoint and none below; {int(res.stats.rounds)} rounds")
+
+
+def draws_phase(torch):
+    """The injector's draws on the card equal the CPU's bit for bit: the
+    regime uniforms and the delay slots of a [8, 16, 65536] round (the
+    scale-1e7 dense queue's width) under per-shard keys."""
+    from repro_torch.core import FaultPlan, prng
+    from repro_torch.core.faults import round_keys
+    shape = (16, 65536)
+    keys = round_keys(FaultPlan(delay=0.4), 7, 8, "cpu")
+    got, want = ([prng.uniform(k, shape), prng.randint(s, shape, 0, 3)]
+                 for k, s in (prng.split(keys.cuda()), prng.split(keys)))
+    for g, w in zip(got, want):
+        if not torch.equal(g.cpu().view(torch.int32), w.view(torch.int32)):
+            fail("draws: the card's differ from the CPU's")
+    say("draws: uniform and randint of [8, 16, 65536] under the per-shard "
+        "keys of round 7, card == CPU bit for bit")
+
+
+def injector_timing(torch, np, shards, sources, card: str):
+    """The injector's time a round (``FaultyExchange.deliver``: plain
+    PyTorch, the draws included) at the width of ``shards`` under
+    a2a_dense, for each plan of the fault matrix, at the state after round
+    2 of its faulted solve with a dense incoming row (1% finite) made from
+    a numpy seed: CUDA events, median of 20 timings of 2 calls."""
+    from repro_torch.core import (FaultPlan, SsspConfig, SsspEngine,
+                                  build_pipeline)
+    from repro_torch.core.faults import round_keys
+    P, K = shards.n_parts, len(sources)
+    rng = np.random.default_rng(9)
+    for name, plan in FAULT_PLANS.items():
+        fp = FaultPlan(**plan)
+        eng = SsspEngine.build(shards, SsspConfig(
+            **dict(ALL_KERNELS, exchange="a2a_dense"), faults=fp))
+        carry = eng.start(sources)
+        for _ in range(2):
+            carry = eng.round_fn(carry)
+        shape = tuple(carry.dist.shape)
+        incoming = torch.from_numpy(np.where(
+            rng.random(shape) < 0.01, rng.uniform(0, 20, shape),
+            np.inf).astype(np.float32)).to(carry.dist.device)
+        keys = round_keys(fp, carry.rounds, P, carry.dist.device)
+        ex = build_pipeline(eng.shards, eng.cfg).exchange
+        ms, mean = timed_median(torch, lambda: ex.deliver(
+            eng.shards, carry.dist, incoming, carry.faults, keys), reps=2)
+        say(f"injector {name} (a2a_dense, [{P}, {K}, {shape[-1]}] a round, "
+            f"queue {list(carry.faults.queue.shape)}): {ms:.4f} ms a round "
+            f"(median of 20; mean {mean:.4f}); {card}")
+        del eng, carry
+
+
+@functools.lru_cache(maxsize=1)
+def parity_shards():
+    """The parity phase's graph and shards: rmat scale 11, P=8, Trishla
+    on (one build a process)."""
+    from repro_torch.core import build_shards
+    from repro_torch.graph import rmat_graph
+    gp = rmat_graph(scale=11)
+    return gp, build_shards(gp, 8)
+
+
+def parity_cpu_solve(job):
+    """One faulted parity solve on the CPU, in a worker process: ``job`` is
+    (name, config, plan, sources); returns (name, QueryResult)."""
+    name, cfg, plan, srcs = job
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.core import FaultPlan, SsspConfig, SsspEngine
+    return name, SsspEngine.build(parity_shards()[1], SsspConfig(
+        **cfg, faults=FaultPlan(**plan)), device="cpu").solve(srcs)
+
+
+def fault_parity(np, shp, srcp, base):
+    """Every plan of the fault matrix under bucket, a2a_dense and async
+    with toka3, staged (all-kernel) and fused: the card's solve equals the
+    CPU's in distances and every counter (stale_merges and resends
+    included) and the fault-free solve in distances. The CPU solves run in
+    a pool of worker processes while the card solves."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.core import FaultPlan, SsspConfig, SsspEngine
+    jobs = [(f"{name} {ex}{' toka3' if ex == 'async' else ''} {rnd}",
+             _fault_config(rnd, ex, "toka3" if ex == "async" else "toka0"),
+             plan, srcp)
+            for name, plan in FAULT_PLANS.items()
+            for ex in ("bucket", "a2a_dense", "async")
+            for rnd in ("staged", "fused")]
+    t0 = time.perf_counter()
+    workers = max(1, min(len(jobs), (os.cpu_count() or 2) - 2))
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(parity_cpu_solve, job) for job in jobs]
+        on_gpu = {name: SsspEngine.build(shp, SsspConfig(
+            **cfg, faults=FaultPlan(**plan))).solve(srcs)
+            for name, cfg, plan, srcs in jobs}
+        on_cpu = dict(f.result() for f in futures)
+    for name, _, _, _ in jobs:
+        r = on_gpu[name]
+        same_results(r, on_cpu[name], f"parity faults {name} (card vs CPU)")
+        if r.status != "converged" or not np.array_equal(r.dist, base.dist):
+            fail(f"parity faults {name}: status {r.status}, or distances "
+                 f"differ from the fault-free solve")
+        say(f"parity faults {name}: card == CPU, distances == the "
+            f"fault-free solve's, {int(r.stats.rounds)} rounds, "
+            f"stale_merges {int(r.stats.stale_merges)}, resends "
+            f"{int(r.stats.resends)}")
+    say(f"parity faults: {len(jobs)} solves card == CPU in "
+        f"{time.perf_counter() - t0:.1f} s ({workers} CPU workers)")
+
+
+def runner_phase():
+    """The port's runner on the card, as a user starts it: ``RUNNER_ARGS``
+    staged and with ``--round fused``, the two processes at once. Each must
+    exit 0 and validate against Dijkstra; its lines are echoed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for rnd in ("staged", "fused"):
+            cmd = [sys.executable, "-m", "repro_torch.launch.sssp_run",
+                   *RUNNER_ARGS, "--round", rnd]
+            procs[rnd] = subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+        outs = {rnd: p.communicate(timeout=600)[0]
+                for rnd, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rnd, out in outs.items():
+        for line in out.splitlines():
+            say(f"  runner {rnd} | {line}")
+        if (procs[rnd].returncode != 0
+                or "validation vs Dijkstra (4 queries): OK" not in out):
+            fail(f"runner {rnd}: exit {procs[rnd].returncode}")
+    say(f"runner: staged and fused validated on the card "
+        f"({time.perf_counter() - t0:.1f} s wall for both)")
 
 
 def solve_median(eng, sources, what: str, n: int = 5) -> float:
@@ -2104,8 +2434,7 @@ def main():
     rows.update(round_kernel_phase(torch, np, eng_f, sources, cfg_f, "round"))
 
     # ---- parity phase: card vs CPU through the port ----------------------
-    gp = rmat_graph(scale=11)
-    shp = build_shards(gp, 8)
+    gp, shp = parity_shards()
     srcp = live_sources(np, rng, gp, 4)
     on_gpu = SsspEngine.build(shp, cfg).solve(srcp)
     on_cpu = SsspEngine.build(shp, cfg, device="cpu").solve(srcp)
@@ -2162,6 +2491,7 @@ def main():
         f"{int(on_gpu.stats.rounds)}, rescued {rescued}, q_relaxations "
         f"{on_gpu.q_relaxations.tolist()}, pruned "
         f"{int(on_gpu.stats.pruned_edges)}")
+    fault_parity(np, shp, srcp, on_gpu)
 
     # ---- scale phase: the dense path -------------------------------------
     eng.solve(sources[:1])          # warm-up: allocator, library loads
@@ -2213,8 +2543,15 @@ def main():
     # ---- async phase: every exchange at scale-1e6 dense (kernels 1, 3, 5, 7)
     del eng_f, res1, res_f
     torch.cuda.empty_cache()
-    async_phase(torch, np, eng.shards, sources, "1e6 dense", ragged=False)
-    del eng, sh, res
+    out6 = async_phase(torch, np, eng.shards, sources, "1e6 dense",
+                       ragged=False)
+    # ---- faults at scale-1e6 dense, the degraded solve, the draws -------
+    clean6 = faults_phase(torch, np, eng.shards, sources, "1e6 dense",
+                          False, out6)
+    degraded_solve(np, eng.shards, sources,
+                   clean6["staged", "bucket", "toka0"], "1e6 dense")
+    draws_phase(torch)
+    del eng, sh, res, out6, clean6
     torch.cuda.empty_cache()
 
     # ---- ragged vs dense at scale-1e6, from one stream --------------------
@@ -2386,7 +2723,14 @@ def main():
     if not np.array_equal(out7["staged", "bucket"].dist, res.dist):
         fail("async 1e7: the bucket solve differs from the main path's")
     toka_phase(np, eng7.shards, src7, out7, "1e7 ragged")
+    # ---- faults at scale-1e7 ragged, the injector's time a round ----------
+    faults_phase(torch, np, eng7.shards, src7, "1e7 ragged", True, out7)
+    injector_timing(torch, np, eng7.shards, src7, card)
     del eng7, sh7, g7, res, out7
+    torch.cuda.empty_cache()
+
+    # ---- the runner, as a user starts it ------------------------------------
+    runner_phase()
 
     # ---- the standalone kernel API: kernels 9, 10, 11 and 13 ---------------
     for phase in (lambda: single_phase(torch, np, g, rng, out_dir),

@@ -1,4 +1,5 @@
 from repro_torch.core import phases
+from repro_torch.core.faults import FaultPlan, FaultState, wrap_exchange
 from repro_torch.core.engine import (QueryHandle, QueryResult, SsspEngine,
                                      bucket_k, engine_for)
 from repro_torch.core.partition import inter_edge_counts, partition_1d

@@ -328,7 +328,7 @@ class SsspEngine:
             q_rounds=carry.q_rounds.amax(0)[:k].cpu().numpy(),
             q_relaxations=carry.relaxations.sum(0, dtype=torch.int32)[:k]
             .cpu().numpy(),
-            stale_merges=_total(carry.stale), resends=np.int32(0),
+            stale_merges=_total(carry.stale), resends=_total(carry.resent),
             n_dispatches=np.int32(
                 carry.rounds * dispatches_per_round(self.shards, self.cfg)),
             overlap_rounds=np.int32(int(carry.overlap)),

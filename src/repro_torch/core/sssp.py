@@ -49,6 +49,7 @@ from typing import Any, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import phases, trishla
 from repro_torch.core import local_solver  # noqa: F401  (registers the solvers)
 from repro_torch.core import warmstart  # noqa: F401  (registers warm_init)
@@ -62,8 +63,7 @@ from repro_torch.kernels.send import send_pack, send_payload_bucket
 
 @dataclasses.dataclass(frozen=True)
 class SsspConfig:
-    """The reference's config fields, values and checks. Fault injection is
-    not ported and raises ``NotImplementedError`` naming its ROADMAP item;
+    """The reference's config fields, values and checks;
     ``pallas_interpret`` is accepted and has no effect."""
     exchange: str = "bucket"        # bucket | pmin | a2a_dense
                                     #   | async | async_bucket | async_ppermute
@@ -82,7 +82,7 @@ class SsspConfig:
     prune_offline_passes: int = 0   # vectorized Trishla before the solve
     tri_chunk: int = 256
     max_rounds: int = 100_000
-    faults: Any = None
+    faults: faults_mod.FaultPlan | None = None  # message failure model
     toka3_safety: float = 2.0
 
     def __post_init__(self):
@@ -93,9 +93,10 @@ class SsspConfig:
         phases.validate("merge", self.merge_backend)
         phases.validate("round", self.round)
         phases.validate("warm_init", self.warm_start)
-        if self.faults is not None:
-            raise NotImplementedError(
-                "fault injection is not ported yet: ROADMAP Queue 1 item 7b")
+        if self.faults is not None and not isinstance(self.faults,
+                                                      faults_mod.FaultPlan):
+            raise TypeError(f"cfg.faults must be a FaultPlan or None, got "
+                            f"{type(self.faults).__name__}")
         if self.toka3_safety <= 0:
             raise ValueError("toka3_safety must be > 0")
         if self.async_lag < 1:
@@ -110,6 +111,14 @@ class SsspConfig:
         if self.pallas_sweeps < 1:
             raise ValueError("pallas_sweeps must be >= 1")
 
+    @property
+    def fault_plan(self) -> faults_mod.FaultPlan | None:
+        """The active fault plan: an all-zero plan is None, so the
+        fault-free pipeline carries no fault state and draws nothing."""
+        if self.faults is not None and self.faults.active:
+            return self.faults
+        return None
+
 
 class SsspStats(NamedTuple):
     rounds: Any              # outer rounds until the LAST query converged
@@ -121,7 +130,7 @@ class SsspStats(NamedTuple):
     q_relaxations: Any = None  # [K] edge relaxations per query
     q_converged: Any = None    # [K] certified-converged mask
     stale_merges: Any = None   # improving late (deferred) deliveries
-    resends: Any = None        # 0: no anti-entropy here (item 7b)
+    resends: Any = None        # anti-entropy retransmissions
     n_dispatches: Any = None   # data-plane dispatches (rounds x 4 or 2)
     overlap_rounds: Any = None  # rounds overlapping delivery with compute
     bytes_moved: Any = None    # logical payload bytes on the wire
@@ -141,7 +150,8 @@ class _Carry(NamedTuple):
     msgs_recv: torch.Tensor    # [P, K] int32
     comm_bytes: torch.Tensor   # scalar int32
     streak: torch.Tensor       # [P, K] int32 globally quiet rounds (toka3)
-    stale: torch.Tensor        # [P, K] int32 improving deferred deliveries
+    stale: torch.Tensor        # [P, K] int32 improving late deliveries
+    resent: torch.Tensor       # [P, K] int32 anti-entropy retransmissions
     overlap: torch.Tensor      # scalar int32 rounds of delivery + compute
     toka2: Any = None          # Toka2State of [P, K] fields (toka2 only)
     incoming: torch.Tensor | None = None   # fused: [P, K, P, C] delivered,
@@ -150,6 +160,7 @@ class _Carry(NamedTuple):
     front_any: torch.Tensor | None = None  # fused: [P, K] a frontier bit
                                            # next round
     inflight: tuple | None = None  # deferred: undelivered payload buffers
+    faults: faults_mod.FaultState | None = None  # under an active plan
 
 
 # --------------------------------------------------------------------------
@@ -535,10 +546,14 @@ def _toka2_stage(cfg, comm: SimComm, carry, new_active, sends, recvs,
                  sh: SsspShards):
     """One hop of the K token rings. Safra's counters hold only for a
     message transport: under a dense exchange a sent improvement is not
-    one counted receive, so the color-only variant runs (counters zeroed,
-    blacken on send), as in the reference."""
+    one counted receive, and under faults a dropped send is never received
+    and a released duplicate is an unmatched receive. There the color-only
+    variant runs (counters zeroed, blacken on send), as in the reference;
+    the pending bits in the idle view hold the ring open over messages the
+    injector still holds."""
     _, idle = _quiescent(comm, new_active)
-    if not phases.resolve("exchange", cfg.exchange).dense:
+    if (not phases.resolve("exchange", cfg.exchange).dense
+            and cfg.fault_plan is None):
         acct = toka_mod.toka2_account(carry.toka2, sends, recvs)
     else:
         zero = torch.zeros_like(sends)
@@ -556,12 +571,14 @@ def _toka3_stage(cfg, comm: SimComm, carry, new_active, sends, recvs,
                  sh: SsspShards):
     """The timeout: a query is done once it has been globally quiet (no
     frontier, send, receive or payload in flight) for ``toka3_bound``
-    rounds of the GLOBAL inter-edge count. A deferred exchange widens the
-    bound by its worst delivery lag: ``async_lag`` buffered rounds, plus
-    P // 2 hops for the dense ring. The bound is computed once on the host
+    rounds of the GLOBAL inter-edge count. A fault plan widens the bound
+    by its ``fault_slack``, and a deferred exchange by its worst delivery
+    lag: ``async_lag`` buffered rounds, plus P // 2 hops for the dense ring.
+    The bound is computed once on the host
     (``SsspShards.inter_edges_total``), so every device reads the same."""
     ex = phases.resolve("exchange", cfg.exchange)
-    slack = 0
+    fp = cfg.fault_plan
+    slack = 0 if fp is None else fp.fault_slack
     if ex.deferred:
         slack += cfg.async_lag + (sh.n_parts // 2 if ex.dense else 0)
     bound = toka_mod.toka3_timeout(sh.inter_edges_total, sh.n_parts,
@@ -692,6 +709,47 @@ def _exchange(comm, ex: ExchangeStage, inflight_mid, carry_inflight,
     return ex.run(comm, payload), carry_inflight
 
 
+def _resend_window(cfg: SsspConfig, comm: SimComm, carry: _Carry):
+    """The anti-entropy window: every ``resend_period``-th round, senders
+    forget their ``last_sent`` floor for each query some receiver latched
+    an unhealed drop on (one all-reduce of the latches), so the send phase
+    retransmits every current slot minimum for it; slot values only fall,
+    so the dropped message is healed by this round's copy unless it is
+    dropped again. Gating on the latch, rather than resending blindly, is
+    what lets the system ever look quiet. The round counter is a host int,
+    so an off-period round costs nothing. Returns (resend_now [P, K] bool,
+    or None off-period, the ``last_sent`` the send phase takes)."""
+    fp = cfg.fault_plan
+    if (fp is None or fp.resend_period == 0
+            or carry.rounds % fp.resend_period != fp.resend_period - 1):
+        return None, carry.last_sent
+    resend_now = comm.all_any(carry.faults.unhealed)
+    return resend_now, torch.where(resend_now[..., None], INF,
+                                   carry.last_sent)
+
+
+def _deliver(sh: SsspShards, ex, carry: _Carry, dist, incoming, resend_now):
+    """Fault delivery of a batch under a ``FaultyExchange`` (the batch
+    unchanged otherwise). A resend round first clears the latches it
+    retransmits for, so only drops of the resent copies re-arm them.
+    Returns (incoming', fault state', stale [P, K] or None, pending [P, K]
+    or None)."""
+    if not isinstance(ex, faults_mod.FaultyExchange):
+        return incoming, carry.faults, None, None
+    fstate = carry.faults
+    if resend_now is not None:
+        fstate = fstate._replace(unhealed=fstate.unhealed & ~resend_now)
+    keys = faults_mod.round_keys(ex.plan, carry.rounds, sh.n_parts,
+                                 dist.device)
+    return ex.deliver(sh, dist, incoming, fstate, keys)
+
+
+def _resent(carry: _Carry, resend_now, sends):
+    if resend_now is None:
+        return carry.resent
+    return carry.resent + torch.where(resend_now, sends, 0)
+
+
 def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
     """The fused-round variant of ``make_round``. The idle branch (Trishla)
     runs before the kernel, gated per shard, since merge and send run on
@@ -700,7 +758,9 @@ def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
     post-relax distances and the raw delivered batch. A deferred exchange
     delivers at round start (the kernel merges it next round, a total lag
     of 2 under ``async``); a round overlaps when some shard had payload on
-    the wire while some shard was not idle."""
+    the wire while some shard was not idle. Under a fault plan the kernel
+    and its rescue pack from the resend window's ``last_sent``, and the
+    delivered batch passes the injector before it is accounted."""
     comm = SimComm(sh.n_parts, sh.device)
     pipe = build_pipeline(sh, cfg)
     ex = pipe.exchange
@@ -717,28 +777,38 @@ def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
                                      carry.tri_cursor, cfg)
         # the injected frontier: source bits on round 0, empty thereafter
         front_in = carry.active & live[..., None]
+        resend_now, last_in = _resend_window(cfg, comm, carry)
         dist, payload, last_sent, sends, nrel, resid = _phase_fused(
-            sh, carry.dist, front_in, live, carry.incoming, carry.last_sent,
+            sh, carry.dist, front_in, live, carry.incoming, last_in,
             pruned, cfg, dense=dense)
         if bool((resid > 0).any()):
             dist, payload, last_sent, sends, extra = _phase_fused_rescue(
-                sh, dist, resid, carry.last_sent, pruned, cfg, dense=dense)
+                sh, dist, resid, last_in, pruned, cfg, dense=dense)
             nrel = nrel + extra
         payload, nbytes = _mask_payload(payload)
         sent, inflight = _exchange(comm, ex, inflight_mid, carry.inflight,
                                    payload)
         if sent is not None:
             incoming = sent
+        incoming, fstate, stale_f, pending = _deliver(
+            sh, ex, carry, dist, incoming, resend_now)
         incoming = incoming.contiguous()                   # read twice
         any_imp, recvs, n_imp = _account_delivery(sh, dist, incoming, dense)
         # toka reads only any(new_active, -1): a [P, K, 1] plane of the
         # any-improvement bits stands in for the staged merge's frontier
         toka_flag = any_imp
+        if pending is not None:
+            toka_flag = toka_flag | pending
         stale, overlap = carry.stale, carry.overlap
         if deferred:
+            # every delivered batch is at least a round old: its improving
+            # entries are the stale merges (queue releases are already
+            # min-merged into it, so the injector's count is skipped)
             toka_flag = toka_flag | _pending_inflight(inflight)
             stale = stale + n_imp
             overlap = overlap + (delivering & ~idle).any().to(torch.int32)
+        elif stale_f is not None:
+            stale = stale + stale_f
         done, toka2, streak = pipe.toka(cfg, comm, carry, toka_flag[..., None],
                                         sends, recvs, sh)
         return _Carry(
@@ -750,8 +820,9 @@ def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
             msgs_sent=carry.msgs_sent + sends,
             msgs_recv=carry.msgs_recv + recvs,
             comm_bytes=carry.comm_bytes + nbytes, streak=streak, stale=stale,
-            overlap=overlap, toka2=toka2, incoming=incoming,
-            front_any=any_imp, inflight=inflight)
+            resent=_resent(carry, resend_now, sends), overlap=overlap,
+            toka2=toka2, incoming=incoming, front_any=any_imp,
+            inflight=inflight, faults=fstate)
 
     return round_fn
 
@@ -769,14 +840,20 @@ class RoundPipeline(NamedTuple):
 
 
 def build_pipeline(sh: SsspShards, cfg: SsspConfig) -> RoundPipeline:
-    """Resolve every phase backend for these shards. The reference's
-    fallbacks for shards without tile layouts (ROADMAP Queue 1 item 5b)
-    and its fault-injecting exchange (item 7b) are not ported: the port's
-    shards always carry every layout, and ``SsspConfig`` rejects faults."""
+    """Resolve every phase backend for these shards. An active
+    ``cfg.faults`` plan wraps the resolved exchange with the
+    fault-injecting decorator (``core/faults.py: wrap_exchange``): the
+    transfer is untouched, delivery goes through the injector. The
+    reference's fallbacks for shards without tile layouts (ROADMAP Queue 1
+    item 5b) are not ported: the port's shards always carry every
+    layout."""
+    ex = phases.resolve("exchange", cfg.exchange)
+    if cfg.fault_plan is not None:
+        ex = faults_mod.wrap_exchange(ex, cfg.fault_plan)
     return RoundPipeline(
         local=partial(_phase_local, cfg=cfg),
         send=phases.resolve("send", cfg.send_backend),
-        exchange=phases.resolve("exchange", cfg.exchange),
+        exchange=ex,
         merge=phases.resolve("merge", cfg.merge_backend),
         toka=phases.resolve("toka", cfg.toka))
 
@@ -784,10 +861,14 @@ def build_pipeline(sh: SsspShards, cfg: SsspConfig) -> RoundPipeline:
 def make_round(sh: SsspShards, cfg: SsspConfig):
     """Returns round(carry) -> carry for the config's round pipeline. Under
     a deferred exchange the round takes its delivery first (the batch sent
-    ``async_lag`` rounds ago, or one ring hop), counts its improving
-    entries against the post-solve distances as stale merges before the
-    merge, and queues its own sends; a round overlaps when some shard had
-    payload on the wire while some shard had a frontier to relax."""
+    ``async_lag`` rounds ago, or one ring hop) and queues its own sends; a
+    round overlaps when some shard had payload on the wire while some shard
+    had a frontier to relax. Under a fault plan the send phase packs from
+    the resend window's ``last_sent`` and the delivered batch passes the
+    injector. Then, under a deferred exchange, the improving entries of
+    the batch as delivered, against the post-solve distances, count as
+    stale merges; else the injector's own count of improving queue
+    releases does."""
     if _round_mode(sh, cfg) == "fused":
         return _make_round_fused(sh, cfg)
     comm = SimComm(sh.n_parts, sh.device)
@@ -804,26 +885,35 @@ def make_round(sh: SsspShards, cfg: SsspConfig):
         act = carry.active & ~carry.done[..., None]
         dist, pruned, cursor, nrel = pipe.local(
             sh, carry.dist, act, carry.pruned, carry.tri_cursor)
-        payload, last_sent, sends = pipe.send(sh, dist, pruned,
-                                              carry.last_sent, dense=dense)
+        resend_now, last_in = _resend_window(cfg, comm, carry)
+        payload, last_sent, sends = pipe.send(sh, dist, pruned, last_in,
+                                              dense=dense)
         payload, nbytes = _mask_payload(payload)
         sent, inflight = _exchange(comm, ex, inflight_mid, carry.inflight,
                                    payload)
+        if sent is not None:
+            incoming = sent
+        incoming, fstate, stale_f, pending = _deliver(
+            sh, ex, carry, dist, incoming, resend_now)
         stale, overlap = carry.stale, carry.overlap
         if deferred:
             stale = stale + _count_improving(sh, dist, incoming, dense)
-        else:
-            incoming = sent
+        elif stale_f is not None:
+            stale = stale + stale_f
         dist, new_active, recvs = pipe.merge(sh, dist, incoming, dense=dense)
-        # termination sees payload in flight as activity; the real frontier
-        # stays clean. The stages read only any(-1) of the view.
-        toka_view = new_active
+        # termination sees undelivered state (the fault queue, unhealed
+        # drops, payload in flight) as activity; the real frontier stays
+        # clean. The stages read only any(-1) of the view.
         if deferred:
-            toka_view = (new_active.any(-1, keepdim=True)
-                         | _pending_inflight(inflight)[..., None])
+            held = _pending_inflight(inflight)
+            pending = held if pending is None else pending | held
             computing = act.flatten(1).any(-1)                      # [P]
             overlap = overlap + (delivering & computing).any().to(
                 torch.int32)
+        toka_view = new_active
+        if pending is not None:
+            toka_view = (new_active.any(-1, keepdim=True)
+                         | pending[..., None])
         done, toka2, streak = pipe.toka(cfg, comm, carry, toka_view, sends,
                                         recvs, sh)
         return _Carry(
@@ -835,7 +925,8 @@ def make_round(sh: SsspShards, cfg: SsspConfig):
             msgs_sent=carry.msgs_sent + sends,
             msgs_recv=carry.msgs_recv + recvs,
             comm_bytes=carry.comm_bytes + nbytes, streak=streak, stale=stale,
-            overlap=overlap, toka2=toka2, inflight=inflight)
+            resent=_resent(carry, resend_now, sends), overlap=overlap,
+            toka2=toka2, inflight=inflight, faults=fstate)
 
     return round_fn
 
@@ -856,7 +947,9 @@ def init_carry(sh: SsspShards, sources, cfg: SsspConfig,
 
     A deferred exchange starts with empty (+inf) in-flight buffers: round
     0 delivers nothing. The toka2 rings start with every token on shard
-    0."""
+    0. An active fault plan starts an empty queue of one slot per flat
+    payload position: ``block`` under a dense exchange, ``P * C`` for the
+    bucketed routing."""
     dev = sh.device
     sources = torch.as_tensor(sources, dtype=torch.int32, device=dev)
     nq = sources.shape[0]
@@ -893,6 +986,10 @@ def init_carry(sh: SsspShards, sources, cfg: SsspConfig,
                  else (P, nq, P, sh.bucket_cap))
         incoming = torch.full(shape, INF, device=dev)
         front_any = active.any(-1)
+    fstate = None
+    if cfg.fault_plan is not None:
+        n_msgs = block if ex.dense else P * sh.bucket_cap
+        fstate = faults_mod.init_state(cfg.fault_plan, nq, n_msgs, P, dev)
     toka2 = None
     if cfg.toka == "toka2":
         toka2 = toka_mod.toka2_init(
@@ -905,10 +1002,11 @@ def init_carry(sh: SsspShards, sources, cfg: SsspConfig,
         rounds=0, q_rounds=zero, relaxations=zero, msgs_sent=zero,
         msgs_recv=zero,
         comm_bytes=torch.zeros((), dtype=torch.int32, device=dev),
-        streak=zero, stale=zero,
+        streak=zero, stale=zero, resent=zero,
         overlap=torch.zeros((), dtype=torch.int32, device=dev),
         toka2=toka2, incoming=incoming, front_any=front_any,
-        inflight=(ex.init_inflight(sh, nq, cfg) if ex.deferred else None))
+        inflight=(ex.init_inflight(sh, nq, cfg) if ex.deferred else None),
+        faults=fstate)
 
 
 def certificate_improved_sim(sh: SsspShards, dist):

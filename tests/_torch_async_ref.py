@@ -1,6 +1,7 @@
-"""Shared pieces of the asynchronous-mode tests of the PyTorch port
-(test_torch_async*.py, test_torch_toka.py): JAX shards read into the port,
-the result comparison (tolerance zero), and the reference's fixture."""
+"""Shared pieces of the asynchronous-mode and fault tests of the PyTorch
+port (test_torch_async*.py, test_torch_toka.py, test_torch_faults*.py):
+JAX shards read into the port, the result comparison (tolerance zero), and
+the reference's fixtures."""
 import dataclasses
 
 import numpy as np
@@ -37,6 +38,14 @@ def fixture_shards():
     return sj, port_shards(sj), g
 
 
+def fault_fixture_shards():
+    """tests/test_faults.py's fixture: ``random_graph(n=96, m=360,
+    seed=7)`` on P=4, no triangles; (JAX shards, port shards, graph)."""
+    g = jg.random_graph(n=96, m=360, seed=7)
+    sj = jc.build_shards(g, 4, enumerate_triangles=False)
+    return sj, port_shards(sj), g
+
+
 def assert_results_equal(rt, rj):
     np.testing.assert_array_equal(rt.dist, np.asarray(rj.dist))
     for f in COUNTERS:
@@ -52,5 +61,17 @@ def solve_both(sj, st, srcs, **cfg):
     rj = jc.SsspEngine.build(sj, jc.SsspConfig(**cfg)).solve(srcs)
     rt = tc.SsspEngine.build(st, tc.SsspConfig(**cfg),
                              device="cpu").solve(srcs)
+    assert_results_equal(rt, rj)
+    return rt, rj
+
+
+def solve_faulted(sj, st, srcs, plan: dict, **cfg):
+    """One faulted config solved by both engines (the port on the CPU),
+    each with its own package's ``FaultPlan``; fails unless they agree.
+    Returns (port result, JAX result)."""
+    rj = jc.SsspEngine.build(sj, jc.SsspConfig(
+        faults=jc.FaultPlan(**plan), **cfg)).solve(srcs)
+    rt = tc.SsspEngine.build(st, tc.SsspConfig(
+        faults=tc.FaultPlan(**plan), **cfg), device="cpu").solve(srcs)
     assert_results_equal(rt, rj)
     return rt, rj

@@ -13,6 +13,10 @@ the fixture matrix of test_torch_async.py and test_torch_toka.py.
   the fused round under a dense exchange on ragged layouts (kernel 8's
   dense mode).
 - A ``max_rounds`` exit with payload in flight: the exit-time flush.
+- The faulted half of the acceptance matrix: its "drop" and "delay" plans
+  under ``async`` with toka3, staged and fused, equal to the JAX engine in
+  distances and every counter (``stale_merges`` and ``resends``
+  included) and to the synchronous baseline in distances.
 
 Tolerance zero throughout.
 """
@@ -39,23 +43,33 @@ ACCEPT_GRAPHS = {
 }
 
 
+# tests/test_async_exchange.py: _ACCEPT_PROG's fault plans
+ACCEPT_PLANS = {"drop": dict(drop=0.2, seed=11, resend_period=4),
+                "delay": dict(delay=0.3, seed=12)}
+
+
 @pytest.fixture(scope="module")
 def fixture_shards():
     return ref.fixture_shards()
 
 
-@pytest.mark.parametrize("name", sorted(ACCEPT_GRAPHS))
-def test_acceptance_matrix_clean_matches_reference(name):
-    """The reference's acceptance matrix without faults: its sources (the
-    draws of ``default_rng(5)`` in graph order), P=8, no triangles, no
-    online pruning."""
+def _accept_case(name):
+    """The matrix's graph ``name`` and its sources (the draws of
+    ``default_rng(5)`` in graph order)."""
     rng = np.random.default_rng(5)
     for gname, (fn, kw) in ACCEPT_GRAPHS.items():
         g = getattr(jg, fn)(**kw)
         srcs = sorted(int(s) for s in
                       rng.choice(g.n_vertices, size=3, replace=False))
         if gname == name:
-            break
+            return g, srcs
+
+
+@pytest.mark.parametrize("name", sorted(ACCEPT_GRAPHS))
+def test_acceptance_matrix_clean_matches_reference(name):
+    """The reference's acceptance matrix without faults: its sources, P=8,
+    no triangles, no online pruning."""
+    g, srcs = _accept_case(name)
     sj = jc.build_shards(g, 8, enumerate_triangles=False)
     st = ref.port_shards(sj)
     base = tc.SsspEngine.build(st, tc.SsspConfig(prune_online=False),
@@ -74,6 +88,26 @@ def test_acceptance_matrix_clean_matches_reference(name):
         # the reference's matrix asserts > 0 here; JAX reads 0, and so
         # does the port (ROADMAP Queue 3's caveat)
         assert int(rt.stats.overlap_rounds) == 0
+
+
+@pytest.mark.parametrize("plan", sorted(ACCEPT_PLANS))
+@pytest.mark.parametrize("name", sorted(ACCEPT_GRAPHS))
+def test_acceptance_matrix_faulted_matches_reference(name, plan):
+    """The faulted half of the matrix: ``async`` with toka3 under its drop
+    plan (with resend) and its delay plan, staged and fused, each == the
+    JAX engine in every counter and == the bucket baseline in
+    distances."""
+    g, srcs = _accept_case(name)
+    sj = jc.build_shards(g, 8, enumerate_triangles=False)
+    st = ref.port_shards(sj)
+    base = tc.SsspEngine.build(st, tc.SsspConfig(prune_online=False),
+                               device="cpu").solve(srcs)
+    for rnd in ("staged", "fused"):
+        rt, _ = ref.solve_faulted(sj, st, srcs, ACCEPT_PLANS[plan],
+                                  round=rnd, exchange="async", toka="toka3",
+                                  prune_online=False)
+        np.testing.assert_array_equal(rt.dist, base.dist)
+        assert rt.status == "converged"
 
 
 @pytest.mark.parametrize("exchange", ["a2a_dense", "async",

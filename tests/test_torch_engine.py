@@ -170,10 +170,13 @@ def test_config_values_not_ported_raise(jax_graphs, jax_shards, field,
                                         value):
     """The exchanges and detectors that once raised here are ported: each
     builds and solves like the JAX package (all-kernel staged, R-MAT, P=4,
-    K=3). Fault injection still raises, naming its ROADMAP item."""
+    K=3). Fault injection is ported too: a ``faults`` value that is not a
+    ``FaultPlan`` raises ``TypeError``, as in the reference."""
     if field == "faults":
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 7b"):
+        with pytest.raises(TypeError, match="FaultPlan"):
             tc.SsspConfig(faults=value)
+        with pytest.raises(TypeError, match="FaultPlan"):
+            jc.SsspConfig(faults=value)
         return
     cfg = dict(ALL_KERNELS, **{field: value})
     sj = jax_shards("rmat", 4)

@@ -1706,3 +1706,113 @@ def test_round_kernel_dense_mode_at_a_deferred_state(cuda, layout):
         ref = plain(*ops, **kw)
         for got, want in zip(out, ref):
             assert torch.equal(got, want)
+
+
+# ---------------------------------------------- fault injection (item 7b) --
+
+FAULT_PLANS = {"drop": dict(drop=0.3, resend_period=4),
+               "delay": dict(delay=0.4), "duplicate": dict(duplicate=0.4),
+               "reorder": dict(reorder=0.4)}
+
+
+def test_fault_draws_on_gpu_match_cpu(cuda):
+    """The injector's draws on the card equal the CPU's bit for bit:
+    ``uniform`` and ``randint`` under the per-shard keys of two rounds,
+    [P, K, M] at a width past one CTA's."""
+    from repro_torch.core import prng
+    from repro_torch.core.faults import round_keys
+    shape = (5, 70_001)
+    for rnd in (0, 9):
+        keys = round_keys(tc.FaultPlan(delay=0.4, seed=12), rnd, 8, "cpu")
+        for k_dev, k_cpu in zip(prng.split(keys.to(cuda)), prng.split(keys)):
+            u = prng.uniform(k_dev, shape)
+            assert u.device.type == cuda.type
+            assert torch.equal(u.cpu().view(torch.int32),
+                               prng.uniform(k_cpu, shape).view(torch.int32))
+            assert torch.equal(prng.randint(k_dev, shape, 0, 3).cpu(),
+                               prng.randint(k_cpu, shape, 0, 3))
+
+
+@pytest.mark.parametrize("rnd", ["staged", "fused"])
+@pytest.mark.parametrize("exchange", ["bucket", "a2a_dense"])
+@pytest.mark.parametrize("regime", sorted(FAULT_PLANS))
+def test_faults_on_gpu_match_cpu(cuda, regime, exchange, rnd):
+    """Each regime of the fault matrix under bucket and a2a_dense, staged
+    (all-kernel) and fused: the card's solve equals the CPU's in distances
+    and every counter (stale_merges and resends included), converged, the
+    fault-free distances; the path's kernels launched."""
+    sh, srcs, _ = _engine_case("dense")
+    base = (dict(ALL_KERNELS) if rnd == "staged"
+            else dict(round="fused", pallas_sweeps=2))
+    cfg = tc.SsspConfig(**base, exchange=exchange,
+                        faults=tc.FaultPlan(**FAULT_PLANS[regime]))
+    build.reset_launches()
+    on_gpu = tc.SsspEngine.build(sh, cfg).solve(srcs)
+    got = dict(build.LAUNCHES)
+    on_cpu = tc.SsspEngine.build(sh, cfg, device="cpu").solve(srcs)
+    _assert_same_async(on_gpu, on_cpu)
+    assert int(on_gpu.stats.resends) == int(on_cpu.stats.resends)
+    assert on_gpu.status == "converged"
+    clean = tc.SsspEngine.build(sh, tc.SsspConfig(
+        **base, exchange=exchange)).solve(srcs)
+    np.testing.assert_array_equal(on_gpu.dist, clean.dist)
+    if rnd == "fused":
+        assert got["round"] == int(on_gpu.stats.rounds) and not got["merge"]
+    else:
+        assert got["relax"] > 0 and got["send"] > 0
+        assert (got["merge"] > 0) == (exchange == "bucket")
+    if regime == "drop":
+        assert int(on_gpu.stats.resends) > 0
+
+
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+def test_send_and_round_kernels_with_resend_rows(cuda, layout):
+    """Kernels 3/4 and 7/8 at a mid-solve state with ``last_sent`` +inf on
+    every other query (what a resend round hands them): bit-equal to their
+    plain versions, and more sends than without."""
+    sh, srcs, _ = _engine_case(layout)
+    eng = tc.SsspEngine.build(sh, tc.SsspConfig(round="fused"))
+    carry = eng.start(srcs)
+    for _ in range(2):
+        carry = eng.round_fn(carry)
+    dsh = eng.shards
+    resend = carry.last_sent.clone()
+    resend[:, ::2] = float("inf")
+    live = ~carry.done
+    ragged = layout == "ragged"
+    kernel, plain = ((fused_round_ragged, fused_round_ragged_plain)
+                     if ragged else
+                     (fused_round_tiled, fused_round_tiled_plain))
+    chunks = {} if ragged else dict(chunks=dsh.round_chunks)
+    kw = dict(vb=dsh.rx_vb, sb=dsh.tx_sb, n_sweeps=8, dense=False)
+    sends = []
+    for last in (carry.last_sent, resend):
+        ops = fused_round_operands(
+            carry.dist, carry.active & live[..., None], live,
+            carry.incoming.reshape(*carry.dist.shape[:2], -1), last,
+            dsh.slot_valid, dsh.relax_layout, dsh.send_layout,
+            dsh.merge_layout, carry.pruned[:, :dsh.e_loc],
+            carry.pruned[:, dsh.e_loc:], vb=dsh.rx_vb, sb=dsh.tx_sb,
+            dense=False)
+        out = kernel(*ops, **kw, **chunks)
+        for got, want in zip(out, plain(*ops, **kw)):
+            assert torch.equal(got, want)
+        sends.append(int(out[5].sum()))
+        lay = dsh.send_layout
+        pruned_t = torch.zeros(lay[3].shape, dtype=torch.int32,
+                               device=cuda)
+        n_stiles = dsh.n_stiles if ragged else lay[0].shape[1]
+        s_ops = send_operands(out[0][..., :dsh.block], last, dsh.slot_valid,
+                              n_stiles, dsh.tx_sb)
+        if ragged:
+            s_args = (*s_ops, lay[4], *lay[:3], pruned_t)
+            s_out = send_pack_ragged(*s_args, sb=dsh.tx_sb,
+                                     bounds=dsh.send_bounds)
+            s_ref = send_pack_ragged_plain(*s_args, sb=dsh.tx_sb)
+        else:
+            s_args = (*s_ops, *lay[:3], pruned_t)
+            s_out = send_pack_tiled(*s_args, sb=dsh.tx_sb)
+            s_ref = send_pack_tiled_plain(*s_args, sb=dsh.tx_sb)
+        for got, want in zip(s_out, s_ref):
+            assert torch.equal(got, want)
+    assert sends[1] > sends[0]
