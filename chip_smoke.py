@@ -109,6 +109,23 @@ Phases, each of which exits non-zero on a mismatch:
            per-shard keys, card == CPU bit for bit); at scale-1e7 the
            injector's time a round under a2a_dense for each plan (plain
            PyTorch, CUDA events, median of 20);
+  dist     the multi-process backend (backend="shmap"), after the faults
+           phase at each scale: kernels 1, 3, 5, 7 (1e6 dense) and 2, 4,
+           6, 8 (1e7 ragged) on a rank's one-shard stack
+           (SsspShards.shard), each launched through the round's phase
+           function and bit-equal to its plain version; then 8 processes
+           spawned on the card (the kernels built before they start),
+           one shard each, gloo collectives on CUDA tensors: at scale-1e6
+           dense K=16 the all-kernel staged bucket solve and the fused
+           one, every other exchange staged, toka2 and toka3, the drop
+           plan with resend and the landmark warm start; at scale-1e7
+           ragged the staged bucket solve; every rank's result equal to
+           the sim engine's on the card bit for bit (distances, every
+           counter, status), the path's kernels launched by the ranks;
+           the wall of the 8-rank solve beside the sim's and the time a
+           round spent in collectives printed (8 ranks time-sliced on one
+           card, not a deployment's speed); and, on a one-card machine,
+           NCCL at world size 1 (rmat scale 11 as one shard) == sim;
   runner   python -m repro_torch.launch.sssp_run on rmat scale 16 (P=8, 4
            sources, async with toka3, drop 0.2 with resend every 4
            rounds, the three staged kernels), staged and fused, the two
@@ -203,6 +220,7 @@ The line before last is the JSON kernel table; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -2376,6 +2394,344 @@ def serve_phase(torch, np, out_dir: Path):
     return {"flash_attention_tc": n_fa, "flash_attention": n_f32}
 
 
+# --------------------------------------------------------------------------
+# the dist phase: the shmap backend, one gloo rank a shard on one card
+# --------------------------------------------------------------------------
+
+DIST_RANKS = 8                 # processes, one shard each, sharing the card
+DIST_TIMEOUT = 300             # seconds a collective may wait for its peers
+DIST_JOBS_1E6 = (
+    ("bucket staged", dict(ALL_KERNELS), False),
+    ("bucket fused", dict(round="fused"), False),
+    ("async staged", dict(ALL_KERNELS, exchange="async"), False),
+    ("async_bucket staged", dict(ALL_KERNELS, exchange="async_bucket",
+                                 async_lag=2), False),
+    ("pmin staged", dict(ALL_KERNELS, exchange="pmin"), False),
+    ("a2a_dense staged", dict(ALL_KERNELS, exchange="a2a_dense"), False),
+    ("async_ppermute staged", dict(ALL_KERNELS, exchange="async_ppermute"),
+     False),
+    ("toka2 bucket staged", dict(ALL_KERNELS, toka="toka2"), False),
+    ("toka3 bucket staged", dict(ALL_KERNELS, toka="toka3"), False),
+    ("faults drop bucket staged", dict(ALL_KERNELS,
+                                       faults=FAULT_PLANS["drop"]), False),
+    ("landmark warm staged", dict(ALL_KERNELS, warm_start="landmark"), True),
+)
+DIST_JOBS_1E7 = (("bucket staged", dict(ALL_KERNELS), False),)
+# the solver's kernel wrappers, by the ops module that calls them
+ROUND_WRAPPERS = {"relax": ("relax_dst_tiled_fixpoint_batch",
+                            "relax_dst_ragged_fixpoint_batch"),
+                  "send": ("send_pack_tiled", "send_pack_ragged"),
+                  "merge": ("merge_scatter_tiled", "merge_scatter_ragged"),
+                  "round": ("fused_round_tiled", "fused_round_ragged")}
+
+
+def _config(kw: dict):
+    from repro_torch.core import FaultPlan, SsspConfig
+    kw = dict(kw)
+    if "faults" in kw:
+        kw["faults"] = FaultPlan(**kw["faults"])
+    return SsspConfig(**kw)
+
+
+def dist_rank(rank, world, backend, init, view, jobs, sources, landmarks,
+              queue):
+    """One rank of the dist phase, a spawned process: joins the mesh of
+    ``world`` processes over ``backend``, builds a shmap engine on its
+    shard ``view`` for each job and solves ``sources`` three times: the
+    first run (its launches counted), a second (its wall) and a third with
+    the collectives timed. Puts (rank, "ok", results) on ``queue``; rank 0's
+    results carry the distances, the others a digest of them."""
+    try:
+        if str(ROOT / "src") not in sys.path:
+            sys.path.insert(0, str(ROOT / "src"))
+        import hashlib
+
+        import numpy as np
+        import torch
+        import torch.distributed as tdist
+        from repro_torch.core import SsspEngine
+        from repro_torch.kernels import build
+        from repro_torch.launch.mesh import make_host_mesh
+        torch.set_num_threads(1)
+        torch.cuda.set_device(0)
+        mesh = make_host_mesh((world,), ("data",), backend=backend,
+                              init_method=init, rank=rank, world_size=world,
+                              timeout=DIST_TIMEOUT)
+        out = []
+        for name, kw, warm in jobs:
+            eng = SsspEngine.build(view, _config(kw), "shmap", mesh,
+                                   ("data",))
+            if warm:
+                eng.precompute_landmarks(landmarks)
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            first = eng.solve(sources)
+            launches = {k: v for k, v in build.LAUNCHES.items() if v}
+            again = eng.solve(sources)
+            eng.comm.timed = True
+            timed_run = eng.solve(sources)
+            out.append(dict(
+                name=name, dist=first.dist if rank == 0 else None,
+                digest=hashlib.sha256(first.dist.tobytes()).hexdigest(),
+                stats=first.stats, status=first.status,
+                warm=first.warm_started, launches=launches,
+                first_wall=first.wall_s, wall=again.wall_s,
+                coll_s=eng.comm.coll_s, coll_calls=eng.comm.coll_calls,
+                timed_wall=timed_run.wall_s,
+                repeat_equal=bool(np.array_equal(again.dist, first.dist)
+                                  and np.array_equal(timed_run.dist,
+                                                     first.dist)),
+                peak=torch.cuda.max_memory_allocated()))
+            del eng
+            torch.cuda.empty_cache()
+        queue.put((rank, "ok", out))
+        tdist.destroy_process_group()
+    except BaseException:
+        import traceback
+        queue.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def run_dist(views, backend: str, init: str, jobs, sources, landmarks,
+             label: str):
+    """Spawn one ``dist_rank`` a view and collect every rank's results
+    (rank order); fails on a rank's error or a timeout, and stops every
+    process it started."""
+    import queue as queue_mod
+
+    import torch.multiprocessing as tmp
+    ctx = tmp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=dist_rank, args=(
+        r, len(views), backend, init, v, jobs, sources, landmarks, q))
+        for r, v in enumerate(views)]
+    got = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < len(views):
+            try:
+                rank, status, res = q.get(timeout=2 * DIST_TIMEOUT)
+            except queue_mod.Empty:
+                fail(f"dist {label}: no result from ranks "
+                     f"{sorted(set(range(len(views))) - set(got))}")
+            if status != "ok":
+                fail(f"dist {label}: rank {rank} failed:\n{res}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [got[r] for r in range(len(views))]
+
+
+class _Ranked:
+    """Rank 0's result of a job, in the shape ``same_results`` reads."""
+
+    def __init__(self, res):
+        self.dist, self.stats, self.status = (res["dist"], res["stats"],
+                                              res["status"])
+
+
+def _expected_kernels(kw: dict, ragged: bool):
+    from repro_torch.core import phases
+    if kw.get("round") == "fused":
+        names = ("round",)
+    else:
+        dense = phases.resolve("exchange",
+                               kw.get("exchange", "bucket")).dense
+        names = STAGED[:2] if dense else STAGED
+    return [n + ("_ragged" if ragged else "") for n in names]
+
+
+def dist_phase(torch, np, sh, eng, sources, jobs, label: str, ragged: bool,
+               landmarks=(), card: str = ""):
+    """The shmap backend on the card: ``DIST_RANKS`` gloo ranks (spawned
+    processes sharing the card, one shard each, the kernels built before
+    they start) solve each job's config over the K sources; every rank's
+    result must equal the sim engine's solve on the same card bit for bit
+    (distances, every counter, status), every rank the same, each job's
+    kernels launched by the ranks. The walls of the P-rank solve and the
+    sim's, and the time a round spent in collectives, are printed: 8
+    ranks time-sliced on one card, not a deployment's speed."""
+    import tempfile
+    from repro_torch.core import SsspEngine
+    sims = {}
+    for name, kw, warm in jobs:
+        e = SsspEngine.build(eng.shards, _config(kw))
+        if warm:
+            e.precompute_landmarks(list(landmarks))
+        e.solve(sources)
+        sims[name] = e.solve(sources)
+        del e
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    views = [sh.shard(r) for r in range(sh.n_parts)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        per_rank = run_dist(views, "gloo", f"file://{tmp}/store", list(jobs),
+                            list(sources), list(landmarks), label)
+        wall = time.perf_counter() - t0
+    for i, (name, kw, warm) in enumerate(jobs):
+        r0 = per_rank[0][i]
+        what = f"dist {label} {name}"
+        sim = sims[name]
+        same_results(_Ranked(r0), sim, f"{what} ({len(views)} ranks vs sim)")
+        for r, res in enumerate(per_rank):
+            x = res[i]
+            if (x["digest"] != r0["digest"] or not x["repeat_equal"]
+                    or x["status"] != r0["status"]):
+                fail(f"{what}: rank {r} disagrees with rank 0 (or with "
+                     "itself on a repeat)")
+            for f in sim.stats._fields:
+                if not np.array_equal(np.asarray(getattr(x["stats"], f)),
+                                      np.asarray(getattr(r0["stats"], f))):
+                    fail(f"{what}: rank {r}'s {f} differs from rank 0's")
+        if r0["status"] != "converged" or r0["warm"] != warm:
+            fail(f"{what}: status {r0['status']}, warm {r0['warm']}")
+        expect = _expected_kernels(kw, ragged)
+        counts = {k: [res[i]["launches"].get(k, 0) for res in per_rank]
+                  for k in expect}
+        if any(sum(v) < 1 or v[0] < 1 for v in counts.values()):
+            fail(f"{what}: a kernel of the path was not launched {counts}")
+        rounds = int(r0["stats"].rounds)
+        coll = max(res[i]["coll_s"] for res in per_rank)
+        calls = r0["coll_calls"]
+        say(f"{what}: {len(views)} ranks == sim bit for bit, {rounds} rounds;"
+            f" wall {r0['wall']:.4f} s on {len(views)} ranks (first "
+            f"{r0['first_wall']:.4f} s) vs {sim.wall_s:.4f} s sim; "
+            f"collectives {coll / max(rounds, 1) * 1e3:.3f} ms a round "
+            f"({calls / max(rounds, 1):.1f} calls a round; most over ranks, "
+            f"timed solve {r0['timed_wall']:.4f} s); peak "
+            f"{max(res[i]['peak'] for res in per_rank) / 2**30:.3f} GiB a "
+            f"rank; launches a rank {counts}")
+    say(f"dist {label}: {len(jobs)} configs on {len(views)} gloo ranks "
+        f"(all_reduce, all_to_all_single and all_gather_single on CUDA "
+        f"tensors, none staged through the host), every rank == the sim "
+        f"engine bit for bit; {wall:.1f} s for the phase. These are "
+        f"{len(views)} ranks time-sliced on one card ({card}), not a "
+        f"deployment's speed.")
+
+
+def nccl_world_one(torch, np):
+    """NCCL at world size 1 (one card, one rank): the parity graph as one
+    shard, the all-kernel staged config, equal to the sim engine on the
+    same card bit for bit."""
+    import socket
+    from repro_torch.core import SsspEngine, build_shards
+    from repro_torch.graph import rmat_graph
+    g1 = rmat_graph(scale=11)
+    sh1 = build_shards(g1, 1)
+    srcs = live_sources(np, np.random.default_rng(5), g1, 4)
+    job = ("nccl world 1", dict(ALL_KERNELS), False)
+    sim = SsspEngine.build(sh1, _config(job[1])).solve(srcs)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    res = run_dist([sh1.shard(0)], "nccl", f"tcp://localhost:{port}", [job],
+                   srcs, [], "nccl")[0][0]
+    same_results(_Ranked(res), sim, "dist nccl world 1 vs sim")
+    say(f"dist nccl world 1: rmat scale 11 as one shard, K=4, == sim bit "
+        f"for bit, {int(res['stats'].rounds)} rounds, wall {res['wall']:.4f}"
+        f" s vs {sim.wall_s:.4f} s sim; launches {res['launches']}")
+
+
+@contextlib.contextmanager
+def plain_round_kernels():
+    """Within the block, the solver's kernel wrappers (where the ops
+    modules call them) are their plain PyTorch versions, on any device."""
+    import importlib
+    saved = []
+    try:
+        for mod, names in ROUND_WRAPPERS.items():
+            ops = importlib.import_module(f"repro_torch.kernels.{mod}.ops")
+            impl = importlib.import_module(
+                f"repro_torch.kernels.{mod}.{mod}")
+            for n in names:
+                saved.append((ops, n, getattr(ops, n)))
+                setattr(ops, n, functools.partial(
+                    _drop_schedule, getattr(impl, f"{n}_plain")))
+        yield
+    finally:
+        for ops, n, f in saved:
+            setattr(ops, n, f)
+
+
+def _drop_schedule(plain, *args, chunks=None, bounds=None, **kw):
+    return plain(*args, **kw)
+
+
+def _flat(x):
+    if isinstance(x, tuple):
+        return [t for y in x for t in _flat(y)]
+    return [x]
+
+
+def one_shard_kernels(torch, eng, sources, cfg, label: str, ragged: bool):
+    """Kernels 1, 3, 5, 7 (dense) or 2, 4, 6, 8 (ragged) on a rank's
+    one-shard stack (``SsspShards.shard``), at the state after round 2 of
+    the sim's solve: each launched through the round's phase function on
+    the view, bit-equal to its plain version on the same inputs (the
+    wrappers swapped for their plain versions), for the first and the last
+    shard with a frontier."""
+    from repro_torch.core import sssp as S
+    from repro_torch.core.local_solver import local_fixpoint_pallas
+    from repro_torch.kernels import build
+    dsh = eng.shards
+    carry = eng.start(sources)
+    for _ in range(2):
+        carry = eng.round_fn(carry)
+    live = ~carry.done
+    act = carry.active & live[..., None]
+    payload = S._phase_send_pallas(dsh, carry.dist, carry.pruned,
+                                   carry.last_sent)[0]
+    incoming = payload.transpose(0, 2).contiguous()
+    busy = [r for r in range(dsh.n_parts) if bool(act[r].any())]
+    if not busy:
+        fail(f"one-shard kernels {label}: no shard has a frontier")
+    sfx = "_ragged" if ragged else ""
+    seen = {}
+    for r in sorted({busy[0], busy[-1]}):
+        v = dsh.shard(r)
+
+        def row(t):
+            return t[r:r + 1]
+
+        calls = {
+            "relax": lambda: local_fixpoint_pallas(
+                row(carry.dist), row(act), v, row(carry.pruned)[:, :v.e_loc],
+                max_iters=cfg.local_iters, sweeps=cfg.pallas_sweeps,
+                delta=cfg.delta),
+            "send": lambda: S._phase_send_pallas(
+                v, row(carry.dist), row(carry.pruned), row(carry.last_sent)),
+            "merge": lambda: S._phase_merge_pallas(v, row(carry.dist),
+                                                   row(incoming)),
+            "round": lambda: S._phase_fused(
+                v, row(carry.dist), row(act), row(live), row(incoming),
+                row(carry.last_sent), row(carry.pruned), cfg, dense=False)}
+        for name, call in calls.items():
+            build.reset_launches()
+            got = _flat(tuple(call()))
+            torch.cuda.synchronize()
+            n = build.LAUNCHES[name + sfx]
+            if n < 1:
+                fail(f"one-shard kernels {label}: {name}{sfx} not launched "
+                     f"on shard {r}'s view")
+            with plain_round_kernels():
+                want = _flat(tuple(call()))
+            for g_, w_ in zip(got, want, strict=True):
+                if not torch.equal(g_, w_):
+                    fail(f"one-shard kernels {label}: {name}{sfx} on shard "
+                         f"{r}'s [1, ...] stack differs from its plain "
+                         f"version")
+            seen[f"{name}{sfx}"] = seen.get(f"{name}{sfx}", 0) + n
+    say(f"one-shard kernels {label}: {', '.join(seen)} on the [1, ...] "
+        f"stacks of shards {sorted({busy[0], busy[-1]})} at round 2, each "
+        f"bit-equal to its plain version; launches {seen}")
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a checkout")
@@ -2551,6 +2907,14 @@ def main():
     degraded_solve(np, eng.shards, sources,
                    clean6["staged", "bucket", "toka0"], "1e6 dense")
     draws_phase(torch)
+    # ---- dist phase at scale-1e6 dense: 8 ranks, one shard each ----------
+    one_shard_kernels(torch, eng, sources, cfg, "1e6 dense", False)
+    dist_phase(torch, np, sh, eng, sources, DIST_JOBS_1E6, "1e6 dense",
+               False, landmarks=live_sources(
+                   np, np.random.default_rng(22), g, 8, avoid=sources),
+               card=card)
+    if torch.cuda.device_count() == 1:
+        nccl_world_one(torch, np)
     del eng, sh, res, out6, clean6
     torch.cuda.empty_cache()
 
@@ -2726,6 +3090,10 @@ def main():
     # ---- faults at scale-1e7 ragged, the injector's time a round ----------
     faults_phase(torch, np, eng7.shards, src7, "1e7 ragged", True, out7)
     injector_timing(torch, np, eng7.shards, src7, card)
+    # ---- dist phase at scale-1e7 ragged: 8 ranks, one shard each ---------
+    one_shard_kernels(torch, eng7, src7, cfg, "1e7 ragged", True)
+    dist_phase(torch, np, sh7, eng7, src7, DIST_JOBS_1E7, "1e7 ragged", True,
+               card=card)
     del eng7, sh7, g7, res, out7
     torch.cuda.empty_cache()
 

@@ -6,10 +6,14 @@ from repro_torch.core.partition import inter_edge_counts, partition_1d
 from repro_torch.core.shards import (SsspShards, build_shards,
                                     build_shards_stream, shard_distance_rows,
                                     shards_from_arrays)
-from repro_torch.core.sssp import (RoundPipeline, SimComm, SsspConfig,
-                                   SsspStats, build_pipeline,
+from repro_torch.core.sssp import (RoundPipeline, ShmapComm, SimComm,
+                                   SsspConfig, SsspStats, build_pipeline,
+                                   build_shmap_certificate,
+                                   build_shmap_solver,
+                                   build_shmap_solver_traced,
                                    certificate_improved_sim,
                                    dispatches_per_round, init_carry,
-                                   make_finalize, make_round, solve_sim,
+                                   make_finalize, make_round, solve_shmap,
+                                   solve_shmap_batch, solve_sim,
                                    solve_sim_batch)
 from repro_torch.core.warmstart import CachedRow, LandmarkCache, ResultCache

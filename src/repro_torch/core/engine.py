@@ -1,7 +1,18 @@
 """Session-oriented SSSP query engine: build once, stream queries.
 
-Port of the reference's ``core/engine.py`` on the ``sim`` backend: all P
-shards stacked on one device.
+Port of the reference's ``core/engine.py``. Two backends:
+
+- ``sim``: all P shards stacked on one device (on one GPU, the production
+  path);
+- ``shmap``: one process a shard, over ``torch.distributed`` (the paper's
+  MPI setting). Every process builds the engine with the same shards (or
+  its own ``SsspShards.shard`` view), the same config and a
+  ``launch/mesh.py: HostMesh`` with the ``axis_names`` whose ranks number
+  the shards, and makes the same calls in the same order: each call is a
+  sequence of collectives. Each rank runs the sim's round on its one-shard
+  stack through ``ShmapComm``; every rank returns the same
+  ``QueryResult``, equal to the sim engine's bit for bit (``dist``
+  all-gathered to ``[K, n_vertices]``, the counters all-reduced).
 
     eng = SsspEngine.build(graph_or_shards, cfg)          # on cuda
     res = eng.solve([3, 17, 1999])                        # QueryResult
@@ -14,7 +25,9 @@ with no CUDA device and no ``device`` argument, ``build`` raises rather
 than fall back to the CPU. A batch is padded to the next power-of-two
 bucket: padded rows start with no frontier and ``done=True``, so results
 are bit-identical to the unpadded solve. The host syncs once per round
-(the termination check), as the reference's sim loop does.
+(the termination check), as the reference's sim loop does; under shmap
+the check reads a flag the detector's collectives agreed, so every rank
+leaves the loop on the same round.
 
 Bucket reuse without tracing
 ----------------------------
@@ -27,8 +40,11 @@ engine: the first round at bucket ``kb`` (and the first certificate, in
 adds one to ``trace_counts[kb]``. ``compile_s`` is the synchronized wall
 of those first runs: the first use's kernel build and module load and the
 allocator's growth. It is 0.0 on every later call, and ``compiled`` says
-``trace_counts`` grew. The reference's reuse contract thus holds in the
-same form: one "trace" per bucket serves any source set.
+``trace_counts`` grew. Under shmap, as in the reference, the first solve
+of a bucket (or of a (bucket, L) on the warm path) is the trace, and
+``compile_s`` is that whole solve's wall. The reference's reuse contract
+thus holds in the same form: one "trace" per bucket serves any source
+set.
 
 Streaming arrivals
 ------------------
@@ -49,8 +65,11 @@ import torch
 from repro_torch.core import phases
 from repro_torch.core.shards import (SsspShards, build_shards,
                                      shard_distance_rows)
-from repro_torch.core.sssp import (SsspConfig, SsspStats, _as_sources,
-                                   _Carry, certificate_improved_sim,
+from repro_torch.core.sssp import (ShmapComm, SsspConfig, SsspStats,
+                                   _as_sources, _Carry,
+                                   build_shmap_certificate,
+                                   build_shmap_solver_traced,
+                                   certificate_improved_sim,
                                    dispatches_per_round, init_carry,
                                    make_finalize, make_round)
 from repro_torch.core.warmstart import CachedRow, LandmarkCache, ResultCache
@@ -147,21 +166,39 @@ class QueryHandle:
 
 
 class SsspEngine:
-    """One per-graph session on the ``sim`` backend: owns the shards (on
-    its device), the resolved round and, for the fused round, the exit-time
-    merge of the last delivered batch; the result and landmark caches; and
-    the queue of submitted queries."""
+    """One per-graph session: owns the shards (on its device; under shmap
+    this rank's shard), the resolved round and, for the fused round, the
+    exit-time merge of the last delivered batch; the result and landmark
+    caches; and the queue of submitted queries."""
 
     def __init__(self, shards: SsspShards, cfg: SsspConfig,
-                 backend: str = "sim", *, device=None, max_bucket: int = 16,
-                 result_cache: int = 0, certify: bool = True):
-        if backend == "shmap":
-            raise NotImplementedError(
-                "backend='shmap' is not ported yet: ROADMAP Queue 1 item 8")
-        if backend != "sim":
+                 backend: str = "sim", mesh=None, axis_names=None, *,
+                 device=None, max_bucket: int = 16, result_cache: int = 0,
+                 certify: bool = True):
+        if backend not in ("sim", "shmap"):
             raise ValueError(f"unknown backend {backend!r}; valid: "
                              "['shmap', 'sim']")
+        if backend == "shmap" and (mesh is None or axis_names is None):
+            raise ValueError("backend='shmap' requires mesh and axis_names")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.axis_names = tuple(axis_names) if axis_names else None
+        self.comm = None
+        if backend == "shmap":
+            ag = mesh.axis_group(self.axis_names)
+            if ag.size != shards.n_parts:
+                raise ValueError(
+                    f"the shards have n_parts={shards.n_parts}; the mesh "
+                    f"axes {self.axis_names} span {ag.size} processes")
+            if shards.shard_id is None:
+                shards = shards.shard(ag.rank)
+            elif shards.shard_id != ag.rank:
+                raise ValueError(f"rank {ag.rank} was given the view of "
+                                 f"shard {shards.shard_id}")
+            self.comm = ShmapComm(ag, self.device)
+        elif shards.shard_id is not None:
+            raise ValueError("backend='sim' needs the full shard stack, not "
+                             "a one-shard view")
         self.shards = shards.to(self.device)
         self.cfg = cfg
         self.backend = backend
@@ -186,18 +223,30 @@ class SsspEngine:
         self._warm_traced: set[tuple[int, int]] = set()
         self.certify = bool(certify)
         self.cert_traces = 0
-        self.round_fn = make_round(self.shards, cfg)
-        self._finalize = make_finalize(self.shards, cfg)
+        if backend == "sim":
+            self.round_fn = make_round(self.shards, cfg)
+            self._finalize = make_finalize(self.shards, cfg)
+            self.shmap_solver = None
+        else:
+            self.round_fn = self._finalize = None
+            self.shmap_solver = build_shmap_solver_traced(
+                self.shards, cfg, self.comm, on_trace=self._note_trace)
+            self._warm_solver = None      # built on the first warm solve
+            self._cert_shmap = build_shmap_certificate(
+                self.shards, self.comm, on_trace=self._note_cert)
 
     @classmethod
     def build(cls, graph_or_shards, cfg: SsspConfig | None = None,
-              backend: str = "sim", *, n_parts: int = 8, device=None,
-              max_bucket: int = 16, result_cache: int = 0,
-              certify: bool = True, **shard_kwargs) -> "SsspEngine":
+              backend: str = "sim", mesh=None, axis_names=None, *,
+              n_parts: int = 8, device=None, max_bucket: int = 16,
+              result_cache: int = 0, certify: bool = True,
+              **shard_kwargs) -> "SsspEngine":
         """A session over ``SsspShards`` (used as-is) or a ``Graph``
         (partitioned here with ``n_parts`` and any ``build_shards``
         keyword). ``result_cache`` sizes the exact-repeat LRU (0, the
-        default, disables it)."""
+        default, disables it). ``backend="shmap"`` takes the ``mesh``
+        (``launch/mesh.py: make_host_mesh``) and the ``axis_names`` whose
+        processes hold the shards, one each."""
         dev = resolve_device(device)      # fail before any host work without CUDA
         if isinstance(graph_or_shards, SsspShards):
             if shard_kwargs:
@@ -206,9 +255,9 @@ class SsspEngine:
             sh = graph_or_shards
         else:
             sh = build_shards(graph_or_shards, n_parts, **shard_kwargs)
-        return cls(sh, cfg or SsspConfig(), backend, device=dev,
-                   max_bucket=max_bucket, result_cache=result_cache,
-                   certify=certify)
+        return cls(sh, cfg or SsspConfig(), backend, mesh, axis_names,
+                   device=dev, max_bucket=max_bucket,
+                   result_cache=result_cache, certify=certify)
 
     @property
     def n_vertices(self) -> int:
@@ -225,6 +274,9 @@ class SsspEngine:
 
     def _note_trace(self, kb: int) -> None:
         self.trace_counts[kb] = self.trace_counts.get(kb, 0) + 1
+
+    def _note_cert(self, kb: int) -> None:
+        self.cert_traces += 1
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -285,6 +337,9 @@ class SsspEngine:
 
         traces0 = self.trace_count
         t0 = time.perf_counter()
+        if self.backend == "shmap":
+            return self._solve_shmap(srcs, src_arr, q_valid, warm, traces0,
+                                     t0)
         compile_s = 0.0
         seed = None
         if warm:
@@ -343,6 +398,13 @@ class SsspEngine:
                                                dist_pk)[:k].cpu().numpy()
         else:
             q_conv = done_k.copy()
+        return self._result(srcs, dist, stats, q_conv, done_k, kb, traces0,
+                            t0, compile_s, warm)
+
+    def _result(self, srcs, dist, stats, q_conv, done_k, kb, traces0, t0,
+                compile_s, warm) -> QueryResult:
+        """The batch's ``QueryResult``: status from the certificate's
+        verdict ``q_conv`` against the detector's ``done_k``."""
         if q_conv.all():
             status = "converged"
         elif (~q_conv & ~done_k).any():
@@ -352,7 +414,7 @@ class SsspEngine:
         dist = dist.cpu().numpy()
         compiled = self.trace_count > traces0
         self.batches_served += 1
-        self.queries_served += k
+        self.queries_served += len(srcs)
         return QueryResult(dist=dist, sources=srcs,
                            stats=stats._replace(q_converged=q_conv),
                            bucket_k=kb, backend=self.backend,
@@ -360,6 +422,36 @@ class SsspEngine:
                            compile_s=compile_s, compiled=compiled,
                            warm_started=warm, device=str(self.device),
                            status=status)
+
+    def _solve_shmap(self, srcs, src_arr, q_valid, warm, traces0, t0):
+        """``_solve_batch`` on a rank of the shmap backend: the rank's
+        solve, then ``dist`` all-gathered and the certificate (one pmin,
+        one or-reduce); every rank returns the same result."""
+        k, kb = len(srcs), len(src_arr)
+        if warm:
+            if self._warm_solver is None:
+                self._warm_solver = build_shmap_solver_traced(
+                    self.shards, self.cfg, self.comm,
+                    on_trace=self._note_trace, warm=True)
+            dist_loc, stats = self._warm_solver(src_arr, q_valid,
+                                                self.landmarks.dist)
+            self._warm_traced.add((kb, self.landmarks.n_landmarks))
+        else:
+            dist_loc, stats = self.shmap_solver(src_arr, q_valid)
+        self._sync()
+        compile_s = (time.perf_counter() - t0 if self.trace_count > traces0
+                     else 0.0)
+        done_k = stats.q_converged[:k]
+        dist_pk = self.comm.all_gather(dist_loc)
+        dist = dist_pk.transpose(0, 1).reshape(kb, -1)[:k, :self.n_vertices]
+        stats = stats._replace(q_rounds=stats.q_rounds[:k],
+                               q_relaxations=stats.q_relaxations[:k])
+        if self.certify:
+            q_conv = ~self._cert_shmap(dist_loc)[:k].cpu().numpy()
+        else:
+            q_conv = done_k.copy()
+        return self._result(srcs, dist, stats, q_conv, done_k, kb, traces0,
+                            t0, compile_s, warm)
 
     def _solve_cached(self, srcs: tuple, *, bucket: bool) -> QueryResult:
         """Result-cache layer over ``_solve_batch``: strip the sources the
@@ -468,8 +560,10 @@ class SsspEngine:
                 "landmark warm start requires symmetric distances, but the "
                 "pivot cross-distances are asymmetric (directed graph?): "
                 "the triangle-inequality seed would not be an upper bound")
-        land = shard_distance_rows(res.dist, self.n_parts, self.shards.block,
-                                   device=self.device)
+        land = shard_distance_rows(res.dist, self.n_parts, self.shards.block)
+        if self.backend == "shmap":
+            land = land[self.comm.r:self.comm.r + 1]      # this rank's row
+        land = land.to(self.device)
         self.landmarks = LandmarkCache(sources=res.sources, dist=land,
                                        epoch=self.graph_epoch)
         for i, s in enumerate(res.sources):
@@ -573,26 +667,30 @@ class SsspEngine:
 # engine cache behind the legacy wrappers
 # --------------------------------------------------------------------------
 
-# One engine per (caller's shards, cfg, backend, device). The engine holds
-# ``shards.to(device)``, a new object, so the entry keeps the caller's
-# shards themselves: a strong reference, so the id() in a live key is never
-# recycled, and the identity check that makes a hit. Bounded.
+# One engine per (caller's shards, cfg, backend, device, mesh, axes). The
+# engine holds ``shards.to(device)``, a new object, so the entry keeps the
+# caller's shards and mesh themselves: strong references, so the id()s in
+# a live key are never recycled, and the identity checks that make a hit.
+# Bounded.
 _ENGINE_CACHE: dict = {}
 _ENGINE_CACHE_MAX = 16
 
 
-def engine_for(sh: SsspShards, cfg: SsspConfig, backend: str = "sim", *,
-               device=None) -> SsspEngine:
-    """The cached engine of ``(sh, cfg, backend, device)``, for the legacy
-    wrappers and any caller that holds shards and a config rather than a
-    session."""
+def engine_for(sh: SsspShards, cfg: SsspConfig, backend: str = "sim",
+               mesh=None, axis_names=None, *, device=None) -> SsspEngine:
+    """The cached engine of ``(sh, cfg, backend, device)``, and under
+    shmap of ``(mesh, axis_names)`` too, for the legacy wrappers and any
+    caller that holds shards and a config rather than a session."""
     dev = resolve_device(device)
+    axes = tuple(axis_names) if axis_names else None
     key = (id(sh), cfg, backend, str(dev))
+    if mesh is not None:
+        key += (id(mesh), axes)
     hit = _ENGINE_CACHE.get(key)
-    if hit is not None and hit[0] is sh:
+    if hit is not None and hit[0] is sh and hit[2] is mesh:
         return hit[1]
-    eng = SsspEngine(sh, cfg, backend, device=dev)
+    eng = SsspEngine(sh, cfg, backend, mesh, axes, device=dev)
     if len(_ENGINE_CACHE) >= _ENGINE_CACHE_MAX:
         _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
-    _ENGINE_CACHE[key] = (sh, eng)
+    _ENGINE_CACHE[key] = (sh, eng, mesh)
     return eng

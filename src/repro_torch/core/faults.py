@@ -31,9 +31,10 @@ whether the shard still holds undelivered state (a non-empty queue, or an
 unhealed drop when anti-entropy is on); the round ORs it into the
 termination view, so no detector declares quiescence over it.
 
-Every function here runs on the stacked shards: the state is
-``[P, D, K, M]`` and ``[P, K]``, the draws ``[P, K, M]`` under ``[P, 2]``
-keys. The queue, the latches and the draws stay on the device.
+Every function here runs on a stack of R shards (all P under the sim
+backend, a rank's one under shmap): the state is ``[R, D, K, M]`` and
+``[R, K]``, the draws ``[R, K, M]`` under ``[R, 2]`` keys, one a shard
+id. The queue, the latches and the draws stay on the device.
 """
 from __future__ import annotations
 
@@ -130,13 +131,16 @@ def init_state(plan: FaultPlan, nq: int, n_msgs: int, n_parts: int,
         unhealed=torch.zeros((n_parts, nq), dtype=torch.bool, device=device))
 
 
-def round_keys(plan: FaultPlan, rounds: int, n_parts: int, device=None
+def round_keys(plan: FaultPlan, rounds: int, ranks, device=None
                ) -> torch.Tensor:
-    """The [P, 2] keys of round ``rounds``:
+    """The [R, 2] keys of round ``rounds``, one a shard of ``ranks`` (an
+    int P: shards 0..P-1; a rank of the shmap backend passes its own):
     ``fold_in(fold_in(prng_key(seed), rounds), rank)``, hashed on the host
     (a few words) and copied without a stream sync."""
     rkey = prng.fold_in(prng.prng_key(plan.seed), rounds)
-    keys = [prng.fold_in(rkey, r) for r in range(n_parts)]
+    if isinstance(ranks, int):
+        ranks = range(ranks)
+    keys = [prng.fold_in(rkey, r) for r in ranks]
     return torch.tensor(keys, dtype=torch.int64).to(device, non_blocking=True)
 
 

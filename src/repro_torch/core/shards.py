@@ -49,7 +49,7 @@ from repro_torch.kernels.send.ops import (build_slot_ragged_layout,
                                           build_slot_tiled_layout)
 
 _STATIC = ("n_vertices", "n_parts", "block", "rx_vb", "rx_eb", "tx_sb",
-           "tx_eb", "mx_vb", "mx_eb", "layout")
+           "tx_eb", "mx_vb", "mx_eb", "layout", "shard_id", "inter_total")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +109,36 @@ class SsspShards:
     mx_vb: int = 128
     mx_eb: int = 512
     layout: str = "dense"
+    # a rank's one-shard view (``shard``): the shard it holds, and the
+    # global cut-edge count; None on the full stack
+    shard_id: int | None = None
+    inter_total: int | None = None
+
+    @property
+    def n_rows(self) -> int:
+        """Shards in this stack: ``n_parts``, or 1 on a rank's view."""
+        return self.loc_src.shape[0]
+
+    @property
+    def row0(self) -> int:
+        """The shard id of the stack's first row."""
+        return 0 if self.shard_id is None else self.shard_id
+
+    def shard(self, r: int) -> "SsspShards":
+        """Shard ``r`` as a one-shard stack: row ``r`` of every array
+        (shape ``[1, ...]``), for the rank of the ``shmap`` backend that
+        owns it. ``n_parts``, ``block`` and the layouts' static sizes stay
+        the global ones, and so does ``inter_edges_total`` (toka3's bound
+        reads it), which the view carries since its ``inter_edges`` row
+        alone would give the local count."""
+        if self.shard_id is not None:
+            raise ValueError("shard() of a one-shard view")
+        if not 0 <= r < self.n_parts:
+            raise ValueError(f"shard {r} out of range [0, {self.n_parts})")
+        return dataclasses.replace(
+            self, **{k: v[r:r + 1].clone()
+                     for k, v in self.arrays().items()},
+            shard_id=int(r), inter_total=self.inter_edges_total)
 
     @property
     def e_loc(self) -> int:
@@ -158,7 +188,9 @@ class SsspShards:
     @functools.cached_property
     def inter_edges_total(self) -> int:
         """The global cut-edge count on the host (toka3's bound); read
-        once per shards object."""
+        once per shards object (carried by a rank's one-shard view)."""
+        if self.inter_total is not None:
+            return self.inter_total
         return int(self.inter_edges.sum(dtype=torch.int32))
 
     @functools.cached_property

@@ -1,10 +1,13 @@
-"""SP-Async round (paper Algorithm 2) on the single-device ``sim`` backend,
-batched over a query axis.
+"""SP-Async round (paper Algorithm 2), batched over a query axis.
 
-Port of the reference's ``core/sssp.py``. All P shards are stacked on one
-device (the reference's ``sim`` backend, which on one GPU is the production
-path): per-shard state is ``[P, K, ...]`` and the exchange is a transpose
-or a min over the shard axis. One round:
+Port of the reference's ``core/sssp.py``. The round runs on a stack of
+shards: per-shard state is ``[R, K, ...]``. Under the ``sim`` backend all
+P shards are stacked on one device (R = P; on one GPU the production
+path) and the exchange is a transpose or a min over the shard axis
+(``SimComm``). Under the ``shmap`` backend each process of a
+``torch.distributed`` job holds one shard (R = 1, ``SsspShards.shard``)
+and the same round exchanges through collectives (``ShmapComm``), so both
+backends give the same bits. One round:
 
   1. *Local phase*: every shard with a live frontier in any query runs its
      local solver to a fixpoint; idle shards evaluate a chunk of Trishla
@@ -43,6 +46,7 @@ round carries stays on the device; the engine reads one flag a round.
 from __future__ import annotations
 
 import dataclasses
+import time
 from functools import partial
 from typing import Any, NamedTuple, Sequence
 
@@ -55,6 +59,7 @@ from repro_torch.core import local_solver  # noqa: F401  (registers the solvers)
 from repro_torch.core import warmstart  # noqa: F401  (registers warm_init)
 from repro_torch.core import toka as toka_mod
 from repro_torch.core.shards import SsspShards
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.common import INF, scatter_min_drop, take_fill
 from repro_torch.kernels.merge import merge_scatter
 from repro_torch.kernels.round import fused_round_pallas, fused_round_rescue
@@ -195,27 +200,29 @@ def _phase_local(sh: SsspShards, dist, active, pruned, cursor, cfg):
 
 
 def _bucket_payload(sh: SsspShards, send_val):
-    """Masked slot values [P, K, S] -> bucketed payload [P, K, P, C] by a
-    scatter-min at the static (slot_owner, slot_pos) positions."""
-    P, K, _ = send_val.shape
-    C = sh.bucket_cap
+    """Masked slot values [R, K, S] -> bucketed payload [R, K, P, C] by a
+    scatter-min at the static (slot_owner, slot_pos) positions (R the
+    stacked rows: P, or 1 on a rank of the shmap backend)."""
+    R, K, _ = send_val.shape
+    P, C = sh.n_parts, sh.bucket_cap
     flat = (sh.slot_owner.long() * C + sh.slot_pos.long())[:, None, :]
-    payload = torch.full((P, K, P * C), INF, device=send_val.device)
-    payload.scatter_reduce_(-1, flat.expand(P, K, -1), send_val, "amin")
-    return payload.reshape(P, K, P, C)
+    payload = torch.full((R, K, P * C), INF, device=send_val.device)
+    payload.scatter_reduce_(-1, flat.expand(R, K, -1), send_val, "amin")
+    return payload.reshape(R, K, P, C)
 
 
 def _scatter_dense(sh: SsspShards, send_val, blk: int):
-    """Masked slot values [P, K, S] -> dense [P, K, P, blk] candidate rows
+    """Masked slot values [R, K, S] -> dense [R, K, P, blk] candidate rows
     addressed by (owner, dst_local): one ``scatter_reduce_("amin")`` into
-    the flat ``[P, K, P * blk]`` rows. Shared by both send backends and the
+    the flat ``[R, K, P * blk]`` rows. Shared by both send backends and the
     fused round, as in the reference: bandwidth-bound assembly, no
     reduction for a kernel to win."""
-    P, K, _ = send_val.shape
+    R, K, _ = send_val.shape
+    P = sh.n_parts
     flat = (sh.slot_owner.long() * blk + sh.slot_dstl.long())[:, None, :]
-    payload = torch.full((P, K, P * blk), INF, device=send_val.device)
-    payload.scatter_reduce_(-1, flat.expand(P, K, -1), send_val, "amin")
-    return payload.reshape(P, K, P, blk)
+    payload = torch.full((R, K, P * blk), INF, device=send_val.device)
+    payload.scatter_reduce_(-1, flat.expand(R, K, -1), send_val, "amin")
+    return payload.reshape(R, K, P, blk)
 
 
 @phases.register("send", "xla")
@@ -377,6 +384,122 @@ class SimComm:
         """Sum over the shard axis in x's dtype, broadcast back."""
         return x.sum(0, keepdim=True, dtype=x.dtype).expand_as(x)
 
+    @staticmethod
+    def any_global(flag):
+        """OR over every element of every shard: a 0-dim bool."""
+        return flag.any()
+
+
+class ShmapComm:
+    """The same contract on a rank's one-shard stack ``[1, ...]`` (the
+    ``shmap`` backend: one process a shard), with ``torch.distributed``
+    collectives over the mesh axes' ``AxisGroup`` in place of the shard
+    axis ops (reference ``ShmapComm``). Flags are [1, K], payloads
+    [1, K, P, ...]; each exchange is one collective for the whole query
+    batch.
+
+    ``timed=True`` synchronizes the device around every collective and
+    adds its wall to ``coll_s`` (and one to ``coll_calls``): the time a
+    solve spends in collectives, at the cost of a sync each."""
+
+    def __init__(self, ag, device=None, *, timed: bool = False):
+        self.ag = ag
+        self.P = ag.size
+        self.r = ag.rank
+        self.device = device
+        self.timed = timed
+        self.coll_s = 0.0
+        self.coll_calls = 0
+
+    def _coll(self, fn, *args):
+        if not self.timed:
+            return fn(*args)
+        sync = (torch.cuda.synchronize if self.device is not None
+                and torch.device(self.device).type == "cuda" else None)
+        if sync:
+            sync(self.device)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if sync:
+            sync(self.device)
+        self.coll_s += time.perf_counter() - t0
+        self.coll_calls += 1
+        return out
+
+    def rank(self):
+        """[1] int32: this rank's shard id."""
+        return torch.tensor([self.r], dtype=torch.int32, device=self.device)
+
+    def size(self) -> int:
+        return self.P
+
+    def exchange_bucket(self, payload):
+        """[1, K, P_dst, C] -> [1, K, P_src, C]: one all-to-all."""
+        recv = self._coll(coll.all_to_all_tiled, payload[0].transpose(0, 1),
+                          self.ag)                           # [P_src, K, C]
+        return recv.transpose(0, 1)[None]
+
+    def exchange_pmin(self, payload):
+        """Dense [1, K, P_owner, block] -> this rank's column of the min
+        over the senders, [1, K, block]: one all-reduce min."""
+        return self._coll(coll.pmin_named, payload, self.ag)[:, :, self.r]
+
+    def exchange_a2a_dense(self, payload):
+        """Dense [1, K, P_owner, block] -> [1, K, block]: an all-to-all of
+        the owner columns, then the min over the senders."""
+        recv = self._coll(coll.all_to_all_tiled, payload[0].transpose(0, 1),
+                          self.ag)                       # [P_src, K, block]
+        return recv.amin(0, keepdim=True)
+
+    def ring(self, tok):
+        """One hop forward on the ring: every field of the token, packed
+        into one int32 tensor and moved by one ring permute."""
+        packed = torch.stack([x.to(torch.int32) for x in tok])
+        moved = self._coll(coll.ring_permute, packed, self.ag)
+        return type(tok)(*(moved[i].to(x.dtype) for i, x in enumerate(tok)))
+
+    def dest_dirs(self):
+        """[1, P_dst] bool: True where the message travels the forward
+        ring (the shorter way; ties at P/2 go forward)."""
+        d = torch.arange(self.P, device=self.device)
+        return (((d - self.r) % self.P) <= ((self.r - d) % self.P))[None]
+
+    def async_hop(self, fwd, bwd):
+        """One hop of the dense transit buffers [1, K, P, block] (column p
+        is bound for rank p): ``fwd`` one hop forward, ``bwd`` one back,
+        each a ring permute; this rank takes the min of both buffers' own
+        column and clears it to +inf. Returns (incoming [1, K, block],
+        fwd', bwd')."""
+        fwd = self._coll(coll.ring_permute, fwd, self.ag)
+        bwd = self._coll(coll.ring_permute_rev, bwd, self.ag)
+        inc = torch.minimum(fwd[:, :, self.r], bwd[:, :, self.r])
+        fwd[:, :, self.r] = INF
+        bwd[:, :, self.r] = INF
+        return inc, fwd, bwd
+
+    def all_any(self, flag):
+        return self._coll(coll.or_reduce, flag, self.ag)
+
+    def all_all(self, flag):
+        return self._coll(coll.and_reduce, flag, self.ag)
+
+    def total(self, x):
+        return self._coll(coll.psum_named, x, self.ag)
+
+    def max_all(self, x):
+        return self._coll(coll.pmax_named, x, self.ag)
+
+    def min_all(self, x):
+        return self._coll(coll.pmin_named, x, self.ag)
+
+    def any_global(self, flag):
+        """OR over every element of every rank: a 0-dim bool."""
+        return self.all_any(flag.any().reshape(1))[0]
+
+    def all_gather(self, x):
+        """[1, ...] on each rank -> the [P, ...] stack, rank order."""
+        return self._coll(coll.all_gather_tiled, x, self.ag)
+
 
 # --------------------------------------------------------------------------
 # exchange stages
@@ -416,7 +539,7 @@ def _async_bucket_push(comm, inflight, payload):
 
 
 def _async_bucket_init(sh: SsspShards, nq: int, cfg):
-    shape = (sh.n_parts, nq, sh.n_parts, sh.bucket_cap)
+    shape = (sh.n_rows, nq, sh.n_parts, sh.bucket_cap)
     return tuple(torch.full(shape, INF, device=sh.device)
                  for _ in range(cfg.async_lag))
 
@@ -440,7 +563,7 @@ def _async_ppermute_push(comm, inflight, payload):
 
 
 def _async_ppermute_init(sh: SsspShards, nq: int, cfg):
-    z = torch.full((sh.n_parts, nq, sh.n_parts, sh.block), INF,
+    z = torch.full((sh.n_rows, nq, sh.n_parts, sh.block), INF,
                    device=sh.device)
     return (z, z)
 
@@ -667,7 +790,7 @@ def _account_delivery(sh: SsspShards, dist, incoming, dense: bool):
     return n_imp > 0, recvs, n_imp
 
 
-def make_finalize(sh: SsspShards, cfg: SsspConfig):
+def make_finalize(sh: SsspShards, cfg: SsspConfig, comm=None):
     """Exit-time ``fn(carry) -> dist`` merging every delivered-but-unmerged
     and in-flight batch, or None when nothing can be outstanding (a staged
     round with a synchronous exchange). The fused round merges a round's
@@ -675,12 +798,13 @@ def make_finalize(sh: SsspShards, cfg: SsspConfig):
     ``carry.incoming``; a deferred exchange can exit with payload in
     ``carry.inflight`` (a ``max_rounds`` or toka1 exit), which its
     ``flush`` drains. The merges run unconditionally: the final distances
-    must not depend on the detector's reasoning."""
+    must not depend on the detector's reasoning. ``comm`` is the
+    backend's (default: the ``SimComm`` of the stack)."""
     ex = phases.resolve("exchange", cfg.exchange)
     fused = _round_mode(sh, cfg) == "fused"
     if not fused and not ex.deferred:
         return None
-    comm = SimComm(sh.n_parts, sh.device)
+    comm = comm or SimComm(sh.n_parts, sh.device)
 
     def merge(dist, incoming):
         if ex.dense:
@@ -739,7 +863,8 @@ def _deliver(sh: SsspShards, ex, carry: _Carry, dist, incoming, resend_now):
     fstate = carry.faults
     if resend_now is not None:
         fstate = fstate._replace(unhealed=fstate.unhealed & ~resend_now)
-    keys = faults_mod.round_keys(ex.plan, carry.rounds, sh.n_parts,
+    keys = faults_mod.round_keys(ex.plan, carry.rounds,
+                                 range(sh.row0, sh.row0 + sh.n_rows),
                                  dist.device)
     return ex.deliver(sh, dist, incoming, fstate, keys)
 
@@ -750,7 +875,7 @@ def _resent(carry: _Carry, resend_now, sends):
     return carry.resent + torch.where(resend_now, sends, 0)
 
 
-def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
+def _make_round_fused(sh: SsspShards, cfg: SsspConfig, comm):
     """The fused-round variant of ``make_round``. The idle branch (Trishla)
     runs before the kernel, gated per shard, since merge and send run on
     idle rounds too. The rescue runs when any row of the whole stack kept a
@@ -761,7 +886,6 @@ def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
     the wire while some shard was not idle. Under a fault plan the kernel
     and its rescue pack from the resend window's ``last_sent``, and the
     delivered batch passes the injector before it is accounted."""
-    comm = SimComm(sh.n_parts, sh.device)
     pipe = build_pipeline(sh, cfg)
     ex = pipe.exchange
     dense, deferred = ex.dense, ex.deferred
@@ -806,7 +930,8 @@ def _make_round_fused(sh: SsspShards, cfg: SsspConfig):
             # min-merged into it, so the injector's count is skipped)
             toka_flag = toka_flag | _pending_inflight(inflight)
             stale = stale + n_imp
-            overlap = overlap + (delivering & ~idle).any().to(torch.int32)
+            overlap = overlap + comm.any_global(delivering & ~idle).to(
+                torch.int32)
         elif stale_f is not None:
             stale = stale + stale_f
         done, toka2, streak = pipe.toka(cfg, comm, carry, toka_flag[..., None],
@@ -858,7 +983,7 @@ def build_pipeline(sh: SsspShards, cfg: SsspConfig) -> RoundPipeline:
         toka=phases.resolve("toka", cfg.toka))
 
 
-def make_round(sh: SsspShards, cfg: SsspConfig):
+def make_round(sh: SsspShards, cfg: SsspConfig, comm=None):
     """Returns round(carry) -> carry for the config's round pipeline. Under
     a deferred exchange the round takes its delivery first (the batch sent
     ``async_lag`` rounds ago, or one ring hop) and queues its own sends; a
@@ -868,10 +993,12 @@ def make_round(sh: SsspShards, cfg: SsspConfig):
     injector. Then, under a deferred exchange, the improving entries of
     the batch as delivered, against the post-solve distances, count as
     stale merges; else the injector's own count of improving queue
-    releases does."""
+    releases does. ``comm`` is the backend's (default: the ``SimComm``
+    of the stack); every collective it makes runs on every rank every
+    round, so the ranks of the shmap backend stay in lockstep."""
+    comm = comm or SimComm(sh.n_parts, sh.device)
     if _round_mode(sh, cfg) == "fused":
-        return _make_round_fused(sh, cfg)
-    comm = SimComm(sh.n_parts, sh.device)
+        return _make_round_fused(sh, cfg, comm)
     pipe = build_pipeline(sh, cfg)
     ex = pipe.exchange
     dense, deferred = ex.dense, ex.deferred
@@ -908,7 +1035,7 @@ def make_round(sh: SsspShards, cfg: SsspConfig):
             held = _pending_inflight(inflight)
             pending = held if pending is None else pending | held
             computing = act.flatten(1).any(-1)                      # [P]
-            overlap = overlap + (delivering & computing).any().to(
+            overlap = overlap + comm.any_global(delivering & computing).to(
                 torch.int32)
         toka_view = new_active
         if pending is not None:
@@ -933,11 +1060,13 @@ def make_round(sh: SsspShards, cfg: SsspConfig):
 
 def init_carry(sh: SsspShards, sources, cfg: SsspConfig,
                q_valid=None, seed_dist=None) -> _Carry:
-    """Stacked start state for K sources [K] int32. ``q_valid`` masks padded
-    bucket rows: an invalid query starts with no frontier and done=True, so
-    it never relaxes, sends or counts.
+    """Stacked start state for K sources [K] int32, over the stack's rows:
+    all P shards, or on a rank of the shmap backend its one shard, which
+    sets only the sources it owns. ``q_valid`` masks padded bucket rows:
+    an invalid query starts with no frontier and done=True, so it never
+    relaxes, sends or counts.
 
-    ``seed_dist`` [P, K, block] (None: the cold +inf start) holds
+    ``seed_dist`` [R, K, block] (None: the cold +inf start) holds
     per-vertex upper bounds from a ``warm_init`` stage. The source bit is
     min-scattered to 0 on top of it, and every finitely seeded vertex of a
     valid query starts ACTIVE: a seeded value must still be relaxed from,
@@ -955,50 +1084,58 @@ def init_carry(sh: SsspShards, sources, cfg: SsspConfig,
     nq = sources.shape[0]
     q_valid = (torch.ones(nq, dtype=torch.bool, device=dev) if q_valid is None
                else torch.as_tensor(q_valid, dtype=torch.bool, device=dev))
-    P, block = sh.n_parts, sh.block
+    P, R, block = sh.n_parts, sh.n_rows, sh.block
     owner, local = (sources // block).long(), (sources % block).long()
     qi = torch.arange(nq, device=dev)
+    row = owner - sh.row0
+    q_valid_m = q_valid
+    if R < P:
+        # a rank's view: only the sources it owns
+        mine = (row >= 0) & (row < R)
+        row, qi, local, q_valid_m = (row[mine], qi[mine], local[mine],
+                                     q_valid[mine])
     if seed_dist is None:
-        dist = torch.full((P, nq, block), INF, device=dev)
-        dist[owner, qi, local] = torch.where(q_valid, 0.0, INF)
-        active = torch.zeros((P, nq, block), dtype=torch.bool, device=dev)
-        active[owner, qi, local] = q_valid
+        dist = torch.full((R, nq, block), INF, device=dev)
+        dist[row, qi, local] = torch.where(q_valid_m, 0.0, INF)
+        active = torch.zeros((R, nq, block), dtype=torch.bool, device=dev)
+        active[row, qi, local] = q_valid_m
     else:
         dist = seed_dist.clone()
-        dist[owner, qi, local] = torch.minimum(
-            dist[owner, qi, local],
-            torch.where(q_valid, 0.0, INF))
+        dist[row, qi, local] = torch.minimum(
+            dist[row, qi, local],
+            torch.where(q_valid_m, 0.0, INF))
         active = torch.isfinite(dist) & q_valid[None, :, None]
     if cfg.prune_offline_passes > 0:
         pruned = trishla.prune_offline(sh.loc_w, sh.cut_w, sh.tri_uj,
                                        sh.tri_ui, sh.tri_ij, sh.tri_valid,
                                        cfg.prune_offline_passes)
     else:
-        pruned = torch.zeros((P, sh.e_loc + sh.e_cut), dtype=torch.bool,
+        pruned = torch.zeros((R, sh.e_loc + sh.e_cut), dtype=torch.bool,
                              device=dev)
-    zero = torch.zeros((P, nq), dtype=torch.int32, device=dev)
+    zero = torch.zeros((R, nq), dtype=torch.int32, device=dev)
     ex = phases.resolve("exchange", cfg.exchange)
     incoming = front_any = None
     if _round_mode(sh, cfg) == "fused":
         # an all-+inf batch makes round 0's merge the identity (the base
         # case of the fused round's equality with the staged one)
-        shape = ((P, nq, block) if ex.dense
-                 else (P, nq, P, sh.bucket_cap))
+        shape = ((R, nq, block) if ex.dense
+                 else (R, nq, P, sh.bucket_cap))
         incoming = torch.full(shape, INF, device=dev)
         front_any = active.any(-1)
     fstate = None
     if cfg.fault_plan is not None:
         n_msgs = block if ex.dense else P * sh.bucket_cap
-        fstate = faults_mod.init_state(cfg.fault_plan, nq, n_msgs, P, dev)
+        fstate = faults_mod.init_state(cfg.fault_plan, nq, n_msgs, R, dev)
     toka2 = None
     if cfg.toka == "toka2":
         toka2 = toka_mod.toka2_init(
-            torch.arange(P, dtype=torch.int32, device=dev)[:, None], nq)
+            torch.arange(sh.row0, sh.row0 + R, dtype=torch.int32,
+                         device=dev)[:, None], nq)
     return _Carry(
         dist=dist, active=active, pruned=pruned,
-        tri_cursor=torch.zeros((P,), dtype=torch.int32, device=dev),
-        last_sent=torch.full((P, nq, sh.n_slots), INF, device=dev),
-        done=(~q_valid)[None, :].expand(P, nq).clone(),
+        tri_cursor=torch.zeros((R,), dtype=torch.int32, device=dev),
+        last_sent=torch.full((R, nq, sh.n_slots), INF, device=dev),
+        done=(~q_valid)[None, :].expand(R, nq).clone(),
         rounds=0, q_rounds=zero, relaxations=zero, msgs_sent=zero,
         msgs_recv=zero,
         comm_bytes=torch.zeros((), dtype=torch.int32, device=dev),
@@ -1009,27 +1146,124 @@ def init_carry(sh: SsspShards, sources, cfg: SsspConfig,
         faults=fstate)
 
 
-def certificate_improved_sim(sh: SsspShards, dist):
-    """Fixpoint certificate over the stacked state: one unmasked relaxation
-    of EVERY edge (local and cut, ignoring frontiers, ``last_sent`` and
-    Trishla pruning). ``dist`` [P, K, block] -> improved [K] bool (True =
-    NOT at the fixpoint)."""
-    P, K, block = dist.shape
+def certificate_improved(sh: SsspShards, dist, comm):
+    """Fixpoint certificate: one unmasked relaxation of EVERY edge (local
+    and cut, ignoring frontiers, ``last_sent`` and Trishla pruning), the
+    cut edges' candidates delivered by ``comm.exchange_pmin`` and the
+    verdict agreed by ``comm.all_any``: one pmin and one or-reduce on the
+    wire under the shmap backend. ``dist`` [R, K, block] -> improved [K]
+    bool (True = NOT at the fixpoint)."""
+    R, K, block = dist.shape
     cand = take_fill(dist, sh.loc_src[:, None, :], INF) + sh.loc_w[:, None, :]
     new = scatter_min_drop(dist, sh.loc_dst[:, None, :], cand)
     d_cut = take_fill(dist, sh.cut_src[:, None, :], INF) + sh.cut_w[:, None, :]
     slot_val = scatter_min_drop(
-        torch.full((P, K, sh.n_slots), INF, device=dist.device),
+        torch.full((R, K, sh.n_slots), INF, device=dist.device),
         sh.cut_seg[:, None, :], d_cut)
     slot_val = torch.where(sh.slot_valid[:, None, :], slot_val, INF)
-    # dense [P_src, K, P_owner, block] rows addressed by (owner, dst_local),
+    # dense [R, K, P_owner, block] rows addressed by (owner, dst_local),
     # then the per-owner min over senders
-    flat = (sh.slot_owner.long() * block + sh.slot_dstl.long())[:, None, :]
-    dense = torch.full((P, K, P * block), INF, device=dist.device)
-    dense.scatter_reduce_(-1, flat.expand(P, K, -1), slot_val, "amin")
-    incoming = dense.reshape(P, K, P, block).amin(0).transpose(0, 1)
+    incoming = comm.exchange_pmin(_scatter_dense(sh, slot_val, block))
     merged = torch.minimum(new, incoming)
-    return (merged < dist).any(-1).any(0)
+    return comm.all_any((merged < dist).any(-1))[0]
+
+
+def certificate_improved_sim(sh: SsspShards, dist):
+    """``certificate_improved`` over the stacked sim state: ``dist``
+    [P, K, block] -> improved [K] bool."""
+    return certificate_improved(sh, dist, SimComm(sh.n_parts, dist.device))
+
+
+def build_shmap_certificate(sh: SsspShards, comm: ShmapComm, on_trace=None):
+    """``fn(dist [1, K, block]) -> improved [K]``, the certificate on a
+    rank's shard (one pmin and one or-reduce). ``on_trace(K)`` is called
+    on the first run of each K, the engine's ``cert_traces``."""
+    seen: set[int] = set()
+
+    def run(dist):
+        k = int(dist.shape[1])
+        if on_trace is not None and k not in seen:
+            seen.add(k)
+            on_trace(k)
+        return certificate_improved(sh, dist, comm)
+
+    return run
+
+
+def _shmap_stats(comm: ShmapComm, carry: _Carry, dpr: int) -> SsspStats:
+    """The solve's ``SsspStats`` on every rank, as the sim engine totals
+    them over the stack: the counters summed over ranks in int32 (one
+    all-reduce for all of them and ``q_relaxations``), ``q_rounds`` the max
+    over ranks (the sim's max over shards); ``rounds`` and
+    ``overlap_rounds`` are agreed every round already."""
+    i32 = torch.int32
+    local = torch.stack([
+        carry.relaxations.sum(dtype=i32), carry.msgs_sent.sum(dtype=i32),
+        carry.msgs_recv.sum(dtype=i32), carry.pruned.sum(dtype=i32),
+        carry.stale.sum(dtype=i32), carry.resent.sum(dtype=i32),
+        carry.comm_bytes.to(i32)])
+    tot = comm.total(torch.cat([local, carry.relaxations.sum(0, dtype=i32)]))
+    tot = tot.cpu().numpy()
+    q_rounds = comm.max_all(carry.q_rounds.amax(0)).cpu().numpy()
+    return SsspStats(
+        rounds=np.int32(carry.rounds), relaxations=tot[0],
+        msgs_sent=tot[1], msgs_recv=tot[2], pruned_edges=tot[3],
+        q_rounds=q_rounds, q_relaxations=tot[7:],
+        q_converged=carry.done[0].cpu().numpy(), stale_merges=tot[4],
+        resends=tot[5], n_dispatches=np.int32(carry.rounds * dpr),
+        overlap_rounds=np.int32(int(carry.overlap)), bytes_moved=tot[6])
+
+
+def build_shmap_solver_traced(sh: SsspShards, cfg: SsspConfig,
+                              comm: ShmapComm, on_trace=None,
+                              warm: bool = False):
+    """A rank's solver of the shmap backend: ``fn(sources [K], q_valid [K]
+    [, land [1, L, block]]) -> (dist [1, K, block], stats)`` on the rank's
+    one-shard stack ``sh`` (``SsspShards.shard``), every rank calling it
+    with the same batch. The round loop is the sim's (``make_round`` over
+    ``comm``); every rank leaves it on the same round, since ``done`` is
+    agreed by the detector's collectives. ``stats`` are the global totals
+    (``_shmap_stats``), the same on every rank.
+
+    The port runs eagerly (engine.py docstring): a "trace" is the first
+    run of a K, or of a (K, L) on the warm solver, and calls
+    ``on_trace(K)``. ``warm=True`` takes the sharded landmark rows and
+    seeds through the ``warm_init`` stage's ``seed_shard`` (one [L, K]
+    all-reduce min)."""
+    warm_stage = phases.resolve("warm_init", cfg.warm_start) if warm else None
+    if warm and warm_stage.seed_shard is None:
+        raise ValueError(
+            f"warm=True needs a seeding warm_init backend; "
+            f"cfg.warm_start={cfg.warm_start!r} does not seed")
+    round_fn = make_round(sh, cfg, comm)
+    fin = make_finalize(sh, cfg, comm)
+    dpr = dispatches_per_round(sh, cfg)
+    seen: set = set()
+
+    def run(sources, q_valid, land=None):
+        dev = sh.device
+        sources = torch.as_tensor(sources, dtype=torch.int32, device=dev)
+        q_valid = torch.as_tensor(q_valid, dtype=torch.bool, device=dev)
+        key = (int(sources.shape[0]),) + ((int(land.shape[1]),) if warm
+                                          else ())
+        if key not in seen:
+            seen.add(key)
+            if on_trace is not None:
+                on_trace(key[0])
+        seed = None
+        if warm:
+            seed = warm_stage.seed_shard(land, sources, q_valid, comm.r,
+                                         sh.block, comm.min_all)
+        carry = init_carry(sh, sources, cfg, q_valid=q_valid,
+                           seed_dist=seed)
+        while carry.rounds < cfg.max_rounds:
+            carry = round_fn(carry)
+            if bool(carry.done.all()):          # one host sync a round
+                break
+        dist = carry.dist if fin is None else fin(carry)
+        return dist, _shmap_stats(comm, carry, dpr)
+
+    return run
 
 
 # --------------------------------------------------------------------------
@@ -1068,4 +1302,36 @@ def solve_sim(sh: SsspShards, source: int, cfg: SsspConfig = SsspConfig(),
               *, device=None):
     """One source: a K=1 batch of ``solve_sim_batch``."""
     dist, stats = solve_sim_batch(sh, (int(source),), cfg, device=device)
+    return dist[0], stats
+
+
+def build_shmap_solver(sh: SsspShards, cfg: SsspConfig, mesh, axis_names,
+                       source, *, device=None):
+    """A ``fn() -> (dist [1, K, block], stats)`` handle of the rank's solve
+    of ``source`` (an int or a batch; K = its length, no padding), on the
+    cached shmap engine of ``(sh, cfg, mesh, axis_names, device)``."""
+    from repro_torch.core.engine import engine_for
+    sources = _as_sources(source, sh.n_vertices)
+    eng = engine_for(sh, cfg, "shmap", mesh, axis_names, device=device)
+    srcs = np.asarray(sources, np.int32)
+    q_valid = np.ones((len(sources),), bool)
+    return lambda: eng.shmap_solver(srcs, q_valid)
+
+
+def solve_shmap_batch(sh: SsspShards, sources: Sequence[int],
+                      cfg: SsspConfig, mesh, axis_names, *, device=None):
+    """K sources on the ``shmap`` backend (every rank calls it with the
+    same arguments), through ``engine_for``. Returns (dist [K,
+    n_vertices], stats), the same on every rank."""
+    from repro_torch.core.engine import engine_for
+    res = engine_for(sh, cfg, "shmap", mesh, axis_names,
+                     device=device).solve(sources)
+    return res.dist, res.stats
+
+
+def solve_shmap(sh: SsspShards, source: int, cfg: SsspConfig, mesh,
+                axis_names, *, device=None):
+    """One source: a K=1 batch of ``solve_shmap_batch``."""
+    dist, stats = solve_shmap_batch(sh, (int(source),), cfg, mesh,
+                                    axis_names, device=device)
     return dist[0], stats

@@ -1,11 +1,13 @@
 """Warm start: the landmark distance cache and the query-result LRU.
 
-Port of the reference's ``core/warmstart.py`` on the stacked ``sim``
-representation. Both caches are owned by ``SsspEngine``:
+Port of the reference's ``core/warmstart.py``, on the stacked ``sim``
+representation and on a rank's shard of the ``shmap`` backend. Both
+caches are owned by ``SsspEngine``:
 
 1. **Landmark cache** (``LandmarkCache``): L pivot sources solved once,
    their distances kept on the engine's device as ``[P, L, block]``, the
-   layout of the carry's ``dist``. The ``landmark`` warm-init stage seeds
+   layout of the carry's ``dist`` (a rank of the shmap backend keeps its
+   row, ``[1, L, block]``). The ``landmark`` warm-init stage seeds
    every query's distances with the triangle-inequality upper bound
    ``min_l(land[l, src] + land[l, v])`` instead of +inf, and every seeded
    vertex starts active, so the monotone round reaches the cold solve's
@@ -94,20 +96,50 @@ def landmark_seed_stacked(land: torch.Tensor, sources: torch.Tensor,
     return torch.where(q_valid[None, :, None], seed, INF)
 
 
+def landmark_seed_shard(land_loc: torch.Tensor, sources: torch.Tensor,
+                        q_valid: torch.Tensor, rank: int, block: int,
+                        min_all) -> torch.Tensor:
+    """The warm seed on a rank of the shmap backend.
+
+    ``land_loc`` [1, L, block] is this rank's landmark rows. The
+    landmark-at-source leg needs the owner's value: each rank contributes
+    ``land[l, src_k]`` where it owns ``src_k`` (+inf elsewhere) and
+    ``min_all`` (an all-reduce min, one [L, K] collective) gives every
+    rank the owner's. Returns [1, K, block], the rank's row of
+    ``landmark_seed_stacked``, bit for bit."""
+    owner = sources // block
+    local = (sources % block).long()
+    mine = (owner == rank) & q_valid                            # [K]
+    contrib = torch.where(mine[None, :], land_loc[0][:, local], INF)
+    at_src = min_all(contrib)                                   # [L, K]
+    eps = WARM_EPS.to(land_loc.device)
+    seed = torch.full((1, sources.shape[0], block), INF,
+                      device=land_loc.device)
+    for l in range(land_loc.shape[1]):
+        leg = at_src[l][None, :, None]
+        bound = leg + land_loc[:, l][:, None, :]
+        bound = torch.where(leg == 0.0, bound, bound * eps)
+        seed = torch.minimum(seed, bound)
+    return torch.where(q_valid[None, :, None], seed, INF)
+
+
 class WarmInitStage(NamedTuple):
     """Registry entry of a warm-init backend. ``needs_landmarks`` gates the
-    engine's cache requirement; ``seed_stacked`` makes the seed that
-    ``init_carry`` takes (None keeps the cold +inf start). The reference's
-    ``seed_shard`` (the shard_map seed) waits for the multi-GPU backend."""
+    engine's cache requirement; ``seed_stacked`` (the sim backend) and
+    ``seed_shard`` (a rank of the shmap backend) make the seed that
+    ``init_carry`` takes (None keeps the cold +inf start)."""
     name: str
     needs_landmarks: bool
     seed_stacked: Any   # (land, sources, q_valid) -> [P, K, block] | None
+    seed_shard: Any = None  # (land_loc, sources, q_valid, rank, block,
+                            #  min_all) -> [1, K, block] | None
 
 
 phases.register("warm_init", "none")(WarmInitStage(
     "none", needs_landmarks=False, seed_stacked=None))
 phases.register("warm_init", "landmark")(WarmInitStage(
-    "landmark", needs_landmarks=True, seed_stacked=landmark_seed_stacked))
+    "landmark", needs_landmarks=True, seed_stacked=landmark_seed_stacked,
+    seed_shard=landmark_seed_shard))
 
 
 class CachedRow(NamedTuple):

@@ -1,0 +1,134 @@
+"""Collectives of the ``shmap`` backend over ``torch.distributed``.
+
+Port of the reference's ``distributed/collectives.py``. The reference's
+helpers run inside a ``shard_map`` body and name the mesh axes they reduce
+over; here each process is one shard, and the helpers take an
+``AxisGroup``: the process group spanning those axes with this process's
+flat rank in it (``launch/mesh.py: HostMesh.axis_group``). Ranks follow
+the reference's row-major order over the axes, which is the order of the
+group's ranks, so a ``[P, ...]``-leading array of the sim backend is laid
+out one row a rank.
+
+Every helper is functional (its input is left as it was) and is a
+collective: every rank of the group must call it, in the same order.
+
+Three collectives carry everything: ``all_reduce``, ``all_to_all_single``
+and ``all_gather_single``. Gloo takes CUDA tensors in all three (PyTorch
+2.11 on an H100, 4 and 8 processes sharing the card), so under gloo a CUDA
+tensor goes to the collective as it is and nothing is staged through host
+memory. Gloo's point-to-point send of a CUDA tensor aborts the process
+there (``writev: Bad address``), so the rings are an ``all_to_all_single``
+whose split sizes send the whole operand to one neighbour, not an
+``isend``/``irecv`` pair.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+import torch.distributed as dist
+
+class AxisGroup(NamedTuple):
+    """The processes spanning a tuple of mesh axes: their process group
+    (None for the default group), this process's row-major flat rank over
+    the axes, their number, and the communication backend."""
+    group: Any
+    rank: int
+    size: int
+    backend: str
+
+
+def flat_rank(ag: AxisGroup) -> int:
+    """Row-major flattened rank over the group's mesh axes."""
+    return ag.rank
+
+
+def flat_size(ag: AxisGroup) -> int:
+    return ag.size
+
+
+def _all_reduce(x: torch.Tensor, ag: AxisGroup, op) -> torch.Tensor:
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=op, group=ag.group)
+    return y
+
+
+def pmin_named(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    return _all_reduce(x, ag, dist.ReduceOp.MIN)
+
+
+def pmax_named(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    return _all_reduce(x, ag, dist.ReduceOp.MAX)
+
+
+def psum_named(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """Sum over the group in x's dtype (int32 wraps as the reference's
+    ``lax.psum`` of int32 does)."""
+    return _all_reduce(x, ag, dist.ReduceOp.SUM)
+
+
+def all_reduce_min(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    return pmin_named(x, ag)
+
+
+def or_reduce(flag: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """Logical OR across shards (any), as an int32 max."""
+    return pmax_named(flag.to(torch.int32), ag) > 0
+
+
+def and_reduce(flag: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """Logical AND across shards (all), as an int32 min."""
+    return pmin_named(flag.to(torch.int32), ag) > 0
+
+
+def _all_to_all(out, x, ag: AxisGroup, out_splits=None, in_splits=None):
+    dist.all_to_all_single(out, x, out_splits, in_splits, group=ag.group)
+    return out
+
+
+def all_to_all_tiled(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """All-to-all where dim 0 of ``x`` is the partition dim: ``x`` [P, ...]
+    on each rank -> [P, ...] whose row p came from rank p's row for this
+    rank."""
+    x = x.contiguous()
+    return _all_to_all(torch.empty_like(x), x, ag)
+
+
+def _ring_shift(x: torch.Tensor, ag: AxisGroup, step: int) -> torch.Tensor:
+    """The whole of ``x`` to rank ``(r + step) mod P``, from rank
+    ``(r - step) mod P``: one ``all_to_all_single`` whose split sizes are
+    1 row for that neighbour and 0 for every other rank."""
+    P, r = ag.size, ag.rank
+    send = [0] * P
+    recv = [0] * P
+    send[(r + step) % P] = 1
+    recv[(r - step) % P] = 1
+    x1 = x.contiguous().unsqueeze(0)
+    return _all_to_all(torch.empty_like(x1), x1, ag, recv, send)[0]
+
+
+def ring_permute(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """Advance ``x`` one hop along the row-major ring: afterwards the value
+    rank r held lives on rank (r + 1) mod P (toka2's token transport, and
+    the forward ring of ``async_ppermute``)."""
+    return _ring_shift(x, ag, 1)
+
+
+def ring_permute_rev(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """Retreat ``x`` one hop: the value rank r held lives on rank
+    (r - 1) mod P afterwards (the backward ring of ``async_ppermute``)."""
+    return _ring_shift(x, ag, -1)
+
+
+def all_gather_tiled(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """``x`` [n, ...] on each rank -> [P * n, ...], rank p's rows at
+    ``p * n``: the shard-stacked array the sim backend holds."""
+    x = x.contiguous()
+    out = torch.empty((ag.size * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    # all_gather_single where this PyTorch has it (all_gather_into_tensor
+    # is its deprecated name)
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    gather(out, x, group=ag.group)
+    return out

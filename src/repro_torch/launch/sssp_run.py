@@ -12,13 +12,22 @@ pads to the next K-bucket):
     ... repro_torch.launch.sssp_run --sources 0,17,1999     # explicit batch
     ... repro_torch.launch.sssp_run --num-sources 16 --batch  # sampled
 
-The backend is ``sim``: all shards stacked on one device, which on one GPU
-is the production path. ``--backend shmap`` (one shard a device) is not
-ported yet and exits with an error naming its ROADMAP item.
+Backends: ``sim`` (all shards stacked on one device, which on one GPU is
+the production path) and ``shmap`` (one process a shard, the paper's MPI
+setting), started by ``torchrun`` with one process a part and the
+communication backend named:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.sssp_run \
+        --backend shmap --dist-backend gloo --parts 4 ...
+
+``--dist-backend nccl`` needs a card a process; ``gloo`` lets the
+processes share one card (or run on the CPU with ``--device cpu``). Rank 0
+prints the lines a ``sim`` run prints; the other ranks print nothing.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -76,6 +85,10 @@ def main():
     p.add_argument("--delta", type=float, default=4.0)
     p.add_argument("--no-prune", action="store_true")
     p.add_argument("--backend", default="sim", choices=["sim", "shmap"])
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="communication backend of --backend shmap (under "
+                        "torchrun, one process a part): nccl needs a card a "
+                        "process, gloo shares one card or runs on the CPU")
     p.add_argument("--device", default=None,
                    help="torch device of the solve (default: cuda)")
     p.add_argument("--warm-start", default="none",
@@ -111,8 +124,29 @@ def main():
         p.error("--async-lag must be >= 1 (1 = double-buffered)")
     if args.async_lag != 1 and args.exchange not in ("async", "async_bucket"):
         p.error("--async-lag only applies to --exchange async/async_bucket")
+    mesh = None
     if args.backend == "shmap":
-        p.error("--backend shmap is not ported yet: ROADMAP Queue 1 item 8")
+        if args.dist_backend is None:
+            p.error("--backend shmap requires --dist-backend {nccl,gloo}")
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if args.parts != world:
+            p.error(f"--parts {args.parts} must equal the world size "
+                    f"{world} under --backend shmap (one process a part: "
+                    f"torchrun --nproc-per-node {args.parts})")
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh((world,), ("data",), backend=args.dist_backend)
+    try:
+        _run(args, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run(args, mesh) -> None:
+    """Generate, partition, solve and validate; under shmap every rank
+    runs it (each holds the same result) and rank 0 prints."""
+    out = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     faults = None
     if (args.fault_drop or args.fault_delay or args.fault_duplicate
             or args.fault_reorder):
@@ -138,12 +172,12 @@ def main():
     else:
         sources = [args.source if args.source >= 0 else int(g.src[0])]
     batched = len(sources) > 1
-    print(f"graph: {g.n_vertices}v {g.n_edges}e, "
+    out(f"graph: {g.n_vertices}v {g.n_edges}e, "
           f"sources={sources if batched else sources[0]}, P={args.parts}")
 
     t0 = time.time()
     sh = build_shards(g, args.parts, enumerate_triangles=not args.no_prune)
-    print(f"partition+preprocess: {time.time() - t0:.2f}s "
+    out(f"partition+preprocess: {time.time() - t0:.2f}s "
           f"(cut edges: {int(sh.inter_edges.sum())}) "
           f"— amortized over {len(sources)} quer"
           f"{'ies' if batched else 'y'}")
@@ -155,8 +189,14 @@ def main():
                      warm_start=args.warm_start, round=args.round,
                      prune_online=not args.no_prune, faults=faults,
                      async_lag=args.async_lag)
-    engine = SsspEngine.build(sh, cfg, result_cache=args.result_cache,
-                              device=args.device)
+    if mesh is None:
+        engine = SsspEngine.build(sh, cfg, result_cache=args.result_cache,
+                                  device=args.device)
+    else:
+        _build_kernels_once(mesh, args.device)
+        engine = SsspEngine.build(sh, cfg, "shmap", mesh, ("data",),
+                                  result_cache=args.result_cache,
+                                  device=args.device)
     if args.landmarks:
         rng = np.random.default_rng(7)
         pivots = sorted(int(s) for s in
@@ -164,7 +204,7 @@ def main():
                                    replace=False))
         t0 = time.time()
         lm = engine.precompute_landmarks(pivots)
-        print(f"landmarks: {lm.n_landmarks} pivots solved in "
+        out(f"landmarks: {lm.n_landmarks} pivots solved in "
               f"{time.time() - t0:.2f}s ({lm.nbytes_per_shard} B/shard; "
               f"warm_start={cfg.warm_start})")
     res = engine.solve(sources)
@@ -172,26 +212,26 @@ def main():
     dt = res.wall_s
     mteps = int(stats.relaxations) / dt / 1e6
     qps = len(sources) / dt
-    print(f"solve: {dt:.3f}s (compile {res.compile_s:.3f}s, "
+    out(f"solve: {dt:.3f}s (compile {res.compile_s:.3f}s, "
           f"bucket K={res.bucket_k})  rounds={int(stats.rounds)} "
           f"relax={int(stats.relaxations)} msgs={int(stats.msgs_sent)} "
           f"pruned={int(stats.pruned_edges)}  MTEPS={mteps:.1f} "
           f"queries/s={qps:.2f}"
           + (" [warm-started]" if res.warm_started else ""))
-    print(f"status: {res.status} "
+    out(f"status: {res.status} "
           f"(converged {int(res.q_converged.sum())}/{len(sources)} queries)")
     if args.exchange.startswith("async"):
-        print(f"async: overlap={res.overlap_fraction:.2f} "
+        out(f"async: overlap={res.overlap_fraction:.2f} "
               f"({int(stats.overlap_rounds)}/{int(stats.rounds)} rounds "
               f"comm/compute overlapped)  "
               f"stale_merges={int(np.asarray(stats.stale_merges).sum())}  "
               f"bytes_moved={int(stats.bytes_moved)}  lag={args.async_lag}")
     if faults is not None:
-        print(f"faults: {faults}  stale_merges={int(stats.stale_merges)} "
+        out(f"faults: {faults}  stale_merges={int(stats.stale_merges)} "
               f"resends={int(stats.resends)}")
     if args.result_cache:
         rerun = engine.solve(sources)
-        print(f"repeat solve: {rerun.wall_s * 1e3:.2f}ms "
+        out(f"repeat solve: {rerun.wall_s * 1e3:.2f}ms "
               f"cache_hits={rerun.cache_hits}/{len(sources)} "
               f"rounds={int(rerun.stats.rounds)} (exact repeats ride the "
               f"result LRU, zero rounds)")
@@ -200,10 +240,10 @@ def main():
         qx = np.asarray(stats.q_relaxations)
         for k, s in enumerate(sources):
             reach = int(np.isfinite(dists[k]).sum())
-            print(f"  query[{k}] source={s}: rounds={int(qr[k])} "
+            out(f"  query[{k}] source={s}: rounds={int(qr[k])} "
                   f"relax={int(qx[k])} reachable={reach}/{g.n_vertices}")
     else:
-        print(f"reachable: {int(np.isfinite(dists[0]).sum())}/{g.n_vertices}")
+        out(f"reachable: {int(np.isfinite(dists[0]).sum())}/{g.n_vertices}")
 
     if args.validate:
         # unconverged queries fail before the distance check runs: an
@@ -212,17 +252,30 @@ def main():
         conv = res.q_converged
         if res.status != "converged" or not conv.all():
             bad = [sources[k] for k in np.flatnonzero(~conv)]
-            print(f"validation FAILED: status={res.status}, unconverged "
+            out(f"validation FAILED: status={res.status}, unconverged "
                   f"sources={bad}")
             raise SystemExit(1)
         ok = True
         for k, s in enumerate(sources):
             ref = dijkstra_reference(g, s)
             ok &= np.allclose(dists[k], ref, rtol=1e-5, atol=1e-4)
-        print(f"validation vs Dijkstra ({len(sources)} quer"
+        out(f"validation vs Dijkstra ({len(sources)} quer"
               f"{'ies' if batched else 'y'}): {'OK' if ok else 'MISMATCH'}")
         if not ok:
             raise SystemExit(1)
+
+
+def _build_kernels_once(mesh, device) -> None:
+    """On the card, rank 0 builds the round's kernels while the other
+    ranks wait, so P processes do not start the same nvcc runs."""
+    import torch.distributed as dist
+    from repro_torch.device import resolve_device
+    if resolve_device(device).type != "cuda":
+        return
+    if mesh.rank == 0:
+        from repro_torch.kernels import build
+        build.build(build.ROUND)
+    dist.barrier()
 
 
 if __name__ == "__main__":

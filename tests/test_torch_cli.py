@@ -3,7 +3,7 @@ reference's (``repro.launch.sssp_run``): every case of tests/test_cli.py
 runs both in-process on the same argv (the port's with ``--device cpu``),
 and their printed lines, with the timings masked, their exit codes, their
 last error line and the errors they raise must be equal. Then what only
-the port has: ``--backend shmap`` names its ROADMAP item, and with no
+the port has: ``--backend shmap``'s checks of its flags, and with no
 ``--device`` the runner asks for the card.
 """
 import re
@@ -114,10 +114,19 @@ def test_runner_matches_reference(case, monkeypatch, capsys):
 
 
 def test_shmap_backend_names_its_roadmap_item(monkeypatch, capsys):
+    """``--backend shmap`` is ported (one process a part, under torchrun;
+    tests/test_torch_dist_comm.py runs it): without its communication
+    backend it exits naming the flag, and outside torchrun (world size 1)
+    ``--parts 4`` exits naming the world size."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     code, _, lines, err = _run(trun, [*TINY, "--backend", "shmap",
                                       "--device", "cpu"],
                                monkeypatch, capsys)
-    assert code == 2 and "ROADMAP Queue 1 item 8" in err and not lines
+    assert code == 2 and "requires --dist-backend" in err and not lines
+    code, _, lines, err = _run(trun, [*TINY, "--backend", "shmap",
+                                      "--dist-backend", "gloo", "--device",
+                                      "cpu"], monkeypatch, capsys)
+    assert code == 2 and "must equal the world size 1" in err and not lines
 
 
 def test_runner_defaults_to_the_card(monkeypatch, capsys):

@@ -211,7 +211,8 @@ def test_engine_without_cuda_raises():
 
 def test_engine_rejects_bad_requests():
     g = tg.road_grid_graph(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the shmap backend is ported; without its mesh it is a bad request
+    with pytest.raises(ValueError, match="requires mesh and axis_names"):
         tc.SsspEngine.build(g, backend="shmap", n_parts=2, device="cpu")
     eng = tc.SsspEngine.build(g, n_parts=2, device="cpu")
     with pytest.raises(ValueError, match="out of range"):

@@ -1816,3 +1816,108 @@ def test_send_and_round_kernels_with_resend_rows(cuda, layout):
         for got, want in zip(s_out, s_ref):
             assert torch.equal(got, want)
     assert sends[1] > sends[0]
+
+
+# ------------------------------------------------ the shmap backend ----
+
+def _plain_wrappers(monkeypatch):
+    """Swap the solver's kernel wrappers, where the ops modules call them,
+    for their plain versions (the schedule arguments dropped)."""
+    import importlib
+    for mod, names in (
+            ("relax", ("relax_dst_tiled_fixpoint_batch",
+                       "relax_dst_ragged_fixpoint_batch")),
+            ("send", ("send_pack_tiled", "send_pack_ragged")),
+            ("merge", ("merge_scatter_tiled", "merge_scatter_ragged")),
+            ("round", ("fused_round_tiled", "fused_round_ragged"))):
+        ops = importlib.import_module(f"repro_torch.kernels.{mod}.ops")
+        impl = importlib.import_module(f"repro_torch.kernels.{mod}.{mod}")
+        for n in names:
+            plain = getattr(impl, f"{n}_plain")
+            monkeypatch.setattr(ops, n, functools.partial(
+                lambda p, *a, chunks=None, bounds=None, **kw: p(*a, **kw),
+                plain))
+
+
+def _flat(x):
+    if isinstance(x, tuple):
+        return [t for y in x for t in _flat(y)]
+    return [x]
+
+
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+def test_kernels_on_a_one_shard_stack_match_plain(cuda, layout, monkeypatch):
+    """A rank of the shmap backend runs the round's kernels (1/2, 3/4, 5/6,
+    7/8) on its one-shard stack (``SsspShards.shard``): each, through the
+    round's phase function on every shard's [1, ...] view at round 2 of a
+    solve, launches its kernel and is bit-equal to its plain version on the
+    same inputs."""
+    from repro_torch.core import sssp as S
+    from repro_torch.core.local_solver import local_fixpoint_pallas
+    g = tg.rmat_graph(scale=9, edge_factor=8, seed=2)
+    cfg = tc.SsspConfig(**ALL_KERNELS)
+    eng = tc.SsspEngine.build(g, cfg, n_parts=4, device=cuda, layout=layout,
+                              enumerate_triangles=False)
+    dsh = eng.shards
+    carry = eng.start([0, 5, 77])
+    for _ in range(2):
+        carry = eng.round_fn(carry)
+    live = ~carry.done
+    act = carry.active & live[..., None]
+    payload = S._phase_send_pallas(dsh, carry.dist, carry.pruned,
+                                   carry.last_sent)[0]
+    incoming = payload.transpose(0, 2).contiguous()
+    sfx = "_ragged" if layout == "ragged" else ""
+    for r in range(dsh.n_parts):
+        v = dsh.shard(r)
+        assert v.n_rows == 1 and v.n_parts == 4 and v.row0 == r
+
+        def row(t):
+            return t[r:r + 1]
+
+        calls = {
+            "relax": lambda: local_fixpoint_pallas(
+                row(carry.dist), row(act), v, row(carry.pruned)[:, :v.e_loc],
+                max_iters=cfg.local_iters, sweeps=cfg.pallas_sweeps,
+                delta=cfg.delta),
+            "send": lambda: S._phase_send_pallas(
+                v, row(carry.dist), row(carry.pruned), row(carry.last_sent)),
+            "merge": lambda: S._phase_merge_pallas(v, row(carry.dist),
+                                                   row(incoming)),
+            "round": lambda: S._phase_fused(
+                v, row(carry.dist), row(act), row(live), row(incoming),
+                row(carry.last_sent), row(carry.pruned), cfg, dense=False)}
+        for name, call in calls.items():
+            build.reset_launches()
+            got = _flat(tuple(call()))
+            if name != "relax" or bool(row(act).any()):
+                assert build.LAUNCHES[name + sfx] >= 1, (r, name)
+            with monkeypatch.context() as m:
+                _plain_wrappers(m)
+                want = _flat(tuple(call()))
+            for a, b in zip(got, want, strict=True):
+                assert torch.equal(a, b), (r, name)
+
+
+def test_shmap_on_cuda_over_gloo_matches_sim(cuda, tmp_path):
+    """Four gloo ranks on the card (CUDA tensors in the collectives), one
+    shard each, all-kernel staged, fused under async_ppermute with toka2,
+    drop with resend under toka3, the landmark warm start and ragged
+    shards: every rank's result equals the sim engine's on the card in
+    distances, every counter, status and the engine's accounting."""
+    import _torch_dist_ref as dref
+    scs = [dict(cfg=dict(ALL_KERNELS)),
+           dict(cfg=dict(round="fused", exchange="async_ppermute",
+                         toka="toka2")),
+           dict(shards="faults", cfg=dict(ALL_KERNELS, toka="toka3",
+                                          faults=dict(drop=0.2, seed=0,
+                                                      resend_period=4))),
+           dict(op="warm", landmarks=[3, 60, 120],
+                cfg=dict(ALL_KERNELS, warm_start="landmark")),
+           dict(shards="ragged", sources=[1, 9, 40], cfg=dict(ALL_KERNELS))]
+    per_rank, sims = dref.run_ranks(
+        dref.rank_scenarios, tmp_path, scs, world=4, device="cuda",
+        meanwhile=lambda: [dref.sim_scenario(sc, "cuda") for sc in scs])
+    for i, want in enumerate(sims):
+        for res in per_rank:
+            dref.assert_same_scenario(res[i], want)
