@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of SP-Async, and its transformer serving path, on
-one NVIDIA GPU and check it.
+"""Drive the PyTorch port of SP-Async, and its transformer serving and
+training paths, on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
@@ -126,6 +126,29 @@ Phases, each of which exits non-zero on a mismatch:
            round spent in collectives printed (8 ranks time-sliced on one
            card, not a deployment's speed); and, on a one-card machine,
            NCCL at world size 1 (rmat scale 11 as one shard) == sim;
+  nolayout after the dist phase at each scale: the same graph's shards
+           built with relax_layout=False, comm_layout=False (1e6 by
+           build_shards, 1e7 by build_shards_stream), the K=16 sources
+           solved under the all-kernel staged config and under
+           round="fused": the four fallbacks (local_solver, send, merge,
+           round) warn once each, no kernel launches, and both solves ==
+           the plain config (bellman, xla, staged) on the layout-full
+           shards in distances, every counter and status; bytes per edge
+           with and without layouts and the walls printed;
+  phases   sim_phase_fns with the pallas backends on the round-2 state of
+           the all-kernel staged solve (fused on the fused solve's): local,
+           send, merge and fused launch kernels 1/2, 3/4, 5/6 and 7/8,
+           each bit-equal to its plain version; local -> send -> exchange
+           -> merge == one round of make_round bit for bit; each phase
+           timed (CUDA events, median of 10 x 5 calls): the per-phase
+           breakdown;
+  wrappers the reference's per-shard entry points on shard 0 of that
+           state: send_pack_pallas, merge_scatter_pallas,
+           relax_fixpoint_batch_pallas (1e6) or
+           relax_fixpoint_batch_ragged_pallas (1e7), and
+           local_fixpoint_pallas_batch, each launching its kernel and
+           bit-equal to its plain version and to row 0 of the stacked
+           entry point;
   runner   python -m repro_torch.launch.sssp_run on rmat scale 16 (P=8, 4
            sources, async with toka3, drop 0.2 with resend every 4
            rounds, the three staged kernels), staged and fused, the two
@@ -213,7 +236,15 @@ Phases, each of which exits non-zero on a mismatch:
            decode == forward for full-width gemma at
            depth 4 in f32 (2e-3; the run that counts kernel 12's f32 route),
            and the three smoke configs' forward on the card vs the CPU
-           (1e-4).
+           (1e-4);
+  train    the training path: deepseek-7b at its published widths in
+           bf16, attn_impl="chunked", cut to 2 layers and batch 4 x seq
+           1024: three make_train_step steps (AdamWConfig()) on one fixed
+           batch, the loss finite and falling, then one with
+           microbatches=2; ms a step, tokens/s, peak memory; the SMOKE
+           config in f32 on the card vs the CPU (loss 1e-4 relative, each
+           gradient within 1e-3 of its largest value); a gradient through
+           attn_impl="pallas" must raise.
 
 The line before last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Build logs and traces go to chiprun_out/.
@@ -2677,7 +2708,7 @@ def one_shard_kernels(torch, eng, sources, cfg, label: str, ragged: bool):
     wrappers swapped for their plain versions), for the first and the last
     shard with a frontier."""
     from repro_torch.core import sssp as S
-    from repro_torch.core.local_solver import local_fixpoint_pallas
+    from repro_torch.core.local_solver import _batch_pallas
     from repro_torch.kernels import build
     dsh = eng.shards
     carry = eng.start(sources)
@@ -2700,10 +2731,12 @@ def one_shard_kernels(torch, eng, sources, cfg, label: str, ragged: bool):
             return t[r:r + 1]
 
         calls = {
-            "relax": lambda: local_fixpoint_pallas(
-                row(carry.dist), row(act), v, row(carry.pruned)[:, :v.e_loc],
-                max_iters=cfg.local_iters, sweeps=cfg.pallas_sweeps,
-                delta=cfg.delta),
+            "relax": lambda: _batch_pallas(
+                row(carry.dist), row(act), v.loc_src, v.loc_dst, v.loc_w,
+                row(carry.pruned)[:, :v.e_loc], max_iters=cfg.local_iters,
+                delta=cfg.delta, relax_layout=v.relax_layout,
+                relax_vb=v.rx_vb, pallas_sweeps=cfg.pallas_sweeps,
+                chunks=v.relax_chunks),
             "send": lambda: S._phase_send_pallas(
                 v, row(carry.dist), row(carry.pruned), row(carry.last_sent)),
             "merge": lambda: S._phase_merge_pallas(v, row(carry.dist),
@@ -2730,6 +2763,370 @@ def one_shard_kernels(torch, eng, sources, cfg, label: str, ragged: bool):
     say(f"one-shard kernels {label}: {', '.join(seen)} on the [1, ...] "
         f"stacks of shards {sorted({busy[0], busy[-1]})} at round 2, each "
         f"bit-equal to its plain version; launches {seen}")
+
+
+# --------------------------------------------------------------------------
+# the layout-free shards, the per-phase hook and the per-shard wrappers
+# --------------------------------------------------------------------------
+
+FALLBACKS = {                  # warning key -> the words it starts with
+    "local_solver.pallas.no_layout": "local_solver='pallas' falling back",
+    "send.pallas.no_layout": "send_backend='pallas' falling back",
+    "merge.pallas.no_layout": "merge_backend='pallas' falling back",
+    "round.fused.no_layout": "round='fused' falling back"}
+PHASE_TIMING = dict(reps=5, samples=10)     # sim_phase_fns: events a median
+
+
+def no_layout_phase(torch, full, bare, sources, label: str, card: str):
+    """Shards built with ``relax_layout=False, comm_layout=False``: the
+    sources under the all-kernel staged config and under round="fused".
+    Every kernel backend falls back to plain ops, each of the four
+    fallbacks warning once, no kernel launches, and each solve equals the
+    plain config (bellman, xla, staged) on the layout-full shards in
+    distances, every counter and status. Prints both shards' bytes per
+    edge and the walls (a second solve of each, after a first)."""
+    import warnings
+    from repro_torch.core import SsspConfig, SsspEngine, phases
+    from repro_torch.kernels import build
+
+    def solve_twice(eng):
+        eng.solve(sources)
+        return eng.solve(sources)
+
+    want = solve_twice(SsspEngine.build(full, SsspConfig()))
+    phases._WARNED.difference_update(FALLBACKS)
+    walls = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for name, kw in (("all-kernel", ALL_KERNELS),
+                         ("fused", dict(round="fused"))):
+            eng = SsspEngine.build(bare, SsspConfig(**kw))
+            torch.cuda.synchronize()
+            build.reset_launches()
+            res = solve_twice(eng)
+            torch.cuda.synchronize()
+            if any(build.LAUNCHES.values()):
+                fail(f"no-layout {label} {name}: a kernel was launched "
+                     f"{build.LAUNCHES}")
+            if res.status != "converged":
+                fail(f"no-layout {label} {name}: status {res.status}")
+            same_results(res, want, f"no-layout {label} {name} vs the "
+                         "plain config on the layout-full shards")
+            walls[name] = res.wall_s
+    msgs = [str(w.message) for w in caught]
+    for key, words in FALLBACKS.items():
+        n = sum(m.startswith(words) for m in msgs)
+        if n != 1:
+            fail(f"no-layout {label}: the {key} fallback warned {n} times")
+    lf, lb = full.layout_bytes(), bare.layout_bytes()
+    say(f"no-layout {label}: K={len(sources)}, the all-kernel and the fused "
+        f"configs fall back (the four warnings once each, no kernel "
+        f"launched), both == the plain config on the layout-full shards in "
+        f"distances and every counter, {int(want.stats.rounds)} rounds; "
+        f"bytes per edge {lb['bytes_per_edge']:.2f} without layouts, "
+        f"{lf['bytes_per_edge']:.2f} with ({lb['total_bytes']} vs "
+        f"{lf['total_bytes']} B of layouts); walls (second solve) "
+        f"{walls['all-kernel']:.4f} s all-kernel config, "
+        f"{walls['fused']:.4f} s fused config, {want.wall_s:.4f} s plain "
+        f"config on the layout-full shards; {card}")
+    return walls
+
+
+def phase_fns_phase(torch, eng, sources, label: str, ragged: bool,
+                    card: str):
+    """``sim_phase_fns`` with the pallas backends on the state after round
+    2 of the all-kernel staged solve (``fused`` on the fused solve's round
+    2 state): local -> send -> exchange -> merge launch kernels 1/2, 3/4
+    and 5/6 and compose to one round of ``make_round`` bit for bit;
+    ``fused`` launches kernel 7/8; each kernel phase is bit-equal to its
+    plain version; each phase timed (CUDA events, median). Returns the
+    times."""
+    from repro_torch.core import SsspConfig, SsspEngine, sim_phase_fns
+    from repro_torch.kernels import build
+    sfx = "_ragged" if ragged else ""
+    sh = eng.shards
+    carry = eng.start(sources)
+    for _ in range(2):
+        carry = eng.round_fn(carry)
+    eng_f = SsspEngine.build(sh, SsspConfig(round="fused"))
+    cf = eng_f.start(sources)
+    for _ in range(2):
+        cf = eng_f.round_fn(cf)
+    fns = sim_phase_fns(sh, eng.cfg)
+    fns["fused"] = sim_phase_fns(sh, eng_f.cfg)["fused"]
+    act = carry.active & ~carry.done[..., None]
+    live = ~cf.done
+    torch.cuda.synchronize()
+    build.reset_launches()
+    local = fns["local"](carry.dist, act, carry.pruned, carry.tri_cursor)
+    send = fns["send"](local[0], local[1], carry.last_sent)
+    inc = fns["exchange"](send[0])
+    merge = fns["merge"](local[0], inc)
+    fused = fns["fused"](cf.dist, cf.active & live[..., None], live,
+                         cf.incoming, cf.last_sent, cf.pruned)
+    torch.cuda.synchronize()
+    launches = {k + sfx: build.LAUNCHES[k + sfx] for k in STAGED + ("round",)}
+    if min(launches.values()) < 1:
+        fail(f"phase fns {label}: a kernel was not launched {launches}")
+    nxt = eng.round_fn(carry)
+    for name, a, b in (("dist", merge[0], nxt.dist),
+                       ("active", merge[1], nxt.active),
+                       ("last_sent", send[1], nxt.last_sent),
+                       ("pruned", local[1], nxt.pruned),
+                       ("tri_cursor", local[2], nxt.tri_cursor)):
+        if not torch.equal(a, b):
+            fail(f"phase fns {label}: the composed phases' {name} differs "
+                 f"from one round of make_round")
+    calls = {
+        "local": (fns["local"], (carry.dist, act, carry.pruned,
+                                 carry.tri_cursor), local),
+        "send": (fns["send"], (local[0], local[1], carry.last_sent), send),
+        "exchange": (fns["exchange"], (send[0],), inc),
+        "merge": (fns["merge"], (local[0], inc), merge),
+        "fused": (fns["fused"], (cf.dist, cf.active & live[..., None], live,
+                                 cf.incoming, cf.last_sent, cf.pruned),
+                  fused)}
+    for name in ("local", "send", "merge", "fused"):
+        fn, args, got = calls[name]
+        with plain_round_kernels():
+            want = fn(*args)
+        for g_, w_ in zip(_flat(tuple(got)), _flat(tuple(want)),
+                          strict=True):
+            if not torch.equal(g_, w_):
+                fail(f"phase fns {label}: {name} differs from its plain "
+                     f"version")
+    times = {name: timed_median(torch, functools.partial(fn, *args),
+                                **PHASE_TIMING)[0]
+             for name, (fn, args, _) in calls.items()}
+    staged = sum(times[k] for k in ("local", "send", "exchange", "merge"))
+    say(f"phase fns {label}: round-2 state, K={len(sources)}; local -> send "
+        f"-> exchange -> merge == one round of make_round bit for bit, each "
+        f"kernel phase and fused == its plain version; launches {launches}; "
+        f"ms (events, median of {PHASE_TIMING['samples']} x "
+        f"{PHASE_TIMING['reps']} calls): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+        + f"; staged sum {staged:.4f} ms (local "
+        f"{times['local'] / staged:.2f}, send {times['send'] / staged:.2f}, "
+        f"exchange {times['exchange'] / staged:.2f}, merge "
+        f"{times['merge'] / staged:.2f}); {card}")
+    return times
+
+
+def shard_wrappers_phase(torch, eng, sources, label: str, ragged: bool):
+    """The reference's per-shard wrappers on shard 0 of the round-2 state:
+    ``send_pack_pallas`` (kernel 3/4), ``merge_scatter_pallas`` (5/6),
+    ``relax_fixpoint_batch_pallas`` (1, dense) or
+    ``relax_fixpoint_batch_ragged_pallas`` (2, ragged) and
+    ``local_fixpoint_pallas_batch`` (1/2): each launches its kernel and is
+    bit-equal to its plain version and to row 0 of the P-stacked
+    entry point on the whole stack."""
+    from repro_torch.core import sssp as S
+    from repro_torch.core.local_solver import (_batch_pallas,
+                                               local_fixpoint_pallas_batch)
+    from repro_torch.kernels import build
+    from repro_torch.kernels import relax as R
+    from repro_torch.kernels.common import take_fill
+    from repro_torch.kernels.merge import merge_scatter, merge_scatter_pallas
+    from repro_torch.kernels.send import send_pack, send_pack_pallas
+    sfx = "_ragged" if ragged else ""
+    sh = eng.shards
+    carry = eng.start(sources)
+    for _ in range(2):
+        carry = eng.round_fn(carry)
+    act = carry.active & ~carry.done[..., None]
+    P, K = carry.dist.shape[:2]
+    # operands in each kernel's form, for the whole stack
+    tx = sh.send_layout
+    tx_pruned = take_fill(carry.pruned[:, sh.e_loc:].to(torch.int32),
+                          tx[3].reshape(P, -1), 0).reshape(tx[3].shape)
+    incoming = S._phase_send_pallas(sh, carry.dist, carry.pruned,
+                                    carry.last_sent)[0].transpose(0, 2)
+    incoming = incoming.reshape(P, K, -1).contiguous()
+    mx = sh.merge_layout
+    rx = sh.relax_layout
+    bp = (-(-sh.block // sh.rx_vb) * sh.rx_vb if ragged
+          else rx[0].shape[1] * sh.rx_vb)
+    d_pad, f_pad, rx_pruned = R.fixpoint_operands(
+        carry.dist, act, carry.pruned[:, :sh.e_loc], rx[3], bp)
+    n_sweeps = eng.cfg.pallas_sweeps
+    rkw = dict(vb=sh.rx_vb, eb=sh.rx_eb, n_sweeps=n_sweeps)
+    if ragged:
+        relax_name = "relax_fixpoint_batch_ragged_pallas"
+
+        def relax_one():
+            return R.relax_fixpoint_batch_ragged_pallas(
+                d_pad[0], f_pad[0], rx[4][0], *(a[0] for a in rx[:3]),
+                rx_pruned[0], **rkw)
+
+        def relax_all():
+            return R.relax_dst_ragged_fixpoint_batch(
+                d_pad, f_pad, rx[4], *rx[:3], rx_pruned, vb=sh.rx_vb,
+                n_sweeps=n_sweeps)
+    else:
+        relax_name = "relax_fixpoint_batch_pallas"
+
+        def relax_one():
+            return R.relax_fixpoint_batch_pallas(
+                d_pad[0], f_pad[0], *(a[0] for a in rx[:3]), rx_pruned[0],
+                **rkw)
+
+        def relax_all():
+            return R.relax_dst_tiled_fixpoint_batch(
+                d_pad, f_pad, *rx[:3], rx_pruned, vb=sh.rx_vb,
+                n_sweeps=n_sweeps, chunks=sh.relax_chunks)
+    send_ct = (tx[4][0],) if ragged else ()
+    merge_ct = (mx[3][0],) if ragged else ()
+    pkw = dict(max_iters=eng.cfg.local_iters, delta=eng.cfg.delta,
+               relax_layout=rx, relax_vb=sh.rx_vb, pallas_sweeps=n_sweeps)
+    cases = {
+        "send_pack_pallas": ("send", lambda: send_pack_pallas(
+            carry.dist[0], carry.last_sent[0], sh.slot_valid[0],
+            *(a[0] for a in tx[:3]), tx_pruned[0], *send_ct, sb=sh.tx_sb,
+            eb=sh.tx_eb), lambda: send_pack(
+            carry.dist, carry.last_sent, sh.slot_valid, *tx[:3], tx_pruned,
+            sb=sh.tx_sb, ctile=tx[4] if ragged else None,
+            bounds=sh.send_bounds)),
+        "merge_scatter_pallas": ("merge", lambda: merge_scatter_pallas(
+            carry.dist[0], incoming[0], *(a[0] for a in mx[:3]), *merge_ct,
+            vb=sh.mx_vb, eb=sh.mx_eb), lambda: merge_scatter(
+            carry.dist, incoming, *mx[:3], vb=sh.mx_vb,
+            ctile=mx[3] if ragged else None, bounds=sh.merge_bounds)),
+        relax_name: ("relax", relax_one, relax_all),
+        "local_fixpoint_pallas_batch": ("relax", lambda: (
+            local_fixpoint_pallas_batch(
+                carry.dist[0], act[0], carry.pruned[0, :sh.e_loc],
+                tuple(a[0] for a in rx), vb=sh.rx_vb,
+                max_iters=eng.cfg.local_iters, sweeps=n_sweeps)),
+            lambda: _batch_pallas(
+                carry.dist, act, sh.loc_src, sh.loc_dst, sh.loc_w,
+                carry.pruned[:, :sh.e_loc], chunks=sh.relax_chunks, **pkw))}
+    seen = {}
+    for name, (kernel, one, stacked) in cases.items():
+        torch.cuda.synchronize()
+        build.reset_launches()
+        got = _flat(tuple(one()))
+        torch.cuda.synchronize()
+        n = build.LAUNCHES[kernel + sfx]
+        if n < 1:
+            fail(f"wrappers {label}: {name} launched no {kernel}{sfx}")
+        seen[name] = n
+        with plain_round_kernels():
+            want = _flat(tuple(one()))
+        row0 = [t[0] for t in _flat(tuple(stacked()))]
+        for g_, w_, r_ in zip(got, want, row0, strict=True):
+            if not (torch.equal(g_, w_) and torch.equal(g_, r_)):
+                fail(f"wrappers {label}: {name} differs from its plain "
+                     f"version or from row 0 of the stacked entry point")
+    say(f"wrappers {label}: {', '.join(seen)} on shard 0 at round 2, each "
+        f"bit-equal to its plain version and to row 0 of the stacked entry "
+        f"point; launches {seen}")
+
+
+TRAIN = dict(arch="deepseek-7b", layers=2, batch=4, seq=1024, steps=3,
+             seed=16)
+
+
+def train_phase(torch, card: str):
+    """The training path: deepseek-7b at its published widths in bf16,
+    attn_impl="chunked", cut to 2 layers, batch 4 x seq 1024 (weights and
+    tokens made on the card from seeds): three make_train_step steps with
+    AdamWConfig() on one fixed batch, the loss finite and falling, then a
+    step with microbatches=2; ms a step, tokens/s and peak memory. Then at
+    the SMOKE config in f32 the loss and every gradient on the card against
+    the CPU (1e-4 relative in the loss, 1e-3 of each gradient's largest
+    value), and a gradient through attn_impl="pallas" must raise."""
+    import dataclasses
+    import math
+    from repro_torch.configs.registry import LM_SHAPES, _load
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import materialize, tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    dev = torch.device("cuda")
+    full = _load(TRAIN["arch"])[1]
+    cfg = dataclasses.replace(full, n_layers=TRAIN["layers"],
+                              attn_impl="chunked")
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    shape = LM_SHAPES["train_4k"]
+    say(f"train phase: {full.name} d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"attn_impl={cfg.attn_impl}; cut: depth {full.n_layers} -> "
+        f"{cfg.n_layers} layers ({cfg.n_params()} params), batch x seq "
+        f"{shape['batch']} x {shape['seq']} -> {B} x {S}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRAIN["seed"])
+    params = materialize(tf.param_defs(cfg), gen, device=dev,
+                         default_dtype=cfg.dtype)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    losses, walls = [], []
+    for mb in [1] * TRAIN["steps"] + [2]:
+        step = tf.make_train_step(cfg, AdamWConfig(), microbatches=mb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if not (math.isfinite(loss) and math.isfinite(float(m["grad_norm"]))
+                and all(bool(torch.isfinite(p).all())
+                        for p in tree_leaves(params))):
+            fail(f"train: step {len(losses)} (microbatches {mb}) gave a "
+                 f"non-finite loss, gradient norm or parameter")
+    peak = torch.cuda.max_memory_allocated()
+    if not losses[TRAIN["steps"] - 1] < losses[0]:
+        fail(f"train: the loss does not fall over {TRAIN['steps']} steps "
+             f"{losses}")
+    if any(build.LAUNCHES.values()):
+        fail(f"train: a kernel was launched {build.LAUNCHES}")
+    ms = [1e3 * w for w in walls]
+    steady = statistics.median(ms[1:TRAIN["steps"]])
+    say(f"  {TRAIN['steps']} steps (AdamWConfig()) on one batch: losses "
+        + ", ".join(f"{x:.4f}" for x in losses[:TRAIN["steps"]])
+        + f"; microbatches=2 step: loss {losses[-1]:.4f}; ms a step "
+        + ", ".join(f"{x:.1f}" for x in ms[:TRAIN["steps"]])
+        + f" (first one with the allocator's growth), microbatches=2 "
+        f"{ms[-1]:.1f}; {B * S / steady * 1e3:.0f} tokens/s at the median "
+        f"of steps 2-{TRAIN['steps']} ({steady:.1f} ms); peak allocated "
+        f"{peak} B ({held} B of it the weights, the optimizer state and "
+        f"the batch before the first step); {card}")
+    del params, opt, m, batch, toks
+    torch.cuda.empty_cache()
+
+    c = _load(TRAIN["arch"], smoke=True)[1]
+    pc = materialize(tf.param_defs(c), torch.Generator().manual_seed(0),
+                     device="cpu", default_dtype=c.dtype)
+    tc = torch.randint(0, c.vocab_size, (4, 41),
+                       generator=torch.Generator().manual_seed(1),
+                       dtype=torch.int32)
+    bc = {"tokens": tc[:, :-1], "labels": tc[:, 1:]}
+    l_cpu, g_cpu = tf._value_and_grad(pc, bc, c)
+    l_gpu, g_gpu = tf._value_and_grad(_to(pc, dev), _to(bc, dev), c)
+    rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+    worst = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu)))
+    if not (rel <= 1e-4 and worst <= 1e-3):
+        fail(f"train: {c.name} card vs CPU: loss {rel:.3g} relative, "
+             f"gradients {worst:.3g} of their largest value")
+    cp = dataclasses.replace(c, attn_impl="pallas")
+    try:
+        tf._value_and_grad(_to(pc, dev), _to(bc, dev), cp)
+    except NotImplementedError as e:
+        refusal = str(e).split(":")[0]
+    else:
+        fail("train: a gradient through attn_impl='pallas' did not raise")
+    say(f"  {c.name} f32 on the card vs the CPU: loss {rel:.3g} relative "
+        f"(tolerance 1e-4), gradients within {worst:.3g} of each one's "
+        f"largest value (tolerance 1e-3); a gradient through "
+        f"attn_impl='pallas' on the card raises ({refusal})")
+    return dict(losses=losses, ms=ms, peak=peak)
 
 
 def main():
@@ -2915,7 +3312,13 @@ def main():
                card=card)
     if torch.cuda.device_count() == 1:
         nccl_world_one(torch, np)
-    del eng, sh, res, out6, clean6
+    # ---- layout-free shards, the phase hook, the per-shard wrappers -------
+    bare6 = build_shards(g, 8, enumerate_triangles=False,
+                         relax_layout=False, comm_layout=False)
+    no_layout_phase(torch, eng.shards, bare6, sources, "1e6 dense", card)
+    phase_fns_phase(torch, eng, sources, "1e6 dense", False, card)
+    shard_wrappers_phase(torch, eng, sources, "1e6 dense", False)
+    del eng, sh, res, out6, clean6, bare6
     torch.cuda.empty_cache()
 
     # ---- ragged vs dense at scale-1e6, from one stream --------------------
@@ -2962,6 +3365,10 @@ def main():
     t0 = time.perf_counter()
     sh7 = build_shards_stream(chunks7, n7, 8)
     t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bare7 = build_shards_stream(chunks7, n7, 8, relax_layout=False,
+                                comm_layout=False)
+    t_bare = time.perf_counter() - t0
     g7 = concat_graph(np, chunks7, n7)
     del chunks7
     lb7 = sh7.layout_bytes()
@@ -2969,7 +3376,8 @@ def main():
         f"{sh7.block}, S {sh7.n_slots}; rx {tuple(sh7.rx_src.shape)} tx "
         f"{tuple(sh7.tx_src.shape)} mx {tuple(sh7.mx_pos.shape)} recv_idx "
         f"{tuple(sh7.recv_idx.shape)}; host: stream {t_gen:.1f} s, "
-        f"build_shards_stream {t_build:.1f} s; layouts {lb7['total_bytes']} B "
+        f"build_shards_stream {t_build:.1f} s ({t_bare:.1f} s without "
+        f"layouts); layouts {lb7['total_bytes']} B "
         f"ragged vs {lb7['dense_bytes']} B dense, "
         f"{lb7['bytes_per_edge']:.2f} B/edge (ideal "
         f"{lb7['ideal_bytes_per_edge']:.0f})")
@@ -3094,7 +3502,11 @@ def main():
     one_shard_kernels(torch, eng7, src7, cfg, "1e7 ragged", True)
     dist_phase(torch, np, sh7, eng7, src7, DIST_JOBS_1E7, "1e7 ragged", True,
                card=card)
-    del eng7, sh7, g7, res, out7
+    # ---- layout-free shards, the phase hook, the per-shard wrappers -------
+    no_layout_phase(torch, eng7.shards, bare7, src7, "1e7 ragged", card)
+    phase_fns_phase(torch, eng7, src7, "1e7 ragged", True, card)
+    shard_wrappers_phase(torch, eng7, src7, "1e7 ragged", True)
+    del eng7, sh7, g7, res, out7, bare7
     torch.cuda.empty_cache()
 
     # ---- the runner, as a user starts it ------------------------------------
@@ -3112,6 +3524,10 @@ def main():
     rows.update(flash_phase(torch))
     torch.cuda.empty_cache()
     launches.update(serve_phase(torch, np, out_dir))
+    torch.cuda.empty_cache()
+
+    # ---- the transformer's training path: deepseek-7b at depth 2 ----------
+    train_phase(torch, card)
     say(f"total: {time.perf_counter() - t_start:.1f} s after the card query")
 
     table = [{"name": name, "route": "cuda", "source": SOURCES[name][0],

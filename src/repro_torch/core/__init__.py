@@ -13,7 +13,8 @@ from repro_torch.core.sssp import (RoundPipeline, ShmapComm, SimComm,
                                    build_shmap_solver_traced,
                                    certificate_improved_sim,
                                    dispatches_per_round, init_carry,
-                                   make_finalize, make_round, solve_shmap,
+                                   make_finalize, make_round, sim_phase_fns,
+                                   solve_shmap,
                                    solve_shmap_batch, solve_sim,
                                    solve_sim_batch)
 from repro_torch.core.warmstart import CachedRow, LandmarkCache, ResultCache

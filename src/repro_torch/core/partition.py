@@ -5,30 +5,11 @@ out-edges of its own vertices. Host-side numpy, one-time cost.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
-from repro_torch.graph.structure import Graph, graph_to_numpy
-
-
-@dataclasses.dataclass(frozen=True)
-class PartitionedGraph:
-    """Per-shard local COO sorted by local src, padded to the max edge count
-    across shards so the stacked [P, e_max] arrays are rectangular."""
-
-    src_local: torch.Tensor    # [P, e_max] int32 src id within the shard
-    dst_global: torch.Tensor   # [P, e_max] int32
-    dst_owner: torch.Tensor    # [P, e_max] int32 shard owning dst
-    dst_local: torch.Tensor    # [P, e_max] int32 dst id within its owner
-    weight: torch.Tensor       # [P, e_max] float32
-    valid: torch.Tensor        # [P, e_max] bool
-    is_cut: torch.Tensor       # [P, e_max] bool (dst owned by another shard)
-    n_vertices: int
-    n_edges: int
-    n_parts: int
-    block: int
+from repro_torch.graph.structure import (Graph, PartitionedGraph,
+                                        graph_to_numpy)
 
 
 def partition_1d(g: Graph, n_parts: int,

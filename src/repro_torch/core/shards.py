@@ -14,7 +14,10 @@ Three tile layouts ride in the shards, each grouping items by destination
 tile: ``rx_*`` (local edges by vertex tile, for the relax kernel),
 ``tx_*`` (cut edges by message-slot tile, plus the ``tx_payload_slot``
 payload inverse, for the send kernel) and ``mx_*`` (receive positions by
-vertex tile, for the merge kernel). Each comes in two shapes, chosen by
+vertex tile, for the merge kernel). ``relax_layout=False`` leaves the
+``rx_*`` fields None and ``comm_layout=False`` the ``tx_*`` and ``mx_*``
+ones: the kernel backends then fall back to plain ops (``core/sssp.py``),
+trading speed for the layouts' memory. Each comes in two shapes, chosen by
 ``layout=``:
 
 - ``"dense"``: ``[P, n_tiles, n_chunks, EB]`` with ``n_chunks`` the max
@@ -77,26 +80,29 @@ class SsspShards:
     tri_ij: torch.Tensor      # [P, T] int32
     tri_valid: torch.Tensor   # [P, T] bool
     inter_edges: torch.Tensor  # [P] int32 per-shard cut-edge counts
-    # dst-tiled local edges (relax kernel); rx_eid maps a tiled slot back to
-    # its local edge id (sentinel e_loc) for the runtime Trishla mask.
-    # Dense [P, n_vtiles, n_chunks, EB]; ragged [P, total_chunks, EB].
-    rx_src: torch.Tensor      # int32
-    rx_w: torch.Tensor        # f32
-    rx_dstrel: torch.Tensor   # int32 in [0, rx_vb)
-    rx_eid: torch.Tensor      # int32
-    # slot-tiled cut edges (send kernel); tx_eid sentinel e_cut
-    tx_src: torch.Tensor      # int32
-    tx_w: torch.Tensor
-    tx_segrel: torch.Tensor
-    tx_eid: torch.Tensor
-    tx_payload_slot: torch.Tensor  # [P, P, C] int32 slot feeding (dest, pos); S = none
-    # msg-tiled receive routing (merge kernel): flat positions [0, P*C)
-    mx_pos: torch.Tensor      # int32
-    mx_dstrel: torch.Tensor
-    mx_valid: torch.Tensor
     n_vertices: int
     n_parts: int
     block: int
+    # dst-tiled local edges (relax kernel); rx_eid maps a tiled slot back to
+    # its local edge id (sentinel e_loc) for the runtime Trishla mask.
+    # Dense [P, n_vtiles, n_chunks, EB]; ragged [P, total_chunks, EB].
+    # None when built with relax_layout=False.
+    rx_src: torch.Tensor | None = None      # int32
+    rx_w: torch.Tensor | None = None        # f32
+    rx_dstrel: torch.Tensor | None = None   # int32 in [0, rx_vb)
+    rx_eid: torch.Tensor | None = None      # int32
+    # slot-tiled cut edges (send kernel); tx_eid sentinel e_cut. The tx_*
+    # and mx_* fields are None when built with comm_layout=False.
+    tx_src: torch.Tensor | None = None      # int32
+    tx_w: torch.Tensor | None = None
+    tx_segrel: torch.Tensor | None = None
+    tx_eid: torch.Tensor | None = None
+    # [P, P, C] int32 slot feeding (dest, pos); S = none
+    tx_payload_slot: torch.Tensor | None = None
+    # msg-tiled receive routing (merge kernel): flat positions [0, P*C)
+    mx_pos: torch.Tensor | None = None      # int32
+    mx_dstrel: torch.Tensor | None = None
+    mx_valid: torch.Tensor | None = None
     # chunk->tile maps of the ragged layouts, [P, total_chunks] int32
     # (sentinel n_tiles on padding chunks); None when dense
     rx_ctile: torch.Tensor | None = None
@@ -166,22 +172,42 @@ class SsspShards:
         return max(-(-self.n_slots // self.tx_sb), 1)
 
     @property
+    def has_relax_layout(self) -> bool:
+        return self.rx_src is not None
+
+    @property
     def relax_layout(self):
         """(src, w, dstrel, eid), plus the chunk->tile map when ragged: the
-        consumers dispatch the ragged kernel on the 5-tuple."""
+        consumers dispatch the ragged kernel on the 5-tuple. None without
+        the layout."""
+        if self.rx_src is None:
+            return None
         base = (self.rx_src, self.rx_w, self.rx_dstrel, self.rx_eid)
         return base if self.rx_ctile is None else base + (self.rx_ctile,)
 
     @property
+    def has_send_layout(self) -> bool:
+        return self.tx_src is not None
+
+    @property
     def send_layout(self):
-        """(src, w, segrel, eid), plus the chunk->tile map when ragged."""
+        """(src, w, segrel, eid), plus the chunk->tile map when ragged; None
+        without the layout."""
+        if self.tx_src is None:
+            return None
         base = (self.tx_src, self.tx_w, self.tx_segrel, self.tx_eid)
         return base if self.tx_ctile is None else base + (self.tx_ctile,)
 
     @property
+    def has_merge_layout(self) -> bool:
+        return self.mx_pos is not None
+
+    @property
     def merge_layout(self):
         """(pos, dstrel, valid), plus the chunk->tile map when ragged (a
-        4-tuple)."""
+        4-tuple); None without the layout."""
+        if self.mx_pos is None:
+            return None
         base = (self.mx_pos, self.mx_dstrel, self.mx_valid)
         return base if self.mx_ctile is None else base + (self.mx_ctile,)
 
@@ -214,8 +240,9 @@ class SsspShards:
     def relax_chunks(self):
         """The dense relax layout's live chunks (by ``rx_w``), the (idx,
         bounds) pair of ``live_chunks`` that kernels 1 and 7 walk; None
-        when ragged. Derived once, as ``send_bounds``."""
-        if self.rx_ctile is not None:
+        when ragged or without the layout. Derived once, as
+        ``send_bounds``."""
+        if self.layout != "dense" or self.rx_w is None:
             return None
         return live_chunks(self.rx_w < float("inf"))
 
@@ -223,9 +250,11 @@ class SsspShards:
     def round_chunks(self):
         """The dense layouts' live chunks that kernel 7 walks, (merge by
         ``mx_valid``, relax (``relax_chunks``), send by ``tx_w``), each
-        the (idx, bounds) pair of ``live_chunks``; None when ragged.
-        Derived once, as ``send_bounds``."""
-        if self.rx_ctile is not None:
+        the (idx, bounds) pair of ``live_chunks``; None when ragged or
+        without all three layouts. Derived once, as ``send_bounds``."""
+        if self.layout != "dense" or not (self.has_relax_layout
+                                          and self.has_send_layout
+                                          and self.has_merge_layout):
             return None
         return (live_chunks(self.mx_valid > 0), self.relax_chunks,
                 live_chunks(self.tx_w < float("inf")))
@@ -248,6 +277,7 @@ class SsspShards:
         ``ideal_bytes`` (4 B per plane per item: 4 planes for the edge
         layouts, 3 for the msg layout) and ``dense_bytes`` (what the dense
         layout costs for the same data; equal to ``bytes`` when dense).
+        A family the shards were built without counts 0 bytes.
         ``bytes_per_edge`` divides the edge layouts by real edges."""
         loc_edges = int(torch.isfinite(self.loc_w).sum())
         cut_edges = int(torch.isfinite(self.cut_w).sum())
@@ -260,6 +290,7 @@ class SsspShards:
                  self.tx_eb),
                 ("merge", self.merge_layout, msgs, 3,
                  max(-(-self.block // self.mx_vb), 1), self.mx_eb)):
+            arrays = arrays or ()
             b = int(sum(a.numel() * a.element_size() for a in arrays))
             ctile = arrays[planes] if len(arrays) > planes else None
             groups[name] = {
@@ -292,17 +323,21 @@ def _dense_equivalent(ctile, n_tiles: int, eb: int, planes: int) -> int:
 
 
 def _check_ragged(sh: SsspShards) -> SsspShards:
-    """Raise unless ragged shards carry all three chunk->tile maps, each
-    within [0, n_tiles] and non-decreasing per shard, so each tile owns one
-    contiguous chunk range and the sentinel ``n_tiles`` sits only on
-    trailing padding chunks: the ragged send and merge kernels find a
-    tile's chunks by that range."""
-    for name, n_tiles in (("rx_ctile", -(-sh.block // sh.rx_vb)),
-                          ("tx_ctile", sh.n_stiles),
-                          ("mx_ctile", -(-sh.block // sh.mx_vb))):
+    """Raise unless ragged shards carry the chunk->tile map of each layout
+    they hold, each within [0, n_tiles] and non-decreasing per shard, so
+    each tile owns one contiguous chunk range and the sentinel ``n_tiles``
+    sits only on trailing padding chunks: the ragged send and merge kernels
+    find a tile's chunks by that range."""
+    for name, n_tiles, present in (
+            ("rx_ctile", -(-sh.block // sh.rx_vb), sh.has_relax_layout),
+            ("tx_ctile", sh.n_stiles, sh.has_send_layout),
+            ("mx_ctile", -(-sh.block // sh.mx_vb), sh.has_merge_layout)):
         ctile = getattr(sh, name)
-        if ctile is None:
-            raise ValueError(f"ragged shards need {name}")
+        if ctile is None and not present:
+            continue
+        if ctile is None or not present:
+            raise ValueError(f"ragged shards need {name} exactly with its "
+                             "layout")
         ct = ctile.numpy()
         if ct.min() < 0 or ct.max() > n_tiles or (np.diff(ct, axis=-1)
                                                   < 0).any():
@@ -316,18 +351,6 @@ def _check_layout(layout: str) -> None:
     if layout not in ("dense", "ragged"):
         raise ValueError(f"unknown layout {layout!r}: expected 'dense' or "
                          "'ragged'")
-
-
-def _check_layout_options(relax_layout: bool, comm_layout: bool) -> None:
-    """The reference can build shards without the relax or the send/merge
-    tile layouts, and then degrades the kernel backends to plain ones. The
-    port always builds every layout; False raises rather than be ignored."""
-    for name, value in (("relax_layout", relax_layout),
-                        ("comm_layout", comm_layout)):
-        if not value:
-            raise NotImplementedError(
-                f"{name}=False is not ported yet: ROADMAP Queue 1 item 5b "
-                "(the port always builds every tile layout)")
 
 
 def shards_from_arrays(fields: dict, **static) -> SsspShards:
@@ -476,10 +499,9 @@ def build_shards(g: Graph, n_parts: int,
                  merge_eb: int = 512, layout: str = "dense") -> SsspShards:
     """Partition + preprocess a materialized ``Graph`` (see module doc).
     The parameters are the reference's, in its order. ``layout`` picks the
-    tile-layout family: "dense" or "ragged". ``relax_layout`` and
-    ``comm_layout`` must stay True: the port always builds every tile
-    layout (``_check_layout_options``)."""
-    _check_layout_options(relax_layout, comm_layout)
+    tile-layout family: "dense" or "ragged". ``relax_layout=False`` skips
+    the ``rx_*`` layout and ``comm_layout=False`` the ``tx_*`` / ``mx_*``
+    ones (their fields stay None)."""
     _check_layout(layout)
     w_all = g.weight.numpy()
     v_all = g.valid.numpy()
@@ -496,9 +518,10 @@ def build_shards(g: Graph, n_parts: int,
     return _assemble_shards(
         parts, pg.n_vertices, pg.n_parts, pg.block,
         max_triangles_per_part=max_triangles_per_part,
-        enumerate_triangles=enumerate_triangles, relax_vb=relax_vb,
-        relax_eb=relax_eb, send_sb=send_sb, send_eb=send_eb,
-        merge_vb=merge_vb, merge_eb=merge_eb, layout=layout)
+        enumerate_triangles=enumerate_triangles, relax_layout=relax_layout,
+        relax_vb=relax_vb, relax_eb=relax_eb, comm_layout=comm_layout,
+        send_sb=send_sb, send_eb=send_eb, merge_vb=merge_vb,
+        merge_eb=merge_eb, layout=layout)
 
 
 def build_shards_stream(edge_chunks, n_vertices: int, n_parts: int, *,
@@ -525,7 +548,6 @@ def build_shards_stream(edge_chunks, n_vertices: int, n_parts: int, *,
     is superlinear) and ``layout`` to "ragged": this entry point is for
     large graphs. ``relax_layout`` and ``comm_layout`` as in
     ``build_shards``."""
-    _check_layout_options(relax_layout, comm_layout)
     _check_layout(layout)
     block = max(-(-n_vertices // n_parts), 1)
     acc = [([], [], []) for _ in range(n_parts)]
@@ -564,14 +586,16 @@ def build_shards_stream(edge_chunks, n_vertices: int, n_parts: int, *,
     return _assemble_shards(
         parts, n_vertices, n_parts, block,
         max_triangles_per_part=max_triangles_per_part,
-        enumerate_triangles=enumerate_triangles, relax_vb=relax_vb,
-        relax_eb=relax_eb, send_sb=send_sb, send_eb=send_eb,
-        merge_vb=merge_vb, merge_eb=merge_eb, layout=layout)
+        enumerate_triangles=enumerate_triangles, relax_layout=relax_layout,
+        relax_vb=relax_vb, relax_eb=relax_eb, comm_layout=comm_layout,
+        send_sb=send_sb, send_eb=send_eb, merge_vb=merge_vb,
+        merge_eb=merge_eb, layout=layout)
 
 
 def _assemble_shards(parts, n, P, block, *, max_triangles_per_part,
-                     enumerate_triangles, relax_vb, relax_eb, send_sb,
-                     send_eb, merge_vb, merge_eb, layout) -> SsspShards:
+                     enumerate_triangles, relax_layout, relax_vb, relax_eb,
+                     comm_layout, send_sb, send_eb, merge_vb, merge_eb,
+                     layout) -> SsspShards:
     """Shared assembly of both builders: per-part valid edges ->
     ``SsspShards``. ``parts[p]`` = (src_local, dst_owner, dst_local, w),
     each the part's valid edges in (src, dst)-sorted order."""
@@ -648,44 +672,58 @@ def _assemble_shards(parts, n, P, block, *, max_triangles_per_part,
         return fills + (n_tiles,) if ragged else fills
     n_vtiles = -(-block // relax_vb)
 
-    # dst-tiled local edges (relax kernel); the builder's padding eid is the
-    # shard's own edge count, restamped to the uniform sentinel e_loc
-    build_rx = build_dst_ragged_layout if ragged else build_dst_tiled_layout
-    rx = _stack(
-        [build_rx(loc_src[p], loc_dst[p], loc_w[p], block, vb=relax_vb,
-                  eb=relax_eb, with_eid=True) for p in range(P)],
-        fills=with_ctile((n_vtiles * relax_vb - 1, np.inf, 0, e_loc), n_vtiles),
-        sentinels={3: [(len(loc_src[p]), e_loc) for p in range(P)]},
-        axis=axis)
-
-    # slot-tiled cut edges (send kernel); padding eid restamped to e_cut
-    build_tx = build_slot_ragged_layout if ragged else build_slot_tiled_layout
-    tx = _stack(
-        [build_tx(cut_src[p], cut_seg[p], cut_w[p], S, sb=send_sb, eb=send_eb)
-         for p in range(P)],
-        fills=with_ctile((0, np.inf, 0, e_cut), -(-S // send_sb)),
-        sentinels={3: [(len(cut_src[p]), e_cut) for p in range(P)]},
-        axis=axis)
-    # payload-position inverse: each (owner, pos) receives at most one slot
-    tx_payload_slot = np.full((P, P, C), S, np.int64)
-    for p in range(P):
-        tx_payload_slot[p, slot_owner[p], slot_pos[p]] = np.arange(
-            len(slot_owner[p]))
-
-    # msg-tiled receive routing (merge kernel)
-    build_mx = build_msg_ragged_layout if ragged else build_msg_tiled_layout
-    mx = _stack(
-        [build_mx(recv_idx[q], block, vb=merge_vb, eb=merge_eb)
-         for q in range(P)],
-        fills=with_ctile((0, 0, 0), -(-block // merge_vb)), sentinels={},
-        axis=axis)
+    layouts = {}
+    if relax_layout:
+        # dst-tiled local edges (relax kernel); the builder's padding eid is
+        # the shard's own edge count, restamped to the uniform sentinel e_loc
+        build_rx = (build_dst_ragged_layout if ragged
+                    else build_dst_tiled_layout)
+        rx = _stack(
+            [build_rx(loc_src[p], loc_dst[p], loc_w[p], block, vb=relax_vb,
+                      eb=relax_eb, with_eid=True) for p in range(P)],
+            fills=with_ctile((n_vtiles * relax_vb - 1, np.inf, 0, e_loc),
+                             n_vtiles),
+            sentinels={3: [(len(loc_src[p]), e_loc) for p in range(P)]},
+            axis=axis)
+        layouts.update(rx_src=rx[0], rx_w=rx[1], rx_dstrel=rx[2],
+                       rx_eid=rx[3])
+        if ragged:
+            layouts["rx_ctile"] = rx[4]
+    if comm_layout:
+        # slot-tiled cut edges (send kernel); padding eid restamped to e_cut
+        build_tx = (build_slot_ragged_layout if ragged
+                    else build_slot_tiled_layout)
+        tx = _stack(
+            [build_tx(cut_src[p], cut_seg[p], cut_w[p], S, sb=send_sb,
+                      eb=send_eb) for p in range(P)],
+            fills=with_ctile((0, np.inf, 0, e_cut), -(-S // send_sb)),
+            sentinels={3: [(len(cut_src[p]), e_cut) for p in range(P)]},
+            axis=axis)
+        # payload-position inverse: each (owner, pos) receives at most one
+        # slot
+        tx_payload_slot = np.full((P, P, C), S, np.int64)
+        for p in range(P):
+            tx_payload_slot[p, slot_owner[p], slot_pos[p]] = np.arange(
+                len(slot_owner[p]))
+        # msg-tiled receive routing (merge kernel)
+        build_mx = (build_msg_ragged_layout if ragged
+                    else build_msg_tiled_layout)
+        mx = _stack(
+            [build_mx(recv_idx[q], block, vb=merge_vb, eb=merge_eb)
+             for q in range(P)],
+            fills=with_ctile((0, 0, 0), -(-block // merge_vb)), sentinels={},
+            axis=axis)
+        layouts.update(tx_src=tx[0], tx_w=tx[1], tx_segrel=tx[2],
+                       tx_eid=tx[3],
+                       tx_payload_slot=torch.from_numpy(
+                           tx_payload_slot.astype(np.int32)),
+                       mx_pos=mx[0], mx_dstrel=mx[1], mx_valid=mx[2])
+        if ragged:
+            layouts.update(tx_ctile=tx[4], mx_ctile=mx[3])
 
     def i32(a):
         return torch.from_numpy(np.asarray(a).astype(np.int32))
 
-    ctiles = {}
-    if ragged:
-        ctiles = dict(rx_ctile=rx[4], tx_ctile=tx[4], mx_ctile=mx[3])
     sh = SsspShards(
         loc_src=i32(_pad2(loc_src, e_loc, block, np.int64)),
         loc_dst=i32(_pad2(loc_dst, e_loc, block, np.int64)),
@@ -701,11 +739,7 @@ def _assemble_shards(parts, n, P, block, *, max_triangles_per_part,
         recv_idx=i32(recv_idx),
         tri_uj=i32(tri[0]), tri_ui=i32(tri[1]), tri_ij=i32(tri[2]),
         tri_valid=torch.from_numpy(tri_valid),
-        inter_edges=i32(inter_edges),
-        rx_src=rx[0], rx_w=rx[1], rx_dstrel=rx[2], rx_eid=rx[3],
-        tx_src=tx[0], tx_w=tx[1], tx_segrel=tx[2], tx_eid=tx[3],
-        tx_payload_slot=i32(tx_payload_slot),
-        mx_pos=mx[0], mx_dstrel=mx[1], mx_valid=mx[2], **ctiles,
+        inter_edges=i32(inter_edges), **layouts,
         n_vertices=n, n_parts=P, block=block, rx_vb=relax_vb,
         rx_eb=relax_eb, tx_sb=send_sb, tx_eb=send_eb, mx_vb=merge_vb,
         mx_eb=merge_eb, layout=layout)

@@ -54,8 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import faults as faults_mod
-from repro_torch.core import phases, trishla
-from repro_torch.core import local_solver  # noqa: F401  (registers the solvers)
+from repro_torch.core import local_solver, phases, trishla
 from repro_torch.core import warmstart  # noqa: F401  (registers warm_init)
 from repro_torch.core import toka as toka_mod
 from repro_torch.core.shards import SsspShards
@@ -174,29 +173,36 @@ class _Carry(NamedTuple):
 
 def _prune_idle(sh: SsspShards, idle, pruned, cursor, cfg):
     """A Trishla chunk on the idle shards ([P] bool) only, the reference's
-    ``lax.cond``: only they advance their pruned mask and cursor."""
+    ``lax.cond``: only they advance their pruned mask and cursor. Returns
+    (pruned, cursor, newly pruned edges [P] int32, 0 on busy shards)."""
     if not cfg.prune_online:
-        return pruned, cursor
+        return pruned, cursor, torch.zeros_like(cursor)
     w_all = torch.cat([sh.loc_w, sh.cut_w], dim=1)
-    new_pruned, new_cursor, _ = trishla.prune_chunk(
+    new_pruned, new_cursor, n = trishla.prune_chunk(
         w_all, pruned, cursor, sh.tri_uj, sh.tri_ui, sh.tri_ij, sh.tri_valid,
         cfg.tri_chunk)
     return (torch.where(idle[:, None], new_pruned, pruned),
-            torch.where(idle, new_cursor, cursor))
+            torch.where(idle, new_cursor, cursor),
+            torch.where(idle, n, 0).to(torch.int32))
 
 
 def _phase_local(sh: SsspShards, dist, active, pruned, cursor, cfg):
     """Busy shards (a frontier in any query) solve; idle shards run a
     Trishla chunk instead, the branches of the reference's ``lax.cond``.
-    Returns (dist, pruned, cursor, relaxations [P, K])."""
-    solve = phases.resolve("local_solver", cfg.local_solver)
-    res = solve(dist, active, sh, pruned[:, :sh.e_loc],
-                max_iters=cfg.local_iters, sweeps=cfg.pallas_sweeps,
-                delta=cfg.delta)
+    ``local_solver="pallas"`` on shards without the dst-tiled layout runs
+    ``bellman`` (a one-time warning, ``local_solver.solve_stacked``).
+    Returns (dist, pruned, cursor, relaxations [P, K], newly pruned edges
+    [P]), the reference's tuple."""
+    res = local_solver.solve_stacked(
+        dist, active, sh.loc_src, sh.loc_dst, sh.loc_w,
+        pruned[:, :sh.e_loc], solver=cfg.local_solver,
+        max_iters=cfg.local_iters, delta=cfg.delta,
+        relax_layout=sh.relax_layout, relax_vb=sh.rx_vb,
+        pallas_sweeps=cfg.pallas_sweeps, chunks=sh.relax_chunks)
     # an idle shard has no frontier, so its solve above was a no-op
     idle = ~active.flatten(1).any(-1)                       # [P]
-    pruned, cursor = _prune_idle(sh, idle, pruned, cursor, cfg)
-    return res.dist, pruned, cursor, res.relaxations
+    pruned, cursor, n = _prune_idle(sh, idle, pruned, cursor, cfg)
+    return res.dist, pruned, cursor, res.relaxations, n
 
 
 def _bucket_payload(sh: SsspShards, send_val):
@@ -716,10 +722,20 @@ def _toka3_stage(cfg, comm: SimComm, carry, new_active, sends, recvs,
 # --------------------------------------------------------------------------
 
 def _round_mode(sh: SsspShards, cfg: SsspConfig) -> str:
-    """Resolved round pipeline. The reference degrades ``round="fused"`` to
-    the staged pipeline when the shards lack a tile layout; the port's
-    shards always carry all three, so the config's mode stands."""
-    return cfg.round
+    """Resolved round pipeline. ``round="fused"`` needs all three tile
+    layouts (relax ``rx_*``, send ``tx_*``, merge ``mx_*``); when any is
+    missing it degrades to the staged pipeline with a one-time warning, as
+    the per-phase kernel backends do."""
+    if cfg.round != "fused":
+        return "staged"
+    if sh.has_relax_layout and sh.has_send_layout and sh.has_merge_layout:
+        return "fused"
+    phases.warn_once(
+        "round.fused.no_layout",
+        "round='fused' falling back to the staged pipeline: the shards are "
+        "missing the dst-/slot-/msg-tiled layouts (build_shards was called "
+        "with relax_layout=False or comm_layout=False)")
+    return "staged"
 
 
 def dispatches_per_round(sh: SsspShards, cfg: SsspConfig) -> int:
@@ -897,8 +913,8 @@ def _make_round_fused(sh: SsspShards, cfg: SsspConfig, comm):
         if deferred:
             delivering = _pending_inflight(carry.inflight).any(-1)   # [P]
             incoming, inflight_mid = ex.recv(comm, carry.inflight)
-        pruned, cursor = _prune_idle(sh, idle, carry.pruned,
-                                     carry.tri_cursor, cfg)
+        pruned, cursor, _ = _prune_idle(sh, idle, carry.pruned,
+                                        carry.tri_cursor, cfg)
         # the injected frontier: source bits on round 0, empty thereafter
         front_in = carry.active & live[..., None]
         resend_now, last_in = _resend_window(cfg, comm, carry)
@@ -968,18 +984,35 @@ def build_pipeline(sh: SsspShards, cfg: SsspConfig) -> RoundPipeline:
     """Resolve every phase backend for these shards. An active
     ``cfg.faults`` plan wraps the resolved exchange with the
     fault-injecting decorator (``core/faults.py: wrap_exchange``): the
-    transfer is untouched, delivery goes through the injector. The
-    reference's fallbacks for shards without tile layouts (ROADMAP Queue 1
-    item 5b) are not ported: the port's shards always carry every
-    layout."""
+    transfer is untouched, delivery goes through the injector. The pallas
+    send and merge backends need the ``tx_*`` / ``mx_*`` layouts; on
+    shards built with ``comm_layout=False`` they degrade to the ``xla``
+    backends with a one-time warning, as the pallas local solver does
+    without ``rx_*``."""
     ex = phases.resolve("exchange", cfg.exchange)
     if cfg.fault_plan is not None:
         ex = faults_mod.wrap_exchange(ex, cfg.fault_plan)
+    send_backend = cfg.send_backend
+    if send_backend == "pallas" and not sh.has_send_layout:
+        phases.warn_once(
+            "send.pallas.no_layout",
+            "send_backend='pallas' falling back to 'xla': the shards carry "
+            "no slot-tiled cut-edge layout (build_shards was called with "
+            "comm_layout=False)")
+        send_backend = "xla"
+    merge_backend = cfg.merge_backend
+    if merge_backend == "pallas" and not sh.has_merge_layout:
+        phases.warn_once(
+            "merge.pallas.no_layout",
+            "merge_backend='pallas' falling back to 'xla': the shards carry "
+            "no msg-tiled receive layout (build_shards was called with "
+            "comm_layout=False)")
+        merge_backend = "xla"
     return RoundPipeline(
         local=partial(_phase_local, cfg=cfg),
-        send=phases.resolve("send", cfg.send_backend),
+        send=phases.resolve("send", send_backend),
         exchange=ex,
-        merge=phases.resolve("merge", cfg.merge_backend),
+        merge=phases.resolve("merge", merge_backend),
         toka=phases.resolve("toka", cfg.toka))
 
 
@@ -1010,7 +1043,7 @@ def make_round(sh: SsspShards, cfg: SsspConfig, comm=None):
             incoming, inflight_mid = ex.recv(comm, carry.inflight)
         # finished queries stop relaxing and sending while stragglers run
         act = carry.active & ~carry.done[..., None]
-        dist, pruned, cursor, nrel = pipe.local(
+        dist, pruned, cursor, nrel, _ = pipe.local(
             sh, carry.dist, act, carry.pruned, carry.tri_cursor)
         resend_now, last_in = _resend_window(cfg, comm, carry)
         payload, last_sent, sends = pipe.send(sh, dist, pruned, last_in,
@@ -1056,6 +1089,47 @@ def make_round(sh: SsspShards, cfg: SsspConfig, comm=None):
             toka2=toka2, inflight=inflight, faults=fstate)
 
     return round_fn
+
+
+def sim_phase_fns(sh: SsspShards, cfg: SsspConfig):
+    """Per-phase callables over the stacked sim state, the reference's
+    per-phase attribution hook: each phase of the round (local, send,
+    exchange, merge) can be driven and timed alone on real mid-solve
+    state. Shapes follow the sim carry (leading [P], then [K]); each
+    returns the reference's tuple:
+
+    - ``local(dist, active, pruned, cursor)`` -> (dist, pruned, cursor,
+      relaxations [P, K], newly pruned edges [P]);
+    - ``send(dist, pruned, last_sent)`` -> (payload, last_sent', sends);
+    - ``exchange(payload)`` -> the delivered batch (a deferred exchange's
+      synchronous realization);
+    - ``merge(dist, incoming)`` -> (dist, new_active, recvs);
+    - ``fused(dist, front_in, live, incoming, last_sent, pruned)`` ->
+      (dist, payload, last_sent', sends, relaxations, residual frontier),
+      only when the shards carry all three tile layouts.
+
+    The backends resolve as the round's do, fallbacks included, so the
+    pallas backends launch kernels 1/2 (local), 3/4 (send), 5/6 (merge)
+    and 7/8 (fused) on CUDA tensors. Plain Python over the stacked
+    tensors: nothing is compiled."""
+    comm = SimComm(sh.n_parts, sh.device)
+    pipe = build_pipeline(sh, cfg)
+    dense = pipe.exchange.dense
+    fns = {
+        "local": lambda dist, active, pruned, cursor: pipe.local(
+            sh, dist, active, pruned, cursor),
+        "send": lambda dist, pruned, last_sent: pipe.send(
+            sh, dist, pruned, last_sent, dense=dense),
+        "exchange": lambda payload: pipe.exchange.run(comm, payload),
+        "merge": lambda dist, incoming: pipe.merge(sh, dist, incoming,
+                                                   dense=dense),
+    }
+    if sh.has_relax_layout and sh.has_send_layout and sh.has_merge_layout:
+        fns["fused"] = (
+            lambda dist, front_in, live, incoming, last_sent, pruned:
+            _phase_fused(sh, dist, front_in, live, incoming, last_sent,
+                         pruned, cfg, dense=dense))
+    return fns
 
 
 def init_carry(sh: SsspShards, sources, cfg: SsspConfig,

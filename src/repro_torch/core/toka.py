@@ -42,6 +42,14 @@ class Token(NamedTuple):
     hops: torch.Tensor
 
 
+def empty_token(device=None) -> Token:
+    """No token: absent, white, zero count and hops (0-d tensors)."""
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=device)
+    return Token(torch.tensor(False, device=device), i32(WHITE), i32(0),
+                 i32(0))
+
+
 def toka2_init(rank: torch.Tensor, nq: int) -> Toka2State:
     """K token-ring states a shard, ``rank`` [P, 1]: shard 0 holds all K
     tokens."""

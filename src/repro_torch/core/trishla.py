@@ -33,6 +33,12 @@ def _or_scatter(pruned, uj, drop):
     return out.bool()
 
 
+def effective_weights(loc_w, cut_w, pruned):
+    """The combined edge view ``[loc_w ++ cut_w]`` with pruned edges at
+    +inf."""
+    return torch.where(pruned, INF, torch.cat([loc_w, cut_w], dim=-1))
+
+
 def prune_pass(w_all, pruned, tri_uj, tri_ui, tri_ij, tri_valid):
     """One full vectorized Trishla pass. Returns the new pruned mask."""
     drop = _drop_mask(w_all, pruned, tri_uj, tri_ui, tri_ij, tri_valid)

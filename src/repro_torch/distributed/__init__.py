@@ -3,13 +3,14 @@
 from repro_torch.distributed.collectives import (AxisGroup, all_gather_tiled,
                                                  all_reduce_min,
                                                  all_to_all_tiled, and_reduce,
-                                                 flat_rank, flat_size,
+                                                 axis_sizes, flat_rank,
+                                                 flat_size,
                                                  or_reduce, pmax_named,
                                                  pmin_named, psum_named,
                                                  ring_permute,
                                                  ring_permute_rev)
 
 __all__ = ["AxisGroup", "all_gather_tiled", "all_reduce_min",
-           "all_to_all_tiled", "and_reduce", "flat_rank", "flat_size",
+           "all_to_all_tiled", "and_reduce", "axis_sizes", "flat_rank", "flat_size",
            "or_reduce", "pmax_named", "pmin_named", "psum_named",
            "ring_permute", "ring_permute_rev"]

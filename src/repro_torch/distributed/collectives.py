@@ -31,11 +31,18 @@ import torch.distributed as dist
 class AxisGroup(NamedTuple):
     """The processes spanning a tuple of mesh axes: their process group
     (None for the default group), this process's row-major flat rank over
-    the axes, their number, and the communication backend."""
+    the axes, their number, the communication backend, and the size of
+    each axis (empty when not known: then one axis of ``size``)."""
     group: Any
     rank: int
     size: int
     backend: str
+    sizes: tuple = ()
+
+
+def axis_sizes(ag: AxisGroup) -> tuple[int, ...]:
+    """The size of each mesh axis the group spans, in the mesh's order."""
+    return tuple(ag.sizes) or (ag.size,)
 
 
 def flat_rank(ag: AxisGroup) -> int:

@@ -9,6 +9,8 @@ so equal seeds give equal CSR arrays:
   - ``rmat_edge_stream`` / ``preset_edge_stream``: R-MAT as a stream of
     edge chunks for ``build_shards_stream``; ``edge_chunks_of`` streams a
     materialized graph.
+  - ``ogbn_products_graph``: ogbn-products from a local edge-index file.
+  - ``PAPER_GRAPHS``: the paper's four graphs, their sizes only.
 """
 from __future__ import annotations
 
@@ -186,3 +188,50 @@ def edge_chunks_of(g: Graph, chunk_edges: int = 1 << 18):
     for i in range(0, len(src), chunk_edges):
         yield (src[i:i + chunk_edges], dst[i:i + chunk_edges],
                w[i:i + chunk_edges])
+
+
+def ogbn_products_graph(root: str = "data/ogbn_products",
+                        e_pad: int | None = None) -> Graph:
+    """Load ogbn-products (2.4M vertices, 123M edges) from a local extract:
+    ``<root>/edge.npy`` (or ``edge_index.npy``) holding an int ``[2, E]``
+    (or ``[E, 2]``) edge index, as exported from the OGB dataset's graph
+    dict. Nothing is fetched: a missing file raises, saying how to make it.
+    Edges get U[1, 20) weights from seed 0 (the dataset is unweighted; the
+    paper's weight model, ``assign_weights``) and are symmetrized, with
+    ``csr_from_coo``'s dedup."""
+    import os
+    cand = [os.path.join(root, "edge.npy"),
+            os.path.join(root, "edge_index.npy")]
+    path = next((p for p in cand if os.path.exists(p)), None)
+    if path is None:
+        raise FileNotFoundError(
+            f"ogbn-products edge index not found (looked for {cand}). "
+            "On a machine with network access run:\n"
+            "  python -c \"from ogb.nodeproppred import NodePropPredDataset; "
+            "import numpy as np; d = NodePropPredDataset('ogbn-products'); "
+            "np.save('edge.npy', d[0][0]['edge_index'])\"\n"
+            f"and place edge.npy under {root}/")
+    ei = np.load(path, mmap_mode="r")
+    if ei.shape[0] != 2:
+        ei = ei.T
+    src = np.asarray(ei[0], np.int64)
+    dst = np.asarray(ei[1], np.int64)
+    n = int(max(src.max(), dst.max())) + 1
+    w = assign_weights(len(src), np.random.default_rng(0))
+    src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+    w = np.concatenate([w, w])
+    return csr_from_coo(src, dst, w, n, e_pad=e_pad)
+
+
+register_generator("ogbn-products")(ogbn_products_graph)
+
+
+# ---- paper graph descriptors (full scale; numbers only, no data) ----------
+
+PAPER_GRAPHS = {
+    # name: (n_vertices, n_edges, comment)
+    "graph1": (391_529, 873_775, "small synthetic (ParMat)"),
+    "graph2": (23_947_347, 58_333_344, "USA road network"),
+    "graph3": (3_072_441, 117_185_083, "Orkut-like social network"),
+    "graph4": (41_700_000, 1_470_000_000, "Twitter-like (41.7M v, 1.47B e)"),
+}

@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+INF = float("inf")
+
 
 @dataclasses.dataclass(frozen=True)
 class Graph:
@@ -31,6 +33,26 @@ class Graph:
     @property
     def valid(self) -> torch.Tensor:
         return torch.arange(self.e_pad, dtype=torch.int32) < self.n_edges
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedGraph:
+    """1-D block partition of a Graph over P shards (paper §III.A): vertex
+    v is owned by shard ``v // block``, ``block = ceil(n / P)``. Per-shard
+    local COO sorted by local src, padded to the max edge count across
+    shards so the stacked [P, e_max] arrays are rectangular."""
+
+    src_local: torch.Tensor    # [P, e_max] int32 src id within the shard
+    dst_global: torch.Tensor   # [P, e_max] int32
+    dst_owner: torch.Tensor    # [P, e_max] int32 shard owning dst
+    dst_local: torch.Tensor    # [P, e_max] int32 dst id within its owner
+    weight: torch.Tensor       # [P, e_max] float32
+    valid: torch.Tensor        # [P, e_max] bool
+    is_cut: torch.Tensor       # [P, e_max] bool (dst owned by another shard)
+    n_vertices: int
+    n_edges: int
+    n_parts: int
+    block: int
 
 
 def graph_from_arrays(src, dst, weight, row_ptr, n_vertices: int,

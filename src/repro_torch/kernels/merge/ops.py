@@ -111,3 +111,22 @@ def merge_scatter(dist, incoming_flat, pos_t, dstrel_t, valid_t, *,
             d, incoming_flat, ctile, pos_t, dstrel_t, valid_t, vb=vb,
             bounds=bounds)
     return new[..., :block], front[..., :block] > 0, recvs
+
+
+def merge_scatter_pallas(dist, incoming_flat, pos_t, dstrel_t, valid_t,
+                         ctile=None, *, vb: int = 128, eb: int = 512,
+                         interpret: bool = True):
+    """The reference's per-shard wrapper: dist [K, block]; incoming_flat
+    [K, M] flattened bucketed messages; one shard's msg-tiled layout
+    [n_vtiles, n_chunks, EB] or, with ``ctile`` given, its flat ragged
+    rows. Returns (new_dist [K, block], new_active [K, block] bool,
+    recvs [K]). One shard as a one-shard stack of ``merge_scatter``:
+    kernel 5 or 6 on CUDA tensors, the plain versions on CPU tensors.
+    ``interpret`` is accepted and ignored."""
+    if pos_t.shape[-1] != eb:
+        raise ValueError(f"layout chunks hold {pos_t.shape[-1]} messages, "
+                         f"eb={eb}")
+    new, front, recvs = merge_scatter(
+        dist[None], incoming_flat[None], pos_t[None], dstrel_t[None],
+        valid_t[None], vb=vb, ctile=None if ctile is None else ctile[None])
+    return new[0], front[0], recvs[0]

@@ -156,6 +156,35 @@ def relax_fixpoint_pallas(dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t,
     return new, resid, nrel[0]
 
 
+def relax_fixpoint_batch_pallas(dist_pad, front_pad, src_t, w_t, dstrel_t,
+                                pruned_t, *, vb: int = 128, eb: int = 512,
+                                n_sweeps: int = 8, interpret: bool = True):
+    """Batched fused solve of one shard (kernel 1 on CUDA tensors):
+    dist_pad/front_pad [K, block_pad] share the dense layout
+    [n_vtiles, n_chunks, EB]. Returns (new_dist [K, block_pad], residual
+    frontier [K, block_pad], n_relax [K]). A one-shard stack of
+    ``relax_dst_tiled_fixpoint_batch``; ``interpret`` is accepted and
+    ignored."""
+    _check_eb(src_t, eb)
+    out = relax_dst_tiled_fixpoint_batch(
+        dist_pad[None], front_pad[None], src_t[None], w_t[None],
+        dstrel_t[None], pruned_t[None], vb=vb, n_sweeps=n_sweeps)
+    return tuple(t[0] for t in out)
+
+
+def relax_fixpoint_batch_ragged_pallas(dist_pad, front_pad, ctile, src_r, w_r,
+                                       dstrel_r, pruned_r, *, vb: int = 128,
+                                       eb: int = 512, n_sweeps: int = 8,
+                                       interpret: bool = True):
+    """The same over one shard's ragged layout (flat [total_chunks, EB]
+    rows and the chunk->tile map ``ctile``): kernel 2 on CUDA tensors."""
+    _check_eb(src_r, eb)
+    out = relax_dst_ragged_fixpoint_batch(
+        dist_pad[None], front_pad[None], ctile[None], src_r[None], w_r[None],
+        dstrel_r[None], pruned_r[None], vb=vb, n_sweeps=n_sweeps)
+    return tuple(t[0] for t in out)
+
+
 def relax_jnp(dist, src, dst, w):
     """The flat-edge relaxation as plain tensor ops (a gather and a
     scatter-min), the reference's XLA path; the same function as

@@ -45,6 +45,8 @@ from repro_torch.kernels.relax.relax import (
 from repro_torch.kernels.send.send import (send_pack_ragged_plain,
                                           send_pack_tiled_plain)
 
+INF = float("inf")
+
 
 def _frontier(dist, merged, front, live):
     """Stage 0's frontier: vertices the merge improved in live queries,

@@ -74,6 +74,27 @@ def send_pack(dist, last_sent, slot_valid, src_t, w_t, segrel_t, pruned_t, *,
     return val[..., :S], new_last[..., :S], sends
 
 
+def send_pack_pallas(dist, last_sent, slot_valid, src_t, w_t, segrel_t,
+                     pruned_t, ctile=None, *, sb: int = 128, eb: int = 512,
+                     interpret: bool = True):
+    """The reference's per-shard wrapper: dist [K, block]; last_sent
+    [K, S]; slot_valid [S] bool; one shard's slot-tiled layout
+    [n_stiles, n_chunks, EB] (pruned_t already in layout order) or, with
+    ``ctile`` given, its flat ragged rows. Returns (send_val [K, S], +inf
+    where not improved, new_last [K, S], sends [K]). One shard as a
+    one-shard stack of ``send_pack``: kernel 3 or 4 on CUDA tensors, the
+    plain versions on CPU tensors. ``interpret`` is accepted and
+    ignored."""
+    if src_t.shape[-1] != eb:
+        raise ValueError(f"layout chunks hold {src_t.shape[-1]} edges, "
+                         f"eb={eb}")
+    val, new_last, sends = send_pack(
+        dist[None], last_sent[None], slot_valid[None], src_t[None],
+        w_t[None], segrel_t[None], pruned_t[None], sb=sb,
+        ctile=None if ctile is None else ctile[None])
+    return val[0], new_last[0], sends[0]
+
+
 def send_payload_bucket(send_val, payload_slot):
     """Route masked slot values [P, K, S] into the bucketed payload
     [P, K, P, C]. ``payload_slot[p, d, c]`` is the static inverse of

@@ -62,13 +62,14 @@ class HostMesh:
             raise ValueError(
                 f"axis_names {axes} must be distinct axes of the mesh "
                 f"{self.axis_names}, in the mesh's order")
-        size = math.prod(self.shape[p] for p in pos)
+        sizes = tuple(self.shape[p] for p in pos)
+        size = math.prod(sizes)
         rank = 0
         coords = self.coords()
         for p in pos:
             rank = rank * self.shape[p] + coords[p]
         if len(axes) == len(self.axis_names):
-            return AxisGroup(None, rank, size, self.backend)
+            return AxisGroup(None, rank, size, self.backend, sizes)
         if axes not in self._groups:
             grid = np.arange(self.size).reshape(self.shape)
             rest = [i for i in range(len(self.shape)) if i not in pos]
@@ -78,7 +79,7 @@ class HostMesh:
                 [[int(r) for r in row] for row in members],
                 backend=self.backend)
             self._groups[axes] = mine
-        return AxisGroup(self._groups[axes], rank, size, self.backend)
+        return AxisGroup(self._groups[axes], rank, size, self.backend, sizes)
 
 
 def make_host_mesh(shape=(1, 1), axes=("data", "model"), *, backend: str,

@@ -42,6 +42,26 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in sorted-key order, as
+    ``jax.tree_util.tree_leaves`` flattens a dict."""
+    return [leaf for _, leaf in _leaves(tree)]
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped as ``like`` holding ``leaves`` (``tree_leaves``'
+    order)."""
+    return _fill(like, iter(leaves))
+
+
+def _fill(node, it):
+    # a module-level recursion: a self-referencing closure would be a
+    # reference cycle holding ``leaves`` until the collector runs
+    if isinstance(node, dict):
+        return {key: _fill(node[key], it) for key in sorted(node)}
+    return next(it)
+
+
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {key: _map(fn, val) for key, val in tree.items()}

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense: the serving half of the reference's
-``models/transformer.py``.
+"""Decoder-only transformer LM, dense: the reference's
+``models/transformer.py`` without its MoE FFN.
 
 One implementation covers the dense LM configs: GQA/MQA/MHA, RoPE,
 RMSNorm, optional per-head QK-norm (Qwen3), GeGLU/SwiGLU, explicit
@@ -11,17 +11,26 @@ The port runs on one device. The reference's ``MeshAxes`` arguments, its
 use-site weight gathers (``_use``) and its sharding constraints have no
 counterpart here and are gone from every signature. The layer loop is a
 Python loop over the stacked parameters; ``scan_layers`` and ``remat`` are
-accepted and change nothing in serving. A config with ``moe`` set raises:
-the MoE FFN (``models/moe.py``), training (``_attn_chunked``'s custom VJP,
-``loss_fn``, ``make_train_step``) and the optimizer wait for later slices
-(ROADMAP Queue 1 item 10).
+accepted and change nothing (the training step keeps every layer's
+activations for the backward). A config with ``moe`` set raises: the MoE
+FFN (``models/moe.py``) is not ported yet (ROADMAP Queue 1 item 10).
+
+Training: ``loss_fn`` and ``make_train_step`` (AdamW, ``optim/``, with
+gradient accumulation over microbatches) differentiate through autograd.
+``_attn_chunked`` is an ``autograd.Function`` whose backward recomputes
+the probabilities chunk by chunk from ``(out, lse)``, FlashAttention-2
+style, as the reference's custom VJP does, and ``dtype_fence`` casts the
+cotangent on the residual stream to the model's type.
 
 Attention impls: "xla" (materialized scores), "chunked" (online softmax
-over kv chunks, the forward only) and "pallas" (kernel 12: on CUDA tensors
-a CUDA flash kernel on the tensor cores, one for bf16 and one for f32 (in
-3xTF32); its plain version on CPU tensors). Decode, with a cache, always takes
-the materialized-scores path, as in the reference. Caches passed in are
-left intact unless the caller donates them (``donate=True``).
+over kv chunks, with the flash backward) and "pallas" (kernel 12: on CUDA
+tensors a CUDA flash kernel on the tensor cores, one for bf16 and one for
+f32 (in 3xTF32); its plain version on CPU tensors). Kernel 12 has no
+backward, in either package: asking for a gradient through it raises (the
+reference fails in ``pallas_call``'s JVP rule), on both devices. Decode,
+with a cache, always takes the materialized-scores path, as in the
+reference. Caches passed in are left intact unless the caller donates
+them (``donate=True``).
 """
 from __future__ import annotations
 
@@ -32,7 +41,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.params import ParamDef, as_dtype, n_params
+from repro_torch.models.params import (ParamDef, as_dtype, n_params,
+                                      tree_leaves, tree_unflatten)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,10 +127,22 @@ def param_defs(cfg: TransformerConfig):
 # building blocks
 # --------------------------------------------------------------------------
 
+class _DtypeFence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.to(ctx.dtype), None
+
+
 def dtype_fence(x, dtype):
-    """Identity. In the reference its backward casts the cotangent to
-    ``dtype``; the port's serving path has no backward."""
-    return x
+    """Identity forward; the backward casts the cotangent to ``dtype``
+    (autograd then hands it to ``x`` in ``x``'s type). Placed on the
+    residual stream at layer boundaries, as in the reference."""
+    return _DtypeFence.apply(x, as_dtype(dtype))
 
 
 def rmsnorm(x, g, eps):
@@ -203,18 +225,86 @@ def _attn_fwd_scan(q, k, v, causal, q_offset, scale, chunk):
     return out, lse
 
 
-def _attn_chunked(q, k, v, causal, q_offset, scale, chunk):
-    """Flash-style attention in plain tensor ops, the forward only (the
-    reference's custom VJP is for training)."""
-    out, _ = _attn_fwd_scan(q, k, v, causal, q_offset, scale, chunk)
+class _AttnChunked(torch.autograd.Function):
+    """The online-softmax forward; the backward recomputes each chunk's
+    probabilities from the saved ``(q, k, v, out, lse)`` instead of keeping
+    the forward scan's f32 accumulator of every chunk step (the reference's
+    ``_attn_chunked_fwd`` / ``_attn_chunked_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, scale, chunk):
+        out, lse = _attn_fwd_scan(q, k, v, causal, q_offset, scale, chunk)
+        B, S, H, Dh = q.shape
+        o = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, out.to(q.dtype), lse)
+            ctx.args = (causal, q_offset, scale, chunk)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, scale, chunk = ctx.args
+        dq, dk, dv = _attn_chunked_bwd(q, k, v, out, lse, do, causal,
+                                       q_offset, scale, chunk)
+        return dq, dk, dv, None, None, None, None
+
+
+def _attn_chunked_bwd(q, k, v, out, lse, do, causal, q_offset, scale,
+                      chunk):
+    """FlashAttention-2 backward, chunk by chunk over kv: p from the saved
+    lse, then dv = p^T do, ds = p (dp - delta) scale, dq += ds k,
+    dk = ds^T q. Returns (dq, dk, dv) in their inputs' types."""
     B, S, H, Dh = q.shape
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qh = q.reshape(B, S, Hkv, g, Dh).float()
+    doh = do.reshape(B, S, Hkv, g, Dh).permute(0, 2, 3, 1, 4).float()
+    delta = (doh * out.float()).sum(dim=-1)             # [B, Hkv, g, S]
+    kc, nc = _chunk_kv(k, chunk)
+    vc, _ = _chunk_kv(v, chunk)
+    qi = torch.arange(S, device=q.device)[:, None] + q_offset
+    lse_safe = torch.where(torch.isfinite(lse), lse, 0.0)
+    dq = torch.zeros((B, S, Hkv, g, Dh), dtype=torch.float32,
+                     device=q.device)
+    dks, dvs = [], []
+    for j in range(nc):
+        kb32, vb32 = kc[j].float(), vc[j].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qh, kb32) * scale
+        kj = j * chunk + torch.arange(chunk, device=q.device)[None, :]
+        valid = kj < Skv
+        if causal:
+            valid = valid & (qi >= kj)
+        p = torch.where(valid, torch.exp(s - lse_safe[..., None]), 0.0)
+        dvs.append(torch.einsum("bhgqk,bhgqd->bkhd", p, doh))
+        dp = torch.einsum("bhgqd,bkhd->bhgqk", doh, vb32)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds, kb32)
+        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, qh))
+    dk = torch.cat(dks, dim=1)[:, :Skv]
+    dv = torch.cat(dvs, dim=1)[:, :Skv]
+    return (dq.reshape(B, S, H, Dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _attn_chunked(q, k, v, causal, q_offset, scale, chunk):
+    """Flash-style attention in plain tensor ops with a flash backward:
+    autograd through the online-softmax scan would keep the f32
+    accumulator of every chunk step; the backward recomputes the
+    probabilities chunk by chunk from ``(out, lse)`` instead."""
+    return _AttnChunked.apply(q, k, v, causal, q_offset, scale, chunk)
 
 
 def attention(q, k, v, cfg: TransformerConfig, *, causal=True, q_offset=0):
     """q: [B, S, H, Dh]; k/v: [B, Skv, Hkv, Dh]."""
     scale = cfg.hd ** -0.5
     if cfg.attn_impl == "pallas":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise NotImplementedError(
+                "attn_impl='pallas' has no backward: kernel 12 "
+                "(flash_attention_p) is forward-only, as in the reference; "
+                "train with attn_impl='chunked' or 'xla'")
         from repro_torch.kernels.flash_attention import flash_attention
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal,
@@ -276,11 +366,12 @@ def _layer(x, lp, cfg: TransformerConfig, positions, cache=None,
 # --------------------------------------------------------------------------
 
 def _trunk(params, tokens, cfg: TransformerConfig, caches=None,
-           cache_pos=None, donate: bool = False):
+           cache_pos=None, donate: bool = False, keep_kv: bool = True):
     """Embedding and layers: (x [B, S, D] before the final norm, kvs,
     aux). Without caches the layers' k and v are written into one stacked
-    [L, B, S, Hkv, Dh] pair; with caches, into a copy of them, or into the
-    caches themselves when ``donate`` is set."""
+    [L, B, S, Hkv, Dh] pair (None with ``keep_kv=False``, as the loss
+    needs none); with caches, into a copy of them, or into the caches
+    themselves when ``donate`` is set."""
     B, S = tokens.shape
     if caches is not None and not donate:
         caches = tuple(t.clone() for t in caches)   # the caller's stay intact
@@ -296,11 +387,12 @@ def _trunk(params, tokens, cfg: TransformerConfig, caches=None,
         lp = {name: t[i] for name, t in params["layers"].items()}
         if caches is None:
             x, (k, v), a = _layer(x, lp, cfg, positions)
-            if kvs is None:
-                kvs = tuple(torch.empty((cfg.n_layers, *t.shape),
-                                        dtype=t.dtype, device=t.device)
-                            for t in (k, v))
-            kvs[0][i], kvs[1][i] = k, v
+            if keep_kv:
+                if kvs is None:
+                    kvs = tuple(torch.empty((cfg.n_layers, *t.shape),
+                                            dtype=t.dtype, device=t.device)
+                                for t in (k, v))
+                kvs[0][i], kvs[1][i] = k, v
         else:
             x, _, a = _layer(x, lp, cfg, positions,
                              cache=(caches[0][i], caches[1][i]),
@@ -324,6 +416,15 @@ def forward(params, tokens, cfg: TransformerConfig, caches=None,
     counterpart of the reference's ``donate_argnums``)."""
     x, kvs, aux = _trunk(params, tokens, cfg, caches, cache_pos, donate)
     return _logits(x, params, cfg), kvs, aux
+
+
+def softmax_xent(logits, labels):
+    """Mean token cross-entropy of f32 ``logits`` [..., V] against integer
+    ``labels`` [...]."""
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels.long()[..., None],
+                              dim=-1)[..., 0]
+    return (logz - ll).mean()
 
 
 # --------------------------------------------------------------------------
@@ -357,3 +458,57 @@ def make_serve_step(cfg: TransformerConfig, *, donate: bool = False):
         return logits[:, -1], new_caches
 
     return serve_step
+
+
+def loss_fn(params, batch, cfg: TransformerConfig):
+    """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"},
+    each [B, S]) under ``params``; a differentiable scalar."""
+    x, _, aux = _trunk(params, batch["tokens"], cfg, keep_kv=False)
+    loss = softmax_xent(_logits(x, params, cfg), batch["labels"])
+    return loss + (cfg.moe.aux_weight * aux / cfg.n_layers if cfg.moe
+                   else 0.0)
+
+
+def _value_and_grad(params, batch, cfg):
+    """(loss, grads): the gradient of every leaf of ``params`` (a tree of
+    tensors, left as it is), each in its leaf's type."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(params, leaves), batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def make_train_step(cfg: TransformerConfig, opt_cfg, microbatches: int = 1):
+    """train_step(params, opt_state, batch) -> (params', opt_state',
+    {"loss", "grad_norm"}): the loss and its gradients, then one AdamW
+    update (``optim.adamw_update``). ``microbatches`` > 1 splits the batch
+    into that many equal slices along the batch axis, accumulates their
+    gradients in f32 and averages gradients and loss: activation memory
+    falls to a slice's, as in the reference. The parameters passed in are
+    left as they are."""
+    from repro_torch.optim import adamw_update
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, grads = _value_and_grad(params, batch, cfg)
+        else:
+            M = microbatches
+            gacc = lsum = None
+            for i in range(M):
+                mb = {}
+                for key, t in batch.items():
+                    n = t.shape[0] // M
+                    mb[key] = t[i * n:(i + 1) * n]
+                loss, grads = _value_and_grad(params, mb, cfg)
+                g32 = [g.float() for g in tree_leaves(grads)]
+                gacc = g32 if gacc is None else [
+                    a + g for a, g in zip(gacc, g32)]
+                lsum = loss if lsum is None else lsum + loss
+            grads = tree_unflatten(params, [g / M for g in gacc])
+            loss = lsum / M
+        params, opt_state, gnorm = adamw_update(params, grads, opt_state,
+                                                opt_cfg)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step

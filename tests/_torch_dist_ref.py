@@ -110,6 +110,7 @@ TILE = dict(relax_vb=32, relax_eb=64, send_sb=32, send_eb=64, merge_vb=32,
 ALL_KERNELS = dict(local_solver="pallas", send_backend="pallas",
                    merge_backend="pallas")
 _SHARDS: dict = {}
+NOLAYOUT_GRAPH = dict(n=96, m=360, seed=7)
 
 
 def shards(name: str):
@@ -117,12 +118,16 @@ def shards(name: str):
     the reference's ``random_graph(n=180, m=720, seed=3)`` (dense, with
     Trishla), ``ragged`` an R-MAT scale-7 graph in small ragged tiles,
     ``faults`` tests/test_faults.py's ``random_graph(n=96, m=360,
-    seed=7)`` without triangles."""
+    seed=7)`` without triangles, ``nolayout`` the same graph on P=2
+    without any tile layout."""
     if name not in _SHARDS:
         import repro_torch.core as tc
         from repro_torch.graph import random_graph, rmat_graph
         if name == "fixture":
             sh = tc.build_shards(random_graph(n=180, m=720, seed=3), 4)
+        elif name == "nolayout":
+            sh = tc.build_shards(random_graph(**NOLAYOUT_GRAPH), 2,
+                                 relax_layout=False, comm_layout=False)
         elif name == "ragged":
             sh = tc.build_shards(rmat_graph(scale=7, edge_factor=8, seed=3),
                                  4, layout="ragged", **TILE)

@@ -1853,7 +1853,7 @@ def test_kernels_on_a_one_shard_stack_match_plain(cuda, layout, monkeypatch):
     solve, launches its kernel and is bit-equal to its plain version on the
     same inputs."""
     from repro_torch.core import sssp as S
-    from repro_torch.core.local_solver import local_fixpoint_pallas
+    from repro_torch.core.local_solver import _batch_pallas
     g = tg.rmat_graph(scale=9, edge_factor=8, seed=2)
     cfg = tc.SsspConfig(**ALL_KERNELS)
     eng = tc.SsspEngine.build(g, cfg, n_parts=4, device=cuda, layout=layout,
@@ -1876,10 +1876,12 @@ def test_kernels_on_a_one_shard_stack_match_plain(cuda, layout, monkeypatch):
             return t[r:r + 1]
 
         calls = {
-            "relax": lambda: local_fixpoint_pallas(
-                row(carry.dist), row(act), v, row(carry.pruned)[:, :v.e_loc],
-                max_iters=cfg.local_iters, sweeps=cfg.pallas_sweeps,
-                delta=cfg.delta),
+            "relax": lambda: _batch_pallas(
+                row(carry.dist), row(act), v.loc_src, v.loc_dst, v.loc_w,
+                row(carry.pruned)[:, :v.e_loc], max_iters=cfg.local_iters,
+                delta=cfg.delta, relax_layout=v.relax_layout,
+                relax_vb=v.rx_vb, pallas_sweeps=cfg.pallas_sweeps,
+                chunks=v.relax_chunks),
             "send": lambda: S._phase_send_pallas(
                 v, row(carry.dist), row(carry.pruned), row(carry.last_sent)),
             "merge": lambda: S._phase_merge_pallas(v, row(carry.dist),
@@ -1921,3 +1923,170 @@ def test_shmap_on_cuda_over_gloo_matches_sim(cuda, tmp_path):
     for i, want in enumerate(sims):
         for res in per_rank:
             dref.assert_same_scenario(res[i], want)
+
+
+def _round2(sh, cfg, sources, device):
+    eng = tc.SsspEngine.build(sh, cfg, device=device)
+    carry = eng.start(sources)
+    for _ in range(2):
+        carry = eng.round_fn(carry)
+    return eng, carry
+
+
+def _phase_calls(eng, carry, fused_eng, fused_carry):
+    """sim_phase_fns' callables with their round-2 arguments."""
+    fns = tc.sim_phase_fns(eng.shards, eng.cfg)
+    ffns = tc.sim_phase_fns(fused_eng.shards, fused_eng.cfg)
+    act = carry.active & ~carry.done[..., None]
+    local = fns["local"](carry.dist, act, carry.pruned, carry.tri_cursor)
+    send = fns["send"](local[0], local[1], carry.last_sent)
+    live = ~fused_carry.done
+    return {
+        "local": local, "send": send,
+        "merge": fns["merge"](local[0], fns["exchange"](send[0])),
+        "fused": ffns["fused"](fused_carry.dist,
+                               fused_carry.active & live[..., None], live,
+                               fused_carry.incoming, fused_carry.last_sent,
+                               fused_carry.pruned)}
+
+
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+def test_sim_phase_fns_on_the_card_match_the_cpu(cuda, layout):
+    """``sim_phase_fns`` with the pallas backends launches kernels 1/2,
+    3/4, 5/6 and 7/8 on the card, each phase equal bit for bit to the
+    same phase on the CPU (the plain versions) at round 2."""
+    g = tg.rmat_graph(scale=9, edge_factor=8, seed=2)
+    sh = tc.build_shards(g, 4, layout=layout, enumerate_triangles=False)
+    cfg, fcfg = tc.SsspConfig(**ALL_KERNELS), tc.SsspConfig(round="fused")
+    out = {}
+    for dev in (cuda, "cpu"):
+        build.reset_launches()
+        out[str(dev)] = _phase_calls(*_round2(sh, cfg, [0, 5, 77], dev),
+                                     *_round2(sh, fcfg, [0, 5, 77], dev))
+        if dev is cuda:
+            sfx = "_ragged" if layout == "ragged" else ""
+            for k in STAGED + ("round",):
+                assert build.LAUNCHES[k + sfx] >= 1, k
+    for name, got in out[str(cuda)].items():
+        for a, b in zip(_flat(tuple(got)), _flat(tuple(out["cpu"][name])),
+                        strict=True):
+            assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+def test_shard_wrappers_on_the_card_match_the_cpu(cuda, layout):
+    """The reference's per-shard wrappers launch their kernels on the card
+    and equal the same calls on the CPU bit for bit."""
+    from repro_torch.kernels.merge import merge_scatter_pallas
+    from repro_torch.kernels.relax import (
+        relax_fixpoint_batch_pallas, relax_fixpoint_batch_ragged_pallas)
+    from repro_torch.kernels.send import send_pack_pallas
+    from repro_torch.core.local_solver import local_fixpoint_pallas_batch
+    g = tg.rmat_graph(scale=9, edge_factor=8, seed=2)
+    sh = tc.build_shards(g, 2, layout=layout, enumerate_triangles=False)
+    dist, active, pruned, last = (t[0] for t in _state(sh, 3, seed=5))
+    ragged = layout == "ragged"
+    sfx = "_ragged" if ragged else ""
+    tx = tuple(a[0] for a in sh.send_layout)
+    mx = tuple(a[0] for a in sh.merge_layout)
+    rx = tuple(a[0] for a in sh.relax_layout)
+    rng = np.random.default_rng(6)
+    inc = rng.uniform(0, 50, (3, sh.n_parts * sh.bucket_cap)).astype(
+        np.float32)
+    inc[:, sh.recv_idx[0].reshape(-1).numpy() >= sh.block] = np.inf
+    inc = torch.from_numpy(inc)
+    d_pad, f_pad, rx_p = fixpoint_operands(
+        dist[None], active[None], pruned[None, :sh.e_loc], rx[3][None],
+        -(-sh.block // sh.rx_vb) * sh.rx_vb if ragged
+        else rx[0].shape[0] * sh.rx_vb)
+    tx_p = torch.gather(pad_last(pruned[sh.e_loc:].int(), sh.e_cut + 1, 0),
+                        0, tx[3].reshape(-1).long()).reshape(tx[3].shape)
+    calls = {
+        "send": lambda d: send_pack_pallas(
+            *(t.to(d) for t in (dist, last, sh.slot_valid[0], *tx[:3], tx_p)),
+            *((tx[4].to(d),) if ragged else ()), sb=sh.tx_sb, eb=sh.tx_eb),
+        "merge": lambda d: merge_scatter_pallas(
+            *(t.to(d) for t in (dist, inc, *mx)), vb=sh.mx_vb, eb=sh.mx_eb),
+        "relax": lambda d: (
+            relax_fixpoint_batch_ragged_pallas(
+                d_pad[0].to(d), f_pad[0].to(d), rx[4].to(d),
+                *(t.to(d) for t in rx[:3]), rx_p[0].to(d), vb=sh.rx_vb,
+                eb=sh.rx_eb, n_sweeps=4) if ragged else
+            relax_fixpoint_batch_pallas(
+                d_pad[0].to(d), f_pad[0].to(d), *(t.to(d) for t in rx[:3]),
+                rx_p[0].to(d), vb=sh.rx_vb, eb=sh.rx_eb, n_sweeps=4)),
+        "local": lambda d: local_fixpoint_pallas_batch(
+            dist.to(d), active.to(d), pruned[:sh.e_loc].to(d),
+            tuple(t.to(d) for t in rx), vb=sh.rx_vb, max_iters=100,
+            sweeps=2)}
+    for name, call in calls.items():
+        kernel = "relax" if name == "local" else name
+        build.reset_launches()
+        got = _flat(tuple(call(cuda)))
+        assert build.LAUNCHES[kernel + sfx] >= 1, name
+        for a, b in zip(got, _flat(tuple(call("cpu"))), strict=True):
+            assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+def test_no_layout_solves_on_the_card(cuda, layout):
+    """Shards without tile layouts: the all-kernel and fused configs fall
+    back to plain ops on the card too (no kernel launch) and equal the
+    CPU's solve and the plain config on layout-full shards."""
+    import warnings
+    g = tg.rmat_graph(scale=9, edge_factor=8, seed=2)
+    bare = tc.build_shards(g, 4, layout=layout, relax_layout=False,
+                           comm_layout=False)
+    full = tc.build_shards(g, 4, layout=layout)
+    want = tc.SsspEngine.build(full, tc.SsspConfig(), device=cuda).solve(
+        [0, 5, 77])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        for cfg in (tc.SsspConfig(**ALL_KERNELS),
+                    tc.SsspConfig(round="fused")):
+            build.reset_launches()
+            got = tc.SsspEngine.build(bare, cfg, device=cuda).solve(
+                [0, 5, 77])
+            assert not any(build.LAUNCHES.values())
+            cpu = tc.SsspEngine.build(bare, cfg, device="cpu").solve(
+                [0, 5, 77])
+            for other in (want, cpu):
+                np.testing.assert_array_equal(got.dist, other.dist)
+                for f in COUNTERS + ("n_dispatches",):
+                    np.testing.assert_array_equal(
+                        np.asarray(getattr(got.stats, f)),
+                        np.asarray(getattr(other.stats, f)), err_msg=f)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """The SMOKE transformer in f32 (chunked attention): the loss and
+    every gradient on the card against the CPU, then a train step; a
+    gradient through attn_impl="pallas" raises on the card."""
+    from repro_torch.configs.registry import _load
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import materialize, tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    c = _load("deepseek-7b", smoke=True)[1]
+    p = materialize(tf.param_defs(c), torch.Generator().manual_seed(0),
+                    device="cpu", default_dtype=c.dtype)
+    toks = torch.randint(0, c.vocab_size, (4, 41),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def to(tree, d):
+        return {k: to(v, d) if isinstance(v, dict) else v.to(d)
+                for k, v in tree.items()}
+    lc, gc = tf._value_and_grad(p, batch, c)
+    lg, gg = tf._value_and_grad(to(p, cuda), to(batch, cuda), c)
+    assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc), strict=True):
+        assert float((a.cpu() - b).abs().max()) <= 1e-3 * float(
+            b.abs().max())
+    step = tf.make_train_step(c, AdamWConfig(), microbatches=2)
+    _, _, mc = step(p, adamw_init(p), batch)
+    _, _, mg = step(to(p, cuda), adamw_init(to(p, cuda)), to(batch, cuda))
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4 * abs(
+        float(mc["loss"]))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tf._value_and_grad(to(p, cuda), to(batch, cuda),
+                           dataclasses.replace(c, attn_impl="pallas"))

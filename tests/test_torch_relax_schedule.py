@@ -625,7 +625,7 @@ def test_kernel1_live_schedule_matches_jax(P, K, n_sweeps):
 
 @pytest.mark.parametrize("fused", [False, True])
 def test_dense_solvers_pass_the_relax_chunks(monkeypatch, fused):
-    """The dense staged local solver (``local_fixpoint_pallas``) and the
+    """The dense staged local solver (``_batch_pallas``) and the
     fused round's rescue (``fused_round_rescue``, one sweep a launch so
     that rounds are rescued) hand kernel 1 the shards' own relax live
     chunks, ``SsspShards.round_chunks[1]``, derived once per shards

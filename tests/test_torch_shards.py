@@ -150,14 +150,42 @@ def test_build_shards_stream_takes_the_reference_keywords():
 
 
 @pytest.mark.parametrize("stream", [False, True])
-@pytest.mark.parametrize("option", ["relax_layout", "comm_layout"])
+@pytest.mark.parametrize("option", ["relax_layout", "comm_layout", "both"])
 def test_layout_options_false_raise(option, stream):
-    """The reference's fallbacks without tile layouts are not ported: False
-    raises, naming its ROADMAP item, rather than being ignored."""
-    _, gt = _graphs("random")
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        if stream:
-            tc.build_shards_stream(tg.edge_chunks_of(gt), gt.n_vertices, 2,
-                                   **{option: False})
-        else:
-            tc.build_shards(gt, 2, **{option: False})
+    """Shards built without a tile layout (``relax_layout=False``,
+    ``comm_layout=False`` or both; the name is from when False raised):
+    field for field the JAX package's, None exactly where its fields are
+    None, with equal ``layout_bytes()``, dense from ``build_shards`` and
+    ragged from ``build_shards_stream``."""
+    gj, gt = _graphs("rmat")
+    opts = ({"relax_layout": False, "comm_layout": False} if option == "both"
+            else {option: False})
+    if stream:
+        sj = jc.build_shards_stream(jg.edge_chunks_of(gj, 300),
+                                    gj.n_vertices, 3, **opts)
+        st = tc.build_shards_stream(tg.edge_chunks_of(gt, 300),
+                                    gt.n_vertices, 3, **opts)
+    else:
+        sj, st = jc.build_shards(gj, 3, **opts), tc.build_shards(gt, 3, **opts)
+    want_none = {k for k, v in jax_fields(sj).items() if v is None}
+    got_none = {f.name for f in dataclasses.fields(st)
+                if f.name not in shards_mod._STATIC
+                and getattr(st, f.name) is None}
+    assert got_none == want_none
+    assert ({"rx_src", "rx_eid"} <= got_none) == (option != "comm_layout")
+    assert ({"tx_payload_slot", "mx_pos"} <= got_none) == (
+        option != "relax_layout")
+    assert_shards_equal(st, sj)
+    assert st.layout_bytes() == sj.layout_bytes()
+    for name in ("relax", "send", "merge"):
+        assert getattr(st, f"has_{name}_layout") == getattr(
+            sj, f"has_{name}_layout")
+        assert (getattr(st, f"{name}_layout") is None) == (
+            getattr(sj, f"{name}_layout") is None)
+    # the derived views and the device move survive the missing layouts
+    assert st.to("cpu").arrays().keys() == st.arrays().keys()
+    assert st.shard(1).n_rows == 1
+    assert st.round_chunks is None
+    assert (st.relax_chunks is None) == (option != "comm_layout" or stream)
+    back = tc.shards_from_arrays(jax_fields(sj), **jax_static(sj))
+    assert_shards_equal(back, sj)
