@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of SP-Async, and its transformer serving and
-training paths, on one NVIDIA GPU and check it.
+training paths (dense and MoE) and training entry point, on one NVIDIA GPU
+and check it.
 
     python3 chip_smoke.py
 
@@ -212,8 +213,10 @@ Phases, each of which exits non-zero on a mismatch:
            F.embedding_bag;
   flash    kernel 12 (flash attention) through its entry point against its
            plain version at the prefill shapes of gemma-7b ([4, 16, 2048,
-           256]), deepseek-7b ([4, 32, 2048, 128]) and mistral-large (GQA
-           group 12: q [1, 96, 2048, 128], kv [1, 8, 2048, 128]), causal,
+           256]), deepseek-7b ([4, 32, 2048, 128]), mistral-large (GQA
+           group 12: q [1, 96, 2048, 128], kv [1, 8, 2048, 128]),
+           olmoe-1b-7b ([4, 16, 2048, 128]) and qwen3-moe (GQA group 16: q
+           [4, 64, 2048, 128], kv [4, 4, 2048, 128]), causal,
            and at gemma's decode shape (Sq = 1, q_offset = Skv - 1), each in
            bf16 (the bf16 kernel, within 2 bf16 ulps) and f32 (the 3xTF32
            kernel, within 2e-5), each launch counted on its own route, timed
@@ -244,7 +247,30 @@ Phases, each of which exits non-zero on a mismatch:
            microbatches=2; ms a step, tokens/s, peak memory; the SMOKE
            config in f32 on the card vs the CPU (loss 1e-4 relative, each
            gradient within 1e-3 of its largest value); a gradient through
-           attn_impl="pallas" must raise.
+           attn_impl="pallas" must raise;
+  moe serve the MoE FFN's serving path: olmoe-1b-7b at its published
+           widths and full depth, then qwen3-moe-235b-a22b at its published
+           widths cut to 4 layers (its whole model's bytes stated from
+           params.abstract), bf16, weights made on the card, driven as the
+           serve phase drives gemma (4 x 2048 prompts, 32 greedy steps):
+           kernel 12's bf16 route once a layer in the prefill and nothing
+           else, no kernel in decode; prefill and decode times, tokens/s,
+           peak memory and the share of (token, k) assignments capacity
+           dropped in each; the prefill's last logits "pallas" vs "xla"
+           (the xla run routed as the kernel run) and each layer's
+           attention vs "xla" on the same q, k, v; then both MoE SMOKE
+           configs in f32, card (kernel 12) vs CPU (plain): logits within
+           1e-4 of the largest, the routing (topi, slot_token, pos, keep)
+           equal in every layer, the smallest top-k gap printed;
+  moe train olmoe-1b-7b at its published widths cut to 2 layers, bf16,
+           chunked attention, batch 4 x seq 1024, as the train phase drives
+           deepseek; both MoE SMOKE configs' loss and gradients card vs
+           CPU;
+  launch   python -m repro_torch.launch.train --arch olmoe-1b-7b --smoke on
+           the card: 6 steps with a checkpoint every 2 in a temporary
+           directory, step 6 restored on the card bit for bit, then a
+           second run to 10 steps that must resume from step 6, its losses
+           within 1e-5 relative of an uninterrupted 10-step run's.
 
 The line before last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Build logs and traces go to chiprun_out/.
@@ -252,6 +278,7 @@ The line before last is the JSON kernel table; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -337,7 +364,9 @@ SERVE = dict(arch="gemma-7b", batch=4, prompt=2048, gen=32, seed=15)
 # Kernel 12 at the prefill shapes of the dense LM configs: (B, Hq, Hkv, S, D)
 FLASH_SHAPES = {"gemma-7b": (4, 16, 16, 2048, 256),
                 "deepseek-7b": (4, 32, 32, 2048, 128),
-                "mistral-large-123b": (1, 96, 8, 2048, 128)}
+                "mistral-large-123b": (1, 96, 8, 2048, 128),
+                "olmoe-1b-7b": (4, 16, 16, 2048, 128),
+                "qwen3-moe-235b-a22b": (4, 64, 4, 2048, 128)}
 FLASH_F32_TOL = 2e-5           # max abs error, tests/test_kernels.py:63
 # In bf16 the kernel and its plain version read the same inputs, compute in
 # f32 and round once: they may differ where the two f32 sums, taken in
@@ -1434,29 +1463,15 @@ def runner_phase():
     """The port's runner on the card, as a user starts it: ``RUNNER_ARGS``
     staged and with ``--round fused``, the two processes at once. Each must
     exit 0 and validate against Dijkstra; its lines are echoed."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    procs = {}
     t0 = time.perf_counter()
-    try:
-        for rnd in ("staged", "fused"):
-            cmd = [sys.executable, "-m", "repro_torch.launch.sssp_run",
-                   *RUNNER_ARGS, "--round", rnd]
-            procs[rnd] = subprocess.Popen(
-                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True)
-        outs = {rnd: p.communicate(timeout=600)[0]
-                for rnd, p in procs.items()}
-    finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rnd, out in outs.items():
+    outs = run_procs({rnd: [sys.executable, "-m", "repro_torch.launch.sssp_run",
+                            *RUNNER_ARGS, "--round", rnd]
+                      for rnd in ("staged", "fused")})
+    for rnd, (rc, out) in outs.items():
         for line in out.splitlines():
             say(f"  runner {rnd} | {line}")
-        if (procs[rnd].returncode != 0
-                or "validation vs Dijkstra (4 queries): OK" not in out):
-            fail(f"runner {rnd}: exit {procs[rnd].returncode}")
+        if rc != 0 or "validation vs Dijkstra (4 queries): OK" not in out:
+            fail(f"runner {rnd}: exit {rc}")
     say(f"runner: staged and fused validated on the card "
         f"({time.perf_counter() - t0:.1f} s wall for both)")
 
@@ -2217,46 +2232,20 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def serve_phase(torch, np, out_dir: Path):
-    """The transformer's main path: full-width gemma-7b in bf16 with
-    attn_impl="pallas", weights made on the card from a seeded generator;
-    4 random prompts of 2048 tokens through make_prefill_step, the caches
-    padded by 32, then 32 greedy steps of make_serve_step with the caches
-    donated, as examples/serve_decode.py drives them. Kernel 12's
-    tensor-core kernel must launch once a layer in the prefill, and nothing
-    else, and no kernel in decode. Then the checks: the prefill's last
-    logits with "pallas" against "xla" at full width in bf16, and each
-    layer's attention against "xla" on the same inputs, which must also
-    catch a planted fault; full-width gemma at depth 4 in f32, forward over
-    256 tokens against a prefill of 252 and 4 decode steps (rtol = atol =
-    2e-3), whose forward and prefill must launch kernel 12's f32 route once
-    a layer each; the three smoke configs' forward on the card (kernel)
-    against the CPU (plain), f32 logits within 1e-4. Returns the launches
-    of both routes' runs."""
-    import dataclasses
+def serve_run(torch, cfg, params, prompts, G: int) -> dict:
+    """The serving main path as examples/serve_decode.py drives it: a
+    warm-up prefill of 128 tokens, then the prefill of ``prompts`` [B, P]
+    (make_prefill_step), the caches padded by ``G`` and ``G`` greedy steps
+    of make_serve_step with the caches donated, the launch counters set to
+    0 before each part and read after it. Returns the step functions, the
+    prefill's last logits, the last step's logits and token, the tokens
+    [B, G + 1], the caches, the prefill's and the decode's walls (s), the
+    decode steps between CUDA events (ms, sorted), the launches of each
+    part and the peak allocated bytes."""
     import torch.nn.functional as F
-    from repro_torch.configs.registry import _load
     from repro_torch.kernels import build
     from repro_torch.models import transformer as tf
-    from repro_torch.models.params import materialize
-    dev = torch.device("cuda")
-    cfg = dataclasses.replace(_load(SERVE["arch"])[1], attn_impl="pallas")
-    B, P, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SERVE["seed"])
-    t0 = time.perf_counter()
-    params = materialize(tf.param_defs(cfg), gen, device=dev,
-                         default_dtype=cfg.dtype)
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    w_bytes = sum(nbytes(t) for t in (params["embed"], params["final_norm"],
-                                      params["unembed"],
-                                      *params["layers"].values()))
-    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
-                            device=dev, dtype=torch.int32)
-    say(f"serve phase: {cfg.name} {cfg.n_params()} params ({w_bytes} B "
-        f"bf16) made on the card in {t_init:.1f} s; {B} prompts x {P} "
-        f"tokens, {G} greedy steps, attn_impl={cfg.attn_impl}")
+    P = prompts.shape[1]
     prefill = tf.make_prefill_step(cfg)
     serve = tf.make_serve_step(cfg, donate=True)   # caches written in place
     prefill(params, {"tokens": prompts[:, :128]})   # warm-up: library loads
@@ -2285,28 +2274,109 @@ def serve_phase(torch, np, out_dir: Path):
         marks[i + 1].record()
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
-    in_decode = dict(build.LAUNCHES)
-    steps = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
-    peak = torch.cuda.max_memory_allocated()
-    n_fa = in_prefill["flash_attention_tc"]
-    if n_fa != cfg.n_layers or sum(in_prefill.values()) != n_fa:
-        fail(f"serve: prefill launches {in_prefill}, want flash_attention_tc "
-             f"{cfg.n_layers} and nothing else")
-    if sum(in_decode.values()):
-        fail(f"serve: decode launched kernels {in_decode}")
-    out = torch.cat(toks, dim=1)
-    if (tuple(out.shape) != (B, G + 1) or not bool(torch.isfinite(logits).all())
-            or not bool(torch.isfinite(last).all())
+    return dict(prefill=prefill, serve=serve, logits=logits, last=last,
+                tok=tok, out=torch.cat(toks, dim=1), caches=caches,
+                ttft=ttft, t_dec=t_dec,
+                steps=sorted(a.elapsed_time(b)
+                             for a, b in zip(marks, marks[1:])),
+                in_prefill=in_prefill, in_decode=dict(build.LAUNCHES),
+                peak=torch.cuda.max_memory_allocated())
+
+
+def check_serve(torch, cfg, r: dict, B: int, P: int, G: int, label: str):
+    """Fail unless ``serve_run``'s prefill launched kernel 12's bf16 route
+    once a layer and nothing else, its decode launched no kernel, and its
+    outputs are finite tokens and caches of the expected shapes; then print
+    the times, rates and peak memory."""
+    n_fa = r["in_prefill"]["flash_attention_tc"]
+    if n_fa != cfg.n_layers or sum(r["in_prefill"].values()) != n_fa:
+        fail(f"{label}: prefill launches {r['in_prefill']}, want "
+             f"flash_attention_tc {cfg.n_layers} and nothing else")
+    if sum(r["in_decode"].values()):
+        fail(f"{label}: decode launched kernels {r['in_decode']}")
+    out, steps = r["out"], r["steps"]
+    if (tuple(out.shape) != (B, G + 1)
+            or not bool(torch.isfinite(r["logits"]).all())
+            or not bool(torch.isfinite(r["last"]).all())
             or not bool(((out >= 0) & (out < cfg.vocab_size)).all())
-            or tuple(caches[0].shape) != (cfg.n_layers, B, P + G,
-                                          cfg.n_kv_heads, cfg.hd)):
-        fail(f"serve: bad outputs {tuple(out.shape)} {caches[0].shape}")
-    say(f"  prefill (time to first token) {ttft:.4f} s, {B * P / ttft:.1f} "
-        f"prompt tokens/s; decode {1e3 * t_dec / G:.3f} ms/step, "
-        f"{B * G / t_dec:.1f} tokens/s (steps between CUDA events: median "
-        f"{steps[G // 2]:.3f}, min {steps[0]:.3f}, max {steps[-1]:.3f} ms); "
-        f"peak allocated {peak} B; flash_attention_tc launches {n_fa} in the "
-        f"prefill, {sum(in_decode.values())} kernel launches in decode")
+            or tuple(r["caches"][0].shape) != (cfg.n_layers, B, P + G,
+                                               cfg.n_kv_heads, cfg.hd)):
+        fail(f"{label}: bad outputs {tuple(out.shape)} "
+             f"{r['caches'][0].shape}")
+    say(f"  prefill (time to first token) {r['ttft']:.4f} s, "
+        f"{B * P / r['ttft']:.1f} prompt tokens/s; decode "
+        f"{1e3 * r['t_dec'] / G:.3f} ms/step, {B * G / r['t_dec']:.1f} "
+        f"tokens/s (steps between CUDA events: median {steps[G // 2]:.3f}, "
+        f"min {steps[0]:.3f}, max {steps[-1]:.3f} ms); peak allocated "
+        f"{r['peak']} B; flash_attention_tc launches {n_fa} in the prefill, "
+        f"{sum(r['in_decode'].values())} kernel launches in decode")
+
+
+def attention_vs_xla(torch, cfg, prefill, params, prompts):
+    """The prefill's last logits, and each layer's attention() against the
+    xla path on the same q, k, v, in bf16 ulps (a list, one a layer)."""
+    from repro_torch.models import transformer as tf
+    real_attn = tf.attention
+    cfg_x = dataclasses.replace(cfg, attn_impl="xla")
+    ulps = []
+
+    def checked(q, k, v, c, **kw):
+        out = real_attn(q, k, v, c, **kw)
+        ulps.append(bf16_ulps(torch, out, real_attn(q, k, v, cfg_x, **kw)))
+        return out
+
+    tf.attention = checked
+    try:
+        logits = prefill(params, {"tokens": prompts})[0]
+    finally:
+        tf.attention = real_attn
+    return logits, ulps
+
+
+def serve_phase(torch, np, out_dir: Path):
+    """The transformer's main path: full-width gemma-7b in bf16 with
+    attn_impl="pallas", weights made on the card from a seeded generator;
+    4 random prompts of 2048 tokens through make_prefill_step, the caches
+    padded by 32, then 32 greedy steps of make_serve_step with the caches
+    donated, as examples/serve_decode.py drives them. Kernel 12's
+    tensor-core kernel must launch once a layer in the prefill, and nothing
+    else, and no kernel in decode. Then the checks: the prefill's last
+    logits with "pallas" against "xla" at full width in bf16, and each
+    layer's attention against "xla" on the same inputs, which must also
+    catch a planted fault; full-width gemma at depth 4 in f32, forward over
+    256 tokens against a prefill of 252 and 4 decode steps (rtol = atol =
+    2e-3), whose forward and prefill must launch kernel 12's f32 route once
+    a layer each; the three smoke configs' forward on the card (kernel)
+    against the CPU (plain), f32 logits within 1e-4. Returns the launches
+    of both routes' runs."""
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import _load
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import materialize
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(_load(SERVE["arch"])[1], attn_impl="pallas")
+    B, P, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE["seed"])
+    t0 = time.perf_counter()
+    params = materialize(tf.param_defs(cfg), gen, device=dev,
+                         default_dtype=cfg.dtype)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    w_bytes = sum(nbytes(t) for t in (params["embed"], params["final_norm"],
+                                      params["unembed"],
+                                      *params["layers"].values()))
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device=dev, dtype=torch.int32)
+    say(f"serve phase: {cfg.name} {cfg.n_params()} params ({w_bytes} B "
+        f"bf16) made on the card in {t_init:.1f} s; {B} prompts x {P} "
+        f"tokens, {G} greedy steps, attn_impl={cfg.attn_impl}")
+    r = serve_run(torch, cfg, params, prompts, G)
+    check_serve(torch, cfg, r, B, P, G, "serve")
+    prefill, serve = r["prefill"], r["serve"]
+    logits, last, caches, tok = r["logits"], r["last"], r["caches"], r["tok"]
+    out, n_fa = r["out"], r["in_prefill"]["flash_attention_tc"]
     again = []
     for _ in range(2):      # the spread of the prefill time
         t0 = time.perf_counter()
@@ -2341,12 +2411,7 @@ def serve_phase(torch, np, out_dir: Path):
     # same with a planted fault, the kernel's last kv tile dropped, which
     # this check must catch
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    real_attn, real_p = tf.attention, fa_ops.flash_attention_p
-
-    def checked(q, k, v, c, **kw):
-        out = real_attn(q, k, v, c, **kw)
-        ulps.append(bf16_ulps(torch, out, real_attn(q, k, v, cfg_x, **kw)))
-        return out
+    real_p = fa_ops.flash_attention_p
 
     def short(q, k, v, *, kv_len, block_k, **kw):
         return real_p(q, k, v, kv_len=kv_len - block_k, block_k=block_k,
@@ -2354,12 +2419,11 @@ def serve_phase(torch, np, out_dir: Path):
 
     seen = {}
     for name, patch in (("kernel", real_p), ("planted fault", short)):
-        ulps = []
-        tf.attention, fa_ops.flash_attention_p = checked, patch
+        fa_ops.flash_attention_p = patch
         try:
-            lf = prefill(params, {"tokens": prompts})[0]
+            lf, ulps = attention_vs_xla(torch, cfg, prefill, params, prompts)
         finally:
-            tf.attention, fa_ops.flash_attention_p = real_attn, real_p
+            fa_ops.flash_attention_p = real_p
         seen[name] = (max(ulps), len(ulps))
         say(f"  {name} vs xla attention, per layer on the same q, k, v: "
             f"largest {max(ulps):.4g} bf16 ulps over {len(ulps)} layers "
@@ -2373,7 +2437,7 @@ def serve_phase(torch, np, out_dir: Path):
     if not seen["planted fault"][0] > FLASH_BF16_ULPS:
         fail(f"serve: the per-layer check passes a dropped kv tile "
              f"({seen['planted fault']})")
-    del params, caches, logits, lx, lf, last
+    del params, caches, logits, lx, lf, last, r
     torch.cuda.empty_cache()
 
     # (a) decode == forward at full width, depth 4, f32
@@ -3024,37 +3088,55 @@ def shard_wrappers_phase(torch, eng, sources, label: str, ragged: bool):
 
 TRAIN = dict(arch="deepseek-7b", layers=2, batch=4, seq=1024, steps=3,
              seed=16)
+# The MoE phases. Serving: the two MoE LM configs at their published
+# widths (src/repro/configs/olmoe_1b_7b.py, qwen3_moe_235b_a22b.py) under
+# the serve phase's traffic, olmoe at full depth (16 layers, 13.8 GB in
+# bf16) and qwen3 cut from 94 layers to 4 (11.2e9 parameters, 22.4 GB; the
+# whole model's 235e9 do not fit one card, so its bytes are stated from
+# params.abstract). Training: olmoe cut to 2 layers at the train phase's
+# batch 4 x seq 1024; qwen3 trains at its SMOKE size only (one layer is
+# 3.7e9 parameters, about 150 GB of training state).
+MOE_SERVE = (("olmoe-1b-7b", None), ("qwen3-moe-235b-a22b", 4))
+MOE_TRAIN = dict(arch="olmoe-1b-7b", layers=2, batch=4, seq=1024, steps=3,
+                 seed=17)
+MOE_ARCHS = ("olmoe-1b-7b", "qwen3-moe-235b-a22b")
+# The launcher: the smoke olmoe run, 6 steps with a checkpoint every 2,
+# resumed to 10 steps, against an uninterrupted 10-step run. The losses of
+# the resumed steps are held to the uninterrupted run's within LAUNCH_REL
+# relative, not bit for bit: the MoE dispatch's backward is a scatter-add
+# whose atomics sum in another order from run to run.
+LAUNCH_ARGS = ("--arch", "olmoe-1b-7b", "--smoke", "--log-every", "1")
+LAUNCH_REL = 1e-5
+# the launcher's main() in a subprocess, its losses printed in full
+LAUNCH_PROG = ("import json, sys; from repro_torch.launch.train import main; "
+               "print('losses', json.dumps(main(sys.argv[1:])))")
 
 
-def train_phase(torch, card: str):
-    """The training path: deepseek-7b at its published widths in bf16,
-    attn_impl="chunked", cut to 2 layers, batch 4 x seq 1024 (weights and
-    tokens made on the card from seeds): three make_train_step steps with
-    AdamWConfig() on one fixed batch, the loss finite and falling, then a
-    step with microbatches=2; ms a step, tokens/s and peak memory. Then at
-    the SMOKE config in f32 the loss and every gradient on the card against
-    the CPU (1e-4 relative in the loss, 1e-3 of each gradient's largest
-    value), and a gradient through attn_impl="pallas" must raise."""
-    import dataclasses
+def train_steps(torch, cfg, full, run: dict, card: str, label: str):
+    """``run["steps"]`` make_train_step steps with AdamWConfig() on one
+    fixed batch of ``run["batch"]`` x ``run["seq"]`` tokens (weights and
+    tokens made on the card from ``run["seed"]``), the loss finite and
+    falling, then a step with microbatches=2; no kernel launched; ms a
+    step, tokens/s and peak memory printed. ``full`` is the config ``cfg``
+    was cut from."""
     import math
-    from repro_torch.configs.registry import LM_SHAPES, _load
+    from repro_torch.configs.registry import LM_SHAPES
     from repro_torch.kernels import build
     from repro_torch.models import transformer as tf
     from repro_torch.models.params import materialize, tree_leaves
     from repro_torch.optim import AdamWConfig, adamw_init
     dev = torch.device("cuda")
-    full = _load(TRAIN["arch"])[1]
-    cfg = dataclasses.replace(full, n_layers=TRAIN["layers"],
-                              attn_impl="chunked")
-    B, S = TRAIN["batch"], TRAIN["seq"]
+    B, S = run["batch"], run["seq"]
     shape = LM_SHAPES["train_4k"]
-    say(f"train phase: {full.name} d_model {cfg.d_model}, {cfg.n_heads} "
-        f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+    moe = (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} d_expert "
+           f"{cfg.moe.d_expert}" if cfg.moe else "")
+    say(f"{label} phase: {full.name} d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, d_ff {cfg.d_ff}{moe}, vocab {cfg.vocab_size}, {cfg.dtype}, "
         f"attn_impl={cfg.attn_impl}; cut: depth {full.n_layers} -> "
         f"{cfg.n_layers} layers ({cfg.n_params()} params), batch x seq "
         f"{shape['batch']} x {shape['seq']} -> {B} x {S}")
     gen = torch.Generator(device=dev)
-    gen.manual_seed(TRAIN["seed"])
+    gen.manual_seed(run["seed"])
     params = materialize(tf.param_defs(cfg), gen, device=dev,
                          default_dtype=cfg.dtype)
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
@@ -3066,7 +3148,7 @@ def train_phase(torch, card: str):
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     losses, walls = [], []
-    for mb in [1] * TRAIN["steps"] + [2]:
+    for mb in [1] * run["steps"] + [2]:
         step = tf.make_train_step(cfg, AdamWConfig(), microbatches=mb)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3078,43 +3160,88 @@ def train_phase(torch, card: str):
         if not (math.isfinite(loss) and math.isfinite(float(m["grad_norm"]))
                 and all(bool(torch.isfinite(p).all())
                         for p in tree_leaves(params))):
-            fail(f"train: step {len(losses)} (microbatches {mb}) gave a "
+            fail(f"{label}: step {len(losses)} (microbatches {mb}) gave a "
                  f"non-finite loss, gradient norm or parameter")
     peak = torch.cuda.max_memory_allocated()
-    if not losses[TRAIN["steps"] - 1] < losses[0]:
-        fail(f"train: the loss does not fall over {TRAIN['steps']} steps "
+    if not losses[run["steps"] - 1] < losses[0]:
+        fail(f"{label}: the loss does not fall over {run['steps']} steps "
              f"{losses}")
     if any(build.LAUNCHES.values()):
-        fail(f"train: a kernel was launched {build.LAUNCHES}")
+        fail(f"{label}: a kernel was launched {build.LAUNCHES}")
     ms = [1e3 * w for w in walls]
-    steady = statistics.median(ms[1:TRAIN["steps"]])
-    say(f"  {TRAIN['steps']} steps (AdamWConfig()) on one batch: losses "
-        + ", ".join(f"{x:.4f}" for x in losses[:TRAIN["steps"]])
+    steady = statistics.median(ms[1:run["steps"]])
+    say(f"  {run['steps']} steps (AdamWConfig()) on one batch: losses "
+        + ", ".join(f"{x:.4f}" for x in losses[:run["steps"]])
         + f"; microbatches=2 step: loss {losses[-1]:.4f}; ms a step "
-        + ", ".join(f"{x:.1f}" for x in ms[:TRAIN["steps"]])
+        + ", ".join(f"{x:.1f}" for x in ms[:run["steps"]])
         + f" (first one with the allocator's growth), microbatches=2 "
         f"{ms[-1]:.1f}; {B * S / steady * 1e3:.0f} tokens/s at the median "
-        f"of steps 2-{TRAIN['steps']} ({steady:.1f} ms); peak allocated "
+        f"of steps 2-{run['steps']} ({steady:.1f} ms); peak allocated "
         f"{peak} B ({held} B of it the weights, the optimizer state and "
         f"the batch before the first step); {card}")
     del params, opt, m, batch, toks
     torch.cuda.empty_cache()
+    return dict(losses=losses, ms=ms, peak=peak)
 
-    c = _load(TRAIN["arch"], smoke=True)[1]
+
+def smoke_params(torch, arch: str):
+    """(config, parameters on the CPU, tokens [4, 41]) of ``arch``'s SMOKE
+    config in f32, from seeds."""
+    from repro_torch.configs.registry import _load
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import materialize
+    c = _load(arch, smoke=True)[1]
     pc = materialize(tf.param_defs(c), torch.Generator().manual_seed(0),
                      device="cpu", default_dtype=c.dtype)
     tc = torch.randint(0, c.vocab_size, (4, 41),
                        generator=torch.Generator().manual_seed(1),
                        dtype=torch.int32)
+    return c, pc, tc
+
+
+def train_card_vs_cpu(torch, arch: str, label: str):
+    """``arch``'s SMOKE config in f32: the loss and every gradient on the
+    card against the CPU, 1e-4 relative in the loss, each gradient within
+    1e-3 of its largest value."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import tree_leaves
+    dev = torch.device("cuda")
+    c, pc, tc = smoke_params(torch, arch)
     bc = {"tokens": tc[:, :-1], "labels": tc[:, 1:]}
     l_cpu, g_cpu = tf._value_and_grad(pc, bc, c)
     l_gpu, g_gpu = tf._value_and_grad(_to(pc, dev), _to(bc, dev), c)
     rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
-    worst = max(float((a.cpu() - b).abs().max() / b.abs().max())
-                for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu)))
+    worst = 0.0
+    for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu), strict=True):
+        err, top = float((a.cpu() - b).abs().max()), float(b.abs().max())
+        worst = max(worst, err / top if top else (0.0 if err == 0 else
+                                                   float("inf")))
     if not (rel <= 1e-4 and worst <= 1e-3):
-        fail(f"train: {c.name} card vs CPU: loss {rel:.3g} relative, "
+        fail(f"{label}: {c.name} card vs CPU: loss {rel:.3g} relative, "
              f"gradients {worst:.3g} of their largest value")
+    say(f"  {c.name} f32 on the card vs the CPU: loss {rel:.3g} relative "
+        f"(tolerance 1e-4), gradients within {worst:.3g} of each one's "
+        f"largest value (tolerance 1e-3)")
+    return c, pc, bc
+
+
+def train_phase(torch, card: str):
+    """The training path: deepseek-7b at its published widths in bf16,
+    attn_impl="chunked", cut to 2 layers, batch 4 x seq 1024 (weights and
+    tokens made on the card from seeds): three make_train_step steps with
+    AdamWConfig() on one fixed batch, the loss finite and falling, then a
+    step with microbatches=2; ms a step, tokens/s and peak memory. Then at
+    the SMOKE config in f32 the loss and every gradient on the card against
+    the CPU (1e-4 relative in the loss, 1e-3 of each gradient's largest
+    value), and a gradient through attn_impl="pallas" must raise."""
+    from repro_torch.configs.registry import _load
+    from repro_torch.models import transformer as tf
+    dev = torch.device("cuda")
+    full = _load(TRAIN["arch"])[1]
+    cfg = dataclasses.replace(full, n_layers=TRAIN["layers"],
+                              attn_impl="chunked")
+    out = train_steps(torch, cfg, full, TRAIN, card, "train")
+    c, pc, bc = train_card_vs_cpu(torch, TRAIN["arch"], "train")
     cp = dataclasses.replace(c, attn_impl="pallas")
     try:
         tf._value_and_grad(_to(pc, dev), _to(bc, dev), cp)
@@ -3122,11 +3249,335 @@ def train_phase(torch, card: str):
         refusal = str(e).split(":")[0]
     else:
         fail("train: a gradient through attn_impl='pallas' did not raise")
-    say(f"  {c.name} f32 on the card vs the CPU: loss {rel:.3g} relative "
-        f"(tolerance 1e-4), gradients within {worst:.3g} of each one's "
-        f"largest value (tolerance 1e-3); a gradient through "
-        f"attn_impl='pallas' on the card raises ({refusal})")
-    return dict(losses=losses, ms=ms, peak=peak)
+    say(f"  a gradient through attn_impl='pallas' on the card raises "
+        f"({refusal})")
+    return out
+
+
+@contextlib.contextmanager
+def recording(module, name: str, record):
+    """``module.name`` wrapped so that each call hands its arguments and
+    result to ``record(args, out)``; restored on exit."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        out = real(*args, **kw)
+        record(args, out)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def capacity_drops(torch, cfg, r: dict, params, prompts, G: int):
+    """The share of (token, k) assignments that capacity dropped, in the
+    prefill of ``prompts`` and in ``G`` greedy decode steps after it (a
+    rerun of serve_run's steps with the routing recorded)."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe as moe_mod
+    P = prompts.shape[1]
+    kept = {"prefill": [], "decode": []}
+    part = "prefill"
+
+    def record(args, out):
+        kept[part].append(torch.stack([out[2].sum(),
+                                       torch.tensor(out[2].numel(),
+                                                    device=out[2].device)]))
+
+    with recording(moe_mod, "_routing_group", record):
+        logits, kvs = r["prefill"](params, {"tokens": prompts})
+        caches = tuple(F.pad(t, (0, 0, 0, 0, 0, G)) for t in kvs)
+        del kvs
+        part = "decode"
+        tok = logits.argmax(dim=-1)[:, None].to(torch.int32)
+        for i in range(G):
+            last, caches = r["serve"](params, tok, caches, P + i)
+            tok = last.argmax(dim=-1)[:, None].to(torch.int32)
+    del caches
+    share = {}
+    for name, rows in kept.items():
+        n_kept, n_all = (int(x) for x in torch.stack(rows).sum(dim=0))
+        share[name] = (1 - n_kept / n_all, n_all - n_kept, n_all)
+    return share
+
+
+def moe_serve_phase(torch, card: str, out_dir: Path):
+    """The MoE FFN's serving path: olmoe-1b-7b at its published widths and
+    full depth, then qwen3-moe-235b-a22b at its published widths cut to 4
+    layers (MOE_SERVE), bf16, attn_impl="pallas", weights made on the card
+    from seeds, driven as the serve phase drives gemma (serve_run): kernel
+    12's bf16 route once a layer in the prefill and nothing else, no kernel
+    in decode; prefill and decode times, tokens/s, peak memory and the
+    share of (token, k) assignments capacity dropped in each. Then the
+    prefill's last logits with "pallas" against "xla" (the xla run routed
+    as the kernel run, so the two differ only in attention's arithmetic;
+    the assignments its own top-k would move printed) within
+    PALLAS_VS_XLA_REL, and each layer's attention against "xla" on the
+    same q, k, v (2 bf16 ulps). Then both SMOKE configs in f32,
+    attn_impl="pallas": the forward on the card (kernel 12's f32 route once
+    a layer) against the CPU (plain), logits within 1e-4 of the largest
+    and the routing (topi, slot_token, pos, keep) equal in every layer,
+    with the smallest gap between the k-th and (k+1)-th probability
+    printed. Profiles of each prefill and of 4 decode steps go to
+    ``out_dir``."""
+    from repro_torch.configs.registry import _load
+    from repro_torch.kernels import build
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import abstract, materialize, tree_leaves
+    dev = torch.device("cuda")
+    B, P, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    for i, (arch, depth) in enumerate(MOE_SERVE):
+        full = _load(arch)[1]
+        cfg = dataclasses.replace(full, n_layers=depth or full.n_layers,
+                                  attn_impl="pallas")
+        full_bytes = sum(nbytes(t) for t in tree_leaves(
+            abstract(tf.param_defs(full), full.dtype)))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SERVE["seed"] + 10 + i)
+        t0 = time.perf_counter()
+        params = materialize(tf.param_defs(cfg), gen, device=dev,
+                             default_dtype=cfg.dtype)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        w_bytes = sum(nbytes(t) for t in tree_leaves(params))
+        prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                                device=dev, dtype=torch.int32)
+        m = cfg.moe
+        say(f"moe serve phase: {cfg.name} d_model {cfg.d_model}, heads "
+            f"{cfg.n_heads} / kv {cfg.n_kv_heads}, head dim {cfg.hd}, "
+            f"{m.n_experts} experts top-{m.top_k} d_expert {m.d_expert}, "
+            f"vocab {cfg.vocab_size}; depth {full.n_layers} -> "
+            f"{cfg.n_layers} layers: {cfg.n_params()} params ({w_bytes} B "
+            f"bf16) made on the card in {t_init:.1f} s; the whole model "
+            f"{full.n_params()} params, {full.n_active_params()} active a "
+            f"token, {full_bytes} B (params.abstract, not allocated); {B} "
+            f"prompts x {P} tokens, {G} greedy steps; {card}")
+        r = serve_run(torch, cfg, params, prompts, G)
+        label = f"moe serve {cfg.name}"
+        check_serve(torch, cfg, r, B, P, G, label)
+        profile_run(torch, lambda: r["prefill"](params, {"tokens": prompts}),
+                    out_dir / f"chip_smoke_trace_{arch}_prefill.json",
+                    f"{cfg.name} prefill {B}x{P}")
+        profile_run(torch, lambda: [r["serve"](params, r["tok"], r["caches"],
+                                               P + G - 1)
+                                    for _ in range(4)],
+                    out_dir / f"chip_smoke_trace_{arch}_decode.json",
+                    f"{cfg.name} 4 decode steps")
+        drops = capacity_drops(torch, cfg, r, params, prompts, G)
+        Cg = {"prefill": max(int(B * P * m.top_k / m.n_experts
+                                 * m.capacity_factor), 1),
+              "decode": max(int(B * m.top_k / m.n_experts
+                                * m.capacity_factor), 1)}
+        say("  capacity drops: " + "; ".join(
+            f"{name} {share:.4f} of the (token, k) assignments ({n} of "
+            f"{n_all}, capacity {Cg[name]} a group)"
+            for name, (share, n, n_all) in drops.items()))
+
+        # pallas vs xla: the kernel run's routing recorded, each layer's
+        # attention against xla on the same q, k, v; then the xla prefill
+        # routed as the kernel run
+        picks = []
+        with recording(moe_mod, "top_k",
+                       lambda args, out: picks.append(out[1])):
+            lf, ulps = attention_vs_xla(torch, cfg, r["prefill"], params,
+                                        prompts)
+        real_top_k, moved, it = moe_mod.top_k, [], iter(picks)
+
+        def routed_as_kernel(probs, k):
+            idx = next(it)
+            moved.append((real_top_k(probs, k)[1] != idx).sum())
+            return probs.gather(-1, idx.long()), idx
+
+        cfg_x = dataclasses.replace(cfg, attn_impl="xla")
+        moe_mod.top_k = routed_as_kernel
+        try:
+            lx = tf.make_prefill_step(cfg_x)(params, {"tokens": prompts})[0]
+        finally:
+            moe_mod.top_k = real_top_k
+        diff = float((lf - lx).abs().max())
+        top = float(lx.abs().max())
+        agree = float((lf.argmax(-1) == lx.argmax(-1)).float().mean())
+        n_moved = int(torch.stack(moved).sum())
+        say(f"  pallas vs xla prefill (xla routed as the kernel run; its own "
+            f"top-k would move {n_moved} of {B * P * m.top_k * cfg.n_layers}"
+            f" assignments), last logits: max abs diff {diff:.4g}, largest "
+            f"|logit| {top:.4g} (ratio {diff / top:.4g}, tolerance "
+            f"{PALLAS_VS_XLA_REL}); greedy tokens agree {agree:.2f}; "
+            f"kernel vs xla attention per layer on the same q, k, v: "
+            f"largest {max(ulps):.4g} bf16 ulps over {len(ulps)} layers "
+            f"(tolerance {FLASH_BF16_ULPS})")
+        if not (diff <= PALLAS_VS_XLA_REL * top and agree == 1.0):
+            fail(f"{label}: pallas vs xla prefill logits differ by {diff} "
+                 f"(greedy tokens agree {agree:.2f})")
+        if len(ulps) != cfg.n_layers or not max(ulps) <= FLASH_BF16_ULPS:
+            fail(f"{label}: per-layer attention, kernel vs xla: "
+                 f"{max(ulps)} bf16 ulps over {len(ulps)} layers")
+        del params, r, lf, lx, picks, prompts
+        torch.cuda.empty_cache()
+
+    # the SMOKE configs: card (kernel 12, f32 route) against CPU (plain)
+    for arch in MOE_ARCHS:
+        c, pc, tc = smoke_params(torch, arch)
+        c = dataclasses.replace(c, attn_impl="pallas")
+        tc = tc[:2, :40]
+        runs = {}
+        for where, dev_ in (("card", dev), ("cpu", torch.device("cpu"))):
+            routes, gaps = [], []
+
+            def route(args, out):
+                routes.append([t.cpu() for t in (args[0], *out)])
+
+            def gap(args, out):
+                s = torch.sort(args[0], dim=-1, descending=True).values
+                k = args[1]
+                gaps.append(float((s[:, k - 1] - s[:, k]).min()))
+
+            build.reset_launches()
+            with recording(moe_mod, "_routing_group", route), \
+                    recording(moe_mod, "top_k", gap):
+                logits = tf.forward(_to(pc, dev_), tc.to(dev_), c)[0].cpu()
+            runs[where] = (logits, routes, min(gaps),
+                           build.LAUNCHES["flash_attention"])
+        (got, r_card, _, n_f32), (want, r_cpu, min_gap, _) = (
+            runs["card"], runs["cpu"])
+        err, top = float((got - want).abs().max()), float(want.abs().max())
+        same = len(r_card) == len(r_cpu) == c.n_layers and all(
+            torch.equal(a, b) for x, y in zip(r_card, r_cpu)
+            for a, b in zip(x, y))
+        if not (err <= 1e-4 * top and same and n_f32 == c.n_layers):
+            fail(f"moe serve: {c.name} card vs CPU forward: max abs diff "
+                 f"{err} (largest {top}), routing equal {same}, "
+                 f"flash_attention launches {n_f32}")
+        say(f"  {c.name}: card forward (kernel 12 f32 route, {n_f32} "
+            f"launches) vs CPU (plain): max abs diff {err:.3g} (largest "
+            f"|logit| {top:.4g}, tolerance 1e-4 of it); topi, slot_token, "
+            f"pos and keep equal in all {c.n_layers} layers; smallest gap "
+            f"between the k-th and (k+1)-th probability {min_gap:.3g}")
+
+
+def moe_train_phase(torch, card: str):
+    """The MoE FFN's training path: olmoe-1b-7b at its published widths in
+    bf16, attn_impl="chunked", cut to 2 layers, batch 4 x seq 1024
+    (MOE_TRAIN), as the train phase drives deepseek; then both MoE SMOKE
+    configs in f32, the loss and every gradient on the card against the
+    CPU."""
+    from repro_torch.configs.registry import _load
+    full = _load(MOE_TRAIN["arch"])[1]
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN["layers"],
+                              attn_impl="chunked")
+    out = train_steps(torch, cfg, full, MOE_TRAIN, card, "moe train")
+    for arch in MOE_ARCHS:
+        train_card_vs_cpu(torch, arch, "moe train")
+    return out
+
+
+def run_procs(cmds: dict, timeout: float = 600) -> dict:
+    """Run each command of ``cmds`` ({name: argv}) from the checkout with
+    the port on its path, all at once; {name: (exit code, output)}. Every
+    process is waited for, and killed if it outlives ``timeout``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    try:
+        for name, cmd in cmds.items():
+            procs[name] = subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+        outs = {name: p.communicate(timeout=timeout)[0]
+                for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return {name: (procs[name].returncode, out) for name, out in outs.items()}
+
+
+def train_launch_phase(torch, np):
+    """The training entry point as a user starts it: ``python -m
+    repro_torch.launch.train`` (LAUNCH_ARGS) on the card for 6 steps with a
+    checkpoint every 2 in a temporary directory, and beside it an
+    uninterrupted 10-step run; the checkpoint of step 6 restored on the
+    card (onto params.abstract's meta tensors) equal to the files bit for
+    bit; then the launcher again with --steps 10 on that directory: it must
+    print the resume from step 6, and its losses for steps 7-10 must be
+    within LAUNCH_REL relative of the uninterrupted run's."""
+    import tempfile
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.configs.registry import _load
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import abstract, tree_leaves
+    from repro_torch.optim import AdamWState
+
+    def losses_of(name, rc, out, printed: bool):
+        for line in out.splitlines():
+            say(f"  launch {name} | {line}")
+        if rc != 0:
+            fail(f"train launch {name}: exit {rc}")
+        if printed:
+            return [float(x.split("loss=")[1].split()[0])
+                    for x in out.splitlines() if x.startswith("step ")]
+        return json.loads(out.splitlines()[-1].removeprefix("losses "))
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        outs = run_procs({
+            "first": [sys.executable, "-m", "repro_torch.launch.train",
+                      *LAUNCH_ARGS, "--steps", "6", "--ckpt-dir", ckpt,
+                      "--ckpt-every", "2"],
+            "whole": [sys.executable, "-c", LAUNCH_PROG, *LAUNCH_ARGS,
+                      "--steps", "10"]})
+        first = losses_of("first", *outs["first"], printed=True)
+        whole = losses_of("whole", *outs["whole"], printed=False)
+        if latest_step(ckpt) != 6 or sorted(os.listdir(ckpt)) != [
+                f"step_{s:08d}" for s in (2, 4, 6)]:
+            fail(f"train launch: checkpoints {sorted(os.listdir(ckpt))}")
+        c = _load(LAUNCH_ARGS[1], smoke=True)[1]
+        defs = tf.param_defs(c)
+        target = (abstract(defs, c.dtype), AdamWState(
+            step=torch.empty((), dtype=torch.int32, device="meta"),
+            m=abstract(defs), v=abstract(defs)))
+        restored = restore_checkpoint(ckpt, 6, target, device=dev)
+        leaves = tree_leaves(restored)
+        for i, leaf in enumerate(leaves):
+            want = np.load(os.path.join(ckpt, "step_00000006",
+                                        f"leaf_{i:05d}.npy"))
+            if (leaf.device.type != dev.type
+                    or leaf.cpu().numpy().tobytes() != want.tobytes()):
+                fail(f"train launch: restored leaf {i} differs from the "
+                     f"saved one")
+        if int(restored[1].step) != 6:
+            fail(f"train launch: restored step {int(restored[1].step)}")
+        rc, out = run_procs({"resumed": [
+            sys.executable, "-c", LAUNCH_PROG, *LAUNCH_ARGS, "--steps", "10",
+            "--ckpt-dir", ckpt, "--ckpt-every", "2"]})["resumed"]
+        resumed = losses_of("resumed", rc, out, printed=False)
+        if out.splitlines()[0] != "resumed from step 6":
+            fail("train launch: the second run did not resume from step 6")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole[6:]))
+    printed = max(abs(a - b) for a, b in zip(first, whole[:6]))
+    if not (len(resumed) == 4 and len(whole) == 10 and worst <= LAUNCH_REL
+            and printed <= 5e-5 + LAUNCH_REL * max(whole)
+            and whole[-1] < whole[0]):
+        fail(f"train launch: resumed losses {resumed} vs the uninterrupted "
+             f"run's {whole[6:]} ({worst:.3g} relative), the first run's "
+             f"{first} vs {whole[:6]}")
+    say(f"train launch: {' '.join(LAUNCH_ARGS)} on the card: 6 steps with "
+        f"checkpoints at 2, 4, 6; step 6 restored on the card from "
+        f"params.abstract, {len(leaves)} leaves equal to the files bit for "
+        f"bit; resumed from step 6 to 10: losses "
+        + ", ".join(f"{x:.6f}" for x in resumed)
+        + f" vs the uninterrupted run's "
+        + ", ".join(f"{x:.6f}" for x in whole[6:])
+        + f" (largest difference {worst:.3g} relative, tolerance "
+        f"{LAUNCH_REL}); the first run's printed losses within {printed:.2g}"
+        f" of the uninterrupted run's; {time.perf_counter() - t0:.1f} s "
+        f"wall for the three runs")
 
 
 def main():
@@ -3528,6 +3979,15 @@ def main():
 
     # ---- the transformer's training path: deepseek-7b at depth 2 ----------
     train_phase(torch, card)
+    torch.cuda.empty_cache()
+
+    # ---- the MoE FFN: olmoe-1b-7b and qwen3-moe serving and training, and
+    # the training entry point with a resume ---------------------------------
+    moe_serve_phase(torch, card, out_dir)
+    torch.cuda.empty_cache()
+    moe_train_phase(torch, card)
+    torch.cuda.empty_cache()
+    train_launch_phase(torch, np)
     say(f"total: {time.perf_counter() - t_start:.1f} s after the card query")
 
     table = [{"name": name, "route": "cuda", "source": SOURCES[name][0],

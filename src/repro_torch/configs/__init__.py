@@ -1,1 +1,2 @@
-"""Model configurations of the port: the dense LMs the transformer serves."""
+"""Model configurations of the port: the LMs the transformer serves and
+trains, dense and MoE."""

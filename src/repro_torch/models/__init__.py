@@ -1,1 +1,1 @@
-"""Models of the port: the transformer LM family (dense, serving)."""
+"""Models of the port: the transformer LM family (dense and MoE)."""

@@ -4,9 +4,15 @@ A model declares its parameters once as a nested dict of ``ParamDef``;
 ``materialize`` makes the tensors from a seeded ``torch.Generator`` by the
 reference's init rule, ``params_from_numpy`` carries a tree of arrays
 (the JAX package's parameters read out as numpy) across leaf for leaf, and
-``n_params`` counts. The port runs on one device, so a ``ParamDef`` has no
-partition spec; the reference's ``abstract`` and ``specs`` serve its dry run
-and sharding and are not ported.
+``abstract`` gives the tree as shape-only ``meta`` tensors (nothing
+allocated) and ``n_params`` counts. The port runs on one device, so a
+``ParamDef`` has no partition spec; the reference's ``specs`` serves its
+sharding and is not ported.
+
+Trees are nested dicts, tuples, lists and NamedTuples (an optimizer
+state) with tensors at the leaves; ``tree_leaves`` flattens them in
+``jax.tree_util``'s order, so leaf *i* of a tree is the same leaf in both
+packages (what a checkpoint's file names rely on).
 """
 from __future__ import annotations
 
@@ -33,18 +39,20 @@ def as_dtype(dtype) -> torch.dtype:
 
 
 def _leaves(tree, path=()):
-    """(path, leaf) pairs in sorted-key order, as jax.tree_util flattens a
-    dict."""
+    """(path, leaf) pairs in ``jax.tree_util``'s order: a dict by sorted
+    key, a tuple, list or NamedTuple in its order; None holds no leaf."""
     if isinstance(tree, dict):
         for key in sorted(tree):
             yield from _leaves(tree[key], (*path, key))
-    else:
+    elif isinstance(tree, (tuple, list)):
+        for i, child in enumerate(tree):
+            yield from _leaves(child, (*path, i))
+    elif tree is not None:
         yield path, tree
 
 
 def tree_leaves(tree) -> list:
-    """The leaves of a nested dict in sorted-key order, as
-    ``jax.tree_util.tree_leaves`` flattens a dict."""
+    """The leaves of a tree in ``jax.tree_util.tree_leaves``' order."""
     return [leaf for _, leaf in _leaves(tree)]
 
 
@@ -59,13 +67,17 @@ def _fill(node, it):
     # reference cycle holding ``leaves`` until the collector runs
     if isinstance(node, dict):
         return {key: _fill(node[key], it) for key in sorted(node)}
-    return next(it)
+    if isinstance(node, list):
+        return [_fill(child, it) for child in node]
+    if isinstance(node, tuple):
+        children = [_fill(child, it) for child in node]
+        return (type(node)(*children) if hasattr(node, "_fields")
+                else tuple(children))
+    return None if node is None else next(it)
 
 
 def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {key: _map(fn, val) for key, val in tree.items()}
-    return fn(tree)
+    return tree_unflatten(tree, [fn(leaf) for leaf in tree_leaves(tree)])
 
 
 def materialize(defs, generator: torch.Generator, *, device=None,
@@ -115,6 +127,15 @@ def params_from_numpy(tree, *, device=None, dtype=None):
         return t.to(device)
 
     return _map(conv, tree)
+
+
+def abstract(defs, default_dtype=torch.float32):
+    """The tree ``defs`` declares as ``meta`` tensors of its shapes and
+    types: nothing is allocated (the reference's ``ShapeDtypeStruct``
+    tree)."""
+    return _map(lambda d: torch.empty(
+        d.shape, dtype=as_dtype(d.dtype or default_dtype), device="meta"),
+        defs)
 
 
 def n_params(defs) -> int:

@@ -1,19 +1,24 @@
-"""Decoder-only transformer LM, dense: the reference's
-``models/transformer.py`` without its MoE FFN.
+"""Decoder-only transformer LM family, dense and MoE (the reference's
+``models/transformer.py``).
 
-One implementation covers the dense LM configs: GQA/MQA/MHA, RoPE,
+One implementation covers the five LM configs: GQA/MQA/MHA, RoPE,
 RMSNorm, optional per-head QK-norm (Qwen3), GeGLU/SwiGLU, explicit
-head_dim (Gemma's 256) and embedding scaling (Gemma). Parameters are a
-nested dict of tensors with the layers stacked on a leading ``[L, ...]``
-axis, as the reference's.
+head_dim (Gemma's 256), embedding scaling (Gemma) and a top-k routed MoE
+FFN (OLMoE / Qwen3-MoE, ``models/moe.py``). Parameters are a nested dict
+of tensors with the layers stacked on a leading ``[L, ...]`` axis, as the
+reference's.
 
 The port runs on one device. The reference's ``MeshAxes`` arguments, its
 use-site weight gathers (``_use``) and its sharding constraints have no
 counterpart here and are gone from every signature. The layer loop is a
 Python loop over the stacked parameters; ``scan_layers`` and ``remat`` are
 accepted and change nothing (the training step keeps every layer's
-activations for the backward). A config with ``moe`` set raises: the MoE
-FFN (``models/moe.py``) is not ported yet (ROADMAP Queue 1 item 10).
+activations for the backward), and so is ``moe_impl``: on one device both
+of the reference's MoE impls compute the same function, and the MoE FFN
+runs its tokens as one group (``moe.moe_ffn``). MoE capacity counts the
+tokens of the call, so a decode step (T = B) routes with another capacity
+than the forward over the whole sequence: decode equals the forward only
+for dense configs, in both packages.
 
 Training: ``loss_fn`` and ``make_train_step`` (AdamW, ``optim/``, with
 gradient accumulation over microbatches) differentiate through autograd.
@@ -41,8 +46,19 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.params import (ParamDef, as_dtype, n_params,
                                       tree_leaves, tree_unflatten)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    capacity_factor: float = 1.25
+    aux_weight: float = 0.01
+    norm_topk: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,8 +72,9 @@ class TransformerConfig:
     vocab_size: int
     head_dim: int | None = None          # None -> d_model // n_heads
     activation: str = "silu"             # silu (SwiGLU) | gelu (GeGLU)
-    moe: Any = None                      # not ported: must stay None
-    moe_impl: str = "shmap"
+    moe: MoeConfig | None = None
+    moe_impl: str = "shmap"              # shmap | gspmd: the same on one
+                                         # device
     qk_norm: bool = False                # Qwen3
     embed_scale: bool = False            # Gemma: x *= sqrt(d_model)
     rope_theta: float = 10_000.0
@@ -67,12 +84,6 @@ class TransformerConfig:
     scan_layers: bool = True             # no effect: the loop is Python's
     attn_impl: str = "chunked"           # xla | chunked | pallas
     attn_chunk: int = 1024
-
-    def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                "the MoE FFN (models/moe.py) is not ported yet: ROADMAP "
-                "Queue 1 item 10")
 
     @property
     def hd(self) -> int:
@@ -86,8 +97,13 @@ class TransformerConfig:
         return n_params(param_defs(self))
 
     def n_active_params(self) -> int:
-        """Params touched per token: all of them in a dense model."""
-        return self.n_params()
+        """Params touched per token (MoE counts top_k experts only)."""
+        total = self.n_params()
+        if self.moe is None:
+            return total
+        e, k = self.moe.n_experts, self.moe.top_k
+        expert = 3 * self.d_model * self.moe.d_expert * self.n_layers
+        return total - expert * e + expert * k
 
 
 # --------------------------------------------------------------------------
@@ -108,13 +124,24 @@ def param_defs(cfg: TransformerConfig):
         wv=ld((D, Hkv * Dh)),
         wo=ld((H * Dh, D)),
         mlp_norm=ld((D,), init="ones"),
-        w_gate=ld((D, Fd)),
-        w_up=ld((D, Fd)),
-        w_down=ld((Fd, D)),
     )
     if cfg.qk_norm:
         layer["q_norm"] = ld((Dh,), init="ones")
         layer["k_norm"] = ld((Dh,), init="ones")
+    if cfg.moe is None:
+        layer.update(
+            w_gate=ld((D, Fd)),
+            w_up=ld((D, Fd)),
+            w_down=ld((Fd, D)),
+        )
+    else:
+        E, Fe = cfg.moe.n_experts, cfg.moe.d_expert
+        layer.update(
+            w_router=ld((D, E)),
+            w_gate=ld((E, D, Fe)),
+            w_up=ld((E, D, Fe)),
+            w_down=ld((E, Fe, D)),
+        )
     return dict(
         embed=ParamDef((V, D), init="embed", scale=1.0),
         layers=layer,
@@ -356,9 +383,15 @@ def _layer(x, lp, cfg: TransformerConfig, positions, cache=None,
     x = x + (o.reshape(B, S, H * Dh) @ lp["wo"])
 
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    x = x + _ffn_dense(h, lp, cfg)
+    if cfg.moe is None:
+        y = _ffn_dense(h, lp, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        y, aux = moe_mod.moe_ffn(h, lp, cfg.moe, cfg.activation,
+                                 impl=cfg.moe_impl)
+    x = x + y
     x = dtype_fence(x, cfg.dtype)
-    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_cache, aux
 
 
 # --------------------------------------------------------------------------

@@ -1104,6 +1104,7 @@ FLASH_ROUTE = {torch.float32: "flash_attention",
     (1, 8, 1, 64, 64, 64, False, 0),            # MQA, bidirectional
     (1, 6, 2, 200, 200, 128, True, 0),          # a group of 3
     (1, 24, 2, 130, 130, 128, True, 0),         # a group of 12 (mistral's)
+    (1, 32, 2, 256, 256, 128, True, 0),         # a group of 16 (qwen3-moe's)
     (2, 2, 2, 256, 256, 256, True, 0),          # gemma's head width
     (1, 4, 4, 1, 300, 256, True, 299),          # decode-shaped
     (1, 3, 1, 40, 40, 32, True, -20),           # rows with no valid key
@@ -2090,3 +2091,115 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     with pytest.raises(NotImplementedError, match="no backward"):
         tf._value_and_grad(to(p, cuda), to(batch, cuda),
                            dataclasses.replace(c, attn_impl="pallas"))
+
+
+# ------------------------------------------------ the MoE FFN, checkpoints --
+
+def _moe_smoke(arch):
+    from repro_torch.configs.registry import _load
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import materialize
+    cfg = dataclasses.replace(_load(arch, smoke=True)[1], attn_impl="pallas")
+    params = materialize(tf.param_defs(cfg), torch.Generator().manual_seed(0),
+                         device="cpu", default_dtype=cfg.dtype)
+    toks = torch.randint(0, cfg.vocab_size, (4, 41),
+                         generator=torch.Generator().manual_seed(1))
+    return cfg, params, toks
+
+
+def _to_dev(tree, device):
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    return tree_unflatten(tree, [t.to(device) for t in tree_leaves(tree)])
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-235b-a22b"])
+def test_moe_smoke_forward_on_gpu_matches_cpu(cuda, arch, monkeypatch):
+    """The MoE smoke configs' forward in f32 with attn_impl="pallas": on
+    the card (kernel 12's f32 route once a layer) against the CPU, logits
+    within 1e-4 of the largest and every layer's routing (topi,
+    slot_token, pos, keep) equal; then the loss and every gradient
+    (chunked attention) within 1e-4 relative and 1e-3 of each gradient's
+    largest value."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params, toks = _moe_smoke(arch)
+    real = moe._routing_group
+    runs = {}
+    for device in (cuda, torch.device("cpu")):
+        routes = []
+
+        def record(topi_g, *a):
+            out = real(topi_g, *a)
+            routes.append([t.cpu() for t in (topi_g, *out)])
+            return out
+
+        monkeypatch.setattr(moe, "_routing_group", record)
+        n0 = build.LAUNCHES["flash_attention"]
+        logits = tf.forward(_to_dev(params, device), toks[:2, :40].to(device),
+                            cfg)[0].cpu()
+        runs[device.type] = (logits, routes,
+                             build.LAUNCHES["flash_attention"] - n0)
+    (got, r_gpu, n_gpu), (want, r_cpu, _) = runs["cuda"], runs["cpu"]
+    assert n_gpu == cfg.n_layers
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert len(r_gpu) == len(r_cpu) == cfg.n_layers
+    for x, y in zip(r_gpu, r_cpu):
+        assert all(torch.equal(a, b) for a, b in zip(x, y))
+    monkeypatch.setattr(moe, "_routing_group", real)
+    c = dataclasses.replace(cfg, attn_impl="chunked")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    lc, gc = tf._value_and_grad(params, batch, c)
+    lg, gg = tf._value_and_grad(_to_dev(params, cuda), _to_dev(batch, cuda),
+                                c)
+    assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc), strict=True):
+        assert float((a.cpu() - b).abs().max()) <= 1e-3 * float(
+            b.abs().max())
+
+
+def test_moe_top_k_breaks_ties_on_gpu_as_on_cpu(cuda):
+    """The port's top-k (the first k of a stable descending sort) keeps the
+    lower expert first among equal probabilities on the card as on the
+    CPU, on bf16-rounded router logits full of ties."""
+    from repro_torch.models import moe
+    g = torch.Generator().manual_seed(3)
+    logits = (torch.randn((4096, 128), generator=g) * 0.05).bfloat16()
+    probs = torch.softmax(logits.float(), dim=-1)
+    for k in (1, 2, 8):
+        vc, ic = moe.top_k(probs, k)
+        vg, ig = moe.top_k(probs.to(cuda), k)
+        assert torch.equal(ig.cpu(), ic) and torch.equal(vg.cpu(), vc)
+    assert torch.equal(moe.top_k(torch.tensor(
+        [[0.1, .3, .3, .3, 0, .3]], device=cuda), 3)[1].cpu(),
+        torch.tensor([[1, 2, 3]], dtype=torch.int32))
+
+
+def test_checkpoint_roundtrip_of_cuda_bf16_tensors(cuda, tmp_path):
+    """A tree of CUDA tensors (bf16 parameters, the f32 AdamW state and
+    its int32 step) saved and restored bit for bit onto the card, and onto
+    params.abstract's meta tensors with the device named."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import abstract, materialize, tree_leaves
+    from repro_torch.optim import adamw_init
+    cfg, _, _ = _moe_smoke("olmoe-1b-7b")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = materialize(tf.param_defs(cfg), gen, device=cuda,
+                         default_dtype="bfloat16")
+    tree = (params, adamw_init(params))
+    mgr = CheckpointManager(str(tmp_path), keep=1)
+    mgr.save(1, tree)
+    got, step = mgr.restore(tree)
+    assert step == 1
+    for a, b in zip(tree_leaves(got), tree_leaves(tree), strict=True):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a, b.view(torch.int16)
+                           if b.dtype == torch.bfloat16 else b)
+    meta = abstract(tf.param_defs(cfg), "bfloat16")
+    got = mgr.restore((meta, adamw_init(params)), device=cuda)[0][0]
+    for a, b in zip(tree_leaves(got), tree_leaves(params), strict=True):
+        assert a.device.type == "cuda" and torch.equal(a, b)

@@ -39,7 +39,7 @@ from repro_torch.models.params import (  # noqa: E402
     ParamDef, as_dtype, materialize, n_params, params_from_numpy)
 
 AX = MeshAxes(data=("data",), data_shards=1)
-ARCHS = ["gemma-7b", "deepseek-7b", "mistral-large-123b"]
+ARCHS = ["gemma-7b", "deepseek-7b", "mistral-large-123b"]   # the dense LMs
 IMPLS = ["xla", "chunked", "pallas"]
 F32_REL = 1e-5
 BF16_REL = 3e-2
@@ -101,7 +101,7 @@ def _dtype_name(dt):
 
 # ---------------------------------------------------------------- configs
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", jax_registry.LM_ARCHS)
 def test_configs_match_reference(arch):
     for smoke in (False, True):
         cj, ct = _configs(arch, smoke)
@@ -109,6 +109,9 @@ def test_configs_match_reference(arch):
             a, b = getattr(cj, f.name), getattr(ct, f.name)
             if f.name == "dtype":
                 assert _dtype_name(a) == _dtype_name(b), (arch, smoke)
+            elif f.name == "moe" and a is not None:
+                assert type(b) is ttf.MoeConfig
+                assert dataclasses.asdict(a) == dataclasses.asdict(b)
             else:
                 assert a == b, (arch, smoke, f.name)
         assert {f.name for f in dataclasses.fields(ct)} == {
@@ -120,16 +123,19 @@ def test_configs_match_reference(arch):
 
 def test_registry_matches_reference():
     assert torch_registry.LM_SHAPES == jax_registry.LM_SHAPES
-    dense = {a for a in jax_registry.LM_ARCHS
-             if jax_registry._load(a)[1].moe is None}
-    assert set(torch_registry.ARCHS) == dense
-    assert torch_registry._load("gemma-7b")[1].n_params() == 9_324_112_896
-
-
-def test_moe_config_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ttf.TransformerConfig(name="x", n_layers=1, d_model=8, n_heads=1,
-                              n_kv_heads=1, d_ff=8, vocab_size=8, moe=object())
+    assert torch_registry.LM_ARCHS == jax_registry.LM_ARCHS
+    assert list(torch_registry.ARCHS) == jax_registry.LM_ARCHS
+    assert torch_registry.GNN_ARCHS == jax_registry.GNN_ARCHS
+    assert torch_registry.REC_ARCHS == jax_registry.REC_ARCHS
+    for arch in jax_registry.GNN_ARCHS + jax_registry.REC_ARCHS:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            torch_registry._load(arch)
+    sizes = {"gemma-7b": (9_324_112_896, 9_324_112_896),
+             "olmoe-1b-7b": (6_919_100_416, 1_281_955_840),
+             "qwen3-moe-235b-a22b": (235_093_634_560, 22_190_763_520)}
+    for arch, (total, active) in sizes.items():
+        cfg = torch_registry._load(arch)[1]
+        assert (cfg.n_params(), cfg.n_active_params()) == (total, active)
 
 
 # ---------------------------------------------------------------- params
