@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of SP-Async, and its transformer serving and
-training paths (dense and MoE) and training entry point, on one NVIDIA GPU
-and check it.
+"""Drive the PyTorch port of SP-Async, its transformer serving and
+training paths (dense and MoE), AutoInt, the GNN zoo and the training
+entry point, on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
@@ -266,11 +266,41 @@ Phases, each of which exits non-zero on a mismatch:
            chunked attention, batch 4 x seq 1024, as the train phase drives
            deepseek; both MoE SMOKE configs' loss and gradients card vs
            CPU;
-  launch   python -m repro_torch.launch.train --arch olmoe-1b-7b --smoke on
-           the card: 6 steps with a checkpoint every 2 in a temporary
-           directory, step 6 restored on the card bit for bit, then a
-           second run to 10 steps that must resume from step 6, its losses
-           within 1e-5 relative of an uninterrupted 10-step run's.
+  recsys   AutoInt at its published widths (39 fields x 1e6 ids x 16,
+           624e6 parameters, 2.50 GB in f32), weights made on the card from
+           a seed, under the reference's recsys traffic (REC_SHAPES): 3
+           AdamW train steps at batch 65,536 (loss finite, ms a step,
+           samples/s, peak memory), serving at batch 512 and 262,144
+           (latency median and worst of 20, samples/s), retrieval of one
+           query against 1e6 candidate vectors, top 100 (ms, the values
+           checked against the scores of the indices); no kernel launched
+           (AutoInt does its own take and masked sum, as the reference
+           does); then the SMOKE config in f32 with bags of 3 ids holding
+           the padding sentinel, card vs CPU: serve scores within 1e-4 of
+           the largest, the loss within 1e-4 relative, each gradient within
+           1e-3 of its largest value, and the retrieval indices equal on
+           candidates with duplicated rows (ties);
+  gnn      each GNN at its published widths and depth on its cell of
+           GNN_SHAPES, weights and batch made on the card from seeds:
+           gat-cora and graphcast (depth cut from 16 to GRAPHCAST_LAYERS,
+           as memory forces) on minibatch_lg (169,984 nodes, 168,960 random
+           edges, 602 features), egnn and mace on molecule (4,096 atoms as
+           128 molecules of 32, 8,192 edges inside the molecules): 3 AdamW
+           steps each (loss finite, ms a step, peak memory); a profile of a
+           graphcast step (device time by kernel, idle share); no kernel
+           launched; then every GNN SMOKE config on the launcher's graph,
+           card vs CPU (loss 1e-4 relative, gradients 1e-3 of the
+           largest), MACE's rotation invariance on the card (the SMOKE
+           check of tests/test_arch_smoke.py, and the full-width model on
+           the molecule batch within 1e-3 of the largest feature), and
+           examples/gnn_products.py (repro_torch.examples.gnn_products) on
+           the card;
+  launch   python -m repro_torch.launch.train --arch <a> --smoke on the
+           card for olmoe-1b-7b, autoint and mace: 6 steps with a
+           checkpoint every 2 in a temporary directory, step 6 restored on
+           the card bit for bit, then a second run to 10 steps that must
+           resume from step 6, its losses within 1e-5 relative of an
+           uninterrupted 10-step run's.
 
 The line before last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Build logs and traces go to chiprun_out/.
@@ -2227,9 +2257,10 @@ def flash_phase(torch):
 
 
 def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    """A tree of tensors (nested dicts, lists, tuples) moved to
+    ``device``."""
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    return tree_unflatten(tree, [t.to(device) for t in tree_leaves(tree)])
 
 
 def serve_run(torch, cfg, params, prompts, G: int) -> dict:
@@ -3100,12 +3131,18 @@ MOE_SERVE = (("olmoe-1b-7b", None), ("qwen3-moe-235b-a22b", 4))
 MOE_TRAIN = dict(arch="olmoe-1b-7b", layers=2, batch=4, seq=1024, steps=3,
                  seed=17)
 MOE_ARCHS = ("olmoe-1b-7b", "qwen3-moe-235b-a22b")
-# The launcher: the smoke olmoe run, 6 steps with a checkpoint every 2,
-# resumed to 10 steps, against an uninterrupted 10-step run. The losses of
-# the resumed steps are held to the uninterrupted run's within LAUNCH_REL
-# relative, not bit for bit: the MoE dispatch's backward is a scatter-add
-# whose atomics sum in another order from run to run.
-LAUNCH_ARGS = ("--arch", "olmoe-1b-7b", "--smoke", "--log-every", "1")
+# The launcher: the smoke runs of an LM, AutoInt and a GNN, 6 steps with a
+# checkpoint every 2, resumed to 10 steps, against an uninterrupted 10-step
+# run. The losses of the resumed steps are held to the uninterrupted run's
+# within LAUNCH_REL relative, not bit for bit: the MoE dispatch's backward,
+# the embedding's and the GNN's scatters are index_add atomics that sum in
+# another order from run to run.
+LAUNCH_ARCHS = ("olmoe-1b-7b", "autoint", "mace")
+# the runs whose loss must fall over the 10 steps: AutoInt's BCE at batch 8
+# on its synthetic labels starts at ln 2 and stays within the batches'
+# noise of it over 10 steps
+LAUNCH_FALLS = ("olmoe-1b-7b", "mace")
+LAUNCH_ARGS = ("--smoke", "--log-every", "1")
 LAUNCH_REL = 1e-5
 # the launcher's main() in a subprocess, its losses printed in full
 LAUNCH_PROG = ("import json, sys; from repro_torch.launch.train import main; "
@@ -3204,21 +3241,10 @@ def train_card_vs_cpu(torch, arch: str, label: str):
     card against the CPU, 1e-4 relative in the loss, each gradient within
     1e-3 of its largest value."""
     from repro_torch.models import transformer as tf
-    from repro_torch.models.params import tree_leaves
-    dev = torch.device("cuda")
     c, pc, tc = smoke_params(torch, arch)
     bc = {"tokens": tc[:, :-1], "labels": tc[:, 1:]}
-    l_cpu, g_cpu = tf._value_and_grad(pc, bc, c)
-    l_gpu, g_gpu = tf._value_and_grad(_to(pc, dev), _to(bc, dev), c)
-    rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
-    worst = 0.0
-    for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu), strict=True):
-        err, top = float((a.cpu() - b).abs().max()), float(b.abs().max())
-        worst = max(worst, err / top if top else (0.0 if err == 0 else
-                                                   float("inf")))
-    if not (rel <= 1e-4 and worst <= 1e-3):
-        fail(f"{label}: {c.name} card vs CPU: loss {rel:.3g} relative, "
-             f"gradients {worst:.3g} of their largest value")
+    rel, worst = grads_card_vs_cpu(torch, tf.loss_fn, pc, bc, c,
+                                   f"{label}: {c.name}")
     say(f"  {c.name} f32 on the card vs the CPU: loss {rel:.3g} relative "
         f"(tolerance 1e-4), gradients within {worst:.3g} of each one's "
         f"largest value (tolerance 1e-3)")
@@ -3475,6 +3501,409 @@ def moe_train_phase(torch, card: str):
     return out
 
 
+# The recsys phase: AutoInt at its published widths
+# (src/repro/configs/autoint.py), under the reference's recsys traffic
+# (src/repro/configs/registry.py: REC_SHAPES); nothing is cut. The weights
+# and the candidate vectors are made on the card from RECSYS["seed"], the
+# ids by the reference's RecsysBatcher draws (zipf ids, field offsets).
+RECSYS = dict(steps=3, seed=18, serve_reps=20, top_k=100)
+# The gnn phase: each GNN config at its published widths and depth on its
+# cell of GNN_SHAPES (src/repro/configs/registry.py), the input and output
+# widths adapted to the cell as the reference's _gnn_cell does. GraphCast
+# on minibatch_lg keeps about 6 GB of f32 activations a layer for the
+# backward (17 tensors of [169,984, 512]), so its 16 layers do not fit the
+# card; it is cut to GRAPHCAST_LAYERS, the most that fits (on an H100 80GB
+# HBM3, 13 layers peak at 78.7e9 of the card's 85.0e9 bytes; a 14th would
+# need 84.6e9).
+GNN_CELLS = (("gat-cora", "minibatch_lg"), ("graphcast", "minibatch_lg"),
+             ("egnn", "molecule"), ("mace", "molecule"))
+GRAPHCAST_LAYERS = 13
+GNN_STEPS = 3
+GNN_SEED = 19
+MOLECULE_ATOMS = 32            # 128 molecules of 32 atoms fill 4,096 nodes
+
+
+def grads_card_vs_cpu(torch, loss_f, params, batch, cfg, label: str):
+    """The loss and every gradient of ``loss_f`` on the card against the
+    CPU (``params`` and ``batch`` on the CPU): 1e-4 relative in the loss,
+    each gradient within 1e-3 of its largest value (the train phase's
+    tolerances). Returns (loss relative difference, worst gradient)."""
+    from repro_torch.models.params import tree_leaves, value_and_grad
+    dev = torch.device("cuda")
+    l_cpu, g_cpu = value_and_grad(loss_f, params, batch, cfg)
+    l_gpu, g_gpu = value_and_grad(loss_f, _to(params, dev), _to(batch, dev),
+                                  cfg)
+    rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+    worst = 0.0
+    for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu), strict=True):
+        err, top = float((a.cpu() - b).abs().max()), float(b.abs().max())
+        worst = max(worst, err / top if top else (0.0 if err == 0 else
+                                                   float("inf")))
+    if not (rel <= 1e-4 and worst <= 1e-3):
+        fail(f"{label}: card vs CPU: loss {rel:.3g} relative, gradients "
+             f"{worst:.3g} of their largest value")
+    return rel, worst
+
+
+def _train_run(torch, step, params, opt, batches, label: str):
+    """``len(batches)`` train steps, each synchronized and timed on the
+    host clock; fails on a non-finite loss, gradient norm or parameter.
+    Returns (params, losses, ms a step, peak bytes, bytes held before)."""
+    import math
+    from repro_torch.models.params import tree_leaves
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        if not (math.isfinite(loss) and math.isfinite(float(m["grad_norm"]))
+                and all(bool(torch.isfinite(t).all())
+                        for t in tree_leaves(params))):
+            fail(f"{label}: step {i + 1} gave a non-finite loss, gradient "
+                 f"norm or parameter")
+    return params, losses, ms, torch.cuda.max_memory_allocated(), held
+
+
+def serve_latency(torch, fn, reps: int):
+    """(median, worst) ms of ``reps`` calls of ``fn``, each synchronized
+    and timed on the host clock, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(walls), max(walls)
+
+
+def recsys_phase(torch, np, card: str, out_dir: Path):
+    """AutoInt at its published widths on the card: train, serve and
+    retrieval under REC_SHAPES' traffic, no kernel launched; then the
+    SMOKE config card vs CPU (module docstring: recsys); a profile of the
+    serve_bulk call."""
+    from repro_torch.configs.registry import REC_SHAPES, _load
+    from repro_torch.data import RecsysBatcher
+    from repro_torch.kernels import build
+    from repro_torch.models import autoint as ai
+    from repro_torch.models.params import materialize, n_params, tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cfg = _load("autoint")[1]
+    defs = ai.autoint_param_defs(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(RECSYS["seed"])
+    build.reset_launches()
+    params = materialize(defs, gen, device=dev)
+    say(f"recsys phase: {cfg.name} at its published widths, {cfg.n_sparse} "
+        f"fields x {cfg.vocab_per_field} ids x {cfg.embed_dim} (table "
+        f"{nbytes(params['table'])} B f32), {cfg.n_attn_layers} attention "
+        f"layers of {cfg.n_heads} heads x {cfg.d_attn}, {n_params(defs)} "
+        f"parameters ({nbytes(*tree_leaves(params))} B); no cut; {card}")
+
+    def ids(B, seed):
+        return RecsysBatcher(B, cfg.n_sparse, cfg.vocab_per_field,
+                             cfg.multi_hot, seed=seed, device=dev)
+
+    # ---- train: REC_SHAPES["train_batch"] --------------------------------
+    B = REC_SHAPES["train_batch"]["batch"]
+    data = ids(B, RECSYS["seed"])
+    batches = [next(data) for _ in range(RECSYS["steps"])]
+    step = ai.make_autoint_train_step(cfg, AdamWConfig())
+    params, losses, ms, peak, held = _train_run(
+        torch, step, params, adamw_init(params), batches, "recsys train")
+    steady = statistics.median(ms[1:])
+    say(f"  train_batch {B}: {RECSYS['steps']} AdamW steps, losses "
+        + ", ".join(f"{x:.6f}" for x in losses) + "; ms a step "
+        + ", ".join(f"{x:.1f}" for x in ms)
+        + f" (the first with the allocator's growth); {B / steady * 1e3:.0f}"
+        f" samples/s at the median of steps 2-{RECSYS['steps']} "
+        f"({steady:.1f} ms); peak allocated {peak} B ({held} B of it the "
+        f"weights, the optimizer state and the batches before the first "
+        f"step)")
+    del batches, data
+    torch.cuda.empty_cache()
+
+    # ---- serve: REC_SHAPES["serve_p99"] and ["serve_bulk"] ----------------
+    serve = ai.make_autoint_serve_step(cfg)
+    for shape in ("serve_p99", "serve_bulk"):
+        B = REC_SHAPES[shape]["batch"]
+        batch = {"sparse_idx": next(ids(B, RECSYS["seed"] + 1))[
+            "sparse_idx"]}
+        torch.cuda.reset_peak_memory_stats()
+        med, worst = serve_latency(torch, lambda: serve(params, batch),
+                                   RECSYS["serve_reps"])
+        scores = serve(params, batch)
+        if not (scores.shape == (B,) and bool(torch.isfinite(scores).all())
+                and bool(((scores > 0) & (scores < 1)).all())):
+            fail(f"recsys {shape}: scores {tuple(scores.shape)} not finite "
+                 f"or outside (0, 1)")
+        say(f"  {shape} batch {B}: latency median {med:.3f} ms, worst "
+            f"{worst:.3f} ms of {RECSYS['serve_reps']}; {B / med * 1e3:.0f} "
+            f"samples/s at the median; peak allocated "
+            f"{torch.cuda.max_memory_allocated()} B")
+        if shape == "serve_bulk":
+            profile_run(torch, lambda: serve(params, batch),
+                        out_dir / "chip_smoke_trace_autoint_serve.json",
+                        f"autoint serve_bulk batch {B}")
+        del batch, scores
+
+    # ---- retrieval: REC_SHAPES["retrieval_cand"] -------------------------
+    sh = REC_SHAPES["retrieval_cand"]
+    cand = torch.randn((sh["n_candidates"], cfg.d_retrieval), generator=gen,
+                       device=dev)
+    query = {"sparse_idx": next(ids(sh["batch"], RECSYS["seed"] + 2))[
+        "sparse_idx"], "cand_vecs": cand}
+    retrieve = ai.make_retrieval_step(cfg, RECSYS["top_k"])
+    med, worst = serve_latency(torch, lambda: retrieve(params, query),
+                               RECSYS["serve_reps"])
+    vals, idx = retrieve(params, query)
+    q = ai.mlp_apply(params["retr_proj"], ai.autoint_embed(
+        params, query, cfg), 1)
+    at = (q[0] * cand[idx[0].long()]).sum(-1)
+    best = torch.topk(q[0] @ cand.T, RECSYS["top_k"]).values
+    if not (idx.shape == (sh["batch"], RECSYS["top_k"])
+            and idx.dtype == torch.int32 and bool((vals[:, 1:]
+                                                   <= vals[:, :-1]).all())
+            and float((at - vals[0]).abs().max()) <= 1e-4 * float(
+                vals.abs().max())
+            and float((best - vals[0]).abs().max()) <= 1e-4 * float(
+                vals.abs().max())):
+        fail("recsys retrieval: the top-k is not the best scores in "
+             "descending order")
+    say(f"  retrieval_cand: 1 query vs {sh['n_candidates']} candidates, top "
+        f"{RECSYS['top_k']}: latency median {med:.3f} ms, worst {worst:.3f} "
+        f"ms of {RECSYS['serve_reps']}; values == the scores of the indices"
+        f" and torch.topk's values")
+    if any(build.LAUNCHES.values()):
+        fail(f"recsys: a kernel was launched {build.LAUNCHES}")
+    del params, cand, query, q
+    torch.cuda.empty_cache()
+
+    # ---- SMOKE: card vs CPU ----------------------------------------------
+    c = dataclasses.replace(_load("autoint", smoke=True)[1], multi_hot=3)
+    pc = materialize(ai.autoint_param_defs(c), torch.Generator().manual_seed(
+        0), device="cpu")
+    bc = next(RecsysBatcher(64, c.n_sparse, c.vocab_per_field, c.multi_hot,
+                            seed=3, device="cpu"))
+    bc["sparse_idx"].view(-1)[::5] = c.total_vocab       # padding sentinels
+    s_cpu = ai.make_autoint_serve_step(c)(pc, bc)
+    s_gpu = ai.make_autoint_serve_step(c)(_to(pc, dev),
+                                          _to(bc, dev)).cpu()
+    serr = float((s_gpu - s_cpu).abs().max()) / float(s_cpu.abs().max())
+    if serr > 1e-4:
+        fail(f"recsys smoke: serve scores card vs CPU {serr:.3g}")
+    rel, worst = grads_card_vs_cpu(torch, ai.autoint_loss, pc, bc, c,
+                                   "recsys smoke")
+    base = torch.randn((512, c.d_retrieval), generator=torch.Generator()
+                       .manual_seed(4))
+    cands = base[torch.randint(0, 512, (4096,), generator=torch.Generator()
+                               .manual_seed(5))]             # ties
+    rq = {"sparse_idx": bc["sparse_idx"][:2], "cand_vecs": cands}
+    v_cpu, i_cpu = ai.make_retrieval_step(c, 100)(pc, rq)
+    v_gpu, i_gpu = ai.make_retrieval_step(c, 100)(_to(pc, dev),
+                                                  _to(rq, dev))
+    ties = int((v_cpu[:, 1:] == v_cpu[:, :-1]).sum())
+    if not torch.equal(i_gpu.cpu(), i_cpu) or ties == 0:
+        fail(f"recsys smoke: retrieval indices card vs CPU differ "
+             f"({ties} ties)")
+    say(f"  {c.name} (multi_hot 3, sentinels) f32 on the card vs the CPU: "
+        f"serve scores within {serr:.3g} of the largest (tolerance 1e-4), "
+        f"loss {rel:.3g} relative (1e-4), gradients within {worst:.3g} of "
+        f"each one's largest value (1e-3); retrieval top 100 of 4096 "
+        f"candidates with duplicated rows: indices equal ({ties} ties); "
+        f"{time.perf_counter() - t_phase:.1f} s for the phase")
+
+
+def gnn_cell(torch, arch: str, shape_id: str, gen):
+    """(config, ParamDef tree, loss, batch on the card) of ``arch`` at its
+    published widths on GNN_SHAPES[shape_id], the widths adapted as the
+    reference's _gnn_cell does (GraphCast cut to GRAPHCAST_LAYERS): random
+    edges over the whole graph as build_gnn makes them, or, on the batched
+    molecule shape, edges inside molecules of MOLECULE_ATOMS atoms."""
+    from repro_torch.configs.registry import GNN_SHAPES, _load
+    from repro_torch.models import gnn
+    dev = torch.device("cuda")
+    sh = GNN_SHAPES[shape_id]
+    N, E, Df = sh["n_nodes"], sh["n_edges"], sh["d_feat"]
+    cfg = _load(arch)[1]
+    if arch == "gat-cora":
+        cfg = dataclasses.replace(cfg, d_in=Df, n_classes=sh["n_classes"])
+    elif arch == "egnn":
+        cfg = dataclasses.replace(cfg, d_in=Df)
+    elif arch == "graphcast":
+        cfg = dataclasses.replace(cfg, n_layers=GRAPHCAST_LAYERS)
+    defs, _ = param_defs_of(arch, cfg)
+    if arch == "graphcast":   # inputs follow the shape's d_feat
+        defs["node_enc"] = gnn.mlp_defs([Df, cfg.d_hidden, cfg.d_hidden],
+                                        ln=True)
+    loss = gnn.MODELS[arch][2]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def randint(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    if sh["batched"]:
+        G = N // MOLECULE_ATOMS
+        base = (torch.arange(E, device=dev, dtype=torch.int32)
+                // (E // G)) * MOLECULE_ATOMS
+        b = dict(edge_src=base + randint(MOLECULE_ATOMS, E),
+                 edge_dst=base + randint(MOLECULE_ATOMS, E))
+    else:
+        b = dict(edge_src=randint(N, E), edge_dst=randint(N, E))
+    if arch == "gat-cora":
+        b["node_feat"] = randn(N, Df)
+        b["labels"] = randint(sh["n_classes"], N)
+    elif arch == "egnn":
+        b["node_feat"] = randn(N, Df)
+        b["coords"] = randn(N, 3)
+        b["labels"] = randn(N)
+    elif arch == "mace":
+        b["node_feat"] = randint(cfg.n_species, N, 1).float()
+        b["coords"] = randn(N, 3) * 2
+        b["graph_id"] = (torch.arange(N, device=dev, dtype=torch.int32)
+                         // MOLECULE_ATOMS)
+        b["graph_energy"] = randn(N // MOLECULE_ATOMS)
+    else:
+        b["node_feat"] = randn(N, Df)
+        b["edge_feat"] = randn(E, cfg.d_edge_in)
+        b["labels"] = randn(N, cfg.n_vars)
+    return cfg, defs, loss, b
+
+
+def mace_invariance(torch, np, params, batch, cfg):
+    """MACE's invariant (l = 0) features (h0, h1) of ``batch`` and of the
+    same batch rotated by 0.9 rad about z."""
+    from repro_torch.models import gnn
+    th = 0.9
+    R = torch.tensor([[np.cos(th), -np.sin(th), 0],
+                      [np.sin(th), np.cos(th), 0], [0, 0, 1]],
+                     dtype=torch.float32, device=batch["coords"].device)
+    with torch.no_grad():
+        h0 = gnn.mace_forward(params, batch, cfg)[0]
+        h1 = gnn.mace_forward(params, dict(batch, coords=batch["coords"]
+                                           @ R.T), cfg)[0]
+    return h0, h1
+
+
+def gnn_phase(torch, np, card: str, out_dir: Path):
+    """The GNN zoo on the card: each of GNN_CELLS at its published widths,
+    3 AdamW steps, a profile of GraphCast's step, no kernel launched; then
+    the SMOKE configs card vs CPU, MACE's rotation invariance and the
+    gnn_products example (module docstring: gnn)."""
+    from repro_torch.configs.registry import GNN_SHAPES, _load
+    from repro_torch.examples import gnn_products
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import build_gnn
+    from repro_torch.models import gnn
+    from repro_torch.models.params import materialize, n_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    for arch, shape_id in GNN_CELLS:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(GNN_SEED)
+        cfg, defs, loss, batch = gnn_cell(torch, arch, shape_id, gen)
+        full = _load(arch)[1]
+        sh = GNN_SHAPES[shape_id]
+        params = materialize(defs, gen, device=dev)
+        step = gnn.make_gnn_train_step(loss, cfg, AdamWConfig())
+        params, losses, ms, peak, held = _train_run(
+            torch, step, params, adamw_init(params), [batch] * GNN_STEPS,
+            f"gnn {arch}")
+        steady = statistics.median(ms[1:])
+        cut = (f"depth cut {full.n_layers} -> {cfg.n_layers} layers"
+               if cfg.n_layers != full.n_layers else "no cut")
+        say(f"gnn phase {arch} on {shape_id} ({sh['n_nodes']} nodes, "
+            f"{sh['n_edges']} edges, {sh['d_feat']} features): "
+            f"{n_params(defs)} parameters, {cut}; {GNN_STEPS} AdamW steps "
+            f"on one batch: losses " + ", ".join(f"{x:.6f}" for x in losses)
+            + "; ms a step " + ", ".join(f"{x:.1f}" for x in ms)
+            + f" ({steady:.1f} at the median of steps 2-{GNN_STEPS}); peak "
+            f"allocated {peak} B ({held} B before the first step, "
+            f"{(peak - held) / max(cfg.n_layers, 1):.0f} B a layer above "
+            f"it); {card}")
+        if arch == "graphcast":
+            free, total = torch.cuda.mem_get_info()
+            say(f"  graphcast: the card holds {total} B, {free} B free now; "
+                f"peak reserved {torch.cuda.max_memory_reserved()} B; a "
+                f"layer more would need about "
+                f"{peak + (peak - held) / cfg.n_layers:.4g} B allocated")
+            opt = adamw_init(params)
+            profile_run(torch, lambda: step(params, opt, batch),
+                        out_dir / "chip_smoke_trace_graphcast.json",
+                        f"graphcast {cfg.n_layers} layers minibatch_lg, one "
+                        f"train step")
+            del opt
+        if arch == "mace":
+            h0, h1 = mace_invariance(torch, np, params, batch, cfg)
+            inv = float((h0 - h1).abs().max()) / float(h0.abs().max())
+            if inv > 1e-3:
+                fail(f"gnn mace: full-width rotation invariance {inv:.3g} "
+                     f"of the largest feature")
+            say(f"  mace full width on the molecule batch: invariant "
+                f"features of the rotated batch within {inv:.3g} of the "
+                f"largest (tolerance 1e-3)")
+            del h0, h1
+        del params, batch, step
+        torch.cuda.empty_cache()
+    if any(build.LAUNCHES.values()):
+        fail(f"gnn: a kernel was launched {build.LAUNCHES}")
+
+    # ---- SMOKE configs card vs CPU on the launcher's graph ---------------
+    for arch in ("gat-cora", "egnn", "mace", "graphcast"):
+        c = _load(arch, smoke=True)[1]
+        pc, _, data = build_gnn(arch, c, AdamWConfig(), "cpu")
+        rel, worst = grads_card_vs_cpu(torch, gnn.MODELS[arch][2], pc,
+                                       next(data), c, f"gnn smoke {arch}")
+        say(f"  {c.name} f32 on the card vs the CPU (256 nodes, 1024 "
+            f"edges): loss {rel:.3g} relative (tolerance 1e-4), gradients "
+            f"within {worst:.3g} of each one's largest value (1e-3)")
+
+    # ---- MACE's rotation invariance: tests/test_arch_smoke.py's check -----
+    c = _load("mace", smoke=True)[1]
+    pc = materialize(gnn.mace_param_defs(c), torch.Generator().manual_seed(
+        2), device="cpu")
+    rng = np.random.default_rng(0)
+    n, e = 48, 128
+    coords = rng.standard_normal((n, 3)).astype(np.float32) * 2
+    bm = {k: torch.as_tensor(v, device=dev) for k, v in dict(
+        edge_src=rng.integers(0, n, e).astype(np.int32),
+        edge_dst=rng.integers(0, n, e).astype(np.int32),
+        node_feat=rng.integers(0, 10, (n, 1)).astype(np.float32),
+        coords=coords).items()}
+    h0, h1 = mace_invariance(torch, np, _to(pc, dev), bm, c)
+    if not torch.allclose(h0, h1, rtol=1e-3, atol=1e-4):
+        fail("gnn: MACE's invariant features change under a rotation on "
+             "the card")
+    say(f"  {c.name} on the card: rotation invariance holds (rtol 1e-3, "
+        f"atol 1e-4; largest difference "
+        f"{float((h0 - h1).abs().max()):.3g})")
+
+    # ---- the example, as a user runs it ---------------------------------
+    t0 = time.perf_counter()
+    losses = gnn_products.main([])
+    if len(losses) != 20 or not np.isfinite(losses).all():
+        fail(f"gnn: examples/gnn_products.py losses {losses}")
+    say(f"  examples gnn_products on the card: 20 steps, losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{time.perf_counter() - t_phase:.1f} s for the phase")
+
+
 def run_procs(cmds: dict, timeout: float = 600) -> dict:
     """Run each command of ``cmds`` ({name: argv}) from the checkout with
     the port on its path, all at once; {name: (exit code, output)}. Every
@@ -3496,19 +3925,35 @@ def run_procs(cmds: dict, timeout: float = 600) -> dict:
     return {name: (procs[name].returncode, out) for name, out in outs.items()}
 
 
+def param_defs_of(arch: str, cfg):
+    """(ParamDef tree, default dtype) of ``arch``'s config ``cfg``."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    family = ARCHS[arch][0]
+    if family == "lm":
+        from repro_torch.models import transformer as tf
+        return tf.param_defs(cfg), cfg.dtype
+    if family == "recsys":
+        from repro_torch.models import autoint as ai
+        return ai.autoint_param_defs(cfg), torch.float32
+    from repro_torch.models import gnn
+    return gnn.MODELS[arch][0](cfg), torch.float32
+
+
 def train_launch_phase(torch, np):
     """The training entry point as a user starts it: ``python -m
-    repro_torch.launch.train`` (LAUNCH_ARGS) on the card for 6 steps with a
-    checkpoint every 2 in a temporary directory, and beside it an
-    uninterrupted 10-step run; the checkpoint of step 6 restored on the
-    card (onto params.abstract's meta tensors) equal to the files bit for
-    bit; then the launcher again with --steps 10 on that directory: it must
-    print the resume from step 6, and its losses for steps 7-10 must be
-    within LAUNCH_REL relative of the uninterrupted run's."""
+    repro_torch.launch.train --arch <a>`` (LAUNCH_ARGS) on the card for
+    each of LAUNCH_ARCHS, 6 steps with a checkpoint every 2 in a temporary
+    directory, and beside it an uninterrupted 10-step run (all six
+    processes at once); the checkpoint of step 6 restored on the card
+    (onto params.abstract's meta tensors) equal to the files bit for bit;
+    then the launcher again with --steps 10 on that directory (the three
+    at once): it must print the resume from step 6, and its losses for
+    steps 7-10 must be within LAUNCH_REL relative of the uninterrupted
+    run's."""
     import tempfile
     from repro_torch.checkpoint import latest_step, restore_checkpoint
     from repro_torch.configs.registry import _load
-    from repro_torch.models import transformer as tf
     from repro_torch.models.params import abstract, tree_leaves
     from repro_torch.optim import AdamWState
 
@@ -3522,62 +3967,81 @@ def train_launch_phase(torch, np):
                     for x in out.splitlines() if x.startswith("step ")]
         return json.loads(out.splitlines()[-1].removeprefix("losses "))
 
+    def argv(arch):
+        return ("--arch", arch, *LAUNCH_ARGS)
+
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "ckpt")
-        outs = run_procs({
-            "first": [sys.executable, "-m", "repro_torch.launch.train",
-                      *LAUNCH_ARGS, "--steps", "6", "--ckpt-dir", ckpt,
-                      "--ckpt-every", "2"],
-            "whole": [sys.executable, "-c", LAUNCH_PROG, *LAUNCH_ARGS,
-                      "--steps", "10"]})
-        first = losses_of("first", *outs["first"], printed=True)
-        whole = losses_of("whole", *outs["whole"], printed=False)
-        if latest_step(ckpt) != 6 or sorted(os.listdir(ckpt)) != [
-                f"step_{s:08d}" for s in (2, 4, 6)]:
-            fail(f"train launch: checkpoints {sorted(os.listdir(ckpt))}")
-        c = _load(LAUNCH_ARGS[1], smoke=True)[1]
-        defs = tf.param_defs(c)
-        target = (abstract(defs, c.dtype), AdamWState(
-            step=torch.empty((), dtype=torch.int32, device="meta"),
-            m=abstract(defs), v=abstract(defs)))
-        restored = restore_checkpoint(ckpt, 6, target, device=dev)
-        leaves = tree_leaves(restored)
-        for i, leaf in enumerate(leaves):
-            want = np.load(os.path.join(ckpt, "step_00000006",
-                                        f"leaf_{i:05d}.npy"))
-            if (leaf.device.type != dev.type
-                    or leaf.cpu().numpy().tobytes() != want.tobytes()):
-                fail(f"train launch: restored leaf {i} differs from the "
-                     f"saved one")
-        if int(restored[1].step) != 6:
-            fail(f"train launch: restored step {int(restored[1].step)}")
-        rc, out = run_procs({"resumed": [
-            sys.executable, "-c", LAUNCH_PROG, *LAUNCH_ARGS, "--steps", "10",
-            "--ckpt-dir", ckpt, "--ckpt-every", "2"]})["resumed"]
-        resumed = losses_of("resumed", rc, out, printed=False)
-        if out.splitlines()[0] != "resumed from step 6":
-            fail("train launch: the second run did not resume from step 6")
-    worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole[6:]))
-    printed = max(abs(a - b) for a, b in zip(first, whole[:6]))
-    if not (len(resumed) == 4 and len(whole) == 10 and worst <= LAUNCH_REL
-            and printed <= 5e-5 + LAUNCH_REL * max(whole)
-            and whole[-1] < whole[0]):
-        fail(f"train launch: resumed losses {resumed} vs the uninterrupted "
-             f"run's {whole[6:]} ({worst:.3g} relative), the first run's "
-             f"{first} vs {whole[:6]}")
-    say(f"train launch: {' '.join(LAUNCH_ARGS)} on the card: 6 steps with "
-        f"checkpoints at 2, 4, 6; step 6 restored on the card from "
-        f"params.abstract, {len(leaves)} leaves equal to the files bit for "
-        f"bit; resumed from step 6 to 10: losses "
-        + ", ".join(f"{x:.6f}" for x in resumed)
-        + f" vs the uninterrupted run's "
-        + ", ".join(f"{x:.6f}" for x in whole[6:])
-        + f" (largest difference {worst:.3g} relative, tolerance "
-        f"{LAUNCH_REL}); the first run's printed losses within {printed:.2g}"
-        f" of the uninterrupted run's; {time.perf_counter() - t0:.1f} s "
-        f"wall for the three runs")
+        ckpt = {a: os.path.join(tmp, f"ckpt-{a}") for a in LAUNCH_ARCHS}
+        cmds = {}
+        for a in LAUNCH_ARCHS:
+            cmds[a, "first"] = [sys.executable, "-m",
+                                "repro_torch.launch.train", *argv(a),
+                                "--steps", "6", "--ckpt-dir", ckpt[a],
+                                "--ckpt-every", "2"]
+            cmds[a, "whole"] = [sys.executable, "-c", LAUNCH_PROG, *argv(a),
+                                "--steps", "10"]
+        outs = run_procs(cmds)
+        first, whole, n_leaves = {}, {}, {}
+        for a in LAUNCH_ARCHS:
+            first[a] = losses_of(f"{a} first", *outs[a, "first"],
+                                 printed=True)
+            whole[a] = losses_of(f"{a} whole", *outs[a, "whole"],
+                                 printed=False)
+            if latest_step(ckpt[a]) != 6 or sorted(os.listdir(ckpt[a])) != [
+                    f"step_{s:08d}" for s in (2, 4, 6)]:
+                fail(f"train launch {a}: checkpoints "
+                     f"{sorted(os.listdir(ckpt[a]))}")
+            defs, dtype = param_defs_of(a, _load(a, smoke=True)[1])
+            target = (abstract(defs, dtype), AdamWState(
+                step=torch.empty((), dtype=torch.int32, device="meta"),
+                m=abstract(defs), v=abstract(defs)))
+            restored = restore_checkpoint(ckpt[a], 6, target, device=dev)
+            leaves = tree_leaves(restored)
+            n_leaves[a] = len(leaves)
+            for i, leaf in enumerate(leaves):
+                want = np.load(os.path.join(ckpt[a], "step_00000006",
+                                            f"leaf_{i:05d}.npy"))
+                if (leaf.device.type != dev.type
+                        or leaf.cpu().numpy().tobytes() != want.tobytes()):
+                    fail(f"train launch {a}: restored leaf {i} differs from "
+                         f"the saved one")
+            if int(restored[1].step) != 6:
+                fail(f"train launch {a}: restored step "
+                     f"{int(restored[1].step)}")
+            del restored, leaves
+        outs = run_procs({a: [sys.executable, "-c", LAUNCH_PROG, *argv(a),
+                              "--steps", "10", "--ckpt-dir", ckpt[a],
+                              "--ckpt-every", "2"] for a in LAUNCH_ARCHS})
+        resumed = {}
+        for a in LAUNCH_ARCHS:
+            resumed[a] = losses_of(f"{a} resumed", *outs[a], printed=False)
+            if outs[a][1].splitlines()[0] != "resumed from step 6":
+                fail(f"train launch {a}: the second run did not resume from "
+                     f"step 6")
+    for a in LAUNCH_ARCHS:
+        r, w, f = resumed[a], whole[a], first[a]
+        worst = max(abs(x - y) / abs(y) for x, y in zip(r, w[6:]))
+        printed = max(abs(x - y) for x, y in zip(f, w[:6]))
+        if not (len(r) == 4 and len(w) == 10 and worst <= LAUNCH_REL
+                and printed <= 5e-5 + LAUNCH_REL * max(w)
+                and (w[-1] < w[0] or a not in LAUNCH_FALLS)):
+            fail(f"train launch {a}: resumed losses {r} vs the "
+                 f"uninterrupted run's {w[6:]} ({worst:.3g} relative), the "
+                 f"first run's {f} vs {w[:6]}")
+        say(f"train launch: {' '.join(argv(a))} on the card: 6 steps with "
+            f"checkpoints at 2, 4, 6; step 6 restored on the card from "
+            f"params.abstract, {n_leaves[a]} leaves equal to the files bit "
+            f"for bit; resumed from step 6 to 10: losses "
+            + ", ".join(f"{x:.6f}" for x in r)
+            + " vs the uninterrupted run's "
+            + ", ".join(f"{x:.6f}" for x in w[6:])
+            + f" (largest difference {worst:.3g} relative, tolerance "
+            f"{LAUNCH_REL}); the first run's printed losses within "
+            f"{printed:.2g} of the uninterrupted run's")
+    say(f"train launch: {time.perf_counter() - t0:.1f} s wall for the "
+        f"{3 * len(LAUNCH_ARCHS)} runs")
 
 
 def main():
@@ -3986,6 +4450,12 @@ def main():
     moe_serve_phase(torch, card, out_dir)
     torch.cuda.empty_cache()
     moe_train_phase(torch, card)
+    torch.cuda.empty_cache()
+
+    # ---- AutoInt and the GNN zoo at their published widths ----------------
+    recsys_phase(torch, np, card, out_dir)
+    torch.cuda.empty_cache()
+    gnn_phase(torch, np, card, out_dir)
     torch.cuda.empty_cache()
     train_launch_phase(torch, np)
     say(f"total: {time.perf_counter() - t_start:.1f} s after the card query")

@@ -1,1 +1,2 @@
-"""Models of the port: the transformer LM family (dense and MoE)."""
+"""Models of the port: the transformer LM family (dense and MoE), AutoInt
+and the GNN zoo (GAT, EGNN, MACE, GraphCast)."""

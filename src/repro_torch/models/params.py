@@ -102,13 +102,22 @@ def materialize(defs, generator: torch.Generator, *, device=None,
                         device=device)
         return x.mul_(scale).to(dt)
 
-    out = {}
-    for path, d in _leaves(defs):   # draw in a fixed order
-        node = out
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = make(d)
-    return out
+    # draw in a fixed order; lists of layers stay lists
+    return tree_unflatten(defs, [make(d) for _, d in _leaves(defs)])
+
+
+def value_and_grad(loss_f, params, *args):
+    """(loss, grads) of ``loss_f(params, *args)``: the gradient of every
+    leaf of ``params`` (a tree of tensors, left as it is) in its leaf's
+    type; a leaf the loss does not reach gets zeros, as ``jax.grad``
+    gives it."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = loss_f(tree_unflatten(params, leaves), *args)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), tree_unflatten(params, [
+        torch.zeros_like(p) if g is None else g
+        for p, g in zip(leaves, grads)])
 
 
 def params_from_numpy(tree, *, device=None, dtype=None):

@@ -48,7 +48,8 @@ import torch.nn.functional as F
 
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.params import (ParamDef, as_dtype, n_params,
-                                      tree_leaves, tree_unflatten)
+                                      tree_leaves, tree_unflatten,
+                                      value_and_grad)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -505,11 +506,7 @@ def loss_fn(params, batch, cfg: TransformerConfig):
 def _value_and_grad(params, batch, cfg):
     """(loss, grads): the gradient of every leaf of ``params`` (a tree of
     tensors, left as it is), each in its leaf's type."""
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    with torch.enable_grad():
-        loss = loss_fn(tree_unflatten(params, leaves), batch, cfg)
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), tree_unflatten(params, list(grads))
+    return value_and_grad(loss_fn, params, batch, cfg)
 
 
 def make_train_step(cfg: TransformerConfig, opt_cfg, microbatches: int = 1):

@@ -2203,3 +2203,109 @@ def test_checkpoint_roundtrip_of_cuda_bf16_tensors(cuda, tmp_path):
     got = mgr.restore((meta, adamw_init(params)), device=cuda)[0][0]
     for a, b in zip(tree_leaves(got), tree_leaves(params), strict=True):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# -------------------------------------------------- AutoInt and the GNN zoo --
+
+def _card_vs_cpu_grads(loss_f, params, batch, cfg, cuda):
+    """The loss and every gradient on the card against the CPU: 1e-4
+    relative in the loss, each gradient within 1e-3 of its largest
+    value."""
+    from repro_torch.models.gnn import value_and_grad
+    from repro_torch.models.params import tree_leaves
+    lc, gc = value_and_grad(loss_f, params, batch, cfg)
+    lg, gg = value_and_grad(loss_f, _to_dev(params, cuda),
+                            _to_dev(batch, cuda), cfg)
+    assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc), strict=True):
+        assert a.device == lg.device
+        assert float((a.cpu() - b).abs().max()) <= 1e-3 * float(
+            b.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["gat-cora", "egnn", "mace", "graphcast"])
+def test_gnn_smoke_on_gpu_matches_cpu(cuda, arch):
+    """Each GNN's SMOKE config in f32 on the launcher's graph (256 nodes,
+    1,024 edges): the forward output within 1e-4 of its largest value,
+    the loss and every gradient card vs CPU, one train step's loss; no
+    kernel launched."""
+    from repro_torch.configs.registry import _load
+    from repro_torch.launch.train import build_gnn
+    from repro_torch.models import gnn
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = _load(arch, smoke=True)[1]
+    params, step, data = build_gnn(arch, c, AdamWConfig(), "cpu")
+    batch = next(data)
+    _, fwd, loss_f = gnn.MODELS[arch]
+    build.reset_launches()
+    want = tree_leaves(fwd(params, batch, c))
+    got = tree_leaves(fwd(_to_dev(params, cuda), _to_dev(batch, cuda), c))
+    for a, b in zip(got, want, strict=True):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+    _card_vs_cpu_grads(loss_f, params, batch, c, cuda)
+    _, _, mc = step(params, adamw_init(params), batch)
+    pg = _to_dev(params, cuda)
+    _, _, mg = step(pg, adamw_init(pg), _to_dev(batch, cuda))
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4 * abs(
+        float(mc["loss"]))
+    assert not any(build.LAUNCHES.values())
+
+
+def test_autoint_smoke_on_gpu_matches_cpu(cuda):
+    """AutoInt's SMOKE config in f32 with bags of 3 ids holding the padding
+    sentinel: serve scores within 1e-4 of the largest, the loss and every
+    gradient card vs CPU, and the retrieval's indices equal on candidates
+    with duplicated rows (ties: the lower index first on both)."""
+    from repro_torch.configs.registry import _load
+    from repro_torch.data import RecsysBatcher
+    from repro_torch.models import autoint as ai
+    from repro_torch.models.params import materialize
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = dataclasses.replace(_load("autoint", smoke=True)[1], multi_hot=3)
+    params = materialize(ai.autoint_param_defs(c),
+                         torch.Generator().manual_seed(0), device="cpu")
+    batch = next(RecsysBatcher(64, c.n_sparse, c.vocab_per_field,
+                               c.multi_hot, seed=3, device="cpu"))
+    batch["sparse_idx"].view(-1)[::5] = c.total_vocab
+    build.reset_launches()
+    sc = ai.make_autoint_serve_step(c)(params, batch)
+    sg = ai.make_autoint_serve_step(c)(_to_dev(params, cuda),
+                                       _to_dev(batch, cuda)).cpu()
+    assert float((sg - sc).abs().max()) <= 1e-4 * float(sc.abs().max())
+    _card_vs_cpu_grads(ai.autoint_loss, params, batch, c, cuda)
+    base = torch.randn((512, c.d_retrieval),
+                       generator=torch.Generator().manual_seed(4))
+    cands = base[torch.randint(0, 512, (4096,),
+                               generator=torch.Generator().manual_seed(5))]
+    q = {"sparse_idx": batch["sparse_idx"][:2], "cand_vecs": cands}
+    vc, ic = ai.make_retrieval_step(c, 100)(params, q)
+    vg, ig = ai.make_retrieval_step(c, 100)(_to_dev(params, cuda),
+                                            _to_dev(q, cuda))
+    assert (vc[:, 1:] == vc[:, :-1]).any()          # ties occur
+    assert torch.equal(ig.cpu(), ic)
+    assert float((vg.cpu() - vc).abs().max()) <= 1e-4 * float(
+        vc.abs().max())
+    assert not any(build.LAUNCHES.values())
+
+
+def test_launcher_gat_smoke_on_the_card(cuda, tmp_path, capsys):
+    """``python -m repro_torch.launch.train --arch gat-cora --smoke`` on
+    the card (no --device): 4 steps with a checkpoint every 2, then a
+    resume to 6 within 1e-5 relative of an uninterrupted 6-step run (the
+    scatters' atomics sum in another order from run to run)."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import train as ttrain
+    args = ["--arch", "gat-cora", "--smoke", "--log-every", "1"]
+    ckpt = str(tmp_path / "ck")
+    ttrain.main(args + ["--steps", "4", "--ckpt-dir", ckpt,
+                        "--ckpt-every", "2"])
+    assert latest_step(ckpt) == 4
+    capsys.readouterr()
+    resumed = ttrain.main(args + ["--steps", "6", "--ckpt-dir", ckpt])
+    assert capsys.readouterr().out.splitlines()[0] == "resumed from step 4"
+    whole = ttrain.main(args + ["--steps", "6"])
+    assert len(resumed) == 2 and np.isfinite(whole).all()
+    np.testing.assert_allclose(resumed, whole[4:], rtol=1e-5)

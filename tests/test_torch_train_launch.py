@@ -1,8 +1,11 @@
 """The PyTorch port's training entry point: ``python -m
-repro_torch.launch.train`` on the CPU with checkpoints and a resume, its
-train step against the reference launcher's on the same parameters and
-batches, its refusal of the unported architectures, and the
-``train_lm`` example.
+repro_torch.launch.train`` on the CPU with checkpoints and a resume (an
+LM, AutoInt and MACE), a short run of every registered architecture, its
+LM train step against the reference launcher's on the same parameters and
+batches, the GNN and recsys builders' batches against the reference
+launcher's, the registry's configs and shape tables against the
+reference's, its refusal of the unported dry-run cells, and the
+``train_lm`` and ``gnn_products`` examples.
 
 The launcher makes its weights with a seeded ``torch.Generator``, not the
 reference's threefry keys, so the step is held against the reference's
@@ -11,6 +14,7 @@ and the same ``TokenStream`` batches: loss and gradient norm within 1e-5
 relative, the parameters within 1e-5 of the tree's largest value
 (tests/test_torch_train.py says why).
 """
+import dataclasses
 import re
 
 import numpy as np
@@ -20,8 +24,10 @@ import jax
 
 from repro import compat
 from repro.configs import registry as jax_registry
+from repro.configs import sssp_paper as jax_sssp_paper
 from repro.distributed.sharding import MeshAxes
 from repro.launch import train as jtrain
+from repro.models.params import abstract as jax_abstract
 from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim.adamw import adamw_init as jadamw_init
 
@@ -30,7 +36,8 @@ torch.set_num_threads(1)
 
 from repro_torch.checkpoint import latest_step, restore_checkpoint  # noqa: E402
 from repro_torch.configs import registry as torch_registry  # noqa: E402
-from repro_torch.examples import train_lm  # noqa: E402
+from repro_torch.configs import sssp_paper as torch_sssp_paper  # noqa: E402
+from repro_torch.examples import gnn_products, train_lm  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.params import (  # noqa: E402
@@ -111,9 +118,115 @@ def test_launcher_step_matches_reference(mesh11):
 
 @pytest.mark.parametrize("arch", ["gat-cora", "autoint"])
 def test_launcher_refuses_unported_archs(arch):
-    assert arch in jax_registry.ARCHS
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ttrain.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    """Every architecture trains now; what the port still refuses is the
+    reference's dry-run cells of an architecture (ROADMAP Queue 1 item
+    10.6)."""
+    assert arch in jax_registry.ARCHS and arch in torch_registry.ARCHS
+    for fn, args in ((torch_registry.build_cell, (arch, "train_batch")),
+                     (torch_registry.list_cells, ())):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10.6"):
+            fn(*args)
+
+
+@pytest.mark.parametrize("arch", list(jax_registry.ARCHS))
+def test_launcher_runs_every_arch(arch, capsys):
+    """``python -m repro_torch.launch.train --arch <a> --smoke --device
+    cpu``, two steps, for each of the reference's 10 architectures."""
+    losses = ttrain.main(["--arch", arch, "--smoke", "--steps", "2",
+                          "--log-every", "1", "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert [LINE.fullmatch(x).group(1) for x in out[:-1]] == ["1", "2"]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+
+
+@pytest.mark.parametrize("arch", ["autoint", "mace"])
+def test_launcher_resumes_gnn_and_recsys(arch, tmp_path, capsys):
+    """A recsys and a GNN run: 6 steps with a checkpoint every 2, then a
+    resume to 10 whose losses equal an uninterrupted run's (the resumed
+    run draws and drops the batches of the steps already taken)."""
+    args = ["--arch", arch, "--smoke", "--log-every", "1", "--device",
+            "cpu", "--batch", "16"]
+    ckpt = str(tmp_path / "ck")
+    first = ttrain.main(args + ["--steps", "6", "--ckpt-dir", ckpt,
+                                "--ckpt-every", "2"])
+    assert latest_step(ckpt) == 6
+    capsys.readouterr()
+    resumed = ttrain.main(args + ["--steps", "10", "--ckpt-dir", ckpt])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "resumed from step 6"
+    whole = ttrain.main(args + ["--steps", "10"])
+    assert len(resumed) == 4
+    np.testing.assert_allclose(resumed, whole[6:], rtol=1e-6)
+    np.testing.assert_allclose(first, whole[:6], rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", torch_registry.GNN_ARCHS
+                         + torch_registry.REC_ARCHS)
+def test_builders_batches_equal_reference(arch, monkeypatch):
+    """The first 3 batches of ``build_gnn`` / ``build_recsys`` equal the
+    reference launcher's element for element, and the parameters have the
+    reference's shapes. The reference builder's weights are taken as
+    shapes (``params.abstract``): its draws of them come from keys apart
+    from the batches' numpy generator."""
+    monkeypatch.setattr(jtrain, "materialize",
+                        lambda defs, key, *a: jax_abstract(defs))
+    family, cj = jax_registry._load(arch, smoke=True)
+    ct = torch_registry._load(arch, smoke=True)[1]
+    ax = MeshAxes(data=("data",))
+    if family == "gnn":
+        pj, _, dj = jtrain.build_gnn(arch, cj, ax, JAdamWConfig())
+        pt, _, dt = ttrain.build_gnn(arch, ct, AdamWConfig(), "cpu")
+    else:
+        pj, _, dj = jtrain.build_recsys(cj, ax, 8, JAdamWConfig())
+        pt, _, dt = ttrain.build_recsys(ct, 8, AdamWConfig(), "cpu")
+    assert [tuple(t.shape) for t in tree_leaves(pt)] == [
+        a.shape for a in jax.tree_util.tree_leaves(pj)]
+    for _ in range(3):
+        bj, bt = next(dj), next(dt)
+        assert sorted(bj) == sorted(bt)
+        for key in bj:
+            want = np.asarray(bj[key])
+            got = bt[key].numpy()
+            assert got.dtype == want.dtype, key
+            assert np.array_equal(got, want), key
+
+
+@pytest.mark.parametrize("arch", list(jax_registry.ARCHS))
+def test_registry_configs_match_reference(arch):
+    """``_load`` of every architecture, full and SMOKE: the family and the
+    config field by field (the LM configs' fields are held in
+    tests/test_torch_transformer.py)."""
+    for smoke in (False, True):
+        fam_j, cj = jax_registry._load(arch, smoke)
+        fam_t, ct = torch_registry._load(arch, smoke)
+        assert fam_t == fam_j
+        assert ({f.name for f in dataclasses.fields(ct)}
+                == {f.name for f in dataclasses.fields(cj)})
+        if fam_j != "lm":
+            assert dataclasses.asdict(ct) == dataclasses.asdict(cj)
+        else:
+            assert ct.name == cj.name and ct.n_layers == cj.n_layers
+    if fam_j == "recsys":
+        assert ct.total_vocab == cj.total_vocab
+    if arch == "mace":
+        assert ct.ls == cj.ls
+
+
+def test_registry_tables_match_reference():
+    assert torch_registry.ARCHS.keys() == jax_registry.ARCHS.keys()
+    assert {k: v[0] for k, v in torch_registry.ARCHS.items()} == {
+        k: v[0] for k, v in jax_registry.ARCHS.items()}
+    for name in ("LM_ARCHS", "GNN_ARCHS", "REC_ARCHS", "LM_SHAPES",
+                 "GNN_SHAPES", "REC_SHAPES", "SSSP_SHAPES", "SHAPES"):
+        assert getattr(torch_registry, name) == getattr(jax_registry, name)
+    for x in (1, 511, 512, 513, 2449029):
+        assert torch_registry._pad512(x) == jax_registry._pad512(x)
+    assert torch_sssp_paper.GRAPHS.keys() == jax_sssp_paper.GRAPHS.keys()
+    for name, gj in jax_sssp_paper.GRAPHS.items():
+        gt = torch_sssp_paper.GRAPHS[name]
+        assert dataclasses.asdict(gt) == dataclasses.asdict(gj)
+        for parts in (1, 8, 512):
+            assert gt.shard_shapes(parts) == gj.shard_shapes(parts)
 
 
 def test_launcher_defaults_to_cuda(monkeypatch):
@@ -141,3 +254,12 @@ def test_train_lm_example_resumes(tmp_path, capsys, monkeypatch):
     out = capsys.readouterr().out.splitlines()
     assert out[1:] == ["resumed at step 100", out[2], "done"]
     assert out[2].startswith("step 120: loss=")
+
+
+def test_gnn_products_example_runs(capsys):
+    """The example on the CPU for a few steps (its R-MAT stand-in: no
+    ogbn-products extract is on disk here)."""
+    losses = gnn_products.main(["--steps", "5", "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out == [f"step 5: loss={losses[-1]:.4f}", "ok"]
+    assert len(losses) == 5 and np.isfinite(losses).all()

@@ -124,12 +124,14 @@ def test_configs_match_reference(arch):
 def test_registry_matches_reference():
     assert torch_registry.LM_SHAPES == jax_registry.LM_SHAPES
     assert torch_registry.LM_ARCHS == jax_registry.LM_ARCHS
-    assert list(torch_registry.ARCHS) == jax_registry.LM_ARCHS
+    assert list(torch_registry.ARCHS) == list(jax_registry.ARCHS)
     assert torch_registry.GNN_ARCHS == jax_registry.GNN_ARCHS
     assert torch_registry.REC_ARCHS == jax_registry.REC_ARCHS
+    # the GNN and recsys configs load as the reference's (their fields are
+    # held in tests/test_torch_train_launch.py)
     for arch in jax_registry.GNN_ARCHS + jax_registry.REC_ARCHS:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            torch_registry._load(arch)
+        assert (torch_registry._load(arch)[0]
+                == jax_registry._load(arch)[0])
     sizes = {"gemma-7b": (9_324_112_896, 9_324_112_896),
              "olmoe-1b-7b": (6_919_100_416, 1_281_955_840),
              "qwen3-moe-235b-a22b": (235_093_634_560, 22_190_763_520)}
