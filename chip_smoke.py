@@ -300,7 +300,22 @@ Phases, each of which exits non-zero on a mismatch:
            checkpoint every 2 in a temporary directory, step 6 restored on
            the card bit for bit, then a second run to 10 steps that must
            resume from step 6, its losses within 1e-5 relative of an
-           uninterrupted 10-step run's.
+           uninterrupted 10-step run's;
+  weights  materialize of the full-width AutoInt config from the threefry
+           key prng.key(0) on the card (the reference's weights, drawn in
+           slices of DRAW_SLICE elements): every leaf but the 624e6-entry
+           table equal to the CPU's materialize within 4 ulp, the table
+           on MATERIALIZE_SLICE entries at an offset drawn on the CPU
+           alone (uniform bits exact, weights within 4 ulp); time, peak
+           memory, and the transients a slice leaves against a whole
+           draw's; no kernel launched;
+  dryrun   python -m repro_torch.launch.dryrun --all (every cell of the
+           registry on meta tensors) must exit 0 with every cell recorded
+           (counted FLOPs for the LM, GNN and recsys cells, the SSSP cells'
+           note); its table of cells; then the AutoInt train_batch and
+           gat-cora full_graph_sm cells built for real on the card, the
+           bytes allocated within 1% of the dry run's argument_bytes, and
+           one step of each with a finite loss.
 
 The line before last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Build logs and traces go to chiprun_out/.
@@ -310,7 +325,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -4044,6 +4061,196 @@ def train_launch_phase(torch, np):
         f"{3 * len(LAUNCH_ARCHS)} runs")
 
 
+MATERIALIZE_SLICE = 10_000_000     # table entries the CPU draws to compare
+MATERIALIZE_ULPS = 4
+REAL_CELLS = (("autoint", "train_batch"), ("gat-cora", "full_graph_sm"))
+ARGS_REL = 0.01                    # allocated vs the dry run's argument bytes
+
+
+def f32_ulps(np, got, want) -> int:
+    """Largest distance in ulps between two f32 arrays."""
+    def ordered(a):
+        b = a.view(np.int32).astype(np.int64)
+        return np.where(b < 0, -(b & 0x7FFFFFFF), b)
+    return int(np.abs(ordered(got) - ordered(want)).max(initial=0))
+
+
+def materialize_phase(torch, np, card: str):
+    """The full-width AutoInt weights from ``prng.key(0)`` on the card
+    against the CPU's (module docstring: weights)."""
+    from repro_torch.configs.registry import _load
+    from repro_torch.core import prng
+    from repro_torch.models import autoint as ai
+    from repro_torch.models import params as pm
+    from repro_torch.models.params import ParamDef, materialize, tree_leaves
+    dev = torch.device("cuda")
+    cfg = _load("autoint")[1]
+    defs = ai.autoint_param_defs(cfg)
+    table_def = defs["table"]
+    n_leaves = len(tree_leaves(defs))
+    i_table = [k for k, _ in pm._leaves(defs)].index(("table",))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = materialize(defs, prng.key(0), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    weights = nbytes(*tree_leaves(params))
+    peak = torch.cuda.max_memory_allocated()
+    transient = peak - base - weights
+    # one slice's draw alone: the transients a draw leaves per element
+    key = prng.split(prng.key(0).to(dev), n_leaves)[i_table]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    one = prng.normal(key, (pm.DRAW_SLICE,))
+    per_elem = (torch.cuda.max_memory_allocated() - before
+                - nbytes(one)) / pm.DRAW_SLICE
+    del one
+    n_table = params["table"].numel()
+    say(f"weights phase: materialize(autoint, prng.key(0)) on the card: "
+        f"{n_leaves} leaves, {weights} B, table {tuple(table_def.shape)} "
+        f"({n_table} entries); {wall:.2f} s; peak allocated {peak} B, "
+        f"transients past the weights {transient} B with slices of "
+        f"{pm.DRAW_SLICE} (a whole draw of the table would hold about "
+        f"{per_elem * n_table:.3e} B, {per_elem:.1f} B an element); {card}")
+    if transient > 2 * per_elem * pm.DRAW_SLICE + (64 << 20):
+        fail(f"weights: the slices left {transient} B of transients, more "
+             f"than two slices' {2 * per_elem * pm.DRAW_SLICE:.0f} B")
+    # every other leaf whole on the CPU: a one-row table keeps the tree's
+    # leaf order, so every other leaf takes the same key
+    small = dict(defs, table=ParamDef((1, table_def.shape[1]),
+                                      scale=table_def.scale))
+    cpu = materialize(small, prng.key(0), device="cpu")
+    worst = 0
+    for (path, got), want in zip(pm._leaves(params), tree_leaves(cpu)):
+        if path == ("table",):
+            continue
+        worst = max(worst, f32_ulps(np, got.cpu().numpy(), want.numpy()))
+    # the table on a slice at an offset, drawn on the CPU alone
+    off = n_table // 2 - MATERIALIZE_SLICE // 2
+    m = MATERIALIZE_SLICE
+    lo = -0.99999994039535522
+    kc = prng.split(prng.key(0), n_leaves)[i_table]
+    u_dev = prng.uniform(key, (m,), lo, 1.0, off).cpu().numpy()
+    u_cpu = prng.uniform(kc, (m,), lo, 1.0, off).numpy()
+    scale = torch.tensor(table_def.scale, dtype=torch.float32)
+    t_cpu = (prng.normal(kc, (m,), off) * scale).numpy()
+    t_dev = params["table"].view(-1)[off:off + m].cpu().numpy()
+    table_ulps = f32_ulps(np, t_dev, t_cpu)
+    equal = float((t_dev.view(np.int32) == t_cpu.view(np.int32)).mean())
+    say(f"  card vs CPU: {n_leaves - 1} leaves whole within {worst} ulp; "
+        f"the table's entries {off}..{off + m}: uniform bits "
+        f"{'equal' if np.array_equal(u_dev.view(np.int32), u_cpu.view(np.int32)) else 'DIFFERENT'}"
+        f", weights within {table_ulps} ulp ({equal:.6f} of them equal bit "
+        f"for bit); tolerance {MATERIALIZE_ULPS} ulp")
+    if (worst > MATERIALIZE_ULPS or table_ulps > MATERIALIZE_ULPS
+            or not np.array_equal(u_dev.view(np.int32), u_cpu.view(np.int32))):
+        fail("weights: the card's materialize differs from the CPU's")
+    del params, cpu
+    torch.cuda.empty_cache()
+
+
+def real_args(torch, arch: str, args, dev):
+    """A cell's arguments for real on ``dev``: the weights from
+    ``prng.key(0)`` (the cells of REAL_CELLS keep their config's widths),
+    the AdamW state, and a batch of the structs' shapes (features normal,
+    ids below the table's or the graph's size, labels 0/1)."""
+    from repro_torch.configs.registry import _load
+    from repro_torch.core import prng
+    from repro_torch.models.params import materialize
+    from repro_torch.optim import adamw_init
+    cfg = _load(arch)[1]
+    params = materialize(param_defs_of(arch, cfg)[0], prng.key(0),
+                         device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    batch = {}
+    for name, t in args[2].items():
+        if t.dtype.is_floating_point:
+            batch[name] = torch.randn(t.shape, generator=gen, device=dev)
+            continue
+        hi = (2 if name == "labels" else cfg.total_vocab
+              if name == "sparse_idx" else args[2]["node_feat"].shape[0])
+        batch[name] = torch.randint(0, hi, t.shape, generator=gen,
+                                    device=dev, dtype=t.dtype)
+    return params, adamw_init(params), batch
+
+
+def dryrun_phase(torch, card: str):
+    """``python -m repro_torch.launch.dryrun --all`` as a user runs it, its
+    table of cells, and two cells built for real on the card (module
+    docstring: dryrun)."""
+    import tempfile
+    from repro_torch.configs.registry import argument_bytes, build_cell
+    from repro_torch.models.params import tree_leaves
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc, out = run_procs({"dryrun": [
+            sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+            "--force", "--out", tmp]}, timeout=900)["dryrun"]
+        sweep = time.perf_counter() - t0
+        recs = [json.loads(Path(tmp, f).read_text())
+                for f in sorted(os.listdir(tmp))]
+    if rc != 0:
+        fail(f"dryrun: exit {rc}: {out[-2000:]}")
+    say(f"dryrun phase: python -m repro_torch.launch.dryrun --all: exit 0, "
+        f"{len(recs)} cells recorded in {sweep:.1f} s (host work on meta "
+        f"tensors; {out.splitlines()[-1]}); {card}")
+    say(f"  {'cell':<42} {'argument_bytes':>16} {'counted FLOPs':>13} "
+        f"{'model_flops':>12} {'useful':>7} fits")
+    by_cell = {}
+    for r in recs:
+        by_cell[r["arch"], r["shape"]] = r
+        name = f"{r['arch']}/{r['shape']}"
+        if r["status"] == "skipped":
+            say(f"  {name:<42} skipped: {r['reason'][:60]}")
+            continue
+        flops = "null" if r["flops"] is None else f"{r['flops']:.4e}"
+        useful = ("null" if r["useful_ratio"] is None
+                  else f"{r['useful_ratio']:.4f}")
+        say(f"  {name:<42} {r['argument_bytes']:>16} {flops:>13} "
+            f"{r['model_flops']:>12.4e} {useful:>7} {r['fits']}")
+        if r["status"] != "ok" or (r["arch"] != "sp-async"
+                                   and not r["flops"] > 0):
+            fail(f"dryrun: cell {name}: {r}")
+    if len(recs) != 44:
+        fail(f"dryrun: {len(recs)} cells recorded, not 44")
+    for arch, shape in REAL_CELLS:
+        cell = build_cell(arch, shape, None, None)
+        want = by_cell[arch, shape]["argument_bytes"]
+        if want != argument_bytes(cell.args_struct):
+            fail(f"dryrun: {arch}/{shape} argument bytes differ")
+        gc.collect()               # cycles left by the last cell's step
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        args = real_args(torch, arch, cell.args_struct, dev)
+        # no name may hold an argument past the step: the next cell's
+        # baseline would count it
+        if [(t.shape, t.dtype) for t in tree_leaves(args)] != [
+                (t.shape, t.dtype) for t in tree_leaves(cell.args_struct)]:
+            fail(f"dryrun: {arch}/{shape}: the arguments' shapes and types "
+                 f"differ from the cell's")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        rel = abs(held - want) / want
+        t0 = time.perf_counter()
+        out = cell.step_fn(*args)
+        loss = float(out[2]["loss"])
+        step_s = time.perf_counter() - t0
+        say(f"  {arch}/{shape} for real on the card: allocated {held} B for "
+            f"the arguments vs the dry run's {want} B ({rel:.2e} apart, "
+            f"tolerance {ARGS_REL}); one step {step_s:.3f} s (the first), "
+            f"loss {loss:.6f}")
+        if rel > ARGS_REL or not math.isfinite(loss):
+            fail(f"dryrun: {arch}/{shape}: {held} B vs {want} B, loss {loss}")
+        del args, out
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a checkout")
@@ -4458,6 +4665,10 @@ def main():
     gnn_phase(torch, np, card, out_dir)
     torch.cuda.empty_cache()
     train_launch_phase(torch, np)
+
+    # ---- the threefry weights and the registry's cells --------------------
+    materialize_phase(torch, np, card)
+    dryrun_phase(torch, card)
     say(f"total: {time.perf_counter() - t_start:.1f} s after the card query")
 
     table = [{"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -7,15 +7,23 @@ duplicates the same messages as the reference and every fault counter
 matches, not only the distances. The recipe is JAX's with
 ``jax_threefry_partitionable`` on (the default since jax 0.5):
 
-- a key is two uint32 words; ``prng_key(seed)`` is ``(0, seed)``;
+- a key is two uint32 words; ``prng_key(seed)`` (ints) and ``key(seed)``
+  (a tensor) are ``(0, seed)``;
 - ``fold_in(key, d)`` hashes the counter pair ``(0, d)`` under ``key``;
-- ``split(key)`` hashes the counters ``(0, 0)`` and ``(0, 1)``: key ``i``
-  is the pair of output words of counter ``i``;
+- ``split(key, n)`` hashes the counters ``(0, 0)`` ... ``(0, n - 1)``: key
+  ``i`` is the pair of output words of counter ``i``;
 - ``random_bits(key, shape)`` hashes the row-major flat index of every
-  element (high and low word) and xors the two output words;
+  element (high and low word) and xors the two output words; an
+  ``offset`` starts the index past 0, so a large draw can be made in
+  slices that equal the whole draw bit for bit;
 - ``uniform`` puts the top 23 bits under the exponent of 1.0 and subtracts
   1.0; ``randint`` takes two such bit planes from ``split(key)`` and folds
-  them into ``[lo, hi)``.
+  them into ``[lo, hi)``; ``normal`` is ``sqrt(2) * erf_inv(u)`` of a
+  uniform on ``[nextafter(-1, 0), 1)``, with XLA's f32 ``erf_inv``.
+
+The model weights (``models/params.py: materialize``) draw from ``split``
+and ``normal``, so equal seeds give the reference's weights: the uniforms
+bit for bit, the normals within a few ulp (``erf_inv`` says why).
 
 The hash runs on Python ints, which the round loop uses to derive its
 per-round keys on the host (``prng_key``, ``fold_in``), masked to 32 bits
@@ -61,6 +69,11 @@ def prng_key(seed: int) -> tuple[int, int]:
     return 0, int(seed) & MASK
 
 
+def key(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.key(seed)`` as a ``[2]`` int64 key tensor."""
+    return torch.tensor(prng_key(seed), dtype=torch.int64, device=device)
+
+
 def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
     """``jax.random.fold_in`` of a key pair of ints."""
     return threefry2x32(key[0], key[1], 0, int(data) & MASK)
@@ -76,36 +89,97 @@ def _words(bits: torch.Tensor) -> torch.Tensor:
     return bits.to(torch.int64) & MASK
 
 
-def split(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``jax.random.split(key)`` of a ``[..., 2]`` key tensor into two
-    keys, each ``[..., 2]``."""
+def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, n)`` of a ``[..., 2]`` key tensor: ``[n, ...,
+    2]``, key ``i`` first, so ``a, b = split(key)`` unpacks two keys of the
+    batch's shape."""
     k = _bits32(key)
-    x1 = torch.arange(2, dtype=torch.int32, device=key.device)
-    o0, o1 = (_words(o) for o in threefry2x32(k[..., :1], k[..., 1:], 0, x1))
-    return (torch.stack((o0[..., 0], o1[..., 0]), -1),
-            torch.stack((o0[..., 1], o1[..., 1]), -1))
+    x1 = torch.arange(n, dtype=torch.int32, device=key.device)
+    o0, o1 = threefry2x32(k[..., :1], k[..., 1:], 0, x1)
+    return torch.stack((_words(o0), _words(o1)), -1).movedim(-2, 0)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+def random_bits(key: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
     """32 random bits a draw as int32, ``[..., *shape]`` for a ``[..., 2]``
-    key tensor: the hash of each element's flat index (below 2**31, so its
-    high word is 0), words xored."""
+    key tensor: the hash of each element's flat index plus ``offset``
+    (below 2**31, so its high word is 0), words xored. Elements ``[o, o +
+    m)`` of a whole draw's flat view are ``random_bits(key, (m,), o)``."""
     shape = tuple(shape)
     n = 1
     for s in shape:
         n *= s
-    if n >= 1 << 31:
-        raise ValueError(f"a draw of {n} words is past 2**31")
+    if offset < 0 or offset + n >= 1 << 31:
+        raise ValueError(f"a draw of words {offset}..{offset + n} is past "
+                         f"2**31")
     k = _bits32(key).reshape(*key.shape[:-1], *(1,) * len(shape), 2)
-    idx = torch.arange(n, dtype=torch.int32, device=key.device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int32,
+                       device=key.device)
     o0, o1 = threefry2x32(k[..., 0], k[..., 1], 0, idx.reshape(shape))
     return o0 ^ o1
 
 
-def uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in f32, on ``[0, 1)``."""
-    bits = ((random_bits(key, shape) >> 9) & 0x7FFFFF) | 0x3F800000
-    return bits.view(torch.float32) - 1.0
+def uniform(key: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0, offset: int = 0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=minval, maxval=maxval)`` in
+    f32: a uniform on ``[0, 1)`` scaled to ``[minval, maxval)`` in f32 and
+    clamped at ``minval`` from below, as JAX does. ``offset`` as in
+    ``random_bits``."""
+    bits = ((random_bits(key, shape, offset) >> 9) & 0x7FFFFF) | 0x3F800000
+    u = bits.view(torch.float32) - 1.0
+    if (minval, maxval) == (0.0, 1.0):
+        return u
+    lo = torch.tensor(minval, dtype=torch.float32, device=u.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=u.device)
+    return torch.maximum(lo, u * (hi - lo) + lo)
+
+
+# xla/hlo/builder/lib/math.cc: ErfInv32 (M. Giles, "Approximating the erfinv
+# function"): Horner coefficients for w < 5 and for w >= 5
+_ERF_INV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                   -4.39150654e-06, 0.00021858087, -0.00125372503,
+                   -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                   -0.00367342844, 0.00573950773, -0.0076224613,
+                   0.00943887047, 1.00167406, 2.83297682)
+_NEXT_ABOVE_MINUS_1 = -0.99999994039535522   # nextafter(-1, 0) in f32
+_SQRT2_F32 = 1.41421353816986084             # np.float32(np.sqrt(2))
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.erf_inv`` of an f32 tensor, XLA's ``ErfInv32``
+    (xla/hlo/builder/lib/math.cc; the same in StableHLO's CHLO
+    decomposition): ``w = -log1p(-x*x)``, a nine-term Horner polynomial in
+    ``w - 2.5`` (``w < 5``) or ``sqrt(w) - 3`` (else), times ``x``, and
+    ``erf_inv(+-1) = +-inf``.
+
+    XLA's CPU code fuses each Horner step into a fused multiply-add; each
+    step here runs in f64 and rounds to f32, which is the same but for
+    double rounding. ``log1p`` runs in f64 and rounds to f32, where XLA
+    takes its own f32 polynomial, so the result is within a few ulp of
+    JAX's (3 over 2**20 draws, 99% equal), not bit for bit; the card's
+    and the CPU's are within a few ulp of each other too.
+    ``torch.erfinv`` is another approximation (0.4 of the draws equal, up
+    to 2e-5 apart) and is not used."""
+    f32, f64 = torch.float32, torch.float64
+    w = (-torch.log1p((-x * x).to(f64))).to(f32)
+    lt = w < 5
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).to(f64)
+    lt5 = torch.tensor(_ERF_INV_W_LT_5, dtype=f32, device=x.device)
+    ge5 = torch.tensor(_ERF_INV_W_GE_5, dtype=f32, device=x.device)
+    p = torch.where(lt, lt5[0], ge5[0])
+    for i in range(1, len(_ERF_INV_W_LT_5)):
+        c = torch.where(lt, lt5[i], ge5[i])
+        p = torch.addcmul(c.to(f64), p.to(f64), w).to(f32)
+    return torch.where(x.abs() == 1, x * float("inf"), p * x)
+
+
+def normal(key: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in f32: ``sqrt(2) * erf_inv(u)``
+    of ``u = uniform(key, shape, nextafter(-1, 0), 1)``, the uniforms bit
+    for bit, the normals within a few ulp (``erf_inv``). ``offset`` as in
+    ``random_bits``."""
+    u = uniform(key, shape, _NEXT_ABOVE_MINUS_1, 1.0, offset)
+    return erf_inv(u) * _SQRT2_F32
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int

@@ -19,6 +19,7 @@ import argparse
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.graph import ogbn_products_graph, rmat_graph
 from repro_torch.graph.sampler import NeighborSampler
@@ -51,9 +52,7 @@ def main(argv=None):
     sampler = NeighborSampler(g, fanouts=(10, 5), seed=0)
     cfg = gnn.GatConfig(n_layers=2, d_hidden=16, n_heads=4, d_in=d_feat,
                         n_classes=n_classes)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    params = materialize(gnn.gat_param_defs(cfg), gen, device=device)
+    params = materialize(gnn.gat_param_defs(cfg), prng.key(0), device=device)
     opt = adamw_init(params)
     step = gnn.make_gnn_train_step(gnn.gat_loss, cfg, AdamWConfig(lr=3e-3))
 

@@ -12,9 +12,8 @@ import argparse
 import os
 import tempfile
 
-import torch
-
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core import prng
 from repro_torch.data import TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
@@ -42,9 +41,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     defs = tf.param_defs(cfg)
     print(f"params: {count_params(defs) / 1e6:.1f}M")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    params = materialize(defs, gen, device=device, default_dtype=cfg.dtype)
+    params = materialize(defs, prng.key(0), device=device,
+                         default_dtype=cfg.dtype)
     opt = adamw_init(params)
     step = tf.make_train_step(cfg, AdamWConfig(lr=3e-4))
     data = iter(TokenStream(args.batch, args.seq, cfg.vocab_size,

@@ -17,9 +17,9 @@ The reference restarts its data at the seed on a resume, so a resumed run
 trains on the batches the run began with; the port draws and drops the
 batches of the steps already taken, whatever the family, so a resumed run
 sees the batches an uninterrupted run would. The batches are the
-reference's numpy draws, element for element. The weights come from
-``materialize`` with a seeded ``torch.Generator``, not the reference's
-threefry keys.
+reference's numpy draws, element for element, and the weights are the
+reference's: ``materialize`` of the threefry key ``prng.key(0)``, as the
+reference launcher's ``jax.random.key(0)``, within a few ulp.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \
@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.registry import _load
+from repro_torch.core import prng
 from repro_torch.data import GraphBatcher, RecsysBatcher, TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.models.params import materialize
@@ -43,11 +44,9 @@ from repro_torch.optim.adamw import adamw_init
 
 
 def _weights(defs, device, dtype=torch.float32):
-    """``materialize(defs)`` on ``device`` from a generator seeded 0."""
-    device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    return materialize(defs, gen, device=device, default_dtype=dtype)
+    """``materialize(defs)`` on ``device`` from ``prng.key(0)``, the
+    reference launcher's ``jax.random.key(0)``."""
+    return materialize(defs, prng.key(0), device=device, default_dtype=dtype)
 
 
 def build_lm(cfg, batch, seq, opt_cfg, device=None):

@@ -128,7 +128,11 @@ def moe_ffn(x, lp, moe_cfg, activation: str, groups: int = 1,
         ys.append(_combine_group(out, topi[rows], pos, keep, topv[rows], k))
     y = torch.cat(ys).reshape(B, S, D)
 
-    frac = torch.bincount(topi[:, 0].long(), minlength=E).float() / T
+    # bincount's counts as a fixed-size scatter-add: bincount has no meta
+    # kernel, and this runs on meta tensors (the dry run)
+    top1 = topi[:, 0].long()
+    frac = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
+        0, top1, torch.ones_like(top1)).float() / T
     prob = probs.mean(dim=0)
     aux = (frac * prob).sum() * E
     return y, aux

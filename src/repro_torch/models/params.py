@@ -1,8 +1,11 @@
 """Declarative parameter trees (the reference's ``models/params.py``).
 
 A model declares its parameters once as a nested dict of ``ParamDef``;
-``materialize`` makes the tensors from a seeded ``torch.Generator`` by the
-reference's init rule, ``params_from_numpy`` carries a tree of arrays
+``materialize`` makes the tensors by the reference's init rule from a
+threefry key (``core/prng.py``), as the reference's ``materialize`` does
+from ``jax.random.key``: equal seeds give the reference's weights, within
+a few ulp (or, for today's callers, from a seeded ``torch.Generator``,
+which gives others). ``params_from_numpy`` carries a tree of arrays
 (the JAX package's parameters read out as numpy) across leaf for leaf, and
 ``abstract`` gives the tree as shape-only ``meta`` tensors (nothing
 allocated) and ``n_params`` counts. The port runs on one device, so a
@@ -22,7 +25,12 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
+
+# elements of a leaf drawn at a time: the hash's int32 and f64 transients
+# stay near 1 GB however large the leaf
+DRAW_SLICE = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,17 +88,27 @@ def _map(fn, tree):
     return tree_unflatten(tree, [fn(leaf) for leaf in tree_leaves(tree)])
 
 
-def materialize(defs, generator: torch.Generator, *, device=None,
-                default_dtype=torch.float32):
+def materialize(defs, key, *, device=None, default_dtype=torch.float32):
     """Tensors for ``defs`` on ``device``: zeros, ones, or a standard normal
     drawn in float32 times ``scale`` (else ``fan_in ** -0.5``, fan_in the
-    second-last axis, the last for a vector), cast to the leaf's type. The
-    leaves draw from ``generator`` one after another in sorted-key order;
-    the generator must live on ``device``. ``device=None`` means ``cuda``,
-    and raises without a CUDA device."""
-    device = resolve_device(device)
+    second-last axis, the last for a vector), cast to the leaf's type; the
+    leaves in ``jax.tree_util``'s order, lists of layers kept as lists.
+    ``device=None`` means ``cuda``, and raises without a CUDA device.
 
-    def make(d: ParamDef):
+    ``key`` is a threefry key (``prng.key(seed)``), as the reference's
+    ``materialize`` (``src/repro/models/params.py``) takes one: it is split
+    into one key a leaf, zeros and ones leaves included, and leaf ``i``
+    draws ``prng.normal`` of key ``i``, in slices of ``DRAW_SLICE``
+    elements that equal one whole draw bit for bit. Or ``key`` is a
+    ``torch.Generator`` living on ``device``, which the normal leaves draw
+    from one after another."""
+    device = resolve_device(device)
+    leaves = [d for _, d in _leaves(defs)]
+    gen = key if isinstance(key, torch.Generator) else None
+    keys = (None if gen is not None
+            else prng.split(key.to(device), len(leaves)))
+
+    def make(i, d: ParamDef):
         dt = as_dtype(d.dtype or default_dtype)
         if d.init == "zeros":
             return torch.zeros(d.shape, dtype=dt, device=device)
@@ -98,12 +116,20 @@ def materialize(defs, generator: torch.Generator, *, device=None,
             return torch.ones(d.shape, dtype=dt, device=device)
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         scale = d.scale if d.scale is not None else fan_in ** -0.5
-        x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return x.mul_(scale).to(dt)
+        if gen is not None:
+            x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                            device=device)
+            return x.mul_(scale).to(dt)
+        # scale rounds to f32 first, as JAX's weakly typed product does
+        scale = torch.tensor(scale, dtype=torch.float32, device=device)
+        out = torch.empty(d.shape, dtype=dt, device=device)
+        flat = out.view(-1)
+        for o in range(0, flat.numel(), DRAW_SLICE):
+            m = min(DRAW_SLICE, flat.numel() - o)
+            flat[o:o + m] = (prng.normal(keys[i], (m,), o) * scale).to(dt)
+        return out
 
-    # draw in a fixed order; lists of layers stay lists
-    return tree_unflatten(defs, [make(d) for _, d in _leaves(defs)])
+    return tree_unflatten(defs, [make(i, d) for i, d in enumerate(leaves)])
 
 
 def value_and_grad(loss_f, params, *args):

@@ -354,9 +354,10 @@ def _layer(x, lp, cfg: TransformerConfig, positions, cache=None,
            cache_pos=None):
     """One transformer block. x: [B, S, D]. Returns (x', new_cache_slice,
     aux). With a cache (k, v: [B, Skv, Hkv, Dh]) the new k and v are written
-    into it in place at ``cache_pos``, the start clamped to [0, Skv - S] as
-    ``lax.dynamic_update_slice`` clamps it; ``_trunk`` hands it a copy unless
-    the caller donated the caches."""
+    into it in place at ``cache_pos`` (an int or a 0-d tensor, read on the
+    device, so a ``meta`` run needs no value), the start clamped to [0, Skv
+    - S] as ``lax.dynamic_update_slice`` clamps it; ``_trunk`` hands it a
+    copy unless the caller donated the caches."""
     B, S, D = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
@@ -375,9 +376,10 @@ def _layer(x, lp, cfg: TransformerConfig, positions, cache=None,
         new_cache = (k, v)
     else:
         ck, cv = cache           # [B, Skv, Hkv, Dh], decode: S == 1
-        start = min(max(int(cache_pos), 0), ck.shape[1] - S)
-        ck[:, start:start + S] = k
-        cv[:, start:start + S] = v
+        start = torch.as_tensor(cache_pos).clamp(0, ck.shape[1] - S)
+        rows = torch.arange(S, device=ck.device) + start
+        ck.index_copy_(1, rows, k)
+        cv.index_copy_(1, rows, v)
         o = _attn_xla(q, ck, cv, causal=True, q_offset=cache_pos,
                       scale=cfg.hd ** -0.5)
         new_cache = (ck, cv)
@@ -413,8 +415,8 @@ def _trunk(params, tokens, cfg: TransformerConfig, caches=None,
     x = params["embed"][tokens.long()].to(dt)
     if cfg.embed_scale:   # the scale rounded to the model's type first
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
-    pos0 = 0 if cache_pos is None else int(cache_pos)
-    positions = (pos0 + torch.arange(S, device=x.device))[None].expand(B, S)
+    pos0 = 0 if cache_pos is None else cache_pos     # an int or 0-d tensor
+    positions = (torch.arange(S, device=x.device) + pos0)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = caches
     for i in range(cfg.n_layers):

@@ -13,6 +13,7 @@ the fused round are in test_torch_toka.py.
 """
 import numpy as np
 import pytest
+from _torch_jax_ref import shared_jax_cache  # noqa: F401 (autouse)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

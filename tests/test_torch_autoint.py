@@ -18,6 +18,7 @@ from functools import partial
 
 import numpy as np
 import pytest
+from _torch_jax_ref import shared_jax_cache  # noqa: F401 (autouse)
 
 import jax
 import jax.numpy as jnp

@@ -9,6 +9,7 @@ the engine's accounting. The ranks start once for the whole matrix
 import itertools
 
 import pytest
+from _torch_jax_ref import shared_jax_cache  # noqa: F401 (autouse)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

@@ -14,6 +14,7 @@ float32 array rounded by each framework (both round to nearest even).
 """
 import numpy as np
 import pytest
+from _torch_jax_ref import shared_jax_cache  # noqa: F401 (autouse)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

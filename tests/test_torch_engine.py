@@ -6,11 +6,21 @@ bit-identical and every counter and ``status`` equal, on the all-kernel
 staged config and the default config, for K in {1, 3} (3 rides a padded
 bucket of 4) and P in {1, 4, 8}. The tolerance is zero: both sides do the
 same single fp32 adds and exact mins in the same order.
+
+At many queries: K = 300 sources ride the bucket of 512, which the card's
+kernels 3-6 split into query groups (their tiles of minima for 512
+queries do not fit in shared memory a block). On the CPU the kernels'
+plain versions run, so this holds the engine's batch of 512 rows against
+the JAX engine's: the all-kernel staged config and the fused round on the
+R-MAT graph (scale 8, 193 vertices with an out-edge, so the 300 sources
+repeat some), P = 4. The card's group split itself is held against the
+plain versions by ``test_torch_gpu.py``.
 """
 import dataclasses
 
 import numpy as np
 import pytest
+from _torch_jax_ref import shared_jax_cache  # noqa: F401 (autouse)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
@@ -96,6 +106,21 @@ def test_engine_matches_reference_on_road_grid(jax_graphs, jax_shards,
     rj = jc.SsspEngine.build(sj, jc.SsspConfig(**cfg)).solve(srcs)
     rt = tc.SsspEngine.build(_port_shards(sj), tc.SsspConfig(**cfg),
                              device="cpu").solve(srcs)
+    assert_results_equal(rt, rj)
+
+
+@pytest.mark.parametrize("config", ["all-kernel", "fused"])
+def test_engine_matches_reference_at_300_queries(jax_graphs, jax_shards,
+                                                 config):
+    sj = jax_shards("rmat", 4)
+    deg = np.diff(np.asarray(jax_graphs["rmat"].row_ptr))
+    srcs = [int(s) for s in np.random.default_rng(0).choice(
+        np.nonzero(deg)[0], 300)]
+    cfg = {"all-kernel": ALL_KERNELS, "fused": dict(round="fused")}[config]
+    rj = jc.SsspEngine.build(sj, jc.SsspConfig(**cfg)).solve(srcs)
+    rt = tc.SsspEngine.build(_port_shards(sj), tc.SsspConfig(**cfg),
+                             device="cpu").solve(srcs)
+    assert rj.status == "converged" and rj.bucket_k == rt.bucket_k == 512
     assert_results_equal(rt, rj)
 
 

@@ -22,6 +22,7 @@ plan, so each case holds one seed against JAX.
 """
 import numpy as np
 import pytest
+from _torch_jax_ref import shared_jax_cache  # noqa: F401 (autouse)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

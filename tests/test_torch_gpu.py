@@ -2309,3 +2309,39 @@ def test_launcher_gat_smoke_on_the_card(cuda, tmp_path, capsys):
     whole = ttrain.main(args + ["--steps", "6"])
     assert len(resumed) == 2 and np.isfinite(whole).all()
     np.testing.assert_allclose(resumed, whole[4:], rtol=1e-5)
+
+
+def test_normal_draws_on_gpu_match_cpu(cuda):
+    """``prng.normal`` (the weights' draws) on the card against the CPU's:
+    its uniforms bit for bit, the normals within 4 ulp, whole and drawn
+    at an offset, at a width past one CTA's."""
+    from repro_torch.core import prng
+
+    def ordered(t):
+        b = t.view(torch.int32).to(torch.int64)
+        return torch.where(b < 0, -(b & 0x7FFFFFFF), b)
+
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    for seed, shape, off in ((0, (3, 70_001), 0), (7, (1 << 20,), 12_345)):
+        key = prng.split(prng.key(seed), 3)[1]
+        u = prng.uniform(key.to(cuda), shape, lo, 1.0, off)
+        assert u.device.type == cuda.type
+        assert torch.equal(u.cpu().view(torch.int32),
+                           prng.uniform(key, shape, lo, 1.0, off).view(
+                               torch.int32))
+        got = prng.normal(key.to(cuda), shape, off).cpu()
+        want = prng.normal(key, shape, off)
+        assert int((ordered(got) - ordered(want)).abs().max()) <= 4
+
+
+def test_launcher_first_loss_on_the_card_matches_the_cpu(cuda, capsys):
+    """``python -m repro_torch.launch.train --arch gemma-7b --smoke``: its
+    weights from ``prng.key(0)`` on the card, the first loss within 1e-5
+    relative of the CPU run's."""
+    from repro_torch.launch import train as ttrain
+    args = ["--arch", "gemma-7b", "--smoke", "--steps", "1", "--log-every",
+            "1"]
+    on_card = ttrain.main(args)
+    on_cpu = ttrain.main(args + ["--device", "cpu"])
+    capsys.readouterr()
+    np.testing.assert_allclose(on_card, on_cpu, rtol=1e-5)

@@ -19,6 +19,7 @@ import textwrap
 
 import numpy as np
 import pytest
+from _torch_jax_ref import shared_jax_cache  # noqa: F401 (autouse)
 
 import jax
 import jax.numpy as jnp

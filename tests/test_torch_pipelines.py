@@ -3,6 +3,7 @@ seed gives the same tokens, labels and sparse indices element for element
 (int32 tensors on the device asked for), batch after batch."""
 import numpy as np
 import pytest
+from _torch_jax_ref import shared_jax_cache  # noqa: F401 (autouse)
 
 from repro.data import pipelines as jpipe
 

@@ -1,7 +1,11 @@
 """The port's threefry draws (``repro_torch.core.prng``) against
-``jax.random``, bit for bit: the key, ``fold_in``, ``split``, ``uniform``
-and ``randint``, on int keys and on batched key tensors, and the
-``[P, K, M]`` draws of the fault injector against ``jax.vmap``.
+``jax.random``, bit for bit: the key, ``fold_in``, ``split`` (into 2 and
+into n keys), ``uniform`` and ``randint``, on int keys and on batched key
+tensors, and the ``[P, K, M]`` draws of the fault injector against
+``jax.vmap``. ``normal`` (the weights' draws) against
+``jax.random.normal``: its uniforms bit for bit, the normals within 4 ulp
+(XLA's ``erf_inv`` polynomial, but another ``log1p``), and a draw in
+slices equal to the whole draw bit for bit.
 
 The port reproduces JAX's partitionable threefry only; the first test
 fails loudly if a JAX release changes that default.
@@ -10,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from _torch_jax_ref import shared_jax_cache  # noqa: F401 (autouse)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
@@ -119,3 +124,68 @@ def test_randint_rejects_a_span_past_16_bits():
         prng.randint(key, (4,), 0, 1 << 16)
     with pytest.raises(ValueError, match="span"):
         prng.randint(key, (4,), 3, 3)
+
+
+def _ordered(bits: np.ndarray) -> np.ndarray:
+    """f32 bits as int32 -> ints whose differences count ulps."""
+    b = bits.astype(np.int64)
+    return np.where(b < 0, -(b & 0x7FFFFFFF), b)
+
+
+def _ulps(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    return np.abs(_ordered(got.view(np.int32))
+                  - _ordered(want.view(np.int32)))
+
+
+@pytest.mark.parametrize("n", [1, 3, 7])
+def test_split_into_n_matches_jax(n):
+    for seed in (0, 11):
+        want = np.asarray(jax.random.key_data(
+            jax.random.split(jax.random.key(seed), n)))
+        got = prng.split(prng.key(seed), n)
+        assert got.shape == (n, 2) and got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    assert tuple(prng.key(5).tolist()) == _words(jax.random.key(5))
+
+
+def test_normal_matches_jax():
+    """2**16 draws of one key and a [3, 7, 11] draw of another: the
+    uniforms ``normal`` takes equal JAX's bit for bit, the normals within
+    4 ulp."""
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    for seed, shape in ((1, (1 << 16,)), (2, (3, 7, 11))):
+        key = jax.random.split(jax.random.key(seed), 3)[1]
+        tkey = prng.split(prng.key(seed), 3)[1]
+        u = prng.uniform(tkey, shape, float(lo), 1.0).numpy()
+        uj = np.asarray(jax.random.uniform(key, shape, minval=lo, maxval=1.0))
+        np.testing.assert_array_equal(u.view(np.int32), uj.view(np.int32))
+        got = prng.normal(tkey, shape).numpy()
+        want = np.asarray(jax.random.normal(key, shape))
+        assert got.dtype == np.float32 and got.shape == want.shape
+        assert _ulps(got, want).max() <= 4
+
+
+def test_normal_edges_match_jax():
+    """``erf_inv`` at the uniform's lowest value ``nextafter(-1, 0)`` (all
+    23 drawn bits 0), at 0, near +1 and at +-1 (+-inf): within 4 ulp of
+    ``jax.lax.erf_inv``, the infinities exact."""
+    x = np.array([np.nextafter(np.float32(-1), np.float32(0)), 0.0, 0.5,
+                  -0.25, np.nextafter(np.float32(1), np.float32(0)), 1.0,
+                  -1.0], np.float32)
+    got = prng.erf_inv(torch.from_numpy(x)).numpy()
+    want = np.asarray(jax.lax.erf_inv(jnp.asarray(x)))
+    assert np.isinf(got[-2:]).all() and np.array_equal(got[-2:], want[-2:])
+    assert _ulps(got[:-2], want[:-2]).max() <= 4
+
+
+def test_normal_in_slices_equals_whole_draw():
+    key = prng.key(4)
+    whole = prng.normal(key, (5, 1000)).reshape(-1)
+    cuts = [0, 1, 999, 2500, 4096, 5000]
+    parts = torch.cat([prng.normal(key, (b - a,), a)
+                       for a, b in zip(cuts, cuts[1:])])
+    assert torch.equal(whole.view(torch.int32), parts.view(torch.int32))
+    bits = prng.random_bits(key, (5, 1000)).reshape(-1)
+    assert torch.equal(prng.random_bits(key, (10,), 2495), bits[2495:2505])
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        prng.random_bits(key, (8,), (1 << 31) - 4)

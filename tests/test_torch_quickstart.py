@@ -6,6 +6,7 @@ async and ragged solves), and the distances it reports equal the JAX
 package's Dijkstra at the example's tolerance."""
 import numpy as np
 import pytest
+from _torch_jax_ref import shared_jax_cache  # noqa: F401 (autouse)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

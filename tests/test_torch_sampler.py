@@ -7,6 +7,7 @@ convention. A few hypothesis examples vary the seeds, batch size and
 fanouts."""
 import numpy as np
 import pytest
+from _torch_jax_ref import shared_jax_cache  # noqa: F401 (autouse)
 
 from _hyp import given, settings, strategies as st
 

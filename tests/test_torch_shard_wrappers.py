@@ -12,6 +12,7 @@ directory.
 """
 import numpy as np
 import pytest
+from _torch_jax_ref import shared_jax_cache  # noqa: F401 (autouse)
 
 import jax.numpy as jnp
 

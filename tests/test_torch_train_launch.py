@@ -4,21 +4,23 @@ LM, AutoInt and MACE), a short run of every registered architecture, its
 LM train step against the reference launcher's on the same parameters and
 batches, the GNN and recsys builders' batches against the reference
 launcher's, the registry's configs and shape tables against the
-reference's, its refusal of the unported dry-run cells, and the
-``train_lm`` and ``gnn_products`` examples.
+reference's, its cells of the GNN and recsys archs, and the ``train_lm``
+and ``gnn_products`` examples.
 
-The launcher makes its weights with a seeded ``torch.Generator``, not the
-reference's threefry keys, so the step is held against the reference's
-through ``params_from_numpy`` of the reference launcher's own parameters
-and the same ``TokenStream`` batches: loss and gradient norm within 1e-5
-relative, the parameters within 1e-5 of the tree's largest value
-(tests/test_torch_train.py says why).
+The launcher's weights equal the reference launcher's within a few ulp
+(tests/test_torch_materialize.py); the step is held against the
+reference's on the same weights bit for bit, through ``params_from_numpy``
+of the reference launcher's own parameters, and the same ``TokenStream``
+batches: loss and gradient norm within 1e-5 relative, the parameters
+within 1e-5 of the tree's largest value (tests/test_torch_train.py says
+why).
 """
 import dataclasses
 import re
 
 import numpy as np
 import pytest
+from _torch_jax_ref import shared_jax_cache  # noqa: F401 (autouse)
 
 import jax
 
@@ -117,15 +119,18 @@ def test_launcher_step_matches_reference(mesh11):
 
 
 @pytest.mark.parametrize("arch", ["gat-cora", "autoint"])
-def test_launcher_refuses_unported_archs(arch):
-    """Every architecture trains now; what the port still refuses is the
-    reference's dry-run cells of an architecture (ROADMAP Queue 1 item
-    10.6)."""
+def test_launcher_refuses_unported_archs(arch, mesh11, ax11):
+    """Every architecture trains, and the registry's cells of each answer
+    (they raised until ROADMAP Queue 1 item 10.6 was ported): its cells in
+    ``list_cells`` as the reference lists them, and ``build_cell`` of each
+    with the reference's kind and ``model_flops``."""
     assert arch in jax_registry.ARCHS and arch in torch_registry.ARCHS
-    for fn, args in ((torch_registry.build_cell, (arch, "train_batch")),
-                     (torch_registry.list_cells, ())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10.6"):
-            fn(*args)
+    shapes = [s for a, s in torch_registry.list_cells() if a == arch]
+    assert shapes == [s for a, s in jax_registry.list_cells() if a == arch]
+    for shape in shapes:
+        ct = torch_registry.build_cell(arch, shape, None, None)
+        cj = jax_registry.build_cell(arch, shape, mesh11, ax11)
+        assert (ct.kind, ct.model_flops) == (cj.kind, cj.model_flops)
 
 
 @pytest.mark.parametrize("arch", list(jax_registry.ARCHS))
