@@ -4,8 +4,12 @@ training paths (dense and MoE), AutoInt, the GNN zoo and the training
 entry point, on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py mesh     # the build and the mesh phase alone
 
 Run from the root of a checkout; it needs one CUDA device and ``nvcc``.
+With two cards or more the mesh phase also runs its NCCL part (with
+four, mistral-large-123b at full depth), which the run alone on four
+cards is for.
 Phases, each of which exits non-zero on a mismatch:
 
   build    compile the CUDA kernel sources (relax, send, merge, round; each
@@ -266,6 +270,36 @@ Phases, each of which exits non-zero on a mismatch:
            chunked attention, batch 4 x seq 1024, as the train phase drives
            deepseek; both MoE SMOKE configs' loss and gradients card vs
            CPU;
+  mesh     the LMs under a (data, model) mesh of processes, in f32 (the
+           ranks and one process differ by the order of f32 sums alone;
+           in bf16 each run's own roundings would flip near ties): four
+           gloo ranks sharing the card, each holding its shards of the
+           weights (made on the card from the seed): mistral-large-123b
+           at its published widths cut to 8 layers, 4 x 2048 prompts and
+           16 greedy steps on (1, 4), and cut to 2 layers with 4 steps on
+           (2, 2) (FSDP gathers every weight every step through gloo);
+           qwen3-moe-235b-a22b at its published widths cut to 4 layers
+           (32 experts a rank), 4 x 512 prompts and 8 steps on (1, 4)
+           under both MoE impls; olmoe-1b-7b cut to 2 layers, one AdamW
+           step on 4 x 512 tokens on (2, 2); each against the
+           one-process run on the same weights: greedy tokens exact, the
+           last logits within 1e-4 of the largest, each token's experts
+           exact but at near ties (1e-4 of a probability) and what those
+           reach, the loss and gradient norm within 1e-5, the gradients
+           (AdamW's first moments) within 1e-4 of each leaf's largest,
+           the stepped parameters within 2 lr + 1 ulp; and
+           mistral-large in bf16, 2 layers, 4 x 2048 and 8 steps on (1,
+           4), its logits within 3e-2 of the largest and its greedy
+           tokens exact where one process's top-2 gap exceeds twice
+           that, a row's later logits held while its tokens agree; every
+           rank's prefill launches kernel 12 (its route for the type) once a
+           layer (at q [4, 24, 2048, 128], kv [4, 2, 2048, 128] on (1,
+           4); the flash phase holds the kernel against its plain
+           version at that shape), its decode none; TTFT and decode ms a
+           step printed. With two cards or more the same over NCCL, one
+           rank a card (with four, mistral-large at full depth in bf16
+           on (1, 4), its TTFT and decode ms a step); with one, a line
+           says it did not run;
   recsys   AutoInt at its published widths (39 fields x 1e6 ids x 16,
            624e6 parameters, 2.50 GB in f32), weights made on the card from
            a seed, under the reference's recsys traffic (REC_SHAPES): 3
@@ -412,6 +446,8 @@ SERVE = dict(arch="gemma-7b", batch=4, prompt=2048, gen=32, seed=15)
 FLASH_SHAPES = {"gemma-7b": (4, 16, 16, 2048, 256),
                 "deepseek-7b": (4, 32, 32, 2048, 128),
                 "mistral-large-123b": (1, 96, 8, 2048, 128),
+                # a rank's heads on a model axis of 4 (the mesh phase)
+                "mistral-large-123b model=4 rank": (4, 24, 2, 2048, 128),
                 "olmoe-1b-7b": (4, 16, 16, 2048, 128),
                 "qwen3-moe-235b-a22b": (4, 64, 4, 2048, 128)}
 FLASH_F32_TOL = 2e-5           # max abs error, tests/test_kernels.py:63
@@ -430,6 +466,13 @@ DEPTH_CHECK = dict(layers=4, batch=2, seq=256)    # decode == forward, f32
 # therefore also holds attention() per layer against the xla path on the same
 # q, k, v (FLASH_BF16_ULPS), and fails unless that check sees the dropped tile.
 PALLAS_VS_XLA_REL = 0.02
+
+
+def one_ax():
+    """The LM steps' mesh axes on one process (the reference's (1, 1)
+    host mesh)."""
+    from repro_torch.distributed.sharding import MeshAxes
+    return MeshAxes(data=("data",))
 
 
 def fail(msg: str):
@@ -2294,8 +2337,8 @@ def serve_run(torch, cfg, params, prompts, G: int) -> dict:
     from repro_torch.kernels import build
     from repro_torch.models import transformer as tf
     P = prompts.shape[1]
-    prefill = tf.make_prefill_step(cfg)
-    serve = tf.make_serve_step(cfg, donate=True)   # caches written in place
+    prefill = tf.make_prefill_step(cfg, one_ax())
+    serve = tf.make_serve_step(cfg, one_ax(), donate=True)   # written in place
     prefill(params, {"tokens": prompts[:, :128]})   # warm-up: library loads
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2408,7 +2451,7 @@ def serve_phase(torch, np, out_dir: Path):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SERVE["seed"])
     t0 = time.perf_counter()
-    params = materialize(tf.param_defs(cfg), gen, device=dev,
+    params = materialize(tf.param_defs(cfg, one_ax()), gen, device=dev,
                          default_dtype=cfg.dtype)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
@@ -2443,7 +2486,7 @@ def serve_phase(torch, np, out_dir: Path):
 
     # (b) the kernel path against materialized scores, full width, bf16
     cfg_x = dataclasses.replace(cfg, attn_impl="xla")
-    lx = tf.make_prefill_step(cfg_x)(params, {"tokens": prompts})[0]
+    lx = tf.make_prefill_step(cfg_x, one_ax())(params, {"tokens": prompts})[0]
     diff = float((logits - lx).abs().max())
     top = float(lx.abs().max())
     agree = float((logits.argmax(-1) == lx.argmax(-1)).float().mean())
@@ -2492,15 +2535,15 @@ def serve_phase(torch, np, out_dir: Path):
     cfg4 = dataclasses.replace(cfg, n_layers=DEPTH_CHECK["layers"],
                                dtype="float32")
     gen.manual_seed(SERVE["seed"] + 1)
-    p4 = materialize(tf.param_defs(cfg4), gen, device=dev,
+    p4 = materialize(tf.param_defs(cfg4, one_ax()), gen, device=dev,
                      default_dtype=cfg4.dtype)
     Bc, S = DEPTH_CHECK["batch"], DEPTH_CHECK["seq"]
     pre = S - 4
     t4 = torch.randint(0, cfg4.vocab_size, (Bc, S), generator=gen, device=dev,
                        dtype=torch.int32)
     build.reset_launches()
-    full, _, _ = tf.forward(p4, t4, cfg4)
-    _, kvs = tf.make_prefill_step(cfg4)(p4, {"tokens": t4[:, :pre]})
+    full, _, _ = tf.forward(p4, t4, cfg4, one_ax())
+    _, kvs = tf.make_prefill_step(cfg4, one_ax())(p4, {"tokens": t4[:, :pre]})
     n_f32 = build.LAUNCHES["flash_attention"]
     if n_f32 != 2 * cfg4.n_layers or sum(build.LAUNCHES.values()) != n_f32:
         fail(f"serve: depth-4 f32 forward and prefill launches "
@@ -2508,7 +2551,7 @@ def serve_phase(torch, np, out_dir: Path):
     c4 = tuple(F.pad(t, (0, 0, 0, 0, 0, S - pre)) for t in kvs)
     worst = 0.0
     for i in range(pre, S):
-        lg, c4 = tf.make_serve_step(cfg4)(p4, t4[:, i:i + 1], c4, i)
+        lg, c4 = tf.make_serve_step(cfg4, one_ax())(p4, t4[:, i:i + 1], c4, i)
         d = (lg - full[:, i]).abs()
         if bool((d > 2e-3 + 2e-3 * full[:, i].abs()).any()):
             fail(f"serve: depth-4 f32 decode step {i} differs from forward "
@@ -2524,12 +2567,13 @@ def serve_phase(torch, np, out_dir: Path):
     # (c) the smoke configs: card (kernel) against CPU (plain), f32
     for arch in ("gemma-7b", "deepseek-7b", "mistral-large-123b"):
         c = dataclasses.replace(_load(arch, smoke=True)[1], attn_impl="pallas")
-        pc = materialize(tf.param_defs(c), torch.Generator().manual_seed(0),
+        pc = materialize(tf.param_defs(c, one_ax()),
+                         torch.Generator().manual_seed(0),
                          device="cpu", default_dtype=c.dtype)
         tc = torch.randint(0, c.vocab_size, (2, 40),
                            generator=torch.Generator().manual_seed(1))
-        got = tf.forward(_to(pc, dev), tc.to(dev), c)[0].cpu()
-        err = float((got - tf.forward(pc, tc, c)[0]).abs().max())
+        got = tf.forward(_to(pc, dev), tc.to(dev), c, one_ax())[0].cpu()
+        err = float((got - tf.forward(pc, tc, c, one_ax())[0]).abs().max())
         if not err <= 1e-4:
             fail(f"serve: {c.name} card vs CPU forward differ by {err}")
         say(f"  {c.name}: card forward (kernel 12, head dim {c.hd}) vs CPU "
@@ -3191,7 +3235,7 @@ def train_steps(torch, cfg, full, run: dict, card: str, label: str):
         f"{shape['batch']} x {shape['seq']} -> {B} x {S}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(run["seed"])
-    params = materialize(tf.param_defs(cfg), gen, device=dev,
+    params = materialize(tf.param_defs(cfg, one_ax()), gen, device=dev,
                          default_dtype=cfg.dtype)
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
                          device=dev, dtype=torch.int32)
@@ -3203,7 +3247,8 @@ def train_steps(torch, cfg, full, run: dict, card: str, label: str):
     build.reset_launches()
     losses, walls = [], []
     for mb in [1] * run["steps"] + [2]:
-        step = tf.make_train_step(cfg, AdamWConfig(), microbatches=mb)
+        step = tf.make_train_step(cfg, one_ax(), AdamWConfig(),
+                                  microbatches=mb)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, batch)
@@ -3245,7 +3290,8 @@ def smoke_params(torch, arch: str):
     from repro_torch.models import transformer as tf
     from repro_torch.models.params import materialize
     c = _load(arch, smoke=True)[1]
-    pc = materialize(tf.param_defs(c), torch.Generator().manual_seed(0),
+    pc = materialize(tf.param_defs(c, one_ax()),
+                     torch.Generator().manual_seed(0),
                      device="cpu", default_dtype=c.dtype)
     tc = torch.randint(0, c.vocab_size, (4, 41),
                        generator=torch.Generator().manual_seed(1),
@@ -3260,7 +3306,8 @@ def train_card_vs_cpu(torch, arch: str, label: str):
     from repro_torch.models import transformer as tf
     c, pc, tc = smoke_params(torch, arch)
     bc = {"tokens": tc[:, :-1], "labels": tc[:, 1:]}
-    rel, worst = grads_card_vs_cpu(torch, tf.loss_fn, pc, bc, c,
+    loss_f = functools.partial(tf.loss_fn, ax=one_ax())
+    rel, worst = grads_card_vs_cpu(torch, loss_f, pc, bc, c,
                                    f"{label}: {c.name}")
     say(f"  {c.name} f32 on the card vs the CPU: loss {rel:.3g} relative "
         f"(tolerance 1e-4), gradients within {worst:.3g} of each one's "
@@ -3287,7 +3334,7 @@ def train_phase(torch, card: str):
     c, pc, bc = train_card_vs_cpu(torch, TRAIN["arch"], "train")
     cp = dataclasses.replace(c, attn_impl="pallas")
     try:
-        tf._value_and_grad(_to(pc, dev), _to(bc, dev), cp)
+        tf._value_and_grad(_to(pc, dev), _to(bc, dev), cp, one_ax())
     except NotImplementedError as e:
         refusal = str(e).split(":")[0]
     else:
@@ -3378,11 +3425,11 @@ def moe_serve_phase(torch, card: str, out_dir: Path):
         cfg = dataclasses.replace(full, n_layers=depth or full.n_layers,
                                   attn_impl="pallas")
         full_bytes = sum(nbytes(t) for t in tree_leaves(
-            abstract(tf.param_defs(full), full.dtype)))
+            abstract(tf.param_defs(full, one_ax()), full.dtype)))
         gen = torch.Generator(device=dev)
         gen.manual_seed(SERVE["seed"] + 10 + i)
         t0 = time.perf_counter()
-        params = materialize(tf.param_defs(cfg), gen, device=dev,
+        params = materialize(tf.param_defs(cfg, one_ax()), gen, device=dev,
                              default_dtype=cfg.dtype)
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
@@ -3438,7 +3485,8 @@ def moe_serve_phase(torch, card: str, out_dir: Path):
         cfg_x = dataclasses.replace(cfg, attn_impl="xla")
         moe_mod.top_k = routed_as_kernel
         try:
-            lx = tf.make_prefill_step(cfg_x)(params, {"tokens": prompts})[0]
+            lx = tf.make_prefill_step(cfg_x, one_ax())(
+                params, {"tokens": prompts})[0]
         finally:
             moe_mod.top_k = real_top_k
         diff = float((lf - lx).abs().max())
@@ -3482,7 +3530,8 @@ def moe_serve_phase(torch, card: str, out_dir: Path):
             build.reset_launches()
             with recording(moe_mod, "_routing_group", route), \
                     recording(moe_mod, "top_k", gap):
-                logits = tf.forward(_to(pc, dev_), tc.to(dev_), c)[0].cpu()
+                logits = tf.forward(_to(pc, dev_), tc.to(dev_), c,
+                                    one_ax())[0].cpu()
             runs[where] = (logits, routes, min(gaps),
                            build.LAUNCHES["flash_attention"])
         (got, r_card, _, n_f32), (want, r_cpu, min_gap, _) = (
@@ -3949,7 +3998,7 @@ def param_defs_of(arch: str, cfg):
     family = ARCHS[arch][0]
     if family == "lm":
         from repro_torch.models import transformer as tf
-        return tf.param_defs(cfg), cfg.dtype
+        return tf.param_defs(cfg, one_ax()), cfg.dtype
     if family == "recsys":
         from repro_torch.models import autoint as ai
         return ai.autoint_param_defs(cfg), torch.float32
@@ -4251,7 +4300,666 @@ def dryrun_phase(torch, card: str):
         del args, out
 
 
+# The mesh phase: the LMs under a (data, model) mesh of processes
+# (models/transformer.py, models/moe.py, distributed/sharding.py). Four gloo
+# ranks share the card, as the dist phase's do; each rank holds its shard
+# of the weights, made from the seed on the card (materialize under the
+# mesh draws only its elements). In f32 the ranks and one process differ
+# only by the order of float32 sums, which leaves the last logits about
+# 1e-6 of the largest apart; in bf16 each rank's row-parallel partials
+# are rounded to bf16 before the psum adds them (as the reference's psum
+# does), and each run's own roundings move the logits by enough to flip a
+# greedy token or an expert at a near tie. So the equality runs are
+# in f32 (MESH_DTYPE), held to MESH_LOGITS_REL of the largest logit, the
+# greedy tokens exact, the MoE routing exact but at near ties
+# (MESH_ROUTE_TIE); the train step's loss and gradient norm within
+# MESH_LOSS_REL, its gradient (AdamW's first moment after one step, (1 -
+# b1) g) within MESH_GRAD_REL of each leaf's largest, and each stepped
+# parameter within 2 lr plus one ulp of the one-process step's (a first
+# AdamW step moves an element by about lr, its sign the gradient's). One
+# serving run is in bf16, the configs' own type (kernel 12's bf16 route at
+# a rank's heads, the row-parallel partials rounded to bf16 and summed by
+# the collective in bf16): its logits within MESH_BF16_REL of the largest
+# (the port's bf16 tolerance against JAX), its greedy tokens exact where
+# one process's top-2 gap exceeds twice that, and a row's later logits
+# held while its tokens agree (_agreeing).
+#
+# Serving: mistral-large-123b (src/repro/configs/mistral_large_123b.py) at
+# its published widths cut from 88 layers to 8 (11.88e9 parameters, 47.5
+# GB in f32: the ranks' quarters and then the one-process run's whole fit
+# the card in turn), 4 prompts of 2048 tokens and 16 greedy steps on (1,
+# 4); on (2, 2) cut to 2 layers and 4 greedy steps, since FSDP gathers
+# every weight over data at every step and gloo moves them through the
+# host (8 layers: 38.7 s a decode step on an H100 80GB HBM3, PERF.md);
+# qwen3-moe-235b-a22b at its published widths cut to 4 layers (11.2e9
+# parameters; 128 experts, 32 a rank) with 512-token prompts and 8 greedy
+# steps on (1, 4), under both MoE impls; mistral-large in bf16, 2 layers,
+# 4 x 2048 and 8 greedy steps on (1, 4). Training: olmoe-1b-7b cut to 2
+# layers, one AdamW step on 4 x 512 tokens on (2, 2) (data_shards=2: the
+# one-process step routes in the same 2 groups).
+MESH_RANKS = 4
+MESH_TIMEOUT = 900             # seconds a collective may wait for its peers
+MESH_AXES = ("data", "model")
+MESH_DTYPE = "float32"
+MESH_LOGITS_REL = 1e-4
+MESH_LOSS_REL = 1e-5
+MESH_GRAD_REL = 1e-4
+MESH_BF16_REL = 3e-2
+# An expert pick may differ from one process's only at a near tie, where
+# one process's k-th and (k+1)-th router probabilities are within this
+# share of the k-th (50x the 2e-6 that f32 sums in another order move
+# the logits by on an H100, PERF.md), or where an earlier such move
+# reached it (route_flips).
+MESH_ROUTE_TIE = 1e-4
+MESH_SERVE = (
+    dict(arch="mistral-large-123b", layers=8, meshes=((1, 4),),
+         impls=("shmap",), batch=4, prompt=2048, gen=16, seed=30,
+         dtype=MESH_DTYPE),
+    dict(arch="mistral-large-123b", layers=2, meshes=((2, 2),),
+         impls=("shmap",), batch=4, prompt=2048, gen=4, seed=30,
+         dtype=MESH_DTYPE),
+    dict(arch="qwen3-moe-235b-a22b", layers=4, meshes=((1, 4),),
+         impls=("shmap", "gspmd"), batch=4, prompt=512, gen=8, seed=31,
+         dtype=MESH_DTYPE),
+    dict(arch="mistral-large-123b", layers=2, meshes=((1, 4),),
+         impls=("shmap",), batch=4, prompt=2048, gen=8, seed=30,
+         dtype="bfloat16"))
+MESH_TRAIN = dict(arch="olmoe-1b-7b", layers=2, mesh=(2, 2), batch=4,
+                  seq=512, seed=32, dtype=MESH_DTYPE)
+# mistral-large at full depth in bf16 on four cards, one NCCL rank a card
+# (61.5 GB of weights a card): its TTFT and decode ms a step
+MESH_FULL = dict(MESH_SERVE[0], layers=None, dtype="bfloat16")
+
+
+def _card(torch):
+    """This process's card."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _mesh_cfg(spec: dict, impl: str = "shmap"):
+    """``spec``'s config at its published widths, cut to its layers, in
+    ``spec["dtype"]`` where it names one."""
+    from repro_torch.configs.registry import _load
+    full = _load(spec["arch"])[1]
+    return dataclasses.replace(full, n_layers=spec["layers"] or full.n_layers,
+                               attn_impl="pallas", moe_impl=impl,
+                               dtype=spec.get("dtype", full.dtype))
+
+
+def _route(cfg):
+    """Kernel 12's launch counter for the config's type."""
+    bf16 = str(cfg.dtype).endswith("bfloat16")
+    return "flash_attention_tc" if bf16 else "flash_attention"
+
+
+def _logits_rel(cfg) -> float:
+    """The share of the largest logit a mesh run's logits may differ by
+    from one process's in the config's type."""
+    bf16 = str(cfg.dtype).endswith("bfloat16")
+    return MESH_BF16_REL if bf16 else MESH_LOGITS_REL
+
+
+def _agreeing(np, gen, ref, rel: float):
+    """Each row's count of leading greedy tokens equal to one process's
+    (``ref``: its tokens and their top-2 gaps, ``_margin``); a token must
+    equal where the gap exceeds ``2 rel`` (two sets of logits within
+    ``rel`` of one process's take its argmax there), and a row's first
+    token that differs at a smaller gap ends its count."""
+    n = np.full(gen.shape[0], gen.shape[1])
+    for b, t in np.argwhere(gen != ref["gen"]):       # row-major
+        if t < n[b]:
+            if ref["margins"][b, t] > 2 * rel:
+                fail(f"mesh: greedy token at row {b} step {t} differs from "
+                     f"one process's at a top-2 gap of "
+                     f"{ref['margins'][b, t]:.3g} of its largest logit, past "
+                     f"2 x {rel}")
+            n[b] = t
+    return n
+
+
+def _mesh_ax(shape):
+    from repro_torch.distributed.sharding import MeshAxes
+    return MeshAxes(data=("data",), data_shards=shape[0])
+
+
+def _margin(logits):
+    """Each row's gap between its largest and second-largest logit, over
+    its largest |logit| (how near a tie its greedy choice is)."""
+    top = logits.float().topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]) / logits.float().abs().amax(dim=-1)
+
+
+def mesh_serve(torch, np, spec: dict, shape, mesh, impls):
+    """The serving path under ``mesh`` (None: one process) as
+    examples/serve_decode.py drives it: weights from ``prng.key(seed)`` on
+    the card (this rank's shards), this rank's rows of the prompts, the
+    prefill, the caches padded by ``gen`` and donated, ``gen`` greedy
+    steps; once an impl on the same weights. Returns, an impl each, the
+    tokens and the prefill's and the last step's logits (this rank's rows,
+    the whole vocabulary, on the CPU), the routing of every MoE call, the
+    launches of the prefill and of the decode (the counters set to 0 before
+    each and read after), TTFT (s), the decode steps (ms, CUDA events) and
+    the peak memory; and the seconds the weights took."""
+    import torch.nn.functional as F
+    from repro_torch.core import prng
+    from repro_torch.distributed.sharding import block, placement
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import materialize
+    dev = _card(torch)
+    cfg = _mesh_cfg(spec)
+    ax = _mesh_ax(shape)
+    B, P, G = spec["batch"], spec["prompt"], spec["gen"]
+    prompts = np.random.default_rng(spec["seed"]).integers(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)
+    out = []
+    with use_mesh(mesh):
+        pl = placement(ax)
+        lo, hi = block(B, 1, 0) if pl is None else block(B, pl.d, pl.di)
+        t0 = time.perf_counter()
+        params = materialize(tf.param_defs(cfg, ax), prng.key(spec["seed"]),
+                             device=dev, default_dtype=cfg.dtype)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        toks = torch.as_tensor(prompts[lo:hi], device=dev)
+        for impl in impls:
+            c = dataclasses.replace(cfg, moe_impl=impl)
+            prefill = tf.make_prefill_step(c, ax)
+            serve = tf.make_serve_step(c, ax, donate=True)
+            prefill(params, {"tokens": toks[:, :128]})      # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            routes, gaps = [], []
+
+            def tie(args, out):   # the experts, and the k + 1 largest
+                routes.append(out[1].cpu().numpy())    # probabilities
+                gaps.append(args[0].float().topk(args[1] + 1, dim=-1)
+                            .values.cpu().numpy())
+
+            with recording(moe, "top_k", tie):
+                build.reset_launches()
+                t0 = time.perf_counter()
+                first, kvs = prefill(params, {"tokens": toks})
+                torch.cuda.synchronize()
+                ttft = time.perf_counter() - t0
+                in_prefill = {k: v for k, v in build.LAUNCHES.items() if v}
+                caches = tuple(F.pad(t, (0, 0, 0, 0, 0, G)) for t in kvs)
+                del kvs
+                tok = first.argmax(dim=-1)[:, None].to(torch.int32)
+                gen, margins = [tok], [_margin(first)]
+                marks = [torch.cuda.Event(enable_timing=True)
+                         for _ in range(G + 1)]
+                build.reset_launches()
+                marks[0].record()
+                for i in range(G):
+                    last, caches = serve(params, tok, caches, P + i)
+                    tok = last.argmax(dim=-1)[:, None].to(torch.int32)
+                    gen.append(tok)
+                    margins.append(_margin(last))
+                    marks[i + 1].record()
+                torch.cuda.synchronize()
+                in_decode = {k: v for k, v in build.LAUNCHES.items() if v}
+            out.append(dict(
+                impl=impl, gen=torch.cat(gen, 1).cpu().numpy(),
+                margins=torch.stack(margins, 1).cpu().numpy(),
+                first=first.float().cpu().numpy(),
+                last=last.float().cpu().numpy(),
+                routes=routes, gaps=gaps,
+                in_prefill=in_prefill,
+                in_decode=in_decode, ttft=ttft,
+                steps=sorted(a.elapsed_time(b)
+                             for a, b in zip(marks, marks[1:])),
+                peak=torch.cuda.max_memory_allocated(),
+                finite=bool(torch.isfinite(first).all()
+                            and torch.isfinite(last).all())))
+            del caches, first, last
+        del params
+    torch.cuda.empty_cache()
+    return out, t_init
+
+
+def mesh_train(torch, np, spec: dict, shape, mesh, save: str | None):
+    """One make_train_step step (AdamWConfig(), attn_impl="chunked") of
+    ``spec``'s config under ``mesh`` (None: one process) on this rank's
+    rows of a batch drawn from the seed. Returns the loss and the gradient
+    norm; the stepped parameters and AdamW's first moments (this rank's
+    shards, on the CPU) go to ``save`` when given, else are returned."""
+    from repro_torch.core import prng
+    from repro_torch.distributed.sharding import block, placement
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import materialize, tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    dev = _card(torch)
+    cfg = dataclasses.replace(_mesh_cfg(spec), attn_impl="chunked")
+    ax = _mesh_ax(shape)
+    B, S = spec["batch"], spec["seq"]
+    tok = np.random.default_rng(spec["seed"]).integers(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    with use_mesh(mesh):
+        pl = placement(ax)
+        lo, hi = block(B, 1, 0) if pl is None else block(B, pl.d, pl.di)
+        params = materialize(tf.param_defs(cfg, ax), prng.key(spec["seed"]),
+                             device=dev, default_dtype=cfg.dtype)
+        batch = {"tokens": torch.as_tensor(tok[lo:hi, :-1], device=dev),
+                 "labels": torch.as_tensor(tok[lo:hi, 1:], device=dev)}
+        step = tf.make_train_step(cfg, ax, AdamWConfig())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, opt, m = step(params, adamw_init(params), batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        leaves = dict(new=[t.cpu() for t in tree_leaves(new)],
+                      m=[t.cpu() for t in tree_leaves(opt.m)])
+        del params, new, opt
+    torch.cuda.empty_cache()
+    out = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               wall=wall)
+    if save is None:
+        out.update(leaves)
+    else:
+        torch.save(leaves, save)
+    return out
+
+
+def mesh_rank(rank, world, backend, init, work, tmp, queue):
+    """One rank of the mesh phase, a spawned process: for each item of
+    ``work`` (("serve", spec, shape) or ("train", spec, shape)) joins the
+    mesh of that shape over ``backend`` and runs it; the stepped
+    parameters' shards go to ``tmp``. Puts (rank, "ok", results) on
+    ``queue``."""
+    try:
+        if str(ROOT / "src") not in sys.path:
+            sys.path.insert(0, str(ROOT / "src"))
+        import numpy as np
+        import torch
+        import torch.distributed as tdist
+        from repro_torch.launch.mesh import make_host_mesh
+        torch.set_num_threads(1)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if backend == "gloo":
+            torch.cuda.set_device(0)
+        out = []
+        for kind, spec, shape in work:
+            mesh = make_host_mesh(shape, MESH_AXES, backend=backend,
+                                  init_method=init, rank=rank,
+                                  world_size=world, timeout=MESH_TIMEOUT)
+            t0 = time.perf_counter()
+            if kind == "serve":
+                out.append(mesh_serve(torch, np, spec, shape, mesh,
+                                      spec["impls"]))
+                runs, t_init = out[-1]
+                done = (f"weights {t_init:.1f} s, TTFT "
+                        + ", ".join(f"{x['ttft']:.2f}" for x in runs)
+                        + " s, decode "
+                        + ", ".join(f"{x['steps'][len(x['steps']) // 2]:.1f}"
+                                    for x in runs) + " ms a step")
+            else:
+                out.append(mesh_train(torch, np, spec, shape, mesh,
+                                      f"{tmp}/train_{rank}.pt"))
+                done = f"step {out[-1]['wall']:.2f} s"
+            if rank == 0:
+                print(f"mesh {backend} rank 0: {kind} {spec['arch']} on "
+                      f"{shape}: {done}; {time.perf_counter() - t0:.1f} s",
+                      file=sys.stderr, flush=True)
+        queue.put((rank, "ok", out))
+        tdist.destroy_process_group()
+    except BaseException:
+        import traceback
+        queue.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def run_mesh(world: int, backend: str, init: str, work, tmp: str,
+             label: str):
+    """Spawn ``world`` ``mesh_rank`` processes and collect their results
+    (rank order); fails on a rank's error or a timeout, and stops every
+    process it started."""
+    import queue as queue_mod
+
+    import torch.multiprocessing as tmp_mp
+    ctx = tmp_mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, backend, init,
+                                                 work, tmp, q))
+             for r in range(world)]
+    got = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < world:
+            try:
+                rank, status, res = q.get(timeout=2 * MESH_TIMEOUT)
+            except queue_mod.Empty:
+                fail(f"mesh {label}: no result from ranks "
+                     f"{sorted(set(range(world)) - set(got))}")
+            if status != "ok":
+                fail(f"mesh {label}: rank {rank} failed:\n{res}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [got[r] for r in range(world)]
+
+
+def _rows_of(parts, shape, pick):
+    """A result of every data row laid together (the first model rank's;
+    every model rank's must equal it): an array, or a list of arrays laid
+    together one by one."""
+    import numpy as np
+    d, m = shape
+    rows = []
+    for di in range(d):
+        row = [pick(p) for p in parts[di * m:(di + 1) * m]]
+        for other in row[1:]:
+            if not all(np.array_equal(a, b) for a, b in zip(
+                    other if isinstance(other, list) else [other],
+                    row[0] if isinstance(row[0], list) else [row[0]])):
+                fail("mesh: the model ranks of a data row disagree")
+        rows.append(row[0])
+    if isinstance(rows[0], list):
+        return [np.concatenate([r[i] for r in rows])
+                for i in range(len(rows[0]))]
+    return np.concatenate(rows)
+
+
+def route_flips(np, routes, want, tops, B: int, P: int, L: int):
+    """Where the MoE picks ``routes`` (a ``[T, k]`` array a call: the
+    prefill's L calls over B x P tokens, then L a decode step, one token a
+    row) differ from one process's ``want``, whose k + 1 largest router
+    probabilities a token are ``tops``. A token whose set of experts
+    changed is a root when no earlier move reached it; its margin is the
+    gap between its k-th and (k+1)-th probability. A token whose experts
+    are the same but in another order (the combine adds them in that
+    order) has the gap between the two it swapped as its margin. A moved
+    set changes its token's state and so, at every later layer, the picks
+    of the tokens after it in its row (attention reads it) and of every
+    token after it in the batch's row-major order (capacity keeps an
+    expert's first tokens in that order): those are consequences. Returns
+    (roots, reordered, consequences, the widest relative margin among
+    roots and reorders, where it is: (call, row, position))."""
+    width = P + len(routes) // L          # a row's positions, and more
+    reached = np.inf                      # first (row, position) reached
+    roots = swaps = later = 0
+    worst, at = 0.0, None
+    for c, (got, ref, top) in enumerate(zip(routes, want, tops)):
+        S = P if c < L else 1
+        pos = np.arange(S) + (0 if c < L else P + (c - L) // L)
+        key = (np.arange(B)[:, None] * width + pos[None]).ravel()
+        moved = (np.sort(got, -1) != np.sort(ref, -1)).any(-1)
+        order = (got != ref).any(-1) & ~moved
+        root = moved & (key < reached)
+        k = got.shape[1]
+        margin = np.zeros(len(got))
+        margin[root] = ((top[:, k - 1] - top[:, k]) / top[:, k - 1])[root]
+        for t in np.nonzero(order & (key < reached))[0]:
+            j = int(np.argmax(got[t] != ref[t]))
+            margin[t] = (top[t, j] - top[t, j + 1]) / top[t, j]
+        roots += int(root.sum())
+        swaps += int(order.sum())
+        later += int((moved & ~root).sum())
+        if margin.max() > worst:
+            t = int(margin.argmax())
+            worst, at = float(margin[t]), (c, t // S, int(pos[t % S]))
+        if moved.any():
+            reached = min(reached, key[moved].min())
+    return roots, swaps, later, worst, at
+
+
+def check_mesh_serve(np, spec, shape, parts, ref, label: str):
+    """The ranks' serving results on the mesh of ``shape`` (``parts``: a
+    rank's ``mesh_serve`` runs each) against the
+    one-process run ``ref``: in f32 tokens and routing exact, the
+    prefill's and the last step's logits within MESH_LOGITS_REL of the
+    largest; in bf16 the tokens by ``_agreeing`` and the logits within
+    MESH_BF16_REL (the last step's of the rows whose tokens agree); finite;
+    each rank's prefill launched kernel 12's route for the type once a
+    layer and nothing else, its decode no kernel. Prints TTFT and ms a
+    step."""
+    cfg = _mesh_cfg(spec)
+    route = _route(cfg)
+    rel = _logits_rel(cfg)
+    for i, impl in enumerate(spec["impls"]):
+        what = f"{label} {cfg.name} {cfg.n_layers} layers on {shape}" + (
+            f" impl={impl}" if cfg.moe else "")
+        runs = [p[i] for p in parts]
+        for r, x in enumerate(runs):
+            if (x["in_prefill"] != {route: cfg.n_layers}
+                    or x["in_decode"] or not x["finite"]):
+                fail(f"{what}: rank {r} launched {x['in_prefill']} in the "
+                     f"prefill and {x['in_decode']} in decode (want "
+                     f"{cfg.n_layers} {route}, then none), "
+                     f"finite {x['finite']}")
+        gen = _rows_of(runs, shape, lambda x: x["gen"])
+        n = _agreeing(np, gen, ref, rel)
+        errs = []
+        for key, rows in (("first", n >= 0), ("last", n >= spec["gen"])):
+            got = _rows_of(runs, shape, lambda x: x[key])[rows]
+            want = ref[key][rows]
+            errs.append(float(np.abs(got - want).max() / np.abs(want).max())
+                        if rows.any() else 0.0)
+        if rel == MESH_LOGITS_REL and not np.array_equal(gen, ref["gen"]):
+            b, t = np.argwhere(gen != ref["gen"])[0]
+            fail(f"{what}: greedy tokens differ from one process's "
+                 f"({int((gen != ref['gen']).sum())} of {gen.size}; first "
+                 f"at row {b} step {t}, where one process's top-2 gap is "
+                 f"{ref['margins'][b, t]:.3g} of its largest logit; the "
+                 f"prefill's and last logits {errs} of the largest apart; "
+                 f"smallest gaps {np.sort(ref['margins'].ravel())[:4]})")
+        if max(errs) > rel:
+            fail(f"{what}: the prefill's and last logits {errs} of the "
+                 f"largest from one process's (tolerance {rel})")
+        if cfg.moe is not None:
+            routes = _rows_of(runs, shape, lambda x: x["routes"])
+            if len(routes) != len(ref["routes"]):
+                fail(f"{what}: {len(routes)} MoE calls, one process "
+                     f"{len(ref['routes'])}")
+            roots, swaps, later, worst, at = route_flips(
+                np, routes, ref["routes"], ref["gaps"], spec["batch"],
+                spec["prompt"], cfg.n_layers)
+            if worst >= MESH_ROUTE_TIE:
+                fail(f"{what}: MoE routing differs from one process's at a "
+                     f"token no earlier move reached (MoE call, row, "
+                     f"position {at}) by {worst:.3g} of a probability "
+                     f"(relative), past the {MESH_ROUTE_TIE} of a tie; "
+                     f"{roots} sets moved, {swaps} orders, {later} reached")
+        steps = max(x["steps"][len(x["steps"]) // 2] for x in runs)
+        wide = int((ref["margins"] > 2 * rel).sum())
+        say(f"  {what}: " + (
+                f"tokens == one process's ({gen.shape[0]} x {gen.shape[1]})"
+                if rel == MESH_LOGITS_REL else
+                f"{int(n.sum())} of {gen.size} greedy tokens == one "
+                f"process's, each row's up to its first that differs at a "
+                f"top-2 gap within 2 x {rel} ({wide} of one process's "
+                f"tokens at a gap past it)") + (
+                f"; each token's experts == one process's but {roots} "
+                f"(token, layer) sets and {swaps} orders within the top-k, "
+                f"each at a near tie (within {worst:.3g} of a probability, "
+                f"tie {MESH_ROUTE_TIE}), and {later} sets those reach at "
+                f"later layers" if cfg.moe else ""))
+        say(f"    prefill and last logits within {errs[0]:.3g}, "
+            f"{errs[1]:.3g} of the largest (tolerance {rel}; the last of "
+            f"{int((n >= spec['gen']).sum())} rows); "
+            f"TTFT {max(x['ttft'] for x in runs):.3f} s (one process "
+            f"{ref['ttft']:.3f} s), decode {steps:.2f} ms a step, median "
+            f"of the slowest rank (one process "
+            f"{ref['steps'][len(ref['steps']) // 2]:.2f} ms); peak "
+            f"{max(x['peak'] for x in runs) / 2**30:.2f} GiB a rank; "
+            f"kernel 12 ({route}) launched {cfg.n_layers} times in every "
+            f"rank's prefill")
+
+
+def check_mesh_train(torch, spec, shape, parts, ref, tmp: str, label: str):
+    """The ranks' train steps (``parts``: a rank's ``mesh_train`` result
+    each) against the one-process step ``ref``: the loss and the gradient
+    norm within MESH_LOSS_REL relative; each rank's shard of every leaf's
+    first moment (after one step, (1 - b1) times the clipped gradient)
+    within MESH_GRAD_REL of the leaf's largest one-process value, and of
+    its stepped parameters within 2 lr plus one ulp, against
+    ``local_shard`` of the one-process leaf; the share of parameters that
+    differ printed."""
+    from repro_torch.distributed.sharding import local_shard
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import _leaves
+    from repro_torch.optim import AdamWConfig
+    cfg = _mesh_cfg(spec)
+    defs = [d for _, d in _leaves(tf.param_defs(cfg, _mesh_ax(shape)))]
+    lr = AdamWConfig().lr
+    worst, worst_m, differ, total = 0.0, 0.0, 0, 0
+    dev = _card(torch)
+    top_m = [float(w.abs().max()) for w in ref["m"]]
+    for r, x in enumerate(parts):
+        for key in ("loss", "grad_norm"):
+            if abs(x[key] - ref[key]) > MESH_LOSS_REL * abs(ref[key]):
+                fail(f"{label}: rank {r} {key} {x[key]} vs one process "
+                     f"{ref[key]}")
+        mesh = HostMesh(shape=shape, axis_names=MESH_AXES, backend="gloo",
+                        rank=r)
+        mine = torch.load(f"{tmp}/train_{r}.pt")
+        for d, got, whole, top in zip(defs, mine["m"], ref["m"], top_m,
+                                      strict=True):
+            want = local_shard(whole, d.pspec, mesh).to(dev)
+            if not want.numel():
+                continue
+            err = float((got.to(dev) - want).abs().max()) / max(top, 1e-30)
+            worst_m = max(worst_m, err)
+            if err > MESH_GRAD_REL:
+                fail(f"{label}: rank {r}'s gradient (first moment) differs "
+                     f"from one process's by {err:.3g} of its largest, past "
+                     f"{MESH_GRAD_REL}")
+        for d, got, whole in zip(defs, mine["new"], ref["new"], strict=True):
+            want = local_shard(whole, d.pspec, mesh).to(dev).float()
+            diff = (got.to(dev).float() - want).abs()
+            bits = 8 if got.dtype == torch.bfloat16 else 24
+            ulp = torch.exp2(torch.frexp(want.abs())[1].float() - bits)
+            excess = float((diff - 2 * lr - ulp).max()) if diff.numel() \
+                else 0.0
+            worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+            differ += int((diff > 0).sum())
+            total += diff.numel()
+            if excess > 0:
+                fail(f"{label}: rank {r}'s stepped shard differs from one "
+                     f"process's by {float(diff.max())}, past 2 lr + 1 ulp")
+    say(f"  {label} {cfg.name} {cfg.n_layers} layers on {shape}: loss "
+        f"{parts[0]['loss']:.6f} vs {ref['loss']:.6f} one process, "
+        f"grad norm {parts[0]['grad_norm']:.7g} vs {ref['grad_norm']:.7g} "
+        f"(tolerance {MESH_LOSS_REL}); gradients (first moments) within "
+        f"{worst_m:.3g} of a leaf's largest (tolerance {MESH_GRAD_REL}); "
+        f"stepped parameters within {worst:.3g} (2 lr = {2 * lr}), "
+        f"{differ} of {total} elements not bit-equal; step "
+        f"{max(p['wall'] for p in parts):.2f} s on the ranks, "
+        f"{ref['wall']:.2f} s one process")
+
+
+def mesh_phase(torch, np, card: str):
+    """The LMs under a (data, model) mesh of processes on the card: the
+    one-process runs of MESH_SERVE and MESH_TRAIN, then MESH_RANKS gloo
+    ranks sharing the card run them on their meshes (check_mesh_serve,
+    check_mesh_train). Then, with two cards or more, the same over NCCL,
+    one rank a card (and with four, mistral-large at full depth on (1,
+    4), its TTFT and decode ms a step printed); with one card it says so.
+    Fails on any mismatch."""
+    t_phase = time.perf_counter()
+    _mesh_phase(torch, np, card, MESH_SERVE, MESH_TRAIN)
+    say(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def _fit(shape, world: int):
+    """A mesh of ``world`` ranks in ``shape``'s place: (1, m) -> (1,
+    world), (d, m) -> (2, world // 2)."""
+    return shape if shape[0] * shape[1] == world else (
+        (1, world) if shape[0] == 1 else (2, world // 2))
+
+
+def _mesh_phase(torch, np, card: str, serve, train):
+    import socket
+    import tempfile
+    refs = []
+    for spec in serve:
+        cfg = _mesh_cfg(spec)
+        runs, t_init = mesh_serve(torch, np, spec, (1, 1), None, ("shmap",))
+        refs.append(runs[0])
+        say(f"mesh phase: {cfg.name} at its published widths, "
+            f"{cfg.n_layers} layers, {cfg.n_params()} params "
+            f"({cfg.dtype}), one process: weights {t_init:.1f} s, TTFT "
+            f"{runs[0]['ttft']:.3f} s for {spec['batch']} x "
+            f"{spec['prompt']} tokens, decode "
+            f"{runs[0]['steps'][len(runs[0]['steps']) // 2]:.2f} ms a step, "
+            f"peak {runs[0]['peak'] / 2**30:.2f} GiB; {card}")
+    train_ref = mesh_train(torch, np, train, (train["mesh"][0], 1), None,
+                           None)
+    work = [("serve", i, shape) for i, spec in enumerate(serve)
+            for shape in spec["meshes"]]
+    work.append(("train", None, train["mesh"]))
+
+    def items(world):
+        return [(kind, serve[i] if kind == "serve" else train,
+                 _fit(shape, world)) for kind, i, shape in work]
+
+    def check(parts, world, label, tmp):
+        for j, (kind, i, shape) in enumerate(work):
+            shape = _fit(shape, world)
+            if kind == "serve":
+                check_mesh_serve(np, serve[i], shape,
+                                 [p[j][0] for p in parts], refs[i], label)
+            else:
+                check_mesh_train(torch, train, shape, [p[j] for p in parts],
+                                 train_ref, tmp, f"{label} train")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        parts = run_mesh(MESH_RANKS, "gloo", f"file://{tmp}/store",
+                         items(MESH_RANKS), tmp, "gloo")
+        wall = time.perf_counter() - t0
+        check(parts, MESH_RANKS, "mesh gloo", tmp)
+    say(f"mesh gloo: {MESH_RANKS} ranks sharing the card, jobs "
+        f"{len(work)}, {wall:.1f} s; every collective goes through gloo, "
+        f"time-sliced on one card: not a deployment's speed ({card})")
+    n = torch.cuda.device_count()
+    if n < 2:
+        say(f"mesh nccl: not run: {n} CUDA device on this machine; NCCL "
+            f"takes one rank a card")
+        return
+    world = 4 if n >= 4 else 2
+    nwork = items(world)
+    if world == 4:
+        nwork.append(("serve", MESH_FULL, (1, 4)))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        parts = run_mesh(world, "nccl", f"tcp://localhost:{port}", nwork,
+                         tmp, "nccl")
+        wall = time.perf_counter() - t0
+        check(parts, world, "mesh nccl", tmp)
+        if world == 4:
+            runs = [p[-1][0][0] for p in parts]
+            cfg = _mesh_cfg(MESH_FULL)
+            if not all(x["finite"] and x["in_prefill"] == {
+                    _route(cfg): cfg.n_layers} and not x["in_decode"]
+                    for x in runs):
+                fail("mesh nccl full depth: a rank's logits or launches are "
+                     "off")
+            steps = max(x["steps"][len(x["steps"]) // 2] for x in runs)
+            say(f"  mesh nccl {cfg.name} full depth ({cfg.n_layers} layers, "
+                f"{cfg.dtype}) on (1, 4), one rank a card: TTFT "
+                f"{max(x['ttft'] for x in runs):.3f} s for "
+                f"{MESH_FULL['batch']} x {MESH_FULL['prompt']} tokens, decode"
+                f" {steps:.2f} ms a step (median, slowest rank), peak "
+                f"{max(x['peak'] for x in runs) / 2**30:.2f} GiB a card")
+    say(f"mesh nccl: {world} ranks, one a card, jobs {len(nwork)}, "
+        f"{wall:.1f} s ({card})")
+
 def main():
+    if sys.argv[1:] not in ([], ["mesh"]):
+        fail("usage: chip_smoke.py [mesh]")
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a checkout")
     sys.path.insert(0, str(ROOT / "src"))
@@ -4283,6 +4991,11 @@ def main():
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_build.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+    if sys.argv[1:] == ["mesh"]:      # the mesh phase alone
+        mesh_phase(torch, np, card)
+        say(f"total: {time.perf_counter() - t_start:.1f} s after the card "
+            f"query")
+        return
 
     # ---- the scale-1e6 graph and its dense shards -----------------------
     t0 = time.perf_counter()
@@ -4657,6 +5370,10 @@ def main():
     moe_serve_phase(torch, card, out_dir)
     torch.cuda.empty_cache()
     moe_train_phase(torch, card)
+    torch.cuda.empty_cache()
+
+    # ---- the LMs under a (data, model) mesh of processes ------------------
+    mesh_phase(torch, np, card)
     torch.cuda.empty_cache()
 
     # ---- AutoInt and the GNN zoo at their published widths ----------------

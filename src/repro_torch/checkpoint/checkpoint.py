@@ -24,6 +24,15 @@ Restart semantics:
     the target leaf's type, on ``device``: by default the target leaf's
     own, which a ``meta`` target has not, so it then needs ``device``;
   - ``CheckpointManager`` keeps the newest K steps and prunes older ones.
+
+Elastic restore: a tree sharded over a mesh of processes is saved whole,
+on the same layout, given ``shardings`` (a matching tree of
+``NamedSharding``; ``PartitionSpec()`` for a leaf every rank holds
+whole): every rank gathers each leaf (``sharding.gather_full``), rank 0
+writes, and the save returns on every rank once the step is committed. The
+checkpoint is layout-agnostic, so ``restore_checkpoint(...,
+shardings=...)`` puts each rank's shard of every leaf onto any mesh
+(``sharding.local_shard``), whatever mesh, or none, wrote it.
 """
 from __future__ import annotations
 
@@ -33,8 +42,10 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import gather_full, local_shard
 from repro_torch.models.params import tree_leaves, tree_unflatten
 
 
@@ -76,15 +87,48 @@ def _from_numpy(arr: np.ndarray, name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def save_checkpoint(directory: str, step: int, tree) -> str:
+def _shardings(tree, shardings) -> list:
+    """One ``NamedSharding`` (or None: no mesh) a leaf of ``tree``."""
+    if shardings is None:
+        return [None] * len(tree_leaves(tree))
+    return tree_leaves(shardings)
+
+
+def _mesh_of(shardings):
+    """The mesh of more than one process the shardings place leaves on,
+    else None."""
+    if shardings is not None:
+        for sh in tree_leaves(shardings):
+            if sh.mesh.size > 1:
+                return sh.mesh
+    return None
+
+
+def save_checkpoint(directory: str, step: int, tree, shardings=None) -> str:
+    """Write ``tree`` as step ``step`` (crash-safe). With ``shardings``
+    the leaves are this rank's shards: every rank of the mesh calls this,
+    each leaf is gathered whole, rank 0 alone writes, and every rank
+    returns once the step is committed."""
+    leaves = tree_leaves(tree)
+    mesh = _mesh_of(shardings)
+    if mesh is not None:
+        leaves = [gather_full(leaf, sh.spec, sh.mesh) for leaf, sh in zip(
+            leaves, _shardings(tree, shardings), strict=True)]
+    if mesh is None or mesh.rank == 0:
+        _write(directory, step, tree, leaves)
+    if mesh is not None:
+        dist.barrier()
+    return os.path.join(directory, f"step_{step:08d}")
+
+
+def _write(directory: str, step: int, tree, leaves):
     os.makedirs(directory, exist_ok=True)
     name = f"step_{step:08d}"
-    tmp = os.path.join(directory, name + ".tmp")
     final = os.path.join(directory, name)
+    tmp = os.path.join(directory, name + ".tmp")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    leaves = tree_leaves(tree)
     shapes, dtypes = [], []
     for i, leaf in enumerate(leaves):
         arr, dt = _to_numpy(leaf)
@@ -98,7 +142,6 @@ def save_checkpoint(directory: str, step: int, tree) -> str:
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)          # atomic commit
-    return final
 
 
 def _steps(directory: str) -> list:
@@ -113,19 +156,27 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory: str, step: int, target_tree, device=None):
+def restore_checkpoint(directory: str, step: int, target_tree,
+                       shardings=None, device=None):
     """The checkpoint of ``step`` shaped as ``target_tree`` (tensors, or the
     ``meta`` tensors of ``params.abstract``), each leaf cast to its target
     leaf's type and put on ``device``, by default the target leaf's device.
     A ``meta`` target leaf, or one that is no tensor, needs ``device``
-    (``None`` then means ``cuda``, as everywhere in the port)."""
+    (``None`` then means ``cuda``, as everywhere in the port).
+    ``shardings`` (a matching tree of ``NamedSharding``) gives each leaf as
+    this rank's shard on its mesh: the elastic restore onto the live
+    mesh."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "meta.json")) as f:
         names = json.load(f)["dtypes"]
     out = []
-    for i, t in enumerate(tree_leaves(target_tree)):
+    for i, (t, sh) in enumerate(zip(tree_leaves(target_tree),
+                                    _shardings(target_tree, shardings),
+                                    strict=True)):
         arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
         leaf = _from_numpy(arr, names[i])
+        if sh is not None:
+            leaf = local_shard(leaf, sh.spec, sh.mesh).contiguous()
         if isinstance(t, torch.Tensor):
             dev = t.device if device is None and not t.is_meta else (
                 resolve_device(device))
@@ -141,9 +192,11 @@ class CheckpointManager:
         self.directory = directory
         self.keep = keep
 
-    def save(self, step: int, tree):
-        path = save_checkpoint(self.directory, step, tree)
-        self._prune()
+    def save(self, step: int, tree, shardings=None):
+        path = save_checkpoint(self.directory, step, tree, shardings)
+        mesh = _mesh_of(shardings)
+        if mesh is None or mesh.rank == 0:     # the writer prunes
+            self._prune()
         return path
 
     def _prune(self):
@@ -153,8 +206,10 @@ class CheckpointManager:
     def latest(self) -> int | None:
         return latest_step(self.directory)
 
-    def restore(self, target_tree, device=None, step: int | None = None):
+    def restore(self, target_tree, shardings=None, step: int | None = None,
+                device=None):
         s = step if step is not None else self.latest()
         if s is None:
             return None, None
-        return restore_checkpoint(self.directory, s, target_tree, device), s
+        return restore_checkpoint(self.directory, s, target_tree, shardings,
+                                  device), s

@@ -6,9 +6,11 @@ compute ratio.
 
 ``list_cells`` gives the reference's 44 cells in its order, and every
 cell's ``model_flops`` and argument bytes equal the reference's (at
-``n_parts`` equal to its mesh's size for SSSP). The port runs on one card:
-a cell has no shardings, and ``build_cell`` takes no mesh. The dry run
-(``launch/dryrun.py``) runs each step on ``meta`` tensors."""
+``n_parts`` equal to its mesh's size for SSSP). A cell has no shardings
+yet (the steps run over a mesh of processes, ``launch.mesh.use_mesh``,
+but a cell's ``in_shardings`` are ROADMAP item 11b), and ``build_cell``
+takes no mesh. The dry run (``launch/dryrun.py``) runs each step on
+``meta`` tensors."""
 from __future__ import annotations
 
 import dataclasses
@@ -141,6 +143,7 @@ LONG_500K_SKIP = ("pure full-attention arch: 512K-token dense attention is "
 
 
 def _lm_cell(arch, cfg, shape_id) -> Cell:
+    from repro_torch.distributed.sharding import MeshAxes
     from repro_torch.models import transformer as tf
     from repro_torch.models.params import abstract
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -148,26 +151,27 @@ def _lm_cell(arch, cfg, shape_id) -> Cell:
     if shape_id == "long_500k":
         return Cell(arch, shape_id, "decode", None, None, 0.0,
                     skip=LONG_500K_SKIP)
-    p_struct = abstract(tf.param_defs(cfg), cfg.dtype)
+    ax = MeshAxes(data=("data",))
+    p_struct = abstract(tf.param_defs(cfg, ax), cfg.dtype)
     N_active = cfg.n_active_params()
     B, S = sh["batch"], sh["seq"]
     L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.hd
 
     if sh["kind"] == "train":
-        step = tf.make_train_step(cfg, AdamWConfig())
+        step = tf.make_train_step(cfg, ax, AdamWConfig())
         batch = {"tokens": _meta((B, S), torch.int32),
                  "labels": _meta((B, S), torch.int32)}
         args = (p_struct, adamw_init(p_struct), batch)
         return Cell(arch, shape_id, "train", step, args, 6.0 * N_active * B * S)
 
     if sh["kind"] == "prefill":
-        step = tf.make_prefill_step(cfg)
+        step = tf.make_prefill_step(cfg, ax)
         args = (p_struct, {"tokens": _meta((B, S), torch.int32)})
         return Cell(arch, shape_id, "prefill", step, args,
                     2.0 * N_active * B * S)
 
     # decode: one new token against a KV cache of seq_len
-    step = tf.make_serve_step(cfg)
+    step = tf.make_serve_step(cfg, ax)
     caches = tuple(_meta((L, B, S, Hkv, Dh), cfg.torch_dtype)
                    for _ in range(2))
     args = (p_struct, _meta((B, 1), torch.int32), caches,
@@ -345,14 +349,15 @@ def _sssp_cell(shape_id, n_parts: int, sssp_cfg=None) -> Cell:
 def build_cell(arch: str, shape_id: str, mesh=None, ax=None,
                smoke: bool = False, **kw) -> Cell:
     """The cell of ``arch`` at ``shape_id``, in the reference's argument
-    order. The port runs on one card and its steps take no mesh axes, so
-    ``mesh`` and ``ax`` must be None. An SSSP cell (``arch`` "sp-async" or
+    order. A cell carries no shardings yet (ROADMAP item 11b): ``mesh``
+    and ``ax`` must be None, and an LM cell's steps take the one-process
+    ``MeshAxes``. An SSSP cell (``arch`` "sp-async" or
     "sssp") stacks ``kw["n_parts"]`` shards (default 256, the reference's
     16 x 16 production mesh) and solves with ``kw["sssp_cfg"]`` (default
     ``SsspConfig(max_rounds=64)``)."""
     if mesh is not None or ax is not None:
         raise ValueError(
-            "build_cell: the port runs on one card with no mesh; pass "
+            "build_cell: a cell carries no shardings yet; pass "
             "mesh=None and ax=None (SSSP cells take n_parts=)")
     if arch in ("sp-async", "sssp"):
         return _sssp_cell(shape_id, kw.get("n_parts", 256),

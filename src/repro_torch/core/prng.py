@@ -118,19 +118,35 @@ def random_bits(key: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
     return o0 ^ o1
 
 
-def uniform(key: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0, offset: int = 0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, minval=minval, maxval=maxval)`` in
-    f32: a uniform on ``[0, 1)`` scaled to ``[minval, maxval)`` in f32 and
-    clamped at ``minval`` from below, as JAX does. ``offset`` as in
-    ``random_bits``."""
-    bits = ((random_bits(key, shape, offset) >> 9) & 0x7FFFFF) | 0x3F800000
+def random_bits_at(key: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The 32 bits ``random_bits`` gives the elements at flat ``index``
+    (int64, any shape, below 2**64) of a whole draw from one ``[2]`` key:
+    the hash of each index's high and low word, words xored (a block of a
+    tensor drawn by itself, as a shard of a weight is)."""
+    k = _bits32(key)
+    hi = _bits32(index >> 32)
+    lo = _bits32(index & MASK)
+    o0, o1 = threefry2x32(k[0], k[1], hi, lo)
+    return o0 ^ o1
+
+
+def _unit(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    bits = ((bits >> 9) & 0x7FFFFF) | 0x3F800000
     u = bits.view(torch.float32) - 1.0
     if (minval, maxval) == (0.0, 1.0):
         return u
     lo = torch.tensor(minval, dtype=torch.float32, device=u.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=u.device)
     return torch.maximum(lo, u * (hi - lo) + lo)
+
+
+def uniform(key: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0, offset: int = 0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=minval, maxval=maxval)`` in
+    f32: a uniform on ``[0, 1)`` scaled to ``[minval, maxval)`` in f32 and
+    clamped at ``minval`` from below, as JAX does. ``offset`` as in
+    ``random_bits``."""
+    return _unit(random_bits(key, shape, offset), minval, maxval)
 
 
 # xla/hlo/builder/lib/math.cc: ErfInv32 (M. Giles, "Approximating the erfinv
@@ -179,6 +195,13 @@ def normal(key: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
     for bit, the normals within a few ulp (``erf_inv``). ``offset`` as in
     ``random_bits``."""
     u = uniform(key, shape, _NEXT_ABOVE_MINUS_1, 1.0, offset)
+    return erf_inv(u) * _SQRT2_F32
+
+
+def normal_at(key: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The elements at flat ``index`` of ``normal(key, shape)`` (see
+    ``random_bits_at``)."""
+    u = _unit(random_bits_at(key, index), _NEXT_ABOVE_MINUS_1, 1.0)
     return erf_inv(u) * _SQRT2_F32
 
 

@@ -139,3 +139,106 @@ def all_gather_tiled(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
         dist.all_gather_into_tensor
     gather(out, x, group=ag.group)
     return out
+
+
+# --------------------------------------------------------------------------
+# differentiable collectives of the sharded LM steps
+# --------------------------------------------------------------------------
+#
+# ``ag`` is None where the axes hold one process: then each is the
+# identity and issues no collective.
+
+def _gather_rows(x: torch.Tensor, ag: AxisGroup, dim: int, size: int):
+    """Every rank's block of a dimension of ``size`` (``sharding.block``'s
+    blocks), padded to the block size for the collective, laid end to end
+    and cut back to ``size``."""
+    b = -(-size // ag.size)
+    x = x.movedim(dim, 0)
+    if x.shape[0] < b:
+        x = torch.cat([x, x.new_zeros((b - x.shape[0], *x.shape[1:]))])
+    return all_gather_tiled(x, ag)[:size].movedim(0, dim)
+
+
+def _scatter_sum(g: torch.Tensor, ag: AxisGroup, dim: int, lo: int,
+                 hi: int):
+    """The sum over the group of ``g`` (whole along ``dim``), rows
+    ``[lo, hi)`` of it: a reduce-scatter. Gloo has no reduce-scatter of
+    CUDA tensors in every PyTorch, so under gloo it is an all-reduce
+    followed by this rank's slice."""
+    if ag.backend != "nccl":
+        return psum_named(g, ag).narrow(dim, lo, hi - lo)
+    size = g.shape[dim]
+    b = -(-size // ag.size)
+    g = g.movedim(dim, 0)
+    if size < b * ag.size:
+        g = torch.cat([g, g.new_zeros((b * ag.size - size, *g.shape[1:]))])
+    out = torch.empty((b, *g.shape[1:]), dtype=g.dtype, device=g.device)
+    scatter = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    scatter(out, g.contiguous(), group=ag.group)
+    return out[:hi - lo].movedim(0, dim)
+
+
+class _AllGatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ag, dim, size):
+        ctx.args = (ag, dim, x.shape[dim])
+        return _gather_rows(x, ag, dim, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        ag, dim, n = ctx.args
+        b = -(-g.shape[dim] // ag.size)
+        lo = min(ag.rank * b, g.shape[dim])
+        return _scatter_sum(g, ag, dim, lo, lo + n), None, None, None
+
+
+def all_gather_dim(x: torch.Tensor, ag: AxisGroup | None, dim: int,
+                   size: int) -> torch.Tensor:
+    """The whole of a dimension of ``size`` from every rank's block ``x``
+    (the FSDP gather of a weight where it is used); the backward sums the
+    whole gradient over the group and hands each rank its block (a
+    reduce-scatter)."""
+    if ag is None:
+        return x
+    return _AllGatherDim.apply(x, ag, dim, size)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ag):
+        ctx.ag = ag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum_named(g, ctx.ag), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ag):
+        return psum_named(x, ag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, ag: AxisGroup | None) -> torch.Tensor:
+    """Identity forward, all-reduce backward: where a tensor every rank of
+    the group holds whole enters work that each rank does a part of (the
+    input of a column-parallel product), the parts' gradients add up."""
+    return x if ag is None else _CopyToGroup.apply(x, ag)
+
+
+def reduce_from_group(x: torch.Tensor, ag: AxisGroup | None
+                      ) -> torch.Tensor:
+    """All-reduce forward, identity backward: the sum of every rank's
+    partial (the row-parallel ``psum``)."""
+    return x if ag is None else _ReduceFromGroup.apply(x, ag)
+
+
+def max_over_group(x: torch.Tensor, ag: AxisGroup | None) -> torch.Tensor:
+    """Elementwise max over the group, no gradient."""
+    return x.detach() if ag is None else pmax_named(x.detach(), ag)

@@ -16,6 +16,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import prng
 from repro_torch.data import TokenStream
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import MeshAxes
 from repro_torch.models import transformer as tf
 from repro_torch.models.params import materialize, n_params as count_params
 from repro_torch.optim import AdamWConfig
@@ -39,12 +40,13 @@ def main(argv=None):
 
     cfg = CONFIG
     device = resolve_device(args.device)
-    defs = tf.param_defs(cfg)
+    ax = MeshAxes(data=("data",))
+    defs = tf.param_defs(cfg, ax)
     print(f"params: {count_params(defs) / 1e6:.1f}M")
     params = materialize(defs, prng.key(0), device=device,
                          default_dtype=cfg.dtype)
     opt = adamw_init(params)
-    step = tf.make_train_step(cfg, AdamWConfig(lr=3e-4))
+    step = tf.make_train_step(cfg, ax, AdamWConfig(lr=3e-4))
     data = iter(TokenStream(args.batch, args.seq, cfg.vocab_size,
                             device=device))
     mgr = CheckpointManager(args.ckpt_dir, keep=2)

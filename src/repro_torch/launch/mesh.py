@@ -10,10 +10,18 @@ The communication backend is always the caller's: ``make_host_mesh``
 takes it as a required keyword and never picks or changes one. NCCL needs
 a card per process on a host, so NCCL with more processes on a host than
 CUDA devices raises, naming ``backend="gloo"``, which is how several
-processes share one card (gloo collectives on CUDA tensors).
+processes share one card (gloo collectives on CUDA tensors). A mesh of one
+process needs no process group: with none to join, ``make_host_mesh()``
+of shape (1, 1) starts none, and nothing on it issues a collective.
+
+``use_mesh(mesh)`` makes a mesh the ambient one for the code inside it (the
+reference's ``jax.set_mesh``): the LM steps read it (``current_mesh``),
+so they keep the reference's signatures.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import datetime
 import math
@@ -99,7 +107,9 @@ def make_host_mesh(shape=(1, 1), axes=("data", "model"), *, backend: str,
 
     ``backend`` is ``"nccl"`` (one CUDA device per process on a host; the
     process's current device becomes ``LOCAL_RANK``'s) or ``"gloo"``
-    (any number of processes per card, CUDA or CPU tensors)."""
+    (any number of processes per card, CUDA or CPU tensors). A mesh of
+    one process, with no group to join and neither ``init_method`` nor
+    torchrun's environment, starts no group."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown communication backend {backend!r}; "
                          f"valid: {list(BACKENDS)}")
@@ -114,6 +124,10 @@ def make_host_mesh(shape=(1, 1), axes=("data", "model"), *, backend: str,
                 f"the process group runs {dist.get_backend()!r}, not the "
                 f"backend={backend!r} asked for")
         world = dist.get_world_size()
+    elif n == 1 and init_method is None and any(k not in os.environ
+                                                for k in _ENV):
+        return HostMesh(shape=shape, axis_names=axes, backend=backend,
+                        rank=0)                # one process: no group
     else:
         if init_method is None:
             missing = [k for k in _ENV if k not in os.environ]
@@ -152,3 +166,21 @@ def make_host_mesh(shape=(1, 1), axes=("data", "model"), *, backend: str,
                                                  dist.get_rank())))
     return HostMesh(shape=shape, axis_names=axes, backend=backend,
                     rank=dist.get_rank())
+
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("mesh", default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: HostMesh | None):
+    """Within the block, ``mesh`` is the ambient mesh (``current_mesh``)
+    that the LM steps shard over; None means one process."""
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def current_mesh() -> HostMesh | None:
+    return _MESH.get()

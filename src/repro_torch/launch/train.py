@@ -38,6 +38,8 @@ from repro_torch.configs.registry import _load
 from repro_torch.core import prng
 from repro_torch.data import GraphBatcher, RecsysBatcher, TokenStream
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import MeshAxes
+from repro_torch.launch.mesh import make_host_mesh, use_mesh
 from repro_torch.models.params import materialize
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim.adamw import adamw_init
@@ -49,10 +51,10 @@ def _weights(defs, device, dtype=torch.float32):
     return materialize(defs, prng.key(0), device=device, default_dtype=dtype)
 
 
-def build_lm(cfg, batch, seq, opt_cfg, device=None):
+def build_lm(cfg, ax, batch, seq, opt_cfg, device=None):
     from repro_torch.models import transformer as tf
-    params = _weights(tf.param_defs(cfg), device, cfg.dtype)
-    step = tf.make_train_step(cfg, opt_cfg)
+    params = _weights(tf.param_defs(cfg, ax), device, cfg.dtype)
+    step = tf.make_train_step(cfg, ax, opt_cfg)
     data = TokenStream(batch, seq, cfg.vocab_size, device=device)
     return params, step, data
 
@@ -123,42 +125,46 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    family, cfg = _load(args.arch, smoke=args.smoke)
-    opt_cfg = AdamWConfig(lr=args.lr)
-    if family == "lm":
-        params, step_fn, data = build_lm(cfg, args.batch, args.seq, opt_cfg,
-                                         device)
-    elif family == "recsys":
-        params, step_fn, data = build_recsys(cfg, args.batch, opt_cfg,
-                                             device)
-    else:
-        params, step_fn, data = build_gnn(args.arch, cfg, opt_cfg, device)
+    mesh = make_host_mesh(backend="gloo")    # (1, 1), as the reference's
+    ax = MeshAxes(data=("data",))
+    with use_mesh(mesh):
+        family, cfg = _load(args.arch, smoke=args.smoke)
+        opt_cfg = AdamWConfig(lr=args.lr)
+        if family == "lm":
+            params, step_fn, data = build_lm(cfg, ax, args.batch, args.seq,
+                                             opt_cfg, device)
+        elif family == "recsys":
+            params, step_fn, data = build_recsys(cfg, args.batch, opt_cfg,
+                                                 device)
+        else:
+            params, step_fn, data = build_gnn(args.arch, cfg, opt_cfg,
+                                              device)
 
-    opt_state = adamw_init(params)
-    start = 0
-    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
-    if mgr is not None and mgr.latest() is not None:
-        (params, opt_state), start = mgr.restore((params, opt_state))
-        print(f"resumed from step {start}")
+        opt_state = adamw_init(params)
+        start = 0
+        mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+        if mgr is not None and mgr.latest() is not None:
+            (params, opt_state), start = mgr.restore((params, opt_state))
+            print(f"resumed from step {start}")
 
-    it = iter(data)
-    for _ in range(start):          # the batches of the steps already taken
-        next(it)
-    losses = []
-    t0 = time.time()
-    for s in range(start, args.steps):
-        batch = next(it)
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
-        losses.append(float(metrics["loss"]))
-        if (s + 1) % args.log_every == 0:
-            dt = (time.time() - t0) / args.log_every
-            print(f"step {s+1}: loss={losses[-1]:.4f} "
-                  f"({dt*1e3:.0f} ms/step)")
-            t0 = time.time()
-        if mgr is not None and (s + 1) % args.ckpt_every == 0:
-            mgr.save(s + 1, (params, opt_state))
-    print(f"final loss: {losses[-1]:.4f} (first: {losses[0]:.4f})")
-    return losses
+        it = iter(data)
+        for _ in range(start):      # the batches of the steps already taken
+            next(it)
+        losses = []
+        t0 = time.time()
+        for s in range(start, args.steps):
+            batch = next(it)
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            losses.append(float(metrics["loss"]))
+            if (s + 1) % args.log_every == 0:
+                dt = (time.time() - t0) / args.log_every
+                print(f"step {s+1}: loss={losses[-1]:.4f} "
+                      f"({dt*1e3:.0f} ms/step)")
+                t0 = time.time()
+            if mgr is not None and (s + 1) % args.ckpt_every == 0:
+                mgr.save(s + 1, (params, opt_state))
+        print(f"final loss: {losses[-1]:.4f} (first: {losses[0]:.4f})")
+        return losses
 
 
 if __name__ == "__main__":

@@ -8,9 +8,12 @@ a few ulp (or, for today's callers, from a seeded ``torch.Generator``,
 which gives others). ``params_from_numpy`` carries a tree of arrays
 (the JAX package's parameters read out as numpy) across leaf for leaf, and
 ``abstract`` gives the tree as shape-only ``meta`` tensors (nothing
-allocated) and ``n_params`` counts. The port runs on one device, so a
-``ParamDef`` has no partition spec; the reference's ``specs`` serves its
-sharding and is not ported.
+allocated) and ``n_params`` counts. Each ``ParamDef`` carries its
+``PartitionSpec`` (``distributed/sharding.py``) and ``specs`` gives the
+tree of them. Under a mesh of processes (``launch.mesh.use_mesh``)
+``materialize`` draws only this process's shard of every leaf and
+``abstract`` gives the shards' shapes; the shards laid together are the
+one-process tensors bit for bit.
 
 Trees are nested dicts, tuples, lists and NamedTuples (an optimizer
 state) with tensors at the leaves; ``tree_leaves`` flattens them in
@@ -27,6 +30,8 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
+                                              ambient_mesh, shard_ranges)
 
 # elements of a leaf drawn at a time: the hash's int32 and f64 transients
 # stay near 1 GB however large the leaf
@@ -36,6 +41,7 @@ DRAW_SLICE = 1 << 24
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple
+    pspec: PartitionSpec = PartitionSpec()
     init: str = "normal"       # normal | zeros | ones | embed
     scale: float | None = None  # None -> 1/sqrt(fan_in)
     dtype: torch.dtype | None = None  # None -> model default
@@ -48,11 +54,13 @@ def as_dtype(dtype) -> torch.dtype:
 
 def _leaves(tree, path=()):
     """(path, leaf) pairs in ``jax.tree_util``'s order: a dict by sorted
-    key, a tuple, list or NamedTuple in its order; None holds no leaf."""
+    key, a tuple, list or NamedTuple in its order; None holds no leaf; a
+    ``PartitionSpec`` is a leaf."""
     if isinstance(tree, dict):
         for key in sorted(tree):
             yield from _leaves(tree[key], (*path, key))
-    elif isinstance(tree, (tuple, list)):
+    elif isinstance(tree, (tuple, list)) and not isinstance(tree,
+                                                            PartitionSpec):
         for i, child in enumerate(tree):
             yield from _leaves(child, (*path, i))
     elif tree is not None:
@@ -77,7 +85,7 @@ def _fill(node, it):
         return {key: _fill(node[key], it) for key in sorted(node)}
     if isinstance(node, list):
         return [_fill(child, it) for child in node]
-    if isinstance(node, tuple):
+    if isinstance(node, tuple) and not isinstance(node, PartitionSpec):
         children = [_fill(child, it) for child in node]
         return (type(node)(*children) if hasattr(node, "_fields")
                 else tuple(children))
@@ -99,21 +107,32 @@ def materialize(defs, key, *, device=None, default_dtype=torch.float32):
     ``materialize`` (``src/repro/models/params.py``) takes one: it is split
     into one key a leaf, zeros and ones leaves included, and leaf ``i``
     draws ``prng.normal`` of key ``i``, in slices of ``DRAW_SLICE``
-    elements that equal one whole draw bit for bit. Or ``key`` is a
-    ``torch.Generator`` living on ``device``, which the normal leaves draw
-    from one after another."""
+    elements that equal one whole draw bit for bit. Under a mesh of more
+    than one process (``launch.mesh.use_mesh``) each leaf is this
+    process's shard by the leaf's ``pspec``, and a threefry leaf draws only
+    the shard's elements, each at its index in the whole leaf
+    (``prng.normal_at``). Or ``key`` is a ``torch.Generator`` living on
+    ``device``, which the normal leaves draw from one after another (one
+    process only)."""
     device = resolve_device(device)
     leaves = [d for _, d in _leaves(defs)]
     gen = key if isinstance(key, torch.Generator) else None
     keys = (None if gen is not None
             else prng.split(key.to(device), len(leaves)))
+    mesh = ambient_mesh()
+    if mesh is not None and gen is not None:
+        raise ValueError("materialize under a mesh of processes draws "
+                         "from a threefry key (prng.key), not a Generator")
 
     def make(i, d: ParamDef):
         dt = as_dtype(d.dtype or default_dtype)
+        ranges = ([(0, s) for s in d.shape] if mesh is None
+                  else shard_ranges(d.shape, d.pspec, mesh))
+        shape = tuple(hi - lo for lo, hi in ranges)
         if d.init == "zeros":
-            return torch.zeros(d.shape, dtype=dt, device=device)
+            return torch.zeros(shape, dtype=dt, device=device)
         if d.init == "ones":
-            return torch.ones(d.shape, dtype=dt, device=device)
+            return torch.ones(shape, dtype=dt, device=device)
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         scale = d.scale if d.scale is not None else fan_in ** -0.5
         if gen is not None:
@@ -122,14 +141,34 @@ def materialize(defs, key, *, device=None, default_dtype=torch.float32):
             return x.mul_(scale).to(dt)
         # scale rounds to f32 first, as JAX's weakly typed product does
         scale = torch.tensor(scale, dtype=torch.float32, device=device)
-        out = torch.empty(d.shape, dtype=dt, device=device)
+        out = torch.empty(shape, dtype=dt, device=device)
         flat = out.view(-1)
+        whole = shape == tuple(d.shape)
         for o in range(0, flat.numel(), DRAW_SLICE):
             m = min(DRAW_SLICE, flat.numel() - o)
-            flat[o:o + m] = (prng.normal(keys[i], (m,), o) * scale).to(dt)
+            if whole and o + m < 1 << 31:
+                x = prng.normal(keys[i], (m,), o)
+            else:   # a shard, or a leaf past 2**31 elements
+                x = prng.normal_at(keys[i], torch.arange(
+                    o, o + m, dtype=torch.int64, device=device) if whole
+                    else _whole_index(d.shape, ranges, o, m, device))
+            flat[o:o + m] = (x * scale).to(dt)
         return out
 
     return tree_unflatten(defs, [make(i, d) for i, d in enumerate(leaves)])
+
+
+def _whole_index(shape, ranges, o: int, m: int, device) -> torch.Tensor:
+    """Flat indices in a whole tensor of ``shape`` of elements ``[o, o +
+    m)`` of its block ``ranges`` (row-major both), int64."""
+    p = torch.arange(o, o + m, dtype=torch.int64, device=device)
+    idx = torch.zeros_like(p)
+    stride = 1
+    for size, (lo, hi) in zip(reversed(shape), reversed(ranges)):
+        p, c = p.div(hi - lo, rounding_mode="floor"), p % (hi - lo)
+        idx += (c + lo) * stride
+        stride *= size
+    return idx
 
 
 def value_and_grad(loss_f, params, *args):
@@ -167,10 +206,28 @@ def params_from_numpy(tree, *, device=None, dtype=None):
 def abstract(defs, default_dtype=torch.float32):
     """The tree ``defs`` declares as ``meta`` tensors of its shapes and
     types: nothing is allocated (the reference's ``ShapeDtypeStruct``
-    tree)."""
-    return _map(lambda d: torch.empty(
-        d.shape, dtype=as_dtype(d.dtype or default_dtype), device="meta"),
-        defs)
+    tree). Under a mesh of processes, the shapes of this process's
+    shards."""
+    mesh = ambient_mesh()
+
+    def one(d):
+        shape = d.shape if mesh is None else tuple(
+            hi - lo for lo, hi in shard_ranges(d.shape, d.pspec, mesh))
+        return torch.empty(shape, dtype=as_dtype(d.dtype or default_dtype),
+                           device="meta")
+
+    return _map(one, defs)
+
+
+def specs(defs):
+    """The tree of every leaf's ``PartitionSpec``."""
+    return _map(lambda d: d.pspec, defs)
+
+
+def shardings(defs, mesh):
+    """The tree of every leaf's ``NamedSharding`` on ``mesh`` (what a
+    sharded checkpoint's save and restore take)."""
+    return _map(lambda d: NamedSharding(mesh, d.pspec), defs)
 
 
 def n_params(defs) -> int:

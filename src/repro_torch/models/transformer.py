@@ -8,17 +8,29 @@ FFN (OLMoE / Qwen3-MoE, ``models/moe.py``). Parameters are a nested dict
 of tensors with the layers stacked on a leading ``[L, ...]`` axis, as the
 reference's.
 
-The port runs on one device. The reference's ``MeshAxes`` arguments, its
-use-site weight gathers (``_use``) and its sharding constraints have no
-counterpart here and are gone from every signature. The layer loop is a
-Python loop over the stacked parameters; ``scan_layers`` and ``remat`` are
-accepted and change nothing (the training step keeps every layer's
-activations for the backward), and so is ``moe_impl``: on one device both
-of the reference's MoE impls compute the same function, and the MoE FFN
-runs its tokens as one group (``moe.moe_ffn``). MoE capacity counts the
-tokens of the call, so a decode step (T = B) routes with another capacity
-than the forward over the whole sequence: decode equals the forward only
-for dense configs, in both packages.
+Sharding (the reference's MaxText-style fsdp + tensor): every function
+takes the reference's ``MeshAxes`` (``ax``) and runs over the ambient mesh
+of processes (``launch.mesh.use_mesh``; ``distributed/sharding.py``),
+each rank holding its shards of the weights (``param_defs``' specs) and
+its rows of the batch. The reference's ``_use`` is ``use_weight``: the
+ZeRO-3 gather of a weight's ``data``-sharded dimension where it is used,
+its gradient reduce-scattered. ``wq``/``wk``/``wv``/``w_gate``/``w_up``
+are column-parallel over ``model`` (a rank's query heads and the KV heads
+they read, ``_Mesh``); ``wo``/``w_down`` row-parallel, their partials
+summed over ``model`` (``_row``); the embedding and the
+logits are vocab-sharded, the loss a distributed log-softmax; the MoE
+FFN runs each rank's experts (``moe.moe_ffn``). Where the reference
+constrains the KV caches to ``(None, data, model, None, None)``, the
+sequence over ``model``, a rank here keeps its rows and the KV heads its
+queries read: its attention reads no other rank's cache, and padding the
+caches for decode stays local. With no mesh, or a mesh of one process,
+no collective is issued and the steps compute what one process does.
+The layer loop is a Python loop over the stacked parameters;
+``scan_layers`` and ``remat`` are accepted and change nothing (the
+training step keeps every layer's activations for the backward). MoE
+capacity counts the tokens of the call, so a decode step (T = B) routes
+with another capacity than the forward over the whole sequence: decode
+equals the forward only for dense configs, in both packages.
 
 Training: ``loss_fn`` and ``make_train_step`` (AdamW, ``optim/``, with
 gradient accumulation over microbatches) differentiate through autograd.
@@ -46,8 +58,14 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import (all_gather_dim,
+                                                 copy_to_group,
+                                                 max_over_group, psum_named,
+                                                 reduce_from_group)
+from repro_torch.distributed.sharding import (MeshAxes, P, block,
+                                              placement, use_weight)
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.params import (ParamDef, as_dtype, n_params,
+from repro_torch.models.params import (ParamDef, as_dtype, n_params, specs,
                                       tree_leaves, tree_unflatten,
                                       value_and_grad)
 
@@ -74,8 +92,8 @@ class TransformerConfig:
     head_dim: int | None = None          # None -> d_model // n_heads
     activation: str = "silu"             # silu (SwiGLU) | gelu (GeGLU)
     moe: MoeConfig | None = None
-    moe_impl: str = "shmap"              # shmap | gspmd: the same on one
-                                         # device
+    moe_impl: str = "shmap"              # shmap | gspmd: the same
+                                         # function (models/moe.py)
     qk_norm: bool = False                # Qwen3
     embed_scale: bool = False            # Gemma: x *= sqrt(d_model)
     rope_theta: float = 10_000.0
@@ -95,7 +113,7 @@ class TransformerConfig:
         return as_dtype(self.dtype)
 
     def n_params(self) -> int:
-        return n_params(param_defs(self))
+        return n_params(param_defs(self, MeshAxes(data=("data",))))
 
     def n_active_params(self) -> int:
         """Params touched per token (MoE counts top_k experts only)."""
@@ -111,43 +129,44 @@ class TransformerConfig:
 # parameter declaration
 # --------------------------------------------------------------------------
 
-def param_defs(cfg: TransformerConfig):
+def param_defs(cfg: TransformerConfig, ax: MeshAxes):
     D, H, Hkv, Dh, Fd, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.n_layers)
+    fsdp, tp = ax.data, ax.model
 
-    def ld(shape, **kw):  # layer-stacked param (leading L dim)
-        return ParamDef((L, *shape), **kw)
+    def ld(shape, pspec, **kw):  # layer-stacked param (leading L dim)
+        return ParamDef((L, *shape), P(None, *pspec), **kw)
 
     layer = dict(
-        attn_norm=ld((D,), init="ones"),
-        wq=ld((D, H * Dh)),
-        wk=ld((D, Hkv * Dh)),
-        wv=ld((D, Hkv * Dh)),
-        wo=ld((H * Dh, D)),
-        mlp_norm=ld((D,), init="ones"),
+        attn_norm=ld((D,), (None,), init="ones"),
+        wq=ld((D, H * Dh), (fsdp, tp)),
+        wk=ld((D, Hkv * Dh), (fsdp, tp)),
+        wv=ld((D, Hkv * Dh), (fsdp, tp)),
+        wo=ld((H * Dh, D), (tp, fsdp)),
+        mlp_norm=ld((D,), (None,), init="ones"),
     )
     if cfg.qk_norm:
-        layer["q_norm"] = ld((Dh,), init="ones")
-        layer["k_norm"] = ld((Dh,), init="ones")
+        layer["q_norm"] = ld((Dh,), (None,), init="ones")
+        layer["k_norm"] = ld((Dh,), (None,), init="ones")
     if cfg.moe is None:
         layer.update(
-            w_gate=ld((D, Fd)),
-            w_up=ld((D, Fd)),
-            w_down=ld((Fd, D)),
+            w_gate=ld((D, Fd), (fsdp, tp)),
+            w_up=ld((D, Fd), (fsdp, tp)),
+            w_down=ld((Fd, D), (tp, fsdp)),
         )
     else:
         E, Fe = cfg.moe.n_experts, cfg.moe.d_expert
         layer.update(
-            w_router=ld((D, E)),
-            w_gate=ld((E, D, Fe)),
-            w_up=ld((E, D, Fe)),
-            w_down=ld((E, Fe, D)),
+            w_router=ld((D, E), (fsdp, None)),
+            w_gate=ld((E, D, Fe), (tp, fsdp, None)),
+            w_up=ld((E, D, Fe), (tp, fsdp, None)),
+            w_down=ld((E, Fe, D), (tp, None, fsdp)),
         )
     return dict(
-        embed=ParamDef((V, D), init="embed", scale=1.0),
+        embed=ParamDef((V, D), P(tp, fsdp), init="embed", scale=1.0),
         layers=layer,
-        final_norm=ParamDef((D,), init="ones"),
-        unembed=ParamDef((D, V)),
+        final_norm=ParamDef((D,), P(None), init="ones"),
+        unembed=ParamDef((D, V), P(fsdp, tp)),
     )
 
 
@@ -343,54 +362,129 @@ def attention(q, k, v, cfg: TransformerConfig, *, causal=True, q_offset=0):
     return _attn_xla(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
 
 
-def _ffn_dense(x, lp, cfg):
+class _Mesh:
+    """The sharded steps' plan on the ambient mesh: ``pl`` (the
+    ``Placement``, None with no mesh or one process), every layer leaf's
+    spec (``layers``) and this rank's heads. Query heads ``[q0, q0 + Hl)``
+    are the column shard of ``wq``. A rank keeps the KV heads its query
+    heads read, ``[kv0, kv0 + hk)``: the column shard of ``wk``/``wv``
+    when ``m`` divides ``Hkv``, else those heads of ``wk``/``wv`` gathered
+    over ``model`` (where the reference's GSPMD pads, the port replicates
+    the heads a rank's queries need). ``kv_of`` maps each local query head
+    to its KV head when the local heads do not form a uniform GQA group
+    (else None)."""
+
+    def __init__(self, cfg: TransformerConfig, ax: MeshAxes):
+        self.ax = ax
+        self.pl = pl = placement(ax)
+        defs = param_defs(cfg, ax)
+        self.layers = {k: tuple(d.pspec)[1:]
+                       for k, d in defs["layers"].items()}
+        H, Hkv = cfg.n_heads, cfg.n_kv_heads
+        m, mi = (1, 0) if pl is None else (pl.m, pl.mi)
+        if H % m:
+            raise ValueError(f"{cfg.name}: {H} query heads do not split "
+                             f"over a model axis of {m}")
+        g = H // Hkv
+        self.Hl = Hl = H // m
+        self.q0 = q0 = mi * Hl
+        self.kv0 = q0 // g
+        self.hk = (q0 + Hl - 1) // g + 1 - self.kv0
+        self.kv_shard = Hkv % m == 0
+        self.kv_of = None
+        if Hl % g and g % Hl:
+            self.kv_of = (torch.arange(q0, q0 + Hl) // g) - self.kv0
+        self.vocab = block(cfg.vocab_size, m, mi)
+
+    def use(self, lp, name, size, model_partial=False):
+        return use_weight(lp[name], self.layers[name], self.pl, self.ax,
+                          size, model_partial)
+
+    @property
+    def model(self):
+        return None if self.pl is None else self.pl.model
+
+    @property
+    def data(self):
+        return None if self.pl is None else self.pl.data
+
+
+def _row(h, w, sm: _Mesh):
+    """A row-parallel product: each ``model`` rank's partial over its rows
+    of ``w``, in the model's type, summed over ``model`` (the reference's
+    ``psum``)."""
+    return h @ w if sm.model is None else reduce_from_group(h @ w, sm.model)
+
+
+def _ffn_dense(x, lp, cfg, sm: _Mesh):
     act = (F.silu if cfg.activation == "silu"
            else partial(F.gelu, approximate="tanh"))
-    h = act(x @ lp["w_gate"]) * (x @ lp["w_up"])
-    return h @ lp["w_down"]
+    D = cfg.d_model
+    x = copy_to_group(x, sm.model)
+    h = act(x @ sm.use(lp, "w_gate", D)) * (x @ sm.use(lp, "w_up", D))
+    return _row(h, sm.use(lp, "w_down", D), sm)
 
 
-def _layer(x, lp, cfg: TransformerConfig, positions, cache=None,
-           cache_pos=None):
+def _kv_weight(lp, name, cfg, sm: _Mesh):
+    """This rank's columns of ``wk`` or ``wv`` for its KV heads."""
+    w = sm.use(lp, name, cfg.d_model)
+    if sm.model is None or sm.kv_shard:
+        return w
+    Dh = cfg.hd
+    w = all_gather_dim(w, sm.model, 1, cfg.n_kv_heads * Dh)
+    return w[:, sm.kv0 * Dh:(sm.kv0 + sm.hk) * Dh]
+
+
+def _expand(t, sm: _Mesh):
+    """KV heads [B, S, hk, Dh] -> one a local query head, where the local
+    heads form no uniform GQA group."""
+    return t if sm.kv_of is None else t[:, :, sm.kv_of.to(t.device)]
+
+
+def _layer(x, lp, cfg: TransformerConfig, ax: MeshAxes, positions,
+           cache=None, cache_pos=None, sm: _Mesh | None = None):
     """One transformer block. x: [B, S, D]. Returns (x', new_cache_slice,
-    aux). With a cache (k, v: [B, Skv, Hkv, Dh]) the new k and v are written
+    aux). With a cache (k, v: [B, Skv, hk, Dh]) the new k and v are written
     into it in place at ``cache_pos`` (an int or a 0-d tensor, read on the
     device, so a ``meta`` run needs no value), the start clamped to [0, Skv
     - S] as ``lax.dynamic_update_slice`` clamps it; ``_trunk`` hands it a
-    copy unless the caller donated the caches."""
+    copy unless the caller donated the caches. Under a mesh the block runs
+    this rank's heads and columns (``_Mesh``)."""
+    sm = _Mesh(cfg, ax) if sm is None else sm
     B, S, D = x.shape
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    Hl, hk, Dh = sm.Hl, sm.hk, cfg.hd
 
-    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(B, S, H, Dh)
-    k = (h @ lp["wk"]).reshape(B, S, Hkv, Dh)
-    v = (h @ lp["wv"]).reshape(B, S, Hkv, Dh)
+    h = rmsnorm(x, sm.use(lp, "attn_norm", D), cfg.norm_eps)
+    h = copy_to_group(h, sm.model)
+    q = (h @ sm.use(lp, "wq", D)).reshape(B, S, Hl, Dh)
+    k = (h @ _kv_weight(lp, "wk", cfg, sm)).reshape(B, S, hk, Dh)
+    v = (h @ _kv_weight(lp, "wv", cfg, sm)).reshape(B, S, hk, Dh)
     if cfg.qk_norm:
-        q = rmsnorm(q, lp["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, lp["k_norm"], cfg.norm_eps)
+        q = rmsnorm(q, sm.use(lp, "q_norm", D, True), cfg.norm_eps)
+        k = rmsnorm(k, sm.use(lp, "k_norm", D, True), cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        o = attention(q, k, v, cfg, causal=True)
+        o = attention(q, _expand(k, sm), _expand(v, sm), cfg, causal=True)
         new_cache = (k, v)
     else:
-        ck, cv = cache           # [B, Skv, Hkv, Dh], decode: S == 1
+        ck, cv = cache           # [B, Skv, hk, Dh], decode: S == 1
         start = torch.as_tensor(cache_pos).clamp(0, ck.shape[1] - S)
         rows = torch.arange(S, device=ck.device) + start
         ck.index_copy_(1, rows, k)
         cv.index_copy_(1, rows, v)
-        o = _attn_xla(q, ck, cv, causal=True, q_offset=cache_pos,
-                      scale=cfg.hd ** -0.5)
+        o = _attn_xla(q, _expand(ck, sm), _expand(cv, sm), causal=True,
+                      q_offset=cache_pos, scale=cfg.hd ** -0.5)
         new_cache = (ck, cv)
-    x = x + (o.reshape(B, S, H * Dh) @ lp["wo"])
+    x = x + _row(o.reshape(B, S, Hl * Dh), sm.use(lp, "wo", D), sm)
 
-    h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    h = rmsnorm(x, sm.use(lp, "mlp_norm", D), cfg.norm_eps)
     if cfg.moe is None:
-        y = _ffn_dense(h, lp, cfg)
+        y = _ffn_dense(h, lp, cfg, sm)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
-        y, aux = moe_mod.moe_ffn(h, lp, cfg.moe, cfg.activation,
+        y, aux = moe_mod.moe_ffn(h, lp, cfg.moe, cfg.activation, ax,
                                  impl=cfg.moe_impl)
     x = x + y
     x = dtype_fence(x, cfg.dtype)
@@ -401,18 +495,36 @@ def _layer(x, lp, cfg: TransformerConfig, positions, cache=None,
 # full model
 # --------------------------------------------------------------------------
 
-def _trunk(params, tokens, cfg: TransformerConfig, caches=None,
-           cache_pos=None, donate: bool = False, keep_kv: bool = True):
+def _embed(params, tokens, cfg: TransformerConfig, sm: _Mesh):
+    """The embedding rows of ``tokens``; under a mesh each ``model`` rank
+    holds the rows of its vocabulary block, gives zeros for the others and
+    the ranks' rows are summed (the vocab-sharded lookup)."""
+    table = use_weight(params["embed"], P(sm.ax.model, sm.ax.data), sm.pl,
+                       sm.ax, cfg.d_model)
+    if sm.model is None:
+        return table[tokens.long()]
+    lo, hi = sm.vocab
+    t = tokens.long()
+    mine = (t >= lo) & (t < hi)
+    rows = table[(t - lo).clamp(0, max(hi - lo - 1, 0))]
+    rows = torch.where(mine[..., None], rows, rows.new_zeros(()))
+    return reduce_from_group(rows, sm.model)
+
+
+def _trunk(params, tokens, cfg: TransformerConfig, ax: MeshAxes,
+           caches=None, cache_pos=None, donate: bool = False,
+           keep_kv: bool = True, sm: _Mesh | None = None):
     """Embedding and layers: (x [B, S, D] before the final norm, kvs,
     aux). Without caches the layers' k and v are written into one stacked
-    [L, B, S, Hkv, Dh] pair (None with ``keep_kv=False``, as the loss
+    [L, B, S, hk, Dh] pair (None with ``keep_kv=False``, as the loss
     needs none); with caches, into a copy of them, or into the caches
     themselves when ``donate`` is set."""
+    sm = _Mesh(cfg, ax) if sm is None else sm
     B, S = tokens.shape
     if caches is not None and not donate:
         caches = tuple(t.clone() for t in caches)   # the caller's stay intact
     dt = cfg.torch_dtype
-    x = params["embed"][tokens.long()].to(dt)
+    x = _embed(params, tokens, cfg, sm).to(dt)
     if cfg.embed_scale:   # the scale rounded to the model's type first
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
     pos0 = 0 if cache_pos is None else cache_pos     # an int or 0-d tensor
@@ -422,7 +534,7 @@ def _trunk(params, tokens, cfg: TransformerConfig, caches=None,
     for i in range(cfg.n_layers):
         lp = {name: t[i] for name, t in params["layers"].items()}
         if caches is None:
-            x, (k, v), a = _layer(x, lp, cfg, positions)
+            x, (k, v), a = _layer(x, lp, cfg, ax, positions, sm=sm)
             if keep_kv:
                 if kvs is None:
                     kvs = tuple(torch.empty((cfg.n_layers, *t.shape),
@@ -430,28 +542,50 @@ def _trunk(params, tokens, cfg: TransformerConfig, caches=None,
                                 for t in (k, v))
                 kvs[0][i], kvs[1][i] = k, v
         else:
-            x, _, a = _layer(x, lp, cfg, positions,
+            x, _, a = _layer(x, lp, cfg, ax, positions,
                              cache=(caches[0][i], caches[1][i]),
-                             cache_pos=cache_pos)
+                             cache_pos=cache_pos, sm=sm)
         aux = aux + a
     return x, kvs, aux
 
 
-def _logits(x, params, cfg: TransformerConfig):
-    """Final norm and the unembedding, a float32 product."""
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x.float() @ params["unembed"].float()
+def _logits(x, params, cfg: TransformerConfig, sm: _Mesh):
+    """Final norm and the unembedding, a float32 product; under a mesh,
+    this rank's vocabulary block of the logits."""
+    D = cfg.d_model
+    x = rmsnorm(x, use_weight(params["final_norm"], P(None), sm.pl, sm.ax,
+                              D), cfg.norm_eps)
+    x = copy_to_group(x, sm.model)
+    unembed = use_weight(params["unembed"], P(sm.ax.data, sm.ax.model),
+                         sm.pl, sm.ax, D)
+    return x.float() @ unembed.float()
 
 
-def forward(params, tokens, cfg: TransformerConfig, caches=None,
-            cache_pos=None, *, donate: bool = False):
+def _whole_vocab(logits, cfg: TransformerConfig, sm: _Mesh):
+    """Every ``model`` rank's vocabulary block laid together."""
+    if sm.model is None:
+        return logits
+    return all_gather_dim(logits, sm.model, logits.dim() - 1,
+                          cfg.vocab_size)
+
+
+def forward(params, tokens, cfg: TransformerConfig, ax: MeshAxes,
+            caches=None, cache_pos=None, *, donate: bool = False):
     """tokens: [B, S]. caches: None | (k: [L, B, Skv, Hkv, Dh], v). Returns
     (logits_f32 [B, S, V], new_caches, aux_loss). The caches passed in are
     left intact, as in the reference, unless ``donate`` is set: then the new
     k and v are written into them in place and they are returned (the
-    counterpart of the reference's ``donate_argnums``)."""
-    x, kvs, aux = _trunk(params, tokens, cfg, caches, cache_pos, donate)
-    return _logits(x, params, cfg), kvs, aux
+    counterpart of the reference's ``donate_argnums``).
+
+    Under a mesh of processes (``launch.mesh.use_mesh``) ``params`` are
+    this rank's shards (``materialize`` under the mesh), ``tokens`` and the
+    caches are this rank's ``data`` block of rows, the caches hold this
+    rank's KV heads (``[L, B, Skv, hk, Dh]``, ``_Mesh``) and the logits are
+    its vocabulary block (the reference's ``P(data, None, model)``)."""
+    sm = _Mesh(cfg, ax)
+    x, kvs, aux = _trunk(params, tokens, cfg, ax, caches, cache_pos, donate,
+                         sm=sm)
+    return _logits(x, params, cfg, sm), kvs, aux
 
 
 def softmax_xent(logits, labels):
@@ -463,67 +597,115 @@ def softmax_xent(logits, labels):
     return (logz - ll).mean()
 
 
+def _xent_sharded(logits, labels, sm: _Mesh):
+    """``softmax_xent`` of the whole batch from this rank's block of rows
+    and of the vocabulary: the log-softmax's max and sum of exponentials
+    over ``model`` (the label's logit from the rank that holds it), the
+    mean over every ``data`` rank's tokens."""
+    labels = labels.long()
+    if sm.model is None:
+        tok = torch.logsumexp(logits, dim=-1) - torch.take_along_dim(
+            logits, labels[..., None], dim=-1)[..., 0]
+    else:
+        lo, hi = sm.vocab
+        top = max_over_group(logits.amax(dim=-1), sm.model)
+        se = reduce_from_group((logits - top[..., None]).exp().sum(dim=-1),
+                               sm.model)
+        mine = (labels >= lo) & (labels < hi)
+        ll = torch.take_along_dim(
+            logits, (labels - lo).clamp(0, max(hi - lo - 1, 0))[..., None],
+            dim=-1)[..., 0]
+        ll = reduce_from_group(torch.where(mine, ll, 0.0), sm.model)
+        tok = se.log() + top - ll
+    n = psum_named(torch.tensor(float(tok.numel()), device=tok.device),
+                   sm.data) if sm.data is not None else tok.numel()
+    return reduce_from_group(tok.sum(), sm.data) / n
+
+
 # --------------------------------------------------------------------------
 # step functions
 # --------------------------------------------------------------------------
 
-def make_prefill_step(cfg: TransformerConfig):
+def make_prefill_step(cfg: TransformerConfig, ax: MeshAxes):
     """prefill_step(params, {"tokens": [B, S]}) -> (last logits [B, V] f32,
     (k, v) caches [L, B, S, Hkv, Dh]). Only the last position is
     unembedded: the reference computes every position's logits and keeps
     the last, which is the same row (at gemma-7b's 4 x 2048 prompts the
-    whole [B, S, V] f32 block is 8.4 GB)."""
+    whole [B, S, V] f32 block is 8.4 GB). Under a mesh, the logits of this
+    rank's rows over the whole vocabulary (gathered over ``model``, so a
+    greedy step takes the whole argmax) and its caches (``forward``)."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        x, kvs, _ = _trunk(params, batch["tokens"], cfg)
-        return _logits(x[:, -1:], params, cfg)[:, -1], kvs
+        sm = _Mesh(cfg, ax)
+        x, kvs, _ = _trunk(params, batch["tokens"], cfg, ax, sm=sm)
+        last = _logits(x[:, -1:], params, cfg, sm)[:, -1]
+        return _whole_vocab(last, cfg, sm), kvs
 
     return prefill_step
 
 
-def make_serve_step(cfg: TransformerConfig, *, donate: bool = False):
+def make_serve_step(cfg: TransformerConfig, ax: MeshAxes, *,
+                    donate: bool = False):
     """One decode step: new token [B, 1] + KV caches at position ``pos`` ->
     (last logits [B, V] f32, new caches). The caches passed in are left
     intact, as in the reference, unless ``donate`` is set: then they are
     written in place and returned, as the reference's serving example gets
-    with ``jax.jit(serve_step, donate_argnums=(2,))``."""
+    with ``jax.jit(serve_step, donate_argnums=(2,))``. Under a mesh, as
+    ``make_prefill_step``."""
     @torch.no_grad()
     def serve_step(params, token, caches, pos):
-        logits, new_caches, _ = forward(params, token, cfg, caches=caches,
-                                        cache_pos=pos, donate=donate)
-        return logits[:, -1], new_caches
+        sm = _Mesh(cfg, ax)
+        x, new_caches, _ = _trunk(params, token, cfg, ax, caches, pos,
+                                  donate, sm=sm)
+        last = _logits(x[:, -1:], params, cfg, sm)[:, -1]
+        return _whole_vocab(last, cfg, sm), new_caches
 
     return serve_step
 
 
-def loss_fn(params, batch, cfg: TransformerConfig):
+def loss_fn(params, batch, cfg: TransformerConfig, ax: MeshAxes):
     """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"},
-    each [B, S]) under ``params``; a differentiable scalar."""
-    x, _, aux = _trunk(params, batch["tokens"], cfg, keep_kv=False)
-    loss = softmax_xent(_logits(x, params, cfg), batch["labels"])
+    each [B, S]) under ``params``; a differentiable scalar. Under a mesh,
+    the batch is this rank's rows and the loss is the whole batch's, the
+    same on every rank."""
+    sm = _Mesh(cfg, ax)
+    x, _, aux = _trunk(params, batch["tokens"], cfg, ax, keep_kv=False,
+                       sm=sm)
+    logits = _logits(x, params, cfg, sm)
+    if sm.pl is None:
+        loss = softmax_xent(logits, batch["labels"])
+    else:
+        loss = _xent_sharded(logits, batch["labels"], sm)
     return loss + (cfg.moe.aux_weight * aux / cfg.n_layers if cfg.moe
                    else 0.0)
 
 
-def _value_and_grad(params, batch, cfg):
+def _value_and_grad(params, batch, cfg, ax):
     """(loss, grads): the gradient of every leaf of ``params`` (a tree of
-    tensors, left as it is), each in its leaf's type."""
-    return value_and_grad(loss_fn, params, batch, cfg)
+    tensors, left as it is), each in its leaf's type. Under a mesh, each
+    rank's gradient of its shards of the whole batch's loss."""
+    return value_and_grad(loss_fn, params, batch, cfg, ax)
 
 
-def make_train_step(cfg: TransformerConfig, opt_cfg, microbatches: int = 1):
+def make_train_step(cfg: TransformerConfig, ax: MeshAxes, opt_cfg,
+                    microbatches: int = 1):
     """train_step(params, opt_state, batch) -> (params', opt_state',
     {"loss", "grad_norm"}): the loss and its gradients, then one AdamW
     update (``optim.adamw_update``). ``microbatches`` > 1 splits the batch
     into that many equal slices along the batch axis, accumulates their
     gradients in f32 and averages gradients and loss: activation memory
     falls to a slice's, as in the reference. The parameters passed in are
-    left as they are."""
+    left as they are. Under a mesh each rank passes its shards and its
+    rows of the batch: the gradients of FSDP-sharded leaves are
+    reduce-scattered over ``data``, those of leaves ``data`` does not shard
+    all-reduced, and the clipping norm counts each leaf once over the
+    mesh."""
     from repro_torch.optim import adamw_update
+    pspecs = specs(param_defs(cfg, ax))
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:
-            loss, grads = _value_and_grad(params, batch, cfg)
+            loss, grads = _value_and_grad(params, batch, cfg, ax)
         else:
             M = microbatches
             gacc = lsum = None
@@ -532,7 +714,7 @@ def make_train_step(cfg: TransformerConfig, opt_cfg, microbatches: int = 1):
                 for key, t in batch.items():
                     n = t.shape[0] // M
                     mb[key] = t[i * n:(i + 1) * n]
-                loss, grads = _value_and_grad(params, mb, cfg)
+                loss, grads = _value_and_grad(params, mb, cfg, ax)
                 g32 = [g.float() for g in tree_leaves(grads)]
                 gacc = g32 if gacc is None else [
                     a + g for a, g in zip(gacc, g32)]
@@ -540,7 +722,7 @@ def make_train_step(cfg: TransformerConfig, opt_cfg, microbatches: int = 1):
             grads = tree_unflatten(params, [g / M for g in gacc])
             loss = lsum / M
         params, opt_state, gnorm = adamw_update(params, grads, opt_state,
-                                                opt_cfg)
+                                                opt_cfg, specs=pspecs)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step

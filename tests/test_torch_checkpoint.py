@@ -27,12 +27,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import checkpoint as tck  # noqa: E402
 from repro_torch.configs import registry as torch_registry  # noqa: E402
+from repro_torch.distributed.sharding import MeshAxes as TMeshAxes  # noqa: E402,E501
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.params import (  # noqa: E402
     abstract, params_from_numpy, tree_leaves, tree_unflatten)
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 
 AX = MeshAxes(data=("data",), data_shards=1)
+TAX = TMeshAxes(data=("data",), data_shards=1)
 
 
 def _trees(dtype, seed=0):
@@ -117,7 +119,7 @@ def test_roundtrip_with_bf16_leaves_and_abstract_target(tmp_path):
         assert a.dtype == b.dtype and np.array_equal(_bits(a), _bits(b))
     # abstract's meta tensors as the target: shapes and types only
     ct = torch_registry._load("qwen3-moe-235b-a22b", True)[1]
-    target = abstract(ttf.param_defs(ct), "bfloat16")
+    target = abstract(ttf.param_defs(ct, TAX), "bfloat16")
     assert all(t.is_meta for t in tree_leaves(target))
     tck.save_checkpoint(str(tmp_path), 6, tt)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -127,7 +129,7 @@ def test_roundtrip_with_bf16_leaves_and_abstract_target(tmp_path):
         assert a.device.type == "cpu" and np.array_equal(_bits(a), _bits(b))
     # a target of another type casts, as the reference's restore does
     f32 = tck.restore_checkpoint(str(tmp_path), 6,
-                                 abstract(ttf.param_defs(ct)), device="cpu")
+                                 abstract(ttf.param_defs(ct, TAX)), device="cpu")
     assert f32["embed"].dtype == torch.float32
     assert torch.equal(f32["embed"], tt["embed"].float())
 
@@ -146,7 +148,7 @@ def test_abstract_matches_reference():
         cj = jax_registry._load(arch)[1]
         ct = torch_registry._load(arch)[1]
         want = jax_abstract(jtf.param_defs(cj, AX), cj.dtype)
-        got = abstract(ttf.param_defs(ct), ct.dtype)
+        got = abstract(ttf.param_defs(ct, TAX), ct.dtype)
         lw, lg = jax.tree_util.tree_leaves(want), tree_leaves(got)
         assert len(lw) == len(lg)
         for w, g in zip(lw, lg):

@@ -22,6 +22,7 @@ torch.set_num_threads(1)
 
 import repro_torch.core as tc  # noqa: E402
 import repro_torch.graph as tg  # noqa: E402
+from repro_torch.distributed.sharding import MeshAxes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.common import pad_last  # noqa: E402
 from repro_torch.kernels.common import chunk_bounds  # noqa: E402
@@ -53,6 +54,7 @@ from repro_torch.kernels.send import (  # noqa: E402
     send_pack_ragged_plain, send_pack_tiled, send_pack_tiled_plain)
 
 pytestmark = pytest.mark.gpu
+AX1 = MeshAxes(data=("data",))               # the LM steps on one process
 ALL_KERNELS = dict(local_solver="pallas", send_backend="pallas",
                    merge_backend="pallas")
 STAGED = ("relax", "send", "merge")         # the staged round's kernels
@@ -1104,6 +1106,8 @@ FLASH_ROUTE = {torch.float32: "flash_attention",
     (1, 8, 1, 64, 64, 64, False, 0),            # MQA, bidirectional
     (1, 6, 2, 200, 200, 128, True, 0),          # a group of 3
     (1, 24, 2, 130, 130, 128, True, 0),         # a group of 12 (mistral's)
+    (4, 24, 2, 2048, 2048, 128, True, 0),       # mistral's heads on a rank
+                                                # of a model axis of 4
     (1, 32, 2, 256, 256, 128, True, 0),         # a group of 16 (qwen3-moe's)
     (2, 2, 2, 256, 256, 256, True, 0),          # gemma's head width
     (1, 4, 4, 1, 300, 256, True, 299),          # decode-shaped
@@ -1217,7 +1221,8 @@ def test_transformer_smoke_forward_on_gpu_matches_cpu(cuda, arch):
     from repro_torch.models.params import materialize
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(_load(arch, smoke=True)[1], attn_impl="pallas")
-    params = materialize(tf.param_defs(cfg), torch.Generator().manual_seed(0),
+    params = materialize(tf.param_defs(cfg, AX1),
+                         torch.Generator().manual_seed(0),
                          device="cpu", default_dtype=cfg.dtype)
     on_card = {"embed": params["embed"].to(cuda),
                "final_norm": params["final_norm"].to(cuda),
@@ -1226,18 +1231,19 @@ def test_transformer_smoke_forward_on_gpu_matches_cpu(cuda, arch):
     toks = torch.randint(0, cfg.vocab_size, (2, 40),
                          generator=torch.Generator().manual_seed(1))
     n0 = build.LAUNCHES["flash_attention"]
-    got, kv_got, _ = tf.forward(on_card, toks.to(cuda), cfg)
+    got, kv_got, _ = tf.forward(on_card, toks.to(cuda), cfg, AX1)
     torch.cuda.synchronize()
     assert build.LAUNCHES["flash_attention"] == n0 + cfg.n_layers
-    want, kv_want, _ = tf.forward(params, toks, cfg)
+    want, kv_want, _ = tf.forward(params, toks, cfg, AX1)
     assert float((got.cpu() - want).abs().max()) <= 1e-4
     for a, b in zip(kv_got, kv_want):
         assert float((a.cpu() - b).abs().max()) <= 1e-4
-    _, kvs = tf.make_prefill_step(cfg)(on_card, {"tokens": toks[:, :36].to(cuda)})
+    _, kvs = tf.make_prefill_step(cfg, AX1)(
+        on_card, {"tokens": toks[:, :36].to(cuda)})
     caches = tuple(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 4)) for t in kvs)
     n1 = build.LAUNCHES["flash_attention"]
     for i in range(36, 40):
-        logits, caches = tf.make_serve_step(cfg)(
+        logits, caches = tf.make_serve_step(cfg, AX1)(
             on_card, toks[:, i:i + 1].to(cuda), caches, i)
         torch.testing.assert_close(logits, got[:, i], rtol=2e-3, atol=2e-3)
     assert build.LAUNCHES["flash_attention"] == n1     # decode: no kernel
@@ -1257,7 +1263,8 @@ def test_transformer_smoke_serve_bf16_launches_tc_kernel(cuda, arch):
     from repro_torch.models.params import materialize
     cfg = dataclasses.replace(_load(arch, smoke=True)[1], attn_impl="pallas",
                               dtype="bfloat16")
-    params = materialize(tf.param_defs(cfg), torch.Generator().manual_seed(0),
+    params = materialize(tf.param_defs(cfg, AX1),
+                         torch.Generator().manual_seed(0),
                          device="cpu", default_dtype=cfg.dtype)
     on_card = {"embed": params["embed"].to(cuda),
                "final_norm": params["final_norm"].to(cuda),
@@ -1279,7 +1286,7 @@ def test_transformer_smoke_serve_bf16_launches_tc_kernel(cuda, arch):
     build.reset_launches()
     tf.attention = checked
     try:
-        logits, kvs = tf.make_prefill_step(cfg)(on_card, {"tokens": toks})
+        logits, kvs = tf.make_prefill_step(cfg, AX1)(on_card, {"tokens": toks})
     finally:
         tf.attention = real
     torch.cuda.synchronize()
@@ -1290,7 +1297,8 @@ def test_transformer_smoke_serve_bf16_launches_tc_kernel(cuda, arch):
     build.reset_launches()
     tok = logits.argmax(-1)[:, None].to(torch.int32)
     for i in range(2):
-        logits, caches = tf.make_serve_step(cfg)(on_card, tok, caches, 40 + i)
+        logits, caches = tf.make_serve_step(cfg, AX1)(on_card, tok, caches,
+                                                      40 + i)
         tok = logits.argmax(-1)[:, None].to(torch.int32)
     assert bool(torch.isfinite(logits).all())
     assert sum(build.LAUNCHES.values()) == 0
@@ -2068,7 +2076,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     from repro_torch.models.params import materialize, tree_leaves
     from repro_torch.optim import AdamWConfig, adamw_init
     c = _load("deepseek-7b", smoke=True)[1]
-    p = materialize(tf.param_defs(c), torch.Generator().manual_seed(0),
+    p = materialize(tf.param_defs(c, AX1), torch.Generator().manual_seed(0),
                     device="cpu", default_dtype=c.dtype)
     toks = torch.randint(0, c.vocab_size, (4, 41),
                          generator=torch.Generator().manual_seed(1))
@@ -2077,20 +2085,20 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     def to(tree, d):
         return {k: to(v, d) if isinstance(v, dict) else v.to(d)
                 for k, v in tree.items()}
-    lc, gc = tf._value_and_grad(p, batch, c)
-    lg, gg = tf._value_and_grad(to(p, cuda), to(batch, cuda), c)
+    lc, gc = tf._value_and_grad(p, batch, c, AX1)
+    lg, gg = tf._value_and_grad(to(p, cuda), to(batch, cuda), c, AX1)
     assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
     for a, b in zip(tree_leaves(gg), tree_leaves(gc), strict=True):
         assert float((a.cpu() - b).abs().max()) <= 1e-3 * float(
             b.abs().max())
-    step = tf.make_train_step(c, AdamWConfig(), microbatches=2)
+    step = tf.make_train_step(c, AX1, AdamWConfig(), microbatches=2)
     _, _, mc = step(p, adamw_init(p), batch)
     _, _, mg = step(to(p, cuda), adamw_init(to(p, cuda)), to(batch, cuda))
     assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4 * abs(
         float(mc["loss"]))
     with pytest.raises(NotImplementedError, match="no backward"):
         tf._value_and_grad(to(p, cuda), to(batch, cuda),
-                           dataclasses.replace(c, attn_impl="pallas"))
+                           dataclasses.replace(c, attn_impl="pallas"), AX1)
 
 
 # ------------------------------------------------ the MoE FFN, checkpoints --
@@ -2100,7 +2108,8 @@ def _moe_smoke(arch):
     from repro_torch.models import transformer as tf
     from repro_torch.models.params import materialize
     cfg = dataclasses.replace(_load(arch, smoke=True)[1], attn_impl="pallas")
-    params = materialize(tf.param_defs(cfg), torch.Generator().manual_seed(0),
+    params = materialize(tf.param_defs(cfg, AX1),
+                         torch.Generator().manual_seed(0),
                          device="cpu", default_dtype=cfg.dtype)
     toks = torch.randint(0, cfg.vocab_size, (4, 41),
                          generator=torch.Generator().manual_seed(1))
@@ -2138,7 +2147,7 @@ def test_moe_smoke_forward_on_gpu_matches_cpu(cuda, arch, monkeypatch):
         monkeypatch.setattr(moe, "_routing_group", record)
         n0 = build.LAUNCHES["flash_attention"]
         logits = tf.forward(_to_dev(params, device), toks[:2, :40].to(device),
-                            cfg)[0].cpu()
+                            cfg, AX1)[0].cpu()
         runs[device.type] = (logits, routes,
                              build.LAUNCHES["flash_attention"] - n0)
     (got, r_gpu, n_gpu), (want, r_cpu, _) = runs["cuda"], runs["cpu"]
@@ -2150,9 +2159,9 @@ def test_moe_smoke_forward_on_gpu_matches_cpu(cuda, arch, monkeypatch):
     monkeypatch.setattr(moe, "_routing_group", real)
     c = dataclasses.replace(cfg, attn_impl="chunked")
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    lc, gc = tf._value_and_grad(params, batch, c)
+    lc, gc = tf._value_and_grad(params, batch, c, AX1)
     lg, gg = tf._value_and_grad(_to_dev(params, cuda), _to_dev(batch, cuda),
-                                c)
+                                c, AX1)
     assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
     for a, b in zip(tree_leaves(gg), tree_leaves(gc), strict=True):
         assert float((a.cpu() - b).abs().max()) <= 1e-3 * float(
@@ -2187,7 +2196,7 @@ def test_checkpoint_roundtrip_of_cuda_bf16_tensors(cuda, tmp_path):
     cfg, _, _ = _moe_smoke("olmoe-1b-7b")
     gen = torch.Generator(device=cuda)
     gen.manual_seed(0)
-    params = materialize(tf.param_defs(cfg), gen, device=cuda,
+    params = materialize(tf.param_defs(cfg, AX1), gen, device=cuda,
                          default_dtype="bfloat16")
     tree = (params, adamw_init(params))
     mgr = CheckpointManager(str(tmp_path), keep=1)
@@ -2199,7 +2208,7 @@ def test_checkpoint_roundtrip_of_cuda_bf16_tensors(cuda, tmp_path):
         assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
                            else a, b.view(torch.int16)
                            if b.dtype == torch.bfloat16 else b)
-    meta = abstract(tf.param_defs(cfg), "bfloat16")
+    meta = abstract(tf.param_defs(cfg, AX1), "bfloat16")
     got = mgr.restore((meta, adamw_init(params)), device=cuda)[0][0]
     for a, b in zip(tree_leaves(got), tree_leaves(params), strict=True):
         assert a.device.type == "cuda" and torch.equal(a, b)
@@ -2345,3 +2354,98 @@ def test_launcher_first_loss_on_the_card_matches_the_cpu(cuda, capsys):
     on_cpu = ttrain.main(args + ["--device", "cpu"])
     capsys.readouterr()
     np.testing.assert_allclose(on_card, on_cpu, rtol=1e-5)
+
+
+# ------------------------------------------- the LMs under a process mesh --
+
+def _mesh_lm_runs(tmp_path, over=None):
+    """mistral-large and qwen3-moe SMOKE (the fields of ``over`` replaced),
+    attn_impl="pallas", through ``_torch_mesh_ref.lm_job`` in one process
+    on the card and on a (2, 2) mesh of four gloo ranks sharing it: (the
+    jobs, the one-process results, each rank's results)."""
+    import _torch_dist_ref as dref
+    import _torch_mesh_ref as mref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    jobs = []
+    for arch, ds in (("mistral-large-123b", 1), ("qwen3-moe-235b-a22b", 2)):
+        jobs.append(dict(
+            arch=arch, over=over, shape=(2, 2), data_shards=ds, seed=0,
+            gen=4, attn_impl="pallas", device="cuda",
+            tokens=rng.integers(0, 128, (4, 16)).astype(np.int32),
+            labels=rng.integers(0, 128, (4, 16)).astype(np.int32),
+            prompt=rng.integers(0, 128, (4, 12)).astype(np.int32)))
+    one = [mref.lm_job(None, job) for job in jobs]    # builds kernel 12
+    per_rank = dref.run_ranks(mref.rank_lm, tmp_path, jobs, world=4,
+                              shape=(2, 2), axes=mref.AXES, device="cuda")
+    return jobs, one, per_rank
+
+
+def test_mesh_lm_on_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    """mistral-large and qwen3-moe SMOKE in f32, attn_impl="pallas", on a
+    (2, 2) mesh of four gloo ranks sharing the card (CUDA tensors in the
+    collectives): forward, prefill and 4 greedy decode steps, loss,
+    gradients and one AdamW step, against the one-process port on the
+    card. Logits, caches, gradients and the stepped parameters within 1e-4
+    of their largest value, the losses 1e-5 relative, greedy tokens and
+    MoE routing exact; every rank's forward and prefill launch kernel 12's
+    f32 route once a layer each and nothing else."""
+    import _torch_mesh_ref as mref
+    from repro_torch.distributed.sharding import P
+    jobs, one, per_rank = _mesh_lm_runs(tmp_path)
+
+    def close(got, want, rel=1e-4):
+        assert np.abs(got - want).max() <= rel * np.abs(want).max()
+
+    for i, (job, o) in enumerate(zip(jobs, one)):
+        parts = [r[i] for r in per_rank]
+        shape = job["shape"]
+        for p in parts:
+            assert p["launches"] == {"flash_attention": 4}    # 2 layers x 2
+            for key in ("loss", "step_loss", "grad_norm"):
+                assert abs(p[key] - o[key]) <= 1e-5 * abs(o[key])
+        close(mref.lay([p["logits"] for p in parts], shape,
+                       P("data", None, "model"), o["logits"].shape),
+              o["logits"])
+        np.testing.assert_array_equal(mref.rows_of(parts, shape, "gen"),
+                                      o["gen"])
+        for k in range(job["gen"] + 1):
+            close(mref.rows_of(parts, shape, "lasts", k), o["lasts"][k])
+        for k in range(2):
+            close(mref.heads_of(parts, shape, "caches", k, o["caches"][k]),
+                  o["caches"][k])
+        for key in ("routes", "decode_routes"):
+            for k, want in enumerate(o[key]):
+                np.testing.assert_array_equal(
+                    mref.rows_of(parts, shape, key, k), want)
+        scale = max(np.abs(a).max() for a in o["new"])
+        for k, d in enumerate(mref.defs_of(job["arch"], job["data_shards"])):
+            close(mref.lay([p["grads"][k] for p in parts], shape, d.pspec,
+                           d.shape), o["grads"][k])
+            new = mref.lay([p["new"][k] for p in parts], shape, d.pspec,
+                           d.shape)
+            assert np.abs(new - o["new"][k]).max() <= 1e-4 * scale
+
+
+def test_mesh_lm_bf16_on_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    """The same runs in bfloat16, the configs' own type: kernel 12's bf16
+    route (``flash_attention_tc``) at a rank's heads, every row-parallel
+    and expert partial rounded to bfloat16 and summed by gloo in
+    bfloat16. Against the one-process port on the card within 3e-2 of the
+    largest value (the port's bfloat16 tolerance against JAX) by
+    ``_torch_mesh_ref.check_bf16``: logits, caches, gradients, the losses
+    and gradient norm; greedy tokens exact where one process's top-2 gap
+    exceeds twice that, and a row's later logits and caches while its
+    tokens agree. A MoE pick may move from one process's only at a near
+    tie (the card's bf16 products round otherwise than the CPU's), and
+    frees its token group from the comparison (``held_rows``), or in the
+    train step the gradients; what was held is printed. Each rank's forward and prefill launch
+    ``flash_attention_tc`` once a layer each and nothing else."""
+    import _torch_mesh_ref as mref
+    rel = 3e-2
+    jobs, one, per_rank = _mesh_lm_runs(tmp_path, dict(dtype="bfloat16"))
+    for i, (job, o) in enumerate(zip(jobs, one)):
+        parts = [r[i] for r in per_rank]
+        for p in parts:
+            assert p["launches"] == {"flash_attention_tc": 4}
+        mref.check_bf16(parts, job["shape"], o, [o], job, rel)

@@ -38,10 +38,12 @@ from repro_torch.core import prng  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import autoint as tai  # noqa: E402
 from repro_torch.models import gnn as tgnn  # noqa: E402
+from repro_torch.distributed.sharding import MeshAxes as TMeshAxes  # noqa: E402,E501
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.params import ParamDef, materialize, tree_leaves  # noqa: E402,E501
 
 AX = MeshAxes(data=("data",), data_shards=1)
+TAX = TMeshAxes(data=("data",), data_shards=1)
 F32_ULPS = 4
 BF16_ULPS = 1
 
@@ -86,7 +88,7 @@ def _family_defs(arch):
     cj = jax_registry._load(arch, smoke=True)[1]
     ct = torch_registry._load(arch, smoke=True)[1]
     if arch == "olmoe-1b-7b":
-        return (ttf.param_defs(ct), jtf.param_defs(cj, AX), ct.dtype,
+        return (ttf.param_defs(ct, TAX), jtf.param_defs(cj, AX), ct.dtype,
                 cj.dtype)
     if arch == "autoint":
         return (tai.autoint_param_defs(ct), jai.autoint_param_defs(cj, AX),

@@ -33,6 +33,7 @@ from repro.models import transformer as jtf
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from repro_torch.distributed.sharding import MeshAxes as TMeshAxes  # noqa: E402,E501
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 
@@ -43,6 +44,10 @@ AUX_ATOL = 1e-6
 
 def _ax(groups):
     return MeshAxes(data=("data",), data_shards=groups)
+
+
+def _tax(groups):
+    return TMeshAxes(data=("data",), data_shards=groups)
 
 
 def _np(x):
@@ -153,7 +158,7 @@ def _jax_ffn(mj, impl, groups):
 def _torch_ffn(x, lp, cot, mt, impl, groups):
     xt = torch.from_numpy(x).requires_grad_(True)
     lpt = {n: torch.from_numpy(a).requires_grad_(True) for n, a in lp.items()}
-    y, aux = tmoe.moe_ffn(xt, lpt, mt, "silu", groups=groups, impl=impl)
+    y, aux = tmoe.moe_ffn(xt, lpt, mt, "silu", _tax(groups), impl=impl)
     loss = (y * torch.from_numpy(cot)).sum() + 0.7 * aux
     grads = torch.autograd.grad(loss, [xt, *lpt.values()])
     return y, aux, dict(zip(["x", *lpt], grads))
@@ -244,11 +249,11 @@ def test_moe_ffn_shmap_needs_whole_groups():
     _, mt = _moe_cfgs(1.25)
     lpt = {n: torch.from_numpy(a) for n, a in lp.items()}
     with pytest.raises(ValueError, match="equal groups"):
-        tmoe.moe_ffn(torch.from_numpy(x), lpt, mt, "silu", groups=2,
+        tmoe.moe_ffn(torch.from_numpy(x), lpt, mt, "silu", _tax(2),
                      impl="shmap")
     # gspmd halves the groups until they divide the 5 tokens: one group
-    y1, a1 = tmoe.moe_ffn(torch.from_numpy(x), lpt, mt, "silu", groups=2)
-    y0, a0 = tmoe.moe_ffn(torch.from_numpy(x), lpt, mt, "silu", groups=1)
+    y1, a1 = tmoe.moe_ffn(torch.from_numpy(x), lpt, mt, "silu", _tax(2))
+    y0, a0 = tmoe.moe_ffn(torch.from_numpy(x), lpt, mt, "silu", _tax(1))
     assert torch.equal(y1, y0) and torch.equal(a1, a0)
 
 
@@ -265,6 +270,6 @@ def test_moe_ffn_gelu_and_decode_capacity(mesh11):
             x, lp, mj, act, _ax(1), impl="gspmd"), jnp.asarray(x), lpj)
         yt, auxt = tmoe.moe_ffn(torch.from_numpy(x),
                                 {n: torch.from_numpy(a) for n, a in
-                                 lp.items()}, mt, act)
+                                 lp.items()}, mt, act, _tax(1))
         _close(yt, yj, F32_REL)
         assert abs(float(auxt) - float(auxj)) <= AUX_ATOL

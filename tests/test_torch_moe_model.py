@@ -38,6 +38,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs import registry as torch_registry  # noqa: E402
+from repro_torch.distributed.sharding import MeshAxes as TMeshAxes  # noqa: E402,E501
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.params import params_from_numpy  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
@@ -49,6 +50,7 @@ AUX_ATOL = 1e-6
 
 
 AX = MeshAxes(data=("data",), data_shards=1)
+TAX = TMeshAxes(data=("data",), data_shards=1)
 
 
 @pytest.fixture
@@ -115,7 +117,7 @@ def test_forward_matches(mesh11, jax_pallas_interpret, arch, impl):
     toks = _tokens(cj, (2, 40), seed=2)
     lj, kvj, auxj = _jit(mesh11, lambda p, t: jtf.forward(p, t, cj, AX),
                          pj, jnp.asarray(toks))
-    lt, kvt, auxt = ttf.forward(pt, torch.from_numpy(toks), ct)
+    lt, kvt, auxt = ttf.forward(pt, torch.from_numpy(toks), ct, TAX)
     _close(lt, lj, F32_REL)
     for a, b in zip(kvt, kvj):
         _close(a, b, F32_REL)
@@ -130,7 +132,7 @@ def test_forward_bf16_matches(mesh11, jax_pallas_interpret, arch):
     toks = _tokens(cj, (2, 40), seed=3)
     lj, _, _ = _jit(mesh11, lambda p, t: jtf.forward(p, t, cj, AX), pj,
                     jnp.asarray(toks))
-    lt, kvt, _ = ttf.forward(pt, torch.from_numpy(toks), ct)
+    lt, kvt, _ = ttf.forward(pt, torch.from_numpy(toks), ct, TAX)
     assert lt.dtype == torch.float32 and kvt[0].dtype == torch.bfloat16
     _close(lt, lj, BF16_REL)
 
@@ -146,14 +148,14 @@ def test_prefill_and_decode_match_reference_decode(mesh11,
     toks = _tokens(cj, (4, 19), seed=4)
     lj, kvj = _jit(mesh11, jtf.make_prefill_step(cj, AX), pj,
                    {"tokens": jnp.asarray(toks[:, :16])})
-    lt, kvt = ttf.make_prefill_step(ct)(
+    lt, kvt = ttf.make_prefill_step(ct, TAX)(
         pt, {"tokens": torch.from_numpy(toks[:, :16])})
     _close(lt, lj, F32_REL)
     cjs = tuple(jnp.pad(t, ((0, 0), (0, 0), (0, 3), (0, 0), (0, 0)))
                 for t in kvj)
     cts = tuple(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 3)) for t in kvt)
     serve_j = jax.jit(jtf.make_serve_step(cj, AX))
-    serve_t = ttf.make_serve_step(ct)
+    serve_t = ttf.make_serve_step(ct, TAX)
     for pos in (16, 17, 18):
         tok = toks[:, pos:pos + 1]
         with compat.set_mesh(mesh11):
@@ -179,7 +181,7 @@ def test_loss_grads_and_train_step_match(mesh11, arch):
     bt = {"tokens": torch.from_numpy(tok), "labels": torch.from_numpy(lab)}
     lj, gj = _jit(mesh11, jax.value_and_grad(
         lambda p, b: jtf.loss_fn(p, b, cj, AX)), pj, bj)
-    lt, gt = ttf._value_and_grad(pt, bt, ct)
+    lt, gt = ttf._value_and_grad(pt, bt, ct, TAX)
     _close(lt, lj, F32_REL)
     names = set()
     for name, g_j, g_t in _pairs(gj, gt):
@@ -194,7 +196,7 @@ def test_loss_grads_and_train_step_match(mesh11, arch):
         for _ in range(3):
             pj, state_j, m = step_j(pj, state_j, bj)
             metrics_j.append(m)
-    step_t = ttf.make_train_step(ct, tadamw.AdamWConfig())
+    step_t = ttf.make_train_step(ct, TAX, tadamw.AdamWConfig())
     state_t = tadamw.adamw_init(pt)
     for mj in metrics_j:
         pt, state_t, mt = step_t(pt, state_t, bt)

@@ -41,12 +41,14 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs import registry as torch_registry  # noqa: E402
+from repro_torch.distributed.sharding import MeshAxes as TMeshAxes  # noqa: E402,E501
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.params import params_from_numpy  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.optim import schedule as tsched  # noqa: E402
 
 AX = MeshAxes(data=("data",), data_shards=1)
+TAX = TMeshAxes(data=("data",), data_shards=1)
 REL = 1e-5
 B, S = 4, 40
 
@@ -101,8 +103,8 @@ def test_loss_and_grads_match_reference(impl, mesh11):
         (B, S, cj.vocab_size)).astype(np.float32) * 4
     _close(ttf.softmax_xent(torch.from_numpy(logits), bt["labels"]),
            jtf.softmax_xent(jnp.asarray(logits), bj["labels"]), REL)
-    _close(ttf.loss_fn(pt, bt, ct), lj, REL)
-    lt, gt = ttf._value_and_grad(pt, bt, ct)
+    _close(ttf.loss_fn(pt, bt, ct, TAX), lj, REL)
+    lt, gt = ttf._value_and_grad(pt, bt, ct, TAX)
     _close(lt, lj, REL)
     n = 0
     for name, g_j, g_t in _pairs(gj, gt):
@@ -214,7 +216,7 @@ def test_train_steps_match_reference(impl, microbatches, mesh11):
         for _ in range(3):
             pj, state_j, m = step_j(pj, state_j, bj)
             metrics_j.append(m)
-    step_t = ttf.make_train_step(ct, tadamw.AdamWConfig(),
+    step_t = ttf.make_train_step(ct, TAX, tadamw.AdamWConfig(),
                                  microbatches=microbatches)
     state_t = tadamw.adamw_init(pt)
     p0 = pt
@@ -247,11 +249,12 @@ def test_pallas_attention_refuses_a_gradient(monkeypatch):
     _, _, _, pt, _, bt = _setup("xla")
     with pytest.raises(NotImplementedError, match="no backward"):
         ttf.loss_fn(dict(pt, embed=pt["embed"].detach().requires_grad_()),
-                    bt, ct)
-    step = ttf.make_train_step(ct, tadamw.AdamWConfig())
+                    bt, ct, TAX)
+    step = ttf.make_train_step(ct, TAX, tadamw.AdamWConfig())
     with pytest.raises(NotImplementedError, match="no backward"):
         step(pt, tadamw.adamw_init(pt), bt)
     with torch.no_grad():
-        got = ttf.forward(pt, bt["tokens"], ct)[0]
-    want = ttf.forward(pt, bt["tokens"], _configs(attn_impl="xla")[1])[0]
+        got = ttf.forward(pt, bt["tokens"], ct, TAX)[0]
+    want = ttf.forward(pt, bt["tokens"], _configs(attn_impl="xla")[1],
+                       TAX)[0]
     _close(got, want, REL)

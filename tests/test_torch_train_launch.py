@@ -39,6 +39,7 @@ torch.set_num_threads(1)
 from repro_torch.checkpoint import latest_step, restore_checkpoint  # noqa: E402
 from repro_torch.configs import registry as torch_registry  # noqa: E402
 from repro_torch.configs import sssp_paper as torch_sssp_paper  # noqa: E402
+from repro_torch.distributed.sharding import MeshAxes as TMeshAxes  # noqa: E402,E501
 from repro_torch.examples import gnn_products, train_lm  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -46,6 +47,7 @@ from repro_torch.models.params import (  # noqa: E402
     params_from_numpy, tree_leaves)
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 
+TAX = TMeshAxes(data=("data",))
 ARGS = ["--arch", "olmoe-1b-7b", "--smoke", "--log-every", "1",
         "--device", "cpu"]
 LINE = re.compile(r"step (\d+): loss=(\d+\.\d{4}) \(\d+ ms/step\)")
@@ -83,7 +85,7 @@ def test_launcher_resumes_from_its_last_complete_step(tmp_path, capsys):
 
 def _target():
     cfg = torch_registry._load("olmoe-1b-7b", smoke=True)[1]
-    params = ttrain.build_lm(cfg, 2, 4, AdamWConfig(), "cpu")[0]
+    params = ttrain.build_lm(cfg, TAX, 2, 4, AdamWConfig(), "cpu")[0]
     return params, adamw_init(params)
 
 
@@ -95,7 +97,7 @@ def test_launcher_step_matches_reference(mesh11):
     ct = torch_registry._load("qwen3-moe-235b-a22b", smoke=True)[1]
     ax = MeshAxes(data=("data",))
     pj, step_j, data_j = jtrain.build_lm(cj, ax, 4, 16, JAdamWConfig(lr=1e-3))
-    _, step_t, data_t = ttrain.build_lm(ct, 4, 16, AdamWConfig(lr=1e-3),
+    _, step_t, data_t = ttrain.build_lm(ct, TAX, 4, 16, AdamWConfig(lr=1e-3),
                                         "cpu")
     pt = params_from_numpy(jax.tree_util.tree_map(np.asarray, pj),
                            device="cpu")

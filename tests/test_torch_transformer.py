@@ -35,11 +35,13 @@ torch.set_num_threads(1)
 
 from repro_torch.configs import registry as torch_registry  # noqa: E402
 from repro_torch.examples import serve_decode  # noqa: E402
+from repro_torch.distributed.sharding import MeshAxes as TMeshAxes  # noqa: E402,E501
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.params import (  # noqa: E402
     ParamDef, as_dtype, materialize, n_params, params_from_numpy)
 
 AX = MeshAxes(data=("data",), data_shards=1)
+TAX = TMeshAxes(data=("data",), data_shards=1)
 ARCHS = ["gemma-7b", "deepseek-7b", "mistral-large-123b"]   # the dense LMs
 IMPLS = ["xla", "chunked", "pallas"]
 F32_REL = 1e-5
@@ -162,7 +164,7 @@ def test_materialize_follows_the_init_rule():
     _, ct = _configs("gemma-7b", dtype="bfloat16")
     cj, _ = _configs("gemma-7b", dtype="bfloat16")
     pj, _ = _params(cj)
-    defs = ttf.param_defs(ct)
+    defs = ttf.param_defs(ct, TAX)
     gen = torch.Generator().manual_seed(0)
     pt = materialize(defs, gen, device="cpu", default_dtype=ct.dtype)
     again = materialize(defs, torch.Generator().manual_seed(0), device="cpu",
@@ -242,7 +244,7 @@ def test_layer_matches(mesh11):
     pos = np.broadcast_to(np.arange(12), (2, 12)).astype(np.int32)
     yj, (kj, vj), _ = _jit(mesh11, lambda x, p: jtf._layer(x, lpj, cj, AX, p),
                            jnp.asarray(x), jnp.asarray(pos))
-    yt, (kt, vt), _ = ttf._layer(torch.from_numpy(x), lpt, ct,
+    yt, (kt, vt), _ = ttf._layer(torch.from_numpy(x), lpt, ct, TAX,
                                  torch.from_numpy(pos))
     for a, b in ((yt, yj), (kt, kj), (vt, vj)):
         _close(a, b, F32_REL)
@@ -256,7 +258,7 @@ def test_layer_matches(mesh11):
                                                 cache=(c0, c1), cache_pos=12),
         jnp.asarray(x1), jnp.asarray(p1), *map(jnp.asarray, cache))
     ct_ = [torch.from_numpy(c.copy()) for c in cache]
-    yt, (ckt, cvt), _ = ttf._layer(torch.from_numpy(x1), lpt, ct,
+    yt, (ckt, cvt), _ = ttf._layer(torch.from_numpy(x1), lpt, ct, TAX,
                                    torch.from_numpy(p1), cache=tuple(ct_),
                                    cache_pos=12)
     assert ckt is ct_[0] and cvt is ct_[1]          # written in place
@@ -277,7 +279,7 @@ def test_embed_scale_rounds_to_bf16():
     want = jnp.take(emb, toks, axis=0) * jnp.asarray(3072 ** 0.5, jnp.bfloat16)
     params = {"embed": torch.from_numpy(_f32(emb)).to(torch.bfloat16),
               "layers": {}}
-    x, _, _ = ttf._trunk(params, torch.from_numpy(toks), cfg)
+    x, _, _ = ttf._trunk(params, torch.from_numpy(toks), cfg, TAX)
     assert np.array_equal(_f32(x), _f32(want))
     plain = params["embed"][torch.from_numpy(toks).long()] * 3072 ** 0.5
     assert not torch.equal(x, plain)
@@ -296,7 +298,7 @@ def test_forward_matches(mesh11, jax_pallas_interpret, arch, over, impl):
     toks = _tokens(cj, (2, 40), seed=2)
     lj, kvj, _ = _jit(mesh11, lambda p, t: jtf.forward(p, t, cj, AX), pj,
                       jnp.asarray(toks))
-    lt, kvt, aux = ttf.forward(pt, torch.from_numpy(toks), ct)
+    lt, kvt, aux = ttf.forward(pt, torch.from_numpy(toks), ct, TAX)
     _close(lt, lj, F32_REL)
     for a, b in zip(kvt, kvj):
         _close(a, b, F32_REL)
@@ -309,7 +311,7 @@ def test_forward_bf16_matches(mesh11, jax_pallas_interpret):
     toks = _tokens(cj, (2, 40), seed=3)
     lj, kvj, _ = _jit(mesh11, lambda p, t: jtf.forward(p, t, cj, AX), pj,
                       jnp.asarray(toks))
-    lt, kvt, _ = ttf.forward(pt, torch.from_numpy(toks), ct)
+    lt, kvt, _ = ttf.forward(pt, torch.from_numpy(toks), ct, TAX)
     assert lt.dtype == torch.float32 and kvt[0].dtype == torch.bfloat16
     _close(lt, lj, BF16_REL)
 
@@ -324,7 +326,7 @@ def test_prefill_and_serve_match(mesh11, jax_pallas_interpret, arch):
     toks = _tokens(cj, (2, 20), seed=4)
     lj, kvj = _jit(mesh11, jtf.make_prefill_step(cj, AX), pj,
                    {"tokens": jnp.asarray(toks[:, :16])})
-    lt, kvt = ttf.make_prefill_step(ct)(
+    lt, kvt = ttf.make_prefill_step(ct, TAX)(
         pt, {"tokens": torch.from_numpy(toks[:, :16])})
     _close(lt, lj, F32_REL)
     assert kvt[0].shape == (cj.n_layers, 2, 16, cj.n_kv_heads, cj.hd)
@@ -334,7 +336,7 @@ def test_prefill_and_serve_match(mesh11, jax_pallas_interpret, arch):
                 for t in kvj)
     ct_ = tuple(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 4)) for t in kvt)
     serve_j = jtf.make_serve_step(cj, AX)
-    serve_t = ttf.make_serve_step(ct)
+    serve_t = ttf.make_serve_step(ct, TAX)
     for pos in (16, 17, 18, 25):
         tok = toks[:, pos:pos + 1] if pos < 20 else toks[:, :1]
         lj, cj_ = _jit(mesh11, serve_j, pj, jnp.asarray(tok), cj_,
@@ -355,12 +357,12 @@ def test_serve_step_leaves_caches_intact(mesh11):
     toks = _tokens(cj, (2, 16), seed=7)
     _, kvj = _jit(mesh11, jtf.make_prefill_step(cj, AX), pj,
                   {"tokens": jnp.asarray(toks)})
-    _, kvt = ttf.make_prefill_step(ct)(pt, {"tokens": torch.from_numpy(toks)})
+    _, kvt = ttf.make_prefill_step(ct, TAX)(pt, {"tokens": torch.from_numpy(toks)})
     cj0 = tuple(jnp.pad(t, ((0, 0), (0, 0), (0, 3), (0, 0), (0, 0)))
                 for t in kvj)
     ct0 = tuple(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 3)) for t in kvt)
     kept = tuple(t.clone() for t in ct0)
-    serve_j, serve_t = jtf.make_serve_step(cj, AX), ttf.make_serve_step(ct)
+    serve_j, serve_t = jtf.make_serve_step(cj, AX), ttf.make_serve_step(ct, TAX)
     ends = []
     for first in (1, 2):       # two different first tokens, one prefill
         tok = np.full((2, 1), first, np.int32)
@@ -376,7 +378,7 @@ def test_serve_step_leaves_caches_intact(mesh11):
         assert all(torch.equal(a, b) for a, b in zip(ct0, kept))
         ends.append(ctb[0])
     assert not torch.equal(ends[0], ends[1])
-    donated = ttf.make_serve_step(ct, donate=True)(
+    donated = ttf.make_serve_step(ct, TAX, donate=True)(
         pt, torch.ones((2, 1), dtype=torch.int32), ct0, 16)[1]
     assert donated[0] is ct0[0] and donated[1] is ct0[1]
     assert not torch.equal(ct0[0], kept[0])
@@ -388,15 +390,15 @@ def test_decode_matches_forward(arch):
     path's invariant, tests/test_arch_smoke.py:92), on the port alone with
     its own parameters."""
     _, ct = _configs(arch, attn_impl="pallas")
-    params = materialize(ttf.param_defs(ct), torch.Generator().manual_seed(1),
+    params = materialize(ttf.param_defs(ct, TAX), torch.Generator().manual_seed(1),
                          device="cpu", default_dtype=ct.dtype)
     B, S, pre = 2, 24, 20
     toks = torch.from_numpy(_tokens(ct, (B, S), seed=5))
-    full, _, _ = ttf.forward(params, toks, ct)
-    _, kvs = ttf.make_prefill_step(ct)(params, {"tokens": toks[:, :pre]})
+    full, _, _ = ttf.forward(params, toks, ct, TAX)
+    _, kvs = ttf.make_prefill_step(ct, TAX)(params, {"tokens": toks[:, :pre]})
     caches = tuple(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, S - pre))
                    for t in kvs)
-    serve = ttf.make_serve_step(ct)
+    serve = ttf.make_serve_step(ct, TAX)
     for i in range(pre, S):
         logits, caches = serve(params, toks[:, i:i + 1], caches, i)
         np.testing.assert_allclose(logits.numpy(), full[:, i].numpy(),
@@ -423,7 +425,8 @@ def test_generate_matches_reference_loop(mesh11, jax_pallas_interpret):
             tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
             outs.append(tok)
     want = np.concatenate([np.asarray(t) for t in outs], axis=1)
-    got = serve_decode.generate(pt, torch.from_numpy(prompts), ct, G)
+    got = serve_decode.generate(pt, torch.from_numpy(prompts), ct, TAX,
+                                 G)
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), want)
 
