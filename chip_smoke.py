@@ -153,7 +153,12 @@ Phases, each of which exits non-zero on a mismatch:
            relax_fixpoint_batch_ragged_pallas (1e7), and
            local_fixpoint_pallas_batch, each launching its kernel and
            bit-equal to its plain version and to row 0 of the stacked
-           entry point;
+           entry point; then the fused round's (fused_round_wrappers):
+           fused_round_pallas with bucket and with dense incoming
+           (kernel 7 at 1e6, 8 at 1e7), fused_round_rescue (the relax
+           and send kernels) and the oracle fused_round_ref, each
+           bit-equal to its plain twin and to row 0 of its stacked body,
+           the rescued round equal to the oracle;
   runner   python -m repro_torch.launch.sssp_run on rmat scale 16 (P=8, 4
            sources, async with toka3, drop 0.2 with resend every 4
            rounds, the three staged kernels), staged and fused, the two
@@ -275,9 +280,9 @@ Phases, each of which exits non-zero on a mismatch:
            in bf16 each run's own roundings would flip near ties): four
            gloo ranks sharing the card, each holding its shards of the
            weights (made on the card from the seed): mistral-large-123b
-           at its published widths cut to 8 layers, 4 x 2048 prompts and
-           16 greedy steps on (1, 4), and cut to 2 layers with 4 steps on
-           (2, 2) (FSDP gathers every weight every step through gloo);
+           at its published widths cut to 4 layers, 4 x 2048 prompts and
+           16 greedy steps on (1, 4), and cut to 2 layers with one step
+           on (2, 2) (FSDP gathers every weight every step through gloo);
            qwen3-moe-235b-a22b at its published widths cut to 4 layers
            (32 experts a rank), 4 x 512 prompts and 8 steps on (1, 4)
            under both MoE impls; olmoe-1b-7b cut to 2 layers, one AdamW
@@ -299,7 +304,21 @@ Phases, each of which exits non-zero on a mismatch:
            step printed. With two cards or more the same over NCCL, one
            rank a card (with four, mistral-large at full depth in bf16
            on (1, 4), its TTFT and decode ms a step); with one, a line
-           says it did not run;
+           says it did not run. In the same spawn, AutoInt and the GNN
+           zoo at their published widths (MESH_MODELS, f32): AutoInt's
+           train step at 65,536 and serving at 512 on (2, 2), the table
+           over model and the batch over data, and retrieval of one
+           query over 1e6 candidates on (1, 4); gat-cora and graphcast
+           (cut to 2 layers: gloo moves its whole-graph gathers through
+           the host) on minibatch_lg, egnn and mace on molecule (bonded:
+           no self-loops, EGNN's coordinates at 0.3, where both stay well
+           inside f32), one train step and the forward on (2, 2), node
+           and edge rows over (data, model); each against one process on
+           the card: one process's loss and gradient norm finite, the
+           ranks' within 1e-5, first moments, gradients and outputs
+           within 1e-4 of the largest, stepped parameters within 2 lr +
+           1 ulp, retrieval's indices equal but at adjacent scores
+           within 1e-5; each job's wall and peak a rank printed;
   recsys   AutoInt at its published widths (39 fields x 1e6 ids x 16,
            624e6 parameters, 2.50 GB in f32), weights made on the card from
            a seed, under the reference's recsys traffic (REC_SHAPES): 3
@@ -344,7 +363,9 @@ Phases, each of which exits non-zero on a mismatch:
            memory, and the transients a slice leaves against a whole
            draw's; no kernel launched;
   dryrun   python -m repro_torch.launch.dryrun --all (every cell of the
-           registry on meta tensors) must exit 0 with every cell recorded
+           registry on meta tensors; host work with no card, started
+           after the build at nice 19 so that it runs beside the card's
+           phases) must exit 0 with every cell recorded
            (counted FLOPs for the LM, GNN and recsys cells, the SSSP cells'
            note); its table of cells; then the AutoInt train_batch and
            gat-cora full_graph_sm cells built for real on the card, the
@@ -3176,6 +3197,99 @@ def shard_wrappers_phase(torch, eng, sources, label: str, ragged: bool):
     say(f"wrappers {label}: {', '.join(seen)} on shard 0 at round 2, each "
         f"bit-equal to its plain version and to row 0 of the stacked entry "
         f"point; launches {seen}")
+    fused_round_wrappers(torch, sh, carry, act, incoming, label, ragged)
+
+
+def fused_round_wrappers(torch, sh, carry, act, incoming, label: str,
+                         ragged: bool):
+    """The fused round's per-shard entry points on shard 0 of a round-2
+    state, in the reference's form: ``fused_round_pallas`` with bucket and
+    with dense incoming (one in-kernel sweep, so a residual is left) must
+    launch kernel 7 (dense layouts) or 8 (ragged) and be bit-equal to its
+    plain twin and to row 0 of the stacked body the solver calls
+    (``_fused_round_stacked``); ``fused_round_rescue`` the same with the
+    relax and send kernels it launches; ``fused_round_ref`` (the plain
+    oracle, no kernel) equal to row 0 of its stacked body and, with bucket
+    incoming, to the round finished by the rescue."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import round as RD
+    from repro_torch.kernels.round.ref import _fused_round_ref_stacked
+    sfx = "_ragged" if ragged else ""
+    lays = [tuple(a[0] for a in lay) for lay in (
+        sh.relax_layout, sh.send_layout, sh.merge_layout)]
+    e = sh.e_loc
+    prn = (carry.pruned[0, :e], carry.pruned[0, e:])
+    live = ~carry.done
+    kw = dict(vb=sh.rx_vb, sb=sh.tx_sb, n_sweeps=1)
+    inc = {False: incoming, True: torch.where(
+        torch.isfinite(carry.dist), carry.dist - 0.5, carry.dist)}
+    out = {}
+
+    def check(name, kernels, one, stacked):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        got = _flat(tuple(one()))
+        torch.cuda.synchronize()
+        n = {k + sfx: build.LAUNCHES[k + sfx] for k in kernels}
+        if kernels and min(n.values()) < 1 or not kernels and any(
+                build.LAUNCHES.values()):
+            fail(f"wrappers {label}: {name} launched {dict(build.LAUNCHES)}, "
+                 f"not {kernels}")
+        with plain_round_kernels():
+            want = _flat(tuple(one()))
+        row0 = [t[0] for t in _flat(tuple(stacked()))]
+        for g_, w_, r_ in zip(got, want, row0, strict=True):
+            if not (torch.equal(g_, w_) and torch.equal(g_, r_)):
+                fail(f"wrappers {label}: {name} differs from its plain twin "
+                     f"or from row 0 of its stacked body")
+        return got, n
+
+    for dense in (False, True):
+        name = f"fused_round_pallas({'dense' if dense else 'bucket'})"
+        out[dense], n = check(name, ("round",), lambda: RD.fused_round_pallas(
+            carry.dist[0], act[0], live[0], inc[dense][0],
+            carry.last_sent[0], sh.slot_valid[0], *lays, *prn, dense=dense,
+            interpret=False, **kw), lambda: RD.ops._fused_round_stacked(
+            carry.dist, act, live, inc[dense], carry.last_sent,
+            sh.slot_valid, sh.relax_layout, sh.send_layout,
+            None if dense else sh.merge_layout, carry.pruned[:, :e],
+            carry.pruned[:, e:], dense=dense, chunks=sh.round_chunks, **kw))
+        say(f"  {name}: {n}")
+    d0, resid = out[False][0], out[False][5]
+    if not bool((resid > 0).any()):
+        fail(f"wrappers {label}: one sweep left no residual to rescue")
+    full = RD.ops._fused_round_stacked(
+        carry.dist, act, live, incoming, carry.last_sent, sh.slot_valid,
+        sh.relax_layout, sh.send_layout, sh.merge_layout,
+        carry.pruned[:, :e], carry.pruned[:, e:], chunks=sh.round_chunks,
+        **kw)
+    res, n = check("fused_round_rescue", ("relax", "send"),
+                   lambda: RD.fused_round_rescue(
+                       d0, resid, carry.last_sent[0], sh.slot_valid[0],
+                       lays[0], lays[1], *prn, interpret=False, **kw),
+                   lambda: RD.ops._fused_round_rescue_stacked(
+                       full[0], full[5], carry.last_sent, sh.slot_valid,
+                       sh.relax_layout, sh.send_layout, carry.pruned[:, :e],
+                       carry.pruned[:, e:], send_bounds=sh.send_bounds,
+                       relax_chunks=sh.relax_chunks, **kw))
+    say(f"  fused_round_rescue: {n}")
+    ref, _ = check("fused_round_ref", (), lambda: RD.fused_round_ref(
+        carry.dist[0], act[0], live[0], incoming[0], sh.recv_idx[0],
+        carry.last_sent[0], sh.slot_valid[0], sh.loc_src[0], sh.loc_dst[0],
+        sh.loc_w[0], prn[0], sh.cut_src[0], sh.cut_seg[0], sh.cut_w[0],
+        prn[1]), lambda: _fused_round_ref_stacked(
+        carry.dist, act, live, incoming, sh.recv_idx.reshape(
+            sh.n_parts, -1), carry.last_sent, sh.slot_valid, sh.loc_src,
+        sh.loc_dst, sh.loc_w, carry.pruned[:, :e], sh.cut_src, sh.cut_seg,
+        sh.cut_w, carry.pruned[:, e:]))
+    for i, j in ((0, 0), (1, 1), (2, 2), (4, 3)):
+        if not torch.equal(res[i], ref[j]):
+            fail(f"wrappers {label}: the rescued round's output {i} "
+                 f"differs from fused_round_ref's")
+    say(f"wrappers {label}: fused_round_pallas (bucket and dense incoming), "
+        f"fused_round_rescue and fused_round_ref on shard 0 at round 2, "
+        f"each bit-equal to its plain twin and to row 0 of its stacked "
+        f"body; the rescued round == the oracle")
 
 
 TRAIN = dict(arch="deepseek-7b", layers=2, batch=4, seq=1024, steps=3,
@@ -3587,6 +3701,7 @@ GRAPHCAST_LAYERS = 13
 GNN_STEPS = 3
 GNN_SEED = 19
 MOLECULE_ATOMS = 32            # 128 molecules of 32 atoms fill 4,096 nodes
+BONDED_EGNN_COORDS = 0.3       # EGNN's coordinate scale on bonded molecules
 
 
 def grads_card_vs_cpu(torch, loss_f, params, batch, cfg, label: str):
@@ -3665,7 +3780,8 @@ def recsys_phase(torch, np, card: str, out_dir: Path):
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
     cfg = _load("autoint")[1]
-    defs = ai.autoint_param_defs(cfg)
+    ax = one_ax()
+    defs = ai.autoint_param_defs(cfg, ax)
     gen = torch.Generator(device=dev)
     gen.manual_seed(RECSYS["seed"])
     build.reset_launches()
@@ -3684,7 +3800,7 @@ def recsys_phase(torch, np, card: str, out_dir: Path):
     B = REC_SHAPES["train_batch"]["batch"]
     data = ids(B, RECSYS["seed"])
     batches = [next(data) for _ in range(RECSYS["steps"])]
-    step = ai.make_autoint_train_step(cfg, AdamWConfig())
+    step = ai.make_autoint_train_step(cfg, ax, AdamWConfig())
     params, losses, ms, peak, held = _train_run(
         torch, step, params, adamw_init(params), batches, "recsys train")
     steady = statistics.median(ms[1:])
@@ -3700,7 +3816,7 @@ def recsys_phase(torch, np, card: str, out_dir: Path):
     torch.cuda.empty_cache()
 
     # ---- serve: REC_SHAPES["serve_p99"] and ["serve_bulk"] ----------------
-    serve = ai.make_autoint_serve_step(cfg)
+    serve = ai.make_autoint_serve_step(cfg, ax)
     for shape in ("serve_p99", "serve_bulk"):
         B = REC_SHAPES[shape]["batch"]
         batch = {"sparse_idx": next(ids(B, RECSYS["seed"] + 1))[
@@ -3729,12 +3845,12 @@ def recsys_phase(torch, np, card: str, out_dir: Path):
                        device=dev)
     query = {"sparse_idx": next(ids(sh["batch"], RECSYS["seed"] + 2))[
         "sparse_idx"], "cand_vecs": cand}
-    retrieve = ai.make_retrieval_step(cfg, RECSYS["top_k"])
+    retrieve = ai.make_retrieval_step(cfg, ax, RECSYS["top_k"])
     med, worst = serve_latency(torch, lambda: retrieve(params, query),
                                RECSYS["serve_reps"])
     vals, idx = retrieve(params, query)
     q = ai.mlp_apply(params["retr_proj"], ai.autoint_embed(
-        params, query, cfg), 1)
+        params, query, cfg, ax), 1)
     at = (q[0] * cand[idx[0].long()]).sum(-1)
     best = torch.topk(q[0] @ cand.T, RECSYS["top_k"]).values
     if not (idx.shape == (sh["batch"], RECSYS["top_k"])
@@ -3757,26 +3873,27 @@ def recsys_phase(torch, np, card: str, out_dir: Path):
 
     # ---- SMOKE: card vs CPU ----------------------------------------------
     c = dataclasses.replace(_load("autoint", smoke=True)[1], multi_hot=3)
-    pc = materialize(ai.autoint_param_defs(c), torch.Generator().manual_seed(
-        0), device="cpu")
+    pc = materialize(ai.autoint_param_defs(c, ax),
+                     torch.Generator().manual_seed(0), device="cpu")
     bc = next(RecsysBatcher(64, c.n_sparse, c.vocab_per_field, c.multi_hot,
                             seed=3, device="cpu"))
     bc["sparse_idx"].view(-1)[::5] = c.total_vocab       # padding sentinels
-    s_cpu = ai.make_autoint_serve_step(c)(pc, bc)
-    s_gpu = ai.make_autoint_serve_step(c)(_to(pc, dev),
+    s_cpu = ai.make_autoint_serve_step(c, ax)(pc, bc)
+    s_gpu = ai.make_autoint_serve_step(c, ax)(_to(pc, dev),
                                           _to(bc, dev)).cpu()
     serr = float((s_gpu - s_cpu).abs().max()) / float(s_cpu.abs().max())
     if serr > 1e-4:
         fail(f"recsys smoke: serve scores card vs CPU {serr:.3g}")
-    rel, worst = grads_card_vs_cpu(torch, ai.autoint_loss, pc, bc, c,
+    rel, worst = grads_card_vs_cpu(torch, functools.partial(
+        ai.autoint_loss, ax=ax), pc, bc, c,
                                    "recsys smoke")
     base = torch.randn((512, c.d_retrieval), generator=torch.Generator()
                        .manual_seed(4))
     cands = base[torch.randint(0, 512, (4096,), generator=torch.Generator()
                                .manual_seed(5))]             # ties
     rq = {"sparse_idx": bc["sparse_idx"][:2], "cand_vecs": cands}
-    v_cpu, i_cpu = ai.make_retrieval_step(c, 100)(pc, rq)
-    v_gpu, i_gpu = ai.make_retrieval_step(c, 100)(_to(pc, dev),
+    v_cpu, i_cpu = ai.make_retrieval_step(c, ax, 100)(pc, rq)
+    v_gpu, i_gpu = ai.make_retrieval_step(c, ax, 100)(_to(pc, dev),
                                                   _to(rq, dev))
     ties = int((v_cpu[:, 1:] == v_cpu[:, :-1]).sum())
     if not torch.equal(i_gpu.cpu(), i_cpu) or ties == 0:
@@ -3790,15 +3907,21 @@ def recsys_phase(torch, np, card: str, out_dir: Path):
         f"{time.perf_counter() - t_phase:.1f} s for the phase")
 
 
-def gnn_cell(torch, arch: str, shape_id: str, gen):
+def gnn_cell(torch, arch: str, shape_id: str, gen,
+             graphcast_layers: int = GRAPHCAST_LAYERS, bonded: bool = False):
     """(config, ParamDef tree, loss, batch on the card) of ``arch`` at its
     published widths on GNN_SHAPES[shape_id], the widths adapted as the
-    reference's _gnn_cell does (GraphCast cut to GRAPHCAST_LAYERS): random
+    reference's _gnn_cell does (GraphCast cut to ``graphcast_layers``): random
     edges over the whole graph as build_gnn makes them, or, on the batched
-    molecule shape, edges inside molecules of MOLECULE_ATOMS atoms."""
+    molecule shape, edges inside molecules of MOLECULE_ATOMS atoms.
+    ``bonded``: molecule edges join two distinct atoms and EGNN's
+    coordinates are drawn at BONDED_EGNN_COORDS, where EGNN and MACE stay
+    well inside f32 (PERF.md): with self-loops MACE's correlation-3
+    products reach a loss near 1e13, and EGNN's unnormalised coordinate
+    update grows about as the cube of the coordinates' scale a layer."""
     from repro_torch.configs.registry import GNN_SHAPES, _load
     from repro_torch.models import gnn
-    dev = torch.device("cuda")
+    dev = _card(torch)
     sh = GNN_SHAPES[shape_id]
     N, E, Df = sh["n_nodes"], sh["n_edges"], sh["d_feat"]
     cfg = _load(arch)[1]
@@ -3807,7 +3930,7 @@ def gnn_cell(torch, arch: str, shape_id: str, gen):
     elif arch == "egnn":
         cfg = dataclasses.replace(cfg, d_in=Df)
     elif arch == "graphcast":
-        cfg = dataclasses.replace(cfg, n_layers=GRAPHCAST_LAYERS)
+        cfg = dataclasses.replace(cfg, n_layers=graphcast_layers)
     defs, _ = param_defs_of(arch, cfg)
     if arch == "graphcast":   # inputs follow the shape's d_feat
         defs["node_enc"] = gnn.mlp_defs([Df, cfg.d_hidden, cfg.d_hidden],
@@ -3825,8 +3948,10 @@ def gnn_cell(torch, arch: str, shape_id: str, gen):
         G = N // MOLECULE_ATOMS
         base = (torch.arange(E, device=dev, dtype=torch.int32)
                 // (E // G)) * MOLECULE_ATOMS
-        b = dict(edge_src=base + randint(MOLECULE_ATOMS, E),
-                 edge_dst=base + randint(MOLECULE_ATOMS, E))
+        src = randint(MOLECULE_ATOMS, E)
+        dst = ((src + 1 + randint(MOLECULE_ATOMS - 1, E)) % MOLECULE_ATOMS
+               if bonded else randint(MOLECULE_ATOMS, E))
+        b = dict(edge_src=base + src, edge_dst=base + dst)
     else:
         b = dict(edge_src=randint(N, E), edge_dst=randint(N, E))
     if arch == "gat-cora":
@@ -3834,7 +3959,7 @@ def gnn_cell(torch, arch: str, shape_id: str, gen):
         b["labels"] = randint(sh["n_classes"], N)
     elif arch == "egnn":
         b["node_feat"] = randn(N, Df)
-        b["coords"] = randn(N, 3)
+        b["coords"] = randn(N, 3) * (BONDED_EGNN_COORDS if bonded else 1.0)
         b["labels"] = randn(N)
     elif arch == "mace":
         b["node_feat"] = randint(cfg.n_species, N, 1).float()
@@ -3858,9 +3983,9 @@ def mace_invariance(torch, np, params, batch, cfg):
                       [np.sin(th), np.cos(th), 0], [0, 0, 1]],
                      dtype=torch.float32, device=batch["coords"].device)
     with torch.no_grad():
-        h0 = gnn.mace_forward(params, batch, cfg)[0]
+        h0 = gnn.mace_forward(params, batch, cfg, one_ax())[0]
         h1 = gnn.mace_forward(params, dict(batch, coords=batch["coords"]
-                                           @ R.T), cfg)[0]
+                                           @ R.T), cfg, one_ax())[0]
     return h0, h1
 
 
@@ -3886,7 +4011,7 @@ def gnn_phase(torch, np, card: str, out_dir: Path):
         full = _load(arch)[1]
         sh = GNN_SHAPES[shape_id]
         params = materialize(defs, gen, device=dev)
-        step = gnn.make_gnn_train_step(loss, cfg, AdamWConfig())
+        step = gnn.make_gnn_train_step(loss, cfg, one_ax(), AdamWConfig())
         params, losses, ms, peak, held = _train_run(
             torch, step, params, adamw_init(params), [batch] * GNN_STEPS,
             f"gnn {arch}")
@@ -3932,17 +4057,18 @@ def gnn_phase(torch, np, card: str, out_dir: Path):
     # ---- SMOKE configs card vs CPU on the launcher's graph ---------------
     for arch in ("gat-cora", "egnn", "mace", "graphcast"):
         c = _load(arch, smoke=True)[1]
-        pc, _, data = build_gnn(arch, c, AdamWConfig(), "cpu")
-        rel, worst = grads_card_vs_cpu(torch, gnn.MODELS[arch][2], pc,
-                                       next(data), c, f"gnn smoke {arch}")
+        pc, _, data = build_gnn(arch, c, one_ax(), AdamWConfig(), "cpu")
+        rel, worst = grads_card_vs_cpu(
+            torch, functools.partial(gnn.MODELS[arch][2], ax=one_ax()), pc,
+            next(data), c, f"gnn smoke {arch}")
         say(f"  {c.name} f32 on the card vs the CPU (256 nodes, 1024 "
             f"edges): loss {rel:.3g} relative (tolerance 1e-4), gradients "
             f"within {worst:.3g} of each one's largest value (1e-3)")
 
     # ---- MACE's rotation invariance: tests/test_arch_smoke.py's check -----
     c = _load("mace", smoke=True)[1]
-    pc = materialize(gnn.mace_param_defs(c), torch.Generator().manual_seed(
-        2), device="cpu")
+    pc = materialize(gnn.mace_param_defs(c, one_ax()),
+                     torch.Generator().manual_seed(2), device="cpu")
     rng = np.random.default_rng(0)
     n, e = 48, 128
     coords = rng.standard_normal((n, 3)).astype(np.float32) * 2
@@ -4001,9 +4127,9 @@ def param_defs_of(arch: str, cfg):
         return tf.param_defs(cfg, one_ax()), cfg.dtype
     if family == "recsys":
         from repro_torch.models import autoint as ai
-        return ai.autoint_param_defs(cfg), torch.float32
+        return ai.autoint_param_defs(cfg, one_ax()), torch.float32
     from repro_torch.models import gnn
-    return gnn.MODELS[arch][0](cfg), torch.float32
+    return gnn.MODELS[arch][0](cfg, one_ax()), torch.float32
 
 
 def train_launch_phase(torch, np):
@@ -4134,7 +4260,7 @@ def materialize_phase(torch, np, card: str):
     from repro_torch.models.params import ParamDef, materialize, tree_leaves
     dev = torch.device("cuda")
     cfg = _load("autoint")[1]
-    defs = ai.autoint_param_defs(cfg)
+    defs = ai.autoint_param_defs(cfg, one_ax())
     table_def = defs["table"]
     n_leaves = len(tree_leaves(defs))
     i_table = [k for k, _ in pm._leaves(defs)].index(("table",))
@@ -4228,27 +4354,58 @@ def real_args(torch, arch: str, args, dev):
     return params, adamw_init(params), batch
 
 
-def dryrun_phase(torch, card: str):
-    """``python -m repro_torch.launch.dryrun --all`` as a user runs it, its
-    table of cells, and two cells built for real on the card (module
-    docstring: dryrun)."""
+def start_dryrun():
+    """``python -m repro_torch.launch.dryrun --all`` as a user runs it,
+    started now in the background (nice 19, one thread, no card visible:
+    the cells are meta tensors) so that its host work overlaps the card's
+    phases; dryrun_phase collects it. Killed at exit if still running."""
+    import atexit
+    import shutil
     import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    with open(tmp / "log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--force", "--out", str(tmp / "cells")], cwd=ROOT, env=env,
+            stdout=log, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(19))
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
+    return dict(proc=proc, dir=tmp, t0=time.perf_counter())
+
+
+def dryrun_phase(torch, card: str, dry: dict):
+    """The dry run ``start_dryrun`` began, waited for; its table of
+    cells, and two cells built for real on the card (module docstring:
+    dryrun)."""
     from repro_torch.configs.registry import argument_bytes, build_cell
     from repro_torch.models.params import tree_leaves
     dev = torch.device("cuda")
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        rc, out = run_procs({"dryrun": [
-            sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-            "--force", "--out", tmp]}, timeout=900)["dryrun"]
-        sweep = time.perf_counter() - t0
-        recs = [json.loads(Path(tmp, f).read_text())
-                for f in sorted(os.listdir(tmp))]
+    t0 = time.perf_counter()
+    try:
+        rc = dry["proc"].wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("dryrun: --all still running 600 s after the card's phases")
+    waited = time.perf_counter() - t0
+    sweep = time.perf_counter() - dry["t0"]
+    out = (dry["dir"] / "log").read_text()
     if rc != 0:
         fail(f"dryrun: exit {rc}: {out[-2000:]}")
+    cells = dry["dir"] / "cells"
+    recs = [json.loads((cells / f).read_text())
+            for f in sorted(os.listdir(cells))]
     say(f"dryrun phase: python -m repro_torch.launch.dryrun --all: exit 0, "
-        f"{len(recs)} cells recorded in {sweep:.1f} s (host work on meta "
-        f"tensors; {out.splitlines()[-1]}); {card}")
+        f"{len(recs)} cells recorded, done {sweep:.1f} s after its start "
+        f"beside the card's phases ({waited:.1f} s waited for it here; host "
+        f"work on meta tensors; {out.splitlines()[-1]}); {card}")
     say(f"  {'cell':<42} {'argument_bytes':>16} {'counted FLOPs':>13} "
         f"{'model_flops':>12} {'useful':>7} fits")
     by_cell = {}
@@ -4325,12 +4482,12 @@ def dryrun_phase(torch, card: str):
 # held while its tokens agree (_agreeing).
 #
 # Serving: mistral-large-123b (src/repro/configs/mistral_large_123b.py) at
-# its published widths cut from 88 layers to 8 (11.88e9 parameters, 47.5
-# GB in f32: the ranks' quarters and then the one-process run's whole fit
-# the card in turn), 4 prompts of 2048 tokens and 16 greedy steps on (1,
-# 4); on (2, 2) cut to 2 layers and 4 greedy steps, since FSDP gathers
-# every weight over data at every step and gloo moves them through the
-# host (8 layers: 38.7 s a decode step on an H100 80GB HBM3, PERF.md);
+# its published widths cut from 88 layers to 4 (6.34e9 parameters, 25.4
+# GB in f32), 4 prompts of 2048 tokens and 16 greedy steps on (1, 4),
+# the depth cut to keep the script's wall in its limit; on (2, 2) cut to
+# 2 layers and one greedy step, since FSDP gathers every weight over data
+# at every step and gloo moves them through the host (8 layers: 38.7 s a
+# decode step, 2 layers 9.8-11.3 s, on an H100 80GB HBM3, PERF.md);
 # qwen3-moe-235b-a22b at its published widths cut to 4 layers (11.2e9
 # parameters; 128 experts, 32 a rank) with 512-token prompts and 8 greedy
 # steps on (1, 4), under both MoE impls; mistral-large in bf16, 2 layers,
@@ -4352,11 +4509,11 @@ MESH_BF16_REL = 3e-2
 # reached it (route_flips).
 MESH_ROUTE_TIE = 1e-4
 MESH_SERVE = (
-    dict(arch="mistral-large-123b", layers=8, meshes=((1, 4),),
+    dict(arch="mistral-large-123b", layers=4, meshes=((1, 4),),
          impls=("shmap",), batch=4, prompt=2048, gen=16, seed=30,
          dtype=MESH_DTYPE),
     dict(arch="mistral-large-123b", layers=2, meshes=((2, 2),),
-         impls=("shmap",), batch=4, prompt=2048, gen=4, seed=30,
+         impls=("shmap",), batch=4, prompt=2048, gen=1, seed=30,
          dtype=MESH_DTYPE),
     dict(arch="qwen3-moe-235b-a22b", layers=4, meshes=((1, 4),),
          impls=("shmap", "gspmd"), batch=4, prompt=512, gen=8, seed=31,
@@ -4369,6 +4526,25 @@ MESH_TRAIN = dict(arch="olmoe-1b-7b", layers=2, mesh=(2, 2), batch=4,
 # mistral-large at full depth in bf16 on four cards, one NCCL rank a card
 # (61.5 GB of weights a card): its TTFT and decode ms a step
 MESH_FULL = dict(MESH_SERVE[0], layers=None, dtype="bfloat16")
+# AutoInt and the GNN zoo on the mesh (f32, published widths): AutoInt's
+# train step at REC_SHAPES' train_batch and serving at serve_p99 on (2, 2)
+# (the table over model, the batch over data), retrieval of one query over
+# 1e6 candidates on (1, 4); each GNN of GNN_CELLS one train step and its
+# forward on (2, 2), node and edge rows over (data, model); GraphCast cut
+# to 2 layers, since gloo moves its whole-graph gathers (170k x 512 f32)
+# through the host; EGNN and MACE on bonded molecules (gnn_cell), where
+# their losses and gradients stay well inside f32.
+MESH_MODELS = (
+    dict(kind="recsys", arch="autoint", mesh=(2, 2), seed=33),
+    dict(kind="retrieval", arch="autoint", mesh=(1, 4), seed=33,
+         n_cand=1_000_000, top_k=100),
+    dict(kind="gnn", arch="gat-cora", shape="minibatch_lg", mesh=(2, 2),
+         seed=34),
+    dict(kind="gnn", arch="graphcast", shape="minibatch_lg", mesh=(2, 2),
+         seed=34, layers=2),
+    dict(kind="gnn", arch="egnn", shape="molecule", mesh=(2, 2), seed=34),
+    dict(kind="gnn", arch="mace", shape="molecule", mesh=(2, 2), seed=34))
+MESH_RETRIEVAL_TIE = 1e-5
 
 
 def _card(torch):
@@ -4564,9 +4740,216 @@ def mesh_train(torch, np, spec: dict, shape, mesh, save: str | None):
     return out
 
 
+def _leaves_of(y):
+    """A forward's outputs (a tensor, a tuple, MACE's dict by l) as a list."""
+    if isinstance(y, dict):
+        return [y[k] for k in sorted(y)]
+    return list(y) if isinstance(y, tuple) else [y]
+
+
+def mesh_model(torch, np, spec: dict, shape, mesh):
+    """One job of MESH_MODELS under ``mesh`` (None: one process), weights
+    from ``prng.key(seed)`` on the card (this rank's shards), the inputs
+    drawn whole on the card from the seed and cut to this rank's block:
+    AutoInt's train step on its rows of REC_SHAPES' train_batch and its
+    serve scores at serve_p99, or a GNN's train step and forward on its
+    node and edge rows; or AutoInt's retrieval of one query over this
+    rank's block of ``n_cand`` candidates. One process writes its first
+    moments, stepped parameters and outputs to ``spec["ref"]``; a rank
+    reads its blocks of them there (memory-mapped) and returns its worst
+    differences. Returns the loss, the gradient norm, the step's wall and
+    the peak allocated on this rank."""
+    from repro_torch.configs.registry import REC_SHAPES, _load
+    from repro_torch.core import prng
+    from repro_torch.data import RecsysBatcher
+    from repro_torch.distributed.sharding import P, local_shard
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import autoint as ai
+    from repro_torch.models import gnn
+    from repro_torch.models.params import materialize, specs, tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    dev = _card(torch)
+    ax = _mesh_ax(shape)
+    seed = spec["seed"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def mine(t, sp):
+        return t if mesh is None else local_shard(t, sp, mesh).contiguous()
+
+    with use_mesh(mesh):
+        if spec["arch"] == "autoint":
+            cfg = _load("autoint")[1]
+            defs = ai.autoint_param_defs(cfg, ax)
+
+            def draw(B, s):
+                return next(RecsysBatcher(B, cfg.n_sparse,
+                                          cfg.vocab_per_field, cfg.multi_hot,
+                                          seed=s, device=dev))
+        if spec["kind"] == "retrieval":
+            params = materialize(defs, prng.key(seed), device=dev)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            cand = torch.randn((spec["n_cand"], cfg.d_retrieval),
+                               generator=gen, device=dev)
+            batch = {"sparse_idx": draw(1, seed + 2)["sparse_idx"],
+                     "cand_vecs": mine(cand, P(ax.model, None))}
+            del cand
+            step = ai.make_retrieval_step(cfg, ax, spec["top_k"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vals, idx = step(params, batch)
+            torch.cuda.synchronize()
+            return dict(wall=time.perf_counter() - t0, vals=vals.cpu(),
+                        idx=idx.cpu(),
+                        peak=torch.cuda.max_memory_allocated())
+        if spec["arch"] == "autoint":
+            params = materialize(defs, prng.key(seed), device=dev)
+            rows = P(ax.data)
+            batch = {k: mine(v, rows) for k, v in draw(
+                REC_SHAPES["train_batch"]["batch"], seed).items()}
+            query = {"sparse_idx": mine(draw(
+                REC_SHAPES["serve_p99"]["batch"], seed + 1)["sparse_idx"],
+                rows)}
+            step = ai.make_autoint_train_step(cfg, ax, AdamWConfig())
+
+            def serve(p):
+                return ai.make_autoint_serve_step(cfg, ax)(p, query)
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            cfg, defs, loss, whole = gnn_cell(
+                torch, spec["arch"], spec["shape"], gen,
+                spec.get("layers") or GRAPHCAST_LAYERS,
+                bonded=spec["shape"] == "molecule")
+            params = materialize(defs, prng.key(seed), device=dev)
+            rows = P(ax.all)
+            batch = {k: v if k == "graph_energy" else mine(v, rows)
+                     for k, v in whole.items()}
+            del whole
+            step = gnn.make_gnn_train_step(loss, cfg, ax, AdamWConfig())
+            fwd = gnn.MODELS[spec["arch"]][1]
+
+            def serve(p):
+                with torch.no_grad():
+                    return fwd(p, batch, cfg, ax)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, opt, m = step(params, adamw_init(params), batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ys = _leaves_of(serve(params))
+        got = dict(m=tree_leaves(opt.m), new=tree_leaves(new), y=ys)
+        if spec["kind"] == "gnn":
+            # the gradients themselves, before AdamW's clip scales them
+            got["grad"] = tree_leaves(gnn.value_and_grad(
+                loss, params, batch, cfg, ax)[1])
+        out = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   wall=wall, peak=torch.cuda.max_memory_allocated())
+        del params, opt, batch
+        if mesh is None:
+            top = {k: [float(torch.nan_to_num(t.float(), nan=0.0, posinf=0.0,
+                                              neginf=0.0).abs().max())
+                       for t in v] for k, v in got.items() if k != "new"}
+            torch.save(dict({k: [t.cpu() for t in v]
+                             for k, v in got.items()}, top=top), spec["ref"])
+            return out
+        ref = torch.load(spec["ref"], mmap=True)
+        sp = dict(m=tree_leaves(specs(defs)), new=tree_leaves(specs(defs)),
+                  grad=tree_leaves(specs(defs)), y=[P(rows[0])] * len(ys))
+        lr = AdamWConfig().lr
+        worst = dict(new=0.0, new_excess=float("-inf"))
+        for key in got:
+            for i, (t, whole) in enumerate(zip(got[key], ref[key],
+                                               strict=True)):
+                want = mine(whole, sp[key][i]).to(dev)
+                diff = (t.float() - want.float()).abs()
+                if not diff.numel():
+                    continue
+                if key == "new":
+                    ulp = torch.exp2(torch.frexp(want.abs())[1].float() - 24)
+                    worst["new"] = max(worst["new"], float(diff.max()))
+                    worst["new_excess"] = max(worst["new_excess"], float(
+                        (diff - 2 * lr - ulp).max()))
+                    continue
+                # NaN and inf count as equal only in the same places
+                t, want = t.float(), want.float()
+                same = (t == want) | (torch.isnan(t) & torch.isnan(want))
+                err = float(torch.where(same, 0.0, diff).nan_to_num(
+                    nan=float("inf")).max())
+                top = ref["top"][key][i]
+                rel = err / top if top else (0.0 if err == 0 else float("inf"))
+                worst[key] = max(worst.get(key, 0.0), rel)
+        out["worst"] = worst
+        return out
+
+
+def check_mesh_model(spec: dict, shape, parts, ref, label: str):
+    """The ranks' results of a MESH_MODELS job (``parts``, a rank's
+    ``mesh_model`` each) against one process's (``ref``): the loss and the
+    gradient norm within MESH_LOSS_REL relative; the first moments, a
+    GNN's gradients and the outputs (serve scores, the forward's rows)
+    within MESH_GRAD_REL of each leaf's largest one-process value; the
+    stepped parameters within 2 lr plus one ulp. Retrieval: the indices
+    equal but where one process's adjacent scores lie within
+    MESH_RETRIEVAL_TIE relative, the values within MESH_LOSS_REL of the
+    largest."""
+    name = f"{spec['arch']} {spec.get('shape', spec['kind'])}"
+    walls = ", ".join(f"{p['wall']:.2f}" for p in parts)
+    peak = max(p["peak"] for p in parts) / 2**30
+    if spec["kind"] == "retrieval":
+        v1, i1 = ref["vals"], ref["idx"]
+        top = float(v1.abs().max())
+        moved = 0
+        for r, p in enumerate(parts):
+            if float((p["vals"] - v1).abs().max()) > MESH_LOSS_REL * top:
+                fail(f"{label}: retrieval rank {r}'s scores differ from one "
+                     f"process's by {float((p['vals'] - v1).abs().max())}")
+            for b, t in (p["idx"] != i1).nonzero().tolist():
+                near = [float(abs(v1[b, t] - v1[b, u])) for u in (t - 1, t + 1)
+                        if 0 <= u < v1.shape[1]]
+                if min(near) > MESH_RETRIEVAL_TIE * abs(float(v1[b, t])):
+                    fail(f"{label}: retrieval rank {r}'s index {t} differs "
+                         f"from one process's at no tie")
+                moved += 1
+        say(f"  {label} {name} on {shape}: top-{i1.shape[1]} of "
+            f"{spec['n_cand']} candidates on every rank == one process's "
+            f"({moved} indices moved at adjacent scores within "
+            f"{MESH_RETRIEVAL_TIE}); {walls} s a rank, {ref['wall']:.3f} s "
+            f"one process; peak {peak:.2f} GiB a rank")
+        return
+    if not (math.isfinite(ref["loss"]) and math.isfinite(ref["grad_norm"])):
+        fail(f"{label}: {name}: one process's loss {ref['loss']} or gradient "
+             f"norm {ref['grad_norm']} is not finite")
+    for r, p in enumerate(parts):
+        for key in ("loss", "grad_norm"):
+            same = p[key] == ref[key]
+            if not same and abs(p[key] - ref[key]) > MESH_LOSS_REL * abs(
+                    ref[key]):
+                fail(f"{label}: {name} rank {r} {key} {p[key]} vs one "
+                     f"process {ref[key]}")
+        w = p["worst"]
+        if w["new_excess"] > 0 or any(v > MESH_GRAD_REL for k, v in
+                                      w.items() if k in ("m", "grad", "y")):
+            fail(f"{label}: {name} rank {r} differs from one process: {w}")
+    w = {k: max(p["worst"].get(k, 0.0) for p in parts)
+         for k in ("m", "grad", "y", "new")}
+    say(f"  {label} {name} on {shape}: loss {parts[0]['loss']:.7g} vs "
+        f"{ref['loss']:.7g} one process, grad norm "
+        f"{parts[0]['grad_norm']:.7g} vs {ref['grad_norm']:.7g}; first "
+        f"moments within {w['m']:.3g}"
+        + (f", gradients within {w['grad']:.3g}" if spec["kind"] == "gnn"
+           else "")
+        + f", outputs within {w['y']:.3g} of each leaf's largest "
+        f"(tolerance {MESH_GRAD_REL}), stepped parameters within "
+        f"{w['new']:.3g} (2 lr + 1 ulp); step {walls} s a rank, "
+        f"{ref['wall']:.3f} s one process; peak {peak:.2f} GiB a rank")
+
 def mesh_rank(rank, world, backend, init, work, tmp, queue):
     """One rank of the mesh phase, a spawned process: for each item of
-    ``work`` (("serve", spec, shape) or ("train", spec, shape)) joins the
+    ``work`` (("serve", spec, shape), ("train", spec, shape) or ("model",
+    spec, shape)) joins the
     mesh of that shape over ``backend`` and runs it; the stepped
     parameters' shards go to ``tmp``. Puts (rank, "ok", results) on
     ``queue``."""
@@ -4596,6 +4979,10 @@ def mesh_rank(rank, world, backend, init, work, tmp, queue):
                         + " s, decode "
                         + ", ".join(f"{x['steps'][len(x['steps']) // 2]:.1f}"
                                     for x in runs) + " ms a step")
+            elif kind == "model":
+                out.append(mesh_model(torch, np, spec, shape, mesh))
+                done = (f"{spec['arch']} {spec['kind']} "
+                        f"{out[-1]['wall']:.2f} s")
             else:
                 out.append(mesh_train(torch, np, spec, shape, mesh,
                                       f"{tmp}/train_{rank}.pt"))
@@ -4865,8 +5252,12 @@ def mesh_phase(torch, np, card: str):
     one rank a card (and with four, mistral-large at full depth on (1,
     4), its TTFT and decode ms a step printed); with one card it says so.
     Fails on any mismatch."""
+    import tempfile
     t_phase = time.perf_counter()
-    _mesh_phase(torch, np, card, MESH_SERVE, MESH_TRAIN)
+    with tempfile.TemporaryDirectory() as ref_dir:
+        models = [dict(spec, ref=f"{ref_dir}/model_{i}.pt")
+                  for i, spec in enumerate(MESH_MODELS)]
+        _mesh_phase(torch, np, card, MESH_SERVE, MESH_TRAIN, models)
     say(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -4877,7 +5268,7 @@ def _fit(shape, world: int):
         (1, world) if shape[0] == 1 else (2, world // 2))
 
 
-def _mesh_phase(torch, np, card: str, serve, train):
+def _mesh_phase(torch, np, card: str, serve, train, models=()):
     import socket
     import tempfile
     refs = []
@@ -4894,13 +5285,24 @@ def _mesh_phase(torch, np, card: str, serve, train):
             f"peak {runs[0]['peak'] / 2**30:.2f} GiB; {card}")
     train_ref = mesh_train(torch, np, train, (train["mesh"][0], 1), None,
                            None)
+    model_refs = []
+    for spec in models:
+        model_refs.append(mesh_model(torch, np, spec, (1, 1), None))
+        x = model_refs[-1]
+        say(f"mesh phase: {spec['arch']} {spec.get('shape', spec['kind'])} "
+            f"at its published widths"
+            + (f", {spec['layers']} layers" if spec.get("layers") else "")
+            + f", one process: {spec['kind']} {x['wall']:.3f} s, peak "
+            f"{x['peak'] / 2**30:.2f} GiB; {card}")
     work = [("serve", i, shape) for i, spec in enumerate(serve)
             for shape in spec["meshes"]]
     work.append(("train", None, train["mesh"]))
+    work += [("model", i, spec["mesh"]) for i, spec in enumerate(models)]
 
     def items(world):
-        return [(kind, serve[i] if kind == "serve" else train,
-                 _fit(shape, world)) for kind, i, shape in work]
+        return [(kind, serve[i] if kind == "serve" else models[i]
+                 if kind == "model" else train, _fit(shape, world))
+                for kind, i, shape in work]
 
     def check(parts, world, label, tmp):
         for j, (kind, i, shape) in enumerate(work):
@@ -4908,6 +5310,9 @@ def _mesh_phase(torch, np, card: str, serve, train):
             if kind == "serve":
                 check_mesh_serve(np, serve[i], shape,
                                  [p[j][0] for p in parts], refs[i], label)
+            elif kind == "model":
+                check_mesh_model(models[i], shape, [p[j] for p in parts],
+                                 model_refs[i], label)
             else:
                 check_mesh_train(torch, train, shape, [p[j] for p in parts],
                                  train_ref, tmp, f"{label} train")
@@ -4983,6 +5388,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    laps = [("start", t_start)]
+
+    def lap(name: str):
+        laps.append((name, time.perf_counter()))
 
     # ---- build ---------------------------------------------------------
     build_s, logs = build.build()
@@ -4996,6 +5405,8 @@ def main():
         say(f"total: {time.perf_counter() - t_start:.1f} s after the card "
             f"query")
         return
+    dry = start_dryrun()
+    lap("build")
 
     # ---- the scale-1e6 graph and its dense shards -----------------------
     t0 = time.perf_counter()
@@ -5156,6 +5567,7 @@ def main():
     del eng, sh, res, out6, clean6, bare6
     torch.cuda.empty_cache()
 
+    lap("sssp 1e6")
     # ---- ragged vs dense at scale-1e6, from one stream --------------------
     n6, stream6 = preset_edge_stream("scale-1e6")
     chunks6 = list(stream6)
@@ -5192,6 +5604,7 @@ def main():
                  "scale-1e6 staged ragged")
     del rag6, den6, results, rr, chunks6, g6
 
+    lap("ragged 1e6")
     # ---- scale-1e7: stream build, ragged kernels, the main path -----------
     t0 = time.perf_counter()
     n7, stream7 = preset_edge_stream("scale-1e7")
@@ -5344,6 +5757,7 @@ def main():
     del eng7, sh7, g7, res, out7, bare7
     torch.cuda.empty_cache()
 
+    lap("sssp 1e7")
     # ---- the runner, as a user starts it ------------------------------------
     runner_phase()
 
@@ -5355,6 +5769,7 @@ def main():
         launches.update(new_launches)
         torch.cuda.empty_cache()
 
+    lap("runner, kernel API")
     # ---- the transformer serving path: kernel 12, then gemma-7b ------------
     rows.update(flash_phase(torch))
     torch.cuda.empty_cache()
@@ -5372,10 +5787,12 @@ def main():
     moe_train_phase(torch, card)
     torch.cuda.empty_cache()
 
+    lap("LMs")
     # ---- the LMs under a (data, model) mesh of processes ------------------
     mesh_phase(torch, np, card)
     torch.cuda.empty_cache()
 
+    lap("mesh")
     # ---- AutoInt and the GNN zoo at their published widths ----------------
     recsys_phase(torch, np, card, out_dir)
     torch.cuda.empty_cache()
@@ -5383,9 +5800,13 @@ def main():
     torch.cuda.empty_cache()
     train_launch_phase(torch, np)
 
+    lap("recsys, gnn, launcher")
     # ---- the threefry weights and the registry's cells --------------------
     materialize_phase(torch, np, card)
-    dryrun_phase(torch, card)
+    dryrun_phase(torch, card, dry)
+    lap("weights, cells")
+    say("walls by part: " + ", ".join(
+        f"{n} {t - laps[k][1]:.1f} s" for k, (n, t) in enumerate(laps[1:])))
     say(f"total: {time.perf_counter() - t_start:.1f} s after the card query")
 
     table = [{"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -233,6 +233,7 @@ def _gnn_flops(arch, cfg, sh):
 
 
 def _gnn_cell(arch, cfg, shape_id) -> Cell:
+    from repro_torch.distributed.sharding import MeshAxes
     from repro_torch.models import gnn
     from repro_torch.models.params import abstract
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -248,14 +249,15 @@ def _gnn_cell(arch, cfg, shape_id) -> Cell:
             sh = dict(sh, n_graphs=1)
     elif arch != "graphcast":
         raise ValueError(arch)
+    ax = MeshAxes(data=("data",))
     param_defs, _, loss = gnn.MODELS[arch]
-    defs = param_defs(cfg)
+    defs = param_defs(cfg, ax)
     if arch == "graphcast":
         # inputs follow the shape's d_feat; outputs stay n_vars=227
         defs["node_enc"] = gnn.mlp_defs(
             [sh["d_feat"], cfg.d_hidden, cfg.d_hidden], ln=True)
     p_struct = abstract(defs)
-    step = gnn.make_gnn_train_step(loss, cfg, AdamWConfig())
+    step = gnn.make_gnn_train_step(loss, cfg, ax, AdamWConfig())
     args = (p_struct, adamw_init(p_struct), _gnn_batch_struct(arch, cfg, sh))
     return Cell(arch, shape_id, "train", step, args,
                 _gnn_flops(arch, cfg, sh), note=sh.get("note", ""))
@@ -266,12 +268,14 @@ def _gnn_cell(arch, cfg, shape_id) -> Cell:
 # ---------------------------------------------------------------------------
 
 def _rec_cell(arch, cfg, shape_id) -> Cell:
+    from repro_torch.distributed.sharding import MeshAxes
     from repro_torch.models import autoint as ai
     from repro_torch.models.params import abstract
     from repro_torch.optim import AdamWConfig, adamw_init
     sh = REC_SHAPES[shape_id]
     B = sh["batch"]
-    p_struct = abstract(ai.autoint_param_defs(cfg))
+    ax = MeshAxes(data=("data",))
+    p_struct = abstract(ai.autoint_param_defs(cfg, ax))
     F, Lh = cfg.n_sparse, cfg.multi_hot
     idx = _meta((B, F, Lh), torch.int32)
 
@@ -281,18 +285,18 @@ def _rec_cell(arch, cfg, shape_id) -> Cell:
     base = attn_flops + embed_flops + B * F * H * A * 64
 
     if sh["kind"] == "train":
-        step = ai.make_autoint_train_step(cfg, AdamWConfig())
+        step = ai.make_autoint_train_step(cfg, ax, AdamWConfig())
         batch = {"sparse_idx": idx, "labels": _meta((B,), torch.int32)}
         args = (p_struct, adamw_init(p_struct), batch)
         return Cell(arch, shape_id, "train", step, args, 3.0 * base)
 
     if sh["kind"] == "serve":
-        step = ai.make_autoint_serve_step(cfg)
+        step = ai.make_autoint_serve_step(cfg, ax)
         args = (p_struct, {"sparse_idx": idx})
         return Cell(arch, shape_id, "serve", step, args, base)
 
     Nc = sh["n_candidates"]
-    step = ai.make_retrieval_step(cfg)
+    step = ai.make_retrieval_step(cfg, ax)
     batch = {"sparse_idx": idx, "cand_vecs": _meta((Nc, cfg.d_retrieval))}
     return Cell(arch, shape_id, "retrieval", step, (p_struct, batch),
                 base + 2.0 * B * Nc * cfg.d_retrieval)

@@ -114,8 +114,8 @@ class QueryResult:
     compiled: bool              # True iff this call grew trace_counts
     cache_hits: int = 0         # queries answered from the result cache
     warm_started: bool = False  # landmark-seeded (vs cold +inf) start
-    device: str = "cpu"
     status: str = "converged"
+    device: str = "cpu"
 
     @property
     def q_rounds(self) -> np.ndarray:
@@ -172,9 +172,9 @@ class SsspEngine:
     caches; and the queue of submitted queries."""
 
     def __init__(self, shards: SsspShards, cfg: SsspConfig,
-                 backend: str = "sim", mesh=None, axis_names=None, *,
-                 device=None, max_bucket: int = 16, result_cache: int = 0,
-                 certify: bool = True):
+                 backend: str = "sim", mesh=None, axis_names=None,
+                 max_bucket: int = 16, result_cache: int = 0,
+                 certify: bool = True, *, device=None):
         if backend not in ("sim", "shmap"):
             raise ValueError(f"unknown backend {backend!r}; valid: "
                              "['shmap', 'sim']")

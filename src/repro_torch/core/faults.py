@@ -121,14 +121,17 @@ class FaultState(NamedTuple):
     unhealed: torch.Tensor  # [P, K] bool
 
 
-def init_state(plan: FaultPlan, nq: int, n_msgs: int, n_parts: int,
-               device=None) -> FaultState:
-    """Empty fault state for ``n_parts`` shards, ``nq`` queries and
-    ``n_msgs`` payload positions a query."""
+def init_state(plan: FaultPlan, nq: int, n_msgs: int,
+               n_parts: int | None = None, device=None) -> FaultState:
+    """Empty fault state for ``nq`` queries and ``n_msgs`` payload
+    positions a query: one shard's (``queue`` [D, K, M], ``unhealed``
+    [K]) when ``n_parts`` is None, as the reference's, else the stack of
+    ``n_parts`` shards."""
+    lead = () if n_parts is None else (n_parts,)
     return FaultState(
-        queue=torch.full((n_parts, plan.max_delay, nq, n_msgs), INF,
+        queue=torch.full(lead + (plan.max_delay, nq, n_msgs), INF,
                          device=device),
-        unhealed=torch.zeros((n_parts, nq), dtype=torch.bool, device=device))
+        unhealed=torch.zeros(lead + (nq,), dtype=torch.bool, device=device))
 
 
 def round_keys(plan: FaultPlan, rounds: int, ranks, device=None
@@ -144,17 +147,33 @@ def round_keys(plan: FaultPlan, rounds: int, ranks, device=None
     return torch.tensor(keys, dtype=torch.int64).to(device, non_blocking=True)
 
 
-def inject(plan: FaultPlan, incoming, d_target, state: FaultState, keys):
+def inject(plan: FaultPlan, incoming, d_target, state: FaultState, key):
     """One round of receiver-side faults over flattened messages
     ``incoming`` [P, K, M]. ``d_target`` [P, K, M] is the receiver's
     distance at each message's destination (+inf for unaddressed
     positions): it decides whether a drop mattered and whether a released
-    value is a real (improving) stale merge. ``keys`` [P, 2].
+    value is a real (improving) stale merge. ``key`` [P, 2]: a shard's
+    key a row.
+
+    One shard's call, the reference's form, passes ``incoming`` and
+    ``d_target`` [K, M], its state (``init_state`` with no ``n_parts``)
+    and one key (a [2] tensor or a pair of ints, ``prng.fold_in``'s); it
+    draws what the stack's row of that key draws.
 
     Returns ``(delivered [P, K, M], state', stale [P, K] int32,
-    pending [P, K] bool)``; ``delivered`` already min-merges this round's
-    queue release."""
-    kmode, kslot = prng.split(keys)
+    pending [P, K] bool)``, without the leading [P] for one shard;
+    ``delivered`` already min-merges this round's queue release."""
+    if incoming.dim() == 2:
+        one = FaultState(queue=state.queue[None],
+                         unhealed=state.unhealed[None])
+        out, st, stale, pending = inject(
+            plan, incoming[None], d_target[None], one,
+            torch.as_tensor(key, dtype=torch.int64,
+                            device=incoming.device).reshape(1, 2))
+        return (out[0], FaultState(queue=st.queue[0],
+                                   unhealed=st.unhealed[0]), stale[0],
+                pending[0])
+    kmode, kslot = prng.split(key)
     shape = tuple(incoming.shape[1:])
     u = prng.uniform(kmode, shape)
     finite = torch.isfinite(incoming)

@@ -85,33 +85,33 @@ class SsspShards:
     block: int
     # dst-tiled local edges (relax kernel); rx_eid maps a tiled slot back to
     # its local edge id (sentinel e_loc) for the runtime Trishla mask.
-    # Dense [P, n_vtiles, n_chunks, EB]; ragged [P, total_chunks, EB].
-    # None when built with relax_layout=False.
+    # Dense [P, n_vtiles, n_chunks, EB]; ragged [P, total_chunks, EB] with
+    # the chunk->tile map *_ctile [P, total_chunks] int32 (sentinel
+    # n_tiles on padding chunks; None when dense). None when built with
+    # relax_layout=False. The reference's field order.
     rx_src: torch.Tensor | None = None      # int32
     rx_w: torch.Tensor | None = None        # f32
     rx_dstrel: torch.Tensor | None = None   # int32 in [0, rx_vb)
     rx_eid: torch.Tensor | None = None      # int32
+    rx_ctile: torch.Tensor | None = None
+    rx_vb: int = 128
+    rx_eb: int = 512
     # slot-tiled cut edges (send kernel); tx_eid sentinel e_cut. The tx_*
     # and mx_* fields are None when built with comm_layout=False.
     tx_src: torch.Tensor | None = None      # int32
     tx_w: torch.Tensor | None = None
     tx_segrel: torch.Tensor | None = None
     tx_eid: torch.Tensor | None = None
+    tx_ctile: torch.Tensor | None = None
     # [P, P, C] int32 slot feeding (dest, pos); S = none
     tx_payload_slot: torch.Tensor | None = None
+    tx_sb: int = 128
+    tx_eb: int = 512
     # msg-tiled receive routing (merge kernel): flat positions [0, P*C)
     mx_pos: torch.Tensor | None = None      # int32
     mx_dstrel: torch.Tensor | None = None
     mx_valid: torch.Tensor | None = None
-    # chunk->tile maps of the ragged layouts, [P, total_chunks] int32
-    # (sentinel n_tiles on padding chunks); None when dense
-    rx_ctile: torch.Tensor | None = None
-    tx_ctile: torch.Tensor | None = None
     mx_ctile: torch.Tensor | None = None
-    rx_vb: int = 128
-    rx_eb: int = 512
-    tx_sb: int = 128
-    tx_eb: int = 512
     mx_vb: int = 128
     mx_eb: int = 512
     layout: str = "dense"

@@ -61,7 +61,8 @@ from repro_torch.core.shards import SsspShards
 from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.common import INF, scatter_min_drop, take_fill
 from repro_torch.kernels.merge import merge_scatter
-from repro_torch.kernels.round import fused_round_pallas, fused_round_rescue
+from repro_torch.kernels.round.ops import (_fused_round_rescue_stacked,
+                                          _fused_round_stacked)
 from repro_torch.kernels.send import send_pack, send_payload_bucket
 
 
@@ -761,7 +762,7 @@ def _phase_fused(sh: SsspShards, dist, front_in, live, incoming, last_sent,
     sweeps did not reach the fixpoint, and the caller must rescue the round
     before using the send outputs."""
     P, K = dist.shape[:2]
-    new_dist, send_val, new_last, nrel, sends, resid = fused_round_pallas(
+    new_dist, send_val, new_last, nrel, sends, resid = _fused_round_stacked(
         dist, front_in, live, incoming.reshape(P, K, -1), last_sent,
         sh.slot_valid, sh.relax_layout, sh.send_layout, sh.merge_layout,
         pruned[:, :sh.e_loc], pruned[:, sh.e_loc:], vb=sh.rx_vb,
@@ -777,12 +778,13 @@ def _phase_fused_rescue(sh: SsspShards, dist, resid, last_sent, pruned, cfg,
     frontier: continue the fixpoint with the relax kernel and re-pack the
     sends against the ORIGINAL ``last_sent``. Returns (dist, payload,
     last_sent', sends, nrel_extra)."""
-    new_dist, send_val, new_last, nrel_extra, sends = fused_round_rescue(
+    out = _fused_round_rescue_stacked(
         dist, resid, last_sent, sh.slot_valid, sh.relax_layout,
         sh.send_layout, pruned[:, :sh.e_loc], pruned[:, sh.e_loc:],
         vb=sh.rx_vb, sb=sh.tx_sb, n_sweeps=cfg.pallas_sweeps,
         max_iters=cfg.local_iters, send_bounds=sh.send_bounds,
         relax_chunks=sh.relax_chunks)
+    new_dist, send_val, new_last, nrel_extra, sends = out
     payload = _payload(sh, send_val, dist.shape[-1], dense)
     return new_dist, payload, new_last, sends, nrel_extra
 
@@ -806,7 +808,8 @@ def _account_delivery(sh: SsspShards, dist, incoming, dense: bool):
     return n_imp > 0, recvs, n_imp
 
 
-def make_finalize(sh: SsspShards, cfg: SsspConfig, comm=None):
+def make_finalize(sh: SsspShards, cfg: SsspConfig, comm=None,
+                  vmapped: bool = True):
     """Exit-time ``fn(carry) -> dist`` merging every delivered-but-unmerged
     and in-flight batch, or None when nothing can be outstanding (a staged
     round with a synchronous exchange). The fused round merges a round's
@@ -815,7 +818,10 @@ def make_finalize(sh: SsspShards, cfg: SsspConfig, comm=None):
     ``carry.inflight`` (a ``max_rounds`` or toka1 exit), which its
     ``flush`` drains. The merges run unconditionally: the final distances
     must not depend on the detector's reasoning. ``comm`` is the
-    backend's (default: the ``SimComm`` of the stack)."""
+    backend's (default: the ``SimComm`` of the stack). ``vmapped`` is the
+    reference's switch between the vmapped stack and one shard inside
+    ``shard_map``; the port's stack serves both (a shmap rank holds a
+    one-shard stack), so it is accepted and changes nothing."""
     ex = phases.resolve("exchange", cfg.exchange)
     fused = _round_mode(sh, cfg) == "fused"
     if not fused and not ex.deferred:

@@ -50,10 +50,12 @@ def empty_token(device=None) -> Token:
                  i32(0))
 
 
-def toka2_init(rank: torch.Tensor, nq: int) -> Toka2State:
+def toka2_init(rank, nq: int | None = None) -> Toka2State:
     """K token-ring states a shard, ``rank`` [P, 1]: shard 0 holds all K
-    tokens."""
-    shape = (rank.shape[0], nq)
+    tokens. With no ``nq``, the reference's form: one state of ``rank``'s
+    shape (a scalar rank: a state of scalars)."""
+    rank = torch.as_tensor(rank)
+    shape = tuple(rank.shape) if nq is None else (rank.shape[0], nq)
     zero = torch.zeros(shape, dtype=torch.int32, device=rank.device)
     return Toka2State(
         color=zero, count=zero, has_token=(rank == 0).expand(shape).clone(),

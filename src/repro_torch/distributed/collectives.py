@@ -193,6 +193,33 @@ class _AllGatherDim(torch.autograd.Function):
         return _scatter_sum(g, ag, dim, lo, lo + n), None, None, None
 
 
+class _ReduceScatterDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ag, dim):
+        size = x.shape[dim]
+        b = -(-size // ag.size)
+        lo = min(ag.rank * b, size)
+        hi = min(lo + b, size)
+        ctx.args = (ag, dim, size)
+        return _scatter_sum(x, ag, dim, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        ag, dim, size = ctx.args
+        return _gather_rows(g, ag, dim, size), None, None
+
+
+def reduce_scatter_dim(x: torch.Tensor, ag: AxisGroup | None,
+                       dim: int) -> torch.Tensor:
+    """This rank's block (``sharding.block``'s) of a dimension of the sum
+    over the group of every rank's whole ``x``: a reduce-scatter, the
+    adjoint of ``all_gather_dim`` (its backward gathers the blocks'
+    gradients whole)."""
+    if ag is None:
+        return x
+    return _ReduceScatterDim.apply(x, ag, dim)
+
+
 def all_gather_dim(x: torch.Tensor, ag: AxisGroup | None, dim: int,
                    size: int) -> torch.Tensor:
     """The whole of a dimension of ``size`` from every rank's block ``x``

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import MeshAxes
 from repro_torch.graph import ogbn_products_graph, rmat_graph
 from repro_torch.graph.sampler import NeighborSampler
 from repro_torch.models import gnn
@@ -52,9 +53,12 @@ def main(argv=None):
     sampler = NeighborSampler(g, fanouts=(10, 5), seed=0)
     cfg = gnn.GatConfig(n_layers=2, d_hidden=16, n_heads=4, d_in=d_feat,
                         n_classes=n_classes)
-    params = materialize(gnn.gat_param_defs(cfg), prng.key(0), device=device)
+    ax = MeshAxes(data=("data",), data_shards=1)
+    params = materialize(gnn.gat_param_defs(cfg, ax), prng.key(0),
+                         device=device)
     opt = adamw_init(params)
-    step = gnn.make_gnn_train_step(gnn.gat_loss, cfg, AdamWConfig(lr=3e-3))
+    step = gnn.make_gnn_train_step(gnn.gat_loss, cfg, ax,
+                                   AdamWConfig(lr=3e-3))
 
     B = args.batch
     max_n = sampler.max_nodes(B)

@@ -54,6 +54,14 @@ class PartitionedGraph:
     n_parts: int
     block: int
 
+    @property
+    def e_max(self) -> int:
+        return self.src_local.shape[1]
+
+    @property
+    def n_cut_edges(self) -> int:
+        return int((self.valid & self.is_cut).sum())
+
 
 def graph_from_arrays(src, dst, weight, row_ptr, n_vertices: int,
                       n_edges: int) -> Graph:

@@ -10,13 +10,17 @@ the relaxation with the relax kernels and re-packs the sends against the
 ORIGINAL ``last_sent`` (the kernel's send outputs were computed from
 unconverged distances and are discarded wholesale).
 
-Every array carries the ``sim`` backend's leading shard axis ``[P, ...]``.
+The public wrappers take one shard, as the reference's do (dist
+``[K, block]``, the shard's layouts, ``interpret=`` accepted and
+ignored): a one-shard stack of the stacked bodies ``_fused_round_stacked``
+and ``_fused_round_rescue_stacked``, whose arrays carry the ``sim``
+backend's leading shard axis ``[P, ...]`` and which the solver calls.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import INF, pad_last, take_fill
+from repro_torch.kernels.common import INF, live_chunks, pad_last, take_fill
 from repro_torch.kernels.relax.ops import fixpoint_operands, relax_to_fixpoint
 from repro_torch.kernels.round.round import (fused_round_ragged,
                                             fused_round_tiled)
@@ -71,10 +75,11 @@ def fused_round_operands(dist, front_in, live, incoming, last_sent,
             tx)
 
 
-def fused_round_pallas(dist, front_in, live, incoming, last_sent, slot_valid,
-                       relax_layout, send_layout, merge_layout, pruned_loc,
-                       pruned_cut, *, vb: int = 128, sb: int = 128,
-                       n_sweeps: int = 8, dense: bool = False, chunks=None):
+def _fused_round_stacked(dist, front_in, live, incoming, last_sent,
+                         slot_valid, relax_layout, send_layout, merge_layout,
+                         pruned_loc, pruned_cut, *, vb: int = 128,
+                         sb: int = 128, n_sweeps: int = 8,
+                         dense: bool = False, chunks=None):
     """One fused merge + local-fixpoint + send-pack round on every shard.
 
     dist/front_in: [P, K, block]; live: [P, K] bool; incoming: [P, K, M]
@@ -107,11 +112,11 @@ def fused_round_pallas(dist, front_in, live, incoming, last_sent, slot_valid,
             nrel, sends, resid[..., :block])
 
 
-def fused_round_rescue(dist, resid, last_sent, slot_valid, relax_layout,
-                       send_layout, pruned_loc, pruned_cut, *, vb: int = 128,
-                       sb: int = 128, n_sweeps: int = 8,
-                       max_iters: int = 10_000, send_bounds=None,
-                       relax_chunks=None):
+def _fused_round_rescue_stacked(dist, resid, last_sent, slot_valid,
+                                relax_layout, send_layout, pruned_loc,
+                                pruned_cut, *, vb: int = 128, sb: int = 128,
+                                n_sweeps: int = 8, max_iters: int = 10_000,
+                                send_bounds=None, relax_chunks=None):
     """Finish a round whose in-kernel sweeps left a residual frontier.
 
     ``dist``/``resid`` are the fused kernel's merged-and-partially-relaxed
@@ -140,3 +145,63 @@ def fused_round_rescue(dist, resid, last_sent, slot_valid, relax_layout,
         ctile=send_layout[4] if len(send_layout) == 5 else None,
         bounds=send_bounds)
     return d2, sval, nlast, nrel_extra, sends
+
+
+def _stack(layout):
+    return tuple(a[None] for a in layout)
+
+
+def _shard_chunks(dist, relax_layout, send_layout, merge_layout,
+                  dense: bool):
+    """A dense shard's live chunks (merge, relax, send; no merge's with a
+    dense incoming), as ``SsspShards.round_chunks`` derives them for the
+    stack; None on the CPU (the plain versions walk every chunk) and for
+    ragged layouts."""
+    if not dist.is_cuda or len(relax_layout) == 5:
+        return None
+    return (None if dense else live_chunks(merge_layout[2][None] > 0),
+            live_chunks(relax_layout[1][None] < INF),
+            live_chunks(send_layout[1][None] < INF))
+
+
+def fused_round_pallas(dist, front_in, live, incoming, last_sent, slot_valid,
+                       relax_layout, send_layout, merge_layout, pruned_loc,
+                       pruned_cut, *, vb: int = 128, sb: int = 128,
+                       n_sweeps: int = 8, dense: bool = False,
+                       interpret: bool = True):
+    """One fused merge + local-fixpoint + send-pack round on one shard,
+    the reference's per-shard wrapper: dist/front_in [K, block]; live [K];
+    incoming [K, M] or, dense, [K, block]; last_sent/slot_valid [K, S] /
+    [S]; one shard's layouts; pruned_loc/pruned_cut [e_loc] / [e_cut].
+    Kernel 7 (dense layouts) or 8 (ragged) on CUDA tensors, their plain
+    versions on CPU tensors. ``interpret`` is accepted and ignored.
+    Returns the six outputs of ``_fused_round_stacked`` for the shard
+    ([K, ...])."""
+    out = _fused_round_stacked(
+        dist[None], front_in[None], live[None], incoming[None],
+        last_sent[None], slot_valid[None], _stack(relax_layout),
+        _stack(send_layout), None if dense else _stack(merge_layout),
+        pruned_loc[None], pruned_cut[None], vb=vb, sb=sb, n_sweeps=n_sweeps,
+        dense=dense, chunks=_shard_chunks(dist, relax_layout, send_layout,
+                                          merge_layout, dense))
+    return tuple(t[0] for t in out)
+
+
+def fused_round_rescue(dist, resid, last_sent, slot_valid, relax_layout,
+                       send_layout, pruned_loc, pruned_cut, *, vb: int = 128,
+                       sb: int = 128, n_sweeps: int = 8,
+                       max_iters: int = 10_000, interpret: bool = True):
+    """``_fused_round_rescue_stacked`` on one shard, the reference's
+    per-shard wrapper: dist/resid [K, block], last_sent [K, S], slot_valid
+    [S], one shard's layouts and Trishla masks. ``interpret`` is accepted
+    and ignored. Returns (new_dist [K, block], send_val [K, S], new_last
+    [K, S], nrel_extra [K], sends [K])."""
+    relax_chunks = None
+    if dist.is_cuda and len(relax_layout) == 4:
+        relax_chunks = live_chunks(relax_layout[1][None] < INF)
+    out = _fused_round_rescue_stacked(
+        dist[None], resid[None], last_sent[None], slot_valid[None],
+        _stack(relax_layout), _stack(send_layout), pruned_loc[None],
+        pruned_cut[None], vb=vb, sb=sb, n_sweeps=n_sweeps,
+        max_iters=max_iters, relax_chunks=relax_chunks)
+    return tuple(t[0] for t in out)

@@ -9,8 +9,10 @@ in the kernel) and is not part of the oracle; the fixpoint itself is
 schedule-independent, so distances and send outputs are bit-comparable
 with the kernel's once it has converged.
 
-Self-contained (no ``repro_torch.core`` imports), and every array carries
-the ``sim`` backend's leading shard axis ``[P, ...]``.
+Self-contained (no ``repro_torch.core`` imports). ``fused_round_ref``
+takes one shard, as the reference's does; ``_fused_round_ref_stacked``
+takes the ``sim`` backend's stack, every array with a leading shard axis
+``[P, ...]``.
 """
 from __future__ import annotations
 
@@ -36,10 +38,11 @@ def _local_fixpoint(dist, front, loc_src, loc_dst, loc_w, max_iters: int):
         it += run.to(torch.int32)
 
 
-def fused_round_ref(dist, front_in, live, incoming, recv_idx, last_sent,
-                    slot_valid, loc_src, loc_dst, loc_w, pruned_loc, cut_src,
-                    cut_seg, cut_w, pruned_cut, *, dense: bool = False,
-                    max_iters: int = 10_000):
+def _fused_round_ref_stacked(dist, front_in, live, incoming, recv_idx,
+                             last_sent, slot_valid, loc_src, loc_dst, loc_w,
+                             pruned_loc, cut_src, cut_seg, cut_w, pruned_cut,
+                             *, dense: bool = False,
+                             max_iters: int = 10_000):
     """dist/front_in: [P, K, block]; live: [P, K] bool; incoming:
     [P, K, M] flat bucket messages (with ``recv_idx`` [P, M] flat targets,
     sentinel = block) or [P, K, block] dense remote minima (recv_idx
@@ -67,3 +70,20 @@ def fused_round_ref(dist, front_in, live, incoming, recv_idx, last_sent,
     send_val = torch.where(improved, slot_val, INF)
     new_last = torch.where(improved, slot_val, last_sent)
     return new_dist, send_val, new_last, improved.sum(-1, dtype=torch.int32)
+
+
+def fused_round_ref(dist, front_in, live, incoming, recv_idx, last_sent,
+                    slot_valid, loc_src, loc_dst, loc_w, pruned_loc, cut_src,
+                    cut_seg, cut_w, pruned_cut, *, dense: bool = False,
+                    max_iters: int = 10_000):
+    """The oracle on one shard, the reference's form: dist/front_in
+    [K, block]; live [K]; incoming [K, M] (recv_idx [M]) or dense
+    [K, block]; last_sent / slot_valid [K, S] / [S]; the shard's
+    original-order edge lists [E]. Returns (new_dist [K, block], send_val
+    [K, S], new_last [K, S], sends [K] int32)."""
+    args = (dist, front_in, live, incoming, recv_idx, last_sent, slot_valid,
+            loc_src, loc_dst, loc_w, pruned_loc, cut_src, cut_seg, cut_w,
+            pruned_cut)
+    out = _fused_round_ref_stacked(*(a[None] for a in args), dense=dense,
+                                   max_iters=max_iters)
+    return tuple(t[0] for t in out)

@@ -2,8 +2,9 @@
 reference's ``launch/train.py``), for every registered architecture: the
 LMs, the GNN zoo and AutoInt.
 
-Runs reduced ("smoke") or full configs of a registered arch on one device,
-the card unless ``--device`` names another:
+Runs reduced ("smoke") or full configs of a registered arch on the
+ambient mesh (``launch.mesh.use_mesh``; one process by default, as the
+reference's host mesh), on the card unless ``--device`` names another:
 
   - data pipeline -> device batches (``data.TokenStream`` for an LM,
     ``data.RecsysBatcher`` for AutoInt, ``data.GraphBatcher`` over one
@@ -38,7 +39,8 @@ from repro_torch.configs.registry import _load
 from repro_torch.core import prng
 from repro_torch.data import GraphBatcher, RecsysBatcher, TokenStream
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import MeshAxes
+from repro_torch.distributed.sharding import (MeshAxes, P, ambient_mesh,
+                                              local_shard)
 from repro_torch.launch.mesh import make_host_mesh, use_mesh
 from repro_torch.models.params import materialize
 from repro_torch.optim import AdamWConfig
@@ -59,19 +61,34 @@ def build_lm(cfg, ax, batch, seq, opt_cfg, device=None):
     return params, step, data
 
 
-def build_recsys(cfg, batch, opt_cfg, device=None):
+def _mine(batch, specs):
+    """This process's block of each array of ``batch`` by its spec on the
+    ambient mesh (the whole batch with no mesh)."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return batch
+    return {k: local_shard(v, specs.get(k, P()), mesh).contiguous()
+            for k, v in batch.items()}
+
+
+def build_recsys(cfg, ax, batch, opt_cfg, device=None):
+    """Parameters (this process's shards under a mesh), train step and
+    batches of AutoInt; each batch is the reference's numpy draw, this
+    process's rows of it over ``ax.data``."""
     from repro_torch.models import autoint as ai
-    params = _weights(ai.autoint_param_defs(cfg), device)
-    step = ai.make_autoint_train_step(cfg, opt_cfg)
-    data = RecsysBatcher(batch, cfg.n_sparse, cfg.vocab_per_field,
-                         cfg.multi_hot, device=device)
-    return params, step, data
+    params = _weights(ai.autoint_param_defs(cfg, ax), device)
+    step = ai.make_autoint_train_step(cfg, ax, opt_cfg)
+    draws = RecsysBatcher(batch, cfg.n_sparse, cfg.vocab_per_field,
+                          cfg.multi_hot, device=device)
+    rows = {"sparse_idx": P(ax.data), "labels": P(ax.data)}
+    return params, step, (_mine(b, rows) for b in draws)
 
 
-def build_gnn(arch, cfg, opt_cfg, device=None):
+def build_gnn(arch, cfg, ax, opt_cfg, device=None):
     """Parameters, train step and batches of a GNN arch on one random graph
     of 256 nodes and 1,024 edges; the graph and every batch are the
-    reference launcher's numpy draws, in its order."""
+    reference launcher's numpy draws, in its order, and under a mesh this
+    process's blocks of their node and edge rows over ``ax.all``."""
     from repro_torch.models import gnn
     device = resolve_device(device)
     rng = np.random.default_rng(0)
@@ -79,8 +96,11 @@ def build_gnn(arch, cfg, opt_cfg, device=None):
     src = rng.integers(0, N, E).astype(np.int32)
     dst = rng.integers(0, N, E).astype(np.int32)
     param_defs, _, loss = gnn.MODELS[arch]
-    params = _weights(param_defs(cfg), device)
-    step = gnn.make_gnn_train_step(loss, cfg, opt_cfg)
+    params = _weights(param_defs(cfg, ax), device)
+    step = gnn.make_gnn_train_step(loss, cfg, ax, opt_cfg)
+    rows = {k: P(ax.all) for k in ("node_feat", "coords", "labels",
+                                   "graph_id", "edge_src", "edge_dst",
+                                   "edge_feat")}
 
     def t(a, dtype):
         return torch.as_tensor(np.asarray(a, dtype), device=device)
@@ -104,7 +124,7 @@ def build_gnn(arch, cfg, opt_cfg, device=None):
             b["node_feat"] = t(rng.standard_normal((N, cfg.n_vars)), f32)
             b["edge_feat"] = t(rng.standard_normal((E, cfg.d_edge_in)), f32)
             b["labels"] = t(rng.standard_normal((N, cfg.n_vars)), f32)
-        return b
+        return _mine(b, rows)
 
     return params, step, GraphBatcher(batch_builder)
 
@@ -134,10 +154,10 @@ def main(argv=None):
             params, step_fn, data = build_lm(cfg, ax, args.batch, args.seq,
                                              opt_cfg, device)
         elif family == "recsys":
-            params, step_fn, data = build_recsys(cfg, args.batch, opt_cfg,
-                                                 device)
+            params, step_fn, data = build_recsys(cfg, ax, args.batch,
+                                                 opt_cfg, device)
         else:
-            params, step_fn, data = build_gnn(args.arch, cfg, opt_cfg,
+            params, step_fn, data = build_gnn(args.arch, cfg, ax, opt_cfg,
                                               device)
 
         opt_state = adamw_init(params)

@@ -17,19 +17,43 @@ Batch dict convention (uniform across archs):
   graph_id  [N] int          (batched small graphs; mace)
   labels    arch-dependent
 
-The port runs on one device, so there is no sharding constraint and no
-mesh axes argument; a ``ParamDef`` has no partition spec.
+Sharding (``MeshAxes`` ``ax``, as the reference's): under a mesh of
+processes (``launch.mesh.use_mesh``) a rank holds its block of rows of
+every node array (``node_feat``, ``coords``, ``labels``, ``graph_id``)
+and of every edge array (``edge_src``, ``edge_dst``, ``edge_feat``): the
+ceil blocks (``sharding.block``) over its flat rank of ``ax.all``. Edge
+ids and ``graph_id`` stay global, and the sentinel stays ``N``, the whole
+graph's node count; ``graph_energy`` is whole on every rank. The nets are
+small and replicated (``P(None, ...)``). A layer gathers the node rows
+its edges read (``all_gather_dim`` over ``ax.all``), computes its own
+edges' messages, and reduce-scatters their whole-``N`` segment sums to
+node blocks (a segment max is maxed over the ranks, a segment softmax's
+sum all-reduced). Each rank's weights enter through ``use_weight(...,
+model_partial=True)``, since every rank uses them on a part of the
+graph: their gradients are summed over ``data`` and ``model``. The
+losses are the whole graph's, equal on every rank. With no mesh, or a
+mesh of one process, nothing is exchanged.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import (all_gather_dim,
+                                                 copy_to_group,
+                                                 max_over_group, psum_named,
+                                                 reduce_from_group,
+                                                 reduce_scatter_dim)
+from repro_torch.distributed.sharding import (MeshAxes, P, ambient_mesh,
+                                              axes_group, block, entry_axes,
+                                              placement, use_weight)
 from repro_torch.models import equivariant as eqv
-from repro_torch.models.params import ParamDef, value_and_grad
+from repro_torch.models.params import (ParamDef, tree_leaves, tree_unflatten,
+                                       value_and_grad)
 
 
 # --------------------------------------------------------------------------
@@ -99,10 +123,10 @@ def gather_nodes(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def mlp_defs(dims, *, ln: bool = False):
     d = {}
     for i in range(len(dims) - 1):
-        d[f"w{i}"] = ParamDef((dims[i], dims[i + 1]))
-        d[f"b{i}"] = ParamDef((dims[i + 1],), init="zeros")
+        d[f"w{i}"] = ParamDef((dims[i], dims[i + 1]), P(None, None))
+        d[f"b{i}"] = ParamDef((dims[i + 1],), P(None), init="zeros")
     if ln:
-        d["ln"] = ParamDef((dims[-1],), init="ones")
+        d["ln"] = ParamDef((dims[-1],), P(None), init="ones")
     return d
 
 
@@ -116,6 +140,114 @@ def mlp_apply(p, x, n_layers, act=F.silu):
         var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
         x = (x - mu) * torch.rsqrt(var + 1e-5) * p["ln"]
     return x
+
+
+# --------------------------------------------------------------------------
+# the graph over the mesh
+# --------------------------------------------------------------------------
+
+class _Graph:
+    """Where this process's rows of a graph sit under ``ax``: the group of
+    ``ax.all`` (None with no mesh or one process), the whole graph's node
+    count ``N``, and this rank's node block ``[lo, hi)``. Its methods are
+    the layers' exchanges; each is the one-process operation when the
+    group is None."""
+
+    def __init__(self, ax: MeshAxes, n_local: int, device):
+        self.ax = ax
+        self.pl = placement(ax)
+        self.group = None
+        self.N, self.lo, self.hi = n_local, 0, n_local
+        if self.pl is None:
+            return
+        mesh = ambient_mesh()
+        self.group = axes_group(mesh, entry_axes(tuple(ax.all), mesh))
+        if self.group is None:
+            return
+        n = torch.tensor([n_local], dtype=torch.int64, device=device)
+        self.N = int(psum_named(n, self.group))
+        self.lo, self.hi = block(self.N, self.group.size, self.group.rank)
+        if self.hi - self.lo != n_local:
+            raise ValueError(
+                f"rank {self.group.rank} holds {n_local} node rows; its "
+                f"block of {self.N} over {self.group.size} ranks is "
+                f"[{self.lo}, {self.hi})")
+
+    def weights(self, params):
+        """Every leaf in its use layout: replicated, its gradient summed
+        over ``data`` and ``model`` (each rank works on a part of the
+        graph)."""
+        if self.pl is None:
+            return params
+        return tree_unflatten(params, [
+            use_weight(w, P(), self.pl, self.ax, 0, model_partial=True)
+            for w in tree_leaves(params)])
+
+    def whole(self, *xs):
+        """The whole graph's rows of each node array ``x`` [n, ...], a
+        tuple (one all-gather for all of them; its backward
+        reduce-scatters)."""
+        if self.group is None:
+            return xs
+        flat = torch.cat([x.reshape(x.shape[0], -1) for x in xs], dim=-1)
+        flat = all_gather_dim(flat, self.group, 0, self.N)
+        out, o = [], 0
+        for x in xs:
+            w = math.prod(x.shape[1:])
+            out.append(flat[:, o:o + w].reshape((self.N,) + x.shape[1:]))
+            o += w
+        return tuple(out)
+
+    def block(self, partial):
+        """This rank's node rows of the sum over the ranks of a whole-``N``
+        partial (a reduce-scatter)."""
+        return reduce_scatter_dim(partial, self.group, 0)
+
+    def seg_sum(self, data, seg):
+        return self.block(seg_sum(data, seg, self.N))
+
+    def seg_mean(self, data, seg):
+        if self.group is None:
+            return seg_mean(data, seg, self.N)
+        cnt = seg_sum(data.new_ones((data.shape[0],) + (1,) * (data.ndim - 1)),
+                      seg, self.N)
+        return self.seg_sum(data, seg) / torch.clamp(
+            self.block(cnt.detach()), min=1.0)
+
+    def seg_softmax(self, scores, seg):
+        """``seg_softmax`` over every rank's edges: the segments' maxima
+        maxed over the ranks (a stabiliser: no gradient), their sums
+        all-reduced."""
+        if self.group is None:
+            return seg_softmax(scores, seg, self.N)
+        mx = max_over_group(seg_max(scores, seg, self.N), self.group)
+        mx = torch.where(torch.isfinite(mx), mx, 0.0)
+        ex = torch.exp(scores - take_rows(mx, seg, 0.0))
+        den = reduce_from_group(copy_to_group(seg_sum(ex, seg, self.N),
+                                              self.group), self.group)
+        return ex / take_rows(torch.clamp(den, min=1e-9), seg, 1.0)
+
+    def total(self, x):
+        """The sum over the ranks (forward), each rank's own part's
+        gradient (backward): a global sum every rank then uses whole."""
+        return reduce_from_group(x, self.group)
+
+    def count(self, n) -> torch.Tensor:
+        """A count summed over the ranks, no gradient."""
+        n = torch.as_tensor(n, dtype=torch.float32)
+        return n if self.group is None else psum_named(n, self.group)
+
+    def mean(self, x):
+        """The mean of ``x`` over every rank's elements."""
+        if self.group is None:
+            return torch.mean(x)
+        return self.total(x.sum()) / self.count(
+            torch.tensor(float(x.numel()), device=x.device))
+
+
+def _graph(ax: MeshAxes, batch, key: str = "node_feat") -> _Graph:
+    x = batch[key]
+    return _Graph(ax, x.shape[0], x.device)
 
 
 # ==========================================================================
@@ -133,7 +265,7 @@ class GatConfig:
     leaky_slope: float = 0.2
 
 
-def gat_param_defs(cfg: GatConfig):
+def gat_param_defs(cfg: GatConfig, ax: MeshAxes):
     layers = []
     d_in = cfg.d_in
     for i in range(cfg.n_layers):
@@ -141,47 +273,51 @@ def gat_param_defs(cfg: GatConfig):
         heads = 1 if last else cfg.n_heads
         d_out = cfg.n_classes if last else cfg.d_hidden
         layers.append(dict(
-            w=ParamDef((d_in, heads * d_out)),
-            a_src=ParamDef((heads, d_out)),
-            a_dst=ParamDef((heads, d_out)),
+            w=ParamDef((d_in, heads * d_out), P(None, None)),
+            a_src=ParamDef((heads, d_out), P(None, None)),
+            a_dst=ParamDef((heads, d_out), P(None, None)),
         ))
         d_in = heads * d_out
     return dict(layers=layers)
 
 
-def gat_forward(params, batch, cfg: GatConfig):
+def gat_forward(params, batch, cfg: GatConfig, ax: MeshAxes):
+    g = _graph(ax, batch)
+    params = g.weights(params)
     h = batch["node_feat"]
     src, dst = batch["edge_src"], batch["edge_dst"]
-    N = h.shape[0]
+    N, n = g.N, h.shape[0]
     pad = src >= N
     seg = torch.where(pad, N, dst)
     for i, lp in enumerate(params["layers"]):
         last = i == cfg.n_layers - 1
         heads = 1 if last else cfg.n_heads
         d_out = cfg.n_classes if last else cfg.d_hidden
-        wh = (h @ lp["w"]).reshape(N, heads, d_out)
+        wh = (h @ lp["w"]).reshape(n, heads, d_out)
         s_src = torch.einsum("nhd,hd->nh", wh, lp["a_src"])
         s_dst = torch.einsum("nhd,hd->nh", wh, lp["a_dst"])
+        wh, s_src, s_dst = g.whole(wh, s_src, s_dst)
         e = gather_nodes(s_src, src) + gather_nodes(s_dst, dst)   # [E, H]
         e = F.leaky_relu(e, cfg.leaky_slope)
         e = torch.where(pad[:, None], float("-inf"), e)
-        alpha = seg_softmax(e, seg, N)                            # [E, H]
+        alpha = g.seg_softmax(e, seg)                             # [E, H]
         msg = alpha[..., None] * gather_nodes(wh, src)            # [E, H, D]
-        h = seg_sum(msg, seg, N).reshape(N, heads * d_out)
+        h = g.seg_sum(msg, seg).reshape(n, heads * d_out)
         if not last:
             h = F.elu(h)
-    return h  # [N, n_classes]
+    return h  # [n, n_classes], this rank's nodes
 
 
-def gat_loss(params, batch, cfg):
-    logits = gat_forward(params, batch, cfg)
+def gat_loss(params, batch, cfg, ax: MeshAxes):
+    g = _graph(ax, batch)
+    logits = gat_forward(params, batch, cfg, ax)
     labels = batch["labels"]
     mask = labels >= 0
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(
         logits, torch.clamp(labels, min=0).long()[:, None], dim=-1)[:, 0]
-    return (torch.sum(torch.where(mask, logz - ll, 0.0))
-            / torch.clamp(mask.sum(), min=1))
+    tok = torch.sum(torch.where(mask, logz - ll, 0.0))
+    return g.total(tok) / torch.clamp(g.count(mask.sum()), min=1)
 
 
 # ==========================================================================
@@ -196,7 +332,7 @@ class EgnnConfig:
     d_in: int = 16
 
 
-def egnn_param_defs(cfg: EgnnConfig):
+def egnn_param_defs(cfg: EgnnConfig, ax: MeshAxes):
     D = cfg.d_hidden
     layers = [dict(
         phi_e=mlp_defs([2 * D + 1, D, D]),
@@ -207,31 +343,35 @@ def egnn_param_defs(cfg: EgnnConfig):
                 readout=mlp_defs([D, D, 1]))
 
 
-def egnn_forward(params, batch, cfg: EgnnConfig):
+def egnn_forward(params, batch, cfg: EgnnConfig, ax: MeshAxes):
+    g = _graph(ax, batch)
+    params = g.weights(params)
     h = mlp_apply(params["embed"], batch["node_feat"], 1)
     x = batch["coords"]
     src, dst = batch["edge_src"], batch["edge_dst"]
-    N = h.shape[0]
+    N = g.N
     pad = src >= N
     seg = torch.where(pad, N, dst)
     for lp in params["layers"]:
-        xs, xd = gather_nodes(x, src), gather_nodes(x, dst)
+        hw, xw = g.whole(h, x)
+        xs, xd = gather_nodes(xw, src), gather_nodes(xw, dst)
         d2 = torch.sum((xd - xs) ** 2, dim=-1, keepdim=True)
         m = mlp_apply(lp["phi_e"],
-                      torch.cat([gather_nodes(h, dst),
-                                 gather_nodes(h, src), d2], -1), 2)
+                      torch.cat([gather_nodes(hw, dst),
+                                 gather_nodes(hw, src), d2], -1), 2)
         m = torch.where(pad[:, None], 0.0, m)
         w = mlp_apply(lp["phi_x"], m, 2)                      # [E, 1]
-        x = x + seg_mean((xd - xs) * w, seg, N)
-        agg = seg_sum(m, seg, N)
+        x = x + g.seg_mean((xd - xs) * w, seg)
+        agg = g.seg_sum(m, seg)
         h = h + mlp_apply(lp["phi_h"], torch.cat([h, agg], -1), 2)
     return h, x
 
 
-def egnn_loss(params, batch, cfg):
-    h, x = egnn_forward(params, batch, cfg)
-    pred = mlp_apply(params["readout"], h, 2)[:, 0]
-    return torch.mean((pred - batch["labels"]) ** 2)
+def egnn_loss(params, batch, cfg, ax: MeshAxes):
+    g = _graph(ax, batch)
+    h, x = egnn_forward(params, batch, cfg, ax)
+    pred = mlp_apply(g.weights(params["readout"]), h, 2)[:, 0]
+    return g.mean((pred - batch["labels"]) ** 2)
 
 
 # ==========================================================================
@@ -264,7 +404,7 @@ def _tp_paths(l_max):
     return out
 
 
-def mace_param_defs(cfg: MaceConfig):
+def mace_param_defs(cfg: MaceConfig, ax: MeshAxes):
     C = cfg.d_hidden
     paths = _tp_paths(cfg.l_max)
     layers = []
@@ -272,16 +412,17 @@ def mace_param_defs(cfg: MaceConfig):
         lp = dict(
             radial=mlp_defs([cfg.n_rbf, C, len(paths) * C]),
             # per-l channel mixing after aggregation (A-basis linear)
-            mix_a={str(l): ParamDef((C, C)) for l in cfg.ls},
+            mix_a={str(l): ParamDef((C, C), P(None, None)) for l in cfg.ls},
             # product-basis mixing (correlation 2 and 3 contributions)
-            mix_b2={str(l): ParamDef((C, C)) for l in cfg.ls},
-            mix_b3={str(l): ParamDef((C, C)) for l in cfg.ls},
-            update={str(l): ParamDef((C, C)) for l in cfg.ls},
-            resid={str(l): ParamDef((C, C)) for l in cfg.ls},
+            mix_b2={str(l): ParamDef((C, C), P(None, None)) for l in cfg.ls},
+            mix_b3={str(l): ParamDef((C, C), P(None, None)) for l in cfg.ls},
+            update={str(l): ParamDef((C, C), P(None, None)) for l in cfg.ls},
+            resid={str(l): ParamDef((C, C), P(None, None)) for l in cfg.ls},
         )
         layers.append(lp)
     return dict(
-        embed=ParamDef((cfg.n_species, C), init="embed", scale=1.0),
+        embed=ParamDef((cfg.n_species, C), P(None, None), init="embed",
+                       scale=1.0),
         layers=layers,
         readout=mlp_defs([C, C, 1]),
     )
@@ -305,20 +446,23 @@ def _mix(x, w):
     return torch.einsum("ncm,cd->ndm", x, w)
 
 
-def mace_forward(params, batch, cfg: MaceConfig):
+def mace_forward(params, batch, cfg: MaceConfig, ax: MeshAxes):
+    g = _graph(ax, batch, "coords")
+    params = g.weights(params)
     src, dst = batch["edge_src"], batch["edge_dst"]
     x = batch["coords"]
-    N = x.shape[0]
+    N, n = g.N, x.shape[0]
     C = cfg.d_hidden
     pad = src >= N
     seg = torch.where(pad, N, dst)
     species = batch["node_feat"][:, 0].int()
     embed = params["embed"]
 
-    h = {l: x.new_zeros((N, C, 2 * l + 1)) for l in cfg.ls}
+    h = {l: x.new_zeros((n, C, 2 * l + 1)) for l in cfg.ls}
     h[0] = embed[torch.clamp(species, 0, embed.shape[0] - 1).long()][..., None]
 
-    vec = gather_nodes(x, dst) - gather_nodes(x, src)
+    xw, = g.whole(x)
+    vec = gather_nodes(xw, dst) - gather_nodes(xw, src)
     r = torch.sqrt(torch.sum(vec * vec, -1) + 1e-9)
     sh = eqv.spherical_harmonics(vec)                     # {l2: [E, 2l2+1]}
     rbf = eqv.bessel_rbf(r, cfg.n_rbf, cfg.r_cut)         # [E, n_rbf]
@@ -328,12 +472,13 @@ def mace_forward(params, batch, cfg: MaceConfig):
         Rw = mlp_apply(lp["radial"], rbf, 2).reshape(-1, len(paths), C)
         Rw = torch.where(pad[:, None, None], 0.0, Rw)
         # ---- A-basis: aggregate R * (h_src^l1 x Y^l2 -> l3) per path ------
+        hw = dict(zip(cfg.ls, g.whole(*(h[l] for l in cfg.ls))))
         A = {l: x.new_zeros((N, C, 2 * l + 1)) for l in cfg.ls}
         for pi, (l1, l2, l3) in enumerate(paths):
-            hj = gather_nodes(h[l1], src)                 # [E, C, 2l1+1]
+            hj = gather_nodes(hw[l1], src)                # [E, C, 2l1+1]
             tp = _tensor_product(hj, sh[l2], l1, l2, l3)  # [E, C, 2l3+1]
             A[l3] = A[l3] + seg_sum(tp * Rw[:, pi, :, None], seg, N)
-        A = {l: _mix(A[l], lp["mix_a"][str(l)]) for l in cfg.ls}
+        A = {l: _mix(g.block(A[l]), lp["mix_a"][str(l)]) for l in cfg.ls}
         # ---- B-basis: symmetric products up to correlation 3 --------------
         B = {l: A[l] for l in cfg.ls}
         A2 = {l: torch.zeros_like(A[l]) for l in cfg.ls}
@@ -353,11 +498,13 @@ def mace_forward(params, batch, cfg: MaceConfig):
     return h
 
 
-def mace_loss(params, batch, cfg: MaceConfig):
-    h = mace_forward(params, batch, cfg)
-    site_e = mlp_apply(params["readout"], h[0][..., 0], 2)[:, 0]   # [N]
+def mace_loss(params, batch, cfg: MaceConfig, ax: MeshAxes):
+    g = _graph(ax, batch, "coords")
+    h = mace_forward(params, batch, cfg, ax)
+    site_e = mlp_apply(g.weights(params["readout"]), h[0][..., 0],
+                       2)[:, 0]                                    # [n]
     G = batch["graph_energy"].shape[0]
-    energy = seg_sum(site_e, batch["graph_id"], G)
+    energy = g.total(seg_sum(site_e, batch["graph_id"], G))
     return torch.mean((energy - batch["graph_energy"]) ** 2)
 
 
@@ -375,7 +522,7 @@ class GraphcastConfig:
     d_edge_in: int = 4
 
 
-def graphcast_param_defs(cfg: GraphcastConfig):
+def graphcast_param_defs(cfg: GraphcastConfig, ax: MeshAxes):
     D = cfg.d_hidden
     layers = [dict(
         edge_mlp=mlp_defs([3 * D, D, D], ln=True),
@@ -389,26 +536,29 @@ def graphcast_param_defs(cfg: GraphcastConfig):
     )
 
 
-def graphcast_forward(params, batch, cfg: GraphcastConfig):
+def graphcast_forward(params, batch, cfg: GraphcastConfig, ax: MeshAxes):
+    g = _graph(ax, batch)
+    params = g.weights(params)
     src, dst = batch["edge_src"], batch["edge_dst"]
-    N = batch["node_feat"].shape[0]
+    N = g.N
     pad = src >= N
     seg = torch.where(pad, N, dst)
     h = mlp_apply(params["node_enc"], batch["node_feat"], 2)
     e = mlp_apply(params["edge_enc"], batch["edge_feat"], 2)
     for lp in params["layers"]:
-        cat = torch.cat([e, gather_nodes(h, src), gather_nodes(h, dst)],
+        hw, = g.whole(h)
+        cat = torch.cat([e, gather_nodes(hw, src), gather_nodes(hw, dst)],
                         dim=-1)
         e = e + mlp_apply(lp["edge_mlp"], cat, 2)
         e = torch.where(pad[:, None], 0.0, e)
-        agg = seg_sum(e, seg, N)
+        agg = g.seg_sum(e, seg)
         h = h + mlp_apply(lp["node_mlp"], torch.cat([h, agg], -1), 2)
     return mlp_apply(params["node_dec"], h, 2)
 
 
-def graphcast_loss(params, batch, cfg):
-    out = graphcast_forward(params, batch, cfg)
-    return torch.mean((out - batch["labels"]) ** 2)
+def graphcast_loss(params, batch, cfg, ax: MeshAxes):
+    out = graphcast_forward(params, batch, cfg, ax)
+    return _graph(ax, batch).mean((out - batch["labels"]) ** 2)
 
 
 # arch name in the registry -> (param defs, forward, loss)
@@ -424,14 +574,17 @@ MODELS = {
 # generic train step
 # --------------------------------------------------------------------------
 
-def make_gnn_train_step(loss_f, cfg, opt_cfg):
+def make_gnn_train_step(loss_f, cfg, ax: MeshAxes, opt_cfg):
     """train_step(params, opt_state, batch) -> (params', opt_state',
     {"loss", "grad_norm"}): the loss and its gradients, then one AdamW
-    update. The parameters passed in are left as they are."""
+    update. The parameters passed in are left as they are. Under a mesh
+    each rank passes the whole parameters and its rows of the batch; the
+    gradients come summed over the ranks, whole on every rank, so the
+    clipping norm needs no exchange."""
     from repro_torch.optim import adamw_update
 
     def train_step(params, opt_state, batch):
-        loss, grads = value_and_grad(loss_f, params, batch, cfg)
+        loss, grads = value_and_grad(loss_f, params, batch, cfg, ax)
         params, opt_state, gnorm = adamw_update(params, grads, opt_state,
                                                 opt_cfg)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}

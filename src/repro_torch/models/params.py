@@ -96,10 +96,12 @@ def _map(fn, tree):
     return tree_unflatten(tree, [fn(leaf) for leaf in tree_leaves(tree)])
 
 
-def materialize(defs, key, *, device=None, default_dtype=torch.float32):
+def materialize(defs, key, default_dtype=torch.float32, *, device=None):
     """Tensors for ``defs`` on ``device``: zeros, ones, or a standard normal
     drawn in float32 times ``scale`` (else ``fan_in ** -0.5``, fan_in the
-    second-last axis, the last for a vector), cast to the leaf's type; the
+    second-last axis, the last for a vector), cast to the leaf's type
+    (``default_dtype`` where the leaf names none, the reference's third
+    argument); the
     leaves in ``jax.tree_util``'s order, lists of layers kept as lists.
     ``device=None`` means ``cuda``, and raises without a CUDA device.
 

@@ -35,12 +35,14 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs import registry as torch_registry  # noqa: E402
+from repro_torch.distributed.sharding import MeshAxes as TMeshAxes  # noqa: E402,E501
 from repro_torch.models import autoint as tai  # noqa: E402
 from repro_torch.models.params import (  # noqa: E402
     params_from_numpy, tree_leaves)
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 
 AX = MeshAxes(data=("data",), data_shards=1)
+TAX = TMeshAxes(data=("data",), data_shards=1)
 B = 24
 
 
@@ -88,7 +90,7 @@ def test_autoint_logit_loss_grads_and_step_match_reference(multi_hot,
     cj, ct = _configs(multi_hot)
     pj, pt = _params(cj)
     assert [tuple(t.shape) for t in tree_leaves(pt)] == [
-        d.shape for d in tree_leaves(tai.autoint_param_defs(ct))]
+        d.shape for d in tree_leaves(tai.autoint_param_defs(ct, TAX))]
     b = _batch(cj)
     bj = {k: jnp.asarray(v) for k, v in b.items()}
     bt = {k: torch.from_numpy(v) for k, v in b.items()}
@@ -102,15 +104,15 @@ def test_autoint_logit_loss_grads_and_step_match_reference(multi_hot,
         yj, lj, gj = jax.device_get(jax.jit(run)(pj, bj))
         serve_j = np.asarray(jax.jit(jai.make_autoint_serve_step(cj, AX))(
             pj, bj))
-    _close(tai.autoint_logit(pt, bt, ct), yj, 1e-5)
-    _close(tai.make_autoint_serve_step(ct)(pt, bt), serve_j, 1e-5)
+    _close(tai.autoint_logit(pt, bt, ct, TAX), yj, 1e-5)
+    _close(tai.make_autoint_serve_step(ct, TAX)(pt, bt), serve_j, 1e-5)
     pj2, gnorm_j = reference_step(pj, gj)
-    step = tai.make_autoint_train_step(ct, AdamWConfig())
+    step = tai.make_autoint_train_step(ct, TAX, AdamWConfig())
     pt2, st2, m = step(pt, adamw_init(pt), bt)
     np.testing.assert_allclose(float(m["loss"]), float(lj), rtol=1e-5)
     np.testing.assert_allclose(float(m["grad_norm"]), float(gnorm_j),
                                rtol=1e-5)
-    lt, gt = tai.value_and_grad(tai.autoint_loss, pt, bt, ct)
+    lt, gt = tai.value_and_grad(tai.autoint_loss, pt, bt, ct, TAX)
     np.testing.assert_allclose(float(lt), float(lj), rtol=1e-5)
     for got, want in zip(tree_leaves(gt), jax.tree_util.tree_leaves(gj),
                          strict=True):
@@ -160,7 +162,7 @@ def test_retrieval_matches_lax_top_k_with_ties(top_k, mesh11):
             vj, ij = jax.device_get(jax.jit(jai.make_retrieval_step(
                 cj, AX, top_k))(pj, {"sparse_idx": jnp.asarray(idx),
                                      "cand_vecs": jnp.asarray(cand)}))
-        vt, it = tai.make_retrieval_step(ct, top_k)(
+        vt, it = tai.make_retrieval_step(ct, TAX, top_k)(
             pt, {"sparse_idx": torch.from_numpy(idx),
                  "cand_vecs": torch.from_numpy(cand)})
         assert it.dtype == torch.int32

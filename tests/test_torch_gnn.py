@@ -38,6 +38,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs import registry as torch_registry  # noqa: E402
+from repro_torch.distributed.sharding import MeshAxes as TMeshAxes  # noqa: E402,E501
 from repro_torch.models import equivariant as teqv  # noqa: E402
 from repro_torch.models import gnn as tgnn  # noqa: E402
 from repro_torch.models.params import (  # noqa: E402
@@ -45,6 +46,7 @@ from repro_torch.models.params import (  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 
 AX = MeshAxes(data=("data",), data_shards=1)
+TAX = TMeshAxes(data=("data",), data_shards=1)
 N, E, PAD = 64, 192, 16
 ARCHS = {  # arch -> (the model's name in gnn.py, output tolerance)
     "gat-cora": ("gat", 1e-5), "egnn": ("egnn", 1e-5),
@@ -244,21 +246,21 @@ def test_gnn_forward_loss_grads_and_step_match_reference(arch,
     pt = params_from_numpy(jax.tree_util.tree_map(np.asarray, pj),
                            device="cpu")
     assert [tuple(t.shape) for t in tree_leaves(pt)] == [
-        d.shape for d in tree_leaves(defs(ct))]
+        d.shape for d in tree_leaves(defs(ct, TAX))]
     bt = {k: _t(v) for k, v in graph_batch(arch, ct).items()}
     tol = ARCHS[arch][1]
-    ys = _outputs(fwd(pt, bt, ct))
+    ys = _outputs(fwd(pt, bt, ct, TAX))
     assert len(ys) == len(_outputs(yj))
     for got, want in zip(ys, _outputs(yj)):
         _close(got, want, tol)
         assert np.isfinite(got.numpy()).all()
-    lt, gt = tgnn.value_and_grad(loss, pt, bt, ct)
+    lt, gt = tgnn.value_and_grad(loss, pt, bt, ct, TAX)
     np.testing.assert_allclose(float(lt), float(lj), rtol=1e-5)
     gleaves = jax.tree_util.tree_leaves(gj)
     assert len(tree_leaves(gt)) == len(gleaves)
     for got, want in zip(tree_leaves(gt), gleaves):
         _close(got, want, 1e-4)
-    step = tgnn.make_gnn_train_step(loss, ct, AdamWConfig())
+    step = tgnn.make_gnn_train_step(loss, ct, TAX, AdamWConfig())
     pt2, st2, m = step(pt, adamw_init(pt), bt)
     assert int(st2.step) == 1
     np.testing.assert_allclose(float(m["loss"]), float(lj), rtol=1e-5)
@@ -288,8 +290,9 @@ def test_mace_rotation_invariance(reference_runs):
     base = dict(edge_src=_t(rng.integers(0, n, e).astype(np.int32)),
                 edge_dst=_t(rng.integers(0, n, e).astype(np.int32)),
                 node_feat=_t(rng.integers(0, 10, (n, 1)).astype(np.float32)))
-    h0 = tgnn.mace_forward(params, dict(base, coords=_t(coords)), cfg)
-    h1 = tgnn.mace_forward(params, dict(base, coords=_t(coords @ R.T)), cfg)
+    h0 = tgnn.mace_forward(params, dict(base, coords=_t(coords)), cfg, TAX)
+    h1 = tgnn.mace_forward(params, dict(base, coords=_t(coords @ R.T)), cfg,
+                           TAX)
     np.testing.assert_allclose(h0[0].numpy(), h1[0].numpy(), rtol=1e-3,
                                atol=1e-4)
     # the l = 1 features turn with the molecule: not invariant

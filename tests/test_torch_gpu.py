@@ -2222,9 +2222,9 @@ def _card_vs_cpu_grads(loss_f, params, batch, cfg, cuda):
     value."""
     from repro_torch.models.gnn import value_and_grad
     from repro_torch.models.params import tree_leaves
-    lc, gc = value_and_grad(loss_f, params, batch, cfg)
+    lc, gc = value_and_grad(loss_f, params, batch, cfg, AX1)
     lg, gg = value_and_grad(loss_f, _to_dev(params, cuda),
-                            _to_dev(batch, cuda), cfg)
+                            _to_dev(batch, cuda), cfg, AX1)
     assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
     for a, b in zip(tree_leaves(gg), tree_leaves(gc), strict=True):
         assert a.device == lg.device
@@ -2245,12 +2245,13 @@ def test_gnn_smoke_on_gpu_matches_cpu(cuda, arch):
     from repro_torch.optim import AdamWConfig, adamw_init
     torch.backends.cuda.matmul.allow_tf32 = False
     c = _load(arch, smoke=True)[1]
-    params, step, data = build_gnn(arch, c, AdamWConfig(), "cpu")
+    params, step, data = build_gnn(arch, c, AX1, AdamWConfig(), "cpu")
     batch = next(data)
     _, fwd, loss_f = gnn.MODELS[arch]
     build.reset_launches()
-    want = tree_leaves(fwd(params, batch, c))
-    got = tree_leaves(fwd(_to_dev(params, cuda), _to_dev(batch, cuda), c))
+    want = tree_leaves(fwd(params, batch, c, AX1))
+    got = tree_leaves(fwd(_to_dev(params, cuda), _to_dev(batch, cuda), c,
+                          AX1))
     for a, b in zip(got, want, strict=True):
         assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
             b.abs().max())
@@ -2274,15 +2275,15 @@ def test_autoint_smoke_on_gpu_matches_cpu(cuda):
     from repro_torch.models.params import materialize
     torch.backends.cuda.matmul.allow_tf32 = False
     c = dataclasses.replace(_load("autoint", smoke=True)[1], multi_hot=3)
-    params = materialize(ai.autoint_param_defs(c),
+    params = materialize(ai.autoint_param_defs(c, AX1),
                          torch.Generator().manual_seed(0), device="cpu")
     batch = next(RecsysBatcher(64, c.n_sparse, c.vocab_per_field,
                                c.multi_hot, seed=3, device="cpu"))
     batch["sparse_idx"].view(-1)[::5] = c.total_vocab
     build.reset_launches()
-    sc = ai.make_autoint_serve_step(c)(params, batch)
-    sg = ai.make_autoint_serve_step(c)(_to_dev(params, cuda),
-                                       _to_dev(batch, cuda)).cpu()
+    sc = ai.make_autoint_serve_step(c, AX1)(params, batch)
+    sg = ai.make_autoint_serve_step(c, AX1)(_to_dev(params, cuda),
+                                            _to_dev(batch, cuda)).cpu()
     assert float((sg - sc).abs().max()) <= 1e-4 * float(sc.abs().max())
     _card_vs_cpu_grads(ai.autoint_loss, params, batch, c, cuda)
     base = torch.randn((512, c.d_retrieval),
@@ -2290,9 +2291,9 @@ def test_autoint_smoke_on_gpu_matches_cpu(cuda):
     cands = base[torch.randint(0, 512, (4096,),
                                generator=torch.Generator().manual_seed(5))]
     q = {"sparse_idx": batch["sparse_idx"][:2], "cand_vecs": cands}
-    vc, ic = ai.make_retrieval_step(c, 100)(params, q)
-    vg, ig = ai.make_retrieval_step(c, 100)(_to_dev(params, cuda),
-                                            _to_dev(q, cuda))
+    vc, ic = ai.make_retrieval_step(c, AX1, 100)(params, q)
+    vg, ig = ai.make_retrieval_step(c, AX1, 100)(_to_dev(params, cuda),
+                                                 _to_dev(q, cuda))
     assert (vc[:, 1:] == vc[:, :-1]).any()          # ties occur
     assert torch.equal(ig.cpu(), ic)
     assert float((vg.cpu() - vc).abs().max()) <= 1e-4 * float(

@@ -91,9 +91,10 @@ def _family_defs(arch):
         return (ttf.param_defs(ct, TAX), jtf.param_defs(cj, AX), ct.dtype,
                 cj.dtype)
     if arch == "autoint":
-        return (tai.autoint_param_defs(ct), jai.autoint_param_defs(cj, AX),
+        return (tai.autoint_param_defs(ct, TAX),
+                jai.autoint_param_defs(cj, AX),
                 "float32", jnp.float32)
-    return (tgnn.mace_param_defs(ct), jgnn.mace_param_defs(cj, AX),
+    return (tgnn.mace_param_defs(ct, TAX), jgnn.mace_param_defs(cj, AX),
             "float32", jnp.float32)
 
 

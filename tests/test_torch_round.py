@@ -1,12 +1,13 @@
 """The fused round of the PyTorch port against the JAX package's.
 
-Kernel level: the port's ``fused_round_pallas`` (on the CPU, the plain
-versions of kernels 7 and 8) against the JAX one in interpret mode, shard
-by shard, on random mid-solve states that honour the carry contracts, for
-dense and ragged layouts, bucket and dense incoming, and n_sweeps in
-{1, 2, 8}: all six outputs equal, and the rescue equal wherever a residual
-frontier calls for it. The plain oracle ``fused_round_ref`` against the
-JAX one. The engine level (``round="fused"`` solves) is in
+Kernel level: the port's stacked ``_fused_round_stacked`` (on the CPU,
+the plain versions of kernels 7 and 8) against the JAX one in interpret
+mode, shard by shard, on random mid-solve states that honour the carry
+contracts, for dense and ragged layouts, bucket and dense incoming, and
+n_sweeps in {1, 2, 8}: all six outputs equal, and the rescue equal
+wherever a residual frontier calls for it. The stacked plain oracle
+``_fused_round_ref_stacked`` against the JAX one. The per-shard entry
+points are held in ``tests/test_torch_reference_forms.py``. The engine level (``round="fused"`` solves) is in
 ``tests/test_torch_round_engine.py``, on this file's shards and helpers.
 Inputs come from numpy seeds; the tolerance is zero.
 """
@@ -26,8 +27,11 @@ import repro.graph as jg  # noqa: E402
 import repro.kernels.round as j_round  # noqa: E402
 import repro_torch.core as tc  # noqa: E402
 from repro_torch.core import phases  # noqa: E402
-from repro_torch.kernels.round import (fused_round_pallas,  # noqa: E402
-                                       fused_round_ref, fused_round_rescue)
+from repro_torch.kernels.round.ops import (  # noqa: E402
+    _fused_round_rescue_stacked as fused_round_rescue,
+    _fused_round_stacked as fused_round_pallas)
+from repro_torch.kernels.round.ref import (  # noqa: E402
+    _fused_round_ref_stacked as fused_round_ref)
 
 INF = np.float32(np.inf)
 TILE = dict(relax_vb=32, relax_eb=64, send_sb=32, send_eb=64, merge_vb=32,

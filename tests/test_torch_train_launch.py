@@ -182,10 +182,10 @@ def test_builders_batches_equal_reference(arch, monkeypatch):
     ax = MeshAxes(data=("data",))
     if family == "gnn":
         pj, _, dj = jtrain.build_gnn(arch, cj, ax, JAdamWConfig())
-        pt, _, dt = ttrain.build_gnn(arch, ct, AdamWConfig(), "cpu")
+        pt, _, dt = ttrain.build_gnn(arch, ct, TAX, AdamWConfig(), "cpu")
     else:
         pj, _, dj = jtrain.build_recsys(cj, ax, 8, JAdamWConfig())
-        pt, _, dt = ttrain.build_recsys(ct, 8, AdamWConfig(), "cpu")
+        pt, _, dt = ttrain.build_recsys(ct, TAX, 8, AdamWConfig(), "cpu")
     assert [tuple(t.shape) for t in tree_leaves(pt)] == [
         a.shape for a in jax.tree_util.tree_leaves(pj)]
     for _ in range(3):
