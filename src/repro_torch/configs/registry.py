@@ -1,16 +1,20 @@
 """Cell registry (the reference's ``configs/registry.py``): the
 architectures the port runs, the reference's shape tables, and its cells,
-(architecture x input shape) -> the port's step, its arguments as
-``meta`` tensors and a ``model_flops`` estimate for the roofline's useful
-compute ratio.
+(architecture x input shape x mesh) -> the port's step, its arguments as
+``meta`` tensors, their ``in_shardings`` and a ``model_flops`` estimate
+for the roofline's useful compute ratio.
 
 ``list_cells`` gives the reference's 44 cells in its order, and every
-cell's ``model_flops`` and argument bytes equal the reference's (at
-``n_parts`` equal to its mesh's size for SSSP). A cell has no shardings
-yet (the steps run over a mesh of processes, ``launch.mesh.use_mesh``,
-but a cell's ``in_shardings`` are ROADMAP item 11b), and ``build_cell``
-takes no mesh. The dry run (``launch/dryrun.py``) runs each step on
-``meta`` tensors."""
+cell's ``model_flops`` equals the reference's. ``build_cell(arch, shape,
+mesh, ax)`` takes a mesh of processes (``launch.mesh.HostMesh``, such as
+``make_production_mesh``'s) and the ``MeshAxes`` the steps shard over:
+``in_shardings`` is then the tree of ``NamedSharding(mesh, spec)`` whose
+specs are the reference's, leaf for leaf, and the arguments are ``meta``
+tensors of this rank's blocks of them (``sharding.shard_ranges``' ceil
+blocks); the steps run under ``launch.mesh.use_mesh(mesh)``. With
+``mesh=None, ax=None`` a cell is the one-card cell, its arguments whole
+and ``in_shardings`` None. The dry run (``launch/dryrun.py``) runs each
+step on its ``meta`` arguments."""
 from __future__ import annotations
 
 import dataclasses
@@ -93,44 +97,104 @@ def _load(arch: str, smoke: bool = False):
 
 @dataclasses.dataclass
 class Cell:
-    """One (architecture x input shape) cell: the port's step, its
-    arguments as ``meta`` tensors (nothing allocated; the reference's
-    ``ShapeDtypeStruct`` structs), and the useful work ``model_flops`` by
-    the reference's formulas. The reference's ``in_shardings`` and
-    ``donate_argnums`` place arguments on a TPU mesh and mean nothing on one
-    card, so a port cell has neither."""
+    """One (architecture x input shape) cell, in the reference's fields:
+    the port's step, its arguments as ``meta`` tensors (nothing
+    allocated; the reference's ``ShapeDtypeStruct`` structs; under a mesh
+    this rank's blocks), their ``in_shardings`` (None on one card), the
+    useful work ``model_flops`` by the reference's formulas, and the
+    arguments a step may write in place (``donate_argnums``, the
+    reference's default: none)."""
     arch: str
     shape: str
     kind: str
     step_fn: Callable | None
     args_struct: tuple | None
+    in_shardings: tuple | None
     model_flops: float
     note: str = ""
     skip: str | None = None
+    donate_argnums: tuple = ()
 
 
 def _meta(shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
+def _expand(leaves):
+    """Tree leaves with an ``SsspShards`` opened into its array fields (its
+    static sizes are no arguments), in field order."""
+    from repro_torch.core.shards import SsspShards
+    out = []
+    for leaf in leaves:
+        if isinstance(leaf, SsspShards):
+            out += [v for f in dataclasses.fields(leaf)
+                    if not isinstance(v := getattr(leaf, f.name),
+                                      (int, str, type(None)))]
+        else:
+            out.append(leaf)
+    return out
+
+
 def arg_leaves(args) -> list:
     """The tensors of a cell's arguments: tree leaves, and the array fields
     of an ``SsspShards`` (its static sizes are no arguments)."""
-    from repro_torch.core.shards import SsspShards
     from repro_torch.models.params import tree_leaves
-    out = []
-    for leaf in tree_leaves(args):
-        if isinstance(leaf, SsspShards):
-            out += [getattr(leaf, f.name) for f in dataclasses.fields(leaf)
-                    if isinstance(getattr(leaf, f.name), torch.Tensor)]
-        elif isinstance(leaf, torch.Tensor):
-            out.append(leaf)
-    return out
+    return [t for t in _expand(tree_leaves(args))
+            if isinstance(t, torch.Tensor)]
+
+
+def sharding_leaves(in_shardings) -> list:
+    """The ``NamedSharding`` of each of ``arg_leaves``' tensors, in its
+    order."""
+    from repro_torch.distributed.sharding import NamedSharding
+    from repro_torch.models.params import tree_leaves
+    return [t for t in _expand(tree_leaves(in_shardings))
+            if isinstance(t, NamedSharding)]
 
 
 def argument_bytes(args) -> int:
     """Bytes of a cell's arguments: the sum over ``arg_leaves``."""
     return sum(t.numel() * t.element_size() for t in arg_leaves(args))
+
+
+def _ns(mesh, spec_tree):
+    """The tree of ``NamedSharding(mesh, spec)`` of a tree of specs."""
+    from repro_torch.distributed.sharding import NamedSharding
+    from repro_torch.models.params import _map
+    return _map(lambda s: NamedSharding(mesh, s), spec_tree)
+
+
+def _blocks(struct, spec_tree, mesh):
+    """``struct``'s ``meta`` leaves cut to this rank's blocks of
+    ``spec_tree`` over ``mesh`` (``shard_ranges``' ceil blocks)."""
+    from repro_torch.distributed.sharding import shard_ranges
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    specs_ = tree_leaves(spec_tree)
+    leaves = tree_leaves(struct)
+    if len(specs_) != len(leaves):
+        raise ValueError(f"{len(leaves)} arguments, {len(specs_)} specs")
+    return tree_unflatten(struct, [
+        _meta(tuple(hi - lo for lo, hi in shard_ranges(t.shape, sp, mesh)),
+              t.dtype) for t, sp in zip(leaves, specs_)])
+
+
+def _placed(mesh, struct, spec_tree):
+    """(arguments, in_shardings): the whole ``struct`` and None on one
+    card (``mesh`` None), else this rank's blocks and their shardings."""
+    if mesh is None:
+        return struct, None
+    return _blocks(struct, spec_tree, mesh), _ns(mesh, spec_tree)
+
+
+def _opt_spec(p_spec):
+    from repro_torch.distributed.sharding import P
+    from repro_torch.optim import AdamWState
+    return AdamWState(step=P(), m=p_spec, v=p_spec)
+
+
+def _one_card_ax():
+    from repro_torch.distributed.sharding import MeshAxes
+    return MeshAxes(data=("data",))
 
 
 # ---------------------------------------------------------------------------
@@ -142,17 +206,18 @@ LONG_500K_SKIP = ("pure full-attention arch: 512K-token dense attention is "
                   "SSM/linear-attn variant assigned). See DESIGN.md §5.")
 
 
-def _lm_cell(arch, cfg, shape_id) -> Cell:
-    from repro_torch.distributed.sharding import MeshAxes
+def _lm_cell(arch, cfg, shape_id, mesh, ax) -> Cell:
+    from repro_torch.distributed.sharding import P
     from repro_torch.models import transformer as tf
-    from repro_torch.models.params import abstract
+    from repro_torch.models.params import abstract, specs
     from repro_torch.optim import AdamWConfig, adamw_init
     sh = LM_SHAPES[shape_id]
     if shape_id == "long_500k":
-        return Cell(arch, shape_id, "decode", None, None, 0.0,
+        return Cell(arch, shape_id, "decode", None, None, None, 0.0,
                     skip=LONG_500K_SKIP)
-    ax = MeshAxes(data=("data",))
-    p_struct = abstract(tf.param_defs(cfg, ax), cfg.dtype)
+    defs = tf.param_defs(cfg, ax)
+    p_struct = abstract(defs, cfg.dtype)
+    p_spec = specs(defs)
     N_active = cfg.n_active_params()
     B, S = sh["batch"], sh["seq"]
     L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.hd
@@ -161,48 +226,62 @@ def _lm_cell(arch, cfg, shape_id) -> Cell:
         step = tf.make_train_step(cfg, ax, AdamWConfig())
         batch = {"tokens": _meta((B, S), torch.int32),
                  "labels": _meta((B, S), torch.int32)}
-        args = (p_struct, adamw_init(p_struct), batch)
-        return Cell(arch, shape_id, "train", step, args, 6.0 * N_active * B * S)
+        batch_spec = {"tokens": P(ax.data, None), "labels": P(ax.data, None)}
+        args, shardings = _placed(
+            mesh, (p_struct, adamw_init(p_struct), batch),
+            (p_spec, _opt_spec(p_spec), batch_spec))
+        return Cell(arch, shape_id, "train", step, args, shardings,
+                    6.0 * N_active * B * S)
 
     if sh["kind"] == "prefill":
         step = tf.make_prefill_step(cfg, ax)
-        args = (p_struct, {"tokens": _meta((B, S), torch.int32)})
-        return Cell(arch, shape_id, "prefill", step, args,
+        args, shardings = _placed(
+            mesh, (p_struct, {"tokens": _meta((B, S), torch.int32)}),
+            (p_spec, {"tokens": P(ax.data, None)}))
+        return Cell(arch, shape_id, "prefill", step, args, shardings,
                     2.0 * N_active * B * S)
 
     # decode: one new token against a KV cache of seq_len
     step = tf.make_serve_step(cfg, ax)
     caches = tuple(_meta((L, B, S, Hkv, Dh), cfg.torch_dtype)
                    for _ in range(2))
-    args = (p_struct, _meta((B, 1), torch.int32), caches,
-            _meta((), torch.int32))
+    cache_spec = tuple(P(None, ax.data, ax.model, None, None)
+                       for _ in range(2))
+    args, shardings = _placed(
+        mesh, (p_struct, _meta((B, 1), torch.int32), caches,
+               _meta((), torch.int32)),
+        (p_spec, P(ax.data, None), cache_spec, P()))
     # useful flops: dense read of active params + attention over the cache
     flops = 2.0 * N_active * B + 4.0 * L * B * S * Hkv * Dh
-    return Cell(arch, shape_id, "decode", step, args, flops)
+    return Cell(arch, shape_id, "decode", step, args, shardings, flops)
 
 
 # ---------------------------------------------------------------------------
 # GNN cells
 # ---------------------------------------------------------------------------
 
-def _gnn_batch_struct(arch, cfg, sh):
+def _gnn_batch_struct(arch, cfg, sh, ax):
+    """(the batch's ``meta`` struct, its specs): node and edge rows over
+    ``ax.all``, MACE's per-graph energies whole."""
+    from repro_torch.distributed.sharding import P
     N, E, Df = sh["n_nodes"], sh["n_edges"], sh["d_feat"]
     f32, i32 = torch.float32, torch.int32
-    b = {"node_feat": _meta((N, Df)), "edge_src": _meta((E,), i32),
-         "edge_dst": _meta((E,), i32)}
+    b = {"node_feat": (_meta((N, Df)), P(ax.all, None)),
+         "edge_src": (_meta((E,), i32), P(ax.all)),
+         "edge_dst": (_meta((E,), i32), P(ax.all))}
     if arch == "gat-cora":
-        b["labels"] = _meta((N,), i32)
+        b["labels"] = (_meta((N,), i32), P(ax.all))
     elif arch == "egnn":
-        b["coords"] = _meta((N, 3))
-        b["labels"] = _meta((N,), f32)
+        b["coords"] = (_meta((N, 3)), P(ax.all, None))
+        b["labels"] = (_meta((N,), f32), P(ax.all))
     elif arch == "mace":
-        b["coords"] = _meta((N, 3))
-        b["graph_id"] = _meta((N,), i32)
-        b["graph_energy"] = _meta((sh.get("n_graphs", 1),))
+        b["coords"] = (_meta((N, 3)), P(ax.all, None))
+        b["graph_id"] = (_meta((N,), i32), P(ax.all))
+        b["graph_energy"] = (_meta((sh.get("n_graphs", 1),)), P())
     elif arch == "graphcast":
-        b["edge_feat"] = _meta((E, cfg.d_edge_in))
-        b["labels"] = _meta((N, cfg.n_vars))
-    return b
+        b["edge_feat"] = (_meta((E, cfg.d_edge_in)), P(ax.all, None))
+        b["labels"] = (_meta((N, cfg.n_vars)), P(ax.all, None))
+    return ({k: v[0] for k, v in b.items()}, {k: v[1] for k, v in b.items()})
 
 
 def _gnn_flops(arch, cfg, sh):
@@ -232,10 +311,9 @@ def _gnn_flops(arch, cfg, sh):
     raise ValueError(arch)
 
 
-def _gnn_cell(arch, cfg, shape_id) -> Cell:
-    from repro_torch.distributed.sharding import MeshAxes
+def _gnn_cell(arch, cfg, shape_id, mesh, ax) -> Cell:
     from repro_torch.models import gnn
-    from repro_torch.models.params import abstract
+    from repro_torch.models.params import abstract, specs
     from repro_torch.optim import AdamWConfig, adamw_init
     sh = GNN_SHAPES[shape_id]
     # adapt input/output dims to the shape's graph
@@ -249,7 +327,6 @@ def _gnn_cell(arch, cfg, shape_id) -> Cell:
             sh = dict(sh, n_graphs=1)
     elif arch != "graphcast":
         raise ValueError(arch)
-    ax = MeshAxes(data=("data",))
     param_defs, _, loss = gnn.MODELS[arch]
     defs = param_defs(cfg, ax)
     if arch == "graphcast":
@@ -257,9 +334,12 @@ def _gnn_cell(arch, cfg, shape_id) -> Cell:
         defs["node_enc"] = gnn.mlp_defs(
             [sh["d_feat"], cfg.d_hidden, cfg.d_hidden], ln=True)
     p_struct = abstract(defs)
+    p_spec = specs(defs)
+    batch, batch_spec = _gnn_batch_struct(arch, cfg, sh, ax)
     step = gnn.make_gnn_train_step(loss, cfg, ax, AdamWConfig())
-    args = (p_struct, adamw_init(p_struct), _gnn_batch_struct(arch, cfg, sh))
-    return Cell(arch, shape_id, "train", step, args,
+    args, shardings = _placed(mesh, (p_struct, adamw_init(p_struct), batch),
+                              (p_spec, _opt_spec(p_spec), batch_spec))
+    return Cell(arch, shape_id, "train", step, args, shardings,
                 _gnn_flops(arch, cfg, sh), note=sh.get("note", ""))
 
 
@@ -267,17 +347,19 @@ def _gnn_cell(arch, cfg, shape_id) -> Cell:
 # recsys cells
 # ---------------------------------------------------------------------------
 
-def _rec_cell(arch, cfg, shape_id) -> Cell:
-    from repro_torch.distributed.sharding import MeshAxes
+def _rec_cell(arch, cfg, shape_id, mesh, ax) -> Cell:
+    from repro_torch.distributed.sharding import P
     from repro_torch.models import autoint as ai
-    from repro_torch.models.params import abstract
+    from repro_torch.models.params import abstract, specs
     from repro_torch.optim import AdamWConfig, adamw_init
     sh = REC_SHAPES[shape_id]
     B = sh["batch"]
-    ax = MeshAxes(data=("data",))
-    p_struct = abstract(ai.autoint_param_defs(cfg, ax))
+    defs = ai.autoint_param_defs(cfg, ax)
+    p_struct = abstract(defs)
+    p_spec = specs(defs)
     F, Lh = cfg.n_sparse, cfg.multi_hot
     idx = _meta((B, F, Lh), torch.int32)
+    idx_spec = P(ax.data, None, None)
 
     D, A, H, nL = cfg.embed_dim, cfg.d_attn, cfg.n_heads, cfg.n_attn_layers
     attn_flops = nL * (3 * B * F * (H * A) * (H * A) + 2 * B * H * F * F * A)
@@ -287,18 +369,27 @@ def _rec_cell(arch, cfg, shape_id) -> Cell:
     if sh["kind"] == "train":
         step = ai.make_autoint_train_step(cfg, ax, AdamWConfig())
         batch = {"sparse_idx": idx, "labels": _meta((B,), torch.int32)}
-        args = (p_struct, adamw_init(p_struct), batch)
-        return Cell(arch, shape_id, "train", step, args, 3.0 * base)
+        batch_spec = {"sparse_idx": idx_spec, "labels": P(ax.data)}
+        args, shardings = _placed(
+            mesh, (p_struct, adamw_init(p_struct), batch),
+            (p_spec, _opt_spec(p_spec), batch_spec))
+        return Cell(arch, shape_id, "train", step, args, shardings,
+                    3.0 * base)
 
     if sh["kind"] == "serve":
         step = ai.make_autoint_serve_step(cfg, ax)
-        args = (p_struct, {"sparse_idx": idx})
-        return Cell(arch, shape_id, "serve", step, args, base)
+        args, shardings = _placed(mesh, (p_struct, {"sparse_idx": idx}),
+                                  (p_spec, {"sparse_idx": idx_spec}))
+        return Cell(arch, shape_id, "serve", step, args, shardings, base)
 
     Nc = sh["n_candidates"]
     step = ai.make_retrieval_step(cfg, ax)
     batch = {"sparse_idx": idx, "cand_vecs": _meta((Nc, cfg.d_retrieval))}
-    return Cell(arch, shape_id, "retrieval", step, (p_struct, batch),
+    # B=1 query replicated; candidates sharded over the model axis
+    batch_spec = {"sparse_idx": P(None, None, None),
+                  "cand_vecs": P(ax.model, None)}
+    args, shardings = _placed(mesh, (p_struct, batch), (p_spec, batch_spec))
+    return Cell(arch, shape_id, "retrieval", step, args, shardings,
                 base + 2.0 * B * Nc * cfg.d_retrieval)
 
 
@@ -331,47 +422,72 @@ def _sssp_abstract_shards(gspec, n_parts: int):
         n_vertices=gspec.n_vertices, n_parts=Pn, block=s["block"])
 
 
-def _sssp_cell(shape_id, n_parts: int, sssp_cfg=None) -> Cell:
+def _sssp_cell(shape_id, n_parts: int, mesh, ax, sssp_cfg=None) -> Cell:
+    """On one card the ``sim`` solve of ``n_parts`` stacked shards; under
+    a mesh the ``shmap`` solve, one shard a process (``n_parts`` the
+    mesh's size): this rank's one-shard view (every field's block of
+    ``P(ax.all)``, ``shard_id`` its place over ``ax.all``)."""
     from repro_torch.configs.sssp_paper import GRAPHS
-    from repro_torch.core.sssp import SsspConfig, solve_sim
+    from repro_torch.core.sssp import SsspConfig, solve_shmap, solve_sim
+    from repro_torch.distributed.sharding import (NamedSharding, P,
+                                                  _position, entry_axes)
     gspec = GRAPHS[shape_id]
     cfg = sssp_cfg or SsspConfig(max_rounds=64)
-    shards = _sssp_abstract_shards(gspec, n_parts)
     # one full relaxation of every edge + the exchange, per round; report
     # per-round useful work (min-plus relax = 1 add + 1 min per edge)
     flops = 2.0 * gspec.n_edges
+    note = (f"cut={gspec.cut_fraction}, rounds capped at "
+            f"{cfg.max_rounds} for the dry-run lowering")
+    if mesh is None:
+        shards = _sssp_abstract_shards(gspec, n_parts)
+        return Cell("sp-async", shape_id, "sssp",
+                    lambda sh: solve_sim(sh, 0, cfg), (shards,), None,
+                    flops, note=note)
+    whole = _sssp_abstract_shards(gspec, mesh.size)
+    spec = P(ax.all)
+    rank = _position(mesh, entry_axes(tuple(ax.all), mesh))[0]
+    fields = whole.arrays()
+    view = dataclasses.replace(
+        whole, **_blocks(fields, {k: spec for k in fields}, mesh),
+        shard_id=rank)
+    shardings = dataclasses.replace(
+        whole, **{k: NamedSharding(mesh, spec) for k in fields})
     return Cell("sp-async", shape_id, "sssp",
-                lambda sh: solve_sim(sh, 0, cfg), (shards,), flops,
-                note=f"cut={gspec.cut_fraction}, rounds capped at "
-                     f"{cfg.max_rounds} for the dry-run lowering")
+                lambda sh: solve_shmap(sh, 0, cfg, mesh, ax.all), (view,),
+                (shardings,), flops, note=note)
 
 
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
 
-def build_cell(arch: str, shape_id: str, mesh=None, ax=None,
-               smoke: bool = False, **kw) -> Cell:
-    """The cell of ``arch`` at ``shape_id``, in the reference's argument
-    order. A cell carries no shardings yet (ROADMAP item 11b): ``mesh``
-    and ``ax`` must be None, and an LM cell's steps take the one-process
-    ``MeshAxes``. An SSSP cell (``arch`` "sp-async" or
-    "sssp") stacks ``kw["n_parts"]`` shards (default 256, the reference's
-    16 x 16 production mesh) and solves with ``kw["sssp_cfg"]`` (default
-    ``SsspConfig(max_rounds=64)``)."""
-    if mesh is not None or ax is not None:
-        raise ValueError(
-            "build_cell: a cell carries no shardings yet; pass "
-            "mesh=None and ax=None (SSSP cells take n_parts=)")
-    if arch in ("sp-async", "sssp"):
-        return _sssp_cell(shape_id, kw.get("n_parts", 256),
-                          kw.get("sssp_cfg"))
-    family, cfg = _load(arch, smoke)
-    if family == "lm":
-        return _lm_cell(arch, cfg, shape_id)
-    if family == "gnn":
-        return _gnn_cell(arch, cfg, shape_id)
-    return _rec_cell(arch, cfg, shape_id)
+def build_cell(arch: str, shape_id: str, mesh, ax, smoke: bool = False,
+               **kw) -> Cell:
+    """The cell of ``arch`` at ``shape_id`` on ``mesh`` (a ``HostMesh``)
+    with the steps sharded over ``ax`` (``MeshAxes``), in the reference's
+    argument order: this rank's blocks of the arguments and their
+    ``in_shardings``, the reference's specs. ``mesh=None, ax=None`` is
+    the one-card cell (whole arguments, ``in_shardings`` None; an LM,
+    GNN or AutoInt step with the one-process ``MeshAxes``). An SSSP cell
+    (``arch`` "sp-async" or "sssp") solves with ``kw["sssp_cfg"]``
+    (default ``SsspConfig(max_rounds=64)``) over ``mesh.size`` shards,
+    one a process, or on one card over ``kw["n_parts"]`` stacked shards
+    (default 256, the reference's 16 x 16 production mesh)."""
+    from repro_torch.launch.mesh import use_mesh
+    if (mesh is None) != (ax is None):
+        raise ValueError("build_cell: pass a mesh and its MeshAxes, or "
+                         "mesh=None and ax=None for the one-card cell")
+    with use_mesh(None):            # whole shapes, cut to blocks here
+        if arch in ("sp-async", "sssp"):
+            return _sssp_cell(shape_id, kw.get("n_parts", 256), mesh, ax,
+                              kw.get("sssp_cfg"))
+        family, cfg = _load(arch, smoke)
+        ax_ = ax if ax is not None else _one_card_ax()
+        if family == "lm":
+            return _lm_cell(arch, cfg, shape_id, mesh, ax_)
+        if family == "gnn":
+            return _gnn_cell(arch, cfg, shape_id, mesh, ax_)
+        return _rec_cell(arch, cfg, shape_id, mesh, ax_)
 
 
 def list_cells(include_sssp: bool = True):

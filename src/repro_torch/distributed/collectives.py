@@ -20,13 +20,52 @@ memory. Gloo's point-to-point send of a CUDA tensor aborts the process
 there (``writev: Bad address``), so the rings are an ``all_to_all_single``
 whose split sizes send the whole operand to one neighbour, not an
 ``isend``/``irecv`` pair.
+
+``recording()`` switches on a record of the collectives the helpers
+issue (kind, bytes, group size), which the production-mesh dry run reads
+(``launch/hlo_analysis.py: collective_bytes``); off, it costs each call
+one ``None`` check.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
+
+
+class Collective(NamedTuple):
+    """One collective as issued: its kind (the reference's HLO names:
+    ``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``,
+    ``collective-permute``), its bytes (the all-reduce's operand, the
+    all-gather's result, the reduce-scatter's input, the all-to-all's and
+    the permute's operand: what the reference's wire formulas take) and
+    the size of its group."""
+    kind: str
+    nbytes: int
+    group_size: int
+
+
+_RECORD: list | None = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block, every collective the helpers of this module
+    issue is appended, as a ``Collective``, to the list this yields."""
+    global _RECORD
+    prev, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prev
+
+
+def _note(kind: str, x: torch.Tensor, ag) -> None:
+    if _RECORD is not None:
+        _RECORD.append(Collective(kind, x.numel() * x.element_size(),
+                                  ag.size))
 
 class AxisGroup(NamedTuple):
     """The processes spanning a tuple of mesh axes: their process group
@@ -55,6 +94,7 @@ def flat_size(ag: AxisGroup) -> int:
 
 
 def _all_reduce(x: torch.Tensor, ag: AxisGroup, op) -> torch.Tensor:
+    _note("all-reduce", x, ag)
     y = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, op=op, group=ag.group)
     return y
@@ -88,9 +128,21 @@ def and_reduce(flag: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
     return pmin_named(flag.to(torch.int32), ag) > 0
 
 
-def _all_to_all(out, x, ag: AxisGroup, out_splits=None, in_splits=None):
+def _all_to_all(out, x, ag: AxisGroup, out_splits=None, in_splits=None,
+                kind: str = "all-to-all"):
+    _note(kind, x, ag)
     dist.all_to_all_single(out, x, out_splits, in_splits, group=ag.group)
     return out
+
+
+def all_to_all_uneven(x: torch.Tensor, ag: AxisGroup, send_sizes,
+                      recv_sizes) -> torch.Tensor:
+    """``x`` [sum(send_sizes), ...] on each rank: rows ``send_sizes[j]``
+    (in order) go to rank j -> [sum(recv_sizes), ...], the rows from rank
+    i (``recv_sizes[i]`` of them) in rank order."""
+    x = x.contiguous()
+    out = x.new_empty((sum(recv_sizes), *x.shape[1:]))
+    return _all_to_all(out, x, ag, list(recv_sizes), list(send_sizes))
 
 
 def all_to_all_tiled(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
@@ -111,7 +163,8 @@ def _ring_shift(x: torch.Tensor, ag: AxisGroup, step: int) -> torch.Tensor:
     send[(r + step) % P] = 1
     recv[(r - step) % P] = 1
     x1 = x.contiguous().unsqueeze(0)
-    return _all_to_all(torch.empty_like(x1), x1, ag, recv, send)[0]
+    return _all_to_all(torch.empty_like(x1), x1, ag, recv, send,
+                       kind="collective-permute")[0]
 
 
 def ring_permute(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
@@ -135,6 +188,7 @@ def all_gather_tiled(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
                       device=x.device)
     # all_gather_single where this PyTorch has it (all_gather_into_tensor
     # is its deprecated name)
+    _note("all-gather", out, ag)
     gather = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
     gather(out, x, group=ag.group)
@@ -173,6 +227,7 @@ def _scatter_sum(g: torch.Tensor, ag: AxisGroup, dim: int, lo: int,
     if size < b * ag.size:
         g = torch.cat([g, g.new_zeros((b * ag.size - size, *g.shape[1:]))])
     out = torch.empty((b, *g.shape[1:]), dtype=g.dtype, device=g.device)
+    _note("reduce-scatter", g, ag)
     scatter = getattr(dist, "reduce_scatter_single", None) or \
         dist.reduce_scatter_tensor
     scatter(out, g.contiguous(), group=ag.group)

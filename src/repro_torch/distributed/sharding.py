@@ -108,6 +108,20 @@ def block(size: int, n: int, i: int) -> tuple[int, int]:
     return min(i * b, size), min((i + 1) * b, size)
 
 
+def whole_size(n_local: int, ag: AxisGroup, device) -> int:
+    """The whole length of a dimension that the ranks of ``ag`` hold in
+    ``block``'s blocks, ``n_local`` rows of it here: the blocks' lengths
+    summed over the group (a collective, read on the host). On the
+    ``meta`` device, where tensors carry no values (the dry run), the
+    blocks are even: ``n_local`` times the group's size, which the
+    registry's cells make exact (their node, edge and candidate counts
+    divide both production meshes)."""
+    if torch.device(device).type == "meta":
+        return n_local * ag.size
+    n = torch.tensor([n_local], dtype=torch.int64, device=device)
+    return int(all_gather_tiled(n, ag).sum())
+
+
 def _position(mesh, axes) -> tuple[int, int]:
     """(this process's row-major index over ``axes``, their size)."""
     coords = mesh.coords()

@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.registry import _load
 from repro_torch.core import prng
@@ -26,16 +25,17 @@ from repro_torch.models.params import materialize
 def generate(params, prompts, cfg: tf.TransformerConfig, ax: MeshAxes,
              gen_len: int):
     """Greedy decode of ``gen_len`` tokens after ``prompts`` [B, P] int:
-    the prefill, the caches padded by ``gen_len`` on the sequence axis,
-    then ``gen_len - 1`` serve steps, which are given the caches to write
-    in place (the reference example donates them). Returns [B, gen_len]
+    the prefill, the caches padded by ``gen_len`` on the sequence axis
+    (``grow_caches``: under a mesh, re-blocked over ``model``), then
+    ``gen_len - 1`` serve steps, which are given the caches to write in
+    place (the reference example donates them). Returns [B, gen_len]
     int32. Under a mesh, ``prompts`` and the result are this rank's rows
     and ``params`` its shards."""
     prefill = tf.make_prefill_step(cfg, ax)
     serve = tf.make_serve_step(cfg, ax, donate=True)
     prompt_len = prompts.shape[1]
     logits, kvs = prefill(params, {"tokens": prompts})
-    caches = tuple(F.pad(t, (0, 0, 0, 0, 0, gen_len)) for t in kvs)
+    caches = tf.grow_caches(kvs, gen_len, ax)
     del kvs
     tok = logits.argmax(dim=-1)[:, None].to(torch.int32)
     outs = [tok]

@@ -17,6 +17,12 @@ of shape (1, 1) starts none, and nothing on it issues a collective.
 ``use_mesh(mesh)`` makes a mesh the ambient one for the code inside it (the
 reference's ``jax.set_mesh``): the LM steps read it (``current_mesh``),
 so they keep the reference's signatures.
+
+``make_production_mesh`` is the reference's (16, 16) or (2, 16, 16) mesh
+over the default process group of 256 or 512 ranks: torchrun's over NCCL,
+or the production-mesh dry run's stand-in (``launch/dryrun.py``), whose
+subgroups are made on its ``fake`` backend while the steps see
+``"nccl"``, as they would on the cards.
 """
 from __future__ import annotations
 
@@ -47,6 +53,9 @@ class HostMesh:
     backend: str
     rank: int
     _groups: dict = dataclasses.field(default_factory=dict, repr=False)
+    # the backend subgroups are made on, when it is not ``backend`` (the
+    # dry run's stand-in group)
+    group_backend: str | None = dataclasses.field(default=None, repr=False)
 
     @property
     def size(self) -> int:
@@ -85,7 +94,7 @@ class HostMesh:
             members = members.reshape(-1, size)
             mine, _ = dist.new_subgroups_by_enumeration(
                 [[int(r) for r in row] for row in members],
-                backend=self.backend)
+                backend=self.group_backend or self.backend)
             self._groups[axes] = mine
         return AxisGroup(self._groups[axes], rank, size, self.backend, sizes)
 
@@ -166,6 +175,35 @@ def make_host_mesh(shape=(1, 1), axes=("data", "model"), *, backend: str,
                                                  dist.get_rank())))
     return HostMesh(shape=shape, axis_names=axes, backend=backend,
                     rank=dist.get_rank())
+
+
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> HostMesh:
+    """The reference's production mesh: (16, 16) on ("data", "model"), or
+    (2, 16, 16) on ("pod", "data", "model") with ``multi_pod``, over the
+    default process group, which must hold 256 or 512 ranks: torchrun's
+    (joined, or started from its environment, over NCCL: one card a
+    rank), or the dry run's stand-in, a ``fake`` group (the mesh's
+    subgroups are made on it, and the steps see ``"nccl"``). Raises,
+    naming the sizes, when the group has another size."""
+    shape, axes = PRODUCTION[bool(multi_pod)]
+    n = math.prod(shape)
+    if dist.is_initialized() and dist.get_world_size() != n:
+        raise ValueError(
+            f"the production mesh {shape} needs a process group of {n} "
+            f"ranks; this one has {dist.get_world_size()}")
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        return HostMesh(shape=shape, axis_names=axes, backend="nccl",
+                        rank=dist.get_rank(), group_backend="fake")
+    if not dist.is_initialized() and os.environ.get("WORLD_SIZE", str(n)) \
+            != str(n):
+        raise ValueError(
+            f"the production mesh {shape} needs {n} ranks; torchrun "
+            f"started {os.environ['WORLD_SIZE']}")
+    return make_host_mesh(shape, axes, backend="nccl")
 
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("mesh", default=None)

@@ -34,7 +34,7 @@ from repro_torch.distributed.collectives import (all_gather_dim,
                                                  psum_named,
                                                  reduce_from_group)
 from repro_torch.distributed.sharding import (MeshAxes, P, block, placement,
-                                              use_weight)
+                                              use_weight, whole_size)
 from repro_torch.models.gnn import mlp_apply, mlp_defs, take_rows
 from repro_torch.models.moe import top_k as _top_k
 from repro_torch.models.params import (ParamDef, specs, tree_leaves,
@@ -203,9 +203,8 @@ def make_retrieval_step(cfg: AutoIntConfig, ax: MeshAxes, top_k: int = 100):
         scores = q @ cand.T                                       # [B, Nc]
         if pl is None or pl.model is None:
             return _top_k(scores, top_k)
-        n = torch.tensor([cand.shape[0]], dtype=torch.int64,
-                         device=cand.device)
-        lo = block(int(psum_named(n, pl.model)), pl.m, pl.mi)[0]
+        lo = block(whole_size(cand.shape[0], pl.model, cand.device), pl.m,
+                   pl.mi)[0]
         vals, idx = _top_k(scores, top_k)
         # fewer than top_k candidates here: pad with -inf past every index
         pad = top_k - vals.shape[-1]

@@ -50,7 +50,8 @@ from repro_torch.distributed.collectives import (all_gather_dim,
                                                  reduce_scatter_dim)
 from repro_torch.distributed.sharding import (MeshAxes, P, ambient_mesh,
                                               axes_group, block, entry_axes,
-                                              placement, use_weight)
+                                              placement, use_weight,
+                                              whole_size)
 from repro_torch.models import equivariant as eqv
 from repro_torch.models.params import (ParamDef, tree_leaves, tree_unflatten,
                                        value_and_grad)
@@ -164,8 +165,7 @@ class _Graph:
         self.group = axes_group(mesh, entry_axes(tuple(ax.all), mesh))
         if self.group is None:
             return
-        n = torch.tensor([n_local], dtype=torch.int64, device=device)
-        self.N = int(psum_named(n, self.group))
+        self.N = whole_size(n_local, self.group, device)
         self.lo, self.hi = block(self.N, self.group.size, self.group.rank)
         if self.hi - self.lo != n_local:
             raise ValueError(

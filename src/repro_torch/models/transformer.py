@@ -19,12 +19,20 @@ are column-parallel over ``model`` (a rank's query heads and the KV heads
 they read, ``_Mesh``); ``wo``/``w_down`` row-parallel, their partials
 summed over ``model`` (``_row``); the embedding and the
 logits are vocab-sharded, the loss a distributed log-softmax; the MoE
-FFN runs each rank's experts (``moe.moe_ffn``). Where the reference
-constrains the KV caches to ``(None, data, model, None, None)``, the
-sequence over ``model``, a rank here keeps its rows and the KV heads its
-queries read: its attention reads no other rank's cache, and padding the
-caches for decode stays local. With no mesh, or a mesh of one process,
-no collective is issued and the steps compute what one process does.
+FFN runs each rank's experts (``moe.moe_ffn``). The KV caches are laid
+out as the reference constrains them, ``P(None, data, model, None,
+None)``: a rank holds its rows of the batch and its block of the sequence
+over ``model`` (``sharding.block``'s ceil blocks), every KV head. The
+prefill runs each rank's query heads over the whole prompt, then hands
+each layer's KV heads to the owners of the sequence blocks (one
+all-to-all over ``model``, ``_to_seq_blocks``). A decode step gathers the
+new token's q, k and v over ``model``, writes k and v on the rank whose
+block holds the position, runs every query head against each rank's
+block and combines the partial softmax sums over ``model`` (log-sum-exp,
+in float32) into each rank's own heads (``_attn_seq_sharded``).
+``grow_caches`` pads the caches for decode and re-blocks them. With no
+mesh, or a mesh of one process, no collective is issued and the steps
+compute what one process does.
 The layer loop is a Python loop over the stacked parameters;
 ``scan_layers`` and ``remat`` are accepted and change nothing (the
 training step keeps every layer's activations for the backward). MoE
@@ -59,9 +67,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.collectives import (all_gather_dim,
+                                                 all_gather_tiled,
+                                                 all_to_all_uneven,
                                                  copy_to_group,
                                                  max_over_group, psum_named,
-                                                 reduce_from_group)
+                                                 reduce_from_group,
+                                                 reduce_scatter_dim)
 from repro_torch.distributed.sharding import (MeshAxes, P, block,
                                               placement, use_weight)
 from repro_torch.models import moe as moe_mod
@@ -366,13 +377,18 @@ class _Mesh:
     """The sharded steps' plan on the ambient mesh: ``pl`` (the
     ``Placement``, None with no mesh or one process), every layer leaf's
     spec (``layers``) and this rank's heads. Query heads ``[q0, q0 + Hl)``
-    are the column shard of ``wq``. A rank keeps the KV heads its query
+    are the column shard of ``wq``. A rank computes the KV heads its query
     heads read, ``[kv0, kv0 + hk)``: the column shard of ``wk``/``wv``
     when ``m`` divides ``Hkv``, else those heads of ``wk``/``wv`` gathered
-    over ``model`` (where the reference's GSPMD pads, the port replicates
-    the heads a rank's queries need). ``kv_of`` maps each local query head
-    to its KV head when the local heads do not form a uniform GQA group
-    (else None)."""
+    over ``model``. ``kv_of`` maps each local query head to its KV head
+    when the local heads do not form a uniform GQA group (else None).
+
+    The caches hold every KV head over a rank's block of the sequence.
+    Each KV head has one owner, the first rank of ``model`` that computes
+    it (``owned``: this rank's heads ``[lo, hi)``, a contiguous range, the
+    ranks' ranges in rank order); the new token's heads are gathered from
+    the ranks padded to ``hk_max`` heads each, and ``kv_pick`` indexes
+    every head's owner's copy in the gathered ``[m * hk_max]`` heads."""
 
     def __init__(self, cfg: TransformerConfig, ax: MeshAxes):
         self.ax = ax
@@ -381,20 +397,31 @@ class _Mesh:
         self.layers = {k: tuple(d.pspec)[1:]
                        for k, d in defs["layers"].items()}
         H, Hkv = cfg.n_heads, cfg.n_kv_heads
-        m, mi = (1, 0) if pl is None else (pl.m, pl.mi)
+        self.m, self.mi = m, mi = (1, 0) if pl is None else (pl.m, pl.mi)
         if H % m:
             raise ValueError(f"{cfg.name}: {H} query heads do not split "
                              f"over a model axis of {m}")
         g = H // Hkv
         self.Hl = Hl = H // m
-        self.q0 = q0 = mi * Hl
-        self.kv0 = q0 // g
-        self.hk = (q0 + Hl - 1) // g + 1 - self.kv0
+        spans = [((j * Hl) // g, (j * Hl + Hl - 1) // g + 1)
+                 for j in range(m)]                      # [kv0, kv0 + hk)
+        self.q0 = mi * Hl
+        self.kv0 = spans[mi][0]
+        self.hk = spans[mi][1] - self.kv0
         self.kv_shard = Hkv % m == 0
         self.kv_of = None
         if Hl % g and g % Hl:
-            self.kv_of = (torch.arange(q0, q0 + Hl) // g) - self.kv0
+            self.kv_of = (torch.arange(self.q0, self.q0 + Hl) // g) - self.kv0
         self.vocab = block(cfg.vocab_size, m, mi)
+        owner = [next(j for j, (a, b) in enumerate(spans) if a <= h < b)
+                 for h in range(Hkv)]
+        mine = [h for h in range(Hkv) if owner[h] == mi]
+        self.owned = (mine[0], mine[-1] + 1) if mine else (0, 0)
+        self.n_owned = [owner.count(j) for j in range(m)]
+        self.hk_max = max(b - a for a, b in spans)
+        self.kv_pick = torch.tensor([owner[h] * self.hk_max + h
+                                     - spans[owner[h]][0]
+                                     for h in range(Hkv)])
 
     def use(self, lp, name, size, model_partial=False):
         return use_weight(lp[name], self.layers[name], self.pl, self.ax,
@@ -441,15 +468,170 @@ def _expand(t, sm: _Mesh):
     return t if sm.kv_of is None else t[:, :, sm.kv_of.to(t.device)]
 
 
+# --------------------------------------------------------------------------
+# KV caches over the sequence: P(None, data, model, None, None)
+# --------------------------------------------------------------------------
+
+def _to_seq_blocks(k, v, sm: _Mesh):
+    """This rank's KV heads over the whole prompt ([B, S, hk, Dh] each) ->
+    its block of the sequence with every KV head ([B, n, Hkv, Dh] each):
+    one all-to-all over ``model``, each rank sending the heads it owns
+    (``_Mesh.owned``) in every rank's block of rows."""
+    B, S, _, Dh = k.shape
+    a, b = (h - sm.kv0 for h in sm.owned)
+    kv = torch.stack([k, v])[:, :, :, a:b]              # [2, B, S, no, Dh]
+    sends = [kv[:, :, lo:hi].reshape(-1)
+             for lo, hi in (block(S, sm.m, j) for j in range(sm.m))]
+    lo, hi = block(S, sm.m, sm.mi)
+    recv = [2 * B * (hi - lo) * no * Dh for no in sm.n_owned]
+    got = all_to_all_uneven(torch.cat(sends), sm.model,
+                            [t.numel() for t in sends], recv)
+    whole = torch.cat([t.reshape(2, B, hi - lo, no, Dh) for t, no in
+                       zip(got.split(recv), sm.n_owned)], dim=3)
+    return whole[0], whole[1]
+
+
+def _seq_offset(n: int, sm: _Mesh, device):
+    """(first row of this rank's block of ``n`` rows, the whole sequence's
+    length), 0-d int64 tensors from one all-gather of the blocks' lengths
+    over ``model``: read on the device, so a ``meta`` run needs no
+    value."""
+    lens = all_gather_tiled(
+        torch.tensor([n], dtype=torch.int64, device=device), sm.model)
+    return lens[:sm.mi].sum(), lens.sum()
+
+
+def _gather_token(q, k, v, sm: _Mesh):
+    """Every rank's query heads and the KV heads' owners' copies of the new
+    tokens, from one all-gather over ``model``: ([B, S, H, Dh], [B, S, Hkv,
+    Dh], [B, S, Hkv, Dh])."""
+    B, S, Hl, Dh = q.shape
+    pad = (0, 0, 0, sm.hk_max - k.shape[2])
+    pack = torch.cat([q, F.pad(k, pad), F.pad(v, pad)], dim=2)[None]
+    every = all_gather_tiled(pack, sm.model)            # [m, B, S, ., Dh]
+
+    def heads(a, b):
+        return every[:, :, :, a:b].permute(1, 2, 0, 3, 4).reshape(
+            B, S, -1, Dh)
+
+    pick = sm.kv_pick.to(q.device)
+    h = sm.hk_max
+    return (heads(0, Hl), heads(Hl, Hl + h).index_select(2, pick),
+            heads(Hl + h, Hl + 2 * h).index_select(2, pick))
+
+
+def _write_block(c, new, start, lo):
+    """Rows ``[start, start + S)`` of the whole sequence (``new`` [B, S,
+    Hkv, Dh]) written in place into this rank's block ``c`` [B, n, Hkv,
+    Dh], which holds rows ``[lo, lo + n)``: those rows that fall in it."""
+    n, S = c.shape[1], new.shape[1]
+    if n == 0:
+        return
+    if S == 1:
+        r = (start - lo).reshape(1)
+        idx = r.clamp(0, n - 1)
+        hit = ((r >= 0) & (r < n)).reshape(1, 1, 1, 1)
+        c.index_copy_(1, idx, torch.where(hit, new, c.index_select(1, idx)))
+        return
+    src = torch.arange(n, device=c.device) + lo - start
+    hit = ((src >= 0) & (src < S))[None, :, None, None]
+    rows = new.index_select(1, src.clamp(0, S - 1))
+    c.copy_(torch.where(hit, rows, c))
+
+
+def _attn_seq_sharded(q, ck, cv, cache_pos, lo, sm: _Mesh, scale):
+    """Causal attention of every query head (``q`` [B, S, H, Dh], at
+    positions ``cache_pos + i``) over the sequence blocks of every
+    ``model`` rank: each rank's partial output, running max and sum over
+    its block (``ck``/``cv`` [B, n, Hkv, Dh], rows from ``lo``; an empty
+    block gives -inf maxima and zero sums), combined over ``model`` by
+    the log-sum-exp rule in float32 and handed to each rank for its own
+    heads (a max all-reduce and a reduce-scatter). Returns [B, S, Hl, Dh]
+    in ``q``'s type, what ``_attn_xla`` gives those heads over the whole
+    cache."""
+    B, S, H, Dh = q.shape
+    n, Hkv = ck.shape[1], ck.shape[2]
+    g = H // Hkv
+    if n:
+        s = torch.einsum("bqhgd,bkhd->bhgqk",
+                         q.reshape(B, S, Hkv, g, Dh).float(),
+                         ck.float()) * scale
+        qi = torch.arange(S, device=q.device)[:, None] + cache_pos
+        kj = torch.arange(n, device=q.device)[None, :] + lo
+        s = torch.where(qi >= kj, s, -torch.inf)
+        mx = s.amax(dim=-1)                                # [B, Hkv, g, S]
+        p = torch.exp(s - torch.where(torch.isfinite(mx), mx, 0.0)[..., None])
+        l = p.sum(dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bhgqd", p, cv.float())
+    else:
+        mx = torch.full((B, Hkv, g, S), -torch.inf, device=q.device)
+        l = torch.zeros((B, Hkv, g, S), device=q.device)
+        o = torch.zeros((B, Hkv, g, S, Dh), device=q.device)
+    top = max_over_group(mx, sm.model)
+    alpha = torch.where(torch.isfinite(mx), torch.exp(mx - top), 0.0)
+    part = torch.cat([o * alpha[..., None], (l * alpha)[..., None]],
+                     dim=-1).reshape(B, H, S, Dh + 1)
+    mine = reduce_scatter_dim(part, sm.model, 1)        # [B, Hl, S, Dh + 1]
+    return (mine[..., :Dh] / mine[..., Dh:]).transpose(1, 2).to(q.dtype)
+
+
+def grow_caches(caches, n: int, ax: MeshAxes):
+    """The KV caches (k, v: [L, B, S, Hkv, Dh]) grown by ``n`` zero
+    positions at the end of the sequence: ``F.pad`` of the whole caches.
+    Under a mesh whose ``model`` axis holds more than one process, each
+    rank passes its blocks and gets its blocks of the grown caches
+    (``local_shard`` of the padded whole, re-blocked over ``model``): one
+    all-to-all over ``model`` a layer, and one all-gather of the blocks'
+    lengths, read on the host."""
+    pl = placement(ax)
+    if pl is None or pl.model is None:
+        return tuple(F.pad(t, (0, 0, 0, 0, 0, n)) for t in caches)
+    k, v = caches
+    L, B, nloc, Hkv, Dh = k.shape
+    lens = all_gather_tiled(torch.tensor([nloc], dtype=torch.int64,
+                                         device=k.device), pl.model).tolist()
+    starts = [sum(lens[:j]) for j in range(pl.m)]
+    lo, hi = starts[pl.mi], starts[pl.mi] + nloc
+    new = [block(sum(lens) + n, pl.m, j) for j in range(pl.m)]
+    nlo, nhi = new[pl.mi]
+    send = [(max(lo, a), min(hi, b)) for a, b in new]
+    recv = [(max(s, nlo), min(s + c, nhi)) for s, c in zip(starts, lens)]
+    row = 2 * B * Hkv * Dh
+    out = torch.zeros((2, L, B, nhi - nlo, Hkv, Dh), dtype=k.dtype,
+                      device=k.device)
+    for i in range(L):
+        kv = torch.stack([k[i], v[i]])                  # [2, B, nloc, ., .]
+        pieces = [kv[:, :, a - lo:b - lo].reshape(-1) for a, b in send
+                  if b > a]
+        got = all_to_all_uneven(
+            torch.cat(pieces) if pieces else kv.new_empty(0), pl.model,
+            [max(b - a, 0) * row for a, b in send],
+            [max(b - a, 0) * row for a, b in recv])
+        at = 0
+        for a, b in recv:
+            if b > a:
+                out[:, i, :, a - nlo:b - nlo] = got[at:at + (b - a) * row
+                                                    ].reshape(2, B, b - a,
+                                                              Hkv, Dh)
+                at += (b - a) * row
+    return out[0], out[1]
+
+
 def _layer(x, lp, cfg: TransformerConfig, ax: MeshAxes, positions,
-           cache=None, cache_pos=None, sm: _Mesh | None = None):
+           cache=None, cache_pos=None, sm: _Mesh | None = None, seq=None):
     """One transformer block. x: [B, S, D]. Returns (x', new_cache_slice,
-    aux). With a cache (k, v: [B, Skv, hk, Dh]) the new k and v are written
-    into it in place at ``cache_pos`` (an int or a 0-d tensor, read on the
-    device, so a ``meta`` run needs no value), the start clamped to [0, Skv
-    - S] as ``lax.dynamic_update_slice`` clamps it; ``_trunk`` hands it a
-    copy unless the caller donated the caches. Under a mesh the block runs
-    this rank's heads and columns (``_Mesh``)."""
+    aux). Without a cache, new_cache_slice is this rank's KV heads over the
+    sequence ([B, S, hk, Dh] each; every head with no mesh). With a cache
+    (k, v: [B, Skv, Hkv, Dh]) the new k and v are written into it in place
+    at ``cache_pos`` (an int or a 0-d tensor, read on the device, so a
+    ``meta`` run needs no value), the start clamped to [0, Skv - S] as
+    ``lax.dynamic_update_slice`` clamps it; ``_trunk`` hands it a copy
+    unless the caller donated the caches. Under a mesh the block runs this
+    rank's heads and columns (``_Mesh``); where ``model`` holds more than
+    one process the cache is this rank's block of the sequence, rows from
+    ``seq[0]`` of ``seq[1]`` (``_seq_offset``, computed here when not
+    given), and attention runs over every rank's block
+    (``_attn_seq_sharded``)."""
     sm = _Mesh(cfg, ax) if sm is None else sm
     B, S, D = x.shape
     Hl, hk, Dh = sm.Hl, sm.hk, cfg.hd
@@ -468,8 +650,19 @@ def _layer(x, lp, cfg: TransformerConfig, ax: MeshAxes, positions,
     if cache is None:
         o = attention(q, _expand(k, sm), _expand(v, sm), cfg, causal=True)
         new_cache = (k, v)
+    elif sm.model is not None:
+        ck, cv = cache           # [B, n, Hkv, Dh]: this rank's block
+        lo, total = seq if seq is not None else _seq_offset(
+            ck.shape[1], sm, ck.device)
+        q, k, v = _gather_token(q, k, v, sm)
+        pos = torch.as_tensor(cache_pos, device=ck.device).to(torch.int64)
+        start = torch.minimum(pos.clamp(min=0), total - S)
+        _write_block(ck, k, start, lo)
+        _write_block(cv, v, start, lo)
+        o = _attn_seq_sharded(q, ck, cv, cache_pos, lo, sm, cfg.hd ** -0.5)
+        new_cache = (ck, cv)
     else:
-        ck, cv = cache           # [B, Skv, hk, Dh], decode: S == 1
+        ck, cv = cache           # [B, Skv, Hkv, Dh], decode: S == 1
         start = torch.as_tensor(cache_pos).clamp(0, ck.shape[1] - S)
         rows = torch.arange(S, device=ck.device) + start
         ck.index_copy_(1, rows, k)
@@ -516,8 +709,11 @@ def _trunk(params, tokens, cfg: TransformerConfig, ax: MeshAxes,
            keep_kv: bool = True, sm: _Mesh | None = None):
     """Embedding and layers: (x [B, S, D] before the final norm, kvs,
     aux). Without caches the layers' k and v are written into one stacked
-    [L, B, S, hk, Dh] pair (None with ``keep_kv=False``, as the loss
-    needs none); with caches, into a copy of them, or into the caches
+    [L, B, S, Hkv, Dh] pair (None with ``keep_kv=False``, as the loss
+    needs none); under a mesh whose ``model`` holds more than one process,
+    each layer's KV heads handed to the owners of the sequence blocks
+    (``_to_seq_blocks``) first, so the pair is this rank's block of the
+    sequence. With caches, into a copy of them, or into the caches
     themselves when ``donate`` is set."""
     sm = _Mesh(cfg, ax) if sm is None else sm
     B, S = tokens.shape
@@ -531,11 +727,17 @@ def _trunk(params, tokens, cfg: TransformerConfig, ax: MeshAxes,
     positions = (torch.arange(S, device=x.device) + pos0)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = caches
+    seq = None
+    if caches is not None and sm.model is not None:
+        seq = _seq_offset(caches[0].shape[2], sm, x.device)
     for i in range(cfg.n_layers):
         lp = {name: t[i] for name, t in params["layers"].items()}
         if caches is None:
             x, (k, v), a = _layer(x, lp, cfg, ax, positions, sm=sm)
             if keep_kv:
+                if sm.model is not None:
+                    with torch.no_grad():
+                        k, v = _to_seq_blocks(k, v, sm)
                 if kvs is None:
                     kvs = tuple(torch.empty((cfg.n_layers, *t.shape),
                                             dtype=t.dtype, device=t.device)
@@ -544,7 +746,7 @@ def _trunk(params, tokens, cfg: TransformerConfig, ax: MeshAxes,
         else:
             x, _, a = _layer(x, lp, cfg, ax, positions,
                              cache=(caches[0][i], caches[1][i]),
-                             cache_pos=cache_pos, sm=sm)
+                             cache_pos=cache_pos, sm=sm, seq=seq)
         aux = aux + a
     return x, kvs, aux
 
@@ -578,10 +780,12 @@ def forward(params, tokens, cfg: TransformerConfig, ax: MeshAxes,
     counterpart of the reference's ``donate_argnums``).
 
     Under a mesh of processes (``launch.mesh.use_mesh``) ``params`` are
-    this rank's shards (``materialize`` under the mesh), ``tokens`` and the
-    caches are this rank's ``data`` block of rows, the caches hold this
-    rank's KV heads (``[L, B, Skv, hk, Dh]``, ``_Mesh``) and the logits are
-    its vocabulary block (the reference's ``P(data, None, model)``)."""
+    this rank's shards (``materialize`` under the mesh), ``tokens`` are
+    this rank's ``data`` block of rows, the caches, passed in and
+    returned, are its block of the reference's ``P(None, data, model,
+    None, None)`` (its rows, its ``model`` block of the sequence, every KV
+    head: ``[L, B, n, Hkv, Dh]``) and the logits are its vocabulary block
+    (the reference's ``P(data, None, model)``)."""
     sm = _Mesh(cfg, ax)
     x, kvs, aux = _trunk(params, tokens, cfg, ax, caches, cache_pos, donate,
                          sm=sm)
@@ -633,7 +837,8 @@ def make_prefill_step(cfg: TransformerConfig, ax: MeshAxes):
     the last, which is the same row (at gemma-7b's 4 x 2048 prompts the
     whole [B, S, V] f32 block is 8.4 GB). Under a mesh, the logits of this
     rank's rows over the whole vocabulary (gathered over ``model``, so a
-    greedy step takes the whole argmax) and its caches (``forward``)."""
+    greedy step takes the whole argmax) and its blocks of the caches
+    (``forward``; ``grow_caches`` pads them for decode)."""
     @torch.no_grad()
     def prefill_step(params, batch):
         sm = _Mesh(cfg, ax)

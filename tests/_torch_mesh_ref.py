@@ -73,9 +73,28 @@ def rows_of(parts, shape, key, i=None):
     return np.concatenate(got)
 
 
-def heads_of(parts, shape, key, i, whole):
-    """KV caches [L, B, S, Hkv, Dh] from every rank's rows and KV heads
-    [kv0, kv0 + hk); where heads are replicated the copies must agree."""
+# the KV caches' placement, the reference's (src/repro/configs/
+# registry.py: the decode cells' cache_spec): rows over data, the sequence
+# over model, every KV head
+CACHE_SPEC = (None, "data", "model", None, None)
+
+
+def blocks_of(parts, shape, key, i, whole):
+    """KV caches [L, B, S, Hkv, Dh] laid together from every rank's block
+    of ``CACHE_SPEC`` (``local_shard``'s: its rows, its block of the
+    sequence, every KV head)."""
+    from repro_torch.distributed.sharding import P
+    return lay([p[key][i] for p in parts], shape, P(*CACHE_SPEC),
+               whole.shape)
+
+
+def kv_heads_of(parts, shape, i, whole):
+    """The KV heads each rank computed over the prompt in the forward,
+    before the prefill hands them to the sequence blocks' owners
+    (``heads``: one [B, S, hk, Dh] pair a layer), laid together from
+    every rank's rows and heads [kv0, kv0 + hk) into [L, B, S, Hkv, Dh];
+    where ``model`` ranks computed the same head the copies must agree
+    bit for bit."""
     out = np.full(whole.shape, np.nan, np.float32)
     d, m = shape
     for r, p in enumerate(parts):
@@ -84,7 +103,7 @@ def heads_of(parts, shape, key, i, whole):
         sl = (slice(None), slice(di * b, (di + 1) * b), slice(None),
               slice(p["kv0"], p["kv0"] + p["hk"]))
         seen = out[sl]
-        part = p[key][i]
+        part = np.stack([layer[i] for layer in p["heads"]])
         assert np.all(np.isnan(seen) | (seen == part))
         out[sl] = part
     assert not np.isnan(out).any()
@@ -206,11 +225,11 @@ def check_bf16(parts, shape, one, refs, job: dict, rel: float) -> dict:
           f"serving {srv}; gradients held {trained}")
     logits = lay([p["logits"] for p in parts], shape,
                  P("data", None, "model"), one["logits"].shape)
-    kv = [heads_of(parts, shape, "kv", i, one["kv"][i]) for i in range(2)]
+    kv = [blocks_of(parts, shape, "kv", i, one["kv"][i]) for i in range(2)]
     gen = rows_of(parts, shape, "gen")[srv]
     lasts = [rows_of(parts, shape, "lasts", i)[srv]
              for i in range(len(one["lasts"]))]
-    caches = [heads_of(parts, shape, "caches", i, one["caches"][i])[:, srv]
+    caches = [blocks_of(parts, shape, "caches", i, one["caches"][i])[:, srv]
               for i in range(2)]
     P_ = caches[0].shape[2] - job["gen"]
     defs = _leaves(tf.param_defs(cfg, MeshAxes(data=("data",),
@@ -271,11 +290,16 @@ def lm_job(mesh, job: dict) -> dict:
     ``tokens`` / ``labels`` [B, S] and ``prompt`` [B, P] int32, ``gen``
     (decode steps), ``attn_impl``, ``device`` (the CPU by default). Every
     array of the result is this rank's block (its rows of the batch, its
-    vocabulary block of the logits, its KV heads, its shards of the
-    parameters); ``coords`` and ``kv0`` say where it sits; ``launches``
-    counts the kernels the forward and the prefill launched."""
+    vocabulary block of the logits, its block of the caches' sequence,
+    its shards of the parameters); ``coords`` and ``kv0`` say where it
+    sits; ``multi_logits`` / ``multi_caches`` are a forward of three
+    tokens into the grown caches at the prompt's end; ``heads`` holds the
+    KV heads the forward computed a layer
+    before the hand-over to the sequence blocks (``kv0``, ``hk``);
+    ``grown`` what ``grow_caches`` gets wrong (``grow_cases``);
+    ``launches`` counts the kernels the forward and the prefill
+    launched."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.core import prng
     from repro_torch.distributed.sharding import MeshAxes, block, placement
@@ -304,12 +328,24 @@ def lm_job(mesh, job: dict) -> dict:
         out = dict(coords=(0, 0) if mesh is None else mesh.coords(),
                    kv0=sm.kv0, hk=sm.hk)
         n0 = dict(build.LAUNCHES)
-        with routing(moe) as (routes, tops):
-            logits, kvs, aux = tf.forward(params, rows(job["tokens"]), cfg,
-                                          ax)
+        heads = []
+        real = tf._to_seq_blocks
+
+        def to_seq_blocks(k, v, sm):
+            heads.append((_np(k), _np(v)))
+            return real(k, v, sm)
+
+        tf._to_seq_blocks = to_seq_blocks
+        try:
+            with routing(moe) as (routes, tops):
+                logits, kvs, aux = tf.forward(params, rows(job["tokens"]),
+                                              cfg, ax)
+        finally:
+            tf._to_seq_blocks = real
         out.update(logits=_np(logits), kv=[_np(t) for t in kvs],
                    aux=float(aux), routes=[r.numpy() for r in routes],
-                   tops=[t.numpy() for t in tops])
+                   tops=[t.numpy() for t in tops], heads=heads,
+                   grown=grow_cases(mesh, ax, dev))
 
         prefill = tf.make_prefill_step(cfg, ax)
         serve = tf.make_serve_step(cfg, ax, donate=True)
@@ -322,7 +358,13 @@ def lm_job(mesh, job: dict) -> dict:
         out["launches"] = {k: n - n0.get(k, 0)
                            for k, n in build.LAUNCHES.items()
                            if n != n0.get(k, 0)}
-        caches = tuple(F.pad(t, (0, 0, 0, 0, 0, job["gen"])) for t in kvs)
+        caches = tf.grow_caches(kvs, job["gen"], ax)
+        # three tokens at once into the grown caches (the caches' rows
+        # past the prompt, written where they fall; the caches left intact)
+        logits3, caches3, _ = tf.forward(params, rows(job["tokens"])[:, :3],
+                                         cfg, ax, caches, P)
+        out.update(multi_logits=_np(logits3),
+                   multi_caches=[_np(t) for t in caches3])
         tok = last.argmax(dim=-1)[:, None].to(torch.int32)
         toks, lasts = [tok], [_np(last)]
         with routing(moe) as (routes, tops):
@@ -349,6 +391,36 @@ def lm_job(mesh, job: dict) -> dict:
                    grad_norm=float(metrics["grad_norm"]),
                    new=[_np(p) for p in tree_leaves(new)])
     return out
+
+
+GROW = ((12, 4), (13, 1), (5, 0), (2, 9), (1, 1))   # (length, grown by)
+
+
+def grow_cases(mesh, ax, dev):
+    """``grow_caches`` on this rank's blocks of whole caches [2, B, S, 3,
+    2] of distinct values, for each (S, n) of ``GROW``, against
+    ``local_shard`` of ``F.pad`` of the whole by n. Returns the cases
+    whose blocks differ (none)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.distributed.sharding import P, local_shard
+    from repro_torch.models import transformer as tf
+    bad = []
+    for S, n in GROW:
+        whole = [torch.arange(2 * 4 * S * 6, dtype=torch.float32).reshape(
+            2, 4, S, 3, 2) + 1000 * j for j in range(2)]
+        if mesh is None:
+            want = [F.pad(t, (0, 0, 0, 0, 0, n)) for t in whole]
+            mine = whole
+        else:
+            want = [local_shard(F.pad(t, (0, 0, 0, 0, 0, n)),
+                                P(*CACHE_SPEC), mesh) for t in whole]
+            mine = [local_shard(t, P(*CACHE_SPEC), mesh) for t in whole]
+        got = tf.grow_caches(tuple(t.to(dev) for t in mine), n, ax)
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            bad.append((S, n))
+    return bad
 
 
 def rank_lm(mesh0, device, jobs):

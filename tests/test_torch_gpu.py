@@ -2413,7 +2413,7 @@ def test_mesh_lm_on_gloo_ranks_sharing_the_card(cuda, tmp_path):
         for k in range(job["gen"] + 1):
             close(mref.rows_of(parts, shape, "lasts", k), o["lasts"][k])
         for k in range(2):
-            close(mref.heads_of(parts, shape, "caches", k, o["caches"][k]),
+            close(mref.blocks_of(parts, shape, "caches", k, o["caches"][k]),
                   o["caches"][k])
         for key in ("routes", "decode_routes"):
             for k, want in enumerate(o[key]):

@@ -158,6 +158,11 @@ def _jax_run(arch, pt, job):
                        for t in kvs)
         serve = jax.jit(jtf.make_serve_step(cj, ax))
         P_ = job["prompt"].shape[1]
+        lg3, c3, _ = jax.jit(lambda p, t, c: jtf.forward(
+            p, t, cj, ax, caches=c, cache_pos=jnp.int32(P_)))(
+            pj, jnp.asarray(job["tokens"][:, :3]), caches)
+        out.update(multi_logits=np.asarray(lg3),
+                   multi_caches=[np.asarray(t) for t in c3])
         tok = jnp.argmax(last, -1)[:, None].astype(jnp.int32)
         toks, lasts = [tok], [np.asarray(last)]
         for i in range(GEN):
@@ -231,8 +236,11 @@ def _close(got, want, rel=F32_REL):
 
 @pytest.mark.parametrize("shape,arch", CASES)
 def test_forward_on_mesh(runs, shape, arch):
-    """Logits (each rank's rows and vocabulary block), the caches (its KV
-    heads), the aux loss and the routing of every MoE layer."""
+    """Logits (each rank's rows and vocabulary block), the caches (its
+    block of the sequence), the KV heads each rank computed before the
+    hand-over (where ``model`` ranks computed the same head, the copies
+    bit for bit equal), the aux loss and the routing of every MoE
+    layer."""
     ranks, one, ref = runs
     parts, o, j = ranks[(shape, arch)], one[arch], ref[arch]
     V = o["logits"].shape[-1]
@@ -241,9 +249,12 @@ def test_forward_on_mesh(runs, shape, arch):
     _close(logits, o["logits"])
     _close(logits, j["logits"])
     for i in range(2):
-        kv = mref.heads_of(parts, shape, "kv", i, o["kv"][i])
+        kv = mref.blocks_of(parts, shape, "kv", i, o["kv"][i])
         _close(kv, o["kv"][i])
         _close(kv, j["kv"][i])
+        if shape[1] > 1:
+            heads = mref.kv_heads_of(parts, shape, i, o["kv"][i])
+            _close(heads, o["kv"][i])
     for p in parts:
         assert abs(p["aux"] - o["aux"]) <= AUX_ATOL * 2
         assert abs(p["aux"] - j["aux"]) <= AUX_ATOL * 2
@@ -267,12 +278,71 @@ def test_prefill_and_greedy_decode_on_mesh(runs, shape, arch):
         _close(last, o["lasts"][i])
         _close(last, j["lasts"][i])
     for i in range(2):
-        c = mref.heads_of(parts, shape, "caches", i, o["caches"][i])
+        c = mref.blocks_of(parts, shape, "caches", i, o["caches"][i])
         _close(c, o["caches"][i])
         _close(c, j["caches"][i])
     for i, want in enumerate(o["decode_routes"]):
         np.testing.assert_array_equal(
             mref.rows_of(parts, shape, "decode_routes", i), want)
+
+
+@pytest.mark.parametrize("shape,arch", CASES)
+def test_forward_of_several_tokens_into_the_caches(runs, shape, arch):
+    """``forward`` of three tokens into the grown caches at the prompt's
+    end (their rows land on the ranks whose blocks hold them; every
+    query row attends over every rank's block): the logits and the
+    caches against one process and JAX."""
+    ranks, one, ref = runs
+    parts, o, j = ranks[(shape, arch)], one[arch], ref[arch]
+    logits = mref.lay([p["multi_logits"] for p in parts], shape,
+                      P("data", None, "model"), o["multi_logits"].shape)
+    _close(logits, o["multi_logits"])
+    _close(logits, j["multi_logits"])
+    for i in range(2):
+        c = mref.blocks_of(parts, shape, "multi_caches", i,
+                           o["multi_caches"][i])
+        _close(c, o["multi_caches"][i])
+        _close(c, j["multi_caches"][i])
+
+
+@pytest.mark.parametrize("shape,arch", CASES + BF16_CASES)
+def test_cache_blocks_are_the_reference_blocks(runs, shape, arch):
+    """Every rank's caches, from the prefill and after the growth and
+    decode, have the shape of its block of the reference's cache spec
+    ``P(None, data, model, None, None)`` (``local_shard``'s ceil blocks,
+    a trailing rank's shorter), every KV head; where the mesh's sizes
+    divide the dimensions, that of JAX's ``NamedSharding.shard_shape``
+    on an abstract mesh of the same axes."""
+    from jax.sharding import AbstractMesh, NamedSharding, PartitionSpec
+
+    from repro_torch.distributed.sharding import shard_ranges
+    ranks, one, _ = runs
+    parts, o = ranks[(shape, arch)], one[arch]
+    amesh = AbstractMesh(shape, mref.AXES)
+    for key in ("kv", "caches"):
+        whole = o[key][0].shape
+        divides = whole[1] % shape[0] == 0 and whole[2] % shape[1] == 0
+        want_j = NamedSharding(amesh, PartitionSpec(
+            *mref.CACHE_SPEC)).shard_shape(whole) if divides else None
+        for r, p in enumerate(parts):
+            want = tuple(hi - lo for lo, hi in shard_ranges(
+                whole, P(*mref.CACHE_SPEC), mref._mesh(shape, r)))
+            for i in range(2):
+                assert p[key][i].shape == want
+                if divides:
+                    assert p[key][i].shape == tuple(want_j)
+
+
+@pytest.mark.parametrize("shape,arch", CASES)
+def test_grow_caches_equals_pad_then_local_shard(runs, shape, arch):
+    """``grow_caches`` on every rank's blocks equals ``local_shard`` of
+    ``F.pad`` of the whole caches, bit for bit, for lengths that divide
+    the model axis and that do not, growths of 0 to 9 positions, and
+    blocks that are empty before or after the growth
+    (``_torch_mesh_ref.GROW``)."""
+    ranks, _, _ = runs
+    for p in ranks[(shape, arch)]:
+        assert p["grown"] == []
 
 
 @pytest.mark.parametrize("shape,arch", CASES)

@@ -21,9 +21,8 @@ The guard walks the public functions and methods of ``src/repro/`` and
 asserts, with ``inspect.signature`` only, that the namesake in
 ``src/repro_torch/`` takes the reference's positional parameters in the
 reference's order (its keyword-only ones by name) and requires no other.
-``ALLOWED`` holds the adaptations ROADMAP.md's "Explicit omissions" names
-and the names ROADMAP.md's items 11b and 11c will bring, each with its
-reason.
+``ALLOWED`` holds the adaptations ROADMAP.md's "Explicit omissions" names,
+each with its reason.
 """
 import importlib
 import inspect
@@ -374,16 +373,13 @@ ALLOWED = {
                     "launch/mesh.py: use_mesh is its set_mesh (ROADMAP, "
                     "Explicit omissions)",
     "repro.launch.hlo_analysis.collective_bytes":
-        "parses a partitioned XLA program's HLO text, which a PyTorch step "
-        "has not; item 11b counts a step's collectives instead (ROADMAP, "
-        "Explicit omissions)",
+        "takes the record of the collectives a step issued "
+        "(collectives.recording), not the HLO text of a partitioned XLA "
+        "program, which a PyTorch step has not: its first argument is "
+        "``trace`` (ROADMAP, Explicit omissions)",
     "repro.launch.mesh.make_host_mesh":
         "the communication backend is always the caller's, a required "
         "keyword (ROADMAP, Explicit omissions)",
-    "repro.launch.mesh.make_production_mesh": "item 11b",
-    "repro.launch.dryrun.run_cell": "item 11b: the production-mesh dry run",
-    "repro.configs.registry.Cell.__init__":
-        "item 11b: the cells' in_shardings and donate_argnums",
     "repro.core.sssp.ShmapComm.__init__": _SHMAP,
     "repro.core.sssp.build_shmap_certificate": _SHMAP,
     "repro.core.sssp.build_shmap_solver": _SHMAP,

@@ -7,11 +7,15 @@
   and the bytes of its arguments (the sum over ``args_struct``; the SSSP
   cells at ``n_parts=1``, the 1x1 mesh's size). Only abstract structs are
   built on either side: nothing is compiled or allocated.
-- A SMOKE cell of each family runs through the dry run's code on ``meta``
-  with counted FLOPs; gemma-7b's ``train_4k`` at full width counts within
-  (0.5, 1] of its ``model_flops``; an SSSP cell carries its note.
-- ``build_cell`` refuses a mesh, and ``python -m
-  repro_torch.launch.dryrun`` writes one JSON a cell.
+- A SMOKE cell of each family runs through the one-card dry run's code
+  (``dryrun.run_one_card``) on ``meta`` with counted FLOPs; gemma-7b's
+  ``train_4k`` at full width counts within (0.5, 1] of its
+  ``model_flops``; an SSSP cell carries its note.
+- ``build_cell`` on a host mesh gives this rank's blocks of the
+  arguments and their ``in_shardings``, and wants a mesh and its axes
+  together; ``python -m repro_torch.launch.dryrun --one-card`` writes one
+  JSON a cell. The production-mesh dry run is held in
+  ``tests/test_torch_production_mesh.py``.
 """
 import json
 import math
@@ -73,7 +77,7 @@ def test_smoke_cell_runs_on_meta(arch, shape, monkeypatch):
     through the dry run's code on ``meta``."""
     monkeypatch.setattr(dryrun, "build_cell", lambda a, s, mesh, ax: (
         torch_registry.build_cell(a, s, mesh, ax, smoke=True)))
-    rec = dryrun.run_cell(arch, shape)
+    rec = dryrun.run_one_card(arch, shape)
     assert rec["status"] == "ok", rec.get("error")
     assert rec["flops"] > 0 and rec["useful_ratio"] > 0
     assert rec["fits"] is True
@@ -83,7 +87,7 @@ def test_smoke_cell_runs_on_meta(arch, shape, monkeypatch):
 def test_gemma_train_4k_counts_near_model_flops():
     """gemma-7b's train step at full width (B = 256, S = 4,096) on meta:
     the counted FLOPs within (0.5, 1] of ``6 N_active B S`` over them."""
-    rec = dryrun.run_cell("gemma-7b", "train_4k")
+    rec = dryrun.run_one_card("gemma-7b", "train_4k")
     assert rec["status"] == "ok", rec.get("error")
     assert 0.5 < rec["useful_ratio"] <= 1.0
     cell = torch_registry.build_cell("gemma-7b", "train_4k", None, None)
@@ -93,8 +97,8 @@ def test_gemma_train_4k_counts_near_model_flops():
 
 
 def test_sssp_cell_records_bytes_and_note(tmp_path):
-    dryrun.main(["--arch", "sp-async", "--shape", "graph1", "--out",
-                 str(tmp_path)])
+    dryrun.main(["--arch", "sp-async", "--shape", "graph1", "--one-card",
+                 "--out", str(tmp_path)])
     rec = json.loads((tmp_path / "sp-async__graph1__h100.json").read_text())
     assert rec["status"] == "ok" and rec["flops"] is None
     assert rec["flops_note"] == dryrun.SSSP_NOTE
@@ -105,11 +109,52 @@ def test_sssp_cell_records_bytes_and_note(tmp_path):
     assert cell.args_struct[0].loc_src.shape[0] == 256
 
 
-def test_build_cell_refuses_a_mesh(mesh11, ax11):
-    with pytest.raises(ValueError, match="mesh=None"):
-        torch_registry.build_cell("gemma-7b", "train_4k", mesh11, None)
-    with pytest.raises(ValueError, match="mesh=None"):
-        torch_registry.build_cell("sp-async", "graph1", None, ax11)
+def test_build_cell_wants_a_mesh_and_its_axes_together():
+    """A mesh without its ``MeshAxes``, or axes without a mesh, is
+    refused; both None is the one-card cell."""
+    from repro_torch.distributed.sharding import MeshAxes
+    from repro_torch.launch.mesh import HostMesh
+    mesh = HostMesh(shape=(2, 2), axis_names=("data", "model"),
+                    backend="gloo", rank=0)
+    with pytest.raises(ValueError, match="mesh=None and ax=None"):
+        torch_registry.build_cell("gemma-7b", "train_4k", mesh, None)
+    with pytest.raises(ValueError, match="mesh=None and ax=None"):
+        torch_registry.build_cell("sp-async", "graph1", None,
+                                  MeshAxes(data=("data",)))
+    cell = torch_registry.build_cell("gemma-7b", "train_4k", None, None)
+    assert cell.in_shardings is None and cell.donate_argnums == ()
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("deepseek-7b", "decode_32k"), ("olmoe-1b-7b", "train_4k"),
+    ("gat-cora", "full_graph_sm"), ("autoint", "retrieval_cand"),
+    ("sp-async", "graph2")])
+@pytest.mark.parametrize("rank", [0, 5])
+def test_build_cell_on_a_host_mesh(arch, shape, rank):
+    """On a (2, 3) host mesh (no process group needed to build a cell), a
+    cell's arguments are this rank's blocks (``shard_ranges``) of the
+    one-card cell's, its ``in_shardings`` one ``NamedSharding`` on the
+    mesh an argument; an SSSP cell holds a one-shard view over the six
+    processes, ``shard_id`` the rank."""
+    from repro_torch.distributed.sharding import MeshAxes, shard_ranges
+    from repro_torch.launch.mesh import HostMesh
+    mesh = HostMesh(shape=(2, 3), axis_names=("data", "model"),
+                    backend="gloo", rank=rank)
+    ax = MeshAxes(data=("data",), data_shards=2)
+    cell = torch_registry.build_cell(arch, shape, mesh, ax)
+    whole = torch_registry.build_cell(arch, shape, None, None, n_parts=6)
+    got = torch_registry.arg_leaves(cell.args_struct)
+    want = torch_registry.arg_leaves(whole.args_struct)
+    shardings = torch_registry.sharding_leaves(cell.in_shardings)
+    assert len(got) == len(want) == len(shardings)
+    for g, w, ns in zip(got, want, shardings):
+        assert g.is_meta and g.dtype == w.dtype and ns.mesh is mesh
+        assert tuple(g.shape) == tuple(
+            hi - lo for lo, hi in shard_ranges(w.shape, ns.spec, mesh))
+    assert cell.model_flops == whole.model_flops
+    if arch == "sp-async":
+        assert cell.args_struct[0].shard_id == rank
+        assert cell.args_struct[0].n_parts == 6
 
 
 def test_collective_bytes_is_an_explicit_omission():
