@@ -4,12 +4,12 @@ training paths (dense and MoE), AutoInt, the GNN zoo and the training
 entry point, on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py mesh     # the build and the mesh phase alone
+    python3 chip_smoke.py mesh     # the build and the mesh phases alone
 
 Run from the root of a checkout; it needs one CUDA device and ``nvcc``.
-With two cards or more the mesh phase also runs its NCCL part (with
-four, mistral-large-123b at full depth), which the run alone on four
-cards is for.
+With two cards or more the dist nccl phase runs (SSSP over NCCL, a rank
+a card) and the mesh phase its NCCL part (with four, mistral-large-123b
+at full depth), which the run alone on four cards is for.
 Phases, each of which exits non-zero on a mismatch:
 
   build    compile the CUDA kernel sources (relax, send, merge, round; each
@@ -275,6 +275,27 @@ Phases, each of which exits non-zero on a mismatch:
            chunked attention, batch 4 x seq 1024, as the train phase drives
            deepseek; both MoE SMOKE configs' loss and gradients card vs
            CPU;
+  nccl     with two cards or more (before the mesh phase), the shmap
+           backend over NCCL, one spawned rank a card, P = 4 with four
+           cards (2 with two): scale-1e6 dense re-partitioned at P, K=16,
+           the 11 configs of the dist phase's scale-1e6 jobs; scale-1e7
+           ragged at P (staged and fused bucket, async_ppermute), the
+           staged bucket solve traced on rank 0 (idle share, device time
+           of the NCCL, relax, send and merge kernels, the host's reads
+           and all-reduces a round); R-MAT 22, edge factor 16 (about 128M
+           directed edges, ragged, built in a process of its own beside
+           the other jobs, each rank loading its saved view), staged
+           bucket: every rank on its own card with its shards and nothing
+           on another card, equal to the sim engine on one card over the
+           same P shards bit for bit (distances, every counter, status),
+           each job's kernels launched by every rank; walls (second
+           solve, first solve with NCCL's set-up) beside the sim's,
+           collectives a round and their ms, each card's peak printed;
+           then torchrun --nproc-per-node P of the runner with --backend
+           shmap --dist-backend nccl on rmat scale 16, K=16, bucket and
+           async_ppermute with toka2, each exiting 0 validated, rank 0's
+           lines equal to a --backend sim run's but the walls. With one
+           card a line says it did not run;
   mesh     the LMs under a (data, model) mesh of processes, in f32 (the
            ranks and one process differ by the order of f32 sums alone;
            in bf16 each run's own roundings would flip near ties): four
@@ -400,6 +421,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2658,13 +2680,19 @@ def _config(kw: dict):
 
 
 def dist_rank(rank, world, backend, init, view, jobs, sources, landmarks,
-              queue):
+              queue, trace=None):
     """One rank of the dist phase, a spawned process: joins the mesh of
-    ``world`` processes over ``backend``, builds a shmap engine on its
-    shard ``view`` for each job and solves ``sources`` three times: the
-    first run (its launches counted), a second (its wall) and a third with
-    the collectives timed. Puts (rank, "ok", results) on ``queue``; rank 0's
-    results carry the distances, the others a digest of them."""
+    ``world`` processes over ``backend`` (gloo: every rank on card 0;
+    nccl: rank r on card r), builds a shmap engine on its shard ``view``
+    (a one-shard ``SsspShards``, or the path of one the parent saved) for
+    each job and solves ``sources`` three times: the first run (its
+    launches counted), a second (its wall) and a third with the
+    collectives timed. With ``trace`` (a job's name) every rank solves that
+    job a fourth time, rank 0 under torch.profiler (``trace`` = (name,
+    path)). Puts (rank, "ok", results) on ``queue``; rank 0's results carry
+    the distances, the others a digest of them; each carries the rank's
+    current card, its shards' card and the bytes it holds on any other
+    card."""
     try:
         if str(ROOT / "src") not in sys.path:
             sys.path.insert(0, str(ROOT / "src"))
@@ -2677,10 +2705,13 @@ def dist_rank(rank, world, backend, init, view, jobs, sources, landmarks,
         from repro_torch.kernels import build
         from repro_torch.launch.mesh import make_host_mesh
         torch.set_num_threads(1)
-        torch.cuda.set_device(0)
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
         mesh = make_host_mesh((world,), ("data",), backend=backend,
                               init_method=init, rank=rank, world_size=world,
                               timeout=DIST_TIMEOUT)
+        if isinstance(view, str):
+            view = torch.load(view, weights_only=False)
+        own = torch.cuda.current_device()
         out = []
         for name, kw, warm in jobs:
             eng = SsspEngine.build(view, _config(kw), "shmap", mesh,
@@ -2694,6 +2725,10 @@ def dist_rank(rank, world, backend, init, view, jobs, sources, landmarks,
             again = eng.solve(sources)
             eng.comm.timed = True
             timed_run = eng.solve(sources)
+            eng.comm.timed = False
+            prof = None
+            if trace is not None and trace[0] == name:
+                prof = traced_solve(torch, eng, sources, trace[1], rank == 0)
             out.append(dict(
                 name=name, dist=first.dist if rank == 0 else None,
                 digest=hashlib.sha256(first.dist.tobytes()).hexdigest(),
@@ -2705,7 +2740,12 @@ def dist_rank(rank, world, backend, init, view, jobs, sources, landmarks,
                 repeat_equal=bool(np.array_equal(again.dist, first.dist)
                                   and np.array_equal(timed_run.dist,
                                                      first.dist)),
-                peak=torch.cuda.max_memory_allocated()))
+                peak=torch.cuda.max_memory_allocated(), device=own,
+                shard_device=eng.shards.device.index,
+                elsewhere=sum(torch.cuda.memory_allocated(d)
+                              for d in range(torch.cuda.device_count())
+                              if d != own),
+                profile=prof))
             del eng
             torch.cuda.empty_cache()
         queue.put((rank, "ok", out))
@@ -2716,8 +2756,69 @@ def dist_rank(rank, world, backend, init, view, jobs, sources, landmarks,
         raise
 
 
+def traced_solve(torch, eng, sources, path: str, record: bool):
+    """One more solve of ``sources`` on a shmap rank (every rank calls it:
+    it makes the solve's collectives); with ``record`` under
+    torch.profiler, its trace written to ``path`` and summarized
+    (``nccl_profile``)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if record else contextlib.nullcontext())
+    with ctx as prof:
+        with record_function("run"):
+            res = eng.solve(sources)
+            torch.cuda.synchronize()
+    if not record:
+        return None
+    prof.export_chrome_trace(path)
+    return dict(nccl_profile(json.loads(Path(path).read_text())
+                             ["traceEvents"]),
+                rounds=int(res.stats.rounds))
+
+
+# the kernels of a shmap rank's round, by the name their device events carry
+NCCL_KINDS = (("nccl", ("nccl",)), ("relax", ("relax", "live_")),
+              ("send", ("send", "interleave")), ("merge", ("merge",)))
+
+
+def nccl_profile(events) -> dict:
+    """A rank's traced solve (chrome-trace ``events``, the ``run``
+    annotation its window): the window, the device's busy time and idle
+    share, device time by kind (NCCL_KINDS, the rest "other"), and the host
+    time in the round's vote: the ``_local_scalar_dense`` waits (the host
+    reading a device value: ``bool(done.all())`` once a round, after the
+    detector's all-reduce) and the CPU time of issuing the all-reduces
+    (the ``c10d::allreduce_`` ops)."""
+    win = next(e for e in events if e.get("name") == "run"
+               and e.get("cat") == "user_annotation")
+    t0, t1 = win["ts"], win["ts"] + win["dur"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                     if e.get("cat") == "kernel" and t0 <= e["ts"] < t1)
+    busy, end = 0.0, t0
+    for s, f, _ in kernels:
+        busy += max(0.0, f - max(s, end))
+        end = max(end, f)
+    by_kind = {k: 0.0 for k, _ in NCCL_KINDS}
+    by_kind["other"] = 0.0
+    for s, f, name in kernels:
+        low = name.lower()
+        kind = next((k for k, keys in NCCL_KINDS
+                     if any(x in low for x in keys)), "other")
+        by_kind[kind] += f - s
+    cpu = [e for e in events if e.get("cat") == "cpu_op"
+           and t0 <= e["ts"] < t1]
+    reads = [e["dur"] for e in cpu if e["name"] == "aten::_local_scalar_dense"]
+    calls = [e["dur"] for e in cpu if e["name"] == "c10d::allreduce_"]
+    return dict(window_ms=win["dur"] / 1e3, busy_ms=busy / 1e3,
+                idle=1 - busy / win["dur"], kernels=len(kernels),
+                by_kind_ms={k: v / 1e3 for k, v in by_kind.items()},
+                reads=len(reads), read_ms=sum(reads) / 1e3,
+                allreduces=len(calls), allreduce_ms=sum(calls) / 1e3)
+
+
 def run_dist(views, backend: str, init: str, jobs, sources, landmarks,
-             label: str):
+             label: str, trace=None):
     """Spawn one ``dist_rank`` a view and collect every rank's results
     (rank order); fails on a rank's error or a timeout, and stops every
     process it started."""
@@ -2727,7 +2828,7 @@ def run_dist(views, backend: str, init: str, jobs, sources, landmarks,
     ctx = tmp.get_context("spawn")
     q = ctx.Queue()
     procs = [ctx.Process(target=dist_rank, args=(
-        r, len(views), backend, init, v, jobs, sources, landmarks, q))
+        r, len(views), backend, init, v, jobs, sources, landmarks, q, trace))
         for r, v in enumerate(views)]
     got = {}
     try:
@@ -2770,21 +2871,35 @@ def _expected_kernels(kw: dict, ragged: bool):
     return [n + ("_ragged" if ragged else "") for n in names]
 
 
-def dist_phase(torch, np, sh, eng, sources, jobs, label: str, ragged: bool,
-               landmarks=(), card: str = ""):
-    """The shmap backend on the card: ``DIST_RANKS`` gloo ranks (spawned
-    processes sharing the card, one shard each, the kernels built before
-    they start) solve each job's config over the K sources; every rank's
-    result must equal the sim engine's solve on the same card bit for bit
-    (distances, every counter, status), every rank the same, each job's
-    kernels launched by the ranks. The walls of the P-rank solve and the
-    sim's, and the time a round spent in collectives, are printed: 8
-    ranks time-sliced on one card, not a deployment's speed."""
+def free_port() -> int:
+    """A free TCP port on localhost, for a process group's rendezvous."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dist_phase(torch, np, sh, dsh, sources, jobs, label: str, ragged: bool,
+               landmarks=(), card: str = "", backend: str = "gloo",
+               views=None, trace=None):
+    """The shmap backend on the card. Under gloo, ``DIST_RANKS`` ranks
+    (spawned processes sharing card 0); under nccl, one rank a card. One
+    shard each (``views``, by default ``sh``'s; a view may be the path of
+    one saved), the kernels built before they start; the ranks solve each
+    job's config over the K sources; every rank's result must equal the
+    sim engine's solve on card 0 over the same shards (``dsh``) bit for
+    bit (distances, every counter, status), every rank the same, each
+    job's kernels launched by every rank; under nccl, every rank on a
+    card of its own, its shards there and nothing on another card. The
+    walls of the P-rank solve and the sim's, the time a round spent in
+    collectives and each rank's peak are printed (gloo: ranks
+    time-sliced on one card, not a deployment's speed). Returns every
+    rank's results."""
     import tempfile
     from repro_torch.core import SsspEngine
     sims = {}
     for name, kw, warm in jobs:
-        e = SsspEngine.build(eng.shards, _config(kw))
+        e = SsspEngine.build(dsh, _config(kw))
         if warm:
             e.precompute_landmarks(list(landmarks))
         e.solve(sources)
@@ -2792,17 +2907,22 @@ def dist_phase(torch, np, sh, eng, sources, jobs, label: str, ragged: bool,
         del e
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    views = [sh.shard(r) for r in range(sh.n_parts)]
+    if views is None:
+        views = [sh.shard(r) for r in range(sh.n_parts)]
+    n = len(views)
     with tempfile.TemporaryDirectory() as tmp:
+        init = (f"tcp://localhost:{free_port()}" if backend == "nccl"
+                else f"file://{tmp}/store")
         t0 = time.perf_counter()
-        per_rank = run_dist(views, "gloo", f"file://{tmp}/store", list(jobs),
-                            list(sources), list(landmarks), label)
+        per_rank = run_dist(views, backend, init, list(jobs), list(sources),
+                            list(landmarks), f"{backend} {label}", trace)
         wall = time.perf_counter() - t0
+    nccl = backend == "nccl"
     for i, (name, kw, warm) in enumerate(jobs):
         r0 = per_rank[0][i]
-        what = f"dist {label} {name}"
+        what = f"dist {'nccl ' if nccl else ''}{label} {name}"
         sim = sims[name]
-        same_results(_Ranked(r0), sim, f"{what} ({len(views)} ranks vs sim)")
+        same_results(_Ranked(r0), sim, f"{what} ({n} ranks vs sim)")
         for r, res in enumerate(per_rank):
             x = res[i]
             if (x["digest"] != r0["digest"] or not x["repeat_equal"]
@@ -2813,37 +2933,53 @@ def dist_phase(torch, np, sh, eng, sources, jobs, label: str, ragged: bool,
                 if not np.array_equal(np.asarray(getattr(x["stats"], f)),
                                       np.asarray(getattr(r0["stats"], f))):
                     fail(f"{what}: rank {r}'s {f} differs from rank 0's")
+            if nccl and (x["device"] != r or x["elsewhere"]
+                         or x["shard_device"] != r):
+                fail(f"{what}: rank {r} runs on card {x['device']}, its "
+                     f"shards on card {x['shard_device']}, "
+                     f"{x['elsewhere']} B on other cards")
         if r0["status"] != "converged" or r0["warm"] != warm:
             fail(f"{what}: status {r0['status']}, warm {r0['warm']}")
         expect = _expected_kernels(kw, ragged)
         counts = {k: [res[i]["launches"].get(k, 0) for res in per_rank]
                   for k in expect}
-        if any(sum(v) < 1 or v[0] < 1 for v in counts.values()):
-            fail(f"{what}: a kernel of the path was not launched {counts}")
+        if any(min(v) < 1 for v in counts.values()):
+            fail(f"{what}: a kernel of the path was not launched on every "
+                 f"rank {counts}")
         rounds = int(r0["stats"].rounds)
         coll = max(res[i]["coll_s"] for res in per_rank)
         calls = r0["coll_calls"]
-        say(f"{what}: {len(views)} ranks == sim bit for bit, {rounds} rounds;"
-            f" wall {r0['wall']:.4f} s on {len(views)} ranks (first "
-            f"{r0['first_wall']:.4f} s) vs {sim.wall_s:.4f} s sim; "
-            f"collectives {coll / max(rounds, 1) * 1e3:.3f} ms a round "
-            f"({calls / max(rounds, 1):.1f} calls a round; most over ranks, "
-            f"timed solve {r0['timed_wall']:.4f} s); peak "
-            f"{max(res[i]['peak'] for res in per_rank) / 2**30:.3f} GiB a "
-            f"rank; launches a rank {counts}")
-    say(f"dist {label}: {len(jobs)} configs on {len(views)} gloo ranks "
-        f"(all_reduce, all_to_all_single and all_gather_single on CUDA "
-        f"tensors, none staged through the host), every rank == the sim "
-        f"engine bit for bit; {wall:.1f} s for the phase. These are "
-        f"{len(views)} ranks time-sliced on one card ({card}), not a "
-        f"deployment's speed.")
+        peaks = ", ".join(f"{res[i]['peak'] / 2**30:.3f}" for res in per_rank)
+        say(f"{what}: {n} ranks"
+            + (f" on cards {[res[i]['device'] for res in per_rank]}"
+               if nccl else "")
+            + f" == sim bit for bit, {rounds} rounds; wall {r0['wall']:.4f} s"
+            f" on {n} {'cards' if nccl else 'ranks'} (second solve; slowest "
+            f"rank {max(res[i]['wall'] for res in per_rank):.4f} s) vs "
+            f"{sim.wall_s:.4f} s sim on one card; first solve "
+            f"{r0['first_wall']:.4f} s; collectives "
+            f"{coll / max(rounds, 1) * 1e3:.3f} ms a round ("
+            f"{calls / max(rounds, 1):.1f} calls a round; most over ranks, "
+            f"timed solve {r0['timed_wall']:.4f} s); peak GiB a rank "
+            f"[{peaks}]; launches a rank {counts}")
+    if nccl:
+        say(f"dist nccl {label}: {len(jobs)} configs on {n} NCCL ranks, one "
+            f"a card, every rank == the sim engine on one card bit for bit;"
+            f" {wall:.1f} s for the part ({card} each)")
+    else:
+        say(f"dist {label}: {len(jobs)} configs on {n} gloo ranks "
+            f"(all_reduce, all_to_all_single and all_gather_single on CUDA "
+            f"tensors, none staged through the host), every rank == the sim "
+            f"engine bit for bit; {wall:.1f} s for the phase. These are "
+            f"{n} ranks time-sliced on one card ({card}), not a "
+            f"deployment's speed.")
+    return per_rank
 
 
 def nccl_world_one(torch, np):
     """NCCL at world size 1 (one card, one rank): the parity graph as one
     shard, the all-kernel staged config, equal to the sim engine on the
     same card bit for bit."""
-    import socket
     from repro_torch.core import SsspEngine, build_shards
     from repro_torch.graph import rmat_graph
     g1 = rmat_graph(scale=11)
@@ -2851,15 +2987,273 @@ def nccl_world_one(torch, np):
     srcs = live_sources(np, np.random.default_rng(5), g1, 4)
     job = ("nccl world 1", dict(ALL_KERNELS), False)
     sim = SsspEngine.build(sh1, _config(job[1])).solve(srcs)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    res = run_dist([sh1.shard(0)], "nccl", f"tcp://localhost:{port}", [job],
-                   srcs, [], "nccl")[0][0]
+    res = run_dist([sh1.shard(0)], "nccl", f"tcp://localhost:{free_port()}",
+                   [job], srcs, [], "nccl")[0][0]
     same_results(_Ranked(res), sim, "dist nccl world 1 vs sim")
     say(f"dist nccl world 1: rmat scale 11 as one shard, K=4, == sim bit "
         f"for bit, {int(res['stats'].rounds)} rounds, wall {res['wall']:.4f}"
         f" s vs {sim.wall_s:.4f} s sim; launches {res['launches']}")
+
+
+# --------------------------------------------------------------------------
+# the dist phase over NCCL: one rank a card, with two cards or more
+# --------------------------------------------------------------------------
+
+DIST_NCCL_JOBS_1E7 = (
+    ("bucket staged", dict(ALL_KERNELS), False),
+    ("bucket fused", dict(round="fused"), False),
+    ("async_ppermute staged", dict(ALL_KERNELS, exchange="async_ppermute"),
+     False),
+)
+# an R-MAT graph past the bench's scale-1e7: 4,194,304 vertices, about
+# 128M directed edges, ragged; its views built beside the other jobs
+DIST_BIG = dict(scale=22, edge_factor=16, seed=800)
+DIST_BIG_JOBS = (("bucket staged", dict(ALL_KERNELS), False),)
+DIST_BIG_WAIT = 600            # seconds the phase waits for that build
+DIST_K = 16
+# the runner under torchrun over NCCL, and as a sim run on one card
+RUNNER_NCCL_ARGS = ("--graph", "rmat", "--scale", "16", "--num-sources",
+                    "16", "--validate")
+RUNNER_NCCL_RUNS = {"bucket": ("--exchange", "bucket"),
+                    "async_ppermute toka2": ("--exchange", "async_ppermute",
+                                             "--toka", "toka2")}
+RUNNER_WALLS = re.compile(r"\d+\.\d+s\b|MTEPS=[\d.]+|queries/s=[\d.]+")
+
+
+def live_of_chunks(np, chunks, n: int, rng, k: int):
+    """``k`` sources drawn by ``rng`` among the vertices with an out-edge
+    in the edge ``chunks``, sorted."""
+    deg = np.zeros(n, np.int64)
+    for c in chunks:
+        deg += np.bincount(c[0], minlength=n)
+    return sorted(int(s) for s in rng.choice(np.flatnonzero(deg), k,
+                                             replace=False))
+
+
+def big_build(out: str, parts: str, scale: str, edge_factor: str,
+              seed: str):
+    """An R-MAT graph (``rmat_edge_stream``) streamed and built ragged at
+    ``parts`` shards (``build_shards_stream``), each rank's view saved to
+    ``out/view<r>.pt`` and its facts to ``out/meta.json``: run in a
+    process of its own, beside the other NCCL jobs (``start_big_build``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import build_shards_stream
+    from repro_torch.graph import rmat_edge_stream
+    torch.set_num_threads(4)
+    parts, scale, seed = int(parts), int(scale), int(seed)
+    n = 1 << scale
+    t0 = time.perf_counter()
+    chunks = list(rmat_edge_stream(scale, int(edge_factor), seed))
+    t_stream = time.perf_counter() - t0
+    sources = live_of_chunks(np, chunks, n, np.random.default_rng(seed),
+                             DIST_K)
+    t0 = time.perf_counter()
+    sh = build_shards_stream(chunks, n, parts)
+    t_build = time.perf_counter() - t0
+    del chunks
+    lb = sh.layout_bytes()
+    t0 = time.perf_counter()
+    for r in range(parts):
+        torch.save(sh.shard(r), f"{out}/view{r}.pt")
+    Path(out, "meta.json").write_text(json.dumps(dict(
+        n=n, n_edges=lb["n_edges"], layout_bytes=lb["total_bytes"],
+        bytes_per_edge=lb["bytes_per_edge"], block=sh.block,
+        rx=list(sh.rx_src.shape), sources=sources, t_stream=t_stream,
+        t_build=t_build, t_save=time.perf_counter() - t0)))
+
+
+def start_big_build(parts: int):
+    """``big_build`` of DIST_BIG started now in a process of its own (no
+    card visible); returns (the process, its directory, a function that
+    stops it and removes the directory, also called at exit)."""
+    import atexit
+    import shutil
+    import tempfile
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_big_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    log = open(out / "log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.big_build(*sys.argv[1:])", str(out), str(parts),
+         *(str(DIST_BIG[k]) for k in ("scale", "edge_factor", "seed"))],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(out, ignore_errors=True)
+    atexit.register(stop)
+    return proc, out, stop
+
+
+def stack_views(views):
+    """The full stack of one-shard views (rank order): each array's rows
+    end to end, as ``build_shards`` lays them."""
+    import torch
+    arrays = {k: torch.cat([v.arrays()[k] for v in views])
+              for k in views[0].arrays()}
+    return dataclasses.replace(views[0], **arrays, shard_id=None,
+                               inter_total=None)
+
+
+def dist_nccl_phase(torch, np, card: str, out_dir: Path):
+    """The shmap backend over NCCL, one rank a card, P = 4 with four cards
+    (2 with two; with one it says so and returns): at scale-1e6 dense
+    (re-partitioned at P) the 11 jobs of DIST_JOBS_1E6, at scale-1e7
+    ragged those of DIST_NCCL_JOBS_1E7 (the first traced on rank 0), on
+    the DIST_BIG graph (built beside the others) DIST_BIG_JOBS: every rank
+    == the sim engine on one card over the same P shards bit for bit
+    (``dist_phase``); then the runner under torchrun over NCCL
+    (``nccl_runner``)."""
+    from repro_torch.core import build_shards, build_shards_stream
+    from repro_torch.graph import preset_edge_stream, preset_graph
+    n = torch.cuda.device_count()
+    if n < 2:
+        say(f"dist nccl: not run: {n} CUDA device on this machine; NCCL "
+            f"takes one rank a card")
+        return
+    P = 4 if n >= 4 else 2
+    t_phase = time.perf_counter()
+    big, big_dir, big_stop = start_big_build(P)
+    try:
+        # ---- scale-1e6 dense at P -----------------------------------------
+        t0 = time.perf_counter()
+        g = preset_graph("scale-1e6")
+        sh = build_shards(g, P, enumerate_triangles=False)
+        say(f"dist nccl: scale-1e6 ({g.n_vertices} vertices, {g.n_edges} "
+            f"edges) at P={P}, block {sh.block}, K={DIST_K}; host build "
+            f"{time.perf_counter() - t0:.1f} s")
+        sources = live_sources(np, np.random.default_rng(0), g, DIST_K)
+        landmarks = live_sources(np, np.random.default_rng(22), g, 8,
+                                 avoid=sources)
+        dist_phase(torch, np, sh, sh.to("cuda"), sources, DIST_JOBS_1E6,
+                   "1e6 dense", False, landmarks=landmarks, card=card,
+                   backend="nccl")
+        del g, sh
+        torch.cuda.empty_cache()
+        # ---- scale-1e7 ragged at P, the staged bucket solve traced ---------
+        t0 = time.perf_counter()
+        n7, stream7 = preset_edge_stream("scale-1e7")
+        chunks7 = list(stream7)
+        sh7 = build_shards_stream(chunks7, n7, P)
+        src7 = live_of_chunks(np, chunks7, n7, np.random.default_rng(7),
+                              DIST_K)
+        del chunks7
+        say(f"dist nccl: scale-1e7 ragged at P={P}, block {sh7.block}, rx "
+            f"{tuple(sh7.rx_src.shape)}, K={DIST_K}; host stream and build "
+            f"{time.perf_counter() - t0:.1f} s")
+        trace = (DIST_NCCL_JOBS_1E7[0][0],
+                 str(out_dir / "chip_smoke_trace_nccl_1e7.json"))
+        per_rank = dist_phase(torch, np, sh7, sh7.to("cuda"), src7,
+                              DIST_NCCL_JOBS_1E7, "1e7 ragged", True,
+                              card=card, backend="nccl", trace=trace)
+        say_nccl_profile(per_rank[0][0]["profile"],
+                         f"scale-1e7 ragged {trace[0]}, rank 0 of {P}", card)
+        del sh7
+        torch.cuda.empty_cache()
+        # ---- the runner under torchrun -------------------------------------
+        nccl_runner(P, card)
+        # ---- the big graph --------------------------------------------------
+        try:
+            rc = big.wait(timeout=DIST_BIG_WAIT)
+        except subprocess.TimeoutExpired:
+            fail(f"dist nccl: the R-MAT {DIST_BIG['scale']} build outlived "
+                 f"{DIST_BIG_WAIT} s")
+        if rc != 0:
+            fail(f"dist nccl: the R-MAT {DIST_BIG['scale']} build exited "
+                 f"{rc}:\n{(big_dir / 'log').read_text()[-4000:]}")
+        meta = json.loads((big_dir / "meta.json").read_text())
+        paths = [str(big_dir / f"view{r}.pt") for r in range(P)]
+        t0 = time.perf_counter()
+        dsh = stack_views([torch.load(x, weights_only=False)
+                           for x in paths]).to("cuda")
+        t_load = time.perf_counter() - t0
+        say(f"dist nccl: R-MAT {DIST_BIG['scale']}, edge factor "
+            f"{DIST_BIG['edge_factor']}, seed {DIST_BIG['seed']}: "
+            f"{meta['n']} vertices, {meta['n_edges']} edges, ragged at "
+            f"P={P}, block {meta['block']}, rx {tuple(meta['rx'])}; layouts "
+            f"{meta['layout_bytes']} B, {meta['bytes_per_edge']:.2f} B/edge;"
+            f" host: stream {meta['t_stream']:.1f} s, build_shards_stream "
+            f"{meta['t_build']:.1f} s, views saved {meta['t_save']:.1f} s "
+            f"(beside the jobs above), loaded and stacked on the card "
+            f"{t_load:.1f} s")
+        dist_phase(torch, np, None, dsh, meta["sources"], DIST_BIG_JOBS,
+                   f"rmat {DIST_BIG['scale']} ragged", True, card=card,
+                   backend="nccl", views=paths)
+        del dsh
+        torch.cuda.empty_cache()
+    finally:
+        big_stop()
+    say(f"dist nccl: {P} ranks, one a card, {len(DIST_JOBS_1E6)} + "
+        f"{len(DIST_NCCL_JOBS_1E7)} + {len(DIST_BIG_JOBS)} jobs and the "
+        f"runner's {len(RUNNER_NCCL_RUNS)}; "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def say_nccl_profile(prof: dict, label: str, card: str):
+    """Print ``nccl_profile``'s summary of a rank's traced solve."""
+    rounds = max(prof["rounds"], 1)
+    kinds = ", ".join(f"{k} {v:.3f} ms" for k, v in
+                      prof["by_kind_ms"].items())
+    say(f"profile nccl {label}: window {prof['window_ms']:.3f} ms, device "
+        f"busy {prof['busy_ms']:.3f} ms, idle share {prof['idle']:.3f}, "
+        f"{prof['kernels']} kernels, {prof['rounds']} rounds; device time "
+        f"by kind: {kinds}; the host's reads of device values "
+        f"{prof['reads']} ({prof['read_ms'] / rounds:.3f} ms a round, the "
+        f"round's vote read among them), issuing the all-reduces "
+        f"{prof['allreduces']} ({prof['allreduce_ms'] / rounds:.3f} ms a "
+        f"round); {card}")
+
+
+def nccl_runner(P: int, card: str):
+    """``torchrun --nproc-per-node P -m repro_torch.launch.sssp_run
+    --backend shmap --dist-backend nccl`` on RUNNER_NCCL_ARGS, once for each
+    of RUNNER_NCCL_RUNS, beside a ``--backend sim`` run of the same flags
+    on one card: each exits 0 with its validation passed, and rank 0's
+    lines equal the sim run's but the walls. The torchrun jobs run one
+    after the other, the sim runs beside the first."""
+    t0 = time.perf_counter()
+
+    def args(name):
+        return ("-m", "repro_torch.launch.sssp_run", "--parts", str(P),
+                *RUNNER_NCCL_ARGS, *RUNNER_NCCL_RUNS[name])
+
+    def torchrun(name):
+        return [sys.executable, "-m", "torch.distributed.run",
+                "--nproc-per-node", str(P), "--master-port", str(free_port()),
+                *args(name), "--backend", "shmap", "--dist-backend", "nccl"]
+
+    names = list(RUNNER_NCCL_RUNS)
+    outs = run_procs({("nccl", names[0]): torchrun(names[0]),
+                      **{("sim", x): [sys.executable, *args(x), "--backend",
+                                      "sim"] for x in names}},
+                     errors=True)
+    outs.update(run_procs({("nccl", x): torchrun(x) for x in names[1:]},
+                          errors=True))
+    for name in names:
+        got, want = outs["nccl", name], outs["sim", name]
+        for (kind, (rc, out, err)) in (("nccl", got), ("sim", want)):
+            if rc != 0 or f"validation vs Dijkstra ({DIST_K} queries): OK" \
+                    not in out:
+                fail(f"dist nccl runner {name} ({kind}): exit {rc}\n{out}"
+                     f"\n{err[-4000:]}")
+        a, b = (RUNNER_WALLS.sub("<t>", x[1]).splitlines()
+                for x in (got, want))
+        if a != b:
+            fail(f"dist nccl runner {name}: rank 0's lines differ from the "
+                 f"sim run's:\n{got[1]}\n--- sim ---\n{want[1]}")
+        for line in got[1].splitlines():
+            say(f"  runner nccl {name} | {line}")
+        solve = [x[1].split("solve: ")[1].split("s ")[0] for x in (got, want)]
+        say(f"dist nccl runner {name}: torchrun {P} ranks over NCCL, exit 0,"
+            f" validated; rank 0's {len(a)} lines == the sim run's but the "
+            f"walls (solve {solve[0]} s vs {solve[1]} s sim)")
+    say(f"dist nccl runner: {time.perf_counter() - t0:.1f} s for "
+        f"{len(names)} torchrun jobs and their sim runs ({card})")
 
 
 @contextlib.contextmanager
@@ -4112,25 +4506,30 @@ def gnn_phase(torch, np, card: str, out_dir: Path):
         f"{time.perf_counter() - t_phase:.1f} s for the phase")
 
 
-def run_procs(cmds: dict, timeout: float = 600) -> dict:
+def run_procs(cmds: dict, timeout: float = 600, errors: bool = False
+              ) -> dict:
     """Run each command of ``cmds`` ({name: argv}) from the checkout with
-    the port on its path, all at once; {name: (exit code, output)}. Every
-    process is waited for, and killed if it outlives ``timeout``."""
+    the port on its path, all at once; {name: (exit code, output)}, the
+    standard error in the output, or with ``errors`` {name: (exit code,
+    standard output, standard error)}. Every process is waited for, and
+    killed if it outlives ``timeout``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = {}
     try:
         for name, cmd in cmds.items():
             procs[name] = subprocess.Popen(
                 cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True)
-        outs = {name: p.communicate(timeout=timeout)[0]
+                stderr=subprocess.PIPE if errors else subprocess.STDOUT,
+                text=True)
+        outs = {name: p.communicate(timeout=timeout)
                 for name, p in procs.items()}
     finally:
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    return {name: (procs[name].returncode, out) for name, out in outs.items()}
+    return {name: (procs[name].returncode, *(out if errors else out[:1]))
+            for name, out in outs.items()}
 
 
 def param_defs_of(arch: str, cfg):
@@ -5540,6 +5939,13 @@ def main():
     def lap(name: str):
         laps.append((name, time.perf_counter()))
 
+    def walls():
+        say("walls by part: " + ", ".join(
+            f"{n} {t - laps[k][1]:.1f} s"
+            for k, (n, t) in enumerate(laps[1:])))
+        say(f"total: {time.perf_counter() - t_start:.1f} s after the card "
+            f"query")
+
     # ---- build ---------------------------------------------------------
     build_s, logs = build.build()
     say(f"build: {build_s:.1f} s for {', '.join(build.KERNELS)}")
@@ -5547,10 +5953,13 @@ def main():
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_build.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
-    if sys.argv[1:] == ["mesh"]:      # the mesh phase alone
+    if sys.argv[1:] == ["mesh"]:      # the mesh phases alone
+        lap("build")
+        dist_nccl_phase(torch, np, card, out_dir)
+        lap("dist nccl")
         mesh_phase(torch, np, card)
-        say(f"total: {time.perf_counter() - t_start:.1f} s after the card "
-            f"query")
+        lap("mesh")
+        walls()
         return
     dry = start_dryrun()
     lap("build")
@@ -5699,8 +6108,8 @@ def main():
     draws_phase(torch)
     # ---- dist phase at scale-1e6 dense: 8 ranks, one shard each ----------
     one_shard_kernels(torch, eng, sources, cfg, "1e6 dense", False)
-    dist_phase(torch, np, sh, eng, sources, DIST_JOBS_1E6, "1e6 dense",
-               False, landmarks=live_sources(
+    dist_phase(torch, np, sh, eng.shards, sources, DIST_JOBS_1E6,
+               "1e6 dense", False, landmarks=live_sources(
                    np, np.random.default_rng(22), g, 8, avoid=sources),
                card=card)
     if torch.cuda.device_count() == 1:
@@ -5895,8 +6304,8 @@ def main():
     injector_timing(torch, np, eng7.shards, src7, card)
     # ---- dist phase at scale-1e7 ragged: 8 ranks, one shard each ---------
     one_shard_kernels(torch, eng7, src7, cfg, "1e7 ragged", True)
-    dist_phase(torch, np, sh7, eng7, src7, DIST_JOBS_1E7, "1e7 ragged", True,
-               card=card)
+    dist_phase(torch, np, sh7, eng7.shards, src7, DIST_JOBS_1E7, "1e7 ragged",
+               True, card=card)
     # ---- layout-free shards, the phase hook, the per-shard wrappers -------
     no_layout_phase(torch, eng7.shards, bare7, src7, "1e7 ragged", card)
     phase_fns_phase(torch, eng7, src7, "1e7 ragged", True, card)
@@ -5935,6 +6344,8 @@ def main():
     torch.cuda.empty_cache()
 
     lap("LMs")
+    # ---- SSSP over NCCL, a rank a card (with two cards or more) ------------
+    dist_nccl_phase(torch, np, card, out_dir)
     # ---- the LMs under a (data, model) mesh of processes ------------------
     mesh_phase(torch, np, card)
     torch.cuda.empty_cache()
@@ -5952,9 +6363,7 @@ def main():
     materialize_phase(torch, np, card)
     dryrun_phase(torch, card, dry)
     lap("weights, cells")
-    say("walls by part: " + ", ".join(
-        f"{n} {t - laps[k][1]:.1f} s" for k, (n, t) in enumerate(laps[1:])))
-    say(f"total: {time.perf_counter() - t_start:.1f} s after the card query")
+    walls()
 
     table = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
               "replaces": SOURCES[name][1], "launches": launches[name],

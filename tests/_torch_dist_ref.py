@@ -1,9 +1,13 @@
 """Shared pieces of the multi-process (``backend="shmap"``) tests of the
-PyTorch port (test_torch_dist_*.py): P gloo ranks started with the
-``spawn`` method on a ``FileStore`` under the test's temporary directory,
-with a timeout on the group so a hang fails the test, and the comparison
-of results (tolerance zero). No JAX here: the ranks import only the port.
+PyTorch port (test_torch_dist_*.py): P gloo ranks (or NCCL ranks, one a
+card) started with the ``spawn`` method on a ``FileStore`` under the
+test's temporary directory, with a timeout on the group so a hang fails
+the test, the comparison of results (tolerance zero), and a record of
+every collective a rank makes (``collective_spy``). No JAX here: the
+ranks import only the port.
 """
+import contextlib
+import inspect
 import multiprocessing as mp
 import os
 import pickle
@@ -20,12 +24,13 @@ GROUP_TIMEOUT = 60        # seconds a collective may wait for its peers
 RUN_TIMEOUT = 300         # seconds the whole job may take
 
 
-def _worker(rank, world, fn, args, store, out, shape, axes, device):
+def _worker(rank, world, fn, args, store, out, shape, axes, device,
+            backend):
     try:
         import torch
         torch.set_num_threads(1)
         from repro_torch.launch.mesh import make_host_mesh
-        mesh = make_host_mesh(shape, axes, backend="gloo",
+        mesh = make_host_mesh(shape, axes, backend=backend,
                               init_method=f"file://{store}", rank=rank,
                               world_size=world, timeout=GROUP_TIMEOUT)
         res = fn(mesh, device, *args)
@@ -40,13 +45,14 @@ def _worker(rank, world, fn, args, store, out, shape, axes, device):
 
 
 def run_ranks(fn, tmp_path, *args, world: int = 4, shape=None,
-              axes=("data",), device: str = "cpu", meanwhile=None):
-    """Run ``fn(mesh, device, *args)`` on ``world`` gloo ranks (spawned
-    processes; ``fn`` must be importable, a module-level function) and
-    return every rank's result, rank order; with ``meanwhile``, a
-    callable this process runs while the ranks do, (those results, its
-    result). Raises with the first failing rank's traceback, or when the
-    job outlives ``RUN_TIMEOUT``."""
+              axes=("data",), device: str = "cpu", meanwhile=None,
+              backend: str = "gloo"):
+    """Run ``fn(mesh, device, *args)`` on ``world`` ranks over ``backend``
+    (spawned processes; under nccl rank r on card r; ``fn`` must be
+    importable, a module-level function) and return every rank's result,
+    rank order; with ``meanwhile``, a callable this process runs while the
+    ranks do, (those results, its result). Raises with the first failing
+    rank's traceback, or when the job outlives ``RUN_TIMEOUT``."""
     shape = (world,) if shape is None else tuple(shape)
     ctx = mp.get_context("spawn")
     # the ranks import the port from where this process does
@@ -56,7 +62,7 @@ def run_ranks(fn, tmp_path, *args, world: int = 4, shape=None,
     out = os.path.join(str(tmp_path), "result")
     procs = [ctx.Process(target=_worker,
                          args=(r, world, fn, args, store, out, shape,
-                               tuple(axes), device))
+                               tuple(axes), device, backend))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -119,7 +125,8 @@ def shards(name: str):
     Trishla), ``ragged`` an R-MAT scale-7 graph in small ragged tiles,
     ``faults`` tests/test_faults.py's ``random_graph(n=96, m=360,
     seed=7)`` without triangles, ``nolayout`` the same graph on P=2
-    without any tile layout."""
+    without any tile layout, ``parity-<P>`` the parity graph
+    (``rmat_graph(scale=11)``) on P shards."""
     if name not in _SHARDS:
         import repro_torch.core as tc
         from repro_torch.graph import random_graph, rmat_graph
@@ -128,6 +135,8 @@ def shards(name: str):
         elif name == "nolayout":
             sh = tc.build_shards(random_graph(**NOLAYOUT_GRAPH), 2,
                                  relax_layout=False, comm_layout=False)
+        elif name.startswith("parity-"):
+            sh = tc.build_shards(rmat_graph(scale=11), int(name[7:]))
         elif name == "ragged":
             sh = tc.build_shards(rmat_graph(scale=7, edge_factor=8, seed=3),
                                  4, layout="ragged", **TILE)
@@ -159,8 +168,8 @@ def run_scenario(sc: dict, build) -> dict:
     """Run scenario ``sc`` on the engine ``build(shards, cfg, **kw)``
     returns. ``op``: ``solve`` (one batch), ``warm`` (landmarks, then the
     batch warm, twice), ``drain`` (submits, a drain, then the ``repeat``
-    batch through the result LRU). Returns the results' summaries and the
-    engine's accounting."""
+    batch through the result LRU). Returns the results' summaries, the
+    engine's accounting and the device its shards are on."""
     eng = build(shards(sc.get("shards", "fixture")), make_config(sc["cfg"]),
                 **sc.get("engine", {}))
     op = sc.get("op", "solve")
@@ -179,7 +188,8 @@ def run_scenario(sc: dict, build) -> dict:
     return dict(results=[_summary(r) for r in results],
                 trace_counts=dict(eng.trace_counts),
                 cert_traces=eng.cert_traces,
-                batches=eng.batches_served, queries=eng.queries_served)
+                batches=eng.batches_served, queries=eng.queries_served,
+                device=str(eng.shards.device))
 
 
 def assert_same_scenario(got: dict, want: dict):
@@ -220,9 +230,96 @@ def sim_scenario(sc: dict, device: str = "cpu") -> dict:
     return run_scenario(sc, build)
 
 
+def live_sources(g, k: int, seed: int):
+    """``k`` vertices of ``g`` with an out-edge, drawn from ``seed``."""
+    live = np.flatnonzero(np.diff(g.row_ptr.numpy()))
+    return [int(s) for s in np.random.default_rng(seed).choice(live, k,
+                                                                replace=False)]
+
+
 # --------------------------------------------------------------------------
 # collectives
 # --------------------------------------------------------------------------
+
+# every collective and point-to-point call of torch.distributed (those
+# this PyTorch has)
+SPIED = ("all_reduce", "all_reduce_coalesced", "all_to_all_single",
+         "all_to_all", "all_gather_single", "all_gather_into_tensor",
+         "_all_gather_base", "all_gather", "all_gather_coalesced",
+         "reduce_scatter_single", "reduce_scatter_tensor",
+         "_reduce_scatter_base", "reduce_scatter", "broadcast", "reduce",
+         "gather", "scatter", "barrier", "monitored_barrier", "send", "recv",
+         "isend", "irecv", "batch_isend_irecv", "all_gather_object",
+         "gather_object", "scatter_object_list", "broadcast_object_list",
+         "send_object_list", "recv_object_list")
+
+
+def _describe(name: str, fn, args, kw) -> dict:
+    """One call of ``torch.distributed.<name>``: its reduction, group size,
+    tensor operands (argument, shape, dtype, device, contiguous, bytes)
+    and split sizes."""
+    import torch
+    import torch.distributed as dist
+    params = inspect.signature(fn).bind(*args, **kw).arguments
+    operands = []
+    for arg, v in params.items():
+        for t in (v if isinstance(v, (list, tuple)) else [v]):
+            if isinstance(t, torch.Tensor):
+                operands.append(dict(
+                    arg=arg, shape=tuple(t.shape), dtype=str(t.dtype),
+                    device=str(t.device), contiguous=t.is_contiguous(),
+                    nbytes=t.numel() * t.element_size()))
+    return dict(fn=name, op=str(params["op"]) if "op" in params else None,
+                group_size=dist.get_world_size(params.get("group")),
+                operands=operands,
+                splits={k: [int(x) for x in params[k]]
+                        for k in ("output_split_sizes", "input_split_sizes")
+                        if params.get(k) is not None})
+
+
+@contextlib.contextmanager
+def collective_spy():
+    """Within the block, every call of a ``SPIED`` function of
+    ``torch.distributed`` is described (``_describe``) in the list this
+    yields, then made as it was."""
+    import torch.distributed as dist
+    calls, saved = [], {}
+
+    def spy(name, fn):
+        def call(*args, **kw):
+            calls.append(_describe(name, fn, args, kw))
+            return fn(*args, **kw)
+        return call
+
+    for name in SPIED:
+        fn = getattr(dist, name, None)
+        if fn is not None:
+            saved[name] = fn
+            setattr(dist, name, spy(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def rank_contract(mesh, device, scenarios):
+    """A rank's side of the NCCL contract: every scenario on a shmap engine
+    over the whole mesh, each with the collectives it made (engine
+    build, landmarks and solves)."""
+    import repro_torch.core as tc
+
+    def build(sh, cfg, **kw):
+        return tc.SsspEngine.build(sh, cfg, "shmap", mesh, mesh.axis_names,
+                                   device=device, **kw)
+
+    out = []
+    for sc in scenarios:
+        with collective_spy() as calls:
+            res = run_scenario(sc, build)
+        out.append(dict(result=res, calls=calls))
+    return out
+
 
 def rank_collectives(mesh, device, seed):
     """A rank's side of the collective checks on a 2x2 mesh: the flat

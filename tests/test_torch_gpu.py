@@ -1934,6 +1934,33 @@ def test_shmap_on_cuda_over_gloo_matches_sim(cuda, tmp_path):
             dref.assert_same_scenario(res[i], want)
 
 
+def test_shmap_over_nccl_one_rank_a_card_matches_sim(cuda, tmp_path):
+    """NCCL ranks, one a card, P = min(4, cards), on the parity graph
+    (``rmat_graph(scale=11)``) at P shards: the all-kernel staged bucket
+    solve and the all-kernel ``async_ppermute`` one; every rank runs on its
+    own card and equals the sim engine on card 0 over the same shards in
+    distances, every counter, status and the engine's accounting."""
+    import _torch_dist_ref as dref
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two CUDA devices or more (NCCL takes one rank "
+                    f"a card); this machine has {n}")
+    P = min(4, n)
+    srcs = dref.live_sources(tg.rmat_graph(scale=11), 4, 5)
+    scs = [dict(shards=f"parity-{P}", sources=srcs, cfg=dict(ALL_KERNELS)),
+           dict(shards=f"parity-{P}", sources=srcs,
+                cfg=dict(ALL_KERNELS, exchange="async_ppermute"))]
+    per_rank, sims = dref.run_ranks(
+        dref.rank_scenarios, tmp_path, scs, world=P, device="cuda",
+        backend="nccl",
+        meanwhile=lambda: [dref.sim_scenario(sc, "cuda") for sc in scs])
+    for i, want in enumerate(sims):
+        assert want["results"][0]["status"] == "converged"
+        for r, res in enumerate(per_rank):
+            assert res[i]["device"] == f"cuda:{r}"
+            dref.assert_same_scenario(res[i], want)
+
+
 def _round2(sh, cfg, sources, device):
     eng = tc.SsspEngine.build(sh, cfg, device=device)
     carry = eng.start(sources)
