@@ -4,12 +4,14 @@ training paths (dense and MoE), AutoInt, the GNN zoo and the training
 entry point, on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py mesh     # the build and the mesh phases alone
+    python3 chip_smoke.py mesh     # the build, dist nccl, cards and mesh
+    python3 chip_smoke.py cards    # the build and the cards part alone
 
 Run from the root of a checkout; it needs one CUDA device and ``nvcc``.
 With two cards or more the dist nccl phase runs (SSSP over NCCL, a rank
 a card) and the mesh phase its NCCL part (with four, mistral-large-123b
-at full depth), which the run alone on four cards is for.
+at full depth) and the cards part (every kernel and entry point on a
+card that is not current), which the run alone on four cards is for.
 Phases, each of which exits non-zero on a mismatch:
 
   build    compile the CUDA kernel sources (relax, send, merge, round; each
@@ -296,6 +298,30 @@ Phases, each of which exits non-zero on a mismatch:
            async_ppermute with toka2, each exiting 0 validated, rank 0's
            lines equal to a --backend sim run's but the walls. With one
            card a line says it did not run;
+  cards    with two cards or more, in this process with card 0 current
+           throughout (never torch.cuda.set_device): kernels 1-13 at the
+           kernel phases' shapes, their operands made on card 0 and
+           placed on the last card, each bit-equal to its plain version
+           there (kernel 12 within its tolerances), its launch counted,
+           card 0's allocation still (before, peak and after); the host
+           time a call of kernels 10 and 11 there (the guard sets the
+           card) and on card 0; the scale-1e7 ragged engine staged and
+           fused on cuda:1 and the scale-1e6 dense all-kernel engine on
+           cuda:2, each equal to the same engine on cuda:0 bit for bit,
+           walls side by side; engine_for, submit and drain on cuda:1;
+           the runner (RUNNER_ARGS) with --device cuda:1; gemma-7b at
+           full width, 2 layers, bf16, examples/serve_decode.py's
+           generate (4 x 2048, 4 decode steps) on cuda:3 against cuda:0
+           (tokens equal, prefill logits within 2 bf16 ulps, kernel 12
+           launched once a layer); AutoInt's serve step at batch 512 on
+           cuda:1 bit-equal to cuda:0's; the training launcher with
+           --device cuda:1 against cuda:0; each of these allocating
+           nothing on card 0; then one host thread a card, each solving
+           a K=16 batch on its card's engine and running kernels 10 and
+           11 there, at once, equal to the serial runs, twice (batches
+           rotated); and each kernel family with one operand on cuda:0
+           raising ValueError before any launch. With one card a line
+           says it did not run;
   mesh     the LMs under a (data, model) mesh of processes, in f32 (the
            ranks and one process differ by the order of f32 sums alone;
            in bf16 each run's own roundings would flip near ties): four
@@ -418,6 +444,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -870,6 +897,9 @@ def dense_kernel_phase(torch, eng, sources, cfg, out_dir: Path):
     runs = three_way(torch, calls, out_dir)
     for key, name in (("ms", "kernel 5"), ("library_ms", "scatter_reduce_")):
         rows["merge"][key] = statistics.median(r["events"] for r in runs[name])
+    guard_cost(torch, {"kernel 3": lambda: send_pack_tiled(*s_args,
+                                                           sb=dsh.tx_sb),
+                       "kernel 5": calls["kernel 5"]})
     return rows
 
 
@@ -951,6 +981,96 @@ def three_way(torch, calls: dict, out_dir: Path, reps: int = 3):
                     for n, (ms, c) in kernels.items())
                 + f"), host {host:.4f} ms a call")
     return runs
+
+
+@contextlib.contextmanager
+def unguarded_launches(guard_only: bool = False):
+    """The wrappers' launch path without the device guard, for timing it:
+    each launch as the wrappers made it before ``build.call`` (the stream
+    of the operands' card, the call, the check; no current-card compare).
+    With ``guard_only`` that is all that goes; without it, the rest of the
+    parent's path comes back too: each query calls its library (no kept
+    values) and no same-card check."""
+    import importlib
+    from repro_torch.kernels import build
+    mods = [] if guard_only else [
+        importlib.import_module(f"repro_torch.kernels.{m}.{m}")
+        for m in ("relax", "send", "merge", "round", "flash_attention",
+                  "embedding_bag")]
+    guarded = build.call
+
+    def call(lib, symbol, device, *args, launch=None):
+        if launch is None:
+            return (guarded(lib, symbol, device, *args) if guard_only
+                    else getattr(lib, symbol)(*args))
+        code = getattr(lib, symbol)(*args, build.current_stream(device))
+        build.check(lib, launch, code)
+        return code
+
+    def same_card(name, first, *operands):
+        while isinstance(first, (tuple, list)):
+            first = first[0]
+        return first.device
+
+    saved = [(build, "call", build.call)] + [(m, "same_card", m.same_card)
+                                             for m in mods]
+    build.call = call
+    for m in mods:
+        m.same_card = same_card
+    try:
+        yield
+    finally:
+        for obj, name, val in saved:
+            setattr(obj, name, val)
+
+
+def guard_turns(torch, ways) -> list[str]:
+    """Host time a call of each way of ``ways`` = [(name, fn, ctx)], in
+    CARDS_GUARD_TURNS["reps"] turns of CARDS_GUARD_TURNS["calls"] calls a
+    way under ``ctx()``, no synchronize among a turn's calls, the ways'
+    order rotated a turn, so that a slow spell of the shared host falls
+    on every way alike. The last way is the baseline. Returns a phrase a
+    way: the median over the turns, and for the others the share over the
+    baseline's median and the median over the turns of the difference
+    from the baseline in the same turn."""
+    n_calls, n = CARDS_GUARD_TURNS["calls"], len(ways)
+    times = [[] for _ in ways]
+    for turn in range(CARDS_GUARD_TURNS["reps"]):
+        for i in ((j + turn) % n for j in range(n)):
+            _, fn, ctx = ways[i]
+            with ctx():
+                fn()
+                cards_sync(torch)
+                t0 = time.perf_counter()
+                for _ in range(n_calls):
+                    fn()
+                times[i].append(1e3 * (time.perf_counter() - t0) / n_calls)
+                cards_sync(torch)
+    base = statistics.median(times[-1])
+    out = []
+    for (name, _, _), t in zip(ways, times):
+        m = statistics.median(t)
+        out.append(f"{name} {m:.4f} ms" + ("" if t is times[-1] else (
+            f" ({100 * (m / base - 1):+.1f}%, paired "
+            f"{1e3 * statistics.median(a - b for a, b in zip(t, times[-1])):+.2f}"
+            f" us)")))
+    return out
+
+
+def guard_cost(torch, calls: dict):
+    """Host time a call of each of ``calls`` on the current card three
+    ways (``guard_turns``): as the wrappers are (the device guard compares
+    the cards and enters nothing; the same-card check; kept query values),
+    without the device guard, and on the parent's path
+    (``unguarded_launches()``, the baseline)."""
+    for name, fn in calls.items():
+        say(f"  {name}: host a call, medians of {CARDS_GUARD_TURNS['reps']} "
+            f"turns of {CARDS_GUARD_TURNS['calls']} calls: " + ", ".join(
+                guard_turns(torch, [
+                    ("as is", fn, contextlib.nullcontext),
+                    ("no device guard", fn,
+                     lambda: unguarded_launches(guard_only=True)),
+                    ("parent's path", fn, unguarded_launches)])))
 
 
 def ragged_kernel_phase(torch, eng, sources, cfg):
@@ -2106,13 +2226,13 @@ def single_phase(torch, np, g, rng, out_dir: Path):
     # the rows, the live chunks' planes and the list (the pre-pass's also
     # the weights in full), or the operations (an add and a min per live
     # edge, per counted relaxation for kernel 10)
-    runs = three_way(torch, {
+    calls = {
         "kernel 11": lambda: relax_dst_tiled(d, *lay, vb=vb, chunks=chunks),
         "kernel 10": lambda: relax_dst_tiled_masked(*args9, vb=vb,
                                                     chunks=chunks),
         "kernel 11 pre-pass": lambda: relax_dst_tiled(d, *lay, vb=vb),
-        "kernel 10 pre-pass": lambda: relax_dst_tiled_masked(*args9, vb=vb)},
-        out_dir)
+        "kernel 10 pre-pass": lambda: relax_dst_tiled_masked(*args9, vb=vb)}
+    runs = three_way(torch, calls, out_dir)
     med = {name: {k: statistics.median(r[k] for r in rs)
                   for k in ("events", "device", "host")}
            for name, rs in runs.items()}
@@ -2138,6 +2258,9 @@ def single_phase(torch, np, g, rng, out_dir: Path):
             f"in full)")
     say(f"  relax_single live chunks: {n_live} of {n_all} (chain steps a "
         f"sweep: {n_live}, the whole layout {n_all})")
+    # the launch path's host time with the guard and without it, in turns
+    guard_cost(torch, {k: fn for k, fn in calls.items()
+                       if "pre-pass" not in k})
     ms9, mean9 = timed_median(
         torch, lambda: relax_dst_tiled_fixpoint(*args9, vb=vb, n_sweeps=2))
     # the bytes it needs: the rows, the weights in full (which chunks are
@@ -5908,9 +6031,725 @@ def _mesh_phase(torch, np, card: str, serve, train, models=()):
     say(f"mesh nccl: {world} ranks, one a card, jobs {len(nwork)}, "
         f"{wall:.1f} s ({card})")
 
+# ---- cards: the kernels and entry points on a card that is not current ------
+# With two cards or more the part runs in this process with card 0 the
+# current card throughout (it never calls torch.cuda.set_device): work
+# placed on cuda:k must launch there and allocate nothing on card 0.
+CARDS_K = 16                    # queries a batch (the main path's)
+CARDS_GUARD_TURNS = dict(reps=101, calls=20)   # host time a call, in turns
+CARDS_TRAIN_ARGS = ("--arch", "olmoe-1b-7b", "--smoke", "--steps", "3",
+                    "--log-every", "1")
+
+
+def cards_moved(x, dev):
+    """``x`` (a tensor, or tuples and lists of them) on ``dev``; anything
+    else (None, a flag, a number) as it is."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(cards_moved(a, dev) for a in x)
+    return x.to(dev) if hasattr(x, "to") else x
+
+
+def cards_sync(torch):
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+@contextlib.contextmanager
+def nothing_on_card0(torch, label: str):
+    """Fail unless the work inside leaves card 0 the current card and
+    allocates nothing on card 0 at any time: its allocated bytes before,
+    at the peak and after are equal."""
+    gc.collect()
+    cards_sync(torch)
+    if torch.cuda.current_device() != 0:
+        fail(f"cards: {label}: the current card is "
+             f"{torch.cuda.current_device()} before the work, not 0")
+    before = torch.cuda.memory_allocated(0)
+    torch.cuda.reset_peak_memory_stats(0)
+    yield
+    cards_sync(torch)
+    cur = torch.cuda.current_device()
+    peak, after = (torch.cuda.max_memory_allocated(0),
+                   torch.cuda.memory_allocated(0))
+    if cur != 0:
+        fail(f"cards: {label}: the work left card {cur} current")
+    if peak != before or after != before:
+        fail(f"cards: {label}: card 0's allocation moved: {before} B "
+             f"before, peak {peak} B, {after} B after")
+
+
+def cards_kernel_cases(torch, np, engines, sources, src7, g6):
+    """Kernels 1-13 at the shapes of the kernel phases (dense_kernel_phase,
+    ragged_kernel_phase, round_kernel_phase, single_phase, embag_phase,
+    flash_phase), their operands made on card 0, the current card, by the
+    card-0 ``engines`` after round 2 of a solve and by the kernels there.
+    Returns [(label, counter, kernel, plain, args, kw, kernel_kw, check)]:
+    ``kernel_kw`` (live chunks, tile bounds) goes to the kernel alone;
+    ``check`` is "equal", "bf16" or "f32" (kernel 12's tolerances)."""
+    import torch.nn.functional as F
+    from repro_torch.graph import graph_to_numpy
+    from repro_torch.kernels.common import live_chunks, pad_last, take_fill
+    from repro_torch.kernels.embedding_bag import (embedding_bag_p,
+                                                   embedding_bag_p_plain)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_p_plain)
+    from repro_torch.kernels.merge import (merge_scatter_ragged,
+                                           merge_scatter_ragged_plain,
+                                           merge_scatter_tiled,
+                                           merge_scatter_tiled_plain)
+    from repro_torch.kernels.relax import (
+        build_dst_tiled_layout, fixpoint_operands,
+        relax_dst_ragged_fixpoint_batch,
+        relax_dst_ragged_fixpoint_batch_plain, relax_dst_tiled,
+        relax_dst_tiled_fixpoint, relax_dst_tiled_fixpoint_batch,
+        relax_dst_tiled_fixpoint_batch_plain, relax_dst_tiled_fixpoint_plain,
+        relax_dst_tiled_masked, relax_dst_tiled_masked_plain,
+        relax_dst_tiled_plain)
+    from repro_torch.kernels.round import (fused_round_operands,
+                                           fused_round_ragged,
+                                           fused_round_ragged_plain,
+                                           fused_round_tiled,
+                                           fused_round_tiled_plain)
+    from repro_torch.kernels.send import (send_operands, send_pack_ragged,
+                                          send_pack_ragged_plain,
+                                          send_pack_tiled,
+                                          send_pack_tiled_plain,
+                                          send_payload_bucket)
+    inf = float("inf")
+    dev0 = torch.device("cuda", 0)
+    cases = []
+
+    def mid(eng, srcs):
+        carry = eng.start(srcs)
+        for _ in range(2):
+            carry = eng.round_fn(carry)
+        return carry
+
+    # ---- kernels 1, 3, 5 (dense, staged) and 2, 4, 6 (ragged, staged) ----
+    for label, eng, srcs, ragged in (
+            ("scale-1e6 dense", engines["dense"], sources, False),
+            ("scale-1e7 ragged", engines["ragged"], src7, True)):
+        sh, cfg = eng.shards, eng.cfg
+        P, K = sh.n_parts, len(srcs)
+        c = mid(eng, srcs)
+        act = c.active & ~c.done[..., None]
+        lay = sh.relax_layout
+        bp = -(-sh.block // sh.rx_vb) * sh.rx_vb
+        r_in = fixpoint_operands(c.dist, act, c.pruned[:, :sh.e_loc], lay[3],
+                                 bp)
+        r_kw = dict(vb=sh.rx_vb, n_sweeps=cfg.pallas_sweeps)
+        if ragged:
+            r_args = (*r_in[:2], lay[4], *lay[:3], r_in[2])
+            cases.append((f"kernel 2 ({label})", "relax_ragged",
+                          relax_dst_ragged_fixpoint_batch,
+                          relax_dst_ragged_fixpoint_batch_plain, r_args, r_kw,
+                          {}, "equal"))
+            r_out = relax_dst_ragged_fixpoint_batch(*r_args, **r_kw)
+        else:
+            r_args = (*r_in[:2], *lay[:3], r_in[2])
+            for how, kk in (("live chunks", dict(chunks=sh.relax_chunks)),
+                            ("pre-pass", {})):
+                cases.append((f"kernel 1 ({label}, {how})", "relax",
+                              relax_dst_tiled_fixpoint_batch,
+                              relax_dst_tiled_fixpoint_batch_plain, r_args,
+                              r_kw, kk, "equal"))
+            r_out = relax_dst_tiled_fixpoint_batch(*r_args, **r_kw,
+                                                   chunks=sh.relax_chunks)
+        dist = r_out[0][..., :sh.block]
+        tx = sh.send_layout
+        pruned_t = take_fill(c.pruned[:, sh.e_loc:].to(torch.int32),
+                             tx[3].reshape(P, -1), 0).reshape(tx[3].shape)
+        s_rows = send_operands(dist, c.last_sent, sh.slot_valid,
+                               sh.n_stiles if ragged else tx[0].shape[1],
+                               sh.tx_sb)
+        if ragged:
+            s_args = (*s_rows, tx[4], *tx[:3], pruned_t)
+            s_kk = dict(bounds=sh.send_bounds)
+            send, send_plain, name, counter = (
+                send_pack_ragged, send_pack_ragged_plain, "kernel 4",
+                "send_ragged")
+        else:
+            s_args = (*s_rows, *tx[:3], pruned_t)
+            s_kk = {}
+            send, send_plain, name, counter = (
+                send_pack_tiled, send_pack_tiled_plain, "kernel 3", "send")
+        cases.append((f"{name} ({label})", counter, send, send_plain, s_args,
+                      dict(sb=sh.tx_sb), s_kk, "equal"))
+        s_out = send(*s_args, sb=sh.tx_sb, **s_kk)
+        payload = send_payload_bucket(s_out[0][..., :sh.n_slots],
+                                      sh.tx_payload_slot)
+        incoming = payload.transpose(0, 2).reshape(P, K, -1).contiguous()
+        mx = sh.merge_layout
+        m_rows = (pad_last(dist, -(-sh.block // sh.mx_vb) * sh.mx_vb, inf),
+                  incoming)
+        if ragged:
+            cases.append((f"kernel 6 ({label})", "merge_ragged",
+                          merge_scatter_ragged, merge_scatter_ragged_plain,
+                          (*m_rows, mx[3], *mx[:3]), dict(vb=sh.mx_vb),
+                          dict(bounds=sh.merge_bounds), "equal"))
+        else:
+            cases.append((f"kernel 5 ({label})", "merge", merge_scatter_tiled,
+                          merge_scatter_tiled_plain, (*m_rows, *mx),
+                          dict(vb=sh.mx_vb), {}, "equal"))
+
+    # ---- kernels 7 (dense) and 8 (ragged): the fused round at round 2 ------
+    for label, eng, srcs, ragged in (
+            ("scale-1e6 dense", engines["dense fused"], sources, False),
+            ("scale-1e7 ragged", engines["ragged fused"], src7, True)):
+        sh, cfg = eng.shards, eng.cfg
+        P, K = sh.n_parts, len(srcs)
+        c = mid(eng, srcs)
+        live = ~c.done
+        ops = fused_round_operands(
+            c.dist, c.active & live[..., None], live,
+            c.incoming.reshape(P, K, -1), c.last_sent, sh.slot_valid,
+            sh.relax_layout, sh.send_layout, sh.merge_layout,
+            c.pruned[:, :sh.e_loc], c.pruned[:, sh.e_loc:], vb=sh.rx_vb,
+            sb=sh.tx_sb, dense=False)
+        kw = dict(vb=sh.rx_vb, sb=sh.tx_sb, n_sweeps=cfg.pallas_sweeps,
+                  dense=False)
+        if ragged:
+            cases.append((f"kernel 8 ({label})", "round_ragged",
+                          fused_round_ragged, fused_round_ragged_plain, ops,
+                          kw, {}, "equal"))
+        else:
+            cases.append((f"kernel 7 ({label})", "round", fused_round_tiled,
+                          fused_round_tiled_plain, ops, kw,
+                          dict(chunks=sh.round_chunks), "equal"))
+
+    # ---- kernels 9, 10, 11: scale-1e6 as one block, a mid-solve state ------
+    vb, eb = 128, 512
+    edges = graph_to_numpy(g6)
+    src_t, w_t, dr_t, eid_t, bp = build_dst_tiled_layout(
+        *edges, g6.n_vertices, vb=vb, eb=eb, with_eid=True)
+    lay = tuple(a.to(dev0) for a in (src_t, w_t, dr_t))
+    eid = eid_t.to(dev0)
+    p10 = torch.from_numpy((np.random.default_rng(14).random(
+        len(edges[0])) < 0.1).astype(np.int32)).to(dev0)
+    pr10 = take_fill(p10, eid.reshape(-1), 0).reshape(eid.shape)
+    chunks = live_chunks(lay[1][None] < inf)
+    d = torch.full((bp,), inf, device=dev0)
+    f = torch.zeros(bp, device=dev0)
+    d[sources[0]], f[sources[0]] = 0.0, 1.0
+    for _ in range(3):              # three masked steps, as single_phase
+        new, _ = relax_dst_tiled_masked(d, f, *lay, torch.zeros_like(pr10),
+                                        vb=vb, chunks=chunks)
+        f, d = (new < d).float(), new
+    args9 = (d, f, *lay, pr10)
+    cases.append(("kernel 9 (scale-1e6 as one block)", "relax_single",
+                  relax_dst_tiled_fixpoint, relax_dst_tiled_fixpoint_plain,
+                  args9, dict(vb=vb, n_sweeps=2), {}, "equal"))
+    for how, kk in (("live chunks", dict(chunks=chunks)), ("pre-pass", {})):
+        cases.append((f"kernel 10 (scale-1e6 as one block, {how})",
+                      "relax_masked", relax_dst_tiled_masked,
+                      relax_dst_tiled_masked_plain, args9, dict(vb=vb), kk,
+                      "equal"))
+        cases.append((f"kernel 11 (scale-1e6 as one block, {how})",
+                      "relax_sweep", relax_dst_tiled, relax_dst_tiled_plain,
+                      (d, *lay), dict(vb=vb), kk, "equal"))
+
+    # ---- kernel 13: AutoInt's table and bags (embag_phase) ----------------
+    V, D = AUTOINT["fields"] * AUTOINT["vocab"], AUTOINT["dim"]
+    gen = torch.Generator(device=dev0)
+    gen.manual_seed(13)
+    table = torch.randn((V, D), generator=gen, device=dev0)
+
+    def bags(B, L):
+        idx = torch.randint(0, V, (B, L), generator=gen, device=dev0,
+                            dtype=torch.int32)
+        u = torch.rand((B, L), generator=gen, device=dev0)
+        idx = torch.where(u < 0.05, idx - V, idx)
+        return torch.where(u > 0.95, V, idx).to(torch.int32).contiguous()
+
+    multi = bags(TRAIN_BATCH * AUTOINT["fields"], 4)
+    for what, t, i, mode in (
+            ("serve sum", table, bags(SERVE_BULK * AUTOINT["fields"], 1),
+             "sum"),
+            ("multi-hot mean f32", table, multi, "mean"),
+            ("multi-hot mean bf16", table.to(torch.bfloat16), multi, "mean")):
+        cases.append((f"kernel 13 ({what})", "embedding_bag", embedding_bag_p,
+                      embedding_bag_p_plain, (t, i), dict(mode=mode), {},
+                      "equal"))
+
+    # ---- kernel 12: the flash phase's shapes, each type on its route -------
+    gen = torch.Generator(device=dev0)
+    gen.manual_seed(12)
+    B, H, _, S, D = FLASH_SHAPES[SERVE["arch"]]
+    skv = S + SERVE["gen"]
+    runs = [(arch, dt, B_, Hq, Hkv, S_, S_, D_, 0)
+            for arch, (B_, Hq, Hkv, S_, D_) in FLASH_SHAPES.items()
+            for dt in ("bfloat16", "float32")]
+    runs += [(f"{SERVE['arch']} decode", dt, B, H, H, 1, skv, D, skv - 1)
+             for dt in ("bfloat16", "float32")]
+    route = {"bfloat16": "flash_attention_tc", "float32": "flash_attention"}
+    for name, dt, B_, Hq, Hkv, Sq, Skv, D_, off in runs:
+        dtype = getattr(torch, dt)
+        q = torch.randn((B_, Hq, Sq, D_), generator=gen, device=dev0).to(dtype)
+        k, v = (torch.randn((B_, Hkv, Skv, D_), generator=gen, device=dev0)
+                .to(dtype) for _ in range(2))
+        bq, bk = min(128, Sq), min(128, Skv)
+
+        def plain(q, k, v, *, bq=bq, bk=bk, off=off, Sq=Sq, Skv=Skv, D_=D_):
+            def pad(t, b):
+                return F.pad(t, (0, 0, 0, (-t.shape[2]) % b))
+            return flash_attention_p_plain(
+                pad(q, bq), pad(k, bk), pad(v, bk), scale=D_ ** -0.5,
+                causal=True, q_offset=off, kv_len=Skv, block_q=bq,
+                block_k=bk)[:, :, :Sq]
+
+        cases.append((f"kernel 12 ({name} {dt})", route[dt], flash_attention,
+                      plain, (q, k, v), {},
+                      dict(causal=True, q_offset=off, block_q=bq),
+                      "bf16" if dt == "bfloat16" else "f32"))
+    return cases
+
+
+def cards_check(torch, label, check, out, ref):
+    """Kernel against plain on the same card: bit-equal, or kernel 12's
+    tolerance (2 bf16 ulps; 2e-5 in f32). Returns the max abs error."""
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    if check == "equal":
+        return compare(torch, f"cards: {label}", out, ref)
+    err = float((out[0].float() - ref[0].float()).abs().max())
+    ok = (err <= FLASH_F32_TOL if check == "f32"
+          else bf16_ulps(torch, out[0], ref[0]) <= FLASH_BF16_ULPS)
+    if not (ok and bool(torch.isfinite(out[0]).all())):
+        fail(f"cards: {label}: kernel vs plain max abs err {err}")
+    return err
+
+
+def cards_kernels(torch, cases, dev):
+    """Every case's kernel on ``dev`` (the current card stays 0) against
+    its plain version on ``dev``, its launch counted, card 0's allocation
+    still. A launch that raises is printed and the job fails after the
+    last case, so one run shows what each kernel family does."""
+    from repro_torch.kernels import build
+    errors = []
+    t0 = time.perf_counter()
+    with nothing_on_card0(torch, f"kernels 1-13 on {dev}"):
+        for label, counter, kernel, plain, args, kw, kk, check in cases:
+            a = cards_moved(args, dev)
+            kk = {key: cards_moved(val, dev) for key, val in kk.items()}
+            build.reset_launches()
+            try:
+                out = kernel(*a, **kw, **kk)
+                torch.cuda.synchronize(dev)
+            except Exception as e:          # noqa: BLE001  (fails below)
+                errors.append(label)
+                say(f"  cards: {label} on {dev}: {type(e).__name__}: {e}")
+                continue
+            launched = dict(build.LAUNCHES)
+            if launched[counter] < 1 or sum(launched.values()) != launched[
+                    counter]:
+                fail(f"cards: {label}: launches {launched}, want {counter}")
+            outs = out if isinstance(out, tuple) else (out,)
+            if any(o.device != dev for o in outs):
+                fail(f"cards: {label}: outputs on "
+                     f"{[str(o.device) for o in outs]}, not {dev}")
+            err = cards_check(torch, label, check, out, plain(*a, **kw))
+            say(f"  cards: {label} on {dev}: {counter} launched "
+                f"{launched[counter]}x, " + (
+                    "bit-equal to plain" if check == "equal" else
+                    f"max abs err {err:.3g} vs plain") + " on the same card")
+            del a, kk, out, outs
+    if errors:
+        fail(f"cards: {len(errors)} of {len(cases)} kernel calls on {dev} "
+             f"raised with card 0 current: {errors}")
+    say(f"cards kernels: {len(cases)} calls, kernels 1-13 on {dev} with card "
+        f"0 current, each == its plain version on {dev} (bit for bit but "
+        f"kernel 12: {FLASH_BF16_ULPS} bf16 ulps, {FLASH_F32_TOL} in f32), "
+        f"card 0's allocation still; {time.perf_counter() - t0:.1f} s")
+
+
+def cards_guard_cost(torch, cases, dev):
+    """Host time a call of kernels 3, 5, 10 and 11 (10 and 11 with the live
+    chunks) four ways (``guard_turns``): on ``dev``, where the guard sets
+    the card, and on card 0, the current card, as the wrappers are,
+    without the device guard, and on the parent's path (the baseline)."""
+    card0 = torch.device("cuda", 0)
+    for label, counter, kernel, _, args, kw, kk, _ in cases:
+        if not (counter in ("send", "merge")
+                or counter in ("relax_masked", "relax_sweep") and kk):
+            continue
+        fn = {}
+        for d in (card0, dev):
+            k2 = {key: cards_moved(val, d) for key, val in kk.items()}
+            fn[d] = functools.partial(kernel, *cards_moved(args, d), **kw,
+                                      **k2)
+        say(f"  cards: {label}: host a call, medians of "
+            f"{CARDS_GUARD_TURNS['reps']} turns of "
+            f"{CARDS_GUARD_TURNS['calls']} calls: " + ", ".join(guard_turns(
+                torch, [(f"on {dev} (the guard sets it)", fn[dev],
+                         contextlib.nullcontext),
+                        ("as is on cuda:0", fn[card0],
+                         contextlib.nullcontext),
+                        ("no device guard", fn[card0],
+                         lambda: unguarded_launches(guard_only=True)),
+                        ("parent's path", fn[card0], unguarded_launches)])))
+
+
+def cards_mixed(torch, cases, dev):
+    """Each kernel family with one operand on cuda:0 and the rest on
+    ``dev``: ValueError naming both cards, and no launch."""
+    from repro_torch.kernels import build
+
+    def one_on_card0(args):
+        args = list(args)
+        for i in reversed(range(len(args))):
+            a = args[i]
+            if isinstance(a, tuple):
+                moved = one_on_card0(a)
+                if moved is not None:
+                    args[i] = tuple(moved)
+                    return args
+            elif hasattr(a, "to"):
+                args[i] = a.to(torch.device("cuda", 0))
+                return args
+        return None
+
+    seen = set()
+    for label, counter, kernel, _, args, kw, kk, _ in cases:
+        if (counter, tuple(kk)) in seen:
+            continue
+        seen.add((counter, tuple(kk)))
+        a = one_on_card0(cards_moved(args, dev))
+        k2 = {key: cards_moved(val, dev) for key, val in kk.items()}
+        build.reset_launches()
+        try:
+            kernel(*a, **kw, **k2)
+        except ValueError as e:
+            if str(dev) not in str(e) or "cuda:0" not in str(e):
+                fail(f"cards: {label}, mixed cards: {e}")
+        else:
+            fail(f"cards: {label} with one operand on cuda:0 and the rest on "
+                 f"{dev} did not raise")
+        if sum(build.LAUNCHES.values()):
+            fail(f"cards: {label}, mixed cards: launches {build.LAUNCHES}")
+        del a, k2
+    say(f"cards mixed: {len(seen)} kernel calls with one operand on cuda:0 "
+        f"and the rest on {dev}: each raised ValueError naming both cards "
+        f"before any launch")
+
+
+def cards_sssp(torch, np, shards, engines, sources, src7, n: int):
+    """The SSSP engine on a card that is not current: scale-1e7 ragged
+    staged (all kernels) and fused on cuda:1, scale-1e6 dense all-kernel
+    on cuda:2, each equal to the same engine on cuda:0 bit for bit
+    (distances, every counter, status), two solves each, the second's
+    wall printed beside card 0's; engine_for, submit and drain on cuda:1
+    against card 0's solve; the runner with --device cuda:1 (validated).
+    Nothing of it allocates on card 0."""
+    from repro_torch.core import SsspEngine, engine_for
+    from repro_torch.kernels import build
+    jobs = (("scale-1e7 ragged staged", "ragged", src7, 1,
+             ("relax_ragged", "send_ragged", "merge_ragged")),
+            ("scale-1e7 ragged fused", "ragged fused", src7, 1,
+             ("round_ragged",)),
+            ("scale-1e6 dense all-kernel", "dense", sources, 2,
+             ("relax", "send", "merge")))
+    for label, key, srcs, k, kernels in jobs:
+        dev = torch.device("cuda", min(k, n - 1))
+        eng0 = engines[key]
+        want = [eng0.solve(srcs) for _ in range(2)]
+        with nothing_on_card0(torch, f"{label} on {dev}"):
+            eng = SsspEngine.build(shards[key.split()[0]], eng0.cfg,
+                                   device=dev)
+            build.reset_launches()
+            got = [eng.solve(srcs) for _ in range(2)]
+            launched = dict(build.LAUNCHES)
+        for g, w in zip(got, want):
+            same_results(g, w, f"cards: {label} on {dev} vs cuda:0")
+        if got[-1].device != str(dev) or want[-1].device != "cuda:0":
+            fail(f"cards: {label}: results name {got[-1].device} and "
+                 f"{want[-1].device}")
+        if any(launched[name] < 1 for name in kernels):
+            fail(f"cards: {label} on {dev}: launches {launched}")
+        say(f"cards sssp: {label} on {dev} == cuda:0 bit for bit "
+            f"(distances, every counter, status {got[-1].status}, "
+            f"{int(got[-1].stats.rounds)} rounds), QueryResult.device "
+            f"{got[-1].device}; wall {got[-1].wall_s:.4f} s vs "
+            f"{want[-1].wall_s:.4f} s on cuda:0 (second solves; first "
+            f"{got[0].wall_s:.4f} vs {want[0].wall_s:.4f} s); launches "
+            + ", ".join(f"{name} {launched[name]}" for name in kernels))
+        del eng, got
+    # the serving surface: engine_for, submit and drain on cuda:1
+    dev = torch.device("cuda", min(1, n - 1))
+    want = engines["dense"].solve(sources[:4])
+    with nothing_on_card0(torch, f"engine_for, submit, drain on {dev}"):
+        eng = engine_for(shards["dense"], engines["dense"].cfg, device=dev)
+        if engine_for(shards["dense"], engines["dense"].cfg,
+                      device=str(dev)) is not eng:
+            fail("cards: engine_for did not reuse the engine of its card")
+        hs = [eng.submit(s) for s in sources[:4]]
+        eng.drain()
+        got = [h.result() for h in hs]
+    for i, r in enumerate(got):
+        if (r.device != str(dev) or r.status != "converged"
+                or not np.array_equal(r.dist[0], want.dist[i])):
+            fail(f"cards: drained query {sources[i]} on {dev}: device "
+                 f"{r.device}, status {r.status}, or distances differ from "
+                 f"cuda:0's solve")
+    say(f"cards sssp: engine_for, submit x4 and drain on {dev}: each "
+        f"query's distances == cuda:0's, QueryResult.device {got[0].device}")
+    del eng, hs, got
+    # the runner with --device cuda:k, in this process
+    from repro_torch.launch import sssp_run
+    argv, buf = sys.argv, io.StringIO()
+    sys.argv = ["sssp_run", *RUNNER_ARGS, "--device", str(dev)]
+    t0 = time.perf_counter()
+    try:
+        with nothing_on_card0(torch, f"sssp_run --device {dev}"), \
+                contextlib.redirect_stdout(buf):
+            sssp_run.main()
+    except SystemExit as e:
+        if e.code:
+            fail(f"cards: sssp_run --device {dev} exited {e.code}:\n"
+                 f"{buf.getvalue()}")
+    finally:
+        sys.argv = argv
+    lines = buf.getvalue().splitlines()
+    if not any("validation" in x and "OK" in x for x in lines):
+        fail(f"cards: sssp_run --device {dev} did not validate:\n"
+             f"{buf.getvalue()}")
+    say(f"cards sssp: python -m repro_torch.launch.sssp_run "
+        f"{' '.join(RUNNER_ARGS)} --device {dev} (in this process): "
+        f"validated, {len(lines)} lines, {time.perf_counter() - t0:.1f} s; "
+        f"{next(x for x in lines if 'validation' in x)}")
+
+
+def cards_models(torch, np, n: int):
+    """gemma-7b at full width, depth 2, bf16: examples/serve_decode.py's
+    generate (the prefill of 4 x 2048 and 4 decode steps) on cuda:3 (or
+    the last card) against cuda:0 on the same weights: tokens equal, the
+    prefill's logits within 2 bf16 ulps, kernel 12's bf16 route launched
+    once a layer; AutoInt's serve step at batch 512 on cuda:1 bit-equal
+    to cuda:0's; the training launcher with --device cuda:1 against
+    cuda:0. Nothing of the named card's work allocates on card 0."""
+    from repro_torch.configs.registry import REC_SHAPES, _load
+    from repro_torch.data import RecsysBatcher
+    from repro_torch.examples.serve_decode import generate
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import autoint as ai
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import materialize
+    dev0 = torch.device("cuda", 0)
+    # ---- gemma-7b, depth 2 -------------------------------------------------
+    devg = torch.device("cuda", min(3, n - 1))
+    cfg = dataclasses.replace(_load(SERVE["arch"])[1], attn_impl="pallas",
+                              n_layers=2)
+    B, P = SERVE["batch"], SERVE["prompt"]
+    gen = torch.Generator(device=dev0)
+    gen.manual_seed(SERVE["seed"])
+    params0 = materialize(tf.param_defs(cfg, one_ax()), gen, device=dev0,
+                          default_dtype=cfg.dtype)
+    prompts0 = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                             device=dev0, dtype=torch.int32)
+    prefill = tf.make_prefill_step(cfg, one_ax())
+    paramsg, promptsg = _to(params0, devg), prompts0.to(devg)
+    walls = {}
+    for dev, params, prompts in ((dev0, params0, prompts0),
+                                 (devg, paramsg, promptsg)):
+        ctx = (nothing_on_card0(torch, f"gemma-7b generate on {dev}")
+               if dev != dev0 else contextlib.nullcontext())
+        with ctx:
+            generate(params, prompts[:, :128], cfg, one_ax(), 2)  # warm-up
+            build.reset_launches()
+            cards_sync(torch)
+            t0 = time.perf_counter()
+            toks = generate(params, prompts, cfg, one_ax(), 5)
+            cards_sync(torch)
+            wall = time.perf_counter() - t0
+            launched = dict(build.LAUNCHES)
+            logits = prefill(params, {"tokens": prompts})[0]
+            walls[str(dev)] = (toks.cpu(), logits.float().cpu(), wall,
+                               launched, toks.device)
+            del toks, logits        # card 0's go before cuda:k's block
+    (t0_, l0, w0, _, _), (tg_, lg, wg, lnch, tdev) = walls.values()
+    if tdev != devg or not torch.equal(t0_, tg_):
+        fail(f"cards: gemma-7b tokens on {tdev} differ from cuda:0's")
+    ulps = bf16_ulps(torch, lg, l0)
+    if not ulps <= FLASH_BF16_ULPS:
+        fail(f"cards: gemma-7b prefill logits on {devg} {ulps} bf16 ulps "
+             f"from cuda:0's")
+    if (lnch["flash_attention_tc"] != cfg.n_layers
+            or sum(lnch.values()) != cfg.n_layers):
+        fail(f"cards: gemma-7b on {devg}: launches {lnch}, want "
+             f"flash_attention_tc {cfg.n_layers}")
+    say(f"cards models: gemma-7b full width, {cfg.n_layers} layers, bf16, "
+        f"generate {B} x {P} + 4 decode steps on {devg}: tokens == cuda:0's "
+        f"{tuple(tg_.shape)}, prefill logits within {ulps:.3g} bf16 ulps "
+        f"(max abs diff {float((lg - l0).abs().max()):.3g}), "
+        f"flash_attention_tc launched {lnch['flash_attention_tc']}x; wall "
+        f"{wg:.4f} s vs {w0:.4f} s on cuda:0")
+    del params0, paramsg, prompts0, promptsg, walls
+    torch.cuda.empty_cache()
+    # ---- AutoInt's serve step at batch 512 ---------------------------------
+    deva = torch.device("cuda", min(1, n - 1))
+    cfg_a = _load("autoint")[1]
+    gen = torch.Generator(device=dev0)
+    gen.manual_seed(RECSYS["seed"])
+    pa0 = materialize(ai.autoint_param_defs(cfg_a, one_ax()), gen,
+                      device=dev0)
+    B = REC_SHAPES["serve_p99"]["batch"]
+    idx0 = next(RecsysBatcher(B, cfg_a.n_sparse, cfg_a.vocab_per_field,
+                              cfg_a.multi_hot, seed=RECSYS["seed"] + 1,
+                              device=dev0))["sparse_idx"]
+    serve = ai.make_autoint_serve_step(cfg_a, one_ax())
+    pa, idxa = _to(pa0, deva), idx0.to(deva)
+    want = serve(pa0, {"sparse_idx": idx0}).cpu()
+    with nothing_on_card0(torch, f"autoint serve on {deva}"):
+        build.reset_launches()
+        got = serve(pa, {"sparse_idx": idxa})
+        launched = sum(build.LAUNCHES.values())
+    if got.device != deva or not torch.equal(got.cpu(), want):
+        fail(f"cards: autoint serve on {got.device} differs from cuda:0's")
+    say(f"cards models: autoint full width (table {tuple(pa['table'].shape)}"
+        f"), serve step at batch {B} on {deva}: scores == cuda:0's bit for "
+        f"bit; {launched} kernel launches (AutoInt takes its bags with a "
+        f"row take and a masked sum, as the reference's model does; kernel "
+        f"13 runs on {torch.device('cuda', n - 1)} in the kernels job)")
+    del pa0, pa, idx0, idxa
+    torch.cuda.empty_cache()
+    # ---- the training launcher with --device --------------------------------
+    losses = {}
+    for dev in (dev0, deva):
+        ctx = (nothing_on_card0(torch, f"launch.train --device {dev}")
+               if dev != dev0 else contextlib.nullcontext())
+        with ctx, contextlib.redirect_stdout(io.StringIO()):
+            losses[str(dev)] = train_main([*CARDS_TRAIN_ARGS, "--device",
+                                           str(dev)])
+    l0, la = losses.values()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(la, l0))
+    if len(la) != len(l0) or not rel <= LAUNCH_REL:
+        fail(f"cards: launch.train on {deva}: losses {la} vs {l0} on "
+             f"cuda:0")
+    say(f"cards models: python -m repro_torch.launch.train "
+        f"{' '.join(CARDS_TRAIN_ARGS)} --device {deva} (in this process): "
+        f"losses within {rel:.3g} relative of cuda:0's "
+        f"({', '.join(f'{x:.6f}' for x in la)})")
+
+
+def cards_threads(torch, np, shards, cfg, g6, cases, n: int):
+    """One scale-1e6 dense all-kernel engine a card, each with its own
+    K = 16 batch, solved at once from one host thread a card (each
+    thread's current card 0), then kernels 10 and 11 at the single
+    layout's state on the thread's card: every result equal to the same
+    work done serially; a second round with the batches rotated between
+    the engines."""
+    import threading
+    from repro_torch.core import SsspEngine
+    devs = [torch.device("cuda", i) for i in range(n)]
+    engs = [SsspEngine.build(shards["dense"], cfg, device=d) for d in devs]
+    rng = np.random.default_rng(34)
+    batches = [live_sources(np, rng, g6, CARDS_K) for _ in devs]
+    sweeps = [c for c in cases if c[1] in ("relax_masked", "relax_sweep")
+              and c[6]]
+    ops = [[(c[2], cards_moved(c[4], d), c[5],
+             {k: cards_moved(v, d) for k, v in c[6].items()})
+            for c in sweeps] for d in devs]
+
+    def work(i, batch):
+        res = engs[i].solve(batch)
+        outs = [fn(*a, **kw, **kk) for fn, a, kw, kk in ops[i]]
+        torch.cuda.synchronize(devs[i])
+        return res, [tuple(t.cpu() for t in (o if isinstance(o, tuple)
+                                               else (o,))) for o in outs]
+
+    for rnd in range(2):
+        pairs = [(i, (i + rnd) % n) for i in range(n)]
+        t0 = time.perf_counter()
+        serial = {i: work(i, batches[b]) for i, b in pairs}
+        t_serial = time.perf_counter() - t0
+        got, errors, cur = {}, {}, {}
+
+        def run(i, b):
+            try:
+                cur[i] = [torch.cuda.current_device()]
+                got[i] = work(i, batches[b])
+                cur[i].append(torch.cuda.current_device())
+            except Exception as e:          # noqa: BLE001  (fails below)
+                errors[i] = f"{type(e).__name__}: {e}"
+
+        threads = [threading.Thread(target=run, args=p) for p in pairs]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        t_threads = time.perf_counter() - t0
+        if errors:
+            fail(f"cards threads: {errors}")
+        for i, b in pairs:
+            same_results(got[i][0], serial[i][0],
+                         f"cards threads: engine on {devs[i]}, batch {b}")
+            for (lbl, *_), g, w in zip(sweeps, got[i][1], serial[i][1]):
+                if not all(torch.equal(x, y) for x, y in zip(g, w)):
+                    fail(f"cards threads: {lbl} on {devs[i]} differs from "
+                         f"its serial launch")
+            if cur[i] != [0, 0] or got[i][0].device != str(devs[i]):
+                fail(f"cards threads: thread {i}: current card {cur[i]}, "
+                     f"result on {got[i][0].device}")
+        say(f"cards threads: round {rnd + 1}, {n} threads (current card 0 "
+            f"in each), engine i on cuda:i solving batch "
+            f"{[b for _, b in pairs]} and kernels 10 and 11 there: each "
+            f"== its serial run bit for bit; wall {t_threads:.3f} s at once "
+            f"vs {t_serial:.3f} s serially")
+    del engs, ops
+
+
+def cards_phase(torch, np, card: str):
+    """Every kernel and entry point on a card that is not current (module
+    docstring: cards); with one card it says so and returns."""
+    from repro_torch.core import (SsspConfig, SsspEngine, build_shards,
+                                  build_shards_stream)
+    from repro_torch.graph import preset_edge_stream, preset_graph
+    n = torch.cuda.device_count()
+    if n < 2:
+        say(f"cards: not run: {n} CUDA device on this machine; the part "
+            f"places work on a card other than the current one")
+        return
+    t_part = time.perf_counter()
+    last = torch.device("cuda", n - 1)
+    t0 = time.perf_counter()
+    g6 = preset_graph("scale-1e6")
+    n7, stream7 = preset_edge_stream("scale-1e7")
+    chunks7 = list(stream7)
+    shards = {"dense": build_shards(g6, 8, enumerate_triangles=False),
+              "ragged": build_shards_stream(chunks7, n7, 8)}
+    rng = np.random.default_rng(0)
+    sources = live_sources(np, rng, g6, CARDS_K)
+    src7 = live_of_chunks(np, chunks7, n7, rng, CARDS_K)
+    del chunks7
+    cfg, cfg_f = SsspConfig(**ALL_KERNELS), SsspConfig(round="fused")
+    engines = {f"{key}{tag}": SsspEngine.build(sh, c, device="cuda:0")
+               for key, sh in shards.items()
+               for tag, c in (("", cfg), (" fused", cfg_f))}
+    say(f"cards: {n} cards ({card} each); the current card "
+        f"{torch.cuda.current_device()} throughout; scale-1e6 dense and "
+        f"scale-1e7 ragged shards (P=8) built in "
+        f"{time.perf_counter() - t0:.1f} s, K={CARDS_K}")
+    cases = cards_kernel_cases(torch, np, engines, sources, src7, g6)
+    cards_kernels(torch, cases, last)
+    cards_guard_cost(torch, cases, last)
+    cards_sssp(torch, np, shards, engines, sources, src7, n)
+    cards_models(torch, np, n)
+    cards_threads(torch, np, shards, cfg, g6, cases, n)
+    cards_mixed(torch, cases, last)
+    if torch.cuda.current_device() != 0:
+        fail(f"cards: the current card is {torch.cuda.current_device()}")
+    say(f"cards: every job passed with card 0 current throughout, "
+        f"{time.perf_counter() - t_part:.1f} s")
+    del cases, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
-    if sys.argv[1:] not in ([], ["mesh"]):
-        fail("usage: chip_smoke.py [mesh]")
+    if sys.argv[1:] not in ([], ["mesh"], ["cards"]):
+        fail("usage: chip_smoke.py [mesh | cards]")
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a checkout")
     sys.path.insert(0, str(ROOT / "src"))
@@ -5957,9 +6796,19 @@ def main():
         lap("build")
         dist_nccl_phase(torch, np, card, out_dir)
         lap("dist nccl")
+        cards_phase(torch, np, card)
+        lap("cards")
         mesh_phase(torch, np, card)
         lap("mesh")
         walls()
+        say_ok(torch)
+        return
+    if sys.argv[1:] == ["cards"]:     # the cards part alone
+        lap("build")
+        cards_phase(torch, np, card)
+        lap("cards")
+        walls()
+        say_ok(torch)
         return
     dry = start_dryrun()
     lap("build")
@@ -6346,6 +7195,8 @@ def main():
     lap("LMs")
     # ---- SSSP over NCCL, a rank a card (with two cards or more) ------------
     dist_nccl_phase(torch, np, card, out_dir)
+    # ---- every kernel on a card that is not current (two cards or more) ---
+    cards_phase(torch, np, card)
     # ---- the LMs under a (data, model) mesh of processes ------------------
     mesh_phase(torch, np, card)
     torch.cuda.empty_cache()
@@ -6372,6 +7223,11 @@ def main():
               "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
              for name, r in rows.items()]
     print(json.dumps({"kernels": table}))
+    say_ok(torch)
+
+
+def say_ok(torch):
+    """The last line: the contract's verdict and the card."""
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,6 +20,13 @@ sources, one kernel each, chosen by the inputs' type, both on the tensor
 cores and sharing ``hopper.cuh``: ``flash_attention.cu`` (f32 in 3xTF32,
 counter ``flash_attention``) and ``flash_attention_tc.cu`` (bf16, counter
 ``flash_attention_tc``).
+
+Every call into a loaded library goes through ``call``, which sets the card
+that holds the operands as the thread's current card for the length of the
+call (PyTorch's device guard, which restores the caller's card), so a
+kernel launches on its operands' card whatever card the caller has made
+current, and a launch takes that card's current stream. Counting is safe
+from several host threads.
 """
 from __future__ import annotations
 
@@ -28,8 +35,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -45,10 +55,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: dict[str, int] = {name: 0 for name in COUNTERS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()        # LAUNCHES and _LIBS, across host threads
+_QUERIES: dict[tuple, int] = {}  # call's query values, per card and arguments
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
@@ -112,17 +125,60 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     ``argtypes``/``restype`` set from ``signatures`` = {symbol: argtypes}.
     Every entry point returns the ``cudaGetLastError`` code of its launch."""
     lib = _LIBS.get(name)
-    if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        for symbol, argtypes in signatures.items():
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for symbol, argtypes in signatures.items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
     return lib
+
+
+def _current_card() -> int:
+    """``torch.cuda.current_device()`` without its lazy-init check: a
+    launch's operands are on a card, so CUDA is up."""
+    return torch._C._cuda_getDevice()
+
+
+def call(lib: ctypes.CDLL, symbol: str, device: torch.device, *args,
+         launch: str | None = None) -> int:
+    """Call entry point ``symbol`` of ``lib`` with ``args`` on CUDA card
+    ``device``, the card of the operands: under PyTorch's device guard for
+    that card, which restores the caller's card after the call, an error
+    included (no guard where the card is already current). With
+    ``launch``, the kernel's name, the call launches: the card's current
+    stream is passed last, and a nonzero return raises (``check``).
+    Without it, the call is a query (sizes, scratch: integers in, an
+    integer out, a function of the card and the arguments alone), whose
+    value is kept per (card, arguments) and returned: a launch's host time
+    goes to the launch's one guarded call. Moves nothing and picks no card
+    of its own."""
+    if launch is None:
+        key = (lib, symbol, device.index, args)
+        code = _QUERIES.get(key)
+        if code is not None:
+            return code
+    fn = getattr(lib, symbol)
+    if launch is not None:
+        args = (*args, current_stream(device))
+    if _current_card() == device.index:
+        code = fn(*args)
+    else:
+        with torch.cuda.device(device.index):
+            code = fn(*args)
+    if launch is None:
+        _QUERIES[key] = code
+    else:
+        check(lib, launch, code)
+    return code
 
 
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:
@@ -137,7 +193,6 @@ def current_stream(device) -> int:
     """The raw handle of PyTorch's current stream on CUDA ``device``, as
     ``torch.cuda.current_stream(device).cuda_stream`` gives it, without
     making a Stream object on every call."""
-    import torch
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
+
 INF = float("inf")
 
 
@@ -89,6 +91,27 @@ def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor):
                 f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
 
 
+def same_card(name: str, first: torch.Tensor, *rest):
+    """Raise ``ValueError`` naming both cards unless every tensor among
+    ``rest`` (tuples and lists walked, None skipped) lies on the card of
+    ``first``, as a launch reads every operand on the card it runs on.
+    Returns that card, the one the launch runs on. It runs before every
+    launch, so it compares card indices (``get_device``) and makes no
+    device objects but the one it returns."""
+    _on_card(name, first, rest, first.get_device())
+    return first.device
+
+
+def _on_card(name: str, first, items, card: int):
+    for x in items:
+        if isinstance(x, (tuple, list)):
+            _on_card(name, first, x, card)
+        elif x is not None and x.get_device() != card:
+            raise ValueError(f"{name}: operands on two cards, "
+                             f"{first.device} and {x.device}; a kernel "
+                             f"runs on the card that holds its operands")
+
+
 def check_chain(name: str, eb: int, vb: int, *tensors: torch.Tensor):
     """Raise unless the Hopper chain (csrc/sweeps_ragged.cuh, kernels 2, 8,
     9 and 7) takes the operands: EB a multiple of 4 and 16-byte aligned
@@ -109,7 +132,7 @@ def ragged_scratch(name: str, lib, symbol: str, rows: int, dims, device):
     n_vtiles, eb, vb[, sb]) gives the bytes a row needs, 0 when they fit and
     -1 when the row is past the chain's cap (the ring, window and a byte a
     vertex tile must fit in shared memory), which raises."""
-    nbytes = getattr(lib, symbol)(*dims)
+    nbytes = build.call(lib, symbol, device, *dims)
     if nbytes < 0:
         raise ValueError(
             f"{name}: a row of {dims[1]} vertex tiles of {dims[3]} is past the "

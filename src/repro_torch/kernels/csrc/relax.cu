@@ -110,6 +110,10 @@
 // rejected, at the cost of that walk only when a -inf is there.
 #include <cooperative_groups.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 #include "sweeps_ragged.cuh"
 
 namespace {
@@ -547,29 +551,41 @@ int launch_live(const float* dist, const float* front, const int* src_t,
 }
 
 // Kernels 10 and 11's persistent grid: as many CTAs as are co-resident on
-// the card (a cooperative launch needs every CTA resident: two an SM), no
-// more than the work has (a group a chunk, a CTA a tile); 0 on an error.
+// the calling thread's current card (a cooperative launch needs every CTA
+// resident: two an SM), no more than the work has (a group a chunk, a CTA a
+// tile); 0 on an error. The occupancy is kept by (card, vb, eb), under a
+// lock: host threads may launch on several cards at once.
 template <bool kMasked>
 int sweep_grid(int rows, int n_vtiles, int eb, int vb) {
-  static int last_vb = -1, last_eb = -1, resident = 0;   // the occupancy
-  if (vb != last_vb || eb != last_eb) {
-    const size_t smem = static_cast<size_t>(sweep::kGroups) * vb * sizeof(int);
-    int dev = 0, sms = 0, per_sm = 0;
-    if (repro::allow_smem(relax_sweep_kernel<kMasked>, smem) != cudaSuccess ||
-        cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, relax_sweep_kernel<kMasked>, sweep::kThreads, smem) !=
-            cudaSuccess)
-      return 0;
-    resident = sms * per_sm;
-    last_vb = vb;
-    last_eb = eb;
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int>, int> resident;
+  int dev = 0, ctas = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  {
+    const std::lock_guard<std::mutex> lock(mu);
+    const auto key = std::make_tuple(dev, vb, eb);
+    const auto it = resident.find(key);
+    if (it != resident.end()) {
+      ctas = it->second;
+    } else {
+      const size_t smem =
+          static_cast<size_t>(sweep::kGroups) * vb * sizeof(int);
+      int sms = 0, per_sm = 0;
+      if (repro::allow_smem(relax_sweep_kernel<kMasked>, smem) !=
+              cudaSuccess ||
+          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+              cudaSuccess ||
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &per_sm, relax_sweep_kernel<kMasked>, sweep::kThreads, smem) !=
+              cudaSuccess)
+        return 0;
+      ctas = sms * per_sm;
+      resident.emplace(key, ctas);
+    }
   }
   const int work = std::max((rows + sweep::kGroups - 1) / sweep::kGroups,
                             n_vtiles);
-  return std::max(1, std::min(resident, work));
+  return std::max(1, std::min(ctas, work));
 }
 
 // Words of int32 scratch kernel 10 (masked) or 11 takes: a slot of partial

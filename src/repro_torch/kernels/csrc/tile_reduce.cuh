@@ -20,6 +20,10 @@
 
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace repro {
 
 constexpr int kInfBits = 0x7f800000;   // +inf as an int (and as a key)
@@ -42,12 +46,28 @@ __device__ __forceinline__ void tile_min_into(int* tile, int rel, float cand) {
   if (cand < inf_f()) atomicMin(tile + rel, min_key(cand));
 }
 
-// Allow more than 48 KB of dynamic shared memory where a launch needs it.
+// Allow more than 48 KB of dynamic shared memory where a launch needs it,
+// on the calling thread's current card (the launch's: the Python layer sets
+// it to the operands' card). The attribute is per card and per kernel; each
+// (card, kernel) keeps the largest size set so far, under a lock, so that a
+// launch never lowers what another launch on that card, perhaps from
+// another host thread, still needs, and cudaFuncSetAttribute runs only when
+// the size grows.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> allowed;
+  const std::lock_guard<std::mutex> lock(mu);
+  size_t& have = allowed[{dev, reinterpret_cast<const void*>(kernel)}];
+  if (bytes <= have) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) have = bytes;
+  return err;
 }
 
 }  // namespace repro

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_cuda
+from repro_torch.kernels.common import check_cuda, same_card
 
 MODES = ("sum", "mean")
 
@@ -63,6 +63,7 @@ def embedding_bag_p(table, indices, *, mode: str = "sum", bb: int = 8,
     ``interpret`` is the reference's keyword, accepted and ignored."""
     if not table.is_cuda:
         return embedding_bag_p_plain(table, indices, mode=mode, bb=bb)
+    dev = same_card("embedding_bag", table, indices)
     _check(indices, mode, bb)
     if table.dim() != 2 or table.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"embedding_bag: table {tuple(table.shape)} "
@@ -71,16 +72,14 @@ def embedding_bag_p(table, indices, *, mode: str = "sum", bb: int = 8,
     check_cuda("embedding_bag", torch.int32, indices)
     V, D = table.shape
     B, L = indices.shape
-    out = torch.empty((B, D), dtype=table.dtype, device=table.device)
+    out = torch.empty((B, D), dtype=table.dtype, device=dev)
     size = table.element_size()
     wide = (D * size % 16 == 0 and table.data_ptr() % 16 == 0
             and out.data_ptr() % 16 == 0)
     lib = build.load("embedding_bag", _SIGNATURES)
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    code = lib.embedding_bag(
-        build.ptr(table), build.ptr(indices), build.ptr(out), B, L, V, D,
-        int(table.dtype == torch.bfloat16), 16 // size if wide else 1,
-        int(mode == "mean"), stream)
-    build.check(lib, "embedding_bag", code)
+    build.call(lib, "embedding_bag", dev, build.ptr(table),
+               build.ptr(indices), build.ptr(out), B, L, V, D,
+               int(table.dtype == torch.bfloat16), 16 // size if wide else 1,
+               int(mode == "mean"), launch="embedding_bag")
     build.count_launch("embedding_bag")
     return out

@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import same_card
 
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the head widths the kernel is built for
 DTYPES = (torch.float32, torch.bfloat16)
@@ -112,16 +113,15 @@ def _tma_strides(t):
 def _launch(name, q, k, v, out, *, scale: float, causal: bool,
             q_offset: int, kv_len: int, split: bool):
     """Launch kernel ``name`` on checked CUDA tensors, without counting it."""
+    dev = same_card(name, q, k, v, out)
     strides = [s for t in (q, k, v) for s in _tma_strides(t)]
     strides += list(out.stride()[:3])
     B, Hq, Sq, D = q.shape
     lib = build.load(name, {name: _SIGNATURE})
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = getattr(lib, name)(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), B, Hq,
-        k.shape[1], Sq, D, int(causal), int(q_offset), int(kv_len), *strides,
-        float(scale), int(split), stream)
-    build.check(lib, name, code)
+    build.call(lib, name, dev, build.ptr(q), build.ptr(k), build.ptr(v),
+               build.ptr(out), B, Hq, k.shape[1], Sq, D, int(causal),
+               int(q_offset), int(kv_len), *strides, float(scale),
+               int(split), launch=name)
 
 
 def _launch_tc(q, k, v, out, *, scale: float, causal: bool, q_offset: int,
@@ -154,13 +154,14 @@ def flash_attention_p(q, k, v, *, scale: float, causal: bool, q_offset: int,
         return flash_attention_p_plain(
             q, k, v, scale=scale, causal=causal, q_offset=q_offset,
             kv_len=kv_len, block_q=block_q, block_k=block_k)
+    same_card("flash_attention", q, k, v)
     _check(q, k, v, kv_len, block_q, block_k)
     for t in (q, k, v):
-        if (not t.is_cuda or t.device != q.device or t.dtype != q.dtype
+        if (not t.is_cuda or t.dtype != q.dtype
                 or t.dtype not in DTYPES or t.stride(-1) != 1):
             raise ValueError(
                 f"flash_attention: expected CUDA f32 or bf16 tensors of one "
-                f"type on one device with a contiguous last axis, got "
+                f"type with a contiguous last axis, got "
                 f"{t.dtype} on {t.device}, strides {t.stride()}")
     B, Hq, Sq, D = q.shape
     if D not in HEAD_DIMS:

@@ -20,7 +20,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import INF, check_cuda, chunk_bounds
+from repro_torch.kernels.common import (INF, check_cuda, chunk_bounds,
+                                        same_card)
 from repro_torch.kernels.tile_reduce import tile_min_batch
 
 
@@ -88,7 +89,8 @@ def _outputs(name, lib, dist, vb: int):
     splits the queries into groups whose [Kg, vb] tiles fit in shared
     memory. Raises when a tile of ``vb`` vertices is too wide for even one
     query."""
-    if dist.shape[1] and lib.merge_smem_bytes(dist.shape[1], vb) < 0:
+    if dist.shape[1] and build.call(lib, "merge_smem_bytes", dist.device,
+                                    dist.shape[1], vb) < 0:
         raise ValueError(f"{name}: a tile of {vb} vertices does not fit in "
                          f"shared memory for even one query; use narrower "
                          f"vertex tiles")
@@ -103,6 +105,7 @@ def merge_scatter_tiled(dist, incoming, pos_t, dstrel_t, valid_t, *, vb: int):
     if not dist.is_cuda:
         return merge_scatter_tiled_plain(dist, incoming, pos_t, dstrel_t,
                                          valid_t, vb=vb)
+    dev = same_card("merge", dist, incoming, pos_t, dstrel_t, valid_t)
     P, K, bp = dist.shape
     _, n_vtiles, n_chunks, eb = pos_t.shape
     if bp != n_vtiles * vb or incoming.shape[:2] != (P, K):
@@ -113,12 +116,11 @@ def merge_scatter_tiled(dist, incoming, pos_t, dstrel_t, valid_t, *, vb: int):
     check_cuda("merge", torch.int32, pos_t, dstrel_t, valid_t)
     lib = build.load("merge", _SIGNATURES)
     outs = _outputs("merge", lib, dist, vb)
-    stream = build.current_stream(dist.device)
-    code = lib.merge_scatter_tiled(
-        *(t.data_ptr() for t in (dist, incoming, pos_t, dstrel_t, valid_t,
-                                 *outs)),
-        P, K, bp, incoming.shape[-1], n_vtiles, n_chunks, eb, vb, stream)
-    build.check(lib, "merge", code)
+    build.call(lib, "merge_scatter_tiled", dev,
+               *(t.data_ptr() for t in (dist, incoming, pos_t, dstrel_t,
+                                        valid_t, *outs)),
+               P, K, bp, incoming.shape[-1], n_vtiles, n_chunks, eb, vb,
+               launch="merge")
     build.count_launch("merge")
     return outs
 
@@ -133,6 +135,8 @@ def merge_scatter_ragged(dist, incoming, ctile, pos_r, dstrel_r, valid_r, *,
     if not dist.is_cuda:
         return merge_scatter_ragged_plain(dist, incoming, ctile, pos_r,
                                           dstrel_r, valid_r, vb=vb)
+    dev = same_card("merge_ragged", dist, incoming, ctile, pos_r, dstrel_r,
+                    valid_r, bounds)
     P, K, bp = dist.shape
     _, total_chunks, eb = pos_r.shape
     n_vtiles = bp // vb
@@ -150,11 +154,10 @@ def merge_scatter_ragged(dist, incoming, ctile, pos_r, dstrel_r, valid_r, *,
     check_cuda("merge_ragged", torch.int32, bounds, pos_r, dstrel_r, valid_r)
     lib = build.load("merge", _SIGNATURES)
     outs = _outputs("merge_ragged", lib, dist, vb)
-    stream = build.current_stream(dist.device)
-    code = lib.merge_scatter_ragged(
-        *(t.data_ptr() for t in (dist, incoming, bounds, pos_r, dstrel_r,
-                                 valid_r, *outs)),
-        P, K, bp, incoming.shape[-1], n_vtiles, total_chunks, eb, vb, stream)
-    build.check(lib, "merge_ragged", code)
+    build.call(lib, "merge_scatter_ragged", dev,
+               *(t.data_ptr() for t in (dist, incoming, bounds, pos_r,
+                                        dstrel_r, valid_r, *outs)),
+               P, K, bp, incoming.shape[-1], n_vtiles, total_chunks, eb, vb,
+               launch="merge_ragged")
     build.count_launch("merge_ragged")
     return outs

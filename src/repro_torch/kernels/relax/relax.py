@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (INF, check_chain, check_cuda,
-                                        ragged_scratch)
+                                        ragged_scratch, same_card)
 from repro_torch.kernels.tile_reduce import tile_min_batch
 
 
@@ -216,6 +216,8 @@ def _launch_tiled(dist, front, src_t, w_t, dstrel_t, pruned_t, *, vb: int,
     then the chain, on the current stream. ``hazard=False`` is a planted
     fault for the checks alone (every source read from its early gather),
     which must differ from the plain version."""
+    dev = same_card("relax", dist, front, src_t, w_t, dstrel_t, pruned_t,
+                    chunks)
     P, K, bp = dist.shape
     _, n_vtiles, n_chunks, eb = src_t.shape
     if bp != n_vtiles * vb or front.shape != dist.shape:
@@ -240,14 +242,14 @@ def _launch_tiled(dist, front, src_t, w_t, dstrel_t, pruned_t, *, vb: int,
     check_chain("relax", eb, vb, dist, front, src_t, w_t, dstrel_t, pruned_t)
     lib = build.load("relax", _SIGNATURES)
     vstate = ragged_scratch("relax", lib, "relax_ragged_scratch_bytes", P * K,
-                            (bp, n_vtiles, eb, vb), dist.device)
+                            (bp, n_vtiles, eb, vb), dev)
     outs = _outputs(dist)
-    stream = torch.cuda.current_stream(dist.device).cuda_stream
-    code = lib.relax_fixpoint_batch(
-        *map(build.ptr_or_null, (dist, front, src_t, w_t, dstrel_t, pruned_t,
-                                 *outs, *chunks, live, vstate)),
-        P, K, bp, n_vtiles, n_chunks, eb, vb, n_sweeps, int(hazard), stream)
-    build.check(lib, "relax", code)
+    build.call(lib, "relax_fixpoint_batch", dev,
+               *map(build.ptr_or_null, (dist, front, src_t, w_t, dstrel_t,
+                                        pruned_t, *outs, *chunks, live,
+                                        vstate)),
+               P, K, bp, n_vtiles, n_chunks, eb, vb, n_sweeps, int(hazard),
+               launch="relax")
     build.count_launch("relax")
     return outs
 
@@ -270,6 +272,8 @@ def _launch_ragged(dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, *,
     """Kernel 2's launch. ``hazard=False`` is a planted fault for the
     checks alone (every source read from its early gather), which must
     differ from the plain version."""
+    dev = same_card("relax_ragged", dist, front, ctile, src_r, w_r, dstrel_r,
+                    pruned_r)
     P, K, bp = dist.shape
     _, total_chunks, eb = src_r.shape
     if bp % vb or front.shape != dist.shape or ctile.shape != (
@@ -284,14 +288,12 @@ def _launch_ragged(dist, front, ctile, src_r, w_r, dstrel_r, pruned_r, *,
     lib = build.load("relax", _SIGNATURES)
     outs = _outputs(dist)
     vstate = ragged_scratch("relax_ragged", lib, "relax_ragged_scratch_bytes",
-                            P * K, (bp, bp // vb, eb, vb), dist.device)
-    stream = torch.cuda.current_stream(dist.device).cuda_stream
-    code = lib.relax_ragged_fixpoint_batch(
-        *map(build.ptr, (dist, front, ctile, src_r, w_r, dstrel_r, pruned_r,
-                         *outs)),
-        build.ptr_or_null(vstate), P, K, bp, bp // vb, total_chunks, eb, vb,
-        n_sweeps, int(hazard), stream)
-    build.check(lib, "relax_ragged", code)
+                            P * K, (bp, bp // vb, eb, vb), dev)
+    build.call(lib, "relax_ragged_fixpoint_batch", dev,
+               *map(build.ptr, (dist, front, ctile, src_r, w_r, dstrel_r,
+                                pruned_r, *outs)),
+               build.ptr_or_null(vstate), P, K, bp, bp // vb, total_chunks,
+               eb, vb, n_sweeps, int(hazard), launch="relax_ragged")
     build.count_launch("relax_ragged")
     return outs
 
@@ -333,13 +335,14 @@ def _launch_single(dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t, *,
     current stream. ``hazard=False`` is a planted fault for the checks
     alone (every source read from its early gather), which must differ from
     the plain version."""
+    dev = same_card("relax_single", dist_pad, front_pad, src_t, w_t,
+                    dstrel_t, pruned_t)
     n_vtiles, n_chunks, eb = _single_operands(
         "relax_single", (dist_pad, front_pad),
         (src_t, w_t, dstrel_t, pruned_t), vb)
     check_chain("relax_single", eb, vb, dist_pad, front_pad, src_t, w_t,
                 dstrel_t, pruned_t)
     bp = n_vtiles * vb
-    dev = dist_pad.device
     lib = build.load("relax", _SIGNATURES)
     vstate = ragged_scratch("relax_single", lib, "relax_ragged_scratch_bytes",
                             1, (bp, n_vtiles, eb, vb), dev)
@@ -348,13 +351,11 @@ def _launch_single(dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t, *,
     # the pre-pass's chunk flags, live list and its length
     live = torch.empty(2 * n_vtiles * n_chunks + 1, dtype=torch.int32,
                        device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.relax_fixpoint(
-        *map(build.ptr, (dist_pad, front_pad, src_t, w_t, dstrel_t, pruned_t,
-                         out, resid, nrel, live)),
-        build.ptr_or_null(vstate), bp, n_vtiles, n_chunks, eb, vb, n_sweeps,
-        int(hazard), stream)
-    build.check(lib, "relax_single", code)
+    build.call(lib, "relax_fixpoint", dev,
+               *map(build.ptr, (dist_pad, front_pad, src_t, w_t, dstrel_t,
+                                pruned_t, out, resid, nrel, live)),
+               build.ptr_or_null(vstate), bp, n_vtiles, n_chunks, eb, vb,
+               n_sweeps, int(hazard), launch="relax_single")
     build.count_launch("relax_single")
     return out, resid, nrel
 
@@ -389,6 +390,7 @@ def _launch_sweep(name, rows, planes, vb: int, chunks):
     """Kernels 10 (``rows`` = (dist, front), four planes) and 11 (dist,
     three planes): the pre-pass where ``chunks`` is None, then the sweep, on
     the current stream. Returns (out, nrel) for kernel 10, (out,) for 11."""
+    dev = same_card(name, *rows, *planes, *(chunks or ()))
     n_vtiles, n_chunks, eb = _single_operands(name, rows, planes, vb)
     if chunks is not None:
         idx, bounds = chunks
@@ -399,10 +401,9 @@ def _launch_sweep(name, rows, planes, vb: int, chunks):
                              f"{tuple(planes[0].shape)}")
         check_cuda(name, torch.int32, idx, bounds)
     masked = len(rows) == 2
-    dev = rows[0].device
     lib = build.load("relax", _SIGNATURES)
-    words = lib.relax_sweep_scratch_words(int(masked), int(chunks is None),
-                                          n_vtiles, n_chunks, eb, vb)
+    words = build.call(lib, "relax_sweep_scratch_words", dev, int(masked),
+                       int(chunks is None), n_vtiles, n_chunks, eb, vb)
     if words < 0:
         raise ValueError(f"{name}: a layout of {n_vtiles} x {n_chunks} "
                          f"chunks and tiles of {vb} is past the sweep's "
@@ -412,10 +413,10 @@ def _launch_sweep(name, rows, planes, vb: int, chunks):
     outs = (torch.empty_like(rows[0]),)
     if masked:
         outs += (torch.empty(1, dtype=torch.int32, device=dev),)
-    code = getattr(lib, name)(
-        *map(build.ptr_or_null, (*rows, *planes, *(chunks or (None, None)),
-                                 *outs, scratch)),
-        n_vtiles, n_chunks, eb, vb, build.current_stream(dev))
-    build.check(lib, name, code)
+    build.call(lib, name, dev,
+               *map(build.ptr_or_null, (*rows, *planes,
+                                        *(chunks or (None, None)), *outs,
+                                        scratch)),
+               n_vtiles, n_chunks, eb, vb, launch=name)
     build.count_launch(name)
     return outs

@@ -36,7 +36,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (check_chain, check_cuda,
-                                        chunk_bounds, ragged_scratch)
+                                        chunk_bounds, ragged_scratch,
+                                        same_card)
 from repro_torch.kernels.merge.merge import (merge_scatter_ragged_plain,
                                             merge_scatter_tiled_plain)
 from repro_torch.kernels.relax.relax import (
@@ -132,12 +133,9 @@ def _outputs(dist, last):
 def _launch(lib, symbol, counter, rows, layouts, outs, scratch, ints):
     """Launch one block per (shard, query) with ``rows``, ``layouts`` (None
     for a null pointer), ``outs`` and ``scratch`` in the C argument order,
-    then ``ints``; count the launch."""
-    dist = rows[0]
+    then ``ints``, on the rows' card; count the launch."""
     ptrs = [build.ptr_or_null(a) for a in (*rows, *layouts, *outs, *scratch)]
-    stream = torch.cuda.current_stream(dist.device).cuda_stream
-    code = getattr(lib, symbol)(*ptrs, *ints, stream)
-    build.check(lib, counter, code)
+    build.call(lib, symbol, rows[0].device, *ptrs, *ints, launch=counter)
     build.count_launch(counter)
     return outs
 
@@ -169,6 +167,8 @@ def _launch_tiled(dist, front, live, incoming, last, valid, mx_layout,
     alone (every source of the relax stage read from its early gather),
     which must differ from the plain version."""
     mx_layout = None if dense else mx_layout
+    dev = same_card("round", dist, front, live, incoming, last, valid,
+                    mx_layout, rx_layout, tx_layout, chunks)
     _check("round", dist, front, live, incoming, last, valid, mx_layout,
            rx_layout, tx_layout, vb=vb, sb=sb, dense=dense)
     P, K, bp = dist.shape
@@ -194,7 +194,7 @@ def _launch_tiled(dist, front, live, incoming, last, valid, mx_layout,
     check_chain("round", eb, vb, dist, front, incoming, *rx_layout)
     lib = build.load("round", _SIGNATURES)
     vstate = ragged_scratch("round", lib, "round_ragged_scratch_bytes",
-                            P * K, (bp, bp // vb, eb, vb, sb), dist.device)
+                            P * K, (bp, bp // vb, eb, vb, sb), dev)
     # the C entry point takes each layout after its live chunks
     mx = (None,) * 5 if dense else (*chunks[0], *mx_layout)
     dims = ((1, 1) if dense else mx_layout[0].shape[2:]) + (
@@ -233,6 +233,8 @@ def _launch_ragged(dist, front, live, incoming, last, valid, mx_layout,
     of the relax stage read from its early gather), which must differ from
     the plain version."""
     mx_layout = None if dense else mx_layout
+    dev = same_card("round_ragged", dist, front, live, incoming, last, valid,
+                    mx_layout, rx_layout, tx_layout)
     _check("round_ragged", dist, front, live, incoming, last, valid,
            mx_layout, rx_layout, tx_layout, vb=vb, sb=sb, dense=dense)
     lays = (rx_layout, tx_layout) + ((mx_layout,) if mx_layout else ())
@@ -250,7 +252,7 @@ def _launch_ragged(dist, front, live, incoming, last, valid, mx_layout,
     lib = build.load("round", _SIGNATURES)
     vstate = ragged_scratch("round_ragged", lib,
                             "round_ragged_scratch_bytes", P * K,
-                            (bp, n_vtiles, eb, vb, sb), dist.device)
+                            (bp, n_vtiles, eb, vb, sb), dev)
     # the C entry point takes the merge and send layouts after their tile
     # ranges, the relax layout after its chunk->tile map
     mx = (None,) * 4 if dense else (chunk_bounds(mx_layout[-1], n_vtiles),

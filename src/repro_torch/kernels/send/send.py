@@ -18,7 +18,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import INF, check_cuda, chunk_bounds
+from repro_torch.kernels.common import (INF, check_cuda, chunk_bounds,
+                                        same_card)
 from repro_torch.kernels.tile_reduce import tile_min_batch
 
 
@@ -96,7 +97,7 @@ def _outputs(name, lib, dist, last, sb: int):
     shared memory. Raises when a slot tile of ``sb`` is too wide for even
     one query's tile beside one staged edge."""
     P, K, bp = dist.shape
-    if K and lib.send_smem_bytes(K, sb) < 0:
+    if K and build.call(lib, "send_smem_bytes", dist.device, K, sb) < 0:
         raise ValueError(f"{name}: a tile of {sb} slots does not fit in "
                          f"shared memory for even one query; use narrower "
                          f"slot tiles")
@@ -116,6 +117,7 @@ def send_pack_tiled(dist, last, valid, src_t, w_t, segrel_t, pruned_t, *,
     if not dist.is_cuda:
         return send_pack_tiled_plain(dist, last, valid, src_t, w_t, segrel_t,
                                      pruned_t, sb=sb)
+    dev = same_card("send", dist, last, valid, src_t, w_t, segrel_t, pruned_t)
     P, K, bp = dist.shape
     _, n_stiles, n_chunks, eb = src_t.shape
     sp = n_stiles * sb
@@ -127,12 +129,10 @@ def send_pack_tiled(dist, last, valid, src_t, w_t, segrel_t, pruned_t, *,
     check_cuda("send", torch.int32, valid, src_t, segrel_t, pruned_t)
     lib = build.load("send", _SIGNATURES)
     scratch, outs = _outputs("send", lib, dist, last, sb)
-    stream = torch.cuda.current_stream(dist.device).cuda_stream
-    code = lib.send_pack_tiled(
-        *map(build.ptr_or_null, (dist, scratch, last, valid, src_t, w_t,
-                                 segrel_t, pruned_t, *outs)),
-        P, K, bp, sp, n_stiles, n_chunks, eb, sb, stream)
-    build.check(lib, "send", code)
+    build.call(lib, "send_pack_tiled", dev,
+               *map(build.ptr_or_null, (dist, scratch, last, valid, src_t,
+                                        w_t, segrel_t, pruned_t, *outs)),
+               P, K, bp, sp, n_stiles, n_chunks, eb, sb, launch="send")
     build.count_launch("send")
     return outs
 
@@ -148,6 +148,8 @@ def send_pack_ragged(dist, last, valid, ctile, src_r, w_r, segrel_r,
     if not dist.is_cuda:
         return send_pack_ragged_plain(dist, last, valid, ctile, src_r, w_r,
                                       segrel_r, pruned_r, sb=sb)
+    dev = same_card("send_ragged", dist, last, valid, ctile, src_r, w_r,
+                    segrel_r, pruned_r, bounds)
     P, K, bp = dist.shape
     _, total_chunks, eb = src_r.shape
     sp = last.shape[-1]
@@ -166,11 +168,11 @@ def send_pack_ragged(dist, last, valid, ctile, src_r, w_r, segrel_r,
                pruned_r)
     lib = build.load("send", _SIGNATURES)
     scratch, outs = _outputs("send_ragged", lib, dist, last, sb)
-    stream = torch.cuda.current_stream(dist.device).cuda_stream
-    code = lib.send_pack_ragged(
-        *map(build.ptr_or_null, (dist, scratch, last, valid, bounds, src_r,
-                                 w_r, segrel_r, pruned_r, *outs)),
-        P, K, bp, sp, n_stiles, total_chunks, eb, sb, stream)
-    build.check(lib, "send_ragged", code)
+    build.call(lib, "send_pack_ragged", dev,
+               *map(build.ptr_or_null, (dist, scratch, last, valid, bounds,
+                                        src_r, w_r, segrel_r, pruned_r,
+                                        *outs)),
+               P, K, bp, sp, n_stiles, total_chunks, eb, sb,
+               launch="send_ragged")
     build.count_launch("send_ragged")
     return outs

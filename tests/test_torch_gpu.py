@@ -2477,3 +2477,205 @@ def test_mesh_lm_bf16_on_gloo_ranks_sharing_the_card(cuda, tmp_path):
         for p in parts:
             assert p["launches"] == {"flash_attention_tc": 4}
         mref.check_bf16(parts, job["shape"], o, [o], job, rel)
+
+
+# ---- kernels and engines on a card that is not the current one -----------
+
+@pytest.fixture
+def other_card():
+    """cuda:1 while card 0 stays the current card: every kernel must launch
+    on the card that holds its operands."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two CUDA devices or more (a card that is not "
+                    f"the current one); this machine has {n}")
+    assert torch.cuda.current_device() == 0
+    return torch.device("cuda", 1)
+
+
+def _card0_still(fn):
+    """``fn()``, asserting that card 0 stays current and that nothing is
+    allocated on it meanwhile (its bytes before, at the peak and after)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    before = torch.cuda.memory_allocated(0)
+    torch.cuda.reset_peak_memory_stats(0)
+    out = fn()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    assert torch.cuda.current_device() == 0
+    assert (torch.cuda.max_memory_allocated(0) == before
+            == torch.cuda.memory_allocated(0))
+    return out
+
+
+def _flash_case(dev, dtype):
+    q, k, v = _flash_inputs(dev, dtype, 1, 6, 2, 200, 200, 128)
+    kw = dict(causal=True, q_offset=0, block_q=64, block_k=64)
+
+    def plain():
+        pad = lambda t: torch.nn.functional.pad(  # noqa: E731
+            t, (0, 0, 0, (-t.shape[2]) % 64))
+        return flash_attention_p_plain(
+            pad(q), pad(k), pad(v), scale=128 ** -0.5, causal=True,
+            q_offset=0, kv_len=200, block_q=64, block_k=64)[:, :, :200]
+    return (lambda: flash_attention(q, k, v, **kw)), plain, FLASH_ROUTE[dtype]
+
+
+def _family(name, dev, shards):
+    """(kernel call, plain call, counter) of a kernel family's operands on
+    ``dev``, made by the single-card tests' helpers."""
+    if name in ("relax", "relax pre-pass"):
+        sh, args = _kernel1_operands("rmat", 3, dev, shards)
+        kw = dict(vb=sh.rx_vb, n_sweeps=4)
+        ch = sh.to(dev).relax_chunks if name == "relax" else None
+        return (lambda: relax_dst_tiled_fixpoint_batch(*args, **kw,
+                                                       chunks=ch),
+                lambda: relax_dst_tiled_fixpoint_batch_plain(*args, **kw),
+                "relax")
+    if name == "relax_ragged":
+        sh, _, args = _chain_operands("wide", 3, dev)
+        kw = dict(vb=sh.rx_vb, n_sweeps=4)
+        return (lambda: relax_dst_ragged_fixpoint_batch(*args, **kw),
+                lambda: relax_dst_ragged_fixpoint_batch_plain(*args, **kw),
+                "relax_ragged")
+    if name.startswith("relax_"):
+        d, f, src, w, rel, prn = _single(np.random.default_rng(3), dev)
+        return {"relax_single": (
+            lambda: relax_dst_tiled_fixpoint(d, f, src, w, rel, prn, vb=128,
+                                             n_sweeps=4),
+            lambda: relax_dst_tiled_fixpoint_plain(d, f, src, w, rel, prn,
+                                                   vb=128, n_sweeps=4)),
+            "relax_masked": (
+            lambda: relax_dst_tiled_masked(d, f, src, w, rel, prn, vb=128),
+            lambda: relax_dst_tiled_masked_plain(d, f, src, w, rel, prn,
+                                                 vb=128)),
+            "relax_sweep": (
+            lambda: relax_dst_tiled(d, src, w, rel, vb=128),
+            lambda: relax_dst_tiled_plain(d, src, w, rel, vb=128)),
+        }[name] + (name,)
+    if name in ("send", "send_ragged"):
+        args = _send_case("ragged" if name == "send_ragged" else "dense", 3,
+                          dev)
+        kernel, plain = ((send_pack_ragged, send_pack_ragged_plain)
+                         if name == "send_ragged"
+                         else (send_pack_tiled, send_pack_tiled_plain))
+        return (lambda: kernel(*args, sb=VB), lambda: plain(*args, sb=VB),
+                name)
+    if name in ("merge", "merge_ragged"):
+        args, kw = _merge_case("ragged" if name == "merge_ragged" else
+                               "dense", 3, 128, False, dev)
+        kernel, plain = ((merge_scatter_ragged, merge_scatter_ragged_plain)
+                         if name == "merge_ragged"
+                         else (merge_scatter_tiled, merge_scatter_tiled_plain))
+        return (lambda: kernel(*args, **kw), lambda: plain(*args, **kw),
+                name)
+    if name in ("round", "round_ragged"):
+        layout = "ragged" if name == "round_ragged" else "dense"
+        g = tg.rmat_graph(scale=9, edge_factor=8, seed=2)
+        sh = tc.build_shards(g, 2, layout=layout, relax_vb=VB, relax_eb=EB,
+                             send_sb=VB, send_eb=EB, merge_vb=VB,
+                             merge_eb=EB)
+        args = _to(_round_operands(sh, 3, False, seed=1), dev)
+        kw = dict(vb=VB, sb=VB, n_sweeps=4, dense=False)
+        if layout == "ragged":
+            return (lambda: fused_round_ragged(*args, **kw),
+                    lambda: fused_round_ragged_plain(*args, **kw), name)
+        ch = sh.to(dev).round_chunks
+        return (lambda: fused_round_tiled(*args, **kw, chunks=ch),
+                lambda: fused_round_tiled_plain(*args, **kw), name)
+    if name.startswith("flash"):
+        return _flash_case(dev, torch.bfloat16 if name == "flash bf16"
+                           else torch.float32)
+    assert name == "embedding_bag"
+    rng = np.random.default_rng(16)
+    table = torch.from_numpy(rng.standard_normal((1000, 16)).astype(
+        np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(-1000, 1001, (64, 4)).astype(
+        np.int32)).to(dev)
+    return (lambda: embedding_bag_p(table, idx, mode="mean"),
+            lambda: embedding_bag_p_plain(table, idx, mode="mean"), name)
+
+
+FAMILIES = ("relax", "relax pre-pass", "relax_ragged", "relax_single",
+            "relax_masked", "relax_sweep", "send", "send_ragged", "merge",
+            "merge_ragged", "round", "round_ragged", "flash bf16",
+            "flash f32", "embedding_bag")
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_kernel_family_on_a_card_that_is_not_current(other_card, shards,
+                                                     family):
+    """Each kernel family with its operands on cuda:1 and card 0 current:
+    launched once, on cuda:1 (its outputs there), equal to its plain
+    version there (kernel 12 within its tolerance), card 0 untouched."""
+    kernel, plain, counter = _family(family, other_card, shards)
+    n0 = dict(build.LAUNCHES)
+    got, want = _card0_still(lambda: (kernel(), plain()))
+    ran = {k: n - n0[k] for k, n in build.LAUNCHES.items() if n != n0[k]}
+    assert ran == {counter: 1}
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert all(g.device == other_card for g in got)
+    if family == "flash f32":
+        assert float((got[0] - want[0]).abs().max()) <= FLASH_F32_TOL
+    elif family == "flash bf16":
+        assert _bf16_ulps(got[0], want[0]) <= FLASH_BF16_ULPS
+    else:
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("family", ["relax", "relax_ragged", "relax_masked",
+                                    "send_ragged", "merge", "round",
+                                    "flash bf16", "embedding_bag"])
+def test_operands_on_two_cards_raise_before_a_launch(other_card, shards,
+                                                     family, monkeypatch):
+    """The family's call with one operand moved to cuda:0 raises ValueError
+    naming both cards, and launches nothing."""
+    real_to = torch.Tensor.to
+    moved = []
+
+    def to_first_to_card0(t, *a, **k):      # the first operand made goes
+        out = real_to(t, *a, **k)           # to card 0 instead
+        if not moved and out.is_cuda and out.device == other_card:
+            moved.append(True)
+            return real_to(out, torch.device("cuda", 0))
+        return out
+
+    monkeypatch.setattr(torch.Tensor, "to", to_first_to_card0)
+    kernel, _, _ = _family(family, other_card, shards)
+    monkeypatch.setattr(torch.Tensor, "to", real_to)
+    assert moved
+    n0 = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match="two cards, cuda:[01] and cuda:[01]"):
+        kernel()
+    assert build.LAUNCHES == n0
+
+
+@pytest.mark.parametrize("config", ["staged", "fused"])
+@pytest.mark.parametrize("layout", ["dense", "ragged"])
+def test_engine_on_a_card_that_is_not_current_matches_card0(other_card,
+                                                            layout, config):
+    """The engine built with device="cuda:1" on the parity graph
+    (``rmat_graph(scale=11)``, 8 shards), card 0 current: its solve runs
+    there (nothing allocated on card 0), names cuda:1, and equals the same
+    engine on cuda:0 in distances, every counter and status."""
+    g = tg.rmat_graph(scale=11)
+    sh = tc.build_shards(g, 8, layout=layout)
+    live = np.nonzero(np.diff(g.row_ptr.numpy()))[0]
+    srcs = [int(s) for s in np.random.default_rng(9).choice(live, 4,
+                                                            replace=False)]
+    cfg = tc.SsspConfig(**(ALL_KERNELS if config == "staged"
+                           else dict(round="fused")))
+    want = tc.SsspEngine.build(sh, cfg, device="cuda:0").solve(srcs)
+    n0 = dict(build.LAUNCHES)
+    got = _card0_still(lambda: tc.SsspEngine.build(
+        sh, cfg, device=other_card).solve(srcs))
+    assert any(n != n0[k] for k, n in build.LAUNCHES.items())
+    assert (got.device, want.device) == ("cuda:1", "cuda:0")
+    assert got.status == "converged"
+    _assert_same(got, want)
+    assert int(got.stats.n_dispatches) == int(want.stats.n_dispatches)
